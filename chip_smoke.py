@@ -6,13 +6,16 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card's name and power limit, build the CUDA kernels from
-   ``src/repro_torch/csrc`` and turn TF32 off.
+   ``src/repro_torch/csrc`` (one nvcc per source, in parallel) and turn
+   TF32 off.
 2. Hold every kernel against its plain PyTorch version on the card: the
    MLP-GSC stack and a small odd-K stack, batches 1/8/64/256, fp32 and
    int8, through kernel 1 (the per-layer chain) and every fused schedule.
    Gates: fp32 ``atol=1e-3, rtol=1e-4``; int8 relative max-abs error
    ``< 5e-3``; and the port's own int8 outputs bitwise equal across the
-   chain, batch_tiled, db, ws and stream.
+   chain, batch_tiled, db, ws and stream.  Kernel 5 (ecl_quant) at every
+   MLP-GSC layer shape plus (37, 129) and (1, 5), λ ∈ {0, 0.02, 0.3}:
+   codes and ŵ bitwise equal to its plain version.
 3. The main path: a seeded MLP-GSC frozen with ``freeze_mlp`` and served
    through ``ExecutionPlan`` + ``MicroBatcher`` as ragged requests of 1-5
    rows (auto fp32 and int8 plans, a per-layer plan, a double-buffered plan
@@ -20,13 +23,24 @@ Phases (any failure raises and the script exits non-zero):
    Launch counters are zeroed just before and read just after; every
    kernel must have launched.  Each result must equal the same rows served
    alone, and the fp32 results must match the plain oracle.
+3b. The training path: MLP-GSC from ``mlp_init(seed=0)`` EC4T-trained by
+   ``launch.train.train_mlp`` for 300 steps (batch 128, λ 0.3 ramped over
+   60 steps, Adam lr 5e-3), frozen with ``freeze_mlp`` and served through
+   ``ExecutionPlan``.  Counters are zeroed just before and read just
+   after; ecl_quant must have launched ≥ 14 per step.  Every loss finite,
+   held-out accuracy ≥ 0.6, entropy ≤ 2.5 bits/weight, served logits
+   within ``atol=rtol=1e-2`` of the eval forward, and 3 steps on the card
+   (kernel) within ``rtol=1e-4`` of 3 on the CPU (plain version), loss by
+   loss; prints one ``train`` JSON line.
 4. Time each kernel, its plain version and a library yardstick
    (``torch.matmul`` on pre-decoded fp32 weights plus the epilogue) at the
    main-path shapes, with CUDA events around back-to-back calls (``ms``:
    the wrapper's host work included when it is the slower side), and the
    kernel's own device time from a torch.profiler trace (``device_ms``);
-   print one ``kernels`` JSON line and
-   one ``path`` JSON line, then the ``nvidia-smi`` line and the final
+   ecl_quant at every MLP-GSC layer shape (no single PyTorch call computes
+   it, so no library time), and the train step at batch 128 with its
+   device-time breakdown; print one ``kernels`` JSON line and one ``path``
+   JSON line, then the ``nvidia-smi`` line and the final
    ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -47,8 +61,17 @@ PEAK_FP32_FLOPS = 67e12                    # H100 SXM, CUDA cores, dense
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3
 GSC_DIMS = (512, 512, 512, 256, 256, 128, 128, 12)
 ODD_DIMS = (33, 40, 24, 10)
+GSC_LAYERS = tuple(zip(GSC_DIMS[:-1], GSC_DIMS[1:]))
+ECL_SHAPES = tuple(dict.fromkeys(GSC_LAYERS)) + ((37, 129), (1, 5))
+ECL_LAMS = (0.0, 0.02, 0.3)
+ECL_BYTES_PER_ELEM = 9                     # read w (4), write code (1), ŵ (4)
+TRAIN = dict(lam=0.3, steps=300, lr=5e-3, seed=0, lam_ramp=60)
+TRAIN_MIN_ACC, TRAIN_MAX_ENTROPY = 0.6, 2.5
+SERVE_TOL = 1e-2                           # examples/train_mlp_gsc.py:54
+CARD_VS_CPU_RTOL, CARD_VS_CPU_STEPS = 1e-4, 3
 TPU_KERNELS = "src/repro/kernels/"
 SOURCE = "src/repro_torch/csrc/fantastic4.cu"
+ECL_SOURCE = "src/repro_torch/csrc/ecl_quant.cu"
 # the CUDA function each schedule launches (csrc/fantastic4.cu)
 SYMBOLS = {"chain": "matmul_kernel", "batch_tiled": "tiled_kernel",
            "db": "tiled_kernel", "ws": "ws_kernel", "stream": "stream_kernel"}
@@ -288,6 +311,103 @@ def main_path(dev):
     return launches, path
 
 
+def ecl_case(shape, lam, seed, dev):
+    """He-scaled weights, their init ω, seeded Dirichlet probs and the
+    trainer's penalty, on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitplanes, ecl
+
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy((rng.normal(size=shape) * np.sqrt(2.0 / shape[0]))
+                         .astype(np.float32)).to(dev)
+    probs = torch.from_numpy(rng.dirichlet(np.ones(16)).astype(np.float32)
+                             ).to(dev)
+    return (w, bitplanes.init_omega_from_weights(w),
+            ecl.penalty(w, probs, lam))
+
+
+def check_ecl_quant(dev):
+    """Phase 2, kernel 5: codes and ŵ bitwise equal to the plain version;
+    returns the max abs ŵ error (0.0 when bitwise)."""
+    import torch
+    from repro_torch.kernels import ecl_quant as eq
+
+    max_err = 0.0
+    for i, shape in enumerate(ECL_SHAPES):
+        for lam in ECL_LAMS:
+            w, omega, pen = ecl_case(shape, lam, 100 + i, dev)
+            codes, w_hat = eq.ecl_quant_cuda(w, omega, pen)
+            want_c, want_w = eq.ecl_quant_plain(w, omega, pen)
+            torch.cuda.synchronize(dev)
+            if not (torch.equal(codes, want_c) and torch.equal(w_hat, want_w)):
+                n = int((codes != want_c).sum())
+                raise AssertionError(f"ecl_quant {shape} λ={lam}: {n} codes "
+                                     "differ from the plain version")
+            max_err = max(max_err, float((w_hat - want_w).abs().max()))
+    print(f"phase 2: ecl_quant bitwise equal to its plain version at "
+          f"{len(ECL_SHAPES)} shapes x λ {ECL_LAMS}")
+    return max_err
+
+
+def train_path(dev):
+    """Phase 3b: EC4T-train MLP-GSC on the card, freeze, serve."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_mlps import MLPS
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.kernels import fantastic4_fused_mlp as ffm
+    from repro_torch.kernels import fantastic4_matmul as fm
+    from repro_torch.launch import train as T
+    from repro_torch.models import mlp as M
+    from repro_torch.serving.plans import ExecutionPlan
+
+    cfg = MLPS["mlp-gsc"]
+    torch.cuda.synchronize(dev)
+    eq.LAUNCHES = 0
+    fm.LAUNCHES = 0
+    ffm.reset_launches()
+    t0 = time.perf_counter()
+    params, qs, bn, m = T.train_mlp(cfg, device=dev, **TRAIN)
+    pack = M.freeze_mlp(params, qs, bn, lam=TRAIN["lam"])
+    plan = ExecutionPlan(pack, device=dev)
+    err = T.serving_check(cfg, params, qs, bn, pack, TRAIN["lam"], plan.run,
+                          seed=TRAIN["seed"])
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = eq.LAUNCHES
+    serve_launches = {"fantastic4_matmul": fm.LAUNCHES, **ffm.LAUNCHES}
+    need = 14 * TRAIN["steps"]
+    if launches < need:
+        raise AssertionError(f"training launched ecl_quant {launches} times, "
+                             f"expected >= {need}")
+    if not np.isfinite(m["losses"]).all():
+        raise AssertionError("a training loss is not finite")
+    if m["acc"] < TRAIN_MIN_ACC or m["entropy_bits"] > TRAIN_MAX_ENTROPY:
+        raise AssertionError(f"trained MLP-GSC: acc {m['acc']} (>= "
+                             f"{TRAIN_MIN_ACC}), entropy {m['entropy_bits']}"
+                             f" (<= {TRAIN_MAX_ENTROPY})")
+
+    short = dict(TRAIN, steps=CARD_VS_CPU_STEPS)
+    card = T.train_mlp(cfg, device=dev, **short)[3]["losses"]
+    cpu = T.train_mlp(cfg, device="cpu", **short)[3]["losses"]
+    np.testing.assert_allclose(card, cpu, rtol=CARD_VS_CPU_RTOL)
+    card_vs_cpu = float(np.max(np.abs(np.subtract(card, cpu))
+                               / np.abs(cpu)))
+    print(f"phase 3b: trained {TRAIN['steps']} steps, acc {m['acc']:.4f}, "
+          f"entropy {m['entropy_bits']:.4f}; served within {SERVE_TOL}; "
+          f"card vs CPU losses within {CARD_VS_CPU_RTOL}")
+    return {"arch": cfg.name, "batch": T.BATCH, **TRAIN,
+            "ms_per_step": m["ms_per_step"], "wall_s": wall_s,
+            "final_loss": m["losses"][-1], "acc": m["acc"],
+            "sparsity": m["sparsity"], "entropy_bits": m["entropy_bits"],
+            "ecl_quant_launches": launches,
+            "serve_launches": serve_launches,
+            "serve_max_abs_err": err,
+            "card_vs_cpu_losses": {"card": card, "cpu": cpu,
+                                   "max_rel": card_vs_cpu}}
+
+
 def _time_ms(fn, dev, iters):
     import torch
     for _ in range(3):
@@ -374,6 +494,81 @@ def timings(dev):
     return out
 
 
+def ecl_timings(dev):
+    """Phase 4, kernel 5 at every MLP-GSC layer shape (λ 0.3)."""
+    from repro_torch.kernels import ecl_quant as eq
+
+    out = {}
+    for i, shape in enumerate(dict.fromkeys(GSC_LAYERS)):
+        w, omega, pen = ecl_case(shape, 0.3, 200 + i, dev)
+        n = shape[0] * shape[1]
+        bound_ms = ECL_BYTES_PER_ELEM * n / PEAK_BYTES * 1e3
+        out[f"{shape[0]}x{shape[1]}"] = {
+            "ms": _time_ms(lambda: eq.ecl_quant_cuda(w, omega, pen), dev, 200),
+            "device_ms": _device_ms(lambda: eq.ecl_quant_cuda(w, omega, pen),
+                                    dev, 50, "ecl_quant_kernel"),
+            "plain_ms": _time_ms(lambda: eq.ecl_quant_plain(w, omega, pen),
+                                 dev, 50),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes"}
+    per_layer = [out[f"{k}x{n}"] for k, n in GSC_LAYERS]
+    whole = {key: sum(r[key] for r in per_layer)
+             if all(r[key] is not None for r in per_layer) else None
+             for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    out["mlp-gsc all 7 layers"] = {**whole, "library_ms": None,
+                                   "bound_by": "bytes"}
+    return out
+
+
+def train_step_timing(dev):
+    """Phase 4: one MLP-GSC train step at batch 128, CUDA events over
+    back-to-back steps, and the device time by kernel from a trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.paper_mlps import MLPS
+    from repro_torch.core import qat
+    from repro_torch.launch import train as T
+    from repro_torch.models import mlp as M
+    from repro_torch.optim import adam
+
+    cfg = MLPS["mlp-gsc"]
+    params, bn = M.mlp_init(cfg, seed=1, device=dev)
+    st = [params, qat.build_qstate(params), bn, adam.init(params)]
+    x, labels = T.batch_tensors(T.data_cfg(cfg, 0), 0, dev)
+
+    def step():
+        st[:] = T.train_step(*st, x, labels, TRAIN["lam"],
+                             lr=TRAIN["lr"])[:4]
+    ms = _time_ms(step, dev, 50)
+    steps = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, launches, host = {}, 0, {}
+    for evt in prof.key_averages():
+        if "CUDA" in str(getattr(evt, "device_type", "")):
+            t = (getattr(evt, "self_device_time_total", 0.0)
+                 or getattr(evt, "self_cuda_time_total", 0.0))
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + t / 1e3 / steps
+            launches += evt.count
+        elif evt.key.startswith("aten::"):
+            host[evt.key] = evt.self_cpu_time_total / 1e3 / steps
+    device_ms = sum(kernels.values())
+    ecl_ms = sum(v for k, v in kernels.items() if "ecl_quant_kernel" in k)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+    return {"ms": ms, "traced_wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms,
+            "ecl_quant_device_ms_per_step": ecl_ms,
+            "device_idle_share": 1.0 - device_ms / ms,
+            "device_ops_per_step": launches / steps,
+            "top_device_ms": [[k[:90], v] for k, v in top],
+            "top_host_self_ms": [[k, v] for k, v in top_host]}
+
+
 def main() -> int:
     try:
         import torch
@@ -404,8 +599,12 @@ def main() -> int:
           f"allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
 
     max_err, max_rel8 = check_kernels(dev)
+    ecl_err = check_ecl_quant(dev)
     launches, path = main_path(dev)
+    train = train_path(dev)
     times = timings(dev)
+    ecl_times = ecl_timings(dev)
+    train["step_timing"] = train_step_timing(dev)
 
     report = []
     for name, (sched, replaces) in KERNELS.items():
@@ -422,8 +621,19 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "at": "mlp-gsc batch 64 fp32",
             "by_batch": {str(b): v for b, v in per.items()}})
+    head = ecl_times["512x512"]
+    report.append({
+        "name": "ecl_quant", "route": "cuda", "source": ECL_SOURCE,
+        "replaces": TPU_KERNELS + "ecl_quant.py:56",
+        "launches": train["ecl_quant_launches"], "max_abs_err": ecl_err,
+        "ms": head["ms"], "kernel_ms": head["ms"],
+        "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "at": "mlp-gsc 512x512",
+        "by_shape": ecl_times})
     print(json.dumps({"kernels": report}))
     print(json.dumps({"path": path}))
+    print(json.dumps({"train": train}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

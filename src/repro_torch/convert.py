@@ -1,6 +1,6 @@
-"""Carry weights across from the JAX package.
+"""Carry weights and training state across from the JAX package.
 
-Both functions take the JAX package's trees with every array already
+Every function takes the JAX package's trees with every array already
 turned into numpy (``np.asarray`` on the caller's side, so this module
 imports nothing of JAX) and return the port's tensors on ``device``.
 """
@@ -33,6 +33,16 @@ def params_from_numpy(params: dict, qstate: dict, bn_state: dict, *,
     dev = resolve_device(device)
     return (_to_torch(params, dev), _to_torch(qstate, dev),
             _to_torch(bn_state, dev))
+
+
+def train_state_from_numpy(params: dict, qstate: dict, bn_state: dict,
+                           opt: dict, *, device=None) -> tuple:
+    """(params, qstate, bn_state, opt) of the JAX package's MLP trainer as
+    the port's tensors: the Adam moments ``m``, ``v`` and the int32
+    ``step`` come across with the weights, so one training step can be
+    compared from the same state."""
+    dev = resolve_device(device)
+    return tuple(_to_torch(t, dev) for t in (params, qstate, bn_state, opt))
 
 
 def pack_from_numpy(pack: dict, device=None) -> dict:

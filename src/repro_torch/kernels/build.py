@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (``repro_torch/csrc``).
 
-The sources are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface, then bound with ``ctypes``:
+The sources are compiled at first use with ``nvcc``, one process per
+source, all started together, then linked into one shared library with a
+plain C interface and bound with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/repro_torch_kernels/libfantastic4-<hash>.so \
-         src/repro_torch/csrc/fantastic4.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <tmp>/<source>.o src/repro_torch/csrc/<source>.cu
+    nvcc -shared -o build/repro_torch_kernels/libfantastic4-<hash>.so <tmp>/*.o
 
 No ``--use_fast_math``: the fp32 gate and the bitwise int8 contract need
 IEEE division and no reassociation.  The library name carries a hash of
@@ -25,10 +26,11 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fantastic4.cu",)
+SOURCES = ("fantastic4.cu", "ecl_quant.cu")
 HEADERS = ("fantastic4_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-shared",)
 ENV_BUILD_DIR = "REPRO_TORCH_BUILD_DIR"
 # the repo root when the package runs from a checkout (src/repro_torch/...)
 _DEFAULT_BUILD_DIR = CSRC.parents[2] / "build" / "repro_torch_kernels"
@@ -48,6 +50,8 @@ SIGNATURES = {
     "f4_fused_ws": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
     # x, M, K0, layers, L, dmax, block_m, act, wdec, y, stream
     "f4_fused_stream": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    # w, omega, penalty, n, codes, w_hat, stream
+    "f4_ecl_quant": [_P, _P, _P, _I, _P, _P, _P],
 }
 
 
@@ -57,7 +61,7 @@ def build_dir() -> Path:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS + NVCC_FLAGS:
+    for name in SOURCES + HEADERS + NVCC_FLAGS + LINK_FLAGS:
         h.update(name.encode())
         path = CSRC / name
         if path.exists():
@@ -77,22 +81,36 @@ def library_path() -> Path:
     return build_dir() / f"libfantastic4-{source_hash()}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; after every process has ended, raise
+    with the output of each that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / s)]
+                  for s, obj in zip(SOURCES, objs)])
+        lib = str(Path(tmp) / out.name)
+        _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

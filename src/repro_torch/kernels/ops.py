@@ -1,4 +1,5 @@
-"""Serving ops over frozen packs: the per-layer chain and fused dispatch.
+"""Kernel ops: the serving chain and fused dispatch over frozen packs, and
+the fused ECL assign + dequantize of EC4T training.
 
 Mirrors the JAX package's ``kernels/ops.py``.  Each op runs where its input
 tensor lies: a CUDA tensor goes through the hand-written kernels, a CPU
@@ -14,6 +15,7 @@ import torch
 
 from ..memo import MISS, IdentityMemo
 from . import autotune, ref
+from .ecl_quant import ecl_quant as _ecl_quant
 from .fantastic4_fused_mlp import (SMEM_BUDGET_BYTES, build_ws_operands,
                                    fantastic4_fused_mlp,
                                    fantastic4_fused_mlp_stream,
@@ -234,3 +236,17 @@ def fantastic4_mlp_fused(x: torch.Tensor, layers: Sequence[dict], *,
         tuple(l["bias"] for l in layers), scales, shapes=shapes,
         activations=activations, act_dtype=act_dtype, block_m=bm,
         double_buffer=db, table=table)
+
+
+def ecl_quant(w: torch.Tensor, omega: torch.Tensor, penalty: torch.Tensor,
+              use_kernel: bool = True) -> tuple:
+    """Fused ECL assign + dequant: (codes uint8, ŵ fp32) of w's shape.
+
+    omega (4,); penalty (16,) is λ·mean(w²)·(−log2 P), already computed.
+    A 1-D w runs as one row; an N-D w as ``(w.shape[0], -1)``.
+    """
+    if not use_kernel:
+        return ref.ecl_quant_ref(w, omega, penalty)
+    w2 = w[None, :] if w.ndim == 1 else w.reshape(w.shape[0], -1)
+    codes, w_hat = _ecl_quant(w2, omega, penalty)
+    return codes.reshape(w.shape), w_hat.reshape(w.shape)

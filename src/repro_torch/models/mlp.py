@@ -1,9 +1,13 @@
-"""The paper's hardware-conform MLPs (§VI-A): init, freeze and serve.
+"""The paper's hardware-conform MLPs (§VI-A): init, train, freeze, serve.
 
-Mirrors the serving half of the JAX package's ``models/mlp.py``:
+Mirrors the JAX package's ``models/mlp.py``:
 
 * ``mlp_init`` — random EC4T-parameterised layers and BatchNorm state,
   drawn from an explicit ``torch.Generator``;
+* ``mlp_apply`` — the training / eval forward: EC4T fake-quant linears
+  (``core.qat``), BatchNorm on batch statistics with EMA running stats
+  (train) or on the running stats (eval), ReLU; ``cross_entropy`` and
+  ``accuracy`` for the trainer (``launch/train.py``);
 * ``freeze_mlp`` — ECL-assign the final codes and fold BatchNorm into the
   §V epilogue constants  α₁ = γ/σ,  b' = β + α₁·(bias − μ)  (the JAX
   package's ``mlp.py:185-193``, computed in numpy float32 as there);
@@ -12,7 +16,6 @@ Mirrors the serving half of the JAX package's ``models/mlp.py``:
 
 The frozen layer dict leaves out the JAX pack's ``format``, ``size_bytes``
 and ``crc`` (the codecs and integrity layer are not ported yet).
-Training waits for a later slice.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from .. import resolve_device
 from ..configs.paper_mlps import MLPConfig
 from ..core import bitplanes, ecl, qat
+from ..nn.module import QuantCtx
 from ..serving import plans
 
 
@@ -52,6 +56,50 @@ def mlp_init(cfg: MLPConfig, *, generator: Optional[torch.Generator] = None,
         bn_state["layers"].append(st)
         d_in = d_out
     return params, bn_state
+
+
+def mlp_apply(params: dict, qstate, bn_state: dict, x: torch.Tensor,
+              ctx: QuantCtx, *, train: bool = False,
+              bn_momentum: float = 0.9) -> tuple:
+    """Training/eval forward.  Returns (logits, new_bn_state); the new
+    running stats carry no gradient."""
+    new_bn = {"layers": []}
+    n = len(params["layers"])
+    for i, layer in enumerate(params["layers"]):
+        node = layer["kernel"]
+        if ctx.quant:
+            w = qat.apply_quant(node, qstate["layers"][i]["kernel"], ctx.lam,
+                                torch.float32)
+        else:
+            w = node["w"].to(torch.float32)
+        x = x.to(torch.float32) @ w + layer["bias"]
+        st = {}
+        if "bn_gamma" in layer:
+            old = bn_state["layers"][i]
+            if train:
+                mu = x.mean(0)
+                var = x.var(0, correction=0)
+                st = {"mean": bn_momentum * old["mean"]
+                      + (1 - bn_momentum) * mu.detach(),
+                      "var": bn_momentum * old["var"]
+                      + (1 - bn_momentum) * var.detach()}
+            else:
+                mu, var, st = old["mean"], old["var"], old
+            x = (x - mu) * torch.rsqrt(var + 1e-5) * layer["bn_gamma"] \
+                + layer["bn_beta"]
+        new_bn["layers"].append(st)
+        if i < n - 1:
+            x = torch.relu(x)
+    return x, new_bn
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    lp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(lp, -1, labels.to(torch.int64)[:, None]).mean()
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(-1) == labels).to(torch.float32).mean()
 
 
 def freeze_dense_layer(codes: torch.Tensor, omega: torch.Tensor, *,

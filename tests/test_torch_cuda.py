@@ -8,14 +8,17 @@ GPU machine, which has no JAX:
 Gates as in ``chip_smoke.py``: fp32 ``atol=1e-3, rtol=1e-4`` and int8
 relative ``< 5e-3`` against the plain versions; the int8 outputs of the
 chain and every fused schedule bitwise equal; a request served from a
-coalesced bucket bitwise equal to the same rows served alone.
+coalesced bucket bitwise equal to the same rows served alone.  The ECL
+kernel's codes and ŵ bitwise equal to its plain version on the card, and
+the card's ``fake_quant`` ω gradient within ``rtol=1e-5`` of the CPU's.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.convert import pack_from_numpy
-from repro_torch.core import bitplanes
+from repro_torch.core import bitplanes, ecl, qat
+from repro_torch.kernels import ecl_quant as eq
 from repro_torch.kernels import fantastic4_fused_mlp as ffm
 from repro_torch.kernels import fantastic4_matmul as fm
 from repro_torch.kernels import ops
@@ -103,3 +106,47 @@ def test_cuda_tensor_on_cpu_pack_raises(cuda_device):
     pack = _pack((8, 6, 4), 8, "cpu")
     with pytest.raises(ValueError):
         ExecutionPlan(pack, device=cuda_device)
+
+
+ECL_SHAPES = [(512, 512), (512, 256), (256, 256), (256, 128), (128, 128),
+              (128, 12), (37, 129), (1, 5)]
+
+
+def _ecl_inputs(shape, lam, seed, device):
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=shape) * np.sqrt(2.0 / shape[0])).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    omega = bitplanes.init_omega_from_weights(t(w))
+    probs = t(rng.dirichlet(np.ones(16)))
+    return t(w), omega, probs, ecl.penalty(t(w), probs, lam)
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.02, 0.3])
+@pytest.mark.parametrize("shape", ECL_SHAPES)
+def test_ecl_quant_kernel_bitwise(cuda_device, shape, lam):
+    w, omega, _, pen = _ecl_inputs(shape, lam, shape[0] * 7 + shape[1],
+                                   cuda_device)
+    before = eq.LAUNCHES
+    codes, w_hat = eq.ecl_quant_cuda(w, omega, pen)
+    want_c, want_w = eq.ecl_quant_plain(w, omega, pen)
+    torch.cuda.synchronize(cuda_device)
+    assert eq.LAUNCHES == before + 1
+    assert torch.equal(codes, want_c)
+    assert torch.equal(w_hat, want_w)
+
+
+@pytest.mark.parametrize("shape", [(512, 256), (37, 129)])
+def test_fake_quant_grads_card_vs_cpu(cuda_device, shape):
+    w, omega, probs, _ = _ecl_inputs(shape, 0.3, 3, cuda_device)
+    ct = torch.from_numpy(np.random.default_rng(4).normal(
+        size=shape).astype(np.float32))
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        tw = w.detach().to(dev).clone().requires_grad_()
+        tom = omega.detach().to(dev).clone().requires_grad_()
+        out = qat.fake_quant(tw, tom, probs.to(dev), 0.3)
+        out.backward(ct.to(dev))
+        grads[dev.type] = (out.detach().cpu(), tw.grad.cpu(), tom.grad.cpu())
+    (out_c, gw_c, gom_c), (out_p, gw_p, gom_p) = grads["cuda"], grads["cpu"]
+    torch.testing.assert_close(gw_c, gw_p, rtol=0, atol=0)
+    torch.testing.assert_close(gom_c, gom_p, rtol=1e-5, atol=0)

@@ -243,3 +243,49 @@ def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
     assert build.source_hash() in path.name
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+FAKE_NVCC = r'''#!{python}
+import json, os, sys
+args = sys.argv[1:]
+with open(os.environ["FAKE_NVCC_LOG"], "a") as f:
+    f.write(json.dumps(args) + "\n")
+if any(a.endswith("ecl_quant.cu") for a in args) and os.environ.get("FAKE_NVCC_FAIL"):
+    sys.stderr.write("error: refused\n")
+    sys.exit(2)
+open(args[args.index("-o") + 1], "w").close()
+'''
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch, fail):
+    """One compile per source (every source in SOURCES), one link into the
+    hashed library; a failing compile raises with its output and leaves no
+    library behind."""
+    import json
+    import sys
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.replace("{python}", sys.executable))
+    nvcc.chmod(0o755)
+    log = tmp_path / "log.jsonl"
+    monkeypatch.setenv("FAKE_NVCC_LOG", str(log))
+    if fail:
+        monkeypatch.setenv("FAKE_NVCC_FAIL", "1")
+    monkeypatch.setenv(build.ENV_BUILD_DIR, str(tmp_path / "out"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    assert "ecl_quant.cu" in build.SOURCES
+    if fail:
+        with pytest.raises(RuntimeError, match="refused"):
+            build.build()
+        assert not build.library_path().exists()
+        return
+    assert build.build() == build.library_path()
+    assert build.library_path().exists()
+    calls = [json.loads(line) for line in log.read_text().splitlines()]
+    compiles = [c for c in calls if "-c" in c]
+    assert sorted(c[-1].rsplit("/", 1)[-1] for c in compiles) == \
+        sorted(build.SOURCES)
+    assert all("-shared" not in c for c in compiles)
+    (link,) = [c for c in calls if "-c" not in c]
+    assert "-shared" in link and len(link) == 3 + len(build.SOURCES)
