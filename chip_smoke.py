@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel) and turn
    TF32 off.
 2. Hold every kernel against its plain PyTorch version on the card: the
-   MLP-GSC stack and a small odd-K stack, batches 1/8/64/256, fp32 and
-   int8, through kernel 1 (the per-layer chain) and every fused schedule.
+   MLP-GSC stack and a small odd-K stack, batches 1/3/8/9/17/33/64/255/256
+   (ragged row tiles and clusters), fp32 and int8, through kernel 1 (the
+   per-layer chain) and every fused schedule.
    Gates: fp32 ``atol=1e-3, rtol=1e-4``; int8 relative max-abs error
    ``< 5e-3``; and the port's own int8 outputs bitwise equal across the
    chain, batch_tiled, db, ws and stream.  Kernel 5 (ecl_quant) at every
@@ -36,11 +37,17 @@ Phases (any failure raises and the script exits non-zero):
    (``torch.matmul`` on pre-decoded fp32 weights plus the epilogue) at the
    main-path shapes, with CUDA events around back-to-back calls (``ms``:
    the wrapper's host work included when it is the slower side), and the
-   kernel's own device time from a torch.profiler trace (``device_ms``);
-   ecl_quant at every MLP-GSC layer shape (no single PyTorch call computes
-   it, so no library time), and the train step at batch 128 with its
-   device-time breakdown; print one ``kernels`` JSON line and one ``path``
-   JSON line, then the ``nvidia-smi`` line and the final
+   device time from a torch.profiler trace: the kernel's own
+   (``device_ms``; a kernel missing from the trace fails the run) and the
+   sum of every kernel the yardstick launches (``library_device_ms``).  The
+   cluster schedules (batch_tiled, db, ws) are also timed at 16 CTAs per
+   cluster after an equality check against the default 8.  ecl_quant at
+   every MLP-GSC layer shape (no single PyTorch call computes it, so no
+   library time), and the train step at batch 128 with its device-time
+   breakdown.  Print one ``grid`` JSON line (CTAs, cluster size and
+   dynamic shared memory of each cluster launch at each timed batch, and
+   the dependent-FMA floor), one ``kernels``, one ``path`` and one
+   ``train`` JSON line, then the ``nvidia-smi`` line and the final
    ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -56,7 +63,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 FP32_ATOL, FP32_RTOL = 1e-3, 1e-4          # tests/test_serving_parity.py:82
 INT8_REL = 5e-3                            # tests/test_serving_parity.py:134
-BATCHES = (1, 8, 64, 256)
+BATCHES = (1, 8, 64, 256)                  # timed
+CHECK_BATCHES = (1, 3, 8, 9, 17, 33, 64, 255, 256)   # gated: ragged tiles
+CLUSTER_SCHEDULES = ("batch_tiled", "db", "ws")
+WIDE_CLUSTER = 16                          # non-portable size, timed beside 8
+FMA_LATENCY = 4                            # cycles of a dependent FFMA (Hopper)
 PEAK_FP32_FLOPS = 67e12                    # H100 SXM, CUDA cores, dense
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3
 GSC_DIMS = (512, 512, 512, 256, 256, 128, 128, 12)
@@ -138,6 +149,7 @@ class Schedules:
             self.layers, act_dtype, self.act_scales)
         self.stacked = ops._ws_stacked_operands(self.layers, act_dtype,
                                                 self.act_scales)
+        self._tables = {}
 
     def kernel(self, name, x):
         from repro_torch.kernels import ops
@@ -153,6 +165,39 @@ class Schedules:
             act_scales=self.act_scales,
             block_m=8 if sched == "stream" else None)
 
+    def cluster_kernel(self, name, x, cluster):
+        """A cluster schedule launched with ``cluster`` CTAs per cluster
+        (its own layer table; the serving ops use the default size)."""
+        from repro_torch.kernels import fantastic4_fused_mlp as ffm
+
+        sched = KERNELS[name][0]
+        kind = "stacked" if sched == "ws" else "tiled"
+        key = (kind, cluster)
+        if key not in self._tables:
+            if kind == "stacked":
+                self._tables[key] = ffm.stacked_layer_table(
+                    *self.stacked, shapes=self.shapes, cluster=cluster)
+            else:
+                self._tables[key] = ffm.tiled_layer_table(
+                    *self._tiled_operands(), shapes=self.shapes,
+                    activations=self.acts, act_dtype=self.act_dtype,
+                    cluster=cluster)
+        table = self._tables[key]
+        if sched == "ws":
+            return ffm.fantastic4_fused_mlp_ws(
+                x, *self.stacked, shapes=self.shapes,
+                act_dtype=self.act_dtype, table=table)
+        return ffm.fantastic4_fused_mlp(
+            x, *self._tiled_operands(), shapes=self.shapes,
+            activations=self.acts, act_dtype=self.act_dtype,
+            block_m=ffm.MAX_TILE_ROWS, double_buffer=sched == "db",
+            table=table)
+
+    def _tiled_operands(self):
+        return (tuple(l["packed"] for l in self.layers),
+                tuple(l["omega"] for l in self.layers), self.alpha1s,
+                tuple(l["bias"] for l in self.layers), self.scales)
+
     def plain(self, name, x):
         from repro_torch.kernels import fantastic4_fused_mlp as ffm
         from repro_torch.kernels import ops
@@ -166,10 +211,7 @@ class Schedules:
             return ops.fantastic4_mlp_chain(x, self.layers, use_kernel=False)
         if sched in ("batch_tiled", "db"):
             return ffm.fantastic4_fused_mlp_plain(
-                x, tuple(l["packed"] for l in self.layers),
-                tuple(l["omega"] for l in self.layers), self.alpha1s,
-                tuple(l["bias"] for l in self.layers), self.scales,
-                activations=self.acts, **kw)
+                x, *self._tiled_operands(), activations=self.acts, **kw)
         if sched == "ws":
             return ffm.fantastic4_fused_mlp_ws_plain(x, *self.stacked, **kw)
         return ffm.fantastic4_fused_mlp_stream_plain(x, *self.stacked, **kw)
@@ -185,7 +227,7 @@ def check_kernels(dev):
     max_rel8 = {name: 0.0 for name in KERNELS}
     for dims, seed in ((GSC_DIMS, 11), (ODD_DIMS, 12)):
         pack = rand_pack(dims, seed, dev)
-        for batch in BATCHES:
+        for batch in CHECK_BATCHES:
             x = torch.from_numpy(np.random.default_rng(seed + batch).normal(
                 size=(batch, dims[0])).astype(np.float32)).to(dev)
             scales = calibrate_act_scales(pack, x)["act_scales"]
@@ -423,9 +465,7 @@ def _time_ms(fn, dev, iters):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, dev, iters, symbol):
-    """Device time per call of the CUDA function ``symbol``, summed from a
-    torch.profiler trace (None when the trace shows no device time)."""
+def _trace(fn, dev, iters):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -436,12 +476,37 @@ def _device_ms(fn, dev, iters, symbol):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize(dev)
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if symbol in evt.key:
-            total_us += (getattr(evt, "device_time_total", 0.0)
-                         or getattr(evt, "cuda_time_total", 0.0))
-    return total_us / 1e3 / iters if total_us > 0 else None
+    return prof.key_averages()
+
+
+def _kernel_us(evt):
+    return (getattr(evt, "self_device_time_total", 0.0)
+            or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def _is_kernel(evt):
+    return "CUDA" in str(getattr(evt, "device_type", ""))
+
+
+def _device_ms(fn, dev, iters, symbol):
+    """Device time per call of the CUDA function ``symbol``, summed from a
+    torch.profiler trace; raises when the trace has no such kernel."""
+    total_us = sum(_kernel_us(e) for e in _trace(fn, dev, iters)
+                   if _is_kernel(e) and symbol in e.key)
+    if total_us <= 0:
+        raise AssertionError(f"no device time for kernel {symbol!r} in the "
+                             "trace")
+    return total_us / 1e3 / iters
+
+
+def _all_device_ms(fn, dev, iters):
+    """Device time per call of every kernel ``fn`` launches (the library
+    yardstick's many small kernels), from a torch.profiler trace."""
+    total_us = sum(_kernel_us(e) for e in _trace(fn, dev, iters)
+                   if _is_kernel(e))
+    if total_us <= 0:
+        raise AssertionError("the trace shows no device time")
+    return total_us / 1e3 / iters
 
 
 def bound(batch, dims):
@@ -462,6 +527,7 @@ def timings(dev):
     """Phase 4: kernel, plain and library times at MLP-GSC batches."""
     import numpy as np
     import torch
+    from repro_torch.kernels import fantastic4_fused_mlp as ffm
     from repro_torch.kernels import ref
 
     pack = rand_pack(GSC_DIMS, 21, dev)
@@ -478,20 +544,68 @@ def timings(dev):
         return x
 
     out = {name: {} for name in KERNELS}
+    grid = []
     for batch in BATCHES:
         x = torch.from_numpy(np.random.default_rng(batch).normal(
             size=(batch, GSC_DIMS[0])).astype(np.float32)).to(dev)
         iters = 50 if batch <= 64 else 20
         lib_ms = _time_ms(lambda: library(x), dev, iters)
+        lib_dev_ms = _all_device_ms(lambda: library(x), dev, 10)
         b_ms, b_by = bound(batch, GSC_DIMS)
         for name, (sched, _) in KERNELS.items():
-            out[name][batch] = {
+            row = {
                 "ms": _time_ms(lambda: s.kernel(name, x), dev, iters),
                 "device_ms": _device_ms(lambda: s.kernel(name, x), dev, 10,
                                         SYMBOLS[sched]),
                 "plain_ms": _time_ms(lambda: s.plain(name, x), dev, iters),
-                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
-    return out
+                "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+            if sched in CLUSTER_SCHEDULES:
+                row["device_ms_cluster16"], launch16 = _wide_cluster(
+                    s, name, x, dev)
+                ffm.LAST_LAUNCH.clear()
+                s.kernel(name, x)
+                (kind, launch), = ffm.LAST_LAUNCH.items()
+                grid.append({"schedule": sched, "batch": batch,
+                             "kernel": kind, **launch,
+                             "cluster16": launch16})
+            out[name][batch] = row
+    return out, grid
+
+
+def _wide_cluster(s, name, x, dev):
+    """Device ms of a cluster schedule at WIDE_CLUSTER CTAs per cluster,
+    after checking its output equals the default size's bit for bit (the
+    same sums in the same order)."""
+    import torch
+    from repro_torch.kernels import fantastic4_fused_mlp as ffm
+
+    want = s.kernel(name, x)
+    ffm.LAST_LAUNCH.clear()
+    got = s.cluster_kernel(name, x, WIDE_CLUSTER)
+    torch.cuda.synchronize(dev)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} at cluster {WIDE_CLUSTER} differs from "
+                             f"cluster {ffm.CLUSTER}")
+    (_, launch), = ffm.LAST_LAUNCH.items()
+    ms = _device_ms(lambda: s.cluster_kernel(name, x, WIDE_CLUSTER), dev, 10,
+                    SYMBOLS[KERNELS[name][0]])
+    return ms, launch
+
+
+def contract_floor(dev):
+    """The dependent-FMA floor of one MLP-GSC output: sum K_l FMAs of
+    FMA_LATENCY cycles at the SM clock nvidia-smi reports under load."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    sm, sm_max = (float(v) for v in out.stdout.strip().splitlines()[0]
+                  .split(","))
+    chain = sum(k for k, _ in GSC_LAYERS)
+    return {"sum_k": chain, "fma_latency_cycles": FMA_LATENCY,
+            "sm_clock_mhz": sm, "sm_clock_max_mhz": sm_max,
+            "floor_ms_at_max_clock": chain * FMA_LATENCY / (sm_max * 1e3)}
 
 
 def ecl_timings(dev):
@@ -602,7 +716,8 @@ def main() -> int:
     ecl_err = check_ecl_quant(dev)
     launches, path = main_path(dev)
     train = train_path(dev)
-    times = timings(dev)
+    times, grid = timings(dev)
+    floor = contract_floor(dev)
     ecl_times = ecl_timings(dev)
     train["step_timing"] = train_step_timing(dev)
 
@@ -619,6 +734,7 @@ def main() -> int:
             "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library_device_ms": head["library_device_ms"],
             "at": "mlp-gsc batch 64 fp32",
             "by_batch": {str(b): v for b, v in per.items()}})
     head = ecl_times["512x512"]
@@ -629,8 +745,10 @@ def main() -> int:
         "ms": head["ms"], "kernel_ms": head["ms"],
         "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None, "at": "mlp-gsc 512x512",
+        "library_ms": None, "library_device_ms": None,
+        "at": "mlp-gsc 512x512",
         "by_shape": ecl_times})
+    print(json.dumps({"grid": grid, "contract_floor": floor}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"path": path}))
     print(json.dumps({"train": train}))

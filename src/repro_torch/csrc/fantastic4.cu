@@ -1,4 +1,4 @@
-// The four FantastIC4 serving kernels for Hopper (sm_90a), CUDA C++.
+// The FantastIC4 serving kernels for Hopper (sm_90a), CUDA C++.
 //
 // Built by kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -8,17 +8,24 @@
 // Translation notes (TPU Pallas -> GPU):
 // * The Pallas matmul carries its accumulator in VMEM across an "arbitrary"
 //   K grid; here K is a loop inside the block (layer_pass).
-// * _ws_kernel and _stream_kernel rely on the TPU grid running in order and
-//   the stream kernel rewrites its activation in place.  GPU blocks run in
-//   parallel and in no order, so the layer loop is inside one launch and
-//   activations shared between CTAs ping-pong between two buffers; where
-//   CTAs must see each other's results (ws between layers, stream between
-//   decode and use) the launch is cooperative and syncs the grid.
+// * The TPU megakernels keep a tile's activations in one core's VMEM while
+//   the grid walks the layers in order.  Here a thread-block cluster holds
+//   them in distributed shared memory (fantastic4_cluster.cuh): each of its
+//   CTAs owns a column slice of every layer, and a cluster barrier between
+//   layers replaces the ordered grid.  batch_tiled/db and ws launch as
+//   clusters (cudaLaunchKernelEx); there is no grid-wide barrier.
+// * _stream_kernel relies on the TPU grid running in order and rewrites its
+//   activation in place.  Here the layer loop is inside one cooperative
+//   launch that syncs the grid between decode and use, and activations
+//   shared between CTAs ping-pong between two global buffers.
 // * A decoded 512x512 fp32 layer is 1 MiB and the packed MLP-GSC stack is
-//   386 KB, both past the 227 KB of shared memory a block may use, so codes
-//   are decoded in 32x64 tiles and streamed from L2 (50 MB).
+//   386 KB, both past the 227 KB of shared memory a block may use: the
+//   chain and stream decode 32x64 tiles streamed from L2 (50 MB); the
+//   cluster kernels hold one slice of the packed codes per CTA (1/8 of a
+//   layer, or 1/8 of the stack for ws) and decode it in registers.
 #include <cooperative_groups.h>
 
+#include "fantastic4_cluster.cuh"
 #include "fantastic4_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -47,69 +54,37 @@ matmul_kernel(const float* x, LayerDesc d, const float* omega,
                                min(n0 + f4::BN, d.N));
 }
 
-// Kernel 2 -- replaces kernels/fantastic4_fused_mlp.py:fantastic4_fused_mlp_pallas
-// (batch_tiled, and db with double_buffer).  One CTA per row tile walks the
-// whole stack; activations between layers never leave shared memory (two
-// ping-pong buffers of rows x D fp32).  db splits each tile's two row
-// groups across two CTAs: they traverse the stack concurrently on two SMs,
-// which is what the TPU's skewed schedule emulated inside one core.
-__global__ void __launch_bounds__(f4::NT)
-tiled_kernel(const float* x, int M, int K0, const LayerDesc* layers, int L,
-             int dmax, int rows_per_cta, float* y) {
-  extern __shared__ float dyn[];
-  __shared__ f4::CoreSmem s;
-  float* bufs[2] = {dyn, dyn + (size_t)rows_per_cta * dmax};
-  const int r0 = blockIdx.x * rows_per_cta;
-  const int nr = min(rows_per_cta, M - r0);
-  const int n_last = layers[L - 1].N;
-  const float* in = x + (size_t)r0 * K0;
-  int in_ld = K0, in_cols = K0;
-  for (int l = 0; l < L; ++l) {
-    const LayerDesc d = layers[l];
-    const bool last = l == L - 1;
-    float* out = last ? y + (size_t)r0 * n_last : bufs[l & 1];
-    const int out_ld = last ? n_last : dmax;
-    const int n_end = last ? d.N : d.N + (d.N & 1);
-    f4::layer_pass<false, false>(s, d, in, in_ld, in_cols, nr, nullptr, out,
-                                 out_ld, 0, f4::BN, n_end);
-    in = out;
-    in_ld = dmax;
-    in_cols = n_end;
-  }
+// Kernel 2 -- replaces kernels/fantastic4_fused_mlp.py:
+// fantastic4_fused_mlp_pallas (batch_tiled, and db with double_buffer).
+// One thread-block cluster per row tile (<= 32 rows) walks the whole
+// stack; each CTA owns a column slice of every layer
+// (fantastic4_cluster.cuh) and activations stay in the cluster's shared
+// memory.  Bound: FMA issue and the shared-memory loads of the inputs on
+// 8 SMs per tile at 16-32 rows; the dependent FMA chain (sum K_l) and the
+// layer hand-offs at a few rows.  Before each layer a CTA copies that
+// layer's code slice into shared memory with one bulk async copy; db keeps
+// two slice buffers and requests layer l+1's slice before layer l's FMAs,
+// the overlap of the next decode's load with this layer's matmul that the
+// TPU's skewed two-row-group schedule bought.
+template <bool DB>
+__global__ void __launch_bounds__(f4c::NT, 1)
+tiled_kernel(f4c::StackArgs a) {
+  f4c::run_stack<DB ? f4c::kDouble : f4c::kSingle>(a);
 }
 
 // Kernel 3 -- replaces fantastic4_fused_mlp.py:fantastic4_fused_mlp_ws_pallas.
-// Weight-stationary latency schedule: the output columns of each layer are
-// split across CTAs, every code byte is read once per inference, and the
-// small activation ping-pongs between two global (L2-resident) buffers with
-// a grid sync between layers (cooperative launch).  Bound: the packed
-// bytes and the per-layer grid syncs.
-__global__ void __launch_bounds__(f4::NT)
-ws_kernel(const float* x, int M, int K0, const LayerDesc* layers, int L,
-          int dmax, float* act, float* y) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ f4::CoreSmem s;
-  const int n_first = blockIdx.x * f4::BN, n_stride = gridDim.x * f4::BN;
-  const int n_last = layers[L - 1].N;
-  const float* in = x;
-  int in_ld = K0, in_cols = K0;
-  for (int l = 0; l < L; ++l) {
-    const LayerDesc d = layers[l];
-    const bool last = l == L - 1;
-    float* out = last ? y : act + (size_t)(l & 1) * M * dmax;
-    const int out_ld = last ? n_last : dmax;
-    const int n_end = last ? d.N : d.N + (d.N & 1);
-    if (l == 0)
-      f4::layer_pass<false, false>(s, d, in, in_ld, in_cols, M, nullptr, out,
-                                   out_ld, n_first, n_stride, n_end);
-    else
-      f4::layer_pass<true, false>(s, d, in, in_ld, in_cols, M, nullptr, out,
-                                  out_ld, n_first, n_stride, n_end);
-    if (!last) grid.sync();
-    in = out;
-    in_ld = dmax;
-    in_cols = n_end;
-  }
+// Weight-stationary latency schedule: one cluster per group of <= 8 rows,
+// and each CTA copies its slice of the whole stack's codes (cut from the
+// layers' true extents, not the D x D stacked operands) into shared memory
+// at launch, one mbarrier per layer, so layer 0 starts when its slice
+// lands and every code byte is read from L2 once per cluster per
+// inference.  Time no longer grows with rows: more rows, more clusters.
+// Bound: the dependent FMA chain and the L - 1 layer hand-offs.  Two CTAs
+// per SM (registers capped at 128 a thread, shared memory ~82 KB for
+// MLP-GSC), so 256 rows -- 32 clusters -- run in one wave.
+__global__ void __launch_bounds__(f4c::NT, 2)
+ws_kernel(f4c::StackArgs a) {
+  f4c::run_stack<f4c::kStationary>(a);
 }
 
 // Kernel 4 -- replaces fantastic4_fused_mlp.py:fantastic4_fused_mlp_stream_pallas.
@@ -169,6 +144,46 @@ int coop_grid(const void* kernel, int want) {
   return want < cap ? (want > 0 ? want : 1) : cap;
 }
 
+// Launch one cluster of `cluster` CTAs per row tile.  A configuration the
+// card cannot hold (no cluster fits an SM group) is an error, never a
+// quiet switch to another kernel.
+cudaError_t launch_cluster(const void* kernel, int mode, f4c::StackArgs a,
+                           int cluster, cudaStream_t stream) {
+  // a refused call also sets the runtime's last error: clear it, so the
+  // next launch's check does not report this one
+  auto refuse = [](cudaError_t e) { cudaGetLastError(); return e; };
+  // a pass holds at most 8 accumulators a thread: 32 rows of a cluster
+  if (a.rows < 1 || a.rows > f4c::MAX_TILE_ROWS) return cudaErrorInvalidValue;
+  const int dyn = f4c::smem_bytes(mode, a.L, a.rows, a.ldx, a.code_region);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (e != cudaSuccess) return refuse(e);
+  if (cluster > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return refuse(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((a.M + a.rows - 1) / a.rows) * cluster));
+  cfg.blockDim = dim3(f4c::NT);
+  cfg.dynamicSmemBytes = (size_t)dyn;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return refuse(e);
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  void* args[] = {(void*)&a};
+  e = cudaLaunchKernelExC(&cfg, kernel, args);
+  return e == cudaSuccess ? e : refuse(e);
+}
+
 }  // namespace
 
 extern "C" {
@@ -194,28 +209,23 @@ int f4_matmul(const float* x, const uint8_t* packed, const float* omega,
 }
 
 int f4_fused_tiled(const float* x, int M, int K0, const void* layers, int L,
-                   int dmax, int rows_per_cta, float* y, void* stream) {
-  const size_t dyn = 2 * sizeof(float) * (size_t)rows_per_cta * dmax;
-  cudaError_t e = cudaFuncSetAttribute(
-      tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (M + rows_per_cta - 1) / rows_per_cta;
-  tiled_kernel<<<grid, f4::NT, dyn, (cudaStream_t)stream>>>(
-      x, M, K0, (const LayerDesc*)layers, L, dmax, rows_per_cta, y);
-  return (int)cudaGetLastError();
+                   const uint8_t* codes, int cluster, int rows, int ldx,
+                   int slice_max, int db, float* y, void* stream) {
+  f4c::StackArgs a{x, y, (const LayerDesc*)layers, codes, M, K0, L, rows,
+                   ldx, (db ? 2 : 1) * slice_max};
+  return db ? launch_cluster((const void*)tiled_kernel<true>, f4c::kDouble, a,
+                             cluster, (cudaStream_t)stream)
+            : launch_cluster((const void*)tiled_kernel<false>, f4c::kSingle, a,
+                             cluster, (cudaStream_t)stream);
 }
 
 int f4_fused_ws(const float* x, int M, int K0, const void* layers, int L,
-                int dmax, float* act, float* y, void* stream) {
-  const LayerDesc* lp = (const LayerDesc*)layers;
-  int grid = coop_grid((const void*)ws_kernel, (dmax + f4::BN - 1) / f4::BN);
-  void* args[] = {(void*)&x, (void*)&M, (void*)&K0, (void*)&lp, (void*)&L,
-                  (void*)&dmax, (void*)&act, (void*)&y};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)ws_kernel, grid,
-                                              f4::NT, args, 0,
-                                              (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+                const uint8_t* codes, int cluster, int rows, int ldx,
+                int code_bytes, float* y, void* stream) {
+  f4c::StackArgs a{x, y, (const LayerDesc*)layers, codes, M, K0, L, rows,
+                   ldx, code_bytes};
+  return launch_cluster((const void*)ws_kernel, f4c::kStationary, a, cluster,
+                        (cudaStream_t)stream);
 }
 
 int f4_fused_stream(const float* x, int M, int K0, const void* layers, int L,

@@ -1,12 +1,14 @@
-// Shared device-side core of the four FantastIC4 serving kernels.
+// Shared device-side arithmetic of the FantastIC4 serving kernels.
 //
-// Every kernel in fantastic4.cu computes its outputs through layer_pass():
+// The chain (matmul_kernel) and stream_kernel compute through layer_pass();
+// the cluster kernels (fantastic4_cluster.cuh) run the same per-output
+// arithmetic in their own loop:
 // nibble unpack, W = sum_i omega_i * bit_i(code) (a 16-entry codebook built
 // with the same add sequence as the plain version), one per-output dot over
 // K in ascending order with __fmaf_rn, then the section V epilogue
 //   y = act(acc * alpha1 + b), then y * alpha2  or  clip(rint(y / s), +-127).
-// Because the four kernels share this code term for term, the port's int8
-// paths (chain, batch-tiled, db, ws, stream) are bitwise equal to each other.
+// Because every kernel does this term for term, the port's int8 paths
+// (chain, batch-tiled, db, ws, stream) are bitwise equal to each other.
 //
 // Plain fp32 FFMA on CUDA cores: no tensor cores (TF32 would break the fp32
 // gate), no fast-math (the epilogue multiplies and adds with __fmul_rn /
@@ -39,7 +41,8 @@ struct LayerDesc {
   int ldp;                 // packed row stride (N, or D for stacked operands)
   int act;                 // 0 none, 1 relu, 2 tanh-gelu
   int quant;               // 1: emit clip(rint(y / scale), +-127)
-  int pad_[2];
+  int slice_off;           // bytes: this layer's first code slice (cluster kernels)
+  int slice_bytes;         // bytes of one rank's slice, a multiple of 16
 };
 static_assert(sizeof(LayerDesc) == 80, "LayerDesc layout is shared with Python");
 

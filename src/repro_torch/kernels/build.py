@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fantastic4.cu", "ecl_quant.cu")
-HEADERS = ("fantastic4_common.cuh",)
+HEADERS = ("fantastic4_common.cuh", "fantastic4_cluster.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 LINK_FLAGS = ("-shared",)
@@ -44,10 +44,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, packed, omega, alpha1, bias, scale_dev, scale, quant, act, M, K, N, y, stream
     "f4_matmul": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P],
-    # x, M, K0, layers, L, dmax, rows_per_cta, y, stream
-    "f4_fused_tiled": [_P, _I, _I, _P, _I, _I, _I, _P, _P],
-    # x, M, K0, layers, L, dmax, act, y, stream
-    "f4_fused_ws": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
+    # x, M, K0, layers, L, codes, cluster, rows, ldx, slice_max, db, y, stream
+    "f4_fused_tiled": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    # x, M, K0, layers, L, codes, cluster, rows, ldx, code_bytes, y, stream
+    "f4_fused_ws": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
     # x, M, K0, layers, L, dmax, block_m, act, wdec, y, stream
     "f4_fused_stream": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     # w, omega, penalty, n, codes, w_hat, stream

@@ -5,20 +5,22 @@ megakernel of the JAX package's ``kernels/fantastic4_fused_mlp.py``:
 
 * **batch_tiled / db** (``tiled_kernel``) replaces
   ``fantastic4_fused_mlp_pallas`` (bodies ``_kernel``, ``_decode_tile``).
-  One CTA per row tile walks every layer; the activation never leaves
-  shared memory between layers (two ping-pong buffers of rows × D fp32).
-  ``double_buffer`` ("db") splits each tile's two row groups over two CTAs,
-  which traverse the stack concurrently on two SMs: what the TPU's skewed
-  two-group schedule emulated inside one core.  Bound: FFMA issue at large
-  batch, the packed bytes at small batch; every CTA re-decodes each layer's
-  codes from L2, which is the price of keeping activations on chip.
+  One thread-block cluster of ``CLUSTER`` CTAs per row tile of at most
+  ``MAX_TILE_ROWS`` rows walks every layer; each CTA owns a column slice of
+  every layer, and activations stay in the cluster's distributed shared
+  memory (``csrc/fantastic4_cluster.cuh``).  Before each layer a CTA copies
+  that layer's code slice into shared memory; ``double_buffer`` ("db")
+  keeps two slice buffers and requests the next layer's slice before this
+  layer's FMAs, the overlap the TPU's skewed two-group schedule bought.
+  Below 16 rows db is the batch_tiled kernel.  Bound: FMA issue and the
+  input's shared-memory loads on the cluster's SMs at 16-32 rows, the
+  dependent FMA chain and the layer hand-offs at a few rows.
 * **ws** (``ws_kernel``) replaces ``fantastic4_fused_mlp_ws_pallas``
-  (``_ws_kernel``).  The latency schedule for ≤ 8 rows: each layer's output
-  columns are split across CTAs, so every code byte is read once per
-  inference; the small activation ping-pongs between two global buffers
-  (L2-resident) with a grid sync between layers (cooperative launch) —
-  the TPU carried it across sequential grid steps instead.  Bound: the
-  packed bytes and the L − 1 grid syncs.
+  (``_ws_kernel``).  The latency schedule: one cluster per ``WS_TILE_ROWS``
+  rows, each CTA holding its slice of the whole stack's codes (cut from
+  the layers' true extents) in shared memory from launch, so every code
+  byte is read from L2 once per cluster per inference.  Bound: the FMA
+  chain and the L − 1 hand-offs of a layer's output between the CTAs.
 * **stream** (``stream_kernel``) replaces
   ``fantastic4_fused_mlp_stream_pallas`` (``_stream_kernel``).  Every layer
   is decoded once per batch into an fp32 scratch in global memory by all
@@ -29,26 +31,42 @@ megakernel of the JAX package's ``kernels/fantastic4_fused_mlp.py``:
   ping-pong between two global buffers.  Bound: L2 traffic of the decoded
   fp32 weights at large batch.
 
-All three share ``layer_pass`` with kernel 1 (``csrc/fantastic4_common.cuh``),
-so the port's int8 outputs are bitwise equal across schedules and the chain.
+Every kernel computes each output as one accumulator from 0 over
+ascending k with the same codebook and epilogue as kernel 1 (stream through
+the shared ``layer_pass``), so the port's int8 outputs are bitwise equal
+across schedules and the chain.
+
+Code slices.  The cluster kernels read codes from a slice-major device copy
+built once per pack (``LayerTable.codes``): for layer l and rank r, the
+packed columns ``[r·W_l, (r+1)·W_l)`` with ``W_l = ceil(n_l / CLUSTER)``
+(``n_l`` the even-padded width, the last layer's true width), laid out as
+``(ceil(K_l/8), W_l, 4)`` bytes — one 32-bit word per column holds four
+packed rows — zero-filled past the pack and padded to 16 bytes, so one
+bulk copy fetches a slice whatever the pack's row stride.
 
 Fits.  The TPU budget (12 MiB VMEM, 128-wide padding) does not carry over.
-These fits state the CUDA kernels' own shared memory against the 232,448
-bytes a Hopper block may use: every kernel needs the core's staging tiles
-(``CORE_SMEM_BYTES``); only batch_tiled/db add the two activation buffers,
-``2 · rows · D · 4`` bytes (int8 activations are held as exact fp32 values,
-so int8 needs no more).  ws and stream keep activations in global memory,
-so their need does not grow with width or batch.  ``smem_budget_bytes=1``
-fits nothing and forces the per-layer chain.  Dims are padded to even
-(``DIM_ALIGN = 2``): the odd-K pack carries one zero code row, and padded
-epilogue columns carry α₁ = b = 0, so they stay 0 through relu and int8.
+These fits state the CUDA kernels' own shared memory per CTA against the
+232,448 bytes a Hopper block may use.  The cluster kernels need their
+mbarriers, a copy of the layer table, one 16-entry codebook per layer,
+two input buffers of rows × ``input_stride`` fp32 (int8 activations are
+held as exact fp32 values), and the code slices: one layer's for
+batch_tiled, two for db, the whole stack's for ws
+(``cluster_smem_bytes``).  stream keeps activations in
+global memory and needs only the core's staging tiles
+(``CORE_SMEM_BYTES``), so its need does not grow with width or batch.
+``smem_budget_bytes=1`` fits nothing and forces the per-layer chain.  Dims
+are padded to even (``DIM_ALIGN = 2``): the odd-K pack carries one zero
+code row, and padded epilogue columns carry α₁ = b = 0, so they stay 0
+through relu and int8.
 
 Every wrapper launches its kernel for a CUDA tensor (or raises) and takes
 the plain PyTorch version beside it for a CPU tensor.  ``LAUNCHES`` counts
-kernel launches per schedule.
+kernel launches per schedule; ``LAST_LAUNCH`` keeps each cluster
+schedule's last launch shape (CTAs, cluster size, dynamic shared memory).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -61,8 +79,14 @@ SMEM_BUDGET_BYTES = 232448
 # layer_pass staging: xs (32 x 32) + decoded W tile (32 x 64) + codebook, fp32
 CORE_SMEM_BYTES = 4 * (32 * 32 + 32 * 64 + 16)
 DIM_ALIGN = 2
+CLUSTER = 8            # CTAs per cluster: the portable cluster size
+MAX_TILE_ROWS = 32     # rows per batch_tiled/db cluster (the kernel's row tile)
+WS_TILE_ROWS = 8       # rows per ws cluster
+SLICE_ALIGN = 16       # bulk copies move multiples of 16 bytes
+DESC_BYTES = 80        # one f4::LayerDesc
 
 LAUNCHES = {"batch_tiled": 0, "db": 0, "ws": 0, "stream": 0}
+LAST_LAUNCH: dict = {}
 
 
 def reset_launches() -> None:
@@ -86,22 +110,97 @@ def stack_width(shapes: Sequence[Tuple[int, int]]) -> int:
     return max([ps[0][0]] + [n for _, n in ps])
 
 
+# ------------------------------------------------------------ code slices
+
+def output_width(n: int, last: bool) -> int:
+    """Columns a layer writes: the even-padded width, the last layer's
+    true width."""
+    return n if last else _round_up(n, DIM_ALIGN)
+
+
+def slice_width(n_end: int, cluster: int = CLUSTER) -> int:
+    return -(-n_end // cluster)
+
+
+def slice_bytes(k: int, n_end: int, cluster: int = CLUSTER) -> int:
+    """Bytes of one rank's slice of a layer with K = k (even) rows."""
+    return _round_up(-(-k // 8) * slice_width(n_end, cluster) * 4,
+                     SLICE_ALIGN)
+
+
+def stack_slice_bytes(shapes, cluster: int = CLUSTER) -> Tuple[int, ...]:
+    return _stack_layout(_shape_key(shapes), cluster)[1]
+
+
+def _shape_key(shapes) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(k), int(n)) for k, n in shapes)
+
+
+@functools.lru_cache(maxsize=None)
+def _stack_layout(shapes: Tuple[Tuple[int, int], ...], cluster: int
+                  ) -> Tuple[int, Tuple[int, ...]]:
+    """(input_stride, slice bytes per layer) of a stack, worked out once:
+    the fits run on every served batch."""
+    ps = padded_shapes(shapes)
+    ld = _round_up(max(kp for kp, _ in ps), 4)
+    ld = ld + 4 if (ld // 4) % 2 == 0 else ld
+    n = len(shapes)
+    return ld, tuple(slice_bytes(kp, output_width(shapes[l][1], l == n - 1),
+                                 cluster)
+                     for l, (kp, _) in enumerate(ps))
+
+
+def code_slices(packed: torch.Tensor, k: int, n: int, n_end: int,
+                cluster: int = CLUSTER) -> torch.Tensor:
+    """(cluster, slice_bytes) uint8: rank r's slice of the (k/2, >= n)
+    row-pair packed codes, columns [r·W, (r+1)·W) laid out (ceil(k/8), W, 4)
+    and zero past the pack."""
+    w = slice_width(n_end, cluster)
+    q = -(-k // 8)
+    p = packed[:k // 2, :n]
+    p = torch.nn.functional.pad(p, (0, cluster * w - n, 0, 4 * q - k // 2))
+    p = p.reshape(q, 4, cluster, w).permute(2, 0, 3, 1).reshape(cluster, -1)
+    return torch.nn.functional.pad(
+        p, (0, slice_bytes(k, n_end, cluster) - p.shape[1])).contiguous()
+
+
+# ------------------------------------------------------------------- fits
+
+def input_stride(shapes) -> int:
+    """Row stride (floats) of the cluster kernels' input buffers: the
+    widest layer input, a multiple of 4 (float4 reads) whose quarter is odd
+    (rows fall on different shared-memory banks)."""
+    return _stack_layout(_shape_key(shapes), CLUSTER)[0]
+
+
+def cluster_smem_bytes(n_layers: int, rows: int, ldx: int, code_region: int,
+                       barriers: int) -> int:
+    """Dynamic shared memory of one cluster CTA, as
+    ``csrc/fantastic4_cluster.cuh::smem_bytes`` lays it out: ``barriers``
+    for the code slices plus two for the input buffers."""
+    return (_round_up(8 * (barriers + 2), 16) + (DESC_BYTES + 64) * n_layers
+            + 8 * rows * ldx + code_region)
+
 
 def tile_rows(block_m: int, rows: Optional[int] = None,
-              double_buffer: bool = False) -> Tuple[int, int]:
-    """(rows per CTA, row groups) of the batch-tiled kernel: the tile is
-    ``block_m`` rows (fewer for a smaller batch, in multiples of 8); db
-    splits a tile of ≥ 16 rows into two row groups, one CTA each."""
-    bm = block_m if rows is None else min(block_m, _round_up(rows, 8))
-    halves = 2 if double_buffer and bm % 16 == 0 else 1
-    return bm // halves, halves
+              double_buffer: bool = False) -> Tuple[int, bool]:
+    """(rows per cluster, db?) of the batch-tiled kernel: the tile is
+    ``block_m`` rows capped at ``MAX_TILE_ROWS`` (fewer for a smaller
+    batch, in multiples of 8); db needs a tile of ≥ 16 rows."""
+    bm = min(block_m, MAX_TILE_ROWS)
+    if rows is not None:
+        bm = min(bm, _round_up(rows, 8))
+    return bm, double_buffer and bm >= 16
 
 
 def fused_mlp_smem_bytes(shapes, block_m: int = 32,
                          act_dtype: str = "float32",
-                         double_buffer: bool = False) -> int:
-    rows, _ = tile_rows(block_m, double_buffer=double_buffer)
-    return CORE_SMEM_BYTES + 2 * 4 * rows * stack_width(shapes)
+                         double_buffer: bool = False,
+                         cluster: int = CLUSTER) -> int:
+    rows, db = tile_rows(block_m, double_buffer=double_buffer)
+    slices = max(stack_slice_bytes(shapes, cluster))
+    return cluster_smem_bytes(len(shapes), rows, input_stride(shapes),
+                              (2 if db else 1) * slices, 2 if db else 1)
 
 
 def fused_mlp_fits(shapes, *, block_m: int = 32,
@@ -117,10 +216,11 @@ def fused_mlp_fits(shapes, *, block_m: int = 32,
 def max_fused_block_m(shapes, *, smem_budget_bytes: int = SMEM_BUDGET_BYTES,
                       act_dtype: str = "float32",
                       cap: int = 256) -> Optional[int]:
-    """Largest power-of-two row tile (8..cap) the batch-tiled kernel can
-    hold in shared memory, or None when not even 8 rows fit."""
+    """Largest power-of-two row tile (8..min(cap, MAX_TILE_ROWS)) the
+    batch-tiled kernel can hold in shared memory, or None when not even 8
+    rows fit."""
     best, bm = None, 8
-    while bm <= cap:
+    while bm <= min(cap, MAX_TILE_ROWS):
         if fused_mlp_fits(shapes, block_m=bm,
                           smem_budget_bytes=smem_budget_bytes,
                           act_dtype=act_dtype):
@@ -129,9 +229,12 @@ def max_fused_block_m(shapes, *, smem_budget_bytes: int = SMEM_BUDGET_BYTES,
     return best
 
 
-def ws_mlp_smem_bytes(shapes, rows: int = 8,
-                      act_dtype: str = "float32") -> int:
-    return CORE_SMEM_BYTES
+def ws_mlp_smem_bytes(shapes, rows: int = 8, act_dtype: str = "float32",
+                      cluster: int = CLUSTER) -> int:
+    return cluster_smem_bytes(len(shapes), min(max(rows, 1), WS_TILE_ROWS),
+                              input_stride(shapes),
+                              sum(stack_slice_bytes(shapes, cluster)),
+                              len(shapes))
 
 
 def ws_mlp_fits(shapes, *, rows: int = 8,
@@ -158,26 +261,30 @@ def stream_mlp_fits(shapes, *, rows: int, block_m: int = 8,
 
 # ------------------------------------------------------------ layer table
 
-# mirrors f4::LayerDesc in csrc/fantastic4_common.cuh (80 bytes)
+# mirrors f4::LayerDesc in csrc/fantastic4_common.cuh (DESC_BYTES)
 DESC_DTYPE = np.dtype({
     "names": ["packed", "alpha1", "bias", "wdec_off", "omega", "scale", "K",
-              "N", "ldp", "act", "quant"],
+              "N", "ldp", "act", "quant", "slice_off", "slice_bytes"],
     "formats": ["<u8", "<u8", "<u8", "<i8", ("<f4", (4,)), "<f4", "<i4",
-                "<i4", "<i4", "<i4", "<i4"],
-    "offsets": [0, 8, 16, 24, 32, 48, 52, 56, 60, 64, 68],
-    "itemsize": 80})
+                "<i4", "<i4", "<i4", "<i4", "<i4", "<i4"],
+    "offsets": [0, 8, 16, 24, 32, 48, 52, 56, 60, 64, 68, 72, 76],
+    "itemsize": DESC_BYTES})
 
 
 class LayerTable:
     """The per-layer descriptors the fused kernels read, in device memory,
-    plus strong references to every tensor they point into.  Build once per
-    frozen pack (``ops`` memoizes it): building reads ω and the scales on
-    the host."""
+    the slice-major copy of the codes the cluster kernels read (``codes``:
+    every layer's ``cluster`` slices, layer after layer), and strong
+    references to every tensor they point into.  Build once per frozen
+    pack (``ops`` memoizes it): building reads ω and the scales on the
+    host."""
 
-    def __init__(self, layers: Sequence[dict], device: torch.device):
+    def __init__(self, layers: Sequence[dict], device: torch.device,
+                 cluster: int = CLUSTER):
         rows = np.zeros(len(layers), DESC_DTYPE)
         self.refs = []
-        off = 0
+        slices = []
+        off = code_off = 0
         for i, l in enumerate(layers):
             for key in ("packed", "alpha1", "bias"):
                 t = l[key]
@@ -191,8 +298,18 @@ class LayerTable:
             for key in ("scale", "K", "N", "ldp", "act", "quant"):
                 rows[key][i] = l[key]
             off += l["K"] * l["N"]
+            sl = code_slices(l["packed"], l["K"], l["N"],
+                             output_width(l["N"], i == len(layers) - 1),
+                             cluster)
+            rows["slice_off"][i] = code_off
+            rows["slice_bytes"][i] = sl.shape[1]
+            code_off += sl.numel()
+            slices.append(sl.reshape(-1))
         self.n_layers = len(layers)
+        self.cluster = cluster
         self.decoded_floats = off
+        self.slice_bytes = tuple(int(b) for b in rows["slice_bytes"])
+        self.codes = torch.cat(slices).contiguous()
         self.tensor = torch.from_numpy(rows.view(np.uint8).copy()).to(device)
 
 
@@ -201,7 +318,8 @@ def _host_floats(t) -> list:
 
 
 def tiled_layer_table(packed, omega, alpha1, bias, scale, *, shapes,
-                      activations, act_dtype: str) -> LayerTable:
+                      activations, act_dtype: str,
+                      cluster: int = CLUSTER) -> LayerTable:
     dev = packed[0].device
     n = len(shapes)
     layers = []
@@ -215,11 +333,12 @@ def tiled_layer_table(packed, omega, alpha1, bias, scale, *, shapes,
             "K": 2 * packed[l].shape[0], "N": nn, "ldp": packed[l].shape[1],
             "act": ref.activation_code(activations[l]),
             "quant": int(act_dtype == "int8" and l < n - 1)})
-    return LayerTable(layers, dev)
+    return LayerTable(layers, dev, cluster)
 
 
 def stacked_layer_table(packed_stack, omega_stack, alpha1_stack, bias_stack,
-                        meta_stack, *, shapes) -> LayerTable:
+                        meta_stack, *, shapes,
+                        cluster: int = CLUSTER) -> LayerTable:
     dev = packed_stack.device
     d = packed_stack.shape[-1]
     meta = meta_stack.reshape(len(shapes), 4).tolist()
@@ -231,7 +350,7 @@ def stacked_layer_table(packed_stack, omega_stack, alpha1_stack, bias_stack,
             "bias": bias_stack[l, 0], "omega": om[l], "scale": meta[l][0],
             "K": kp, "N": shapes[l][1], "ldp": d,
             "act": int(round(meta[l][1])), "quant": int(meta[l][2] > 0)})
-    return LayerTable(layers, dev)
+    return LayerTable(layers, dev, cluster)
 
 
 def _check_x(x: torch.Tensor, shapes) -> None:
@@ -277,7 +396,8 @@ def fantastic4_fused_mlp(x, packed, omega, alpha1, bias, scale, *, shapes,
 
     ``scale[l]`` is α₂ (fp32) or the int8 scale s_l (the last entry is a
     1.0 sentinel, logits stay float); in int8 mode the caller has folded
-    s_{l−1} into ``alpha1[l]``.  ``table`` is the prebuilt layer table."""
+    s_{l−1} into ``alpha1[l]``.  ``table`` is the prebuilt layer table
+    (it fixes the cluster size; ``CLUSTER`` when it is built here)."""
     if act_dtype not in ("float32", "int8"):
         raise ValueError(f"act_dtype {act_dtype!r}")
     if _device_of(x) == "cpu":
@@ -290,19 +410,42 @@ def fantastic4_fused_mlp(x, packed, omega, alpha1, bias, scale, *, shapes,
         table = tiled_layer_table(packed, omega, alpha1, bias, scale,
                                   shapes=shapes, activations=activations,
                                   act_dtype=act_dtype)
+    rows, db = tile_rows(block_m, x.shape[0], double_buffer)
+    return _cluster_launch("db" if db else "batch_tiled", x, table, shapes,
+                           rows)
+
+
+def _cluster_launch(kind: str, x: torch.Tensor, table: LayerTable, shapes,
+                    rows: int) -> torch.Tensor:
+    """One cluster of ``table.cluster`` CTAs per ``rows``-row tile; the
+    kernel refuses (and this raises) a configuration the card cannot hold."""
     m, k0 = x.shape
-    rows, halves = tile_rows(block_m, m, double_buffer)
-    d = stack_width(shapes)
-    if CORE_SMEM_BYTES + 8 * rows * d > SMEM_BUDGET_BYTES:
-        raise ValueError(f"block_m={block_m} needs more shared memory than "
-                         f"a block has (D={d})")
+    ldx = input_stride(shapes)
+    sb = table.slice_bytes
+    bars = {"ws": len(sb), "db": 2}.get(kind, 1)
+    region = sum(sb) if kind == "ws" else bars * max(sb)
+    smem = cluster_smem_bytes(len(sb), rows, ldx, region, bars)
+    if smem > SMEM_BUDGET_BYTES:
+        raise ValueError(f"{kind}: {rows}-row tile needs {smem} bytes of "
+                         f"shared memory, a block has {SMEM_BUDGET_BYTES}")
     xf = x.to(torch.float32).contiguous()
+    if xf.data_ptr() % 16:
+        xf = xf.clone()    # rows are read as float4
     y = torch.empty((m, shapes[-1][1]), dtype=torch.float32, device=x.device)
-    err = build.load().f4_fused_tiled(
-        xf.data_ptr(), m, k0, table.tensor.data_ptr(), table.n_layers, d,
-        rows, y.data_ptr(), build.stream_handle(x.device))
-    build.check(err, "fantastic4_fused_mlp kernel")
-    LAUNCHES["db" if halves == 2 else "batch_tiled"] += 1
+    lib = build.load()
+    args = (xf.data_ptr(), m, k0, table.tensor.data_ptr(), table.n_layers,
+            table.codes.data_ptr(), table.cluster, rows, ldx)
+    stream = build.stream_handle(x.device)
+    if kind == "ws":
+        err = lib.f4_fused_ws(*args, region, y.data_ptr(), stream)
+    else:
+        err = lib.f4_fused_tiled(*args, max(sb), int(kind == "db"),
+                                 y.data_ptr(), stream)
+    build.check(err, f"fantastic4 {kind} cluster kernel")
+    LAUNCHES[kind] += 1
+    LAST_LAUNCH[kind] = {"rows": m, "ctas": -(-m // rows) * table.cluster,
+                         "cluster": table.cluster, "rows_per_cluster": rows,
+                         "smem_bytes": smem}
     return y
 
 
@@ -382,31 +525,21 @@ def fantastic4_fused_mlp_stream_plain(x, packed_stack, omega_stack,
                           act_dtype=act_dtype)
 
 
-def _stacked_launch(kind: str, x, stacked, shapes, act_dtype, block_m,
-                    table: Optional[LayerTable]) -> torch.Tensor:
-    _check_x(x, shapes)
-    if table is None:
-        table = stacked_layer_table(*stacked, shapes=shapes)
+def _stream_launch(x, stacked, shapes, block_m,
+                   table: Optional[LayerTable]) -> torch.Tensor:
     m, k0 = x.shape
     d = stacked[0].shape[-1]
     dev = x.device
     xf = x.to(torch.float32).contiguous()
     y = torch.empty((m, shapes[-1][1]), dtype=torch.float32, device=dev)
     act = torch.empty(2 * m * d, dtype=torch.float32, device=dev)
-    lib = build.load()
-    if kind == "ws":
-        err = lib.f4_fused_ws(xf.data_ptr(), m, k0, table.tensor.data_ptr(),
-                              table.n_layers, d, act.data_ptr(), y.data_ptr(),
-                              build.stream_handle(dev))
-    else:
-        wdec = torch.empty(table.decoded_floats, dtype=torch.float32,
-                           device=dev)
-        err = lib.f4_fused_stream(xf.data_ptr(), m, k0,
-                                  table.tensor.data_ptr(), table.n_layers, d,
-                                  block_m, act.data_ptr(), wdec.data_ptr(),
-                                  y.data_ptr(), build.stream_handle(dev))
-    build.check(err, f"fantastic4_fused_mlp_{kind} kernel")
-    LAUNCHES[kind] += 1
+    wdec = torch.empty(table.decoded_floats, dtype=torch.float32, device=dev)
+    err = build.load().f4_fused_stream(
+        xf.data_ptr(), m, k0, table.tensor.data_ptr(), table.n_layers, d,
+        block_m, act.data_ptr(), wdec.data_ptr(), y.data_ptr(),
+        build.stream_handle(dev))
+    build.check(err, "fantastic4_fused_mlp_stream kernel")
+    LAUNCHES["stream"] += 1
     return y
 
 
@@ -415,13 +548,18 @@ def fantastic4_fused_mlp_ws(x, packed_stack, omega_stack, alpha1_stack,
                             act_dtype: str = "float32",
                             table: Optional[LayerTable] = None
                             ) -> torch.Tensor:
-    """Weight-stationary whole-stack serving from stacked operands."""
+    """Weight-stationary whole-stack serving from stacked operands, one
+    cluster per ``WS_TILE_ROWS`` rows (``table`` fixes the cluster size)."""
     stacked = (packed_stack, omega_stack, alpha1_stack, bias_stack,
                meta_stack)
     if _device_of(x) == "cpu":
         return fantastic4_fused_mlp_ws_plain(x, *stacked, shapes=shapes,
                                              act_dtype=act_dtype)
-    return _stacked_launch("ws", x, stacked, shapes, act_dtype, 0, table)
+    _check_x(x, shapes)
+    if table is None:
+        table = stacked_layer_table(*stacked, shapes=shapes)
+    return _cluster_launch("ws", x, table, shapes,
+                           max(1, min(x.shape[0], WS_TILE_ROWS)))
 
 
 def fantastic4_fused_mlp_stream(x, packed_stack, omega_stack, alpha1_stack,
@@ -438,5 +576,7 @@ def fantastic4_fused_mlp_stream(x, packed_stack, omega_stack, alpha1_stack,
                                                  act_dtype=act_dtype)
     if block_m < 1:
         raise ValueError(f"block_m must be >= 1, got {block_m}")
-    return _stacked_launch("stream", x, stacked, shapes, act_dtype, block_m,
-                           table)
+    _check_x(x, shapes)
+    if table is None:
+        table = stacked_layer_table(*stacked, shapes=shapes)
+    return _stream_launch(x, stacked, shapes, block_m, table)

@@ -61,14 +61,20 @@ def _close(got, want, int8):
         np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-4)
 
 
+STACKS = {"odd": (33, 40, 24, 10),
+          "gsc": (512, 512, 512, 256, 256, 128, 128, 12)}
+
+
 @pytest.mark.parametrize("act_dtype", ["float32", "int8"])
-@pytest.mark.parametrize("batch", [1, 20, 70])
-def test_kernels_match_plain(cuda_device, act_dtype, batch):
-    pack = _pack((33, 40, 24, 10), 6, cuda_device)
+@pytest.mark.parametrize("batch", [1, 3, 9, 17, 20, 33, 70, 255])
+@pytest.mark.parametrize("stack", sorted(STACKS))
+def test_kernels_match_plain(cuda_device, stack, act_dtype, batch):
+    dims = STACKS[stack]
+    pack = _pack(dims, 6, cuda_device)
     x = torch.from_numpy(np.random.default_rng(batch).normal(
-        size=(batch, 33)).astype(np.float32)).to(cuda_device)
+        size=(batch, dims[0])).astype(np.float32)).to(cuda_device)
     int8 = act_dtype == "int8"
-    scales = [0.05, 0.05] if int8 else None
+    scales = [0.05] * (len(dims) - 2) if int8 else None
     layers = pack["layers"]
     chain = ops.fantastic4_mlp_chain_int8(x, layers, scales) if int8 \
         else ops.fantastic4_mlp_chain(x, layers)
@@ -88,6 +94,28 @@ def test_kernels_match_plain(cuda_device, act_dtype, batch):
     torch.cuda.synchronize(cuda_device)
     assert ffm.LAUNCHES["ws"] == ffm.LAUNCHES["stream"] == 1
     assert ffm.LAUNCHES["batch_tiled"] + ffm.LAUNCHES["db"] == 2
+
+
+def test_refused_cluster_launch_raises(cuda_device):
+    """A cluster launch the card cannot hold returns its CUDA error (no
+    fallback), and the wrapper's check raises on it."""
+    from repro_torch.kernels import build
+
+    pack = _pack(STACKS["odd"], 6, cuda_device)
+    layers = pack["layers"]
+    table = ops._layer_table(layers, "float32", None, "tiled")
+    x = torch.zeros((4, 33), device=cuda_device)
+    y = torch.empty((4, 10), device=cuda_device)
+    lib = build.load()
+    stream = build.stream_handle(cuda_device)
+    for cluster, ldx in ((8, 8000), (32, 44)):   # too much smem; too many CTAs
+        err = lib.f4_fused_tiled(x.data_ptr(), 4, 33, table.tensor.data_ptr(),
+                                 table.n_layers, table.codes.data_ptr(),
+                                 cluster, 8, ldx, max(table.slice_bytes), 0,
+                                 y.data_ptr(), stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.check(err, "refused")
 
 
 def test_plan_and_batcher_on_the_card(cuda_device):

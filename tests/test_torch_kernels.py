@@ -174,24 +174,144 @@ def _shapes(dims):
     return tuple(zip(dims[:-1], dims[1:]))
 
 
-@pytest.mark.parametrize("dims,tile", [
-    (GSC, 32), ((512, 512, 256, 128, 12), 32), ((784, 300, 100, 10), 32),
-    ((33, 40, 24, 10), 256), ((8192, 64, 10), None)])
-def test_fits_express_shared_memory(dims, tile):
-    """The batch-tiled fit is the kernel's two rows x D activation buffers
-    plus the staging tiles, against the 232,448 bytes of a Hopper block;
-    ws/stream hold activations in global memory and always fit."""
+@pytest.mark.parametrize("dims,tile,ws", [
+    (GSC, 32, True), ((512, 512, 256, 128, 12), 32, True),
+    ((784, 300, 100, 10), 32, True), ((33, 40, 24, 10), 32, True),
+    ((8192, 64, 10), None, False)])
+def test_fits_express_shared_memory(dims, tile, ws):
+    """The cluster kernels' fits are their per-CTA shared memory -- the
+    mbarriers, a descriptor and a codebook per layer, two input buffers of
+    rows x input_stride fp32 and the code slices -- against the 232,448
+    bytes of a Hopper block; row tiles stop at the kernel's 32 rows; stream
+    holds
+    activations in global memory and always fits."""
     shapes = _shapes(dims)
     assert ffm.max_fused_block_m(shapes) == tile
-    d = ffm.stack_width(shapes)
+    ldx = ffm.input_stride(shapes)
+    sb = ffm.stack_slice_bytes(shapes)
+    n = len(shapes)
     assert ffm.fused_mlp_smem_bytes(shapes, 32) == \
-        ffm.CORE_SMEM_BYTES + 2 * 4 * 32 * d
-    assert ffm.ws_mlp_fits(shapes, rows=8)
+        32 + (80 + 64) * n + 2 * 4 * 32 * ldx + max(sb)
+    assert ffm.fused_mlp_smem_bytes(shapes, 32, double_buffer=True) == \
+        32 + (80 + 64) * n + 2 * 4 * 32 * ldx + 2 * max(sb)
+    assert ffm.ws_mlp_smem_bytes(shapes, rows=8) == (
+        -(-8 * (n + 2) // 16) * 16 + (80 + 64) * n + 2 * 4 * 8 * ldx
+        + sum(sb))
+    assert ffm.ws_mlp_fits(shapes, rows=8) == ws
     assert ffm.stream_mlp_fits(shapes, rows=256, block_m=8)
     for fits in (ffm.ws_mlp_fits(shapes, rows=8, smem_budget_bytes=1),
                  ffm.stream_mlp_fits(shapes, rows=8, smem_budget_bytes=1),
                  ffm.fused_mlp_fits(shapes, block_m=8, smem_budget_bytes=1)):
         assert not fits
+
+
+def _tables(stack, kind, cluster):
+    """A pack's LayerTable as the tiled or the ws (stacked) kernels get it,
+    built on the CPU, with each layer's (packed codes, K, N)."""
+    pack = pack_from_numpy(_np_pack(stack, seed=len(stack)), device="cpu")
+    layers = pack["layers"]
+    shapes = tuple(l["shape"] for l in layers)
+    cols = [tuple(l[k] for l in layers) for k in
+            ("packed", "omega", "alpha1", "bias", "alpha2")]
+    acts = tuple(l["activation"] for l in layers)
+    if kind == "tiled":
+        table = ffm.tiled_layer_table(*cols, shapes=shapes, activations=acts,
+                                      act_dtype="float32", cluster=cluster)
+        packs = [l["packed"] for l in layers]
+    else:
+        st = ffm.build_ws_operands(*cols, shapes=shapes, activations=acts)
+        assert st[0].shape[-1] == ffm.stack_width(shapes)   # ldp = D
+        table = ffm.stacked_layer_table(*st, shapes=shapes, cluster=cluster)
+        packs = list(st[0])
+    rows = table.tensor.numpy().view(ffm.DESC_DTYPE)
+    return table, shapes, packs, rows
+
+
+SLICE_STACKS = {"gsc": GSC, "odd": STACKS["odd"],
+                "odd-widths": (33, 41, 25, 9)}
+
+
+def _unslice(slices, k, n_end, cluster):
+    """The (k/2, cluster·W) packed codes a layer's slices hold, rank after
+    rank: each slice is (ceil(k/8), W, 4) bytes, four packed rows a word."""
+    w = ffm.slice_width(n_end, cluster)
+    q = -(-k // 8)
+    p = slices[:, :q * w * 4].reshape(cluster, q, w, 4)
+    return p.permute(1, 3, 0, 2).reshape(4 * q, cluster * w)[:k // 2]
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("kind", ["tiled", "stacked"])
+@pytest.mark.parametrize("stack", sorted(SLICE_STACKS))
+def test_code_slices_round_trip(stack, kind, cluster):
+    """Unpacking each (layer, rank) slice of the slice-major code copy and
+    concatenating the ranks gives back the pack's codes, zero past them."""
+    table, shapes, packs, rows = _tables(SLICE_STACKS[stack], kind, cluster)
+    codes = table.codes
+    assert codes.dtype == torch.uint8
+    assert table.cluster == cluster
+    for l, (k, n) in enumerate(ffm.padded_shapes(shapes)):
+        n = shapes[l][1]
+        sb, off = int(rows["slice_bytes"][l]), int(rows["slice_off"][l])
+        assert sb % 16 == 0 and off % 16 == 0
+        assert sb == ffm.stack_slice_bytes(shapes, cluster)[l]
+        assert rows["K"][l] == k
+        n_end = ffm.output_width(n, l == len(shapes) - 1)
+        got = _unslice(codes[off:off + cluster * sb].reshape(cluster, sb),
+                       k, n_end, cluster)
+        assert got.shape == (k // 2, cluster * ffm.slice_width(n_end, cluster))
+        assert torch.equal(got[:, :n], packs[l][:k // 2, :n])
+        assert not got[:, n:].any()
+    assert codes.numel() == sum(cluster * b for b in rows["slice_bytes"])
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("stack", sorted(SLICE_STACKS))
+def test_slices_cover_every_column_once(stack, cluster):
+    """The ranks' column ranges cover each layer's output columns -- the
+    even pad included, nothing past it -- exactly once."""
+    shapes = _shapes(SLICE_STACKS[stack])
+    for l, (_, n) in enumerate(shapes):
+        last = l == len(shapes) - 1
+        n_end = ffm.output_width(n, last)
+        assert n_end == (n if last else n + n % 2)
+        w = ffm.slice_width(n_end, cluster)
+        seen = np.zeros(n_end, int)
+        for rank in range(cluster):
+            c0 = rank * w
+            seen[c0:min(c0 + w, n_end)] += 1
+        np.testing.assert_array_equal(seen, 1)
+        assert (w - 1) * cluster < n_end <= w * cluster
+
+
+@pytest.mark.parametrize("kind", ["tiled", "stacked"])
+@pytest.mark.parametrize("stack", sorted(SLICE_STACKS))
+def test_fits_equal_the_layout(stack, kind):
+    """The fits state the bytes the built layout implies: per CTA, the
+    largest layer slice (batch_tiled), two of them (db) or every layer's
+    (ws), plus the input buffers, descriptors, codebooks and mbarriers."""
+    table, shapes, _, rows = _tables(SLICE_STACKS[stack], kind, ffm.CLUSTER)
+    sb = [int(b) for b in rows["slice_bytes"]]
+    n = len(sb)
+    per_rank = table.codes.numel() // ffm.CLUSTER
+    assert per_rank == sum(sb)
+    ldx = ffm.input_stride(shapes)
+    assert ldx % 4 == 0 and (ldx // 4) % 2 == 1
+    assert ldx >= max(k for k, _ in ffm.padded_shapes(shapes))
+    inputs = 2 * 4 * ldx
+    assert ffm.ws_mlp_smem_bytes(shapes, rows=8) == \
+        -(-8 * (n + 2) // 16) * 16 + (80 + 64) * n + 8 * inputs + per_rank
+    assert ffm.ws_mlp_smem_bytes(shapes, rows=3) == \
+        ffm.ws_mlp_smem_bytes(shapes, rows=8) - 5 * inputs
+    assert ffm.ws_mlp_smem_bytes(shapes, rows=256) == \
+        ffm.ws_mlp_smem_bytes(shapes, rows=8)
+    for bm, db, want_db in ((32, False, False), (32, True, True),
+                            (8, True, False), (64, False, False)):
+        rows_t, got_db = ffm.tile_rows(bm, double_buffer=db)
+        assert rows_t == min(bm, ffm.MAX_TILE_ROWS) and got_db == want_db
+        assert ffm.fused_mlp_smem_bytes(shapes, bm, double_buffer=db) == (
+            32 + (80 + 64) * n + rows_t * inputs
+            + (2 if want_db else 1) * max(sb))
 
 
 @pytest.mark.parametrize("sched", SCHEDULES)
@@ -226,6 +346,12 @@ def test_layer_table_layout():
     assert rows["packed"][1] == layers[1]["packed"].data_ptr()
     np.testing.assert_array_equal(rows["omega"][2],
                                   layers[2]["omega"].numpy())
+    # the cluster kernels' code slices, layer after layer
+    sb = ffm.stack_slice_bytes(tuple(l["shape"] for l in layers))
+    np.testing.assert_array_equal(rows["slice_bytes"], sb)
+    np.testing.assert_array_equal(rows["slice_off"],
+                                  [0, 8 * sb[0], 8 * (sb[0] + sb[1])])
+    assert table.codes.numel() == 8 * sum(sb) and table.cluster == 8
 
 
 def test_unsupported_device_raises():
