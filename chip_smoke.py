@@ -10,8 +10,11 @@ Phases (any failure raises and the script exits non-zero):
    TF32 off.
 2. Hold every kernel against its plain PyTorch version on the card: the
    MLP-GSC stack and a small odd-K stack, batches 1/3/8/9/17/33/64/255/256
-   (ragged row tiles and clusters), fp32 and int8, through kernel 1 (the
-   per-layer chain) and every fused schedule.
+   (ragged row tiles and clusters), and a stack with an 8192-wide input
+   at batches 1/8/32 (the chain stages K in chunks there, stream takes
+   fewer rows a tile, the cluster schedules fall back to the chain), fp32
+   and int8, through kernel 1 (the per-layer chain) and every fused
+   schedule.
    Gates: fp32 ``atol=1e-3, rtol=1e-4``; int8 relative max-abs error
    ``< 5e-3``; and the port's own int8 outputs bitwise equal across the
    chain, batch_tiled, db, ws and stream.  Kernel 5 (ecl_quant) at every
@@ -36,19 +39,24 @@ Phases (any failure raises and the script exits non-zero):
 4. Time each kernel, its plain version and a library yardstick
    (``torch.matmul`` on pre-decoded fp32 weights plus the epilogue) at the
    main-path shapes, with CUDA events around back-to-back calls (``ms``:
-   the wrapper's host work included when it is the slower side), and the
-   device time from a torch.profiler trace: the kernel's own
-   (``device_ms``; a kernel missing from the trace fails the run) and the
-   sum of every kernel the yardstick launches (``library_device_ms``).  The
+   the wrapper's host work included when it is the slower side; the least
+   of TIME_REPEATS blocks of calls, as the host is shared), with the
+   calls queued behind a spin kernel so the host is out of the way
+   (``queued_ms``, ``library_queued_ms``: the device's time per call,
+   launch gaps included), and the device time from a torch.profiler
+   trace: the kernel's own (``device_ms``, summed over the chain's seven
+   launches; a kernel missing from the trace fails the run) and the sum of
+   every kernel the yardstick launches (``library_device_ms``).  The
    cluster schedules (batch_tiled, db, ws) are also timed at 16 CTAs per
    cluster after an equality check against the default 8.  ecl_quant at
    every MLP-GSC layer shape (no single PyTorch call computes it, so no
    library time), and the train step at batch 128 with its device-time
-   breakdown.  Print one ``grid`` JSON line (CTAs, cluster size and
-   dynamic shared memory of each cluster launch at each timed batch, and
-   the dependent-FMA floor), one ``kernels``, one ``path`` and one
-   ``train`` JSON line, then the ``nvidia-smi`` line and the final
-   ``{"ok": true, ...}`` line.
+   breakdown.  Print one ``grid`` JSON line (CTAs and shared memory of
+   each launch at each timed batch -- the cluster size of the cluster
+   kernels, PDL on or off for each of the chain's seven, the cooperative
+   grid of stream -- and the dependent-FMA floor), one ``kernels``, one
+   ``path`` and one ``train`` JSON line, then the ``nvidia-smi`` line and
+   the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -68,10 +76,15 @@ CHECK_BATCHES = (1, 3, 8, 9, 17, 33, 64, 255, 256)   # gated: ragged tiles
 CLUSTER_SCHEDULES = ("batch_tiled", "db", "ws")
 WIDE_CLUSTER = 16                          # non-portable size, timed beside 8
 FMA_LATENCY = 4                            # cycles of a dependent FFMA (Hopper)
+SPIN_CYCLES = 200_000_000                  # ~0.1 s: the host enqueues meanwhile
+TRACE_TRIES = 3
 PEAK_FP32_FLOPS = 67e12                    # H100 SXM, CUDA cores, dense
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3
 GSC_DIMS = (512, 512, 512, 256, 256, 128, 128, 12)
 ODD_DIMS = (33, 40, 24, 10)
+WIDE_DIMS = (8192, 64, 10)                 # K past a block's shared memory
+WIDE_BATCHES = (1, 8, 32)
+TIME_REPEATS = 3
 GSC_LAYERS = tuple(zip(GSC_DIMS[:-1], GSC_DIMS[1:]))
 ECL_SHAPES = tuple(dict.fromkeys(GSC_LAYERS)) + ((37, 129), (1, 5))
 ECL_LAMS = (0.0, 0.02, 0.3)
@@ -225,9 +238,11 @@ def check_kernels(dev):
 
     max_err = {name: 0.0 for name in KERNELS}
     max_rel8 = {name: 0.0 for name in KERNELS}
-    for dims, seed in ((GSC_DIMS, 11), (ODD_DIMS, 12)):
+    for dims, seed, batches in ((GSC_DIMS, 11, CHECK_BATCHES),
+                                (ODD_DIMS, 12, CHECK_BATCHES),
+                                (WIDE_DIMS, 13, WIDE_BATCHES)):
         pack = rand_pack(dims, seed, dev)
-        for batch in CHECK_BATCHES:
+        for batch in batches:
             x = torch.from_numpy(np.random.default_rng(seed + batch).normal(
                 size=(batch, dims[0])).astype(np.float32)).to(dev)
             scales = calibrate_act_scales(pack, x)["act_scales"]
@@ -278,7 +293,7 @@ def main_path(dev):
     from repro_torch.kernels import fantastic4_matmul as fm
     from repro_torch.models import mlp as M
     from repro_torch.serving.batcher import MicroBatcher
-    from repro_torch.serving.plans import ExecutionPlan
+    from repro_torch.serving.plans import STREAM_BLOCK_M, ExecutionPlan
 
     cfg = MLPS["mlp-gsc"]
     params, bn = M.mlp_init(cfg, seed=0, device=dev)
@@ -293,8 +308,11 @@ def main_path(dev):
                                    device=dev),
         "per_layer": ExecutionPlan(pack, mode="per_layer", device=dev),
         "db": ExecutionPlan(pack, double_buffer=True, device=dev),
-        "stream": ExecutionPlan(pack, device=dev,
-                                smem_budget_bytes=ffm.CORE_SMEM_BYTES + 1024),
+        # a budget that holds the stream kernel's CTA and neither the
+        # batch_tiled nor the ws kernel's
+        "stream": ExecutionPlan(pack, device=dev, smem_budget_bytes=(
+            ffm.stream_mlp_smem_bytes(GSC_LAYERS, rows=256,
+                                      block_m=STREAM_BLOCK_M) + 1024)),
     }
     for p in plans.values():
         p.warmup()
@@ -451,15 +469,47 @@ def train_path(dev):
 
 
 def _time_ms(fn, dev, iters):
+    """ms per call over back-to-back calls: the least of TIME_REPEATS
+    blocks of ``iters`` calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize(dev)
+    best = float("inf")
+    for _ in range(TIME_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def _queued_ms(fn, dev, iters):
+    """Device ms per call with every launch queued ahead: a spin kernel
+    holds the stream while the host enqueues the calls, so the time between
+    the two events is the device's alone (launch gaps on the device
+    included, host work not).  Raises if the spin ended before the host had
+    enqueued everything."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize(dev)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    spin_done = torch.cuda.Event()
+    torch.cuda._sleep(SPIN_CYCLES)
+    spin_done.record()
     start.record()
     for _ in range(iters):
         fn()
+    # the spin must still hold the stream once every call is queued, or
+    # host gaps would fall between the events
+    if spin_done.query():
+        raise AssertionError("the host fell behind the queued launches")
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / iters
@@ -490,23 +540,31 @@ def _is_kernel(evt):
 
 def _device_ms(fn, dev, iters, symbol):
     """Device time per call of the CUDA function ``symbol``, summed from a
-    torch.profiler trace; raises when the trace has no such kernel."""
-    total_us = sum(_kernel_us(e) for e in _trace(fn, dev, iters)
-                   if _is_kernel(e) and symbol in e.key)
-    if total_us <= 0:
-        raise AssertionError(f"no device time for kernel {symbol!r} in the "
-                             "trace")
-    return total_us / 1e3 / iters
+    torch.profiler trace.  A trace now and then comes back with no device
+    events at all; such a trace is taken again, up to TRACE_TRIES times,
+    and the run fails when none has the kernel."""
+    for _ in range(TRACE_TRIES):
+        evts = _trace(fn, dev, iters)
+        total_us = sum(_kernel_us(e) for e in evts
+                       if _is_kernel(e) and symbol in e.key)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+        seen = sorted({e.key[:80] for e in evts if _is_kernel(e)})
+        print(f"trace without {symbol!r}; its kernels: {seen}",
+              file=sys.stderr)
+    raise AssertionError(f"no device time for kernel {symbol!r} in "
+                         f"{TRACE_TRIES} traces")
 
 
 def _all_device_ms(fn, dev, iters):
     """Device time per call of every kernel ``fn`` launches (the library
     yardstick's many small kernels), from a torch.profiler trace."""
-    total_us = sum(_kernel_us(e) for e in _trace(fn, dev, iters)
-                   if _is_kernel(e))
-    if total_us <= 0:
-        raise AssertionError("the trace shows no device time")
-    return total_us / 1e3 / iters
+    for _ in range(TRACE_TRIES):
+        total_us = sum(_kernel_us(e) for e in _trace(fn, dev, iters)
+                       if _is_kernel(e))
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    raise AssertionError(f"no device time in {TRACE_TRIES} traces")
 
 
 def bound(batch, dims):
@@ -543,6 +601,8 @@ def timings(dev):
             x = x * l["alpha2"]
         return x
 
+    from repro_torch.kernels import fantastic4_matmul as fm
+
     out = {name: {} for name in KERNELS}
     grid = []
     for batch in BATCHES:
@@ -557,9 +617,26 @@ def timings(dev):
                 "ms": _time_ms(lambda: s.kernel(name, x), dev, iters),
                 "device_ms": _device_ms(lambda: s.kernel(name, x), dev, 10,
                                         SYMBOLS[sched]),
+                "queued_ms": _queued_ms(lambda: s.kernel(name, x), dev, 20),
                 "plain_ms": _time_ms(lambda: s.plain(name, x), dev, iters),
                 "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                "library_queued_ms": _queued_ms(lambda: library(x), dev, 20),
                 "bound_ms": b_ms, "bound_by": b_by}
+            if sched == "chain":
+                fm.LAST_LAUNCHES = []
+                try:
+                    s.kernel(name, x)
+                    grid.append({"schedule": sched, "batch": batch,
+                                 "kernel": SYMBOLS[sched],
+                                 "launches": fm.LAST_LAUNCHES})
+                finally:
+                    fm.LAST_LAUNCHES = None
+            elif sched == "stream":
+                ffm.LAST_LAUNCH.clear()
+                s.kernel(name, x)
+                grid.append({"schedule": sched, "batch": batch,
+                             "kernel": SYMBOLS[sched],
+                             **ffm.LAST_LAUNCH["stream"]})
             if sched in CLUSTER_SCHEDULES:
                 row["device_ms_cluster16"], launch16 = _wide_cluster(
                     s, name, x, dev)

@@ -8,8 +8,8 @@
 //   1. waits for its code slice (K_l/2 x W_l bytes, copied from L2 into its
 //      own shared memory by one cp.async.bulk completing on an mbarrier),
 //   2. runs one fp32 accumulator per output from 0.f with __fmaf_rn over
-//      ascending k -- the chain's order (layer_pass) term for term -- reading
-//      the layer input from its own shared memory only,
+//      ascending k (slice_pass, which the chain and stream kernels run too)
+//      reading the layer input from its own shared memory only,
 //   3. writes its outputs into its own input buffer for the next layer and
 //      sends the same columns into every peer's buffer through distributed
 //      shared memory with st.async, each store counted on the receiving
@@ -26,10 +26,10 @@
 // buffer b only after it has received this CTA's outputs of the layer that
 // read b, so two buffers are enough.
 //
-// Code slices are laid out on the host (kernels/fantastic4_fused_mlp.py,
-// code_slices) as (ceil(K/8), W, 4) bytes: one 32-bit word holds the four
-// packed rows 4q..4q+3 of one column, so a warp reads 32 consecutive words
-// and decodes 8 weights of its column through the 16-entry codebook.
+// Code slices are laid out on the host (kernels/slices.py, code_slices) as
+// (ceil(K/8), W, 4) bytes: one 32-bit word holds the four packed rows
+// 4q..4q+3 of one column, so a warp reads 32 consecutive words and decodes
+// 8 weights of its column through the 16-entry codebook.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -164,19 +164,24 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Columns of layer l owned by one rank: W (the slice width) and how many
-// of them exist (the last ranks of a narrow layer may own none).
+// The columns of slice s of a layer that writes n_end columns: W (the
+// slice width, d.slice_w) and how many of them exist (the last slices of a
+// narrow layer may own none).
 struct Cols {
   int w, c0, cnt, n_end;
 };
-__device__ __forceinline__ Cols cols_of(const LayerDesc& d, bool last,
-                                        int rank, int C) {
+__device__ __forceinline__ Cols slice_cols(const LayerDesc& d, int n_end,
+                                           int s) {
   Cols c;
-  c.n_end = last ? d.N : d.N + (d.N & 1);
-  c.w = (c.n_end + C - 1) / C;
-  c.c0 = rank * c.w;
-  c.cnt = max(0, min(c.w, c.n_end - c.c0));
+  c.n_end = n_end;
+  c.w = d.slice_w;
+  c.c0 = s * c.w;
+  c.cnt = max(0, min(c.w, n_end - c.c0));
   return c;
+}
+// A layer writes its even-padded width; the last layer its true width.
+__device__ __forceinline__ int out_cols(const LayerDesc& d, bool last) {
+  return last ? d.N : d.N + (d.N & 1);
 }
 
 // Explicit shared-memory loads of the layer input: through a pointer the
@@ -201,21 +206,27 @@ __device__ __forceinline__ void decode8(uint32_t word, const float* book,
 }
 
 // One layer's slice: rows [0, nr) of `xin` (ldx stride, K valid columns)
-// times this rank's columns.  Threads form G row groups x (Wp / CPT)
-// lanes; each thread runs RPT x CPT accumulators: the rows ty, ty + G, ...
-// that exist, times the columns tx, tx + Wp / CPT, ...  CPT = 2 halves the
-// input reads per FMA when a tile has many rows.  The loop is
-// software-pipelined: while the FMAs of packed group q run, the weights of
-// q + 1 are looked up and the code words of q + 2 are loaded, so a 1-row
-// pass runs near the FMA chain's latency, not the shared-memory loads'.
-template <int RPT, int CPT>
+// times one slice's columns, on a CTA of NTH threads.  Threads form G row
+// groups x (Wp / CPT) lanes; each thread runs RPT x CPT accumulators: the
+// rows ty, ty + G, ... that exist, times the columns tx, tx + Wp / CPT,
+// ...  CPT = 2 halves the input reads per FMA when a tile has many rows.
+// The loop is software-pipelined: while the FMAs of packed group q run,
+// the weights of q + 1 are looked up and the code words of q + 2 are
+// loaded, so a 1-row pass runs near the FMA chain's latency, not the
+// shared-memory loads'.
+// A pass may cover one chunk of K (d.K rows of the input and the codes):
+// `resume` starts each sum from the partial the previous chunk's pass left
+// in `out` (the same thread wrote it), and without `finish` the pass
+// leaves its sums there instead of applying the epilogue -- one fp32 sum
+// per output over ascending k all the same.
+template <int RPT, int CPT, int NTH>
 __device__ __forceinline__ void slice_pass(
     const float* xin, int ldx, const uint32_t* codes, const float* book,
     const LayerDesc& d, const Cols& cs, int wp, int nr, float* out,
-    int out_ld) {
+    int out_ld, bool resume, bool finish) {
   const int lanes = wp / CPT;
   const int tid = threadIdx.x, tx = tid % lanes, ty = tid / lanes;
-  const int g = NT / lanes;
+  const int g = NTH / lanes;
   if (ty >= nr) return;
   const int K = d.K, q_full = K / 8, rem_pairs = (K / 2) % 4;
   const int n_words = q_full + (rem_pairs ? 1 : 0);
@@ -247,7 +258,11 @@ __device__ __forceinline__ void slice_pass(
 #pragma unroll
     for (int j = 0; j < RPT; ++j)
 #pragma unroll
-      for (int m = 0; m < CPT; ++m) acc[j][m] = 0.f;
+      for (int m = 0; m < CPT; ++m) {
+        const int r = ty + g * j, gc = cs.c0 + col[m];
+        acc[j][m] = resume && live[m] && r < nr
+                        ? out[(size_t)r * out_ld + gc] : 0.f;
+      }
     float w[CPT][8], wn[CPT][8];
     uint32_t word_n[CPT];
 #pragma unroll
@@ -321,7 +336,9 @@ __device__ __forceinline__ void slice_pass(
         const int r = ty + g * j;
         if (r < nr) {
           float v = 0.f;       // the even pad column stays 0
-          if (gc < d.N)
+          if (!finish)
+            v = acc[j][m];
+          else if (gc < d.N)
             v = f4::epilogue(acc[j][m], a1[m], b1[m], d.act, d.scale,
                              d.quant);
           out[(size_t)r * out_ld + gc] = v;
@@ -331,22 +348,29 @@ __device__ __forceinline__ void slice_pass(
   }
 }
 
+template <int NTH = NT>
 __device__ __forceinline__ void run_slice(
     const float* xin, int ldx, const uint32_t* codes, const float* book,
-    const LayerDesc& d, const Cols& cs, int nr, float* out, int out_ld) {
+    const LayerDesc& d, const Cols& cs, int nr, float* out, int out_ld,
+    bool resume = false, bool finish = true) {
   // thread columns: the slice width rounded up to a power of two, <= 64
   int wp = 1;
   while (wp < cs.w && wp < MAX_WP) wp *= 2;
-  // accumulators for the rows that exist, one column per thread
-  const int need = (nr + NT / wp - 1) / (NT / wp);
+  // accumulators for the rows that exist, one column per thread; a tile
+  // holds at most MAX_TILE_ROWS rows
+  const int need = (nr + NTH / wp - 1) / (NTH / wp);
   if (need <= 1)
-    slice_pass<1, 1>(xin, ldx, codes, book, d, cs, wp, nr, out, out_ld);
+    slice_pass<1, 1, NTH>(xin, ldx, codes, book, d, cs, wp, nr, out, out_ld,
+                          resume, finish);
   else if (need <= 2)
-    slice_pass<2, 1>(xin, ldx, codes, book, d, cs, wp, nr, out, out_ld);
+    slice_pass<2, 1, NTH>(xin, ldx, codes, book, d, cs, wp, nr, out, out_ld,
+                          resume, finish);
   else if (need <= 4)
-    slice_pass<4, 1>(xin, ldx, codes, book, d, cs, wp, nr, out, out_ld);
+    slice_pass<4, 1, NTH>(xin, ldx, codes, book, d, cs, wp, nr, out, out_ld,
+                          resume, finish);
   else   // 8 rows per thread: two columns of four instead
-    slice_pass<4, 2>(xin, ldx, codes, book, d, cs, wp, nr, out, out_ld);
+    slice_pass<4, 2, NTH>(xin, ldx, codes, book, d, cs, wp, nr, out, out_ld,
+                          resume, finish);
 }
 
 // Send this rank's columns of rows [0, nr) of `buf` to the same place in
@@ -473,7 +497,7 @@ __device__ __forceinline__ void run_stack(const StackArgs& a) {
   for (int l = 0; l < a.L; ++l) {
     const LayerDesc& d = descs[l];
     const bool last = l == a.L - 1;
-    const Cols cs = cols_of(d, last, rank, C);
+    const Cols cs = slice_cols(d, out_cols(d, last), rank);
     if (l >= 1) mbar_wait(inbar + (l & 1), ((l - 1) >> 1) & 1);
     // arm the next input buffer: the bytes the peers will send into it
     if (!last && tid == 0)

@@ -42,14 +42,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # x, packed, omega, alpha1, bias, scale_dev, scale, quant, act, M, K, N, y, stream
-    "f4_matmul": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P],
+    # x, codes, omega, alpha1, bias, scale_dev, scale, quant, act, M, K, N,
+    # n_slices, slice_w, slice_bytes, rows, ldx, kc, chunk_bytes, pdl, y,
+    # stream
+    "f4_matmul": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _I, _I, _I, _I, _P, _P],
     # x, M, K0, layers, L, codes, cluster, rows, ldx, slice_max, db, y, stream
     "f4_fused_tiled": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
     # x, M, K0, layers, L, codes, cluster, rows, ldx, code_bytes, y, stream
     "f4_fused_ws": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
-    # x, M, K0, layers, L, dmax, block_m, act, wdec, y, stream
-    "f4_fused_stream": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    # x, M, K0, layers, L, codes, rows, ldx, lda, code_region, want, act,
+    # arrived, y, ctas (int*), stream
+    "f4_fused_stream": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                        _P, ctypes.POINTER(_I), _P],
     # w, omega, penalty, n, codes, w_hat, stream
     "f4_ecl_quant": [_P, _P, _P, _I, _P, _P, _P],
 }

@@ -22,27 +22,30 @@ megakernel of the JAX package's ``kernels/fantastic4_fused_mlp.py``:
   byte is read from L2 once per cluster per inference.  Bound: the FMA
   chain and the L − 1 hand-offs of a layer's output between the CTAs.
 * **stream** (``stream_kernel``) replaces
-  ``fantastic4_fused_mlp_stream_pallas`` (``_stream_kernel``).  Every layer
-  is decoded once per batch into an fp32 scratch in global memory by all
-  CTAs, one grid sync, then each CTA walks its ``block_m``-row tiles
-  through the stack reading decoded weights from L2.  The TPU version
-  rewrote its whole-batch activation in place and relied on step (l, 0)
-  decoding before tiles i > 0; here a tile's rows belong to one CTA and
-  ping-pong between two global buffers.  Bound: L2 traffic of the decoded
-  fp32 weights at large batch.
+  ``fantastic4_fused_mlp_stream_pallas`` (``_stream_kernel``): layers
+  outer, the whole batch per layer, as the TPU kernel, in one cooperative
+  launch of at most the co-resident CTAs.  Per layer each CTA takes a
+  (column slice of ≤ ``SLICE_COLS`` = 16 columns, group of ``block_m``-row
+  tiles) work item, copies the slice's codes into shared memory once and
+  serves each of its tiles from that copy: each code byte is read from L2
+  once per CTA per layer, the GPU form of "decoded once per batch".
+  Activations ping-pong between two global buffers that stay in L2, with
+  one grid barrier per layer boundary.  Bound: the FFMA chain and the
+  L − 1 barriers at a few rows, instruction issue at many (an 8-row tile
+  gives each thread one output, so a decoded weight feeds one FFMA).
 
 Every kernel computes each output as one accumulator from 0 over
-ascending k with the same codebook and epilogue as kernel 1 (stream through
-the shared ``layer_pass``), so the port's int8 outputs are bitwise equal
-across schedules and the chain.
+ascending k with the same codebook and epilogue as kernel 1 (the shared
+``slice_pass``), so the port's int8 outputs are bitwise equal across
+schedules and the chain.
 
-Code slices.  The cluster kernels read codes from a slice-major device copy
-built once per pack (``LayerTable.codes``): for layer l and rank r, the
-packed columns ``[r·W_l, (r+1)·W_l)`` with ``W_l = ceil(n_l / CLUSTER)``
-(``n_l`` the even-padded width, the last layer's true width), laid out as
-``(ceil(K_l/8), W_l, 4)`` bytes — one 32-bit word per column holds four
-packed rows — zero-filled past the pack and padded to 16 bytes, so one
-bulk copy fetches a slice whatever the pack's row stride.
+Code slices.  The kernels read codes from a slice-major device copy built
+once per pack (``LayerTable.codes``, layout in ``kernels/slices.py``): for
+the cluster kernels one slice per rank of the cluster, the packed columns
+``[r·W_l, (r+1)·W_l)`` with ``W_l = ceil(n_l / CLUSTER)`` (``n_l`` the
+even-padded width, the last layer's true width); for stream slices of at
+most ``SLICE_COLS`` columns.  One bulk copy fetches a slice whatever the
+pack's row stride.
 
 Fits.  The TPU budget (12 MiB VMEM, 128-wide padding) does not carry over.
 These fits state the CUDA kernels' own shared memory per CTA against the
@@ -52,8 +55,11 @@ two input buffers of rows × ``input_stride`` fp32 (int8 activations are
 held as exact fp32 values), and the code slices: one layer's for
 batch_tiled, two for db, the whole stack's for ws
 (``cluster_smem_bytes``).  stream keeps activations in
-global memory and needs only the core's staging tiles
-(``CORE_SMEM_BYTES``), so its need does not grow with width or batch.
+global memory and needs one row tile of ``input_stride`` fp32 (``block_m``
+rows, fewer where the budget holds fewer: a wide input), two buffers of
+its largest code slice, the layer table and one codebook
+(``stream_mlp_smem_bytes``): below the batch_tiled and ws needs for the
+paper MLPs, so a budget can bind stream alone.
 ``smem_budget_bytes=1`` fits nothing and forces the per-layer chain.  Dims
 are padded to even (``DIM_ALIGN = 2``): the odd-K pack carries one zero
 code row, and padded epilogue columns carry α₁ = b = 0, so they stay 0
@@ -61,11 +67,12 @@ through relu and int8.
 
 Every wrapper launches its kernel for a CUDA tensor (or raises) and takes
 the plain PyTorch version beside it for a CPU tensor.  ``LAUNCHES`` counts
-kernel launches per schedule; ``LAST_LAUNCH`` keeps each cluster
-schedule's last launch shape (CTAs, cluster size, dynamic shared memory).
+kernel launches per schedule; ``LAST_LAUNCH`` keeps each schedule's last
+launch shape (CTAs, cluster size or cooperative, dynamic shared memory).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Sequence, Tuple
 
@@ -73,16 +80,14 @@ import numpy as np
 import torch
 
 from . import build, ref
-from .fantastic4_matmul import fantastic4_matmul_plain
+from .fantastic4_matmul import (MAX_TILE_ROWS, SMEM_BUDGET_BYTES,
+                                 fantastic4_matmul_plain, tile_stride)
+from .slices import (SLICE_COLS, code_slices, round_up, slice_bytes,
+                     slice_count, slice_width)
 
-SMEM_BUDGET_BYTES = 232448
-# layer_pass staging: xs (32 x 32) + decoded W tile (32 x 64) + codebook, fp32
-CORE_SMEM_BYTES = 4 * (32 * 32 + 32 * 64 + 16)
 DIM_ALIGN = 2
 CLUSTER = 8            # CTAs per cluster: the portable cluster size
-MAX_TILE_ROWS = 32     # rows per batch_tiled/db cluster (the kernel's row tile)
 WS_TILE_ROWS = 8       # rows per ws cluster
-SLICE_ALIGN = 16       # bulk copies move multiples of 16 bytes
 DESC_BYTES = 80        # one f4::LayerDesc
 
 LAUNCHES = {"batch_tiled": 0, "db": 0, "ws": 0, "stream": 0}
@@ -94,13 +99,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _round_up(v: int, mult: int) -> int:
-    return -(-max(v, 1) // mult) * mult
-
-
 def padded_shapes(shapes: Sequence[Tuple[int, int]]
                   ) -> Tuple[Tuple[int, int], ...]:
-    return tuple((_round_up(k, DIM_ALIGN), _round_up(n, DIM_ALIGN))
+    return tuple((round_up(k, DIM_ALIGN), round_up(n, DIM_ALIGN))
                  for k, n in shapes)
 
 
@@ -115,21 +116,21 @@ def stack_width(shapes: Sequence[Tuple[int, int]]) -> int:
 def output_width(n: int, last: bool) -> int:
     """Columns a layer writes: the even-padded width, the last layer's
     true width."""
-    return n if last else _round_up(n, DIM_ALIGN)
-
-
-def slice_width(n_end: int, cluster: int = CLUSTER) -> int:
-    return -(-n_end // cluster)
-
-
-def slice_bytes(k: int, n_end: int, cluster: int = CLUSTER) -> int:
-    """Bytes of one rank's slice of a layer with K = k (even) rows."""
-    return _round_up(-(-k // 8) * slice_width(n_end, cluster) * 4,
-                     SLICE_ALIGN)
+    return n if last else round_up(n, DIM_ALIGN)
 
 
 def stack_slice_bytes(shapes, cluster: int = CLUSTER) -> Tuple[int, ...]:
+    """Bytes of one slice per layer: one rank's of a ``cluster``-CTA
+    cluster, or with ``cluster=0`` a stream slice of ≤ ``SLICE_COLS``
+    columns."""
     return _stack_layout(_shape_key(shapes), cluster)[1]
+
+
+def layer_slices(n_end: int, cluster: int) -> int:
+    """Slices a layer is cut into: one per rank of a ``cluster``-CTA
+    cluster, or (``cluster=0``) stream slices of at most ``SLICE_COLS``
+    columns."""
+    return cluster if cluster else slice_count(n_end, SLICE_COLS)
 
 
 def _shape_key(shapes) -> Tuple[Tuple[int, int], ...]:
@@ -142,34 +143,20 @@ def _stack_layout(shapes: Tuple[Tuple[int, int], ...], cluster: int
     """(input_stride, slice bytes per layer) of a stack, worked out once:
     the fits run on every served batch."""
     ps = padded_shapes(shapes)
-    ld = _round_up(max(kp for kp, _ in ps), 4)
-    ld = ld + 4 if (ld // 4) % 2 == 0 else ld
+    ld = tile_stride(max(kp for kp, _ in ps))
     n = len(shapes)
-    return ld, tuple(slice_bytes(kp, output_width(shapes[l][1], l == n - 1),
-                                 cluster)
-                     for l, (kp, _) in enumerate(ps))
-
-
-def code_slices(packed: torch.Tensor, k: int, n: int, n_end: int,
-                cluster: int = CLUSTER) -> torch.Tensor:
-    """(cluster, slice_bytes) uint8: rank r's slice of the (k/2, >= n)
-    row-pair packed codes, columns [r·W, (r+1)·W) laid out (ceil(k/8), W, 4)
-    and zero past the pack."""
-    w = slice_width(n_end, cluster)
-    q = -(-k // 8)
-    p = packed[:k // 2, :n]
-    p = torch.nn.functional.pad(p, (0, cluster * w - n, 0, 4 * q - k // 2))
-    p = p.reshape(q, 4, cluster, w).permute(2, 0, 3, 1).reshape(cluster, -1)
-    return torch.nn.functional.pad(
-        p, (0, slice_bytes(k, n_end, cluster) - p.shape[1])).contiguous()
+    ends = [output_width(shapes[l][1], l == n - 1) for l in range(n)]
+    return ld, tuple(slice_bytes(kp, e, layer_slices(e, cluster))
+                     for (kp, _), e in zip(ps, ends))
 
 
 # ------------------------------------------------------------------- fits
 
 def input_stride(shapes) -> int:
-    """Row stride (floats) of the cluster kernels' input buffers: the
-    widest layer input, a multiple of 4 (float4 reads) whose quarter is odd
-    (rows fall on different shared-memory banks)."""
+    """Row stride (floats) of the cluster kernels' input buffers and of
+    the stream kernel's row tile: the widest layer input, a multiple of 4
+    (float4 reads) whose quarter is odd (rows fall on different
+    shared-memory banks)."""
     return _stack_layout(_shape_key(shapes), CLUSTER)[0]
 
 
@@ -178,7 +165,7 @@ def cluster_smem_bytes(n_layers: int, rows: int, ldx: int, code_region: int,
     """Dynamic shared memory of one cluster CTA, as
     ``csrc/fantastic4_cluster.cuh::smem_bytes`` lays it out: ``barriers``
     for the code slices plus two for the input buffers."""
-    return (_round_up(8 * (barriers + 2), 16) + (DESC_BYTES + 64) * n_layers
+    return (round_up(8 * (barriers + 2), 16) + (DESC_BYTES + 64) * n_layers
             + 8 * rows * ldx + code_region)
 
 
@@ -189,7 +176,7 @@ def tile_rows(block_m: int, rows: Optional[int] = None,
     batch, in multiples of 8); db needs a tile of ≥ 16 rows."""
     bm = min(block_m, MAX_TILE_ROWS)
     if rows is not None:
-        bm = min(bm, _round_up(rows, 8))
+        bm = min(bm, round_up(rows, 8))
     return bm, double_buffer and bm >= 16
 
 
@@ -198,9 +185,9 @@ def fused_mlp_smem_bytes(shapes, block_m: int = 32,
                          double_buffer: bool = False,
                          cluster: int = CLUSTER) -> int:
     rows, db = tile_rows(block_m, double_buffer=double_buffer)
-    slices = max(stack_slice_bytes(shapes, cluster))
+    largest = max(stack_slice_bytes(shapes, cluster))
     return cluster_smem_bytes(len(shapes), rows, input_stride(shapes),
-                              (2 if db else 1) * slices, 2 if db else 1)
+                              (2 if db else 1) * largest, 2 if db else 1)
 
 
 def fused_mlp_fits(shapes, *, block_m: int = 32,
@@ -245,9 +232,34 @@ def ws_mlp_fits(shapes, *, rows: int = 8,
     return ws_mlp_smem_bytes(shapes, rows, act_dtype) <= smem_budget_bytes
 
 
+def _stream_bytes(shapes, tile: int) -> int:
+    """Shared memory of one stream CTA with ``tile``-row tiles, as
+    ``csrc/fantastic4.cu`` lays it out: the current layer's codebook
+    (static), then dynamically two mbarriers, a descriptor per layer, one
+    row tile of ``input_stride`` fp32 and two buffers of the largest code
+    slice (``stream_dyn_smem_bytes``)."""
+    return (16 + 64 + DESC_BYTES * len(shapes)
+            + 4 * tile * input_stride(shapes)
+            + 2 * max(stack_slice_bytes(shapes, 0)))
+
+
+def stream_tile_rows(shapes, rows: int, block_m: int = 8,
+                     smem_budget_bytes: int = SMEM_BUDGET_BYTES) -> int:
+    """Rows per stream tile: ``block_m`` capped at ``MAX_TILE_ROWS`` and at
+    the batch, and cut to the most rows whose CTA fits
+    ``smem_budget_bytes`` (a wide input: fewer rows a tile); 0 when not
+    even one row fits."""
+    want = max(1, min(block_m, MAX_TILE_ROWS, rows))
+    room = smem_budget_bytes - _stream_bytes(shapes, 0)
+    return max(0, min(want, room // (4 * input_stride(shapes))))
+
+
 def stream_mlp_smem_bytes(shapes, rows: int, block_m: int = 8,
                           act_dtype: str = "float32") -> int:
-    return CORE_SMEM_BYTES
+    """Shared memory of one stream CTA at the tile
+    :func:`stream_tile_rows` picks for a whole block (at least one row)."""
+    return _stream_bytes(shapes, max(1, stream_tile_rows(shapes, rows,
+                                                         block_m)))
 
 
 def stream_mlp_fits(shapes, *, rows: int, block_m: int = 8,
@@ -255,36 +267,37 @@ def stream_mlp_fits(shapes, *, rows: int, block_m: int = 8,
                     act_dtype: str = "float32") -> bool:
     if not shapes:
         return False
-    return stream_mlp_smem_bytes(shapes, rows, block_m,
-                                 act_dtype) <= smem_budget_bytes
+    return stream_tile_rows(shapes, rows, block_m, smem_budget_bytes) >= 1
 
 
 # ------------------------------------------------------------ layer table
 
 # mirrors f4::LayerDesc in csrc/fantastic4_common.cuh (DESC_BYTES)
 DESC_DTYPE = np.dtype({
-    "names": ["packed", "alpha1", "bias", "wdec_off", "omega", "scale", "K",
-              "N", "ldp", "act", "quant", "slice_off", "slice_bytes"],
-    "formats": ["<u8", "<u8", "<u8", "<i8", ("<f4", (4,)), "<f4", "<i4",
-                "<i4", "<i4", "<i4", "<i4", "<i4", "<i4"],
-    "offsets": [0, 8, 16, 24, 32, 48, 52, 56, 60, 64, 68, 72, 76],
+    "names": ["packed", "alpha1", "bias", "n_slices", "slice_w", "omega",
+              "scale", "K", "N", "ldp", "act", "quant", "slice_off",
+              "slice_bytes"],
+    "formats": ["<u8", "<u8", "<u8", "<i4", "<i4", ("<f4", (4,)), "<f4",
+                "<i4", "<i4", "<i4", "<i4", "<i4", "<i4", "<i4"],
+    "offsets": [0, 8, 16, 24, 28, 32, 48, 52, 56, 60, 64, 68, 72, 76],
     "itemsize": DESC_BYTES})
 
 
 class LayerTable:
     """The per-layer descriptors the fused kernels read, in device memory,
-    the slice-major copy of the codes the cluster kernels read (``codes``:
-    every layer's ``cluster`` slices, layer after layer), and strong
-    references to every tensor they point into.  Build once per frozen
-    pack (``ops`` memoizes it): building reads ω and the scales on the
-    host."""
+    the slice-major copy of the codes they read (``codes``: every layer's
+    slices, layer after layer -- ``cluster`` per layer for the cluster
+    kernels, slices of ≤ ``SLICE_COLS`` columns for stream with
+    ``cluster=0``), and strong references to every tensor they point into.
+    Build once per frozen pack (``ops`` memoizes it): building reads ω and
+    the scales on the host."""
 
     def __init__(self, layers: Sequence[dict], device: torch.device,
                  cluster: int = CLUSTER):
         rows = np.zeros(len(layers), DESC_DTYPE)
         self.refs = []
         slices = []
-        off = code_off = 0
+        code_off = 0
         for i, l in enumerate(layers):
             for key in ("packed", "alpha1", "bias"):
                 t = l[key]
@@ -293,21 +306,21 @@ class LayerTable:
                                      f"on {device} expected")
                 self.refs.append(t)
                 rows[key][i] = t.data_ptr()
-            rows["wdec_off"][i] = off
             rows["omega"][i] = l["omega"]
             for key in ("scale", "K", "N", "ldp", "act", "quant"):
                 rows[key][i] = l[key]
-            off += l["K"] * l["N"]
-            sl = code_slices(l["packed"], l["K"], l["N"],
-                             output_width(l["N"], i == len(layers) - 1),
-                             cluster)
+            n_end = output_width(l["N"], i == len(layers) - 1)
+            n_sl = layer_slices(n_end, cluster)
+            sl = code_slices(l["packed"], l["K"], l["N"], n_end, n_sl)
+            rows["n_slices"][i] = n_sl
+            rows["slice_w"][i] = slice_width(n_end, n_sl)
             rows["slice_off"][i] = code_off
             rows["slice_bytes"][i] = sl.shape[1]
             code_off += sl.numel()
             slices.append(sl.reshape(-1))
         self.n_layers = len(layers)
         self.cluster = cluster
-        self.decoded_floats = off
+        self.n_slices = tuple(int(v) for v in rows["n_slices"])
         self.slice_bytes = tuple(int(b) for b in rows["slice_bytes"])
         self.codes = torch.cat(slices).contiguous()
         self.tensor = torch.from_numpy(rows.view(np.uint8).copy()).to(device)
@@ -525,21 +538,42 @@ def fantastic4_fused_mlp_stream_plain(x, packed_stack, omega_stack,
                           act_dtype=act_dtype)
 
 
-def _stream_launch(x, stacked, shapes, block_m,
-                   table: Optional[LayerTable]) -> torch.Tensor:
+def _stream_launch(x, shapes, block_m, table: LayerTable,
+                   smem_budget_bytes: int) -> torch.Tensor:
+    """One cooperative launch; the card sizes the grid (at most the
+    co-resident CTAs) and refuses (this raises) what it cannot hold."""
     m, k0 = x.shape
-    d = stacked[0].shape[-1]
     dev = x.device
+    rows = stream_tile_rows(shapes, m, block_m, smem_budget_bytes)
+    if rows < 1:
+        raise ValueError(f"stream: a 1-row tile needs "
+                         f"{_stream_bytes(shapes, 1)} bytes of shared "
+                         f"memory, the budget is {smem_budget_bytes}")
+    smem = _stream_bytes(shapes, rows)
     xf = x.to(torch.float32).contiguous()
+    if xf.data_ptr() % 16:
+        xf = xf.clone()    # rows are read as float4
+    n = len(shapes)
+    # activation rows 16-byte aligned: the tiles are staged as float4
+    lda = round_up(max([2] + [nn for _, nn in shapes[:-1]]), 4)
     y = torch.empty((m, shapes[-1][1]), dtype=torch.float32, device=dev)
-    act = torch.empty(2 * m * d, dtype=torch.float32, device=dev)
-    wdec = torch.empty(table.decoded_floats, dtype=torch.float32, device=dev)
+    # two activation buffers, then the grid barrier's counter (the kernel's
+    # entry zeroes it)
+    act = torch.empty(2 * m * lda + 4, dtype=torch.float32, device=dev)
+    ctas = ctypes.c_int(0)
+    # CTAs past the most work items a layer has would only idle
+    want = max(table.n_slices) * -(-m // rows)
     err = build.load().f4_fused_stream(
-        xf.data_ptr(), m, k0, table.tensor.data_ptr(), table.n_layers, d,
-        block_m, act.data_ptr(), wdec.data_ptr(), y.data_ptr(),
+        xf.data_ptr(), m, k0, table.tensor.data_ptr(), n,
+        table.codes.data_ptr(), rows, input_stride(shapes), lda,
+        max(table.slice_bytes), want, act.data_ptr(),
+        act.data_ptr() + 4 * 2 * m * lda, y.data_ptr(), ctypes.byref(ctas),
         build.stream_handle(dev))
     build.check(err, "fantastic4_fused_mlp_stream kernel")
     LAUNCHES["stream"] += 1
+    LAST_LAUNCH["stream"] = {"rows": m, "ctas": ctas.value,
+                             "cooperative": True, "rows_per_tile": rows,
+                             "smem_bytes": smem}
     return y
 
 
@@ -565,10 +599,12 @@ def fantastic4_fused_mlp_ws(x, packed_stack, omega_stack, alpha1_stack,
 def fantastic4_fused_mlp_stream(x, packed_stack, omega_stack, alpha1_stack,
                                 bias_stack, meta_stack, *, shapes,
                                 act_dtype: str = "float32", block_m: int = 8,
-                                table: Optional[LayerTable] = None
+                                table: Optional[LayerTable] = None,
+                                smem_budget_bytes: int = SMEM_BUDGET_BYTES
                                 ) -> torch.Tensor:
-    """Decode-amortized streaming whole-stack serving, ``block_m``-row
-    tiles, from stacked operands."""
+    """Layers-outer streaming whole-stack serving, tiles of ``block_m``
+    rows or as many as ``smem_budget_bytes`` holds, from stacked operands
+    (``table``: built with ``cluster=0``, stream slices)."""
     stacked = (packed_stack, omega_stack, alpha1_stack, bias_stack,
                meta_stack)
     if _device_of(x) == "cpu":
@@ -578,5 +614,7 @@ def fantastic4_fused_mlp_stream(x, packed_stack, omega_stack, alpha1_stack,
         raise ValueError(f"block_m must be >= 1, got {block_m}")
     _check_x(x, shapes)
     if table is None:
-        table = stacked_layer_table(*stacked, shapes=shapes)
-    return _stream_launch(x, stacked, shapes, block_m, table)
+        table = stacked_layer_table(*stacked, shapes=shapes, cluster=0)
+    if table.cluster != 0:
+        raise ValueError("stream needs a table of stream slices (cluster=0)")
+    return _stream_launch(x, shapes, block_m, table, smem_budget_bytes)

@@ -16,7 +16,8 @@ import torch
 from ..memo import MISS, IdentityMemo
 from . import autotune, ref
 from .ecl_quant import ecl_quant as _ecl_quant
-from .fantastic4_fused_mlp import (SMEM_BUDGET_BYTES, build_ws_operands,
+from .fantastic4_fused_mlp import (CLUSTER, SMEM_BUDGET_BYTES,
+                                   build_ws_operands,
                                    fantastic4_fused_mlp,
                                    fantastic4_fused_mlp_stream,
                                    fantastic4_fused_mlp_ws, fused_mlp_fits,
@@ -24,6 +25,7 @@ from .fantastic4_fused_mlp import (SMEM_BUDGET_BYTES, build_ws_operands,
                                    stream_mlp_fits, tiled_layer_table,
                                    ws_mlp_fits)
 from .fantastic4_matmul import fantastic4_matmul as _matmul
+from .fantastic4_matmul import forget_operands as _forget_chain_operands
 
 
 def fantastic4_matmul(x: torch.Tensor, packed: torch.Tensor,
@@ -140,15 +142,16 @@ def _ws_stacked_operands(layers: Sequence[dict], act_dtype: str,
 
 
 def _layer_table(layers, act_dtype, act_scales, kind: str):
-    """The fused kernels' device layer table, built once per pack."""
+    """The fused kernels' device layer table, built once per pack: ``kind``
+    "tiled" (batch_tiled/db), "stacked" (ws) or "stream"."""
     hit = _TABLE_MEMO.get((layers, act_scales), (act_dtype, kind))
     if hit is not MISS:
         return hit
     shapes = tuple(tuple(l["shape"]) for l in layers)
-    if kind == "stacked":
+    if kind in ("stacked", "stream"):
         table = stacked_layer_table(
             *_ws_stacked_operands(layers, act_dtype, act_scales),
-            shapes=shapes)
+            shapes=shapes, cluster=0 if kind == "stream" else CLUSTER)
     else:
         alpha1s, scales = _epilogue_operands(layers, act_dtype, act_scales)
         table = tiled_layer_table(
@@ -162,9 +165,11 @@ def _layer_table(layers, act_dtype, act_scales, kind: str):
 
 
 def forget_pack_operands(layers: Sequence[dict]) -> int:
-    """Drop every cached operand keyed on ``layers``; returns how many."""
+    """Drop every cached operand keyed on ``layers`` (and the chain's code
+    copies of its layers); returns how many."""
     return (_INT8_FOLD_MEMO.drop(layers) + _WS_OPERAND_MEMO.drop(layers)
-            + _TABLE_MEMO.drop(layers))
+            + _TABLE_MEMO.drop(layers)
+            + sum(_forget_chain_operands(l["packed"]) for l in layers))
 
 
 def fantastic4_mlp_fused(x: torch.Tensor, layers: Sequence[dict], *,
@@ -209,14 +214,15 @@ def fantastic4_mlp_fused(x: torch.Tensor, layers: Sequence[dict], *,
         if not fits:
             return chain()
         stacked = _ws_stacked_operands(layers, act_dtype, scales_key)
-        table = _layer_table(layers, act_dtype, scales_key, "stacked") \
+        table = _layer_table(layers, act_dtype, scales_key,
+                             "stacked" if schedule == "ws" else "stream") \
             if on_cuda else None
         if schedule == "ws":
             return fantastic4_fused_mlp_ws(x, *stacked, shapes=shapes,
                                            act_dtype=act_dtype, table=table)
-        return fantastic4_fused_mlp_stream(x, *stacked, shapes=shapes,
-                                           act_dtype=act_dtype, block_m=bm,
-                                           table=table)
+        return fantastic4_fused_mlp_stream(
+            x, *stacked, shapes=shapes, act_dtype=act_dtype, block_m=bm,
+            table=table, smem_budget_bytes=smem_budget_bytes)
 
     db = schedule == "db"
     bm = block_m or max_fused_block_m(shapes,

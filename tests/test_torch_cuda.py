@@ -7,11 +7,14 @@ GPU machine, which has no JAX:
 
 Gates as in ``chip_smoke.py``: fp32 ``atol=1e-3, rtol=1e-4`` and int8
 relative ``< 5e-3`` against the plain versions; the int8 outputs of the
-chain and every fused schedule bitwise equal; a request served from a
+chain and every fused schedule bitwise equal; a launch the card refuses
+(cluster, programmatic dependent or cooperative) raises; a request served from a
 coalesced bucket bitwise equal to the same rows served alone.  The ECL
 kernel's codes and ŵ bitwise equal to its plain version on the card, and
 the card's ``fake_quant`` ω gradient within ``rtol=1e-5`` of the CPU's.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -116,6 +119,116 @@ def test_refused_cluster_launch_raises(cuda_device):
         assert err != 0
         with pytest.raises(RuntimeError, match="CUDA error"):
             build.check(err, "refused")
+
+
+def test_refused_pdl_and_cooperative_launches_raise(cuda_device):
+    """The chain's PDL launch and stream's cooperative launch return the
+    card's refusal (here: a row tile past a block's shared memory) and the
+    wrapper's check raises on it; there is no other kernel to fall to."""
+    from repro_torch.kernels import build
+
+    pack = _pack(STACKS["odd"], 6, cuda_device)
+    layers = pack["layers"]
+    lib = build.load()
+    stream = build.stream_handle(cuda_device)
+    l0 = layers[0]
+    ops_, _ = fm.chain_operands(l0["packed"], l0["omega"], cuda_device)
+    x = torch.zeros((32, 34), device=cuda_device)
+    y = torch.empty((32, 40), device=cuda_device)
+    err = lib.f4_matmul(x.data_ptr(), ops_.codes.data_ptr(),
+                        ops_.omega.data_ptr(), l0["alpha1"].data_ptr(),
+                        l0["bias"].data_ptr(), None, 1.0, 0, 1, 32, 34, 40,
+                        ops_.n_slices, ops_.slice_w, ops_.slice_bytes, 32,
+                        8004, 34, ops_.slice_bytes, 1, y.data_ptr(), stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(err, "refused")
+    table = ops._layer_table(layers, "float32", None, "stream")
+    act = torch.empty(2 * 32 * 40, device=cuda_device)
+    ctas = ctypes.c_int(0)
+    err = lib.f4_fused_stream(x.data_ptr(), 32, 33, table.tensor.data_ptr(),
+                              table.n_layers, table.codes.data_ptr(), 32,
+                              8004, 40, max(table.slice_bytes), 8,
+                              act.data_ptr(), act.data_ptr(), y.data_ptr(),
+                              ctypes.byref(ctas), stream)
+    assert err != 0 and ctas.value == 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(err, "refused")
+    # the card still serves after the refusals
+    got = ops.fantastic4_mlp_chain(x[:3, :33], layers)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.isfinite(got).all()
+
+
+def test_launch_shapes_on_the_card(cuda_device):
+    """At one row the chain spreads a 512-wide layer over 32 CTAs and the
+    stream grid over 32; the chain's launches after the first use PDL and
+    give the same bits as the first."""
+    pack = _pack(STACKS["gsc"], 9, cuda_device)
+    layers = pack["layers"]
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(1, 512)).astype(np.float32)).to(cuda_device)
+    fm.LAST_LAUNCHES = []
+    try:
+        first = ops.fantastic4_mlp_chain(x, layers)
+        again = ops.fantastic4_mlp_chain(x, layers)
+        launches = fm.LAST_LAUNCHES
+    finally:
+        fm.LAST_LAUNCHES = None
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(first, again)
+    assert len(launches) == 14
+    assert [l["pdl"] for l in launches] == [False] * 7 + [True] * 7
+    assert [l["ctas"] for l in launches[:3]] == [32, 32, 16]
+    ops.fantastic4_mlp_fused(x, layers, schedule="stream")
+    torch.cuda.synchronize(cuda_device)
+    assert ffm.LAST_LAUNCH["stream"]["ctas"] == 32
+    assert ffm.LAST_LAUNCH["stream"]["smem_bytes"] == \
+        ffm.stream_mlp_smem_bytes(tuple(l["shape"] for l in layers), 1, 8)
+
+
+@pytest.mark.parametrize("act_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_wide_k_chain_and_fused_fallback(cuda_device, batch, act_dtype):
+    """An 8192-wide input: its x tile and code slice do not fit a block's
+    shared memory at 8 rows and more, so the chain stages K in chunks;
+    stream takes fewer rows a tile; batch_tiled and db (and ws past one
+    row) fall back to the chain.  Every path within its gate of the plain version, and int8
+    bitwise equal across them."""
+    dims = (8192, 64, 10)
+    pack = _pack(dims, 10, cuda_device)
+    layers = pack["layers"]
+    x = torch.from_numpy(np.random.default_rng(batch).normal(
+        size=(batch, dims[0])).astype(np.float32)).to(cuda_device)
+    int8 = act_dtype == "int8"
+    scales = [0.05] if int8 else None
+    fm.LAST_LAUNCHES = []
+    try:
+        chain = ops.fantastic4_mlp_chain_int8(x, layers, scales) if int8 \
+            else ops.fantastic4_mlp_chain(x, layers)
+        launches = fm.LAST_LAUNCHES
+    finally:
+        fm.LAST_LAUNCHES = None
+    plain = (ops.fantastic4_mlp_chain_int8(x, layers, scales,
+                                           use_kernel=False) if int8
+             else ops.fantastic4_mlp_chain(x, layers, use_kernel=False))
+    _close(chain, plain, int8)
+    _, want_kc, _ = fm.chain_tiling(batch, 8192, 16, 8192 // 2 * 16)
+    assert launches[0]["k_chunk"] == want_kc
+    assert (want_kc < 8192) == (batch >= 8)
+    ffm.reset_launches()
+    for sched in SCHEDULES:
+        got = ops.fantastic4_mlp_fused(x, layers, schedule=sched,
+                                       act_dtype=act_dtype, act_scales=scales)
+        _close(got, plain, int8)
+        if int8:
+            assert torch.equal(got, chain), sched
+    torch.cuda.synchronize(cuda_device)
+    assert ffm.LAUNCHES["stream"] == 1
+    assert ffm.LAUNCHES["batch_tiled"] + ffm.LAUNCHES["db"] == 0
+    assert ffm.LAUNCHES["ws"] == int(ffm.ws_mlp_fits(
+        tuple(l["shape"] for l in layers), rows=batch))
+    assert ffm.LAST_LAUNCH["stream"]["rows_per_tile"] == min(batch, 3)
 
 
 def test_plan_and_batcher_on_the_card(cuda_device):

@@ -25,6 +25,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import fantastic4_fused_mlp as ffm
 from repro_torch.kernels import fantastic4_matmul as fm
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.slices import slice_bytes, slice_count, slice_width
 
 STACKS = {"odd": (33, 40, 24, 10), "even": (64, 48, 32, 12)}
 SCHEDULES = ("batch_tiled", "db", "ws", "stream")
@@ -182,9 +183,10 @@ def test_fits_express_shared_memory(dims, tile, ws):
     """The cluster kernels' fits are their per-CTA shared memory -- the
     mbarriers, a descriptor and a codebook per layer, two input buffers of
     rows x input_stride fp32 and the code slices -- against the 232,448
-    bytes of a Hopper block; row tiles stop at the kernel's 32 rows; stream
-    holds
-    activations in global memory and always fits."""
+    bytes of a Hopper block; row tiles stop at the kernel's 32 rows.
+    stream holds activations in global memory and one row tile and two
+    code slices on chip: it fits every stack, an 8192-wide input with
+    fewer rows a tile than block_m."""
     shapes = _shapes(dims)
     assert ffm.max_fused_block_m(shapes) == tile
     ldx = ffm.input_stride(shapes)
@@ -199,6 +201,8 @@ def test_fits_express_shared_memory(dims, tile, ws):
         + sum(sb))
     assert ffm.ws_mlp_fits(shapes, rows=8) == ws
     assert ffm.stream_mlp_fits(shapes, rows=256, block_m=8)
+    assert ffm.stream_tile_rows(shapes, 256, 8) == (8 if ws else 3)
+    assert ffm.stream_mlp_smem_bytes(shapes, 256, 8) <= ffm.SMEM_BUDGET_BYTES
     for fits in (ffm.ws_mlp_fits(shapes, rows=8, smem_budget_bytes=1),
                  ffm.stream_mlp_fits(shapes, rows=8, smem_budget_bytes=1),
                  ffm.fused_mlp_fits(shapes, block_m=8, smem_budget_bytes=1)):
@@ -231,21 +235,23 @@ SLICE_STACKS = {"gsc": GSC, "odd": STACKS["odd"],
                 "odd-widths": (33, 41, 25, 9)}
 
 
-def _unslice(slices, k, n_end, cluster):
-    """The (k/2, cluster·W) packed codes a layer's slices hold, rank after
-    rank: each slice is (ceil(k/8), W, 4) bytes, four packed rows a word."""
-    w = ffm.slice_width(n_end, cluster)
+def _unslice(slices, k, n_end, n_slices):
+    """The (k/2, n_slices·W) packed codes a layer's slices hold, slice after
+    slice: each is (ceil(k/8), W, 4) bytes, four packed rows a word."""
+    w = ffm.slice_width(n_end, n_slices)
     q = -(-k // 8)
-    p = slices[:, :q * w * 4].reshape(cluster, q, w, 4)
-    return p.permute(1, 3, 0, 2).reshape(4 * q, cluster * w)[:k // 2]
+    p = slices[:, :q * w * 4].reshape(n_slices, q, w, 4)
+    return p.permute(1, 3, 0, 2).reshape(4 * q, n_slices * w)[:k // 2]
 
 
-@pytest.mark.parametrize("cluster", [8, 16])
+# cluster 8 and 16: the cluster kernels' slices; 0: stream slices of at
+# most 16 columns
+@pytest.mark.parametrize("cluster", [0, 8, 16])
 @pytest.mark.parametrize("kind", ["tiled", "stacked"])
 @pytest.mark.parametrize("stack", sorted(SLICE_STACKS))
 def test_code_slices_round_trip(stack, kind, cluster):
-    """Unpacking each (layer, rank) slice of the slice-major code copy and
-    concatenating the ranks gives back the pack's codes, zero past them."""
+    """Unpacking each (layer, slice) of the slice-major code copy and
+    concatenating the slices gives back the pack's codes, zero past them."""
     table, shapes, packs, rows = _tables(SLICE_STACKS[stack], kind, cluster)
     codes = table.codes
     assert codes.dtype == torch.uint8
@@ -257,31 +263,71 @@ def test_code_slices_round_trip(stack, kind, cluster):
         assert sb == ffm.stack_slice_bytes(shapes, cluster)[l]
         assert rows["K"][l] == k
         n_end = ffm.output_width(n, l == len(shapes) - 1)
-        got = _unslice(codes[off:off + cluster * sb].reshape(cluster, sb),
-                       k, n_end, cluster)
-        assert got.shape == (k // 2, cluster * ffm.slice_width(n_end, cluster))
+        ns = int(rows["n_slices"][l])
+        assert ns == (cluster or -(-n_end // 16))
+        assert rows["slice_w"][l] == ffm.slice_width(n_end, ns)
+        got = _unslice(codes[off:off + ns * sb].reshape(ns, sb), k, n_end, ns)
+        assert got.shape == (k // 2, ns * ffm.slice_width(n_end, ns))
         assert torch.equal(got[:, :n], packs[l][:k // 2, :n])
         assert not got[:, n:].any()
-    assert codes.numel() == sum(cluster * b for b in rows["slice_bytes"])
+    assert codes.numel() == sum(int(ns) * int(b) for ns, b in
+                                zip(rows["n_slices"], rows["slice_bytes"]))
 
 
-@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("cluster", [0, 8, 16])
 @pytest.mark.parametrize("stack", sorted(SLICE_STACKS))
 def test_slices_cover_every_column_once(stack, cluster):
-    """The ranks' column ranges cover each layer's output columns -- the
+    """The slices' column ranges cover each layer's output columns -- the
     even pad included, nothing past it -- exactly once."""
     shapes = _shapes(SLICE_STACKS[stack])
     for l, (_, n) in enumerate(shapes):
         last = l == len(shapes) - 1
         n_end = ffm.output_width(n, last)
         assert n_end == (n if last else n + n % 2)
-        w = ffm.slice_width(n_end, cluster)
+        ns = ffm.layer_slices(n_end, cluster)
+        w = ffm.slice_width(n_end, ns)
+        if not cluster:
+            assert w <= 16
         seen = np.zeros(n_end, int)
-        for rank in range(cluster):
+        for rank in range(ns):
             c0 = rank * w
             seen[c0:min(c0 + w, n_end)] += 1
         np.testing.assert_array_equal(seen, 1)
-        assert (w - 1) * cluster < n_end <= w * cluster
+        assert (w - 1) * ns < n_end <= w * ns
+
+
+@pytest.mark.parametrize("k,n", [(34, 40), (40, 24), (24, 10), (128, 12),
+                                 (512, 512), (42, 41), (26, 9), (2, 1)])
+def test_chain_slices_round_trip(k, n):
+    """The chain's slice-major copy of a (k/2, n) pack -- slices of at most
+    16 columns, balanced -- unpacks to the pack, and the slices cover each
+    column once; N = 10 and 12 (row strides a bulk copy cannot take) are
+    one slice."""
+    rng = np.random.default_rng(k * 1000 + n)
+    packed = torch.from_numpy(
+        rng.integers(0, 256, size=(k // 2, n)).astype(np.uint8))
+    omega = torch.from_numpy(rng.normal(size=4).astype(np.float32))
+    ops, built_before = fm.chain_operands(packed, omega, torch.device("cpu"))
+    assert not built_before
+    assert fm.chain_operands(packed, omega, torch.device("cpu")) == \
+        (ops, True)
+    ns, w, sb = ops.n_slices, ops.slice_w, ops.slice_bytes
+    assert ns == -(-n // 16) and w <= 16 and (w - 1) * ns < n <= w * ns
+    assert sb % 16 == 0 and ops.codes.numel() == ns * sb
+    got = _unslice(ops.codes.reshape(ns, sb), k, n, ns)
+    assert torch.equal(got[:, :n], packed) and not got[:, n:].any()
+    seen = np.zeros(n, int)
+    for s in range(ns):
+        seen[s * w:min((s + 1) * w, n)] += 1
+    np.testing.assert_array_equal(seen, 1)
+    torch.testing.assert_close(ops.omega, omega, rtol=0, atol=0)
+    ldx = fm.tile_stride(k)
+    assert ldx >= k and ldx % 4 == 0 and (ldx // 4) % 2 == 1
+    for rows in (1, 7, 32):
+        assert fm.chain_smem_bytes(rows, k, sb) == \
+            16 + 64 + 4 * rows * ldx + sb
+    assert fm.forget_operands(packed) == 1
+    assert fm.chain_operands(packed, omega, torch.device("cpu"))[1] is False
 
 
 @pytest.mark.parametrize("kind", ["tiled", "stacked"])
@@ -314,6 +360,76 @@ def test_fits_equal_the_layout(stack, kind):
             + (2 if want_db else 1) * max(sb))
 
 
+@pytest.mark.parametrize("stack", sorted(SLICE_STACKS))
+def test_stream_fit_equals_the_layout(stack):
+    """stream's fit states the bytes of its CTA's layout: one codebook,
+    two mbarriers, a descriptor per layer, one row tile of input_stride
+    fp32 (block_m rows, at most 32, at most the batch) and two buffers of
+    the largest stream slice, as the built table cuts them."""
+    table, shapes, _, rows = _tables(SLICE_STACKS[stack], "stacked", 0)
+    n = len(shapes)
+    region = max(int(b) for b in rows["slice_bytes"])
+    ldx = ffm.input_stride(shapes)
+    for m, bm, tile in ((1, 8, 1), (3, 8, 3), (256, 8, 8), (256, 64, 32),
+                        (20, 16, 16)):
+        assert ffm.stream_tile_rows(shapes, m, bm) == tile
+        assert ffm.stream_mlp_smem_bytes(shapes, m, bm) == \
+            64 + 16 + 80 * n + 4 * tile * ldx + 2 * region
+    assert ffm.stream_mlp_smem_bytes(shapes, 256, 8) < \
+        ffm.fused_mlp_smem_bytes(shapes, 8)
+
+
+@pytest.mark.parametrize("budget", [26368, 60000, ffm.SMEM_BUDGET_BYTES])
+@pytest.mark.parametrize("dims", [GSC, (8192, 64, 10), (33, 40, 24, 10)])
+def test_stream_tile_follows_the_budget(dims, budget):
+    """stream's tile is block_m rows, cut to the most rows whose CTA fits
+    the budget: one row more would not fit, and a budget below one row's
+    CTA fits none."""
+    shapes = _shapes(dims)
+    for m, bm in ((256, 8), (5, 8), (256, 32), (1, 1)):
+        tile = ffm.stream_tile_rows(shapes, m, bm, budget)
+        want = min(bm, m, ffm.MAX_TILE_ROWS)
+        assert 0 <= tile <= want
+        one_row = ffm.stream_mlp_smem_bytes(shapes, 1, 1)
+        assert (tile >= 1) == (one_row <= budget) == \
+            ffm.stream_mlp_fits(shapes, rows=m, block_m=bm,
+                                smem_budget_bytes=budget)
+        if tile:
+            smem = ffm._stream_bytes(shapes, tile)
+            assert smem <= budget
+            if tile < want:
+                assert smem + 4 * ffm.input_stride(shapes) > budget
+
+
+@pytest.mark.parametrize("n", [10, 12, 40, 512])
+@pytest.mark.parametrize("k", [34, 512, 1024, 1700, 2048, 8192, 8194, 65536])
+def test_chain_tiling_fits_any_k(k, n):
+    """The chain stages all of K when the x tile and the code slice fit a
+    block's shared memory, else K chunks of a multiple of 64 rows whose
+    code bytes are whole 16-byte units; the chunks cover the slice once
+    and every CTA fits."""
+    sl = slice_count(n)
+    w, sb = slice_width(n, sl), slice_bytes(k, n, sl)
+    for m in (1, 5, 8, 32, 256):
+        rows, kc, chunk = fm.chain_tiling(m, k, w, sb)
+        assert rows == min(m, fm.MAX_TILE_ROWS)
+        assert fm.chain_smem_bytes(rows, kc, chunk) <= fm.SMEM_BUDGET_BYTES
+        if fm.chain_smem_bytes(rows, k, sb) <= fm.SMEM_BUDGET_BYTES:
+            assert (kc, chunk) == (k, sb)
+            continue
+        assert 0 < kc < k and kc % fm.K_CHUNK == 0
+        assert chunk == kc // 2 * w and chunk % 16 == 0
+        # one more K_CHUNK would not fit
+        assert fm.chain_smem_bytes(rows, kc + fm.K_CHUNK,
+                                   chunk + fm.K_CHUNK // 2 * w) > \
+            fm.SMEM_BUDGET_BYTES
+        chunks = -(-k // kc)
+        tail = sb - (chunks - 1) * chunk
+        assert 0 < tail <= chunk and tail % 16 == 0
+        # the tail chunk's K rows lie in its bytes
+        assert -(-(k - (chunks - 1) * kc) // 8) * 4 * w <= tail
+
+
 @pytest.mark.parametrize("sched", SCHEDULES)
 def test_budget_one_falls_back_to_chain(sched):
     pack = pack_from_numpy(_np_pack(STACKS["odd"], seed=4), device="cpu")
@@ -341,8 +457,8 @@ def test_layer_table_layout():
     np.testing.assert_array_equal(rows["N"], [40, 24, 10])
     np.testing.assert_array_equal(rows["quant"], [1, 1, 0])
     np.testing.assert_array_equal(rows["act"], [1, 1, 0])
-    np.testing.assert_array_equal(rows["wdec_off"], [0, 34 * 40,
-                                                     34 * 40 + 40 * 24])
+    np.testing.assert_array_equal(rows["n_slices"], [8, 8, 8])
+    np.testing.assert_array_equal(rows["slice_w"], [5, 3, 2])
     assert rows["packed"][1] == layers[1]["packed"].data_ptr()
     np.testing.assert_array_equal(rows["omega"][2],
                                   layers[2]["omega"].numpy())
@@ -352,6 +468,22 @@ def test_layer_table_layout():
     np.testing.assert_array_equal(rows["slice_off"],
                                   [0, 8 * sb[0], 8 * (sb[0] + sb[1])])
     assert table.codes.numel() == 8 * sum(sb) and table.cluster == 8
+    # f4::LayerDesc's field offsets
+    assert [ffm.DESC_DTYPE.fields[f][1] for f in
+            ("packed", "n_slices", "slice_w", "omega", "scale", "K",
+             "slice_bytes")] == [0, 24, 28, 32, 48, 52, 76]
+    # stream's table: slices of at most 16 columns of each layer's
+    # even-padded width (the last layer's true width)
+    st = ffm.tiled_layer_table(
+        *[tuple(l[k] for l in layers) for k in
+          ("packed", "omega", "alpha1", "bias", "alpha2")],
+        shapes=tuple(l["shape"] for l in layers),
+        activations=tuple(l["activation"] for l in layers),
+        act_dtype="int8", cluster=0)
+    srows = st.tensor.numpy().view(ffm.DESC_DTYPE)
+    np.testing.assert_array_equal(srows["n_slices"], [3, 2, 1])
+    np.testing.assert_array_equal(srows["slice_w"], [14, 12, 10])
+    assert st.n_slices == (3, 2, 1)
 
 
 def test_unsupported_device_raises():

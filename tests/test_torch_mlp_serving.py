@@ -148,9 +148,11 @@ def test_plan_db_on_request():
 
 
 def test_plan_stream_when_batch_tiled_does_not_fit():
+    shapes = tuple(zip(GSC_DIMS[:-1], GSC_DIMS[1:]))
     plan = tplans.ExecutionPlan(
         _rand_pack(GSC_DIMS), device="cpu",
-        smem_budget_bytes=ffm.CORE_SMEM_BYTES + 1024)
+        smem_budget_bytes=ffm.stream_mlp_smem_bytes(
+            shapes, rows=256, block_m=tplans.STREAM_BLOCK_M) + 1024)
     sch = plan.describe()["bucket_schedules"]
     assert plan.resolved_mode == "fused"
     # ws holds its slice of the stack's codes in shared memory, so at this
