@@ -18,8 +18,11 @@ Phases (any failure raises and the script exits non-zero):
    Gates: fp32 ``atol=1e-3, rtol=1e-4``; int8 relative max-abs error
    ``< 5e-3``; and the port's own int8 outputs bitwise equal across the
    chain, batch_tiled, db, ws and stream.  Kernel 5 (ecl_quant) at every
-   MLP-GSC layer shape plus (37, 129) and (1, 5), λ ∈ {0, 0.02, 0.3}:
-   codes and ŵ bitwise equal to its plain version.
+   MLP-GSC layer shape plus (37, 129) and (1, 5), λ ∈ {0, 0.02, 0.3}, one
+   tensor a launch, and grouped: MLP-GSC's seven tensors, (37, 129),
+   (1, 5), a (37, 129) view at an odd offset and a batched (3, 37, 129)
+   with ω (3, 4) in one launch; codes and ŵ bitwise equal to its plain
+   version.
 3. The main path: a seeded MLP-GSC frozen with ``freeze_mlp`` and served
    through ``ExecutionPlan`` + ``MicroBatcher`` as ragged requests of 1-5
    rows (auto fp32 and int8 plans, a per-layer plan, a double-buffered plan
@@ -31,7 +34,9 @@ Phases (any failure raises and the script exits non-zero):
    ``launch.train.train_mlp`` for 300 steps (batch 128, λ 0.3 ramped over
    60 steps, Adam lr 5e-3), frozen with ``freeze_mlp`` and served through
    ``ExecutionPlan``.  Counters are zeroed just before and read just
-   after; ecl_quant must have launched ≥ 14 per step.  Every loss finite,
+   after; ecl_quant must have launched exactly 2 per step (one grouped
+   launch in the fake-quant forward, one in the probability update) plus
+   one per eval batch, stats, freeze and serving check.  Every loss finite,
    held-out accuracy ≥ 0.6, entropy ≤ 2.5 bits/weight, served logits
    within ``atol=rtol=1e-2`` of the eval forward, and 3 steps on the card
    (kernel) within ``rtol=1e-4`` of 3 on the CPU (plain version), loss by
@@ -49,12 +54,14 @@ Phases (any failure raises and the script exits non-zero):
    every kernel the yardstick launches (``library_device_ms``).  The
    cluster schedules (batch_tiled, db, ws) are also timed at 16 CTAs per
    cluster after an equality check against the default 8.  ecl_quant at
-   every MLP-GSC layer shape (no single PyTorch call computes it, so no
-   library time), and the train step at batch 128 with its device-time
-   breakdown.  Print one ``grid`` JSON line (CTAs and shared memory of
-   each launch at each timed batch -- the cluster size of the cluster
-   kernels, PDL on or off for each of the chain's seven, the cooperative
-   grid of stream -- and the dependent-FMA floor), one ``kernels``, one
+   every MLP-GSC layer shape one tensor a launch, and MLP-GSC's seven
+   tensors in one grouped launch (``ms``, ``device_ms``, ``queued_ms``;
+   no single PyTorch call computes it, so no library time), and the train
+   step at batch 128 with its device-time breakdown.  Print one ``grid``
+   JSON line (CTAs and shared memory of each launch at each timed batch
+   -- the cluster size of the cluster kernels, PDL on or off for each of
+   the chain's seven, the cooperative grid of stream -- and the
+   dependent-FMA floor), one ``kernels``, one
    ``path`` and one ``train`` JSON line, then the ``nvidia-smi`` line and
    the final ``{"ok": true, ...}`` line.
 """
@@ -96,6 +103,7 @@ CARD_VS_CPU_RTOL, CARD_VS_CPU_STEPS = 1e-4, 3
 TPU_KERNELS = "src/repro/kernels/"
 SOURCE = "src/repro_torch/csrc/fantastic4.cu"
 ECL_SOURCE = "src/repro_torch/csrc/ecl_quant.cu"
+ECL_SYMBOL = "ecl_quant_group_kernel"
 # the CUDA function each schedule launches (csrc/fantastic4.cu)
 SYMBOLS = {"chain": "matmul_kernel", "batch_tiled": "tiled_kernel",
            "db": "tiled_kernel", "ws": "ws_kernel", "stream": "stream_kernel"}
@@ -373,16 +381,17 @@ def main_path(dev):
 
 def ecl_case(shape, lam, seed, dev):
     """He-scaled weights, their init ω, seeded Dirichlet probs and the
-    trainer's penalty, on ``dev``."""
+    trainer's penalty, on ``dev``; ω and probs batched over the dims
+    before the last two."""
     import numpy as np
     import torch
     from repro_torch.core import bitplanes, ecl
 
     rng = np.random.default_rng(seed)
-    w = torch.from_numpy((rng.normal(size=shape) * np.sqrt(2.0 / shape[0]))
+    w = torch.from_numpy((rng.normal(size=shape) * np.sqrt(2.0 / shape[-2]))
                          .astype(np.float32)).to(dev)
-    probs = torch.from_numpy(rng.dirichlet(np.ones(16)).astype(np.float32)
-                             ).to(dev)
+    probs = torch.from_numpy(rng.dirichlet(np.ones(16), size=shape[:-2]
+                                           or None).astype(np.float32)).to(dev)
     return (w, bitplanes.init_omega_from_weights(w),
             ecl.penalty(w, probs, lam))
 
@@ -405,8 +414,45 @@ def check_ecl_quant(dev):
                 raise AssertionError(f"ecl_quant {shape} λ={lam}: {n} codes "
                                      "differ from the plain version")
             max_err = max(max_err, float((w_hat - want_w).abs().max()))
+        max_err = max(max_err, check_ecl_group(lam, dev))
     print(f"phase 2: ecl_quant bitwise equal to its plain version at "
-          f"{len(ECL_SHAPES)} shapes x λ {ECL_LAMS}")
+          f"{len(ECL_SHAPES)} shapes x λ {ECL_LAMS}, one tensor a launch and "
+          "grouped in one launch")
+    return max_err
+
+
+def check_ecl_group(lam, dev):
+    """Every MLP-GSC tensor, the odd shapes, a view at an odd offset (the
+    wrapper copies it to its outputs' alignment) and a batched (3, 37, 129) with ω
+    (3, 4) in one grouped launch, segment by segment bitwise equal to the
+    plain version; returns the max abs ŵ error."""
+    import torch
+    from repro_torch.kernels import ecl_quant as eq
+
+    cases = [ecl_case(s, lam, 500 + i, dev) for i, s in
+             enumerate(GSC_LAYERS + ECL_SHAPES[-2:] + ((3, 37, 129),))]
+    w, omega, pen = ecl_case((37, 129), lam, 520, dev)
+    flat = torch.cat([torch.zeros(1, device=dev), w.reshape(-1)])
+    cases.append((flat[1:].view(37, 129), omega, pen))
+    ws, omegas, pens = (list(c) for c in zip(*cases))
+    before = eq.LAUNCHES
+    outs = eq.ecl_quant_many(ws, omegas, pens)
+    torch.cuda.synchronize(dev)
+    if eq.LAUNCHES != before + 1:
+        raise AssertionError(f"{len(ws)} tensors took "
+                             f"{eq.LAUNCHES - before} launches, not 1")
+    max_err = 0.0
+    for w, omega, pen, (codes, w_hat) in zip(ws, omegas, pens, outs):
+        segs = ([(w, omega, pen, codes, w_hat)] if omega.ndim == 1 else
+                zip(w, omega, pen, codes, w_hat))
+        for sw, so, sp, sc, sv in segs:
+            want_c, want_w = eq.ecl_quant_plain(sw, so, sp)
+            if not (torch.equal(sc, want_c) and torch.equal(sv, want_w)):
+                n = int((sc != want_c).sum())
+                raise AssertionError(f"grouped ecl_quant {tuple(sw.shape)} "
+                                     f"λ={lam}: {n} codes differ from the "
+                                     "plain version")
+            max_err = max(max_err, float((sv - want_w).abs().max()))
     return max_err
 
 
@@ -437,10 +483,13 @@ def train_path(dev):
     wall_s = time.perf_counter() - t0
     launches = eq.LAUNCHES
     serve_launches = {"fantastic4_matmul": fm.LAUNCHES, **ffm.LAUNCHES}
-    need = 14 * TRAIN["steps"]
-    if launches < need:
+    # one grouped launch per step in the forward and one in the update,
+    # one per eval batch, one for stats, freeze and the serving check's
+    # eval forward: a per-leaf path would launch once per tensor
+    need = 2 * TRAIN["steps"] + T.EVAL_BATCHES + 3
+    if launches != need:
         raise AssertionError(f"training launched ecl_quant {launches} times, "
-                             f"expected >= {need}")
+                             f"expected exactly {need}")
     if not np.isfinite(m["losses"]).all():
         raise AssertionError("a training loss is not finite")
     if m["acc"] < TRAIN_MIN_ACC or m["entropy_bits"] > TRAIN_MAX_ENTROPY:
@@ -686,27 +735,47 @@ def contract_floor(dev):
 
 
 def ecl_timings(dev):
-    """Phase 4, kernel 5 at every MLP-GSC layer shape (λ 0.3)."""
+    """Phase 4, kernel 5 (λ 0.3): every MLP-GSC layer shape one tensor a
+    launch, their sum over the stack's seven layers, and the seven tensors
+    in one grouped launch."""
     from repro_torch.kernels import ecl_quant as eq
 
+    def row(fn, plain, n, iters):
+        return {"ms": _time_ms(fn, dev, iters),
+                "device_ms": _device_ms(fn, dev, 50, ECL_SYMBOL),
+                "queued_ms": _queued_ms(fn, dev, 50),
+                "plain_ms": _time_ms(plain, dev, 20), "library_ms": None,
+                "bound_ms": ECL_BYTES_PER_ELEM * n / PEAK_BYTES * 1e3,
+                "bound_by": "bytes"}
+
     out = {}
-    for i, shape in enumerate(dict.fromkeys(GSC_LAYERS)):
-        w, omega, pen = ecl_case(shape, 0.3, 200 + i, dev)
-        n = shape[0] * shape[1]
-        bound_ms = ECL_BYTES_PER_ELEM * n / PEAK_BYTES * 1e3
-        out[f"{shape[0]}x{shape[1]}"] = {
-            "ms": _time_ms(lambda: eq.ecl_quant_cuda(w, omega, pen), dev, 200),
-            "device_ms": _device_ms(lambda: eq.ecl_quant_cuda(w, omega, pen),
-                                    dev, 50, "ecl_quant_kernel"),
-            "plain_ms": _time_ms(lambda: eq.ecl_quant_plain(w, omega, pen),
-                                 dev, 50),
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes"}
+    cases = {shape: ecl_case(shape, 0.3, 200 + i, dev)
+             for i, shape in enumerate(dict.fromkeys(GSC_LAYERS))}
+    for shape, (w, omega, pen) in cases.items():
+        out[f"{shape[0]}x{shape[1]}"] = row(
+            lambda: eq.ecl_quant_cuda(w, omega, pen),
+            lambda: eq.ecl_quant_plain(w, omega, pen),
+            shape[0] * shape[1], 200)
     per_layer = [out[f"{k}x{n}"] for k, n in GSC_LAYERS]
     whole = {key: sum(r[key] for r in per_layer)
-             if all(r[key] is not None for r in per_layer) else None
-             for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+             for key in ("ms", "device_ms", "queued_ms", "plain_ms",
+                         "bound_ms")}
+    group = [cases[shape] for shape in GSC_LAYERS]
+    before = eq.LAUNCHES
+    for c in group:
+        eq.ecl_quant_cuda(*c)
     out["mlp-gsc all 7 layers"] = {**whole, "library_ms": None,
-                                   "bound_by": "bytes"}
+                                   "bound_by": "bytes",
+                                   "launches_per_call": eq.LAUNCHES - before}
+    ws, omegas, pens = (list(c) for c in zip(*group))
+    n = sum(w.numel() for w in ws)
+    before = eq.LAUNCHES
+    eq.ecl_quant_many(ws, omegas, pens)
+    launches = eq.LAUNCHES - before
+    grouped = row(lambda: eq.ecl_quant_many(ws, omegas, pens),
+                  lambda: [eq.ecl_quant_plain(*c) for c in group], n, 100)
+    out["mlp-gsc 7 tensors grouped"] = {**grouped, "elements": n,
+                                        "launches_per_call": launches}
     return out
 
 
@@ -748,7 +817,7 @@ def train_step_timing(dev):
         elif evt.key.startswith("aten::"):
             host[evt.key] = evt.self_cpu_time_total / 1e3 / steps
     device_ms = sum(kernels.values())
-    ecl_ms = sum(v for k, v in kernels.items() if "ecl_quant_kernel" in k)
+    ecl_ms = sum(v for k, v in kernels.items() if ECL_SYMBOL in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
     return {"ms": ms, "traced_wall_ms_per_step": wall_ms / steps,
@@ -814,16 +883,17 @@ def main() -> int:
             "library_device_ms": head["library_device_ms"],
             "at": "mlp-gsc batch 64 fp32",
             "by_batch": {str(b): v for b, v in per.items()}})
-    head = ecl_times["512x512"]
+    head = ecl_times["mlp-gsc 7 tensors grouped"]
     report.append({
         "name": "ecl_quant", "route": "cuda", "source": ECL_SOURCE,
         "replaces": TPU_KERNELS + "ecl_quant.py:56",
         "launches": train["ecl_quant_launches"], "max_abs_err": ecl_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
-        "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+        "device_ms": head["device_ms"], "queued_ms": head["queued_ms"],
+        "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "library_device_ms": None,
-        "at": "mlp-gsc 512x512",
+        "at": "mlp-gsc 7 tensors, one grouped launch",
         "by_shape": ecl_times})
     print(json.dumps({"grid": grid, "contract_floor": floor}))
     print(json.dumps({"kernels": report}))

@@ -7,13 +7,17 @@ layer (the JAX package's ``core/ecl.py:56-65``).  Ties go to the lowest
 code, as ``torch.argmin`` and ``jnp.argmin`` both return the first index.
 
 :func:`assign` builds the penalty where w lies and takes the codes from
-the fused ECL op (``kernels.ops.ecl_quant``): on a CUDA tensor the
-hand-written kernel, once per leading index of a batched ω; on the CPU its
-plain version, which rounds every term as the reference does.  The
-probability state is EMA-updated from each fresh assignment
+the grouped ECL op (``kernels.ops.ecl_quant_many``): on CUDA tensors one
+launch of the hand-written kernel for every tensor (and every leading
+index of a batched ω); on the CPU its plain version, which rounds every
+term as the reference does.  :func:`assign_many` and
+:func:`quantize_many` take every quantized tensor of a net in one call.
+The probability state is EMA-updated from each fresh assignment
 (:func:`update_probs`), one alternating ECL iteration per training step.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -48,16 +52,17 @@ def penalty(w: torch.Tensor, probs: torch.Tensor, lam) -> torch.Tensor:
 def quantize(w: torch.Tensor, omega: torch.Tensor,
              pen: torch.Tensor) -> tuple:
     """(codes uint8, ŵ fp32) of w's shape against a precomputed penalty
-    (:func:`penalty`), through the fused ECL op ``kernels.ops.ecl_quant``:
-    the CUDA kernel for a tensor on the card, its plain version on the
-    CPU.  A batched ω (*lead, 4) runs once per leading index."""
-    if omega.ndim == 1:
-        return ops.ecl_quant(w, omega, pen)
-    w3 = w.reshape(-1, *w.shape[-2:])
-    om, pn = omega.reshape(-1, 4), pen.reshape(-1, NUM_CODES)
-    outs = [ops.ecl_quant(w3[i], om[i], pn[i]) for i in range(w3.shape[0])]
-    return (torch.stack([c for c, _ in outs]).reshape(w.shape),
-            torch.stack([v for _, v in outs]).reshape(w.shape))
+    (:func:`penalty`): :func:`quantize_many` of one tensor.  A batched ω
+    (*lead, 4) runs every leading index in the same launch."""
+    return quantize_many([w], [omega], [pen])[0]
+
+
+def quantize_many(ws: Sequence[torch.Tensor], omegas: Sequence[torch.Tensor],
+                  pens: Sequence[torch.Tensor]) -> list:
+    """[(codes, ŵ)] of every tensor through the grouped ECL op
+    ``kernels.ops.ecl_quant_many``: one CUDA kernel launch for tensors on
+    the card, the plain version per tensor on the CPU."""
+    return ops.ecl_quant_many(ws, omegas, pens)
 
 
 def assign(w: torch.Tensor, omega: torch.Tensor, probs: torch.Tensor,
@@ -67,7 +72,15 @@ def assign(w: torch.Tensor, omega: torch.Tensor, probs: torch.Tensor,
     w: (*lead, R, C) with omega (*lead, 4) and probs (*lead, 16), or any
     shape with unbatched (4,) / (16,) -> codes with w's shape.
     """
-    return quantize(w.detach(), omega.detach(), penalty(w, probs, lam))[0]
+    return assign_many([w], [omega], [probs], lam)[0]
+
+
+def assign_many(ws: Sequence[torch.Tensor], omegas: Sequence[torch.Tensor],
+                probs: Sequence[torch.Tensor], lam) -> list:
+    """:func:`assign` of every tensor, one grouped quantization."""
+    with torch.no_grad():
+        pens = [penalty(w, p, lam) for w, p in zip(ws, probs)]
+        return [c for c, _ in quantize_many(ws, omegas, pens)]
 
 
 def histogram(codes: torch.Tensor, lead_ndim: int = 0) -> torch.Tensor:

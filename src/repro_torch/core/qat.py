@@ -14,15 +14,18 @@ them from autodiff of its straight-through decode, ``core/qat.py:57-64``):
     ∂L/∂w   = δW                    (straight-through to the masters, §IV-D)
     ∂L/∂ω_i = Σ_j δW_j · B_i[j]     (centroid fine-tuning, eq. (2))
 
-The assignment and ŵ come from the fused ECL op (``kernels.ops.
-ecl_quant``): the hand-written CUDA kernel on the card, its plain version
-on the CPU.  :func:`update_qstate` EMA-updates the probabilities from a
-fresh assignment once per step; :func:`stats` reports sparsity and
-entropy over every quantized tensor.
+The assignment and ŵ come from the grouped ECL op (``kernels.ops.
+ecl_quant_many``): one launch of the hand-written CUDA kernel for every
+tensor on the card, its plain version on the CPU.  :func:`fake_quant_many`
+fake-quantizes every layer of a net in one launch (:func:`fake_quant` is
+its one-tensor case); :func:`update_qstate` EMA-updates the probabilities
+from a fresh assignment of every tensor once per step, and :func:`stats`
+reports sparsity and entropy over every quantized tensor, each in one
+grouped call.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
 
@@ -44,40 +47,64 @@ def init_qstate_leaf(lead: tuple = (), device=None) -> dict:
                                 dtype=torch.float32, device=device)}
 
 
-class FakeQuant(torch.autograd.Function):
-    """ŵ from the ECL codes forward; straight-through to w and eq. (2) to ω
-    backward.  No gradient reaches the penalty (it is a stop-gradient in
-    the reference)."""
+class FakeQuantGroup(torch.autograd.Function):
+    """ŵ of every leaf from the ECL codes forward, in one grouped
+    quantization; per leaf, straight-through to w and eq. (2) to ω
+    backward.  No gradient reaches the penalties (they are a stop-gradient
+    in the reference).  ``apply(n, *ws, *omegas, *pens)`` -> n ŵ."""
 
     @staticmethod
-    def forward(ctx, w, omega, pen):
-        codes, w_hat = ecl.quantize(w.detach(), omega.detach(), pen)
-        ctx.save_for_backward(codes)
-        ctx.batched = omega.ndim > 1
-        return w_hat
+    def forward(ctx, n, *tensors):
+        ws, omegas, pens = tensors[:n], tensors[n:2 * n], tensors[2 * n:]
+        # forward runs without grad mode: the tensors need no detach
+        outs = ecl.quantize_many(ws, omegas, pens)
+        ctx.save_for_backward(*(c for c, _ in outs))
+        ctx.batched = tuple(o.ndim > 1 for o in omegas)
+        return tuple(w_hat for _, w_hat in outs)
 
     @staticmethod
-    def backward(ctx, g):
-        (codes,) = ctx.saved_tensors
-        g = g.to(torch.float32)
-        dims = (-2, -1) if ctx.batched else tuple(range(codes.ndim))
-        grad_omega = torch.stack(
-            [(g * ((codes >> i) & 1).to(torch.float32)).sum(dim=dims)
-             for i in range(bitplanes.NUM_BASIS)], dim=-1)
-        return g, grad_omega, None
+    def backward(ctx, *gs):
+        grad_w, grad_omega = [], []
+        for g, codes, batched in zip(gs, ctx.saved_tensors, ctx.batched):
+            g = g.to(torch.float32)
+            dims = (-2, -1) if batched else tuple(range(codes.ndim))
+            grad_w.append(g)
+            grad_omega.append(torch.stack(
+                [(g * ((codes >> i) & 1).to(torch.float32)).sum(dim=dims)
+                 for i in range(bitplanes.NUM_BASIS)], dim=-1))
+        return (None, *grad_w, *grad_omega, *(None for _ in gs))
+
+
+def fake_quant_many(ws: Sequence[torch.Tensor],
+                    omegas: Sequence[torch.Tensor],
+                    probs: Sequence[torch.Tensor], lam,
+                    dtype=None) -> list:
+    """STE fake-quantization of every tensor in one grouped launch, with
+    the differentiable centroid path; [ŵ] in the order given."""
+    if not ws:
+        return []
+    with torch.no_grad():
+        pens = [ecl.penalty(w, p, lam) for w, p in zip(ws, probs)]
+    outs = FakeQuantGroup.apply(len(ws), *ws, *omegas, *pens)
+    return [o if o.dtype == (dtype or w.dtype) else o.to(dtype or w.dtype)
+            for o, w in zip(outs, ws)]
 
 
 def fake_quant(w: torch.Tensor, omega: torch.Tensor, probs: torch.Tensor,
                lam, dtype=None) -> torch.Tensor:
     """STE fake-quantization with the differentiable centroid path."""
-    dtype = dtype or w.dtype
-    with torch.no_grad():
-        pen = ecl.penalty(w, probs, lam)
-    return FakeQuant.apply(w, omega, pen).to(dtype)
+    return fake_quant_many([w], [omega], [probs], lam, dtype)[0]
+
+
+def apply_quant_many(nodes: Sequence[dict], qstates: Sequence[dict], lam,
+                     dtype=None) -> list:
+    return fake_quant_many([n["w"] for n in nodes],
+                           [n["omega"] for n in nodes],
+                           [q["probs"] for q in qstates], lam, dtype)
 
 
 def apply_quant(node: dict, qstate: dict, lam, dtype=None) -> torch.Tensor:
-    return fake_quant(node["w"], node["omega"], qstate["probs"], lam, dtype)
+    return apply_quant_many([node], [qstate], lam, dtype)[0]
 
 
 # --------------------------------------------------------------- tree utils
@@ -92,6 +119,15 @@ def _map_quant(fn: Callable, tree: Any, qtree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_quant(fn, v, q) for v, q in zip(tree, qtree))
     return qtree
+
+
+def _map_quant_many(fn: Callable, tree: Any, qtree: Any) -> Any:
+    """:func:`_map_quant` with ``fn(nodes, qss)`` called once over every
+    quantized leaf, returning one value per leaf in the order given."""
+    leaves = []
+    _map_quant(lambda node, qs: leaves.append((node, qs)), tree, qtree)
+    results = iter(fn([n for n, _ in leaves], [q for _, q in leaves]))
+    return _map_quant(lambda node, qs: next(results), tree, qtree)
 
 
 def _quant_leaves(tree: Any, qtree: Any) -> Iterator[tuple]:
@@ -127,19 +163,25 @@ def build_qstate(params: Any) -> Any:
 def update_qstate(params: Any, qstate: Any, lam,
                   momentum: float = 0.9) -> Any:
     """One EMA step of the per-tensor cluster probabilities (one ECL
-    iteration per training step)."""
-    def f(node, qs):
-        codes = ecl.assign(node["w"], node["omega"], qs["probs"], lam)
-        return {"probs": ecl.update_probs(qs["probs"], codes, momentum)}
-    return _map_quant(f, params, qstate)
+    iteration per training step), every tensor in one grouped call."""
+    def f(nodes, qss):
+        codes = ecl.assign_many([n["w"] for n in nodes],
+                                [n["omega"] for n in nodes],
+                                [q["probs"] for q in qss], lam)
+        return [{"probs": ecl.update_probs(q["probs"], c, momentum)}
+                for q, c in zip(qss, codes)]
+    return _map_quant_many(f, params, qstate)
 
 
 @torch.no_grad()
 def stats(params: Any, qstate: Any, lam) -> dict:
     """Global sparsity / entropy diagnostics over the quantized leaves."""
     total, zeros, bits = 0, [], []
-    for node, qs in _quant_leaves(params, qstate):
-        codes = ecl.assign(node["w"], node["omega"], qs["probs"], lam)
+    leaves = list(_quant_leaves(params, qstate))
+    all_codes = ecl.assign_many([n["w"] for n, _ in leaves],
+                                [n["omega"] for n, _ in leaves],
+                                [q["probs"] for _, q in leaves], lam)
+    for (node, _), codes in zip(leaves, all_codes):
         lead_nd = node["omega"].ndim - 1
         per_lead = ecl.entropy_bits(ecl.histogram(codes, lead_nd))
         elems_per_lead = codes.shape[-2] * codes.shape[-1] \

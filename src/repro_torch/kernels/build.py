@@ -55,8 +55,9 @@ SIGNATURES = {
     # arrived, y, ctas (int*), stream
     "f4_fused_stream": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
                         _P, ctypes.POINTER(_I), _P],
-    # w, omega, penalty, n, codes, w_hat, stream
-    "f4_ecl_quant": [_P, _P, _P, _I, _P, _P, _P],
+    # segment rows (w, omega, penalty, codes, w_hat, n) as int64 (a host
+    # pointer), count, stream
+    "f4_ecl_quant_many": [_P, _I, _P],
 }
 
 

@@ -16,6 +16,7 @@ import torch
 from ..memo import MISS, IdentityMemo
 from . import autotune, ref
 from .ecl_quant import ecl_quant as _ecl_quant
+from .ecl_quant import ecl_quant_many as _ecl_quant_many
 from .fantastic4_fused_mlp import (CLUSTER, SMEM_BUDGET_BYTES,
                                    build_ws_operands,
                                    fantastic4_fused_mlp,
@@ -253,6 +254,25 @@ def ecl_quant(w: torch.Tensor, omega: torch.Tensor, penalty: torch.Tensor,
     """
     if not use_kernel:
         return ref.ecl_quant_ref(w, omega, penalty)
-    w2 = w[None, :] if w.ndim == 1 else w.reshape(w.shape[0], -1)
-    codes, w_hat = _ecl_quant(w2, omega, penalty)
+    codes, w_hat = _ecl_quant(_as_rows(w), omega, penalty)
     return codes.reshape(w.shape), w_hat.reshape(w.shape)
+
+
+def _as_rows(w: torch.Tensor) -> torch.Tensor:
+    if w.ndim == 2:
+        return w
+    return w[None, :] if w.ndim == 1 else w.reshape(w.shape[0], -1)
+
+
+def ecl_quant_many(ws: Sequence[torch.Tensor],
+                   omegas: Sequence[torch.Tensor],
+                   penalties: Sequence[torch.Tensor]) -> list:
+    """:func:`ecl_quant` over a list of tensors in one grouped launch:
+    [(codes uint8, ŵ fp32) of each w's shape].  A w with an unbatched ω
+    (4,) is reshaped as :func:`ecl_quant` does; a w (*lead, R, C) with a
+    batched ω (*lead, 4) and penalty (*lead, 16) runs each leading index
+    as a segment of its own."""
+    rows = [w if om.ndim > 1 else _as_rows(w) for w, om in zip(ws, omegas)]
+    return [(c, v) if r is w else (c.reshape(w.shape), v.reshape(w.shape))
+            for w, r, (c, v) in
+            zip(ws, rows, _ecl_quant_many(rows, omegas, penalties))]

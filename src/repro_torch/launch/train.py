@@ -7,9 +7,9 @@ The MLP trainer of the JAX package (``benchmarks/common.py`` ``train_mlp``,
 driven as ``examples/train_mlp_gsc.py`` drives it): batch 128 of the
 synthetic classification task, λ ramped from 0 over ``--lam-ramp`` steps,
 Adam with the global-norm clip.  Every step's fake-quant forward and EMA
-probability update go through the fused ECL op (``kernels/ecl_quant.py``):
-the hand-written CUDA kernel on the card, its plain version on
-``--device cpu``.  At the end the CLI prints held-out accuracy, sparsity
+probability update each quantize every layer in one grouped call of the
+ECL op (``kernels/ecl_quant.py``): one launch of the hand-written CUDA
+kernel on the card, its plain version on ``--device cpu``.  At the end the CLI prints held-out accuracy, sparsity
 and entropy and ms per step, freezes the net (``freeze_mlp``), serves a
 held-out batch through ``mlp_serve`` and checks it against the eval-mode
 forward (``atol=rtol=1e-2``, as ``examples/train_mlp_gsc.py:54``).
@@ -35,6 +35,7 @@ from ..optim import adam, schedule
 
 BATCH = 128
 EVAL_STEP0 = 10_000          # held-out batches are steps 10,000 + j
+EVAL_BATCHES = 5
 SERVE_STEP = 99_999          # the serving check's batch of 256
 
 
@@ -111,7 +112,7 @@ def train_mlp(cfg: MLPConfig, *, lam: float, steps: int = 250,
     ctx = QuantCtx(quant=quant, lam=lam, compute_dtype=torch.float32)
     with torch.no_grad():
         accs = []
-        for j in range(5):
+        for j in range(EVAL_BATCHES):
             x, labels = batch_tensors(dcfg, EVAL_STEP0 + j, dev)
             logits, _ = M.mlp_apply(params, qs, bn, x, ctx, train=False)
             accs.append(float(M.accuracy(logits, labels)))

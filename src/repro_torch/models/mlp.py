@@ -5,12 +5,14 @@ Mirrors the JAX package's ``models/mlp.py``:
 * ``mlp_init`` — random EC4T-parameterised layers and BatchNorm state,
   drawn from an explicit ``torch.Generator``;
 * ``mlp_apply`` — the training / eval forward: EC4T fake-quant linears
-  (``core.qat``), BatchNorm on batch statistics with EMA running stats
-  (train) or on the running stats (eval), ReLU; ``cross_entropy`` and
-  ``accuracy`` for the trainer (``launch/train.py``);
-* ``freeze_mlp`` — ECL-assign the final codes and fold BatchNorm into the
-  §V epilogue constants  α₁ = γ/σ,  b' = β + α₁·(bias − μ)  (the JAX
-  package's ``mlp.py:185-193``, computed in numpy float32 as there);
+  (``core.qat``, every layer's kernel in one grouped ECL launch),
+  BatchNorm on batch statistics with EMA running stats (train) or on the
+  running stats (eval), ReLU; ``cross_entropy`` and ``accuracy`` for the
+  trainer (``launch/train.py``);
+* ``freeze_mlp`` — ECL-assign the final codes (one grouped call) and fold
+  BatchNorm into the §V epilogue constants  α₁ = γ/σ,  b' = β + α₁·(bias
+  − μ)  (the JAX package's ``mlp.py:185-193``, computed in numpy float32
+  as there);
 * ``mlp_serve`` / ``mlp_serve_int8`` — compatibility wrappers over an
   ``ExecutionPlan``.
 
@@ -65,13 +67,15 @@ def mlp_apply(params: dict, qstate, bn_state: dict, x: torch.Tensor,
     running stats carry no gradient."""
     new_bn = {"layers": []}
     n = len(params["layers"])
-    for i, layer in enumerate(params["layers"]):
-        node = layer["kernel"]
-        if ctx.quant:
-            w = qat.apply_quant(node, qstate["layers"][i]["kernel"], ctx.lam,
-                                torch.float32)
-        else:
-            w = node["w"].to(torch.float32)
+    nodes = [layer["kernel"] for layer in params["layers"]]
+    if ctx.quant:
+        # every layer's kernel in one grouped ECL launch
+        kernels = qat.apply_quant_many(
+            nodes, [qs["kernel"] for qs in qstate["layers"][:n]], ctx.lam,
+            torch.float32)
+    else:
+        kernels = [node["w"].to(torch.float32) for node in nodes]
+    for i, (layer, w) in enumerate(zip(params["layers"], kernels)):
         x = x.to(torch.float32) @ w + layer["bias"]
         st = {}
         if "bn_gamma" in layer:
@@ -137,10 +141,12 @@ def freeze_mlp(params: dict, qstate: dict, bn_state: dict, lam: float,
     """ECL-quantize every layer and fold BN into the epilogue constants."""
     layers = []
     n = len(params["layers"])
-    for i, layer in enumerate(params["layers"]):
-        node = layer["kernel"]
-        probs = qstate["layers"][i]["kernel"]["probs"]
-        codes = ecl.assign(node["w"], node["omega"], probs, lam)
+    nodes = [layer["kernel"] for layer in params["layers"]]
+    all_codes = ecl.assign_many(
+        [node["w"] for node in nodes], [node["omega"] for node in nodes],
+        [qs["kernel"]["probs"] for qs in qstate["layers"][:n]], lam)
+    for i, (layer, node, codes) in enumerate(zip(params["layers"], nodes,
+                                                 all_codes)):
         m = codes.shape[1]
         if "bn_gamma" in layer:
             st = bn_state["layers"][i]

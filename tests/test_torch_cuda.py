@@ -10,9 +10,13 @@ relative ``< 5e-3`` against the plain versions; the int8 outputs of the
 chain and every fused schedule bitwise equal; a launch the card refuses
 (cluster, programmatic dependent or cooperative) raises; a request served from a
 coalesced bucket bitwise equal to the same rows served alone.  The ECL
-kernel's codes and ŵ bitwise equal to its plain version on the card, and
-the card's ``fake_quant`` ω gradient within ``rtol=1e-5`` of the CPU's.
+kernel's codes and ŵ bitwise equal to its plain version on the card, for
+one tensor a launch and for groups (MLP-GSC's seven tensors in one
+launch, unaligned lead slices and views, more segments than one launch
+takes); the card's ``fake_quant`` ω gradient within ``rtol=1e-5`` of the
+CPU's; grouped training losses bitwise equal to the per-leaf path's.
 """
+import array
 import ctypes
 
 import numpy as np
@@ -291,3 +295,123 @@ def test_fake_quant_grads_card_vs_cpu(cuda_device, shape):
     (out_c, gw_c, gom_c), (out_p, gw_p, gom_p) = grads["cuda"], grads["cpu"]
     torch.testing.assert_close(gw_c, gw_p, rtol=0, atol=0)
     torch.testing.assert_close(gom_c, gom_p, rtol=1e-5, atol=0)
+
+
+GSC_LAYERS = [(512, 512), (512, 512), (512, 256), (256, 256), (256, 128),
+              (128, 128), (128, 12)]
+
+
+def _batched_inputs(shape, lam, seed, device):
+    """w (*lead, R, C) with a batched init ω (*lead, 4) and penalty."""
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy((rng.normal(size=shape) * np.sqrt(2.0 / shape[-2]))
+                         .astype(np.float32)).to(device)
+    probs = torch.from_numpy(rng.dirichlet(np.ones(16), size=shape[:-2])
+                             .astype(np.float32)).to(device)
+    return w, bitplanes.init_omega_from_weights(w), ecl.penalty(w, probs, lam)
+
+
+def _assert_group_bitwise(ws, omegas, pens, outs):
+    for w, om, pen, (codes, w_hat) in zip(ws, omegas, pens, outs):
+        assert codes.shape == w.shape and w_hat.shape == w.shape
+        segs = ([(w, om, pen, codes, w_hat)] if om.ndim == 1 else
+                zip(w, om, pen, codes, w_hat))
+        for sw, so, sp, sc, sv in segs:
+            want_c, want_w = eq.ecl_quant_plain(sw, so, sp)
+            assert torch.equal(sc, want_c)
+            assert torch.equal(sv, want_w)
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.02, 0.3])
+def test_ecl_group_gsc_in_one_launch(cuda_device, lam):
+    """MLP-GSC's seven tensors in one launch, bitwise equal to the plain
+    version tensor by tensor."""
+    group = [_ecl_inputs(s, lam, 300 + i, cuda_device)
+             for i, s in enumerate(GSC_LAYERS)]
+    ws, oms, pens = ([g[0] for g in group], [g[1] for g in group],
+                     [g[3] for g in group])
+    before = eq.LAUNCHES
+    outs = eq.ecl_quant_many(ws, oms, pens)
+    torch.cuda.synchronize(cuda_device)
+    assert eq.LAUNCHES == before + 1
+    _assert_group_bitwise(ws, oms, pens, outs)
+
+
+def test_ecl_group_unaligned_segments(cuda_device):
+    """Lead slices of a (3, 37, 129) tensor start 4,773 elements apart (not
+    16-byte aligned), a (37, 129) view at an odd offset is copied to its
+    outputs' alignment, and 1-5 element tensors are shorter than a vector:
+    one launch, bitwise equal to the plain version.  The C entry refuses
+    outputs aligned otherwise than w."""
+    wb, ob, pb = _batched_inputs((3, 37, 129), 0.3, 21, cuda_device)
+    base = _ecl_inputs((37, 129), 0.3, 22, cuda_device)
+    flat = torch.cat([torch.zeros(1, device=cuda_device),
+                      base[0].reshape(-1)])
+    w_odd = flat[1:].view(37, 129)
+    assert w_odd.data_ptr() % 16 == 4
+    small = [_ecl_inputs(s, 0.3, 23 + i, cuda_device)
+             for i, s in enumerate([(1, 1), (1, 2), (1, 3), (1, 4), (1, 5),
+                                    (2, 3)])]
+    ws = [wb, w_odd] + [s[0] for s in small]
+    oms = [ob, base[1]] + [s[1] for s in small]
+    pens = [pb, base[3]] + [s[3] for s in small]
+    before = eq.LAUNCHES
+    outs = eq.ecl_quant_many(ws, oms, pens)
+    torch.cuda.synchronize(cuda_device)
+    assert eq.LAUNCHES == before + 1
+    _assert_group_bitwise(ws, oms, pens, outs)
+    # the batched entry of core/ecl.py is one launch as well
+    before = eq.LAUNCHES
+    codes, w_hat = ecl.quantize(wb, ob, pb)
+    assert eq.LAUNCHES == before + 1
+    assert torch.equal(codes, outs[0][0]) and torch.equal(w_hat, outs[0][1])
+    from repro_torch.kernels import build
+    c, v = torch.empty(64, dtype=torch.uint8, device=cuda_device), \
+        torch.empty(68, device=cuda_device)
+    row = array.array("q", [base[0].data_ptr(), base[1].data_ptr(),
+                            base[3].data_ptr(), c.data_ptr(),
+                            v.data_ptr() + 4, 64])
+    assert build.load().f4_ecl_quant_many(
+        row.buffer_info()[0], 1, build.stream_handle(cuda_device)) != 0
+
+
+def test_ecl_group_splits_past_the_cap(cuda_device):
+    """MAX_SEGMENTS + 8 tensors take two launches; a batched tensor with
+    MAX_SEGMENTS + 1 leading indices takes two more; all bitwise."""
+    cap = eq.MAX_SEGMENTS
+    group = [_ecl_inputs((i % 7 + 1, 17 + i), 0.3, 400 + i, cuda_device)
+             for i in range(cap + 8)]
+    ws, oms, pens = ([g[0] for g in group], [g[1] for g in group],
+                     [g[3] for g in group])
+    before = eq.LAUNCHES
+    outs = eq.ecl_quant_many(ws, oms, pens)
+    assert eq.LAUNCHES == before + 2
+    wb, ob, pb = _batched_inputs((cap + 1, 6, 5), 0.3, 31, cuda_device)
+    outs_b = eq.ecl_quant_many([wb], [ob], [pb])
+    torch.cuda.synchronize(cuda_device)
+    assert eq.LAUNCHES == before + 4
+    _assert_group_bitwise(ws, oms, pens, outs)
+    _assert_group_bitwise([wb], [ob], [pb], outs_b)
+
+
+def test_grouped_train_steps_equal_per_leaf(cuda_device, monkeypatch):
+    """Three MLP-GSC EC4T steps: 2 launches a step (plus one per eval
+    batch and one for stats), and every loss bitwise equal to the
+    per-leaf path (one launch per tensor)."""
+    from repro_torch.configs.paper_mlps import MLPS
+    from repro_torch.launch import train as T
+
+    cfg = MLPS["mlp-gsc"]
+    steps = 3
+    kw = dict(lam=0.3, steps=steps, lr=5e-3, seed=0, lam_ramp=60)
+    before = eq.LAUNCHES
+    grouped = T.train_mlp(cfg, device=cuda_device, **kw)[3]["losses"]
+    assert eq.LAUNCHES - before == 2 * steps + T.EVAL_BATCHES + 1
+    one_call = ecl.quantize_many
+    monkeypatch.setattr(ecl, "quantize_many", lambda ws, oms, pens: [
+        one_call([w], [o], [p])[0] for w, o, p in zip(ws, oms, pens)])
+    before = eq.LAUNCHES
+    per_leaf = T.train_mlp(cfg, device=cuda_device, **kw)[3]["losses"]
+    layers = len(cfg.features)
+    assert eq.LAUNCHES - before == layers * (2 * steps + T.EVAL_BATCHES + 1)
+    assert grouped == per_leaf
