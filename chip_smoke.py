@@ -41,6 +41,26 @@ Phases (any failure raises and the script exits non-zero):
    within ``atol=rtol=1e-2`` of the eval forward, and 3 steps on the card
    (kernel) within ``rtol=1e-4`` of 3 on the CPU (plain version), loss by
    loss; prints one ``train`` JSON line.
+3c. The request path over several packs, run after phase 4 so that its
+   threads leave no state under the single-stream timings: MLP-GSC,
+   MLP-HR and LeNet-300-100 frozen from seeds and phase 3b's trained
+   MLP-GSC after an ``export_pack`` -> ``load_pack(verify=True)`` round
+   trip, each on a schedule of its own.  Gates: compress -> decode serves
+   bitwise at 1/8/64/256 rows with equal CRCs; ``PackCache(max_hot=2)``
+   over the four packs makes >= 20 evictions, every reload is bitwise and
+   device memory comes back within one pack's footprint; two stream
+   launches on two CUDA streams stay bitwise (device ms ordered and
+   unordered printed); ``ServingFrontend(streams=2)`` with
+   ``verify_launch`` and a scrubber serves 2,000 ragged requests of 1-64
+   rows in two tiers, every result within the fp32 gate and bitwise equal
+   to the request served alone, rejections typed, every serving kernel
+   launched (counters zeroed just before, read just after); a fault
+   session (seeded launch failures, bit flips in the pack, in place in
+   the copies the kernels read, and in the cold tier) returns no result
+   that differs from the clean pack's; each hot flip its own launch ran
+   on is detected by that launch, no launch returns a result from a
+   corrupted pack or copy, recovered = detected - refused, and the cold
+   flip quarantines the model.  Prints one ``frontend`` JSON line.
 4. Time each kernel, its plain version and a library yardstick
    (``torch.matmul`` on pre-decoded fp32 weights plus the epilogue) at the
    main-path shapes, with CUDA events around back-to-back calls (``ms``:
@@ -61,9 +81,11 @@ Phases (any failure raises and the script exits non-zero):
    JSON line (CTAs and shared memory of each launch at each timed batch
    -- the cluster size of the cluster kernels, PDL on or off for each of
    the chain's seven, the cooperative grid of stream -- and the
-   dependent-FMA floor), one ``kernels``, one
-   ``path`` and one ``train`` JSON line, then the ``nvidia-smi`` line and
-   the final ``{"ok": true, ...}`` line.
+   dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
+   phase 3, phase 3b's serving check, phase 3c), one ``path``, one
+   ``train`` and one ``frontend`` JSON line, then the ``nvidia-smi`` line
+   and the final ``{"ok": true, ...}`` line, with before them a line
+   that counts the profiler traces taken and retaken.
 """
 from __future__ import annotations
 
@@ -84,7 +106,8 @@ CLUSTER_SCHEDULES = ("batch_tiled", "db", "ws")
 WIDE_CLUSTER = 16                          # non-portable size, timed beside 8
 FMA_LATENCY = 4                            # cycles of a dependent FFMA (Hopper)
 SPIN_CYCLES = 200_000_000                  # ~0.1 s: the host enqueues meanwhile
-TRACE_TRIES = 3
+TRACE_TRIES = 8                            # a trace now and then comes back empty
+TRACES = {"taken": 0, "retried": 0}        # profiler traces, and those retaken
 PEAK_FP32_FLOPS = 67e12                    # H100 SXM, CUDA cores, dense
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3
 GSC_DIMS = (512, 512, 512, 256, 256, 128, 128, 12)
@@ -506,7 +529,7 @@ def train_path(dev):
     print(f"phase 3b: trained {TRAIN['steps']} steps, acc {m['acc']:.4f}, "
           f"entropy {m['entropy_bits']:.4f}; served within {SERVE_TOL}; "
           f"card vs CPU losses within {CARD_VS_CPU_RTOL}")
-    return {"arch": cfg.name, "batch": T.BATCH, **TRAIN,
+    return pack, {"arch": cfg.name, "batch": T.BATCH, **TRAIN,
             "ms_per_step": m["ms_per_step"], "wall_s": wall_s,
             "final_loss": m["losses"][-1], "acc": m["acc"],
             "sparsity": m["sparsity"], "entropy_bits": m["entropy_bits"],
@@ -575,6 +598,7 @@ def _trace(fn, dev, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize(dev)
+    TRACES["taken"] += 1
     return prof.key_averages()
 
 
@@ -598,6 +622,7 @@ def _device_ms(fn, dev, iters, symbol):
                        if _is_kernel(e) and symbol in e.key)
         if total_us > 0:
             return total_us / 1e3 / iters
+        TRACES["retried"] += 1
         seen = sorted({e.key[:80] for e in evts if _is_kernel(e)})
         print(f"trace without {symbol!r}; its kernels: {seen}",
               file=sys.stderr)
@@ -613,6 +638,7 @@ def _all_device_ms(fn, dev, iters):
                        if _is_kernel(e))
         if total_us > 0:
             return total_us / 1e3 / iters
+        TRACES["retried"] += 1
     raise AssertionError(f"no device time in {TRACE_TRIES} traces")
 
 
@@ -829,6 +855,692 @@ def train_step_timing(dev):
             "top_host_self_ms": [[k, v] for k, v in top_host]}
 
 
+# ------------------------------------------------------------ phase 3c
+
+FRONTEND_ARCHS = ("mlp-gsc", "mlp-hr", "lenet-300-100")   # seeds 100, 101, 102
+COLD_ROWS = (1, 8, 64, 256)
+HOT_MAX, HOT_ROUNDS, HOT_MIN_EVICTIONS = 2, 8, 20
+FRONTEND = dict(requests=2000, max_rows=64, wave=64, streams=2,
+                scrub_s=0.05)
+TIERS = {"mlp-gsc": "latency", "mlp-hr": "standard",
+         "lenet-300-100": "latency", "mlp-gsc-trained": "standard"}
+# the fault session: mlp-hr behind a FaultInjector; seed 939 draws flips
+# into the pack at launches 5, 11 and 21 and into the copies the kernels
+# read at 10 and 14, injected failures at 7 and 12, and the first cold
+# flip at launch 28 (the draws depend on the launch count only)
+FAULT = dict(model="mlp-hr", seed=939, rate=0.05, flip_rate=0.1,
+             waves=60, per_wave=4, max_rows=16, scrub_s=0.02)
+COOP_ROWS, COOP_LAUNCHES = (8, 256), 40
+VERIFY_REPS = 20
+
+
+def plan_kwargs(shapes):
+    """Each model of phase 3c takes a schedule of its own, so the frontend
+    launches every kernel: mlp-gsc auto (ws ≤ 8 rows, batch_tiled above),
+    mlp-hr double-buffered (db from 16 rows), LeNet-300-100 under a
+    shared-memory budget only the stream kernel fits, and the trained
+    MLP-GSC on the per-layer chain."""
+    from repro_torch.kernels import fantastic4_fused_mlp as ffm
+    from repro_torch.serving.plans import STREAM_BLOCK_M
+
+    return {
+        "mlp-gsc": {},
+        "mlp-hr": {"double_buffer": True},
+        "lenet-300-100": {"smem_budget_bytes": ffm.stream_mlp_smem_bytes(
+            shapes["lenet-300-100"], rows=256, block_m=STREAM_BLOCK_M)
+            + 1024},
+        "mlp-gsc-trained": {"mode": "per_layer"},
+    }
+
+
+def frontend_packs(dev, trained):
+    """The paper MLPs frozen from seeds, and the trained MLP-GSC pack after
+    an export_pack -> load_pack(verify=True) round trip on disk."""
+    import tempfile
+    from repro_torch.checkpoint.manager import export_pack, load_pack
+    from repro_torch.configs.paper_mlps import MLPS
+    from repro_torch.core import qat
+    from repro_torch.models import mlp as M
+    from repro_torch.serving.pack_cache import decode_pack
+
+    packs = {}
+    for i, arch in enumerate(FRONTEND_ARCHS):
+        cfg = MLPS[arch]
+        params, bn = M.mlp_init(cfg, seed=100 + i, device=dev)
+        packs[arch] = M.freeze_mlp(params, qat.build_qstate(params), bn,
+                                   lam=cfg.lam)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mlp-gsc-trained")
+        report = export_pack(path, trained, meta={"arch": "mlp-gsc"})
+        packs["mlp-gsc-trained"] = decode_pack(load_pack(path, verify=True),
+                                               dev)
+    return packs, report
+
+
+def _x(rows, d, seed):
+    import numpy as np
+    return np.random.default_rng(seed).normal(size=(rows, d)).astype(
+        np.float32)
+
+
+def cold_tier(dev, packs, kw, trained):
+    """compress_pack -> decode_pack of every pack, served at COLD_ROWS:
+    bitwise equal to the original pack, CRCs equal; the trained pack read
+    back from disk serves what the trained pack serves, bit for bit."""
+    import torch
+    from repro_torch.runtime.integrity import hot_layer_crc
+    from repro_torch.serving.pack_cache import compress_pack, decode_pack
+    from repro_torch.serving.plans import ExecutionPlan
+
+    out = {}
+    pairs = dict(packs, **{"mlp-gsc-trained (from disk)": None})
+    for name in pairs:
+        m = name.split(" ")[0]
+        orig = trained if pairs[name] is None else packs[m]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if pairs[name] is None:
+            dec = packs[m]                  # decoded from the artifact
+            cold = None
+        else:
+            cold = compress_pack(orig)
+            dec = decode_pack(cold, dev)
+        plan_d = ExecutionPlan(dec, device=dev, **kw[m])
+        torch.cuda.synchronize(dev)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        plan_o = ExecutionPlan(orig, device=dev, **kw[m])
+        for rows in COLD_ROWS:
+            x = torch.from_numpy(_x(rows, plan_o.d_in, rows)).to(dev)
+            if not torch.equal(plan_d.run(x), plan_o.run(x)):
+                raise AssertionError(f"{name}: decoded pack serves other "
+                                     f"bits than the original at {rows} rows")
+        want = [hot_layer_crc(l) for l in orig["layers"]]
+        got = [l["crc"] for l in dec["layers"]]
+        if got != want or [hot_layer_crc(l) for l in dec["layers"]] != want:
+            raise AssertionError(f"{name}: CRCs {got} != {want}")
+        out[name] = {"decode_and_plan_ms": decode_ms,
+                     "formats": [l["format"] for l in dec["layers"]]}
+        if cold is not None:
+            out[name].update(cold_bytes=cold.size_bytes,
+                             fp32_bytes=cold.fp32_bytes)
+    print(f"phase 3c: cold tier bitwise at rows {COLD_ROWS} for "
+          f"{len(out)} packs; CRCs equal")
+    return out
+
+
+def footprint(plan):
+    """Device bytes of a resolved plan: its layer tensors and every
+    memoized kernel operand built from them (``ops.pack_operand_bytes``:
+    slice-major code copies, ws stacks, layer tables, folded int8
+    epilogues), each storage once, in the allocator's 512-byte blocks."""
+    from repro_torch.kernels import ops
+
+    own = {}
+    for l in plan.layers:
+        for k in ("packed", "omega", "alpha1", "bias", "alpha2"):
+            st = l[k].untyped_storage()
+            own[st.data_ptr()] = st.nbytes()
+    return (sum(-(-n // 512) * 512 for n in own.values())
+            + ops.pack_operand_bytes(plan.layers))
+
+
+def hot_tier(dev, packs, kw):
+    """PackCache(max_hot=2) over the four packs, round robin: every
+    request after the first two evicts.  Every result after a reload is
+    bitwise equal to the model's first result, and device memory after the
+    script is back at its level after the first load, within one pack's
+    footprint (plan tensors + memoized operands)."""
+    import gc
+    import torch
+    from repro_torch.serving.pack_cache import PackCache, plan_resident_bytes
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    cache = PackCache(max_hot=HOT_MAX, device=dev)
+    for m, p in packs.items():
+        cache.add(m, p, plan_kwargs=kw[m])
+    xs = {m: torch.from_numpy(_x(7, p["layers"][0]["shape"][0], 5)).to(dev)
+          for m, p in packs.items()}
+    first, feet, resident = {}, {}, {}
+    mem_first = None
+    for j, m in enumerate(list(packs) * HOT_ROUNDS):
+        plan = cache.plan(m)
+        y = plan.run(xs[m])
+        torch.cuda.synchronize(dev)
+        feet[m] = max(feet.get(m, 0), footprint(plan))
+        resident[m] = plan_resident_bytes(plan)
+        del plan
+        if mem_first is None:
+            gc.collect()
+            mem_first = torch.cuda.memory_allocated(dev)
+        if m not in first:
+            first[m] = y
+        elif not torch.equal(y, first[m]):
+            raise AssertionError(f"hot tier: {m} after a reload differs "
+                                 "from before its eviction")
+    del y
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    mem_after = torch.cuda.memory_allocated(dev)
+    evictions = cache.stats["evictions"]
+    allow = max(feet.values())
+    if evictions < HOT_MIN_EVICTIONS:
+        raise AssertionError(f"hot tier: {evictions} evictions, need "
+                             f">= {HOT_MIN_EVICTIONS}")
+    if mem_after - mem_first > allow:
+        raise AssertionError(f"hot tier: memory {mem_after} after the "
+                             f"script, {mem_first} after the first load: "
+                             f"more than one pack's {allow} bytes apart")
+    cache.evict_all()
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    mem_empty = torch.cuda.memory_allocated(dev)
+    if mem_empty - base > allow:
+        raise AssertionError(f"hot tier: {mem_empty - base} bytes stay "
+                             "allocated with every plan evicted")
+    print(f"phase 3c: hot tier {evictions} evictions, reloads bitwise; "
+          f"memory {mem_after - base} B above base after the script "
+          f"({mem_first - base} B after the first load, allowance "
+          f"{allow} B), {mem_empty - base} B with every plan evicted")
+    return {"max_hot": HOT_MAX, "requests": len(packs) * HOT_ROUNDS,
+            "evictions": evictions, "resolves": cache.stats["resolves"],
+            "decode_and_plan_ms_mean": 1e3 * float(
+                sum(cache.stats["cold_start_s"])
+                / max(len(cache.stats["cold_start_s"]), 1)),
+            "mem_base": base, "mem_after_first_load": mem_first,
+            "mem_after_script": mem_after, "mem_all_evicted": mem_empty,
+            "allowance_bytes": allow, "footprint_bytes": feet,
+            "plan_resident_bytes": resident}
+
+
+def coop_probe(dev, pack):
+    """Two stream-schedule launches in flight on two CUDA streams: device
+    ms of 2n launches on one stream against n + n on two streams that
+    start behind one event, launched without the cross-stream order (the
+    card's own behaviour: the kernel's launch alone) and with it (what
+    serving does); outputs must stay bitwise equal."""
+    import torch
+    from repro_torch.kernels import fantastic4_fused_mlp as ffm
+    from repro_torch.kernels import ops
+
+    layers = pack["layers"]
+    shapes = tuple(tuple(l["shape"]) for l in layers)
+
+    def launch(x):
+        return ops.fantastic4_mlp_fused(x, layers, schedule="stream",
+                                        block_m=8)
+
+    table = ops._layer_table(layers, "float32", None, "stream")
+
+    def unordered(x):
+        return ffm._stream_kernel(x, shapes, 8, table, ffm.SMEM_BUDGET_BYTES)
+
+    out = {}
+    s0, s1, s2 = (torch.cuda.Stream(dev) for _ in range(3))
+    for rows in COOP_ROWS:
+        x = torch.from_numpy(_x(rows, layers[0]["shape"][0], 9)).to(dev)
+        want = launch(x)
+        row = {"ctas": None}
+        for key, fn in (("unordered", unordered), ("ordered", launch)):
+            times = {}
+            for split in (1, 2):
+                torch.cuda.synchronize(dev)
+                gate = torch.cuda.Event(enable_timing=True)
+                spin_done = torch.cuda.Event()
+                with torch.cuda.stream(s0):
+                    torch.cuda._sleep(SPIN_CYCLES)
+                    spin_done.record()
+                    gate.record()
+                ends, ys = [], []
+                for st in ((s1,) if split == 1 else (s1, s2)):
+                    st.wait_event(gate)
+                    with torch.cuda.stream(st):
+                        for _ in range(2 * COOP_LAUNCHES // split):
+                            ys.append(fn(x))
+                        e = torch.cuda.Event(enable_timing=True)
+                        e.record()
+                        ends.append(e)
+                if spin_done.query():
+                    raise AssertionError("the host fell behind the "
+                                         "queued stream launches")
+                torch.cuda.synchronize(dev)
+                times[split] = max(gate.elapsed_time(e) for e in ends) \
+                    / (2 * COOP_LAUNCHES)
+                if not all(torch.equal(y, want) for y in ys):
+                    raise AssertionError("stream schedule on two "
+                                         "streams changed its output")
+            row[f"ms_one_stream_{key}"] = times[1]
+            row[f"ms_two_streams_{key}"] = times[2]
+            row[f"two_over_one_{key}"] = times[2] / times[1]
+        ffm.LAST_LAUNCH.clear()
+        launch(x)
+        row["ctas"] = ffm.LAST_LAUNCH["stream"]["ctas"]
+        out[str(rows)] = row
+    return out
+
+
+def _served_checks(dev, packs, kw, done):
+    """Every served result within the fp32 gate of the oracle and bitwise
+    equal to the same request served alone through the model's plan."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.plans import ExecutionPlan
+
+    alone = {m: ExecutionPlan(p, device=dev, **kw[m]) for m, p in
+             packs.items()}
+    oracle = {m: ExecutionPlan(p, mode="oracle", device=dev) for m, p in
+              packs.items()}
+    for m, x, s in done:
+        xt = torch.from_numpy(x).to(dev)
+        y_alone = alone[m].run(xt).cpu().numpy()
+        if s.y.shape != y_alone.shape or not np.array_equal(s.y, y_alone):
+            raise AssertionError(f"frontend {m}: a served result differs "
+                                 "from the request served alone")
+        np.testing.assert_allclose(s.y, oracle[m].run(xt).cpu().numpy(),
+                                   atol=FP32_ATOL, rtol=FP32_RTOL)
+
+
+def _drain(futs, allowed):
+    """(served, rejected) of the futures; every one must resolve, and a
+    failure only with a typed cause from ``allowed``."""
+    served, rejected = [], []
+    for m, x, f in futs:
+        try:
+            served.append((m, x, f.result(120.0)))
+        except allowed as exc:
+            rejected.append((m, type(exc).__name__,
+                             getattr(exc, "reason", None)))
+    return served, rejected
+
+
+def _pcts(vals):
+    import numpy as np
+    return ({"p50_ms": float(np.percentile(vals, 50)) * 1e3,
+             "p99_ms": float(np.percentile(vals, 99)) * 1e3}
+            if vals else {"p50_ms": None, "p99_ms": None})
+
+
+def frontend_session(dev, packs, kw):
+    """ServingFrontend(streams=2) with verify_launch and a scrubber over
+    the four models, two tiers, FRONTEND['requests'] ragged requests of
+    1-64 rows in waves; launch counters zeroed just before, read after."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fantastic4_fused_mlp as ffm
+    from repro_torch.kernels import fantastic4_matmul as fm
+    from repro_torch.kernels import staged
+    from repro_torch.runtime.integrity import (GuardedPlan, entry_layers,
+                                               unwrap_chain)
+    from repro_torch.serving import (PackCache, Rejected, ServingFrontend)
+
+    rng = np.random.default_rng(33)
+    names = list(packs)
+    reqs = [(m, rng.normal(size=(int(rng.integers(1, FRONTEND["max_rows"]
+                                                  + 1)),
+                                 packs[m]["layers"][0]["shape"][0]))
+             .astype(np.float32))
+            for m in (names[int(i)] for i in
+                      rng.integers(0, len(names), FRONTEND["requests"]))]
+    cache = PackCache(device=dev)
+    fe = ServingFrontend(cache=cache, streams=FRONTEND["streams"],
+                         scrub_interval_s=FRONTEND["scrub_s"])
+    batchers = {m: fe.register_pack(m, packs[m], plan_kwargs=kw[m],
+                                    integrity=True, tier=TIERS[m])
+                for m in names}
+    torch.cuda.synchronize(dev)
+    mem_before = torch.cuda.memory_allocated(dev)
+    fm.LAUNCHES = 0
+    ffm.reset_launches()
+    with fe:
+        # first traffic decodes each model and builds its operands
+        _drain([(m, None, fe.submit(m, _x(1, packs[m]["layers"][0]
+                                          ["shape"][0], 0)))
+                for m in names], (Rejected,))
+        t0 = time.perf_counter()
+        done, rejected = [], []
+        for w in range(0, len(reqs), FRONTEND["wave"]):
+            futs = [(m, x, fe.submit(m, x))
+                    for m, x in reqs[w:w + FRONTEND["wave"]]]
+            d, r = _drain(futs, (Rejected,))
+            done += d
+            rejected += r
+        wall_s = time.perf_counter() - t0
+        verify_idle, verify_busy, verify_launch = {}, {}, {}
+        for m in names:
+            guard = next(p for p in unwrap_chain(batchers[m].plan)
+                         if isinstance(p, GuardedPlan))
+            # the verifies while serving ran beside the other stream's
+            # launches, the dispatch thread and the scrubber
+            verify_busy[m] = 1e3 * guard.stats["verify_s"] / max(
+                guard.stats["verifies"], 1)
+            t1 = time.perf_counter()
+            for _ in range(VERIFY_REPS):
+                guard.verify()          # every sealed copy, as a scrub
+            verify_idle[m] = (time.perf_counter() - t1) * 1e3 / VERIFY_REPS
+            # a launch's verify: the pack and the copies one launch of the
+            # top bucket read
+            plan = guard.plan.resolve()
+            top = max(plan.bucket_sizes)
+            fn = plan.entry(top)
+            with staged.reads() as read:
+                fn(torch.zeros((top, plan.d_in), device=dev))
+            t1 = time.perf_counter()
+            for _ in range(VERIFY_REPS):
+                guard.verify(entry_layers(fn), read)
+            verify_launch[m] = (time.perf_counter() - t1) * 1e3 / VERIFY_REPS
+        scrub_ms = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            rep = fe.scrub_once()
+            scrub_ms.append((time.perf_counter() - t1) * 1e3)
+            if rep["detected"]:
+                raise AssertionError(f"scrub found corruption: {rep}")
+    torch.cuda.synchronize(dev)
+    launches = {"fantastic4_matmul": fm.LAUNCHES,
+                **{n: ffm.LAUNCHES[s] for n, (s, _) in KERNELS.items()
+                   if s != "chain"}}
+    mem_after = torch.cuda.memory_allocated(dev)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the frontend never launched {name}: "
+                                 f"{launches}")
+    if len(done) + len(rejected) != len(reqs):
+        raise AssertionError("a request was lost")
+    if len(done) < len(reqs) // 2:
+        raise AssertionError(f"only {len(done)} of {len(reqs)} served")
+    if fe.stats["quarantined"] or fe.stats["launch_failures"]:
+        raise AssertionError(f"clean session failed launches: "
+                             f"{fe.stats['launch_failures']}, quarantined "
+                             f"{fe.stats['quarantined']}")
+    _served_checks(dev, packs, kw, done)
+    per = {}
+    for m in names:
+        guard = next(p for p in unwrap_chain(batchers[m].plan)
+                     if isinstance(p, GuardedPlan))
+        gs = guard.stats
+        st = fe.stats["by_model"][m]
+        per[m] = {"tier": TIERS[m], "requests": st["requests"],
+                  "served": sum(1 for d in done if d[0] == m),
+                  "rejected": st["rejected"], "launches": st["launches"],
+                  "flushes": batchers[m].stats["flushes"],
+                  "rows": batchers[m].stats["rows"],
+                  **_pcts([s.latency for mm, _, s in done if mm == m]),
+                  "verifies": gs["verifies"],
+                  "verify_ms_serving": verify_busy[m],
+                  "verify_ms_idle": verify_idle[m],
+                  "launch_verify_ms_idle": verify_launch[m],
+                  "schedules": sorted(set(
+                      cache.plan(m).describe()["bucket_schedules"]
+                      .values()))}
+    print(f"phase 3c: frontend served {len(done)} of {len(reqs)} ragged "
+          f"requests ({len(rejected)} rejected, typed) on "
+          f"{FRONTEND['streams']} streams in {wall_s:.2f} s; launches "
+          f"{launches}")
+    return {"streams": FRONTEND["streams"], "requests": len(reqs),
+            "served": len(done), "rejected": len(rejected),
+            "rejected_reasons": sorted({r[2] for r in rejected if r[2]}),
+            "wall_s": wall_s, "launches": launches,
+            "stream_launches": [s["launches"]
+                                for s in fe.stats["streams"]],
+            "scrub_cycle_ms": scrub_ms,
+            "scrub_background_cycles": fe.stats["scrub"]["cycles"],
+            "scrub_deferred": fe.stats["scrub"]["deferred"],
+            "mem_before": mem_before, "mem_after": mem_after,
+            "models": per}
+
+
+class LaunchAudit:
+    """Outermost proxy on the fault session's model: for each launch, the
+    fault injector's index of it, the layers it ran on, the sealed copies
+    it read (``kernels.staged``) and how it ended -- "returned",
+    "detected" (an IntegrityError), "failed" (an injected failure: no
+    kernel ran) or "error"."""
+
+    def __init__(self, plan, injector):
+        import threading
+
+        self._plan = plan
+        self.injector = injector
+        self.lock = threading.Lock()
+        self.launches = {}
+
+    @property
+    def plan(self):
+        return self._plan
+
+    def __getattr__(self, name):
+        return getattr(self._plan, name)
+
+    def _audit(self, call, layers):
+        from repro_torch.kernels import staged
+        from repro_torch.runtime.fault import InjectedFault
+        from repro_torch.runtime.integrity import IntegrityError
+
+        before = self.injector.last_launch()
+        outcome = "returned"
+        with staged.reads() as read:
+            try:
+                return call()
+            except IntegrityError:
+                outcome = "detected"
+                raise
+            except InjectedFault:
+                outcome = "failed"
+                raise
+            except Exception:
+                outcome = "error"
+                raise
+            finally:
+                idx = self.injector.last_launch()
+                if idx is not None and idx != before:
+                    with self.lock:
+                        self.launches[idx] = (layers, list(read), outcome)
+
+    def entry(self, bucket):
+        from repro_torch.runtime.integrity import entry_layers
+
+        inner = self._plan.entry(bucket)
+        layers = entry_layers(inner)
+
+        def audited(xb):
+            return self._audit(lambda: inner(xb), layers)
+
+        audited.layers = layers
+        return audited
+
+    def run(self, x):
+        return self._audit(lambda: self._plan.run(x), self._plan.layers)
+
+
+def flip_audit(injector, audit):
+    """Each hot flip against the launches that ran on it.  A "packed" or
+    "epilogue" flip (or a "staged" one that landed in a pack's own codes)
+    corrupts the layers of the launch it came with; a "staged" flip the
+    sealed copy of those layers that it landed in (the copy of that name
+    whose bytes no longer match their seal).  A launch at or after the
+    flip that ran a kernel on the corrupted object must have raised
+    IntegrityError.  Returns (flips whose own launch ran on them, of those
+    detected by that launch, later launches that ran on a flip, escapes:
+    launches that returned a result from a corrupted object)."""
+    from repro_torch.runtime.integrity import live_crcs
+
+    def corrupt(s):
+        return tuple(live_crcs([], [s])[1]) != s.seal
+
+    own = own_detected = later = 0
+    escapes = []
+    for flip in injector.flips:
+        i, target, _, what = flip[:4]
+        if target == "cold":
+            continue
+        if i not in audit.launches:
+            raise AssertionError(f"flip {flip}: launch {i} not audited")
+        layers = audit.launches[i][0]
+        if target == "staged" and not what.endswith("packed"):
+            bad = {id(s) for _, (l, reads, _) in audit.launches.items()
+                   if l is layers for s in reads
+                   if s.what == what and corrupt(s)}
+
+            def ran_on(rec, bad=bad):
+                return any(id(s) in bad for s in rec[1])
+        else:
+            def ran_on(rec, layers=layers):
+                return rec[0] is layers
+        for j, rec in sorted(audit.launches.items()):
+            if j < i or rec[2] == "failed" or not ran_on(rec):
+                continue
+            if j == i:
+                own += 1
+                own_detected += rec[2] == "detected"
+            else:
+                later += 1
+            if rec[2] == "returned":
+                escapes.append((flip, j))
+    return own, own_detected, later, escapes
+
+
+def fault_session(dev, packs, kw):
+    """One model behind a FaultInjector (launch failures, hot and cold
+    flips) with verify_launch and a scrubber, beside a clean model.  No
+    returned result may differ from the clean pack's; every flip is
+    accounted for; recovery is bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime.fault import FaultInjector, InjectedFault
+    from repro_torch.runtime.integrity import (GuardedPlan, IntegrityError,
+                                               unwrap_chain)
+    from repro_torch.serving import (PackCache, Rejected, ServingFrontend,
+                                     verify_cold_pack)
+
+    fm_name, clean = FAULT["model"], "lenet-300-100"
+    holder = {}
+
+    def wrap(p):
+        holder["inj"] = FaultInjector(
+            p, rate=FAULT["rate"], seed=FAULT["seed"],
+            flip_rate=FAULT["flip_rate"],
+            flip_targets=("packed", "epilogue", "staged", "cold"))
+        return holder["inj"]
+
+    fe = ServingFrontend(cache=PackCache(device=dev), streams=2,
+                         scrub_interval_s=FAULT["scrub_s"])
+    fb = fe.register_pack(fm_name, packs[fm_name], plan_kwargs=kw[fm_name],
+                          wrap=wrap, integrity=True, max_delay=1e-3)
+    fe.register_pack(clean, packs[clean], plan_kwargs=kw[clean],
+                     integrity=True, max_delay=1e-3)
+    inj = holder["inj"]
+    guard = next(p for p in unwrap_chain(fb.plan)
+                 if isinstance(p, GuardedPlan))
+    fb.plan = audit = LaunchAudit(fb.plan, inj)
+    cold_ref = fe.registry.cache.cold(fm_name)
+    rng = np.random.default_rng(44)
+    done, rejected = [], []
+    with fe:
+        for _ in range(FAULT["waves"]):
+            futs = []
+            for m in (fm_name, clean):
+                for _ in range(FAULT["per_wave"]):
+                    x = rng.normal(size=(int(rng.integers(
+                        1, FAULT["max_rows"] + 1)),
+                        packs[m]["layers"][0]["shape"][0])).astype(
+                            np.float32)
+                    futs.append((m, x, fe.submit(m, x)))
+            d, r = _drain(futs, (Rejected, IntegrityError, InjectedFault))
+            done += d
+            rejected += r
+        final_scrub = fe.scrub_once()
+    quarantined = fm_name in fe.stats["quarantined"]
+    hot = [f for f in inj.flips if f[1] != "cold"]
+    cold = [f for f in inj.flips if f[1] == "cold"]
+    it = fe.stats["integrity"]
+    if any(m == clean for m, _, _ in rejected):
+        raise AssertionError(f"the clean model lost requests: {rejected}")
+    if not hot or not cold or not inj.failures:
+        raise AssertionError(f"fault schedule did not fire: flips "
+                             f"{inj.flips}, failures {inj.failures}")
+    own, own_detected, later, escapes = flip_audit(inj, audit)
+    if escapes:
+        raise AssertionError(f"results returned from corrupted operands "
+                             f"(flip, launch): {escapes}")
+    if own < 1 or own_detected != own:
+        raise AssertionError(f"{own} hot flips ran on by their own launch, "
+                             f"{own_detected} detected there")
+    if guard.stats["detected"] < own_detected:
+        raise AssertionError(f"guard detections {guard.stats['detected']}"
+                             f" < {own_detected} flips detected at launch")
+    if it["recovered"] < 1 or \
+            it["recovered"] != it["detected"] - it["recovery_failed"]:
+        raise AssertionError(f"recovered {it['recovered']}, expected "
+                             f"detected {it['detected']} - refused "
+                             f"{it['recovery_failed']}")
+    # every cold flip is caught: the model is quarantined as corrupted,
+    # and its cold copy really fails verification
+    try:
+        verify_cold_pack(cold_ref)
+        cold_real = False
+    except IntegrityError:
+        cold_real = True
+    if not (quarantined and cold_real and
+            fe._quarantine_reasons.get(fm_name) == "corrupted"):
+        raise AssertionError(f"cold flip not caught: quarantined "
+                             f"{quarantined}, cold fails {cold_real}, "
+                             f"reasons {fe._quarantine_reasons}")
+    if fe.stats["fallbacks"]:
+        raise AssertionError("a fault demoted a bucket in the fault session")
+    _served_checks(dev, packs, kw, done)
+    n_fault = sum(1 for m, _, _ in done if m == fm_name)
+    print(f"phase 3c: faults {len(hot)} hot and {len(cold)} cold flips, "
+          f"{inj.injected} launch failures; {own} hot flips ran on by "
+          f"their own launch, {own_detected} detected there (expected "
+          f"{own}); {later} later launches ran on a flip, 0 returned; "
+          f"guard detections {guard.stats['detected']} (expected >= "
+          f"{own_detected}); {it['detected']} detected, "
+          f"{it['recovered']} recovered bitwise (expected "
+          f"{it['detected']} - {it['recovery_failed']} refused: corrupt "
+          f"cold tier); {n_fault} faulty-model results all equal to the "
+          f"clean pack's")
+    return {"model": fm_name, "seed": FAULT["seed"], "rate": FAULT["rate"],
+            "flip_rate": FAULT["flip_rate"], "launches": inj.launches,
+            "injected_failures": inj.injected,
+            "hot_flips": len(hot), "cold_flips": len(cold),
+            "flips": [list(f) for f in inj.flips],
+            "flips_run_on_by_own_launch": own,
+            "detected_by_own_launch": own_detected,
+            "later_launches_on_a_flip": later,
+            "detected": it["detected"],
+            "detected_by_launch_verify": guard.stats["detected"],
+            "recovered": it["recovered"],
+            "recovery_failed": it["recovery_failed"],
+            "recovery_ms": [1e3 * s for s in it["recovery_s"]],
+            "scrub": dict(fe.stats["scrub"]), "final_scrub": final_scrub,
+            "retries": fe.stats["retries"],
+            "quarantined": quarantined,
+            "quarantine_reason": fe._quarantine_reasons.get(fm_name),
+            "served_faulty_model": n_fault,
+            "rejected": len(rejected),
+            "rejected_kinds": sorted({r[1] for r in rejected})}
+
+
+def frontend_path(dev, trained):
+    """Phase 3c: the request path over several packs at full width."""
+    t0 = time.perf_counter()
+    packs, report = frontend_packs(dev, trained)
+    shapes = {m: tuple(tuple(l["shape"]) for l in p["layers"])
+              for m, p in packs.items()}
+    kw = plan_kwargs(shapes)
+    cold = cold_tier(dev, packs, kw, trained)
+    hot = hot_tier(dev, packs, kw)
+    coop = coop_probe(dev, packs["mlp-gsc"])
+    session = frontend_session(dev, packs, kw)
+    faults = fault_session(dev, packs, kw)
+    wall_s = time.perf_counter() - t0
+    print(f"phase 3c: done in {wall_s:.1f} s")
+    return {"wall_s": wall_s, "export_report": report, "cold_tier": cold,
+            "hot_tier": hot, "cooperative_two_streams": coop,
+            "session": session, "faults": faults}
+
+
 def main() -> int:
     try:
         import torch
@@ -861,11 +1573,13 @@ def main() -> int:
     max_err, max_rel8 = check_kernels(dev)
     ecl_err = check_ecl_quant(dev)
     launches, path = main_path(dev)
-    train = train_path(dev)
+    trained, train = train_path(dev)
     times, grid = timings(dev)
     floor = contract_floor(dev)
     ecl_times = ecl_timings(dev)
     train["step_timing"] = train_step_timing(dev)
+    # the threaded phase runs after the single-stream timings
+    frontend = frontend_path(dev, trained)
 
     report = []
     for name, (sched, replaces) in KERNELS.items():
@@ -874,7 +1588,13 @@ def main() -> int:
         report.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "schedule": sched,
-            "launches": launches[name], "max_abs_err": max_err[name],
+            "launches": launches[name],
+            "launches_by_path": {
+                "serving": launches[name],
+                "training_serve": train["serve_launches"][
+                    "fantastic4_matmul" if sched == "chain" else sched],
+                "frontend": frontend["session"]["launches"][name]},
+            "max_abs_err": max_err[name],
             "int8_max_rel_err": max_rel8[name],
             "ms": head["ms"], "kernel_ms": head["ms"],
             "device_ms": head["device_ms"],
@@ -899,6 +1619,9 @@ def main() -> int:
     print(json.dumps({"kernels": report}))
     print(json.dumps({"path": path}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"frontend": frontend}))
+    print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "
+          "retaken for want of the kernel's device time")
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -103,6 +103,21 @@ def update_probs(probs: torch.Tensor, codes: torch.Tensor,
         codes, lead_ndim=probs.ndim - 1)
 
 
+def ecl_fit(w: torch.Tensor, omega: torch.Tensor, lam: float,
+            iters: int = 10) -> tuple:
+    """Full alternating ECL (post-training quantization): assignment ↔
+    probability update from uniform probabilities, ``iters`` times, then a
+    last assignment; centroids stay fixed (the paper's modification).
+    Each assignment is one launch of the grouped ECL op.  Returns
+    (codes, probs)."""
+    lead = omega.shape[:-1]
+    probs = torch.full((*lead, NUM_CODES), 1.0 / NUM_CODES,
+                       dtype=torch.float32, device=w.device)
+    for _ in range(iters):
+        probs = histogram(assign(w, omega, probs, lam), lead_ndim=len(lead))
+    return assign(w, omega, probs, lam), probs
+
+
 def sparsity(codes: torch.Tensor) -> torch.Tensor:
     """Fraction of exact zeros (code 0)."""
     return torch.mean((codes == 0).to(torch.float32))

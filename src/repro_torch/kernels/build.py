@@ -13,6 +13,14 @@ IEEE division and no reassociation.  The library name carries a hash of
 the sources, so an edited source is rebuilt and a stale library is never
 loaded.  Nothing here runs at import time: the CPU tests import every
 module of the port and never build.
+
+Launches from several threads and CUDA streams (the serving frontend's
+stream workers) need three things every wrapper gets from here:
+``COUNT_LOCK`` guards the launch counters; :func:`publish` waits for an
+operand built once per pack (a memo fill) before other streams may read
+it; :func:`keep_for_stream` ties the memory a launch reads to the stream
+it runs on, so a tensor dropped meanwhile (an evicted pack, a memo entry)
+is not handed to another allocation before the launch has read it.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ _DEFAULT_BUILD_DIR = CSRC.parents[2] / "build" / "repro_torch_kernels"
 
 _lock = threading.Lock()
 _lib = None
+#: guards every kernel's launch counter (``LAUNCHES``) across threads
+COUNT_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -143,3 +153,30 @@ def check(err: int, what: str) -> None:
 def stream_handle(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def publish(device) -> None:
+    """Wait for the work queued so far on ``device``'s current stream: a
+    memoized operand is built by asynchronous copies and kernels on
+    whichever stream first needs it, and a launch on another stream must
+    not read it before they finish.  Called once per build, before the
+    operand goes into its memo."""
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def keep_for_stream(tensors, device) -> None:
+    """Record the current stream on every tensor a launch reads, unless it
+    is the device's default stream.  The caching allocator then holds each
+    tensor's memory back from reuse until the launch is done, though the
+    last reference may be dropped on another thread while the launch is
+    in flight.  On the default stream nothing is recorded: single-stream
+    serving frees and allocates in stream order."""
+    import torch
+    stream = torch.cuda.current_stream(device)
+    if stream == torch.cuda.default_stream(device):
+        return
+    for t in tensors:
+        if t is not None:
+            t.record_stream(stream)

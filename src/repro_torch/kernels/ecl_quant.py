@@ -135,7 +135,8 @@ def _launch_group(ws, omegas, pens) -> list:
             build.check(lib.f4_ecl_quant_many(table.buffer_info()[0],
                                               len(chunk), stream),
                         "ecl_quant kernel")
-            LAUNCHES += 1
+            with build.COUNT_LOCK:
+                LAUNCHES += 1
     return outs
 
 

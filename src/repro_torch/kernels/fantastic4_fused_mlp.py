@@ -72,8 +72,10 @@ launch shape (CTAs, cluster size or cooperative, dynamic shared memory).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -93,10 +95,16 @@ DESC_BYTES = 80        # one f4::LayerDesc
 LAUNCHES = {"batch_tiled": 0, "db": 0, "ws": 0, "stream": 0}
 LAST_LAUNCH: dict = {}
 
+# stream launches made from different CUDA streams run one after the
+# other on the device (:func:`cooperative_order`)
+_COOP_LOCK = threading.Lock()
+_COOP_LAST: dict = {}       # device index -> (stream, event of last launch)
+
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with build.COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def padded_shapes(shapes: Sequence[Tuple[int, int]]
@@ -324,6 +332,10 @@ class LayerTable:
         self.slice_bytes = tuple(int(b) for b in rows["slice_bytes"])
         self.codes = torch.cat(slices).contiguous()
         self.tensor = torch.from_numpy(rows.view(np.uint8).copy()).to(device)
+        # what a launch reads: the descriptors (ω and the scale by value),
+        # the code copy, and each layer's α₁ and bias through its pointers
+        self.reads = (self.tensor, self.codes,
+                      *(l[k] for l in layers for k in ("alpha1", "bias")))
 
 
 def _host_floats(t) -> list:
@@ -455,7 +467,10 @@ def _cluster_launch(kind: str, x: torch.Tensor, table: LayerTable, shapes,
         err = lib.f4_fused_tiled(*args, max(sb), int(kind == "db"),
                                  y.data_ptr(), stream)
     build.check(err, f"fantastic4 {kind} cluster kernel")
-    LAUNCHES[kind] += 1
+    build.keep_for_stream((table.tensor, table.codes, xf, *table.refs),
+                          x.device)
+    with build.COUNT_LOCK:
+        LAUNCHES[kind] += 1
     LAST_LAUNCH[kind] = {"rows": m, "ctas": -(-m // rows) * table.cluster,
                          "cluster": table.cluster, "rows_per_cluster": rows,
                          "smem_bytes": smem}
@@ -538,7 +553,42 @@ def fantastic4_fused_mlp_stream_plain(x, packed_stack, omega_stack,
                           act_dtype=act_dtype)
 
 
+@contextlib.contextmanager
+def cooperative_order(device):
+    """Serialize stream launches across CUDA streams, behind a lock.
+
+    A stream launch is one cooperative grid of up to every co-resident
+    CTA.  The card does not run two full-width grids side by side: a
+    second one in flight on another stream waits for the first to leave
+    the SMs (measured on the H100 by ``chip_smoke.py`` phase 3c).  So the
+    order is made explicit: under the lock, a launch waits for the event
+    of the previous launch when that one ran on another stream, and a
+    launch on a stream other than the default records its own.  A launch
+    on the default stream records nothing, so single-stream serving pays
+    for no event."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with _COOP_LOCK:
+        cur = torch.cuda.current_stream(device)
+        prev = _COOP_LAST.pop(index, None)
+        if prev is not None and prev[0] != cur:
+            cur.wait_event(prev[1])
+        yield
+        if cur != torch.cuda.default_stream(device):
+            ev = torch.cuda.Event()
+            ev.record(cur)
+            _COOP_LAST[index] = (cur, ev)
+
+
 def _stream_launch(x, shapes, block_m, table: LayerTable,
+                   smem_budget_bytes: int) -> torch.Tensor:
+    """One cooperative launch, in order with those of other CUDA streams
+    (:func:`cooperative_order`)."""
+    with cooperative_order(x.device):
+        return _stream_kernel(x, shapes, block_m, table, smem_budget_bytes)
+
+
+def _stream_kernel(x, shapes, block_m, table: LayerTable,
                    smem_budget_bytes: int) -> torch.Tensor:
     """One cooperative launch; the card sizes the grid (at most the
     co-resident CTAs) and refuses (this raises) what it cannot hold."""
@@ -563,14 +613,17 @@ def _stream_launch(x, shapes, block_m, table: LayerTable,
     ctas = ctypes.c_int(0)
     # CTAs past the most work items a layer has would only idle
     want = max(table.n_slices) * -(-m // rows)
-    err = build.load().f4_fused_stream(
+    lib = build.load()
+    err = lib.f4_fused_stream(
         xf.data_ptr(), m, k0, table.tensor.data_ptr(), n,
         table.codes.data_ptr(), rows, input_stride(shapes), lda,
         max(table.slice_bytes), want, act.data_ptr(),
-        act.data_ptr() + 4 * 2 * m * lda, y.data_ptr(), ctypes.byref(ctas),
-        build.stream_handle(dev))
+        act.data_ptr() + 4 * 2 * m * lda, y.data_ptr(),
+        ctypes.byref(ctas), build.stream_handle(dev))
     build.check(err, "fantastic4_fused_mlp_stream kernel")
-    LAUNCHES["stream"] += 1
+    build.keep_for_stream((table.tensor, table.codes, xf, *table.refs), dev)
+    with build.COUNT_LOCK:
+        LAUNCHES["stream"] += 1
     LAST_LAUNCH["stream"] = {"rows": m, "ctas": ctas.value,
                              "cooperative": True, "rows_per_tile": rows,
                              "smem_bytes": smem}

@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..memo import MISS, IdentityMemo
-from . import build, ref
+from . import build, ref, staged
 from .slices import code_slices, round_up, slice_count, slice_width
 
 MAX_TILE_ROWS = 32      # rows per CTA (the kernel's row tile)
@@ -56,6 +56,7 @@ class ChainOperands(NamedTuple):
     slice_w: int
     slice_bytes: int
     omega: torch.Tensor      # (4,) fp32 on the device
+    staged: staged.Staged    # codes and omega, sealed when built
 
 
 def chain_operands(packed: torch.Tensor, omega: torch.Tensor,
@@ -72,10 +73,13 @@ def chain_operands(packed: torch.Tensor, omega: torch.Tensor,
     k, n = 2 * pk.shape[0], pk.shape[1]
     s = slice_count(n)
     codes = code_slices(pk, k, n, n, s)
-    ops = ChainOperands(codes.reshape(-1), s, slice_width(n, s),
-                        codes.shape[1],
-                        omega.to(device, torch.float32).reshape(4)
-                        .contiguous())
+    codes = codes.reshape(-1)
+    om = omega.to(device, torch.float32).reshape(4).contiguous()
+    build.publish(device)
+    ops = ChainOperands(codes, s, slice_width(n, s),
+                        codes.numel() // s, om,
+                        staged.Staged("chain code slices", (codes, om),
+                                      codes=codes))
     _OPERANDS.put((packed, omega), key, ops)
     return ops, False
 
@@ -83,6 +87,11 @@ def chain_operands(packed: torch.Tensor, omega: torch.Tensor,
 def forget_operands(packed: torch.Tensor) -> int:
     """Drop the code copies built from ``packed``; returns how many."""
     return _OPERANDS.drop(packed)
+
+
+def staged_operands(packed: torch.Tensor) -> list:
+    """The sealed code copies built from ``packed`` and memoized now."""
+    return [ops.staged for ops in _OPERANDS.values(packed)]
 
 
 def tile_stride(k: int) -> int:
@@ -151,6 +160,7 @@ def fantastic4_matmul_cuda(x, packed, omega, alpha1, bias, alpha2, *,
     m, k = x.shape
     n = packed.shape[1]
     ops, built_before = chain_operands(packed, omega, dev)
+    staged.note(ops.staged)
     xf = x.to(torch.float32).contiguous()
     if xf.data_ptr() % 16:
         xf = xf.clone()    # rows are read as float4
@@ -181,7 +191,9 @@ def fantastic4_matmul_cuda(x, packed, omega, alpha1, bias, alpha2, *,
         tile_stride(kc), kc, chunk, int(pdl), y.data_ptr(),
         build.stream_handle(dev))
     build.check(err, "fantastic4_matmul kernel")
-    LAUNCHES += 1
+    build.keep_for_stream((ops.codes, ops.omega, a1, b, scale_dev, xf), dev)
+    with build.COUNT_LOCK:
+        LAUNCHES += 1
     if LAST_LAUNCHES is not None:
         LAST_LAUNCHES.append({
             "k": k, "n": n, "rows": m,

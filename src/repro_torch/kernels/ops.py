@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..memo import MISS, IdentityMemo
-from . import autotune, ref
+from . import autotune, build, ref, staged
 from .ecl_quant import ecl_quant as _ecl_quant
 from .ecl_quant import ecl_quant_many as _ecl_quant_many
 from .fantastic4_fused_mlp import (CLUSTER, SMEM_BUDGET_BYTES,
@@ -27,6 +27,7 @@ from .fantastic4_fused_mlp import (CLUSTER, SMEM_BUDGET_BYTES,
                                    ws_mlp_fits)
 from .fantastic4_matmul import fantastic4_matmul as _matmul
 from .fantastic4_matmul import forget_operands as _forget_chain_operands
+from .fantastic4_matmul import staged_operands as _chain_staged
 
 
 def fantastic4_matmul(x: torch.Tensor, packed: torch.Tensor,
@@ -96,17 +97,23 @@ def fantastic4_mlp_chain_int8(x: torch.Tensor, layers: Sequence[dict],
 
 
 # Per-pack operand caches, keyed on the identity of the pack's layer list
-# (frozen packs are never mutated in place, see repro_torch.memo).
+# (frozen packs are never mutated in place, see repro_torch.memo).  Each
+# build is waited for (``build.publish``) before it is memoized: a stream
+# worker other than the one that built it may read it next.  Each is
+# sealed when it is built (``staged.Staged``), and a launch notes the
+# sealed copies it reads, so the integrity guard checks what the kernels
+# read and not only the pack they were built from.
 _INT8_FOLD_MEMO = IdentityMemo()
 _WS_OPERAND_MEMO = IdentityMemo()
 _TABLE_MEMO = IdentityMemo()
 
 
-def _int8_folded_operands(layers: Sequence[dict],
-                          act_scales: Sequence[float]) -> tuple:
+def _int8_fold_entry(layers: Sequence[dict],
+                     act_scales: Sequence[float]) -> tuple:
+    """((alpha1s, scales), their seal, built by this call?)"""
     hit = _INT8_FOLD_MEMO.get((layers, act_scales))
     if hit is not MISS:
-        return hit
+        return hit + (False,)
     # fold s_{l-1} into alpha1_l exactly as the chain does; the per-layer
     # scale carries s_l (final layer: sentinel 1.0, logits stay float)
     alpha1s = tuple(l["alpha1"] * (1.0 if i == 0 else act_scales[i - 1])
@@ -115,52 +122,85 @@ def _int8_folded_operands(layers: Sequence[dict],
         torch.tensor(act_scales[i] if i < len(layers) - 1 else 1.0,
                      dtype=torch.float32, device=l["alpha1"].device)
         for i, l in enumerate(layers))
-    _INT8_FOLD_MEMO.put((layers, act_scales), (), (alpha1s, scales))
-    return alpha1s, scales
+    build.publish(layers[0]["alpha1"].device)
+    entry = ((alpha1s, scales),
+             staged.Staged("folded int8 epilogue", alpha1s + scales))
+    _INT8_FOLD_MEMO.put((layers, act_scales), (), entry)
+    return entry + (True,)
+
+
+def _epilogue_entry(layers, act_dtype, act_scales) -> tuple:
+    """((alpha1s, scales), their sealed copy or None, built by this
+    call?)."""
+    if act_dtype == "int8":
+        return _int8_fold_entry(layers, act_scales)
+    return ((tuple(l["alpha1"] for l in layers),
+             tuple(l["alpha2"] for l in layers)), None, False)
 
 
 def _epilogue_operands(layers, act_dtype, act_scales) -> tuple:
-    if act_dtype == "int8":
-        return _int8_folded_operands(layers, act_scales)
-    return (tuple(l["alpha1"] for l in layers),
-            tuple(l["alpha2"] for l in layers))
+    return _epilogue_entry(layers, act_dtype, act_scales)[0]
 
 
-def _ws_stacked_operands(layers: Sequence[dict], act_dtype: str,
-                         act_scales: Optional[Sequence[float]]) -> tuple:
+def _ws_entry(layers: Sequence[dict], act_dtype: str,
+              act_scales: Optional[Sequence[float]]) -> tuple:
+    """(stacked operands, their seal, built by this call?)"""
     hit = _WS_OPERAND_MEMO.get((layers, act_scales), (act_dtype,))
     if hit is not MISS:
-        return hit
-    alpha1s, scales = _epilogue_operands(layers, act_dtype, act_scales)
+        return hit + (False,)
+    (alpha1s, scales), fold, fresh = _epilogue_entry(layers, act_dtype,
+                                                     act_scales)
+    if not fresh:
+        staged.require_intact(fold)
     stacked = build_ws_operands(
         tuple(l["packed"] for l in layers), tuple(l["omega"] for l in layers),
         alpha1s, tuple(l["bias"] for l in layers), scales,
         shapes=tuple(tuple(l["shape"]) for l in layers),
         activations=tuple(l.get("activation") for l in layers),
         act_dtype=act_dtype)
-    _WS_OPERAND_MEMO.put((layers, act_scales), (act_dtype,), stacked)
-    return stacked
+    build.publish(stacked[0].device)
+    entry = (stacked, staged.Staged("stacked operands", stacked,
+                                    codes=stacked[0]))
+    _WS_OPERAND_MEMO.put((layers, act_scales), (act_dtype,), entry)
+    return entry + (True,)
+
+
+def _ws_stacked_operands(layers: Sequence[dict], act_dtype: str,
+                         act_scales: Optional[Sequence[float]]) -> tuple:
+    return _ws_entry(layers, act_dtype, act_scales)[0]
 
 
 def _layer_table(layers, act_dtype, act_scales, kind: str):
     """The fused kernels' device layer table, built once per pack: ``kind``
-    "tiled" (batch_tiled/db), "stacked" (ws) or "stream"."""
+    "tiled" (batch_tiled/db), "stacked" (ws) or "stream".  Its
+    ``staged`` is the sealed copy of what a launch reads."""
     hit = _TABLE_MEMO.get((layers, act_scales), (act_dtype, kind))
     if hit is not MISS:
         return hit
     shapes = tuple(tuple(l["shape"]) for l in layers)
+    # a parent copy built by this call was sealed just now; an older one
+    # is checked against its seal before anything is built from it
     if kind in ("stacked", "stream"):
+        stacked, parent, fresh = _ws_entry(layers, act_dtype, act_scales)
+        if not fresh:
+            staged.require_intact(parent)
         table = stacked_layer_table(
-            *_ws_stacked_operands(layers, act_dtype, act_scales),
-            shapes=shapes, cluster=0 if kind == "stream" else CLUSTER)
+            *stacked, shapes=shapes,
+            cluster=0 if kind == "stream" else CLUSTER)
     else:
-        alpha1s, scales = _epilogue_operands(layers, act_dtype, act_scales)
+        (alpha1s, scales), parent, fresh = _epilogue_entry(
+            layers, act_dtype, act_scales)
+        if not fresh:
+            staged.require_intact(parent)
         table = tiled_layer_table(
             tuple(l["packed"] for l in layers),
             tuple(l["omega"] for l in layers), alpha1s,
             tuple(l["bias"] for l in layers), scales, shapes=shapes,
             activations=tuple(l.get("activation") for l in layers),
             act_dtype=act_dtype)
+    build.publish(table.codes.device)
+    table.staged = staged.Staged(f"{kind} layer table", table.reads,
+                                 codes=table.codes)
     _TABLE_MEMO.put((layers, act_scales), (act_dtype, kind), table)
     return table
 
@@ -171,6 +211,34 @@ def forget_pack_operands(layers: Sequence[dict]) -> int:
     return (_INT8_FOLD_MEMO.drop(layers) + _WS_OPERAND_MEMO.drop(layers)
             + _TABLE_MEMO.drop(layers)
             + sum(_forget_chain_operands(l["packed"]) for l in layers))
+
+
+def staged_operands(layers: Sequence[dict]) -> list:
+    """Every sealed copy built from ``layers`` and memoized now: the layer
+    tables, the stacked operands, the folded int8 epilogue and the chain's
+    code copies of its layers."""
+    out = [t.staged for t in _TABLE_MEMO.values(layers)]
+    out += [e[1] for memo in (_WS_OPERAND_MEMO, _INT8_FOLD_MEMO)
+            for e in memo.values(layers)]
+    for l in layers:
+        out += _chain_staged(l["packed"])
+    return out
+
+
+def pack_operand_bytes(layers: Sequence[dict]) -> int:
+    """Device bytes the operand caches hold for ``layers`` beyond the
+    layers' own tensors, each storage once and rounded up to the caching
+    allocator's 512-byte blocks."""
+    own = {l[k].untyped_storage().data_ptr() for l in layers
+           for k in ("packed", "omega", "alpha1", "bias", "alpha2")
+           if isinstance(l[k], torch.Tensor)}
+    sizes = {}
+    for s in staged_operands(layers):
+        for t in s.tensors:
+            st = t.untyped_storage()
+            if st.data_ptr() not in own:
+                sizes[st.data_ptr()] = st.nbytes()
+    return sum(-(-n // 512) * 512 for n in sizes.values())
 
 
 def fantastic4_mlp_fused(x: torch.Tensor, layers: Sequence[dict], *,
@@ -214,10 +282,13 @@ def fantastic4_mlp_fused(x: torch.Tensor, layers: Sequence[dict], *,
                                 act_dtype=act_dtype))
         if not fits:
             return chain()
-        stacked = _ws_stacked_operands(layers, act_dtype, scales_key)
+        # the table first: on a first launch it builds the stacked
+        # operands it is built from, with no second look at their seal
         table = _layer_table(layers, act_dtype, scales_key,
                              "stacked" if schedule == "ws" else "stream") \
             if on_cuda else None
+        stacked, sealed, _ = _ws_entry(layers, act_dtype, scales_key)
+        staged.note(table.staged if on_cuda else sealed)
         if schedule == "ws":
             return fantastic4_fused_mlp_ws(x, *stacked, shapes=shapes,
                                            act_dtype=act_dtype, table=table)
@@ -234,9 +305,12 @@ def fantastic4_mlp_fused(x: torch.Tensor, layers: Sequence[dict], *,
                                         act_dtype=act_dtype,
                                         double_buffer=db):
         return chain()
-    alpha1s, scales = _epilogue_operands(layers, act_dtype, scales_key)
     table = _layer_table(layers, act_dtype, scales_key, "tiled") \
         if on_cuda else None
+    (alpha1s, scales), sealed, _ = _epilogue_entry(layers, act_dtype,
+                                                   scales_key)
+    if on_cuda or sealed is not None:
+        staged.note(table.staged if on_cuda else sealed)
     return fantastic4_fused_mlp(
         x, tuple(l["packed"] for l in layers),
         tuple(l["omega"] for l in layers), alpha1s,

@@ -1,6 +1,9 @@
 """Serve a frozen paper MLP through the port:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mlp-gsc --batch 64 --engine
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mlp-hr --batch 32 \
+        --engine --async --multi lenet-300-100,mlp-gsc --verify-launch \
+        --max-hot-models 2 --flip-rate 0.05 --streams 2
 
 Initialises the MLP from a seed, freezes it to the packed 4-bit pack,
 resolves an ``ExecutionPlan`` (mode, row tile, int8 calibration, bucket ->
@@ -8,7 +11,10 @@ schedule bindings) and prints it before anything is timed, then serves
 ``--batch`` rows ``--iters`` times.  Times on the card come from CUDA
 events; on ``--device cpu`` (the plain PyTorch versions) from the host
 clock.  ``--engine`` re-serves the batch as single-row requests through
-the micro-batcher and checks the result against the batch.
+the micro-batcher and checks the result against the batch; ``--engine
+--async`` serves them through the threaded ``ServingFrontend`` instead,
+``--multi`` co-serves more frozen packs, and the integrity, cold-tier,
+fault-injection and stream flags follow the JAX package's launcher.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from .. import resolve_device
 from ..configs.paper_mlps import MLPS
 from ..core import qat
 from ..models import mlp as M
+from .. import serving
 from ..serving import plans
 from ..serving.batcher import MicroBatcher
 
@@ -86,7 +93,9 @@ def serve_mlp(args) -> torch.Tensor:
           f"batch {args.batch})")
     print("logits[0]:", [round(float(v), 3) for v in y[0].cpu()])
 
-    if args.engine:
+    if args.engine and args.async_frontend:
+        serve_mlp_async(args, cfg, plan, x, y)
+    elif args.engine:
         batcher = MicroBatcher(plan)
         ys = batcher.serve(list(x.cpu().numpy()))
         st = batcher.stats
@@ -96,6 +105,225 @@ def serve_mlp(args) -> torch.Tensor:
         np.testing.assert_allclose(np.concatenate(ys), y.cpu().numpy(),
                                    atol=1e-5, rtol=1e-5)
     return y
+
+
+def _per_model(opt, flag, names, cast):
+    """Split a one-or-comma-separated flag across the registered models
+    (order: [--arch] + --multi).  A single value broadcasts."""
+    if not opt:
+        return {n: None for n in names}
+    vals = opt.split(",")
+    if len(vals) == 1:
+        vals = vals * len(names)
+    if len(vals) != len(names):
+        raise SystemExit(f"{flag}: expected 1 or {len(names)} "
+                         f"comma-separated values, got {len(vals)}")
+    try:
+        return {n: cast(v) for n, v in zip(names, vals)}
+    except ValueError as e:
+        raise SystemExit(f"{flag}: {e}")
+
+
+def _mode_kwargs(args) -> dict:
+    return {"mode": "fused" if args.fused else "per_layer"}
+
+
+def serve_mlp_async(args, cfg, plan, x, y_ref):
+    """``--engine --async``: the ragged requests through the threaded
+    ServingFrontend; ``--multi`` co-serves additional frozen packs."""
+    dev = plan.device
+    g = torch.Generator().manual_seed(args.seed + 2)
+    models = {cfg.name: (plan, list(x.cpu().numpy()))}
+    for arch in (a for a in (args.multi or "").split(",") if a):
+        if arch not in MLPS:
+            raise SystemExit(f"--multi: unknown paper MLP {arch!r} "
+                             f"(have {sorted(MLPS)})")
+        if MLPS[arch].name in models:
+            raise SystemExit(f"--multi: {arch!r} duplicates --arch or an "
+                             "earlier --multi entry")
+        mcfg = MLPS[arch]
+        mpack = freeze_mlp_pack(mcfg, seed=1, device=dev)
+        mx = torch.randn((args.batch, mcfg.d_in), generator=g).to(dev)
+        # co-served packs honor the same flags as the primary plan
+        mplan = plans.build_plan(
+            mpack, act_dtype="int8" if args.int8 else "float32",
+            double_buffer=args.double_buffer,
+            calib_x=mx if args.int8 else None, device=dev,
+            **_mode_kwargs(args))
+        models[mcfg.name] = (mplan, list(mx.cpu().numpy()))
+
+    names = list(models)
+    tiers = _per_model(args.tier, "--tier", names, serving.resolve_tier)
+    delays = _per_model(args.max_delay, "--max-delay", names,
+                        lambda v: float(v) / 1e3)    # flag is in ms
+
+    # warm every model's request path untimed (kernel build and the
+    # per-pack operand tables are not a serving number)
+    for mplan, rows in models.values():
+        MicroBatcher(mplan).serve(rows)
+    cache = None
+    if args.max_hot_models is not None or args.hot_bytes is not None:
+        cache = serving.PackCache(max_hot=args.max_hot_models,
+                                  hot_bytes=args.hot_bytes, device=dev)
+        print(f"pack cache: hot budget "
+              f"{args.max_hot_models if args.max_hot_models else '∞'} "
+              f"models / "
+              f"{args.hot_bytes if args.hot_bytes else '∞'} bytes — "
+              "models registered compressed, decoded on first traffic")
+    integrity = True if args.verify_launch else None
+    frontend = serving.ServingFrontend(
+        cache=cache, streams=args.streams,
+        scrub_interval_s=(None if args.scrub_interval is None
+                          else args.scrub_interval / 1e3))
+    if args.verify_launch or args.scrub_interval is not None:
+        print("integrity: "
+              + ("per-launch checksum verification + output screen"
+                 if args.verify_launch else "no launch guard")
+              + (f", scrubber every {args.scrub_interval:.1f} ms"
+                 if args.scrub_interval is not None else ""))
+    if args.streams > 1:
+        print(f"streams: {args.streams} stream workers, each on a CUDA "
+              f"stream of its own on {dev}" if dev.type == "cuda" else
+              f"streams: {args.streams} stream workers (threads on {dev})")
+    for name, (mplan, _) in models.items():
+        wrap = None
+        if args.inject_fault > 0 or args.flip_rate > 0:
+            def wrap(p):
+                return serving.FaultInjector(p, rate=args.inject_fault,
+                                             flip_rate=args.flip_rate)
+        if cache is not None:
+            # compressed-tier registration: the injector (if any) wraps
+            # the cache handle and the guard wraps the injector, so
+            # injected corruption is detected by the guard and recovered
+            # from the verified cold tier.
+            frontend.register_pack(
+                name, mplan.pack,
+                plan_kwargs={
+                    **_mode_kwargs(args),
+                    "act_dtype": "int8" if args.int8 else "float32",
+                    "double_buffer": args.double_buffer,
+                    "calib": ({"act_scales": list(mplan.act_scales)}
+                              if mplan.act_scales is not None else None),
+                },
+                wrap=wrap, integrity=integrity,
+                tier=tiers[name], max_delay=delays[name],
+                max_queued_rows=args.max_queued)
+            continue
+        target = mplan if wrap is None else wrap(mplan)
+        frontend.register(name, target, tier=tiers[name],
+                          max_delay=delays[name],
+                          max_queued_rows=args.max_queued,
+                          integrity=integrity)
+        if tiers[name] is not None or delays[name] is not None:
+            b = frontend.registry.batcher(name)
+            print(f"model [{name}]: tier {b.tier.name}, max_delay "
+                  f"{b.max_delay * 1e3:.2f} ms"
+                  + (f", queue bound {args.max_queued} rows"
+                     if args.max_queued else ""))
+    t0 = time.perf_counter()
+    served, rejected = [], []
+    with frontend:
+        futs = [(name, i, frontend.submit(name, row))
+                for name, (_, rows) in models.items()
+                for i, row in enumerate(rows)]
+        for name, i, f in futs:
+            try:
+                served.append((name, i, f.result(60.0)))
+            except serving.Rejected as rej:
+                rejected.append((name, i, rej.reason))
+            except serving.InjectedFault as exc:
+                rejected.append((name, i, f"fault: {exc}"))
+            except serving.IntegrityError as exc:
+                rejected.append((name, i, f"corrupted: {exc}"))
+    dt = time.perf_counter() - t0
+    n = len(served)
+    for name in models:
+        lats = [s.latency * 1e3 for m, _, s in served if m == name]
+        st = frontend.stats["by_model"][name]
+        line = (f"async frontend [{name}]: {st['requests']} requests in "
+                f"{st['launches']} launches")
+        if lats:
+            line += (f", latency mean {np.mean(lats):.2f} ms / p95 "
+                     f"{np.percentile(lats, 95):.2f} ms")
+        if st["rejected"]:
+            line += f", {st['rejected']} rejected"
+        if st["quarantined"]:
+            line += ", QUARANTINED"
+        print(line)
+    clock = "host clock" if dev.type == "cuda" else "host clock, CPU"
+    print(f"async frontend: {n} served / {len(rejected)} rejected across "
+          f"{len(models)} model(s) in {dt * 1e3:.2f} ms total ({clock}, "
+          f"{frontend.stats['launches']} launches)")
+    if args.streams > 1:
+        for i, ss in enumerate(frontend.stats["streams"]):
+            print(f"stream {i}: {ss['launches']} launches, "
+                  f"{ss['busy_s'] * 1e3:.1f} ms busy"
+                  + (", QUARANTINED" if ss["quarantined"] else ""))
+    if args.inject_fault > 0 or rejected:
+        fs = frontend.stats
+        print(f"degradation: {fs['launch_failures']} launch failures, "
+              f"{fs['retries']} retries, {fs['fallbacks']} chain "
+              f"fallbacks, quarantined {fs['quarantined'] or 'none'}")
+    if args.flip_rate > 0 or args.verify_launch \
+            or args.scrub_interval is not None:
+        it = frontend.stats["integrity"]
+        sc = frontend.stats["scrub"]
+        rec = (f", recovery p95 "
+               f"{np.percentile(it['recovery_s'], 95) * 1e3:.2f} ms"
+               if it["recovery_s"] else "")
+        print(f"integrity: {it['detected']} corruptions detected, "
+              f"{it['recovered']} recovered from cold tier{rec}; "
+              f"scrubber {sc['cycles']} cycles / {sc['checked']} checks "
+              f"({sc['deferred']} busy deferrals)")
+    if cache is not None:
+        d = cache.describe()
+        print(f"pack cache: {d['resolves']} resolves / {d['hits']} hits "
+              f"/ {d['evictions']} evictions; resident "
+              f"{d['resident_bytes']} B (high water "
+              f"{d['resident_high_water']} B), cold tier "
+              f"{d['cold_bytes']} B for {d['models']} models "
+              f"({d['fp32_bytes'] / max(d['cold_bytes'], 1):.1f}x vs "
+              "fp32)")
+    # validate whatever completed for the primary model row by row (under
+    # --inject-fault/--max-queued some rows may be typed rejections).
+    done = {i: s for m, i, s in served if m == cfg.name}
+    if done:
+        got = np.concatenate([done[i].y for i in sorted(done)])
+        ref = y_ref.cpu().numpy()[sorted(done)]
+        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def check_flags(args) -> None:
+    """The JAX launcher's checks on the flags, with its messages."""
+    if args.streams < 1:
+        raise SystemExit(f"--streams must be >= 1, got {args.streams}")
+    if args.streams > 1 and not args.async_frontend:
+        raise SystemExit("--streams applies to the async frontend: add "
+                         "--engine --async")
+    if args.shard:
+        raise SystemExit("--shard is not ported yet (ROADMAP queue 1: "
+                         "scale-out)")
+    if (args.tier or args.max_delay or args.max_queued is not None
+            or args.inject_fault) and not args.async_frontend:
+        raise SystemExit("--tier/--max-delay/--max-queued/--inject-fault "
+                         "apply to the async frontend: add --engine --async")
+    if (args.max_hot_models is not None or args.hot_bytes is not None):
+        if not args.async_frontend:
+            raise SystemExit("--max-hot-models/--hot-bytes apply to the "
+                             "async frontend: add --engine --async")
+    if (args.flip_rate > 0 or args.scrub_interval is not None
+            or args.verify_launch) and not args.async_frontend:
+        raise SystemExit("--flip-rate/--scrub-interval/--verify-launch "
+                         "apply to the async frontend: add --engine "
+                         "--async")
+    if args.flip_rate > 0 and not args.verify_launch:
+        raise SystemExit("--flip-rate corrupts live weights; add "
+                         "--verify-launch so the corruption is caught "
+                         "(and, with the pack cache flags, recovered)")
+    if args.multi and not (args.engine and args.async_frontend):
+        raise SystemExit("--multi requires --engine --async")
+    if args.async_frontend and not args.engine:
+        raise SystemExit("--async requires --engine")
 
 
 def main(argv=None):
@@ -110,9 +338,58 @@ def main(argv=None):
     ap.add_argument("--double-buffer", action="store_true")
     ap.add_argument("--engine", action="store_true",
                     help="also serve the batch as ragged requests")
+    ap.add_argument("--async", dest="async_frontend", action="store_true",
+                    help="with --engine: drive the ragged requests "
+                         "through the threaded ServingFrontend (real "
+                         "clock, futures) instead of the inline flush")
+    ap.add_argument("--multi", default=None, metavar="ARCH[,ARCH...]",
+                    help="with --engine --async: co-serve additional "
+                         "frozen paper-MLP packs from the same frontend")
+    ap.add_argument("--tier", default=None, metavar="TIER[,TIER...]",
+                    help="with --engine --async: per-model SLO tier "
+                         f"({'|'.join(sorted(serving.TIERS))}); one value "
+                         "broadcasts, a comma-separated list aligns to "
+                         "[--arch] + --multi")
+    ap.add_argument("--max-delay", default=None, metavar="MS[,MS...]",
+                    help="with --engine --async: per-model coalescing "
+                         "budget in ms (same alignment as --tier)")
+    ap.add_argument("--max-queued", type=int, default=None, metavar="ROWS",
+                    help="with --engine --async: bound every model's "
+                         "queue; overflow is a typed serving.Rejected")
+    ap.add_argument("--inject-fault", type=float, default=0.0,
+                    metavar="RATE",
+                    help="with --engine --async: wrap every plan in a "
+                         "FaultInjector failing launches at RATE")
+    ap.add_argument("--flip-rate", type=float, default=0.0, metavar="RATE",
+                    help="with --engine --async: FaultInjector bit flips "
+                         "of live plan operands at RATE per launch; "
+                         "requires --verify-launch")
+    ap.add_argument("--verify-launch", action="store_true",
+                    help="with --engine --async: wrap every model in a "
+                         "GuardedPlan (per-launch operand checksums + "
+                         "NaN/Inf output screen)")
+    ap.add_argument("--scrub-interval", type=float, default=None,
+                    metavar="MS",
+                    help="with --engine --async: background integrity "
+                         "scrubber cadence in ms")
+    ap.add_argument("--max-hot-models", type=int, default=None, metavar="N",
+                    help="with --engine --async: register models "
+                         "compressed through a PackCache and keep at most "
+                         "N resolved plans resident (LRU)")
+    ap.add_argument("--hot-bytes", type=int, default=None, metavar="BYTES",
+                    help="with --engine --async: byte budget for the pack "
+                         "cache's resident decoded plans")
+    ap.add_argument("--streams", type=int, default=1, metavar="N",
+                    help="with --engine --async: N stream workers, each "
+                         "on a CUDA stream of its own")
+    ap.add_argument("--shard", action="store_true",
+                    help="column-shard the plan over several devices "
+                         "(not ported yet)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    return serve_mlp(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    check_flags(args)
+    return serve_mlp(args)
 
 
 if __name__ == "__main__":

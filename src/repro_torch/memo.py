@@ -20,9 +20,15 @@ once instead of at every cache site:
   an evicted plan would be silently re-resolved (and re-jitted) as a
   *duplicate* on the next ``get_plan`` while a frontend still held the
   original — double device memory and a cold compile on the request path.
+
+Every method holds the memo's lock: the serving frontend's stream workers,
+its dispatch thread and the pack cache's evictions all reach the same
+memos.  A value is built outside the lock, so two threads missing at once
+may both build one; the later ``put`` wins and both values are correct.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence, Tuple
 
 MISS = object()        # sentinel: distinguishes "no entry" from value None
@@ -33,6 +39,7 @@ class IdentityMemo:
         self.max_entries = max_entries
         self._entries: dict = {}
         self._pinned: set = set()
+        self._lock = threading.Lock()
 
     @staticmethod
     def _key(objs: Sequence[Optional[object]], extra: Tuple) -> Tuple:
@@ -41,7 +48,8 @@ class IdentityMemo:
 
     def get(self, objs: Sequence[Optional[object]], extra: Tuple = ()):
         """Return the cached value, or :data:`MISS`."""
-        hit = self._entries.get(self._key(objs, extra))
+        with self._lock:
+            hit = self._entries.get(self._key(objs, extra))
         if hit is None:
             return MISS
         held, value = hit
@@ -55,15 +63,22 @@ class IdentityMemo:
         (and from the ``max_entries`` count) until :meth:`drop` removes
         it — for entries whose lifetime an external cache manages."""
         key = self._key(objs, extra)
-        if key not in self._entries and \
-                len(self._entries) - len(self._pinned) >= self.max_entries:
-            for k in self._entries:
-                if k not in self._pinned:
-                    del self._entries[k]
-                    break
-        if pin:
-            self._pinned.add(key)
-        self._entries[key] = (tuple(objs), value)
+        with self._lock:
+            if key not in self._entries and \
+                    len(self._entries) - len(self._pinned) >= self.max_entries:
+                for k in self._entries:
+                    if k not in self._pinned:
+                        del self._entries[k]
+                        break
+            if pin:
+                self._pinned.add(key)
+            self._entries[key] = (tuple(objs), value)
+
+    def values(self, obj: object) -> list:
+        """The values of every entry keyed on ``obj``'s identity."""
+        with self._lock:
+            return [value for held, value in self._entries.values()
+                    if any(h is obj for h in held)]
 
     def drop(self, obj: object) -> int:
         """Remove (and unpin) every entry keyed on ``obj``'s identity;
@@ -71,10 +86,11 @@ class IdentityMemo:
         contract: an entry owned by an external manager is removed here,
         never by auto-eviction."""
         dropped = 0
-        for key in list(self._entries):
-            held, _ = self._entries[key]
-            if any(h is obj for h in held):
-                del self._entries[key]
-                self._pinned.discard(key)
-                dropped += 1
+        with self._lock:
+            for key in list(self._entries):
+                held, _ = self._entries[key]
+                if any(h is obj for h in held):
+                    del self._entries[key]
+                    self._pinned.discard(key)
+                    dropped += 1
         return dropped

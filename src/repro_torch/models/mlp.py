@@ -14,10 +14,12 @@ Mirrors the JAX package's ``models/mlp.py``:
   − μ)  (the JAX package's ``mlp.py:185-193``, computed in numpy float32
   as there);
 * ``mlp_serve`` / ``mlp_serve_int8`` — compatibility wrappers over an
-  ``ExecutionPlan``.
+  ``ExecutionPlan``;
+* ``pack_compression_summary`` — the pack's at-rest bytes against fp32.
 
-The frozen layer dict leaves out the JAX pack's ``format``, ``size_bytes``
-and ``crc`` (the codecs and integrity layer are not ported yet).
+A frozen layer carries the same ``format``, ``size_bytes``,
+``dense_bytes`` and ``crc`` as the JAX package's, so a pack frozen here
+passes its integrity checks and its ``pack.npz`` round trip.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ import torch
 
 from .. import resolve_device
 from ..configs.paper_mlps import MLPConfig
-from ..core import bitplanes, ecl, qat
+from ..core import bitplanes, ecl, formats, qat
 from ..nn.module import QuantCtx
+from ..runtime import integrity
 from ..serving import plans
 
 
@@ -110,24 +113,34 @@ def freeze_dense_layer(codes: torch.Tensor, omega: torch.Tensor, *,
                        alpha1=None, bias=None, alpha2: Optional[float] = None,
                        activation: Optional[str] = None) -> dict:
     """Pack one ECL-coded (K, N) layer into the serving layer dict; odd K
-    grows a zero code row before row-pair packing."""
+    grows a zero code row before row-pair packing.  The layer is stamped
+    as the JAX package stamps it (``models/mlp.py:146-164``): the cheapest
+    lossless format of the true-k codes and its size, the fp32 size it
+    replaces, and the content checksum of the codes with ω, α₁, b and α₂
+    as float32."""
     k, n = codes.shape
     dev = codes.device
+    codes_np = codes.cpu().numpy().astype(np.uint8)
     if k % 2:
         codes = torch.cat([codes, torch.zeros((1, n), dtype=torch.uint8,
                                               device=dev)], dim=0)
     a1 = np.ones(n, np.float32) if alpha1 is None \
         else np.asarray(alpha1, np.float32)
     b = np.zeros(n, np.float32) if bias is None else np.asarray(bias, np.float32)
+    a2 = np.float32(1.0 if alpha2 is None else alpha2)
+    fmt = formats.select_format(codes_np)
     return {
         "packed": bitplanes.pack_codes_rows(codes).contiguous(),
         "omega": omega.to(torch.float32),
         "alpha1": torch.from_numpy(a1).to(dev),
         "bias": torch.from_numpy(b).to(dev),
-        "alpha2": torch.tensor(1.0 if alpha2 is None else alpha2,
-                               dtype=torch.float32, device=dev),
+        "alpha2": torch.tensor(float(a2), dtype=torch.float32, device=dev),
         "shape": (k, n),
         "activation": activation,
+        "format": fmt,
+        "size_bytes": formats.encode(codes_np, fmt).size_bytes,
+        "dense_bytes": codes_np.size * 4,       # fp32 original, for CR
+        "crc": integrity.layer_content_crc(codes_np, omega, a1, b, a2),
     }
 
 
@@ -161,6 +174,17 @@ def freeze_mlp(params: dict, qstate: dict, bn_state: dict, lam: float,
             codes, node["omega"], alpha1=alpha1, bias=bias,
             activation="relu" if i < n - 1 else None))
     return {"layers": layers, "act_bits": act_bits}
+
+
+def pack_compression_summary(pack: dict) -> dict:
+    comp = sum(l["size_bytes"] for l in pack["layers"])
+    orig = sum(l["dense_bytes"] for l in pack["layers"])
+    return {
+        "compressed_bytes": comp,
+        "fp32_bytes": orig,
+        "compression_ratio": orig / comp,
+        "formats": [l["format"] for l in pack["layers"]],
+    }
 
 
 def _pack_device(pack: dict) -> torch.device:

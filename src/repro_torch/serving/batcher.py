@@ -3,8 +3,10 @@
 The port of the JAX package's ``serving/batcher.py``: the queue, triggers
 and scatter are host-side numpy as there; only the launch moves a bucket to
 the plan's device (``torch.from_numpy(...).to(device)``) and reads the
-result back (``.cpu().numpy()``, which waits for the card).  The
-virtual-clock ``replay`` driver is not ported yet.
+result back (``.cpu().numpy()``, which waits for the card).  A stream
+worker of the serving frontend passes its own CUDA stream to
+:meth:`MicroBatcher.execute`; the kernels launch on the current stream.
+:func:`replay` is the virtual-clock driver.
 
 The batcher depends only on the :class:`~repro_torch.serving.plans.ServableProgram`
 surface — ``d_in``, ``bucket_sizes``, ``bucket_for``, ``entry``, ``run``,
@@ -336,27 +338,35 @@ class MicroBatcher:
             return [], 0, 0.0
         return self.execute(t)
 
-    def execute(self, t: Taken, *, device=None
+    def execute(self, t: Taken, *, device=None, stream=None
                 ) -> Tuple[List[Completion], int, float]:
         """Launch one taken bucket (the execution half of
         :meth:`run_one`).  ``device`` routes the launch to a specific
         CUDA device (``torch.cuda.device`` scoped around the round-trip);
-        by default the bucket goes to the plan's own device.  A failed
-        launch requeues the taken requests at the queue head."""
+        by default the bucket goes to the plan's own device.  ``stream``
+        (a ``torch.cuda.Stream``) is made current around the copy in, the
+        launch and the copy out, so the kernels run on it and the copy out
+        waits for that stream alone.  A failed launch requeues the taken
+        requests at the queue head."""
         taken, rows = t.requests, t.rows
-        bucket = self.plan.bucket_for(rows)
-        padded = (bucket or rows) - rows
+        bucket = None
         # coalesce and scatter run host-side in numpy; the bucket entry is
         # the only device work a launch waits on.
         xb = np.concatenate([p.x for p in taken], axis=0) \
             if len(taken) > 1 else taken[0].x
         t0 = time.perf_counter()
         try:
+            # resolving the bucket may decode a cache-backed plan, which can
+            # fail (a corrupt cold tier): that too requeues the requests
+            bucket = self.plan.bucket_for(rows)
+            padded = (bucket or rows) - rows
             target = torch.device(device) if device is not None else \
                 getattr(self.plan, "device", torch.device("cpu"))
             ctx = torch.cuda.device(target) if target.type == "cuda" \
                 else contextlib.nullcontext()
-            with ctx:
+            sctx = torch.cuda.stream(stream) if stream is not None \
+                else contextlib.nullcontext()
+            with ctx, sctx:
                 xt = torch.from_numpy(np.ascontiguousarray(xb)).to(target)
                 if bucket is None:
                     y = self.plan.run(xt)          # oversized: exact size
@@ -364,7 +374,10 @@ class MicroBatcher:
                 else:
                     if padded:
                         xt = torch.nn.functional.pad(xt, (0, 0, 0, padded))
-                    y = self.plan.entry(bucket)(xt)
+                    # the entry holds its plan, and so the pack's tensors,
+                    # until the copy out below has waited for the launch
+                    fn = self.plan.entry(bucket)
+                    y = fn(xt)
                 y = y.cpu().numpy()
         except BaseException:
             # a failed launch loses NOTHING: requests are host-side numpy
@@ -465,3 +478,81 @@ class MicroBatcher:
         rids = [self.submit(x) for x in xs]
         self.flush()
         return [self.result(r).y for r in rids]
+
+
+def replay(plan, xs: Sequence, arrivals: Sequence[float], *,
+           max_delay: float = 2e-3, max_bucket: Optional[int] = None,
+           service_times: Optional[Dict[int, float]] = None,
+           n_streams: int = 1) -> dict:
+    """Replay a ragged arrival trace through the engine, work-conserving:
+    an execution stream starts a bucket as soon as it is free and work is
+    queued, absorbing every request that arrived by then — continuous
+    batching under backlog, immediate dispatch when idle.
+
+    ``arrivals`` are virtual timestamps (e.g. a Poisson process);
+    launches run for real on the plan's device.  When ``service_times``
+    maps bucket rows → seconds (a pre-calibrated table), the virtual clock
+    advances by the table instead of the noisy live measurement — the live
+    run still produces (and scatters) every result.  The batcher runs
+    fully virtual (``clock=None``): ``stats["compute_s"]`` carries the
+    virtual-makespan accounting and ``stats["wall_compute_s"]`` the live
+    launches, never mixed.  Returns per-request results, latencies and
+    throughput over the virtual makespan, and each request's completion
+    (``completions``: rid, bucket, batched rows) and virtual finish time
+    (``finish``).
+
+    ``n_streams`` replays the same trace against N replicated execution
+    streams sharing the one queue: each bucket launches on the
+    earliest-free stream.  Results are identical at any N — only the
+    virtual timeline changes.  Per-stream launch counts are returned as
+    ``stream_launches``.
+    """
+    if n_streams < 1:
+        raise ValueError(f"n_streams must be >= 1, got {n_streams}")
+    order = np.argsort(np.asarray(arrivals), kind="stable")
+    batcher = MicroBatcher(plan, max_delay=max_delay, max_bucket=max_bucket,
+                           clock=None)
+    todo = collections.deque(
+        (float(arrivals[i]), int(i)) for i in order)
+    completions: Dict[int, Completion] = {}
+    finish: Dict[int, float] = {}
+    rid_to_req: Dict[int, int] = {}
+    free = [0.0] * n_streams            # per-stream earliest-free time
+    launches = [0] * n_streams
+    while todo or batcher.pending_rows:
+        if not batcher.pending_rows:
+            t_arr, i = todo.popleft()
+            rid_to_req[batcher.submit(xs[i], now=t_arr)] = i
+        stream = min(range(n_streams), key=free.__getitem__)
+        start = max(free[stream], batcher.oldest_arrival())
+        # continuous batching: absorb everything that arrived by the time
+        # this bucket actually launches.
+        while todo and todo[0][0] <= start and \
+                batcher.pending_rows < batcher.max_bucket:
+            t_arr, i = todo.popleft()
+            rid_to_req[batcher.submit(xs[i], now=t_arr)] = i
+        done, bucket, dt = batcher.run_one(now=start)
+        if service_times is not None:
+            dt = service_times.get(bucket, dt)
+        batcher.account_compute(dt)
+        free[stream] = start + dt
+        launches[stream] += 1
+        for c in done:
+            completions[rid_to_req[c.rid]] = c
+            finish[rid_to_req[c.rid]] = free[stream]
+    n = len(xs)
+    lat = np.asarray([finish[i] - float(arrivals[i]) for i in range(n)])
+    makespan = max(max(finish.values()), max(float(a) for a in arrivals))
+    return {
+        "results": [completions[i].y for i in range(n)],
+        "completions": [completions[i] for i in range(n)],
+        "finish": [finish[i] for i in range(n)],
+        "latency_mean_ms": float(lat.mean() * 1e3),
+        "latency_p95_ms": float(np.percentile(lat, 95) * 1e3),
+        "latency_max_ms": float(lat.max() * 1e3),
+        "makespan_s": float(makespan),
+        "throughput_rps": n / max(makespan, 1e-12),
+        "n_streams": n_streams,
+        "stream_launches": launches,
+        "stats": batcher.stats,
+    }

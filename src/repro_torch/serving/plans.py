@@ -135,7 +135,7 @@ class ExecutionPlan:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         if mode == "sharded":
             raise NotImplementedError(
-                "mode='sharded' is not ported yet (ROADMAP queue 1, item 10: "
+                "mode='sharded' is not ported yet (ROADMAP queue 1: "
                 "scale-out)")
         if act_dtype not in ACT_DTYPES:
             raise ValueError(
@@ -237,6 +237,12 @@ class ExecutionPlan:
                 self.default_path = "fused"
             else:
                 self.default_path = "per_layer"
+        if any(p.path == "fused_stream" for p in self.buckets.values()):
+            self.notes.append(
+                "stream buckets: one cooperative grid per card at a time; "
+                "launches from several CUDA streams are ordered behind a "
+                "lock (the card runs two full-width cooperative grids one "
+                "after the other)")
         ws_won = [b for b, p in self.buckets.items() if p.path == "fused_ws"]
         self.ws_crossover_rows = max(ws_won) if ws_won else 0
 
@@ -376,6 +382,9 @@ class ExecutionPlan:
                     raise ValueError(f"bucket {_bucket} entry got "
                                      f"{tuple(xb.shape)}")
                 return self._execute(xb, _path, block_m=_bm)
+            # the layers this entry launches from: integrity checks verify
+            # these, whatever plan a cache handle resolves to meanwhile
+            fn.layers = self.layers
             self._entries[bucket] = fn
         return fn
 
@@ -471,6 +480,17 @@ def get_plan(pack: dict, *, calib: Optional[dict] = None,
     plan = ExecutionPlan(pack, calib=calib, **kwargs)
     _PLAN_MEMO.put((pack, calib), extra, plan)
     return plan
+
+
+def adopt_plan(pack: dict, plan: ExecutionPlan, *,
+               calib: Optional[dict] = None, **kwargs) -> None:
+    """Register an externally-managed (pack-cache) plan under the key
+    ``get_plan(pack, calib=calib, **kwargs)`` would compute, pinned: the
+    memo's insertion-order eviction never drops it, so the compat path
+    never resolves a duplicate beside it.  Release is explicit, via
+    :func:`forget_plan`."""
+    extra = tuple(sorted((k, str(v)) for k, v in kwargs.items()))
+    _PLAN_MEMO.put((pack, calib), extra, plan, pin=True)
 
 
 def forget_plan(pack: dict) -> None:

@@ -15,6 +15,14 @@ one tensor a launch and for groups (MLP-GSC's seven tensors in one
 launch, unaligned lead slices and views, more segments than one launch
 takes); the card's ``fake_quant`` ω gradient within ``rtol=1e-5`` of the
 CPU's; grouped training losses bitwise equal to the per-leaf path's.
+Several CUDA streams on the one card: launch counters exact under four
+threads; operands memoized on one stream ready for a launch on another;
+memory a queued launch reads not reused after its pack is dropped;
+stream-schedule launches ordered across streams; the two-stream frontend
+bitwise equal to requests served alone.  The integrity guard catches a
+bit flipped in place in the copies the kernels read (the slice-major
+codes of the chain and of every layer table, ω in a table's
+descriptors).
 """
 import array
 import ctypes
@@ -415,3 +423,232 @@ def test_grouped_train_steps_equal_per_leaf(cuda_device, monkeypatch):
     layers = len(cfg.features)
     assert eq.LAUNCHES - before == layers * (2 * steps + T.EVAL_BATCHES + 1)
     assert grouped == per_leaf
+
+
+# ------------------------------------------- several streams, one card
+
+GSC = (512, 512, 512, 256, 256, 128, 128, 12)
+SPIN = 200_000_000          # ~0.1 s of a spinning kernel
+
+
+def test_launch_counters_exact_under_threads(cuda_device):
+    """Four threads, each on a CUDA stream of its own, launch the chain
+    and the stream schedule: no launch is lost from the counters."""
+    import threading
+    pack = _pack((64, 48, 10), 61, cuda_device)
+    layers = pack["layers"]
+    x = torch.randn((5, 64), device=cuda_device)
+    want = ops.fantastic4_mlp_chain(x, layers, use_kernel=False)
+    ops.fantastic4_mlp_fused(x, layers, schedule="stream", block_m=8)
+    torch.cuda.synchronize(cuda_device)
+    chain0, stream0 = fm.LAUNCHES, ffm.LAUNCHES["stream"]
+    errors = []
+
+    def work():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+                for _ in range(25):
+                    y = ops.fantastic4_mlp_chain(x, layers)
+                    z = ops.fantastic4_mlp_fused(x, layers, schedule="stream",
+                                                 block_m=8)
+                torch.testing.assert_close(y, want, atol=1e-3, rtol=1e-4)
+                torch.testing.assert_close(z, want, atol=1e-3, rtol=1e-4)
+        except Exception as exc:                   # noqa: BLE001
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert fm.LAUNCHES - chain0 == 4 * 25 * len(layers)
+    assert ffm.LAUNCHES["stream"] - stream0 == 4 * 25
+
+
+def test_memo_built_on_one_stream_is_ready_for_another(cuda_device):
+    """A pack's first launch builds its operands (slice-major code copies,
+    layer tables, ws stacks) on a stream held by a spinning kernel; a
+    launch on a second stream right after reads them only once built."""
+    pack = _pack(GSC, 62, cuda_device)
+    layers = pack["layers"]
+    x = torch.randn((8, 512), device=cuda_device)
+    want = ops.fantastic4_mlp_chain(x, layers, use_kernel=False)
+    s1, s2 = torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device)
+    for schedule in ("chain", "batch_tiled", "ws", "stream"):
+        ops.forget_pack_operands(layers)
+        with torch.cuda.stream(s1):
+            torch.cuda._sleep(SPIN)
+            if schedule == "chain":
+                ops.fantastic4_mlp_chain(x, layers)
+            else:
+                ops.fantastic4_mlp_fused(x, layers, schedule=schedule)
+        with torch.cuda.stream(s2):
+            y = ops.fantastic4_mlp_chain(x, layers) if schedule == "chain" \
+                else ops.fantastic4_mlp_fused(x, layers, schedule=schedule)
+        torch.cuda.synchronize(cuda_device)
+        torch.testing.assert_close(y, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("schedule", ["chain", "batch_tiled", "stream"])
+def test_dropped_operands_not_reused_while_a_launch_reads_them(cuda_device,
+                                                               schedule):
+    """The eviction trap: a launch queued on a worker stream behind a
+    spinning kernel, then every reference to the pack and its memoized
+    operands dropped and the memory filled again on the default stream.
+    The launch still reads its own bytes (the wrappers record the stream
+    on what they read)."""
+    import gc
+    pack = _pack(GSC, 63, cuda_device)
+    x = torch.randn((8, 512), device=cuda_device)
+
+    def run(layers, xx):
+        return ops.fantastic4_mlp_chain(xx, layers) if schedule == "chain" \
+            else ops.fantastic4_mlp_fused(xx, layers, schedule=schedule)
+
+    want = run(pack["layers"], x).cpu()          # builds the memos here
+    s1 = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(s1):
+        torch.cuda._sleep(SPIN)
+        x1 = x.clone()
+        y = run(pack["layers"], x1)
+    ops.forget_pack_operands(pack["layers"])
+    del pack
+    gc.collect()
+    junk = [torch.full((n,), float("nan"), device=cuda_device)
+            for n in (1 << 16, 1 << 14, 4096, 2048, 512, 128, 16, 4) * 8]
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(y.cpu(), want)
+    del junk
+
+
+def test_stream_launches_ordered_across_streams(cuda_device):
+    """Stream-schedule launches from two CUDA streams run one after the
+    other (the cross-stream order) and give the single-stream output."""
+    pack = _pack(GSC, 64, cuda_device)
+    layers = pack["layers"]
+    x = torch.randn((256, 512), device=cuda_device)
+    want = ops.fantastic4_mlp_fused(x, layers, schedule="stream", block_m=8)
+    s1, s2 = torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device)
+    ys = []
+    for _ in range(10):
+        for st in (s1, s2):
+            with torch.cuda.stream(st):
+                ys.append(ops.fantastic4_mlp_fused(x, layers,
+                                                   schedule="stream",
+                                                   block_m=8))
+    torch.cuda.synchronize(cuda_device)
+    assert all(torch.equal(y, want) for y in ys)
+    index = cuda_device.index or 0
+    assert ffm._COOP_LAST[index][0] == s2
+    ffm._COOP_LAST.clear()
+
+
+def test_frontend_two_streams_on_the_card(cuda_device):
+    """ServingFrontend(streams=2) with verify_launch over two cache-backed
+    packs: every result bitwise equal to the request served alone."""
+    from repro_torch.serving import PackCache, ServingFrontend
+
+    packs = {"a": _pack(GSC, 65, cuda_device),
+             "b": _pack((64, 48, 10), 66, cuda_device)}
+    alone = {m: ExecutionPlan(p, device=cuda_device) for m, p in packs.items()}
+    fe = ServingFrontend(cache=PackCache(device=cuda_device), streams=2)
+    for m, p in packs.items():
+        fe.register_pack(m, p, integrity=True, max_delay=1e-3)
+    rng = np.random.default_rng(67)
+    reqs = [(m, rng.normal(size=(int(rng.integers(1, 33)),
+                                 packs[m]["layers"][0]["shape"][0]))
+             .astype(np.float32)) for m in "abab" * 30]
+    with fe:
+        served = [(m, x, fe.submit(m, x)) for m, x in reqs]
+        served = [(m, x, f.result(60.0)) for m, x, f in served]
+    for m, x, s in served:
+        y = alone[m].run(torch.from_numpy(x).to(cuda_device)).cpu().numpy()
+        assert np.array_equal(s.y, y)
+    assert sum(ss["launches"] for ss in fe.stats["streams"]) == \
+        fe.stats["launches"]
+    assert not fe.stats["launch_failures"]
+
+
+def test_hot_crcs_read_the_live_device_tensors(cuda_device):
+    """The stack's CRCs from one device-to-host copy equal the CRCs of
+    the same pack on the CPU, and a bit flipped in device memory (in
+    place, behind the layer dict's back) changes them."""
+    from repro_torch.runtime import integrity
+
+    pack = _pack(GSC, 68, cuda_device)
+    host = [{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+             for k, v in l.items()} for l in pack["layers"]]
+    want = [integrity.hot_layer_crc(l) for l in host]
+    assert integrity.hot_layer_crcs(pack["layers"]) == want
+    pack["layers"][3]["packed"].view(-1)[5] ^= 16
+    got = integrity.hot_layer_crcs(pack["layers"])
+    assert got[3] != want[3] and got[:3] == want[:3]
+
+
+class _Schedule:
+    """A program that serves every bucket through one schedule."""
+
+    def __init__(self, layers, schedule):
+        self.layers, self.schedule = layers, schedule
+
+    def entry(self, bucket):
+        def fn(x):
+            if self.schedule == "chain":
+                return ops.fantastic4_mlp_chain(x, self.layers)
+            return ops.fantastic4_mlp_fused(
+                x, self.layers, schedule=self.schedule,
+                block_m=8 if self.schedule == "stream" else None)
+        fn.layers = self.layers
+        return fn
+
+
+def _guarded_schedule(cuda_device, schedule, seed):
+    from repro_torch.runtime import integrity
+
+    pack = integrity.stamp_pack_crcs(_pack(GSC, seed, cuda_device))
+    return pack["layers"], integrity.GuardedPlan(
+        _Schedule(pack["layers"], schedule), model_id="m")
+
+
+@pytest.mark.parametrize("schedule,what", [
+    ("chain", "chain code slices"), ("batch_tiled", "tiled layer table"),
+    ("ws", "stacked layer table"), ("stream", "stream layer table")])
+def test_guard_catches_a_flip_in_the_codes_the_kernel_reads(
+        cuda_device, schedule, what):
+    """The kernels read slice-major code copies, not the pack's packed
+    codes: a bit flipped in place in the copy a schedule reads, with
+    nothing forgotten and the pack clean, fails the next launch."""
+    from repro_torch.runtime import integrity
+
+    layers, guard = _guarded_schedule(cuda_device, schedule, 69)
+    x = torch.randn((8, 512), device=cuda_device)
+    want = guard.entry(8)(x)
+    sealed = [s for s in ops.staged_operands(layers) if s.what == what]
+    assert sealed
+    sealed[0].codes.view(-1)[100] ^= 1
+    assert integrity.hot_layer_crcs(layers) == guard.expected_crcs()
+    with pytest.raises(integrity.IntegrityError) as e:
+        guard.entry(8)(x)
+    assert e.value.kind == "hot" and what in str(e.value)
+    sealed[0].codes.view(-1)[100] ^= 1
+    assert torch.equal(guard.entry(8)(x), want)
+
+
+def test_guard_catches_a_flipped_omega_in_a_layer_table_descriptor(
+        cuda_device):
+    """A layer table holds ω by value in its descriptors: a flip there
+    changes what the kernel computes and fails the next launch."""
+    from repro_torch.runtime import integrity
+
+    layers, guard = _guarded_schedule(cuda_device, "batch_tiled", 70)
+    x = torch.randn((8, 512), device=cuda_device)
+    want = guard.entry(8)(x)
+    (table,) = [s for s in ops.staged_operands(layers)
+                if s.what == "tiled layer table"]
+    desc = table.tensors[0]
+    desc[2 * ffm.DESC_BYTES + 32] ^= 4          # layer 2, omega[0]
+    with pytest.raises(integrity.IntegrityError):
+        guard.entry(8)(x)
+    desc[2 * ffm.DESC_BYTES + 32] ^= 4
+    assert torch.equal(guard.entry(8)(x), want)

@@ -173,7 +173,7 @@ def test_plan_budget_one_is_per_layer():
 
 
 def test_plan_sharded_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1: scale-out"):
         tplans.ExecutionPlan(_rand_pack((40, 48, 10)), mode="sharded",
                              device="cpu")
 
