@@ -82,10 +82,36 @@ Phases (any failure raises and the script exits non-zero):
    -- the cluster size of the cluster kernels, PDL on or off for each of
    the chain's seven, the cooperative grid of stream -- and the
    dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
-   phase 3, phase 3b's serving check, phase 3c), one ``path``, one
-   ``train`` and one ``frontend`` JSON line, then the ``nvidia-smi`` line
-   and the final ``{"ok": true, ...}`` line, with before them a line
-   that counts the profiler traces taken and retaken.
+   phase 3, phase 3b's serving check, phase 3c, phase 5), one ``path``,
+   one ``train``, one ``frontend`` and one ``lm`` JSON line.
+5. The LM serving path at full width, run after phase 3c: SmolLM-360M
+   (32 blocks of d_model 960, 15 heads, 5 KV heads, d_ff 2560, vocab
+   49,152) from ``lm_init(seed=0)`` on the card, frozen with
+   ``freeze_tree`` and served by ``LMProgram(max_prompt=16, max_new=16,
+   max_bucket=64)`` after ``warmup()``, 4 prompts of 16 ids from a numpy
+   seed.  Gates: ``freeze_tree`` makes exactly ⌈224 / 32⌉ = 7 ecl_quant
+   launches, and block 0's and block 31's seven leaves equal the plain
+   version on the same card tensors bit for bit; block 0's FFN shapes
+   (960→2560, 2560→960) at rows 1/2/4/8/16/64 through the chain and
+   every schedule that fits, each seen to launch, within the fp32 gate of
+   the plain oracle; the engine's tokens (``ServingFrontend``, one
+   stream) equal ``LMProgram.generate``'s bit for bit; teacher-forced
+   over them, the program's logits at every step within 1e-3 of the
+   largest |logit| of the direct ``lm_apply`` path on the same frozen
+   tree (dense decode + ``torch.matmul``), each engine token's logit
+   within that of the direct path's maximum; every schedule
+   ``describe(n_seqs=4)["ffn_schedules"]`` names (each FFN matrix at a
+   decode of the session's 4 sequences and at a prefill) launched in the
+   engine session
+   (counters zeroed just before, read just after), and every frozen
+   leaf and sequence state on the card.  Prints one ``lm`` JSON line
+   (sizes, freeze, build, prefill and decode ms, a decode step's device
+   ms and idle share from one trace, the schedules and launches, the
+   FFN shapes' and the freeze's kernel times against their bounds,
+   device memory, one ``GuardedPlan.verify`` ms).
+
+The script ends with a line that counts the profiler traces taken and
+retaken, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -119,6 +145,7 @@ GSC_LAYERS = tuple(zip(GSC_DIMS[:-1], GSC_DIMS[1:]))
 ECL_SHAPES = tuple(dict.fromkeys(GSC_LAYERS)) + ((37, 129), (1, 5))
 ECL_LAMS = (0.0, 0.02, 0.3)
 ECL_BYTES_PER_ELEM = 9                     # read w (4), write code (1), ŵ (4)
+ECL_CODES_BYTES_PER_ELEM = 5               # a freeze keeps the codes only
 TRAIN = dict(lam=0.3, steps=300, lr=5e-3, seed=0, lam_ramp=60)
 TRAIN_MIN_ACC, TRAIN_MAX_ENTROPY = 0.6, 2.5
 SERVE_TOL = 1e-2                           # examples/train_mlp_gsc.py:54
@@ -1540,6 +1567,378 @@ def frontend_path(dev, trained):
             "hot_tier": hot, "cooperative_two_streams": coop,
             "session": session, "faults": faults}
 
+# ------------------------------------------------------------- phase 5
+
+LM = dict(arch="smollm-360m", seed=0, prompts=4, prompt_len=16, max_new=16,
+          max_bucket=64, prompt_seed=5, max_delay=2e-3)
+LM_ROWS = (1, 2, 4, 8, 16, 64)             # each FFN shape gated here
+LM_LOGIT_REL = 1e-3                        # of the direct path's max |logit|
+LM_LEAVES = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
+             ("mlp", "gate"), ("mlp", "up"), ("mlp", "down"))
+# the FFN matrices checked and timed (gate and up share a shape) at the
+# row counts of a decode of 1 and 4 sequences, a 16-token prefill and the
+# top bucket
+LM_TIMED = {"gate": (1, 4, 16, 64), "down": (1, 4, 16, 64)}
+SCHED_KERNEL = {sched: name for name, (sched, _) in KERNELS.items()}
+
+
+def _lm_freeze(dev, cfg):
+    """Init on the card, then ``freeze_tree`` with the ecl_quant counter
+    zeroed just before and read just after; block 0's and the last
+    block's codes of every leaf against the plain version on the same
+    card tensors (the penalty ``freeze_tree`` computed)."""
+    import torch
+    from repro_torch.core import bitplanes, ecl, qat
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.nn import transformer as T
+
+    params = T.lm_init(cfg, seed=LM["seed"], device=dev)
+    qstate = qat.build_qstate(params)
+    torch.cuda.synchronize(dev)
+    eq.LAUNCHES = 0
+    t0 = time.perf_counter()
+    frozen = qat.freeze_tree(params, qstate, cfg.lam)
+    torch.cuda.synchronize(dev)
+    freeze_ms = (time.perf_counter() - t0) * 1e3
+    launches = eq.LAUNCHES
+    segments = len(LM_LEAVES) * cfg.n_layers
+    if launches != -(-segments // eq.MAX_SEGMENTS):
+        raise AssertionError(f"freeze_tree made {launches} ecl_quant "
+                             f"launches for {segments} segments")
+    sp, sq = params["stacks"]["dense"], qstate["stacks"]["dense"]
+    sf = frozen["stacks"]["dense"]
+    n_quant = packed = 0
+    ws, omegas, probs = [], [], []
+    for grp, name in LM_LEAVES:
+        node = sp[grp][name]["kernel"]
+        pr = sq[grp][name]["kernel"]["probs"]
+        pen = ecl.penalty(node["w"], pr, cfg.lam)
+        for l in (0, cfg.n_layers - 1):
+            want, _ = eq.ecl_quant_plain(node["w"][l], node["omega"][l],
+                                         pen[l])
+            got = bitplanes.unpack_codes_rows(
+                sf[grp][name]["kernel"]["packed"][l])
+            if not torch.equal(got, want):
+                raise AssertionError(f"freeze codes of block {l} {grp}."
+                                     f"{name} != the plain version")
+        n_quant += node["w"].numel()
+        packed += sf[grp][name]["kernel"]["packed"].numel()
+        ws.append(node["w"])
+        omegas.append(node["omega"])
+        probs.append(pr)
+    # kernel 5 at the SmolLM shapes: the freeze's grouped assignment,
+    # and its plain version over the same 224 segments
+    pens = [ecl.penalty(w, pr, cfg.lam) for w, pr in zip(ws, probs)]
+
+    def plain_all():
+        return [eq.ecl_quant_plain(w[l], om[l], pen[l])
+                for w, om, pen in zip(ws, omegas, pens)
+                for l in range(cfg.n_layers)]
+
+    def grouped():
+        return ecl.assign_many(ws, omegas, probs, cfg.lam)
+
+    ecl_row = {
+        "ms": _time_ms(grouped, dev, 3),
+        "device_ms": _device_ms(grouped, dev, 2, ECL_SYMBOL),
+        "plain_ms": _time_ms(plain_all, dev, 1),
+        "bound_ms": ECL_BYTES_PER_ELEM * n_quant / PEAK_BYTES * 1e3,
+        # assign_many throws ŵ away: the bytes the freeze itself needs
+        "codes_only_bound_ms":
+            ECL_CODES_BYTES_PER_ELEM * n_quant / PEAK_BYTES * 1e3,
+        "bound_by": "bytes", "library_ms": None, "elements": n_quant,
+        "segments": segments, "launches_per_call": launches}
+    freeze = {"ms": freeze_ms, "ecl_quant_launches": launches,
+              "segments": segments, "quant_weights": n_quant,
+              "packed_bytes": packed, "fp32_bytes": 4 * n_quant,
+              "embed_fp32_bytes": 4 * frozen["embed"]["table"].numel()}
+    return frozen, freeze, ecl_row
+
+
+def _lm_ffn_checks(dev, prog):
+    """Block 0's FFN shapes at LM_ROWS through the chain and every
+    schedule that fits (each launch seen on its counter), within the fp32
+    gate of the plain oracle; then the timed rows (device, plain, library
+    and bound) of the schedules the program binds."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fantastic4_fused_mlp as ffm
+    from repro_torch.kernels import fantastic4_matmul as fm
+    from repro_torch.kernels import ops, ref
+
+    checks, timed = {}, {}
+    for name, rows_timed in LM_TIMED.items():
+        plan = prog._plans[0][name]
+        layers = plan.layers
+        s = Schedules({"layers": layers}, "float32", None)
+        k, n = layers[0]["shape"]
+        label = f"{name} {k}x{n}"
+        w = ref.decode_weights(layers[0]["packed"], layers[0]["omega"])
+        l0 = layers[0]
+
+        def library(x):
+            return (torch.matmul(x, w) * l0["alpha1"] + l0["bias"]) \
+                * l0["alpha2"]
+
+        per = {}
+        for rows in LM_ROWS:
+            x = torch.from_numpy(np.random.default_rng(rows).normal(
+                size=(rows, k)).astype(np.float32)).to(dev)
+            want = ops.fantastic4_mlp_chain(x, layers, use_kernel=False)
+            errs = {}
+            for sched in ("chain",) + plan._eligible_schedules(rows):
+                before = (fm.LAUNCHES, dict(ffm.LAUNCHES))
+                got = s.kernel(SCHED_KERNEL[sched], x)
+                torch.cuda.synchronize(dev)
+                ran = fm.LAUNCHES > before[0] if sched == "chain" else \
+                    ffm.LAUNCHES[sched] > before[1][sched]
+                if not ran:
+                    raise AssertionError(f"{label} rows {rows}: {sched} "
+                                         "did not launch")
+                tol = FP32_ATOL + FP32_RTOL * want.abs()
+                if not bool(((got - want).abs() <= tol).all()):
+                    raise AssertionError(
+                        f"{label} rows {rows} {sched}: max abs err "
+                        f"{float((got - want).abs().max())}")
+                errs[sched] = float((got - want).abs().max())
+            per[str(rows)] = {"bound": plan.schedule_for(rows),
+                              "max_abs_err": errs}
+        checks[label] = per
+        for rows in rows_timed:
+            sched = plan.schedule_for(rows)
+            kname = SCHED_KERNEL[sched]
+            x = torch.from_numpy(np.random.default_rng(rows).normal(
+                size=(rows, k)).astype(np.float32)).to(dev)
+            b_ms, b_by = bound(rows, (k, n))
+            timed[f"{label} rows {rows}"] = {
+                "schedule": sched, "rows": rows,
+                "ms": _time_ms(lambda: s.kernel(kname, x), dev, 50),
+                "device_ms": _device_ms(lambda: s.kernel(kname, x), dev, 10,
+                                        SYMBOLS[sched]),
+                "plain_ms": _time_ms(lambda: s.plain(kname, x), dev, 10),
+                "library_ms": _time_ms(lambda: library(x), dev, 50),
+                "bound_ms": b_ms, "bound_by": b_by}
+    return checks, timed
+
+
+def _lm_direct(dev, cfg, frozen, prompts, tokens):
+    """The direct path on the same frozen tree (``lm_apply``: dense decode
+    + ``torch.matmul``, no FantastIC4 kernel), teacher-forced over
+    ``tokens``: each step's last-position logits, and its prefill and
+    per-step decode ms (CUDA events)."""
+    import torch
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import FP32_CTX
+
+    b, s = prompts.shape
+    new = tokens.shape[1]
+    cache = T.init_cache(cfg, b, s + new, dtype=torch.float32, device=dev)
+    tok = torch.from_numpy(prompts).to(dev)
+    tf = torch.from_numpy(tokens).to(dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    start, mid, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    torch.cuda.synchronize(dev)
+    with torch.no_grad():
+        start.record()
+        logits, cache, _ = T.lm_apply(frozen, 0, tok, FP32_CTX, cfg,
+                                      positions=pos, cache=cache)
+        steps = [logits[:, -1, :cfg.vocab]]
+        mid.record()
+        for t in range(new - 1):
+            p_t = torch.full((b, 1), s + t, dtype=torch.int32, device=dev)
+            logits, cache, _ = T.lm_apply(frozen, 0, tf[:, t:t + 1],
+                                          FP32_CTX, cfg, positions=p_t,
+                                          cache=cache)
+            steps.append(logits[:, -1, :cfg.vocab])
+        end.record()
+    torch.cuda.synchronize(dev)
+    return (torch.stack(steps, dim=1), start.elapsed_time(mid),
+            mid.elapsed_time(end) / max(new - 1, 1))
+
+
+def _lm_decode_trace(dev, prog, prompts, steps=4):
+    """A decode step at len(prompts) sequences (the rows the frontend
+    hands the program): its wall ms over ``steps`` runs, and its device
+    ms from one torch.profiler trace over as many; the idle share is the
+    part of the wall time the device is not busy."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sids = [prog.prefill(p)[0] for p in prompts]
+    rows = np.stack([prog.encode_decode(sid) for sid in sids])
+    prog.run(rows)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        prog.run(rows)
+    torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                prog.run(rows)
+            torch.cuda.synchronize(dev)
+            traced_ms = (time.perf_counter() - t0) * 1e3 / steps
+        TRACES["taken"] += 1
+        kernels, ops_n = {}, 0
+        for evt in prof.key_averages():
+            if _is_kernel(evt):
+                kernels[evt.key] = kernels.get(evt.key, 0.0) + \
+                    _kernel_us(evt) / 1e3 / steps
+                ops_n += evt.count
+        if kernels:
+            break
+        TRACES["retried"] += 1
+    else:
+        raise AssertionError(f"no device time in {TRACE_TRIES} traces of "
+                             "an LM decode step")
+    for sid in sids:
+        prog.release(sid)
+    device_ms = sum(kernels.values())
+    f4_ms = sum(v for k, v in kernels.items()
+                if any(sym in k for sym in set(SYMBOLS.values())))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms_per_step": wall_ms,
+            "traced_wall_ms_per_step": traced_ms,
+            "device_ms_per_step": device_ms,
+            "fantastic4_kernels_device_ms": f4_ms,
+            "device_idle_share": 1.0 - device_ms / wall_ms,
+            "device_ops_per_step": ops_n / steps,
+            "top_device_ms": [[k[:80], v] for k, v in top]}
+
+
+def lm_path(dev):
+    """Phase 5: SmolLM-360M at its published width, frozen to 4 bits on the
+    card and served through LMProgram under the frontend."""
+    import numpy as np
+    import torch
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fantastic4_fused_mlp as ffm
+    from repro_torch.kernels import fantastic4_matmul as fm
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM["arch"])
+    frozen, freeze, ecl_row = _lm_freeze(dev, cfg)
+    torch.cuda.empty_cache()
+    if not all(t.device.type == dev.type for t in leaves(frozen)
+               if isinstance(t, torch.Tensor)):
+        raise AssertionError("a frozen leaf is off the card")
+    t0 = time.perf_counter()
+    prog = serving.LMProgram(frozen, cfg, max_prompt=LM["prompt_len"],
+                             max_new=LM["max_new"],
+                             max_bucket=LM["max_bucket"], device=dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    prog.warmup()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    memory = torch.cuda.memory_allocated(dev)
+    checks, timed = _lm_ffn_checks(dev, prog)
+
+    b, s, new = LM["prompts"], LM["prompt_len"], LM["max_new"]
+    desc = prog.describe(n_seqs=b)
+    prompts = np.random.default_rng(LM["prompt_seed"]).integers(
+        0, cfg.vocab, (b, s))
+    sids = list(range(1000, 1000 + b))
+    toks, step_ms = [], []
+    on_card = True
+    fm.LAUNCHES = 0
+    ffm.reset_launches()
+    frontend = serving.ServingFrontend()
+    with frontend:
+        frontend.register(cfg.name, prog, max_delay=LM["max_delay"])
+        t0 = time.perf_counter()
+        futs = [frontend.submit(cfg.name,
+                                prog.encode_prefill(sid, prompts[i])[None])
+                for i, sid in enumerate(sids)]
+        toks.append([int(f.result(120.0).y[0, 0]) for f in futs])
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        on_card = all(t.device.type == dev.type
+                      for t in prog.sequence_tensors())
+        for _ in range(new - 1):
+            t0 = time.perf_counter()
+            futs = [frontend.submit(cfg.name, prog.encode_decode(sid)[None])
+                    for sid in sids]
+            toks.append([int(f.result(120.0).y[0, 0]) for f in futs])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize(dev)
+    launches = {"fantastic4_matmul": fm.LAUNCHES,
+                **{name: ffm.LAUNCHES[sched]
+                   for name, (sched, _) in KERNELS.items()
+                   if sched != "chain"}}
+    by_sched = {"chain": fm.LAUNCHES, **ffm.LAUNCHES}
+    for sid in sids:
+        prog.release(sid)
+    engine = np.asarray(toks, np.int64).T
+    if not on_card:
+        raise AssertionError("a sequence's state is off the card")
+    named = {sch for phase in desc["ffn_schedules"].values()
+             for sch in phase.values()}
+    missing = sorted(sch for sch in named if by_sched[sch] == 0)
+    if missing or not {"ws", "stream"} <= named:
+        raise AssertionError(f"LM session: schedules {sorted(named)} named, "
+                             f"{missing} never launched ({by_sched})")
+    stats = dict(frontend.stats)
+
+    direct_tokens, logits = prog.generate(prompts, new, return_logits=True)
+    if not np.array_equal(engine, direct_tokens):
+        raise AssertionError("engine tokens != LMProgram.generate")
+    want, direct_prefill_ms, direct_decode_ms = _lm_direct(
+        dev, cfg, frozen, prompts, engine)
+    worst = 0.0
+    for t in range(new):
+        scale = float(want[:, t].abs().max())
+        err = float((logits[:, t] - want[:, t]).abs().max())
+        worst = max(worst, err / scale)
+        picked = want[:, t].gather(1, torch.from_numpy(
+            engine[:, t:t + 1]).to(dev))[:, 0]
+        if err > LM_LOGIT_REL * scale or bool(
+                (picked < want[:, t].amax(-1) - LM_LOGIT_REL * scale).any()):
+            raise AssertionError(f"LM step {t}: program logits off the "
+                                 f"direct path by {err} (max |logit| "
+                                 f"{scale})")
+    trace = _lm_decode_trace(dev, prog, prompts)
+    guard = serving.GuardedPlan(prog, model_id=cfg.name)
+    t0 = time.perf_counter()
+    guard.verify()
+    verify_ms = (time.perf_counter() - t0) * 1e3
+
+    lm = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "freeze": freeze,
+        "program_build_ms": build_ms, "warmup_ms": warmup_ms,
+        "device_memory_after_build_bytes": memory,
+        "prefill_ms_per_sequence_engine": prefill_ms / b,
+        "direct_prefill_ms_4_sequences": direct_prefill_ms,
+        "decode_ms_per_step_engine": float(np.median(step_ms)),
+        "decode_ms_per_step_engine_all": step_ms,
+        "decode_ms_per_step_direct": direct_decode_ms,
+        "decode_step_trace": trace,
+        "engine_launches": stats["launches"],
+        "kernel_launches": launches,
+        "ffn_schedules": desc["ffn_schedules"],
+        "ffn_bucket_schedules": {k: {str(bk): v for bk, v in d.items()}
+                                 for k, d in
+                                 desc["ffn_bucket_schedules"].items()},
+        "ffn_checks": checks, "ffn_timed": timed, "ecl_quant": ecl_row,
+        "max_rel_logit_err": worst, "tokens_0": engine[0].tolist(),
+        "verify_ms": verify_ms, "wall_s": time.perf_counter() - t_phase}
+    print(f"phase 5: {cfg.name} ({cfg.n_layers}x{cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}) frozen in "
+          f"{freeze['ecl_quant_launches']} ecl_quant launches, program "
+          f"built in {build_ms:.0f} ms; engine == generate bitwise, logits "
+          f"within {worst:.2e} of the direct path; decode "
+          f"{lm['decode_ms_per_step_engine']:.2f} ms/step (engine), "
+          f"{direct_decode_ms:.2f} ms/step (direct); launches {launches}; "
+          f"done in {lm['wall_s']:.1f} s")
+    prog.forget()
+    return lm
+
 
 def main() -> int:
     try:
@@ -1580,6 +1979,7 @@ def main() -> int:
     train["step_timing"] = train_step_timing(dev)
     # the threaded phase runs after the single-stream timings
     frontend = frontend_path(dev, trained)
+    lm = lm_path(dev)
 
     report = []
     for name, (sched, replaces) in KERNELS.items():
@@ -1593,7 +1993,8 @@ def main() -> int:
                 "serving": launches[name],
                 "training_serve": train["serve_launches"][
                     "fantastic4_matmul" if sched == "chain" else sched],
-                "frontend": frontend["session"]["launches"][name]},
+                "frontend": frontend["session"]["launches"][name],
+                "lm": lm["kernel_launches"][name]},
             "max_abs_err": max_err[name],
             "int8_max_rel_err": max_rel8[name],
             "ms": head["ms"], "kernel_ms": head["ms"],
@@ -1602,24 +2003,31 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "library_device_ms": head["library_device_ms"],
             "at": "mlp-gsc batch 64 fp32",
-            "by_batch": {str(b): v for b, v in per.items()}})
+            "by_batch": {str(b): v for b, v in per.items()},
+            "smollm_shapes": {k: v for k, v in lm["ffn_timed"].items()
+                              if v["schedule"] == sched}})
     head = ecl_times["mlp-gsc 7 tensors grouped"]
     report.append({
         "name": "ecl_quant", "route": "cuda", "source": ECL_SOURCE,
         "replaces": TPU_KERNELS + "ecl_quant.py:56",
-        "launches": train["ecl_quant_launches"], "max_abs_err": ecl_err,
+        "launches": train["ecl_quant_launches"],
+        "launches_by_path": {"training": train["ecl_quant_launches"],
+                             "lm": lm["freeze"]["ecl_quant_launches"]},
+        "max_abs_err": ecl_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
         "device_ms": head["device_ms"], "queued_ms": head["queued_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "library_device_ms": None,
         "at": "mlp-gsc 7 tensors, one grouped launch",
-        "by_shape": ecl_times})
+        "by_shape": ecl_times,
+        "smollm_freeze": lm["ecl_quant"]})
     print(json.dumps({"grid": grid, "contract_floor": floor}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"path": path}))
     print(json.dumps({"train": train}))
     print(json.dumps({"frontend": frontend}))
+    print(json.dumps({"lm": lm}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "
           "retaken for want of the kernel's device time")
     print(gpu)

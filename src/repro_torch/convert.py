@@ -62,3 +62,11 @@ def pack_from_numpy(pack: dict, device=None) -> dict:
         out["shape"] = tuple(int(v) for v in layer["shape"])
         layers.append(out)
     return {**pack, "layers": layers}
+
+
+def lm_tree_from_numpy(tree: Any, *, device=None) -> Any:
+    """An LM tree of the JAX package (``lm_init`` params, ``build_qstate``
+    state, a ``freeze_tree`` frozen tree or an ``init_cache`` cache) as the
+    port's tensors, each array keeping its dtype (uint8 ``packed``, int32
+    positions, fp32 weights); numbers and other leaves pass through."""
+    return _to_torch(tree, resolve_device(device))

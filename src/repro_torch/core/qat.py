@@ -21,7 +21,8 @@ fake-quantizes every layer of a net in one launch (:func:`fake_quant` is
 its one-tensor case); :func:`update_qstate` EMA-updates the probabilities
 from a fresh assignment of every tensor once per step, and :func:`stats`
 reports sparsity and entropy over every quantized tensor, each in one
-grouped call.
+grouped call.  :func:`freeze_tree` turns a trained tree into its serving
+form, every leaf assigned in one grouped call.
 """
 from __future__ import annotations
 
@@ -32,10 +33,17 @@ import torch
 from . import bitplanes, ecl
 
 QUANT_KEYS = frozenset({"w", "omega"})
+FROZEN_KEYS = frozenset({"packed", "omega"})
 
 
 def is_quant_leaf(node: Any) -> bool:
     return isinstance(node, dict) and QUANT_KEYS.issubset(node.keys())
+
+
+def is_frozen_leaf(node: Any) -> bool:
+    """A dict holding a frozen (row-pair-packed 4-bit) serving tensor."""
+    return isinstance(node, dict) and FROZEN_KEYS.issubset(node.keys()) \
+        and "w" not in node
 
 
 def make_quant_param(w: torch.Tensor) -> dict:
@@ -109,25 +117,30 @@ def apply_quant(node: dict, qstate: dict, lam, dtype=None) -> torch.Tensor:
 
 # --------------------------------------------------------------- tree utils
 
-def _map_quant(fn: Callable, tree: Any, qtree: Any) -> Any:
+def _map_quant(fn: Callable, tree: Any, qtree: Any,
+               keep_params: bool = False) -> Any:
     """``fn(node, qs)`` at every quantized leaf; other positions keep the
-    state tree's value."""
+    state tree's value, or the parameter tree's with ``keep_params``."""
     if is_quant_leaf(tree):
         return fn(tree, qtree)
     if isinstance(tree, dict):
-        return {k: _map_quant(fn, v, qtree[k]) for k, v in tree.items()}
+        return {k: _map_quant(fn, v, qtree[k], keep_params)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_quant(fn, v, q) for v, q in zip(tree, qtree))
-    return qtree
+        return type(tree)(_map_quant(fn, v, q, keep_params)
+                          for v, q in zip(tree, qtree))
+    return tree if keep_params else qtree
 
 
-def _map_quant_many(fn: Callable, tree: Any, qtree: Any) -> Any:
+def _map_quant_many(fn: Callable, tree: Any, qtree: Any,
+                    keep_params: bool = False) -> Any:
     """:func:`_map_quant` with ``fn(nodes, qss)`` called once over every
     quantized leaf, returning one value per leaf in the order given."""
     leaves = []
     _map_quant(lambda node, qs: leaves.append((node, qs)), tree, qtree)
     results = iter(fn([n for n, _ in leaves], [q for _, q in leaves]))
-    return _map_quant(lambda node, qs: next(results), tree, qtree)
+    return _map_quant(lambda node, qs: next(results), tree, qtree,
+                      keep_params)
 
 
 def _quant_leaves(tree: Any, qtree: Any) -> Iterator[tuple]:
@@ -159,18 +172,51 @@ def build_qstate(params: Any) -> Any:
     return params
 
 
+def _assign_leaves(nodes: Sequence[dict], qss: Sequence[dict], lam) -> list:
+    return ecl.assign_many([n["w"] for n in nodes],
+                           [n["omega"] for n in nodes],
+                           [q["probs"] for q in qss], lam)
+
+
 @torch.no_grad()
 def update_qstate(params: Any, qstate: Any, lam,
                   momentum: float = 0.9) -> Any:
     """One EMA step of the per-tensor cluster probabilities (one ECL
     iteration per training step), every tensor in one grouped call."""
     def f(nodes, qss):
-        codes = ecl.assign_many([n["w"] for n in nodes],
-                                [n["omega"] for n in nodes],
-                                [q["probs"] for q in qss], lam)
         return [{"probs": ecl.update_probs(q["probs"], c, momentum)}
-                for q, c in zip(qss, codes)]
+                for q, c in zip(qss, _assign_leaves(nodes, qss, lam))]
     return _map_quant_many(f, params, qstate)
+
+
+@torch.no_grad()
+def quantize_tree(params: Any, qstate: Any, lam) -> Any:
+    """Replace each quantized leaf with ``{"codes", "omega"}`` (every leaf
+    assigned in one grouped call); other leaves are kept."""
+    def f(nodes, qss):
+        return [{"codes": c, "omega": n["omega"]}
+                for n, c in zip(nodes, _assign_leaves(nodes, qss, lam))]
+    return _map_quant_many(f, params, qstate, keep_params=True)
+
+
+@torch.no_grad()
+def freeze_tree(params: Any, qstate: Any, lam) -> Any:
+    """Serving form: every quantized leaf becomes ``{"packed", "omega"}``
+    with row-pair-packed uint8 codes (4 bits a weight); other leaves are
+    kept.  Every leaf is assigned in one grouped call: an L-stacked leaf
+    with ω (L, 4) is L segments of it, so on the card the whole tree takes
+    ⌈segments / 32⌉ launches.  Contraction dims must be even."""
+    def f(nodes, qss):
+        return [{"packed": bitplanes.pack_codes_rows(c),
+                 "omega": n["omega"].to(torch.float32)}
+                for n, c in zip(nodes, _assign_leaves(nodes, qss, lam))]
+    return _map_quant_many(f, params, qstate, keep_params=True)
+
+
+def decode_frozen(node: dict, dtype=torch.float32) -> torch.Tensor:
+    """W = Σ ω_i B_i of a frozen leaf, decoded where its codes lie."""
+    codes = bitplanes.unpack_codes_rows(node["packed"])
+    return bitplanes.decode(codes, node["omega"], dtype)
 
 
 @torch.no_grad()
@@ -178,9 +224,8 @@ def stats(params: Any, qstate: Any, lam) -> dict:
     """Global sparsity / entropy diagnostics over the quantized leaves."""
     total, zeros, bits = 0, [], []
     leaves = list(_quant_leaves(params, qstate))
-    all_codes = ecl.assign_many([n["w"] for n, _ in leaves],
-                                [n["omega"] for n, _ in leaves],
-                                [q["probs"] for _, q in leaves], lam)
+    all_codes = _assign_leaves([n for n, _ in leaves],
+                               [q for _, q in leaves], lam)
     for (node, _), codes in zip(leaves, all_codes):
         lead_nd = node["omega"].ndim - 1
         per_lead = ecl.entropy_bits(ecl.histogram(codes, lead_nd))

@@ -106,6 +106,28 @@ def fantastic4_mlp_chain_int8(x: torch.Tensor, layers: Sequence[dict],
 _INT8_FOLD_MEMO = IdentityMemo()
 _WS_OPERAND_MEMO = IdentityMemo()
 _TABLE_MEMO = IdentityMemo()
+# Layer lists whose owner keeps their operands for its own lifetime: their
+# entries are pinned (exempt from the memos' eviction) until the owner
+# releases them (unpin_pack_operands).
+_PINNED = IdentityMemo()
+
+
+def pin_pack_operands(layers: Sequence[dict]) -> None:
+    """Pin every operand built from ``layers``, now or after a
+    :func:`forget_pack_operands`, until :func:`unpin_pack_operands`: for
+    an owner that holds more packs than the memos keep (an LM program's
+    block packs)."""
+    _PINNED.put((layers,), (), True, pin=True)
+
+
+def unpin_pack_operands(layers: Sequence[dict]) -> None:
+    """Release :func:`pin_pack_operands`' pin and drop the operands."""
+    _PINNED.drop(layers)
+    forget_pack_operands(layers)
+
+
+def _pinned(layers: Sequence[dict]) -> bool:
+    return _PINNED.get((layers,)) is not MISS
 
 
 def _int8_fold_entry(layers: Sequence[dict],
@@ -125,7 +147,8 @@ def _int8_fold_entry(layers: Sequence[dict],
     build.publish(layers[0]["alpha1"].device)
     entry = ((alpha1s, scales),
              staged.Staged("folded int8 epilogue", alpha1s + scales))
-    _INT8_FOLD_MEMO.put((layers, act_scales), (), entry)
+    _INT8_FOLD_MEMO.put((layers, act_scales), (), entry,
+                        pin=_pinned(layers))
     return entry + (True,)
 
 
@@ -161,7 +184,8 @@ def _ws_entry(layers: Sequence[dict], act_dtype: str,
     build.publish(stacked[0].device)
     entry = (stacked, staged.Staged("stacked operands", stacked,
                                     codes=stacked[0]))
-    _WS_OPERAND_MEMO.put((layers, act_scales), (act_dtype,), entry)
+    _WS_OPERAND_MEMO.put((layers, act_scales), (act_dtype,), entry,
+                         pin=_pinned(layers))
     return entry + (True,)
 
 
@@ -201,13 +225,15 @@ def _layer_table(layers, act_dtype, act_scales, kind: str):
     build.publish(table.codes.device)
     table.staged = staged.Staged(f"{kind} layer table", table.reads,
                                  codes=table.codes)
-    _TABLE_MEMO.put((layers, act_scales), (act_dtype, kind), table)
+    _TABLE_MEMO.put((layers, act_scales), (act_dtype, kind), table,
+                    pin=_pinned(layers))
     return table
 
 
 def forget_pack_operands(layers: Sequence[dict]) -> int:
     """Drop every cached operand keyed on ``layers`` (and the chain's code
-    copies of its layers); returns how many."""
+    copies of its layers); returns how many.  A pin stays: what is built
+    next from ``layers`` is pinned again."""
     return (_INT8_FOLD_MEMO.drop(layers) + _WS_OPERAND_MEMO.drop(layers)
             + _TABLE_MEMO.drop(layers)
             + sum(_forget_chain_operands(l["packed"]) for l in layers))

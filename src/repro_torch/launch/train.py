@@ -14,8 +14,8 @@ and entropy and ms per step, freezes the net (``freeze_mlp``), serves a
 held-out batch through ``mlp_serve`` and checks it against the eval-mode
 forward (``atol=rtol=1e-2``, as ``examples/train_mlp_gsc.py:54``).
 
-Only the paper MLPs train here; the JAX launcher's LM families raise
-``NotImplementedError`` (ROADMAP queue 1, items 11-12).
+Only the paper MLPs train here; the JAX launcher's LM archs raise
+``NotImplementedError`` (ROADMAP queue 1 item 5, LM training).
 """
 from __future__ import annotations
 
@@ -158,8 +158,8 @@ def main(argv=None) -> dict:
     if args.arch not in MLPS:
         raise NotImplementedError(
             f"--arch {args.arch}: the port trains the paper MLPs "
-            f"({', '.join(sorted(MLPS))}); the LM families of the JAX "
-            "package's launch/train.py are ROADMAP queue 1, items 11-12")
+            f"({', '.join(sorted(MLPS))}); LM training (the LM branch of "
+            "the JAX package's launch/train.py) is ROADMAP queue 1 item 5")
     dev = resolve_device(args.device)
     cfg = MLPS[args.arch]
     print(f"training {cfg.name} ({cfg.d_in}-"

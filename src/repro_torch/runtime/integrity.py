@@ -334,7 +334,11 @@ class GuardedPlan:
         if layers is None:
             layers = self._plan.layers
         if staged is None:
-            staged = staged_of(layers)
+            # a program over several packs (an LM program) names the
+            # copies memoized for each of its packs
+            own = getattr(self._plan, "staged_operands", None)
+            staged = own() if own is not None and \
+                layers is self._plan.layers else staged_of(layers)
         if len(layers) != len(expected):
             raise IntegrityError(
                 f"layer count changed ({len(expected)} -> {len(layers)})",

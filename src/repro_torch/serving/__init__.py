@@ -1,8 +1,8 @@
 """Serving: execution plans over frozen packs, SLO policy, micro-batcher,
 the two-tier pack cache and the multi-model frontend.
 
-Mirrors the JAX package's ``serving`` package (less ``sharded`` and
-``lm``, not ported yet):
+Mirrors the JAX package's ``serving`` package (less ``sharded``, not
+ported yet):
 
 * :mod:`plans` — one :class:`ExecutionPlan` per frozen pack: mode, row
   tile, int8 calibration and the bucket → kernel schedule bindings,
@@ -17,6 +17,8 @@ Mirrors the JAX package's ``serving`` package (less ``sharded`` and
   over a :class:`ModelRegistry`, with the retry → chain fallback →
   quarantine ladder, recovery from the cold tier, the scrubber and
   ``streams=N`` workers on CUDA streams of their own.
+* :mod:`lm` — :class:`LMProgram`, greedy prefill/decode of a frozen 4-bit
+  transformer as a servable program, its FFN through per-block plans.
 
 Integrity guards (:class:`GuardedPlan`) and fault injection
 (:class:`FaultInjector`) live in ``runtime`` and are re-exported here.
@@ -35,3 +37,4 @@ from .pack_cache import (CachedPlan, ColdPack, PackCache,     # noqa: F401
                          plan_resident_bytes, verify_cold_pack)
 from .frontend import (ModelRegistry, RetryPolicy, Served,    # noqa: F401
                        ServingFrontend)
+from .lm import LMProgram, build_lm_program, freeze_lm      # noqa: F401

@@ -34,7 +34,8 @@ from ..kernels import ops as kops
 from ..kernels.fantastic4_fused_mlp import (SMEM_BUDGET_BYTES,
                                             fused_mlp_fits,
                                             max_fused_block_m,
-                                            stream_mlp_fits, ws_mlp_fits)
+                                            stream_mlp_fits, tile_rows,
+                                            ws_mlp_fits)
 from ..memo import MISS, IdentityMemo
 
 MODES = ("auto", "fused", "per_layer", "oracle", "sharded")
@@ -190,8 +191,10 @@ class ExecutionPlan:
                                             **fit_kw)
         self._stack_fits = tile is not None and fused_mlp_fits(
             self.shapes, block_m=tile, **fit_kw)
-        self._stack_fits_db = tile is not None and fused_mlp_fits(
-            self.shapes, block_m=tile, double_buffer=True, **fit_kw)
+        # db runs two row groups, so it needs a tile of >= 16 rows
+        self._stack_fits_db = tile is not None and \
+            tile_rows(tile, double_buffer=True)[1] and fused_mlp_fits(
+                self.shapes, block_m=tile, double_buffer=True, **fit_kw)
         stream_ok = stream_mlp_fits(self.shapes, rows=max_bucket,
                                     block_m=STREAM_BLOCK_M, **fit_kw)
         if mode == "auto":

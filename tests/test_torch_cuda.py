@@ -22,7 +22,10 @@ stream-schedule launches ordered across streams; the two-stream frontend
 bitwise equal to requests served alone.  The integrity guard catches a
 bit flipped in place in the copies the kernels read (the slice-major
 codes of the chain and of every layer table, ω in a table's
-descriptors).
+descriptors).  The LM path: ``freeze_tree`` of a stacked leaf bitwise
+against the plain version, an ``LMProgram`` on the card giving the CPU
+program's tokens through ws and stream, and SmolLM-360M's FFN shapes
+(960→2560, 2560→960) within the fp32 gate.
 """
 import array
 import ctypes
@@ -652,3 +655,67 @@ def test_guard_catches_a_flipped_omega_in_a_layer_table_descriptor(
         guard.entry(8)(x)
     desc[2 * ffm.DESC_BYTES + 32] ^= 4
     assert torch.equal(guard.entry(8)(x), want)
+
+
+# ------------------------------------------------- the LM path (slice 7)
+
+def test_freeze_tree_stacked_leaf_bitwise_on_the_card(cuda_device):
+    """A (3, 96, 256) leaf with ω (3, 4) freezes in one grouped launch,
+    each segment's codes bitwise equal to the plain version on the same
+    card tensors."""
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy((rng.normal(size=(3, 96, 256)) * 0.05)
+                         .astype(np.float32)).to(cuda_device)
+    probs = torch.from_numpy(rng.dirichlet(np.ones(16), size=3)
+                             .astype(np.float32)).to(cuda_device)
+    params = {"k": qat.make_quant_param(w)}
+    qstate = {"k": {"probs": probs}}
+    before = eq.LAUNCHES
+    frozen = qat.freeze_tree(params, qstate, 0.3)
+    assert eq.LAUNCHES == before + 1
+    pen = ecl.penalty(w, probs, 0.3)
+    got = bitplanes.unpack_codes_rows(frozen["k"]["packed"])
+    for l in range(3):
+        want, _ = eq.ecl_quant_plain(w[l], params["k"]["omega"][l], pen[l])
+        assert torch.equal(got[l], want)
+
+
+def _to(tree, device):
+    from repro_torch.tree import map_
+    return map_(lambda t: t.to(device) if isinstance(t, torch.Tensor)
+                else t, tree)
+
+
+def test_lm_program_on_the_card_matches_the_cpu_program(cuda_device):
+    """A smoke LM with a 4096-wide FFN, so that its down matrix takes ws
+    at a decode of 3 sequences and stream at an 8-token prefill: the
+    card's tokens equal the CPU program's (same frozen codes)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+    from repro_torch.serving.lm import LMProgram
+
+    cfg = dataclasses.replace(get_config("smollm-360m").smoke(), d_ff=4096)
+    params = T.lm_init(cfg, seed=0, device="cpu")
+    frozen = qat.freeze_tree(params, qat.build_qstate(params), cfg.lam)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (3, 8))
+    kw = dict(max_prompt=8, max_new=4, max_bucket=8)
+    want = LMProgram(frozen, cfg, device="cpu", **kw).generate(prompt, 4)
+    prog = LMProgram(_to(frozen, cuda_device), cfg, device=cuda_device,
+                     **kw).warmup()
+    ffm.reset_launches()
+    got = prog.generate(prompt, 4)
+    np.testing.assert_array_equal(got, want)
+    assert ffm.LAUNCHES["ws"] > 0 and ffm.LAUNCHES["stream"] > 0
+
+
+@pytest.mark.parametrize("rows", [1, 64])
+def test_smollm_ffn_shapes_on_the_card(cuda_device, rows):
+    """SmolLM-360M's FFN shapes through the plan's schedule at 1 and 64
+    rows, within the fp32 gate of the plain oracle."""
+    for dims in ((960, 2560), (2560, 960)):
+        pack = _pack(dims, 80 + dims[0], cuda_device)
+        plan = ExecutionPlan(pack, device=cuda_device, max_bucket=64)
+        x = torch.randn((rows, dims[0]), device=cuda_device)
+        want = ops.fantastic4_mlp_chain(x, pack["layers"], use_kernel=False)
+        _close(plan.run(x), want, False)

@@ -147,6 +147,19 @@ def test_plan_db_on_request():
     assert plan.describe()["bucket_schedules"][8] == "ws"
 
 
+@pytest.mark.parametrize("dims", [(960, 2560), (2560, 960)])
+def test_plan_offers_db_only_with_16_row_tiles(dims):
+    """SmolLM-360M's FFN layers: the batch-tiled tile of 960->2560 is 8
+    rows (2560->960 does not fit at all), too short for db's two row
+    groups, so no bucket binds db however it is asked for."""
+    plan = tplans.ExecutionPlan(_rand_pack(dims), device="cpu",
+                                max_bucket=64, double_buffer=True)
+    assert all("db" not in plan._eligible_schedules(rows)
+               for rows in (16, 32, 64))
+    assert "db" not in plan.describe()["bucket_schedules"].values()
+    assert any("no bucket has a >=16-row tile" in n for n in plan.notes)
+
+
 def test_plan_stream_when_batch_tiled_does_not_fit():
     shapes = tuple(zip(GSC_DIMS[:-1], GSC_DIMS[1:]))
     plan = tplans.ExecutionPlan(

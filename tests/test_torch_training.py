@@ -361,5 +361,5 @@ def test_train_cli_needs_cuda_or_cpu():
 
 
 def test_train_cli_refuses_lm_families():
-    with pytest.raises(NotImplementedError, match="queue 1, items 11-12"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         ttrain.main(["--arch", "smollm-360m", "--device", "cpu"])
