@@ -82,8 +82,9 @@ Phases (any failure raises and the script exits non-zero):
    -- the cluster size of the cluster kernels, PDL on or off for each of
    the chain's seven, the cooperative grid of stream -- and the
    dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
-   phase 3, phase 3b's serving check, phase 3c, phase 5), one ``path``,
-   one ``train``, one ``frontend`` and one ``lm`` JSON line.
+   phase 3, phase 3b's serving check, phase 3c, phase 5, phase 6), one
+   ``path``, one ``train``, one ``frontend``, one ``lm`` and one
+   ``lm_train`` JSON line.
 5. The LM serving path at full width, run after phase 3c: SmolLM-360M
    (32 blocks of d_model 960, 15 heads, 5 KV heads, d_ff 2560, vocab
    49,152) from ``lm_init(seed=0)`` on the card, frozen with
@@ -109,6 +110,27 @@ Phases (any failure raises and the script exits non-zero):
    ms and idle share from one trace, the schedules and launches, the
    FFN shapes' and the freeze's kernel times against their bounds,
    device memory, one ``GuardedPlan.verify`` ms).
+6. LM training at full width, run after phase 5: SmolLM-360M from
+   ``lm_init(seed=0)`` on the card, EC4T-trained through the launcher's
+   ``train_lm`` (``ShardedFeed`` -> ``FaultTolerantLoop`` -> export) for
+   20 steps at batch 8 x seq 64 in bf16, λ 0.05 ramped over 50 steps, lr
+   1e-3 with warmup-cosine, a checkpoint at step 20 into a temporary
+   directory.  Counters are zeroed just before and read just after.
+   Gates: exactly 14 ecl_quant launches a step (7 in the fake-quant
+   forward, 7 in ``update_qstate``) plus 7 for the export, every pass over
+   all 224 segments; in the first and the last step, block 0's and block
+   31's seven ŵ and codes bitwise equal to ``ecl_quant_plain`` on the same
+   card tensors; every loss finite and the mean of the last 5 below the
+   first; a fresh state (another seed) restored by ``resume_or`` from the
+   checkpoint bitwise equal to the trained one, and one more step from
+   each giving the same loss bit for bit; ``load_quantized`` of the
+   export giving ``freeze_tree``'s codes and ω; the ``--smoke`` config in
+   fp32, 3 card steps within ``rtol=1e-4`` of 3 CPU steps.  Prints one
+   ``lm_train`` JSON line (ms per step, one step's device ms, idle share
+   and device operations from a trace, ecl_quant's device ms a step
+   against its bound, the fake-quant backward's and Adam's device ms,
+   the host synchronisations of a step, peak device memory, checkpoint
+   bytes and save / restore ms, export bytes, ratio and write / load ms).
 
 The script ends with a line that counts the profiler traces taken and
 retaken, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -1940,6 +1962,386 @@ def lm_path(dev):
     return lm
 
 
+# ------------------------------------------------------------- phase 6
+
+LM_TRAIN = dict(arch="smollm-360m", seed=0, steps=20, batch=8, seq=64,
+                lr=1e-3, lam=0.05, lam_ramp=50, ckpt_every=20)
+LM_TRAIN_TIMED_STEPS = 5
+LM_TRAIN_TRACED_STEPS = 2
+ECL_PASSES_PER_STEP = 2        # the fake-quant forward, update_qstate
+# quantize_many calls whose block slices are held against the plain
+# version: the first step's two passes (λ 0) and the last step's (λ > 0)
+LM_TRAIN_CHECKED_CALLS = (0, 1, 2 * LM_TRAIN["steps"] - 2,
+                          2 * LM_TRAIN["steps"] - 1)
+
+
+class _EclRecorder:
+    """Wraps ``core.ecl.quantize_many`` (every grouped ECL pass of a
+    forward, an update, a freeze or an export goes through it): counts
+    each call's kernel launches, and for the calls in ``keep`` copies the
+    inputs and outputs of blocks ``blocks`` of every leaf."""
+
+    def __init__(self, ecl_mod, eq_mod, keep, blocks):
+        self.ecl, self.eq = ecl_mod, eq_mod
+        self.keep, self.blocks = set(keep), blocks
+        self.calls = []
+        self.orig = ecl_mod.quantize_many
+
+    def __enter__(self):
+        self.ecl.quantize_many = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.ecl.quantize_many = self.orig
+
+    def _call(self, ws, omegas, pens):
+        before = self.eq.LAUNCHES
+        outs = self.orig(ws, omegas, pens)
+        entry = {"launches": self.eq.LAUNCHES - before,
+                 "segments": sum(o.shape[0] if o.ndim > 1 else 1
+                                 for o in omegas)}
+        if len(self.calls) in self.keep:
+            entry["blocks"] = [
+                (l, *(t[l].detach().clone() for t in (w, om, pen, c, wh)))
+                for w, om, pen, (c, wh) in zip(ws, omegas, pens, outs)
+                for l in self.blocks]
+        self.calls.append(entry)
+        return outs
+
+
+def _state_equal(a, b):
+    """Same leaves, dtypes and devices, bit for bit."""
+    import torch
+    from repro_torch.tree import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def _lm_train_trace(dev, step_fn, state, batch):
+    """Device ms, idle share and device operations of LM train steps from
+    one torch.profiler trace, with the ECL kernel's, the fake-quant
+    backward's, Adam's and the probability update's device ms a step;
+    host ms a step (CUDA synchronised) over back-to-back steps; the host
+    synchronisations one step makes, named by where they happen, and that
+    step's peak device memory (the trained state included)."""
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core import qat
+    from repro_torch.optim import adam
+
+    def steps(n):
+        st = state
+        for _ in range(n):
+            st, m = step_fn(st, batch)
+        return m
+
+    steps(1)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    steps(LM_TRAIN_TIMED_STEPS)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / LM_TRAIN_TIMED_STEPS
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            steps(1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    syncs = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}: "
+             f"{str(w.message).splitlines()[0][:120]}" for w in caught
+             if "synchroniz" in str(w.message)]
+
+    # spans whose device time the trace reports: two functions annotated
+    # for the trace, and the fake-quant's backward (an autograd node)
+    annotate = ((adam, "apply", "adam.apply"),
+                (qat, "update_qstate", "qat.update_qstate"))
+    names = tuple(label for _, _, label in annotate) + \
+        ("FakeQuantGroupBackward",)
+
+    def annotated(fn, label):
+        def call(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return call
+
+    n = LM_TRAIN_TRACED_STEPS
+    for _ in range(TRACE_TRIES):
+        originals = [getattr(mod, attr) for mod, attr, _ in annotate]
+        for (mod, attr, label), fn in zip(annotate, originals):
+            setattr(mod, attr, annotated(fn, label))
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                steps(n)
+                torch.cuda.synchronize(dev)
+        finally:
+            for (mod, attr, _), fn in zip(annotate, originals):
+                setattr(mod, attr, fn)
+        TRACES["taken"] += 1
+        kernels, ops_n, spans = {}, 0, {}
+        for evt in prof.key_averages():
+            if _is_kernel(evt) and evt.key not in names:
+                kernels[evt.key] = kernels.get(evt.key, 0.0) + \
+                    _kernel_us(evt) / 1e3 / n
+                ops_n += evt.count
+            elif not _is_kernel(evt):
+                span = next((k for k in names if evt.key.endswith(k)), None)
+                if span is not None:
+                    total = (getattr(evt, "device_time_total", 0.0)
+                             or getattr(evt, "cuda_time_total", 0.0))
+                    spans[span] = max(spans.get(span, 0.0), total / 1e3 / n)
+        if kernels:
+            break
+        TRACES["retried"] += 1
+    else:
+        raise AssertionError(f"no device time in {TRACE_TRIES} traces of "
+                             "an LM train step")
+    device_ms = sum(kernels.values())
+    ecl_ms = sum(v for k, v in kernels.items() if ECL_SYMBOL in k)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"ms_per_step": ms, "device_ms_per_step": device_ms,
+            "device_idle_share": 1.0 - device_ms / ms,
+            "device_ops_per_step": ops_n / n,
+            "ecl_quant_device_ms_per_step": ecl_ms,
+            "fake_quant_backward_device_ms_per_step":
+                spans.get("FakeQuantGroupBackward"),
+            "adam_apply_device_ms_per_step": spans.get("adam.apply"),
+            "update_qstate_device_ms_per_step":
+                spans.get("qat.update_qstate"),
+            "host_syncs_per_step": syncs,
+            "peak_device_memory_bytes_one_step": step_peak,
+            "top_device_ms": [[k[:240], v] for k, v in top]}
+
+
+def _lm_smoke_card_vs_cpu(dev):
+    """The ``--smoke`` config in fp32: CARD_VS_CPU_STEPS steps on the card
+    and on the CPU from one init, loss by loss within CARD_VS_CPU_RTOL."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as T
+    from repro_torch.nn import transformer as TT
+    from repro_torch.optim import ec4t
+
+    cfg = T.lm_config(LM_TRAIN["arch"], smoke=True, lam=LM_TRAIN["lam"])
+    params = TT.lm_init(cfg, seed=LM_TRAIN["seed"], device="cpu")
+    batch_fn = T.lm_batch_fn(cfg, batch=LM_TRAIN["batch"],
+                             seq=LM_TRAIN["seq"])
+    losses = {}
+    for where in (dev, torch.device("cpu")):
+        step_fn = T.lm_step_fn(cfg, steps=LM_TRAIN["steps"], lr=LM_TRAIN["lr"],
+                               lam=LM_TRAIN["lam"],
+                               lam_ramp=LM_TRAIN["lam_ramp"],
+                               dtype=torch.float32)
+        state = ec4t.init_train_state(
+            tree.map_(lambda t: t.to(where), params))
+        out = []
+        for i in range(CARD_VS_CPU_STEPS):
+            state, m = step_fn(state, pipeline.place(batch_fn(i),
+                                                     device=where))
+            out.append(float(m["loss"]))
+        losses[where.type] = out
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"],
+                               rtol=CARD_VS_CPU_RTOL)
+    return {"card": losses["cuda"], "cpu": losses["cpu"],
+            "max_rel": float(np.max(np.abs(np.subtract(
+                losses["cuda"], losses["cpu"])) / np.abs(losses["cpu"])))}
+
+
+def lm_train_path(dev):
+    """Phase 6: EC4T-train SmolLM-360M at its published width on the card
+    through the launcher's functions, checkpoint, resume and export."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint.manager import (SEP, CheckpointManager,
+                                                load_quantized)
+    from repro_torch.core import bitplanes, ecl, qat
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import train as T
+    from repro_torch.nn import transformer as TT
+    from repro_torch.optim import ec4t
+    from repro_torch.runtime.fault import FaultTolerantLoop
+
+    t_phase = time.perf_counter()
+    cfg = T.lm_config(LM_TRAIN["arch"], lam=LM_TRAIN["lam"])
+    steps = LM_TRAIN["steps"]
+    blocks = (0, cfg.n_layers - 1)
+    segments = len(LM_LEAVES) * cfg.n_layers
+    per_pass = -(-segments // eq.MAX_SEGMENTS)
+    log_lines = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        export_dir = os.path.join(tmp, "export")
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eq.LAUNCHES = 0
+        with _EclRecorder(ecl, eq, LM_TRAIN_CHECKED_CALLS, blocks) as rec:
+            run = T.train_lm(cfg, steps=steps, batch=LM_TRAIN["batch"],
+                             seq=LM_TRAIN["seq"], lr=LM_TRAIN["lr"],
+                             lam=LM_TRAIN["lam"],
+                             lam_ramp=LM_TRAIN["lam_ramp"],
+                             ckpt_dir=ckpt_dir,
+                             ckpt_every=LM_TRAIN["ckpt_every"],
+                             export=export_dir, device=dev,
+                             metrics_every=1, seed=LM_TRAIN["seed"],
+                             log=log_lines.append)
+        torch.cuda.synchronize(dev)
+        launches = eq.LAUNCHES
+        peak = torch.cuda.max_memory_allocated(dev)
+        state = run["state"]
+        # exactly 14 launches a step (7 + 7) and 7 for the export
+        want_calls = ECL_PASSES_PER_STEP * steps + 1
+        per_call = [c["launches"] for c in rec.calls]
+        if (run["reason"], run["last"]) != ("done", steps):
+            raise AssertionError(f"LM training ended {run['reason']} at step "
+                                 f"{run['last']}")
+        if per_call != [per_pass] * want_calls or \
+                launches != per_pass * want_calls:
+            raise AssertionError(
+                f"LM training: ecl_quant launches per grouped pass "
+                f"{per_call} (total {launches}); expected {want_calls} "
+                f"passes of {per_pass}")
+        if any(c["segments"] != segments for c in rec.calls):
+            raise AssertionError("an ECL pass did not take all "
+                                 f"{segments} segments")
+        checked = 0
+        for i in LM_TRAIN_CHECKED_CALLS:
+            for l, w, om, pen, codes, w_hat in rec.calls[i]["blocks"]:
+                want_c, want_w = eq.ecl_quant_plain(w, om, pen)
+                if not (torch.equal(codes, want_c)
+                        and torch.equal(w_hat, want_w)):
+                    raise AssertionError(f"ECL pass {i}, block {l}: codes "
+                                         "or ŵ != the plain version")
+                checked += 1
+        losses = [h["loss"] for h in run["history"]]
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"LM losses {losses}")
+        if not np.mean(losses[-5:]) < losses[0]:
+            raise AssertionError(f"LM losses did not fall: {losses}")
+        if not all(t.device.type == dev.type for t in tree.leaves(state)):
+            raise AssertionError("a train-state tensor is off the card")
+
+        # resume: a fresh state restored from the step-20 checkpoint
+        step_fn = T.lm_step_fn(cfg, steps=steps, lr=LM_TRAIN["lr"],
+                               lam=LM_TRAIN["lam"],
+                               lam_ramp=LM_TRAIN["lam_ramp"])
+        mgr = CheckpointManager(ckpt_dir)
+        ckpt_bytes = os.path.getsize(os.path.join(
+            ckpt_dir, f"step_{steps:08d}", "state.npz"))
+        fresh = ec4t.init_train_state(TT.lm_init(
+            cfg, seed=LM_TRAIN["seed"] + 1, device=dev))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        restored, start = FaultTolerantLoop(step_fn, mgr).resume_or(fresh)
+        torch.cuda.synchronize(dev)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        del fresh
+        if start != steps or not _state_equal(restored, state):
+            raise AssertionError(f"resume at step {start}: the restored "
+                                 "state differs from the trained one")
+        batch = pipeline.place(T.lm_batch_fn(
+            cfg, batch=LM_TRAIN["batch"], seq=LM_TRAIN["seq"])(steps),
+            device=dev)
+        _, m_mem = step_fn(state, batch)
+        _, m_res = step_fn(restored, batch)
+        if not torch.equal(m_mem["loss"], m_res["loss"]):
+            raise AssertionError("one step from the restored state gave "
+                                 f"{float(m_res['loss'])}, from the "
+                                 f"trained state {float(m_mem['loss'])}")
+        del restored
+
+        # export: codes and ω equal to freeze_tree's on the same state
+        t0 = time.perf_counter()
+        loaded = load_quantized(export_dir)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        frozen = qat.freeze_tree(state["params"], state["qstate"], cfg.lam)
+        sf = frozen["stacks"]["dense"]
+        for grp, name in LM_LEAVES:
+            key = SEP.join(("stacks", "dense", grp, name, "kernel"))
+            want = bitplanes.unpack_codes_rows(
+                sf[grp][name]["kernel"]["packed"]).cpu().numpy()
+            if not (np.array_equal(loaded[key]["codes"], want)
+                    and np.array_equal(
+                        loaded[key]["omega"],
+                        sf[grp][name]["kernel"]["omega"].cpu().numpy())):
+                raise AssertionError(f"export {key}: codes or ω != "
+                                     "freeze_tree's")
+        del frozen, loaded
+        export_bytes = os.path.getsize(os.path.join(export_dir,
+                                                    "export.npz"))
+
+    trace = _lm_train_trace(dev, step_fn, state, batch)
+    card_vs_cpu = _lm_smoke_card_vs_cpu(dev)
+    # one grouped ECL pass of a train step (the fake-quant forward's:
+    # codes and ŵ of all 224 segments), its plain version, its bound
+    sp, sq = state["params"]["stacks"]["dense"], \
+        state["qstate"]["stacks"]["dense"]
+    ws = [sp[g][n]["kernel"]["w"] for g, n in LM_LEAVES]
+    omegas = [sp[g][n]["kernel"]["omega"] for g, n in LM_LEAVES]
+    pens = [ecl.penalty(w, sq[g][n]["kernel"]["probs"], cfg.lam)
+            for w, (g, n) in zip(ws, LM_LEAVES)]
+    n_quant = sum(w.numel() for w in ws)
+    pass_bound = ECL_BYTES_PER_ELEM * n_quant / PEAK_BYTES * 1e3
+
+    def ecl_pass():
+        return ecl.quantize_many(ws, omegas, pens)
+
+    def ecl_plain():
+        return [eq.ecl_quant_plain(w[l], om[l], pen[l])
+                for w, om, pen in zip(ws, omegas, pens)
+                for l in range(cfg.n_layers)]
+    ecl_row = {"ms": _time_ms(ecl_pass, dev, 3),
+               "device_ms": _device_ms(ecl_pass, dev, 2, ECL_SYMBOL),
+               "queued_ms": _queued_ms(ecl_pass, dev, 3),
+               "plain_ms": _time_ms(ecl_plain, dev, 1),
+               "bound_ms": pass_bound, "bound_by": "bytes",
+               "library_ms": None, "segments": segments,
+               "launches_per_call": per_pass}
+    out = {
+        **LM_TRAIN, "arch": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "compute_dtype": "bfloat16", "quant_weights": n_quant,
+        "losses": losses, "loop_ms_per_step": run["ms_per_step"],
+        "ecl_quant_launches": launches, "ecl_quant_passes": len(rec.calls),
+        "ecl_quant_launches_per_pass": per_pass,
+        "ecl_blocks_checked": checked,
+        **trace,
+        "ecl_quant_bound_ms_per_pass": pass_bound,
+        "ecl_quant_bound_ms_per_step": ECL_PASSES_PER_STEP * pass_bound,
+        "ecl_quant_pass": ecl_row,
+        "peak_device_memory_bytes": peak,
+        "checkpoint_bytes": ckpt_bytes,
+        "checkpoint_save_ms": [s * 1e3 for _, s in run["saves"]],
+        "checkpoint_restore_ms": restore_ms,
+        "export_bytes": export_bytes,
+        "export_compressed_bytes": run["export"]["compressed_bytes"],
+        "export_compression_ratio": run["export"]["compression_ratio"],
+        "export_ms": run["export_s"] * 1e3, "export_load_ms": load_ms,
+        "export_formats": sorted({t["format"] for t in
+                                  run["export"]["tensors"].values()}),
+        "card_vs_cpu_smoke_fp32": card_vs_cpu,
+        "wall_s": time.perf_counter() - t_phase}
+    print(f"phase 6: {cfg.name} EC4T-trained {steps} steps at batch "
+          f"{LM_TRAIN['batch']} x seq {LM_TRAIN['seq']} (bf16): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {launches} ecl_quant "
+          f"launches ({per_pass} a pass); resume bitwise; export == "
+          f"freeze_tree; {trace['ms_per_step']:.1f} ms/step; done in "
+          f"{out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1980,6 +2382,7 @@ def main() -> int:
     # the threaded phase runs after the single-stream timings
     frontend = frontend_path(dev, trained)
     lm = lm_path(dev)
+    lm_train = lm_train_path(dev)
 
     report = []
     for name, (sched, replaces) in KERNELS.items():
@@ -2012,7 +2415,8 @@ def main() -> int:
         "replaces": TPU_KERNELS + "ecl_quant.py:56",
         "launches": train["ecl_quant_launches"],
         "launches_by_path": {"training": train["ecl_quant_launches"],
-                             "lm": lm["freeze"]["ecl_quant_launches"]},
+                             "lm": lm["freeze"]["ecl_quant_launches"],
+                             "lm_training": lm_train["ecl_quant_launches"]},
         "max_abs_err": ecl_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
         "device_ms": head["device_ms"], "queued_ms": head["queued_ms"],
@@ -2021,13 +2425,19 @@ def main() -> int:
         "library_ms": None, "library_device_ms": None,
         "at": "mlp-gsc 7 tensors, one grouped launch",
         "by_shape": ecl_times,
-        "smollm_freeze": lm["ecl_quant"]})
+        "smollm_freeze": lm["ecl_quant"],
+        "smollm_training": {
+            "pass": lm_train["ecl_quant_pass"],
+            **{k: lm_train[k] for k in (
+                "ecl_quant_device_ms_per_step", "ecl_quant_bound_ms_per_step",
+                "quant_weights")}}})
     print(json.dumps({"grid": grid, "contract_floor": floor}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"path": path}))
     print(json.dumps({"train": train}))
     print(json.dumps({"frontend": frontend}))
     print(json.dumps({"lm": lm}))
+    print(json.dumps({"lm_train": lm_train}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "
           "retaken for want of the kernel's device time")
     print(gpu)

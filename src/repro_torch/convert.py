@@ -2,7 +2,8 @@
 
 Every function takes the JAX package's trees with every array already
 turned into numpy (``np.asarray`` on the caller's side, so this module
-imports nothing of JAX) and return the port's tensors on ``device``.
+imports nothing of JAX) and return the port's tensors on ``device``;
+:func:`tree_to_numpy` is the way back.
 """
 from __future__ import annotations
 
@@ -70,3 +71,25 @@ def lm_tree_from_numpy(tree: Any, *, device=None) -> Any:
     port's tensors, each array keeping its dtype (uint8 ``packed``, int32
     positions, fp32 weights); numbers and other leaves pass through."""
     return _to_torch(tree, resolve_device(device))
+
+
+def lm_train_state_from_numpy(state: dict, *, device=None) -> dict:
+    """An LM train state of the JAX package (``ec4t.init_train_state``:
+    ``params``, ``qstate``, ``opt`` with the Adam moments ``m``, ``v`` and
+    the int32 ``step``, and ``err`` when gradients are compressed) as the
+    port's tensors, each array keeping its dtype: a train step or a
+    checkpoint of either package then starts from the same state."""
+    return _to_torch(state, resolve_device(device))
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The inverse: every tensor of a port tree as a host numpy array of
+    its dtype (what the JAX package's functions take); other leaves pass
+    through."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree

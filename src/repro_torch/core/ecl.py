@@ -11,7 +11,9 @@ the grouped ECL op (``kernels.ops.ecl_quant_many``): on CUDA tensors one
 launch of the hand-written kernel for every tensor (and every leading
 index of a batched ω); on the CPU its plain version, which rounds every
 term as the reference does.  :func:`assign_many` and
-:func:`quantize_many` take every quantized tensor of a net in one call.
+:func:`quantize_many` take every quantized tensor of a net in one call;
+:func:`assign_general` assigns against a codebook of any size (the EC2T
+baseline), in plain PyTorch.
 The probability state is EMA-updated from each fresh assignment
 (:func:`update_probs`), one alternating ECL iteration per training step.
 """
@@ -121,3 +123,19 @@ def ecl_fit(w: torch.Tensor, omega: torch.Tensor, lam: float,
 def sparsity(codes: torch.Tensor) -> torch.Tensor:
     """Fraction of exact zeros (code 0)."""
     return torch.mean((codes == 0).to(torch.float32))
+
+
+def assign_general(w: torch.Tensor, book: torch.Tensor, probs: torch.Tensor,
+                   lam) -> torch.Tensor:
+    """ECL assignment against an arbitrary codebook ``book`` (C,), with
+    probabilities (C,): the EC2T ternary baseline's C = 3 ({-a, 0, +a},
+    the paper's fig. 9 comparison) as well as any other C.  Same
+    scale-invariant entropy penalty as :func:`assign`.  Plain PyTorch on
+    either device: the ECL kernel takes the 16 subset sums of ω only."""
+    wf = w.to(torch.float32)
+    pen = -torch.log2(torch.clamp(probs, PROB_FLOOR, 1.0))
+    scale = torch.mean(wf * wf)
+    lam_t = torch.as_tensor(lam, dtype=torch.float32)
+    cost = (wf[..., None] - book.to(torch.float32)) ** 2 \
+        + lam_t * scale * pen
+    return torch.argmin(cost, dim=-1).to(torch.uint8)

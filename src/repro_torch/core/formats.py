@@ -247,45 +247,49 @@ def _canonical_codes(lengths: np.ndarray):
     return codes
 
 
+#: symbols encoded at a time (bounds the (symbols, longest code) table)
+_ENCODE_CHUNK = 1 << 22
+
+
 def encode_huffman(codes: np.ndarray) -> CompressedTensor:
+    """Canonical Huffman, MSB first: each symbol's codeword bits come from
+    a (16, longest code) bit table, the valid ones kept in order, then
+    packed; the JAX package's bytes."""
     flat = codes.reshape(-1).astype(np.uint8)
     counts = np.bincount(flat, minlength=16)
     lengths = _huffman_lengths(counts)
     cw = _canonical_codes(lengths)
-    # bit-pack MSB-first
-    sym_lengths = lengths[flat].astype(np.int64)
-    total_bits = int(sym_lengths.sum())
-    out = np.zeros((total_bits + 7) // 8, np.uint8)
-    pos = np.concatenate([[0], np.cumsum(sym_lengths)[:-1]])
-    for s in range(16):
-        l = int(lengths[s])
-        if l == 0:
-            continue
-        idx = np.nonzero(flat == s)[0]
-        if idx.size == 0:
-            continue
-        word = int(cw[s])
-        for b in range(l):
-            bit = (word >> (l - 1 - b)) & 1
-            if bit:
-                p = pos[idx] + b
-                # ufunc.at: plain fancy-index |= drops duplicate byte hits
-                np.bitwise_or.at(out, p // 8,
-                                 (128 >> (p % 8)).astype(np.uint8))
+    width = int(lengths.max()) if flat.size else 0
+    col = np.arange(width)
+    table = ((cw[:, None].astype(np.int64)
+              >> np.maximum(lengths[:, None].astype(np.int64) - 1 - col, 0))
+             & 1).astype(np.uint8)
+    valid = col < lengths[:, None]
+    parts = [table[chunk][valid[chunk]]
+             for chunk in (flat[i:i + _ENCODE_CHUNK]
+                           for i in range(0, flat.size, _ENCODE_CHUNK))]
+    bits = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
     return CompressedTensor("huffman", codes.shape, {
-        "bits": out,
+        "bits": np.packbits(bits),
         "lengths": lengths,
-        "nbits": np.asarray([total_bits], np.int64),
+        "nbits": np.asarray([bits.size], np.int64),
     })
 
 
+#: code starts a jump of the decoder's chain skips (2**5)
+_JUMP_LOG2 = 5
+
+
 def decode_huffman(ct: CompressedTensor) -> np.ndarray:
-    """Table-driven canonical decode.  Every bit position's next ``L``
-    bits (``L`` the longest code) index one table of (symbol, length), in
-    numpy; a loop then only walks the chain of code starts.  The JAX
+    """Table-driven canonical decode, in numpy.  Every bit position's next
+    ``L`` bits (``L`` the longest code) index one table of (symbol,
+    length), so each position knows where the next code would start if a
+    code started there.  The code starts are the chain from bit 0: a
+    table of 64-start jumps (six squarings of that map) lets a Python
+    loop walk one start in 64, and 64 gathers fill in the rest.  The JAX
     package's decoder matches bit by bit in Python and gives the same
-    symbols several times slower (a cold-tier decode is on the serving
-    frontend's recovery path)."""
+    symbols far slower (a cold-tier decode is on the serving frontend's
+    recovery path; an export's load decodes every weight of a model)."""
     lengths = np.asarray(ct.payload["lengths"]).astype(np.int64)
     n = int(np.prod(ct.shape))
     nbits = int(ct.payload["nbits"][0])
@@ -295,35 +299,58 @@ def decode_huffman(ct: CompressedTensor) -> np.ndarray:
     width = int(lengths.max())
     if width == 0:
         raise ValueError("huffman payload has no code lengths")
-    bits = np.unpackbits(ct.payload["bits"])[:nbits].astype(np.int64)
+    bits = np.unpackbits(ct.payload["bits"])[:nbits]
     if bits.size != nbits:
         raise ValueError(f"huffman payload holds {bits.size} of {nbits} bits")
-    padded = np.concatenate([bits, np.zeros(width, np.int64)])
-    window = np.zeros(nbits, np.int64)
+    padded = np.concatenate([bits, np.zeros(width, np.uint8)])
+    window = np.zeros(nbits, np.uint16)
     for j in range(width):
-        window = (window << 1) | padded[j:j + nbits]
-    sym_t = np.zeros(1 << width, np.int64)
-    len_t = np.zeros(1 << width, np.int64)       # 0: no code starts so
+        np.left_shift(window, 1, out=window)
+        np.bitwise_or(window, padded[j:j + nbits], out=window)
+    sym_t = np.zeros(1 << width, np.uint8)
+    len_t = np.zeros(1 << width, np.int32)       # 0: no code starts so
     for sym in range(16):
         l = int(lengths[sym])
         if l:
             lo = int(cw[sym]) << (width - l)
             sym_t[lo:lo + (1 << (width - l))] = sym
             len_t[lo:lo + (1 << (width - l))] = l
-    sym_at = sym_t[window].tolist()
-    len_at = len_t[window].tolist()
-    out = bytearray(n)
+    # next start after a start at each bit; nbits (the end) and nbits + 1
+    # (no code starts there, or it runs past the end) map to themselves
+    idx = np.int64 if nbits + 2 > np.iinfo(np.int32).max else np.int32
+    step = len_t[window]
+    nxt = np.empty(nbits + 2, idx)
+    nxt[:nbits] = np.arange(nbits, dtype=idx) + step
+    nxt[:nbits][(step == 0) | (nxt[:nbits] > nbits)] = nbits + 1
+    nxt[nbits:] = (nbits, nbits + 1)
+    jump = nxt
+    for _ in range(_JUMP_LOG2):
+        jump = jump[jump]
+    span = 1 << _JUMP_LOG2
+    m = -(-n // span)
+    coarse = np.empty(m, idx)
     p = 0
-    for j in range(n):
-        if p >= nbits or not len_at[p]:
-            raise ValueError(f"huffman payload ends or breaks at bit {p} "
-                             f"after {j} of {n} symbols")
-        out[j] = sym_at[p]
-        p += len_at[p]
-    if p != nbits:
-        raise ValueError(f"huffman payload: {n} symbols end at bit {p} of "
+    for i in range(m):
+        coarse[i] = p
+        p = jump[p]
+    starts = np.empty((m, span), idx)
+    cur = coarse
+    for t in range(span):
+        starts[:, t] = cur
+        cur = nxt[cur]
+    starts = starts.reshape(-1)[:n]
+    bad = np.flatnonzero(starts >= nbits)
+    if bad.size:
+        j = int(bad[0])
+        raise ValueError(f"huffman payload ends or breaks at bit "
+                         f"{int(starts[j - 1]) if j else 0} after {j} of "
+                         f"{n} symbols")
+    end = int(nxt[starts[-1]])
+    if end != nbits:
+        raise ValueError(f"huffman payload: {n} symbols end at bit "
+                         f"{end if end <= nbits else 'past the end'} of "
                          f"{nbits}")
-    return np.frombuffer(bytes(out), np.uint8).reshape(ct.shape)
+    return sym_t[window[starts]].reshape(ct.shape)
 
 
 _ENC["huffman"] = encode_huffman

@@ -18,7 +18,8 @@ The assignment and ŵ come from the grouped ECL op (``kernels.ops.
 ecl_quant_many``): one launch of the hand-written CUDA kernel for every
 tensor on the card, its plain version on the CPU.  :func:`fake_quant_many`
 fake-quantizes every layer of a net in one launch (:func:`fake_quant` is
-its one-tensor case); :func:`update_qstate` EMA-updates the probabilities
+its one-tensor case, :func:`fake_quant_tree` every leaf of a tree);
+:func:`update_qstate` EMA-updates the probabilities
 from a fresh assignment of every tensor once per step, and :func:`stats`
 reports sparsity and entropy over every quantized tensor, each in one
 grouped call.  :func:`freeze_tree` turns a trained tree into its serving
@@ -113,6 +114,15 @@ def apply_quant_many(nodes: Sequence[dict], qstates: Sequence[dict], lam,
 
 def apply_quant(node: dict, qstate: dict, lam, dtype=None) -> torch.Tensor:
     return apply_quant_many([node], [qstate], lam, dtype)[0]
+
+
+def fake_quant_tree(params: Any, qstate: Any, lam, dtype=None) -> Any:
+    """``params`` with every quantized leaf replaced by its fake-quantized
+    ŵ in ``dtype`` (differentiable as :func:`fake_quant`), every leaf in
+    one :func:`apply_quant_many` call; other leaves are kept."""
+    return _map_quant_many(
+        lambda nodes, qss: apply_quant_many(nodes, qss, lam, dtype),
+        params, qstate, keep_params=True)
 
 
 # --------------------------------------------------------------- tree utils

@@ -5,8 +5,12 @@ Layers are **stacked**: every leaf of ``params["stacks"]["dense"]`` has a
 leading (L, ...) axis, as in the reference, and :func:`lm_apply` runs
 them with a Python loop over the layers in place of ``jax.lax.scan``
 (each layer reads views of the stacked leaves).  Per-layer quantization
-state and KV caches are stacked the same way.  The reference's sharding
-and rematerialisation arguments have no counterpart here.
+state and KV caches are stacked the same way.  Under EC4T training
+(``ctx.quant``) the forward fake-quantizes every stacked quantized leaf
+once, before the layer loop, in one grouped quantization
+(:func:`quantize_stack`); each layer then reads its view of the stacked
+ŵ.  The reference's sharding and rematerialisation arguments have no
+counterpart here.
 
 The other families (moe, ssm, hybrid, mla, vlm, audio) raise
 ``NotImplementedError``: they wait for ROADMAP queue 1 item 8.
@@ -19,7 +23,8 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..tree import map_
+from ..core import qat
+from ..tree import leaves, map_, unflatten
 from . import attention as attn
 from .layers import (embedding_init, gelu_mlp, gelu_mlp_init, layer_norm,
                      layer_norm_init, linear_init, rms_norm, rms_norm_init,
@@ -160,6 +165,24 @@ def _layer(tree: Any, l: int) -> Any:
     return tree
 
 
+def quantize_stack(stack_p: Any, stack_q: Any, ctx: QuantCtx) -> Any:
+    """The stacked parameters a train forward reads: every quantized leaf
+    (L, R, C) replaced by its fake-quantized ŵ in ``ctx.dtype``, all of
+    them in one grouped quantization (on the card ⌈segments / 32⌉
+    ecl_quant launches: SmolLM-360M's 32 × 7 leaves take 7).  Each layer
+    is a segment with its own ω, probabilities and mean(w²), as the
+    reference quantizes one layer at a time inside its scan."""
+    return qat.fake_quant_tree(stack_p, stack_q, ctx.lam, ctx.dtype)
+
+
+def _unstack(tree: Any, n: int) -> list:
+    """The ``n`` per-layer trees of an L-stacked tree, each leaf a view
+    from one ``unbind`` (whose backward stacks the layers' gradients in
+    one operation instead of one full-size scatter a layer)."""
+    per = [t.unbind(0) for t in leaves(tree)]
+    return [unflatten(tree, [p[l] for p in per]) for l in range(n)]
+
+
 def readout(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     """The final norm and the head (tied to the embedding or not): fp32
     logits (..., padded_vocab) of ``x`` (..., d), the padded vocab rows
@@ -199,10 +222,13 @@ def lm_apply(params: dict, qstate: Any, tokens: torch.Tensor,
     stack_p = params["stacks"]["dense"]
     stack_q = subtree(subtree(qstate, "stacks"), "dense")
     stack_c = cache.get("dense") if cache is not None else None
+    layer_p = _unstack(quantize_stack(stack_p, stack_q, ctx), len(kinds)) \
+        if ctx.quant else None
     new_layers = []
     for l in range(len(kinds)):
         window = cfg.window if windows is None else windows[l]
-        x, nc = _block(cfg, _layer(stack_p, l), _layer(stack_q, l), x, ctx,
+        lp = layer_p[l] if layer_p is not None else _layer(stack_p, l)
+        x, nc = _block(cfg, lp, _layer(stack_q, l), x, ctx,
                        cos_sin=cos_sin, positions=positions,
                        lcache=_layer(stack_c, l) if stack_c is not None
                        else None, window=window)

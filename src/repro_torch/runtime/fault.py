@@ -1,24 +1,64 @@
-"""Fault injection for the serving frontend's degradation ladder.
+"""Fault tolerance for the training loop, and fault injection for the
+serving frontend's degradation ladder.
 
-The port of the JAX package's ``runtime/fault.py``: :class:`InjectedFault`
-and :class:`FaultInjector`.  The training loop's ``PreemptionGuard`` and
-``FaultTolerantLoop`` are not ported yet.
+The port of the JAX package's ``runtime/fault.py``:
 
-:class:`FaultInjector` wraps any ``serving.ServableProgram`` (an
-``ExecutionPlan``, a ``CachedPlan`` handle) so launches raise synthetic
-errors probabilistically or on schedule, and lands seeded bit flips in the
-live operands or the cold tier — what the retry / chain-fallback /
-quarantine ladder and the integrity layer (``runtime.integrity`` + the
-frontend's recovery rung) exist to handle.
+* **checkpoint/restart** — :class:`FaultTolerantLoop` checkpoints every
+  ``ckpt_every`` steps through the atomic ``CheckpointManager``; on
+  (re)start it resumes from the latest step found.  Data is step-seeded
+  (``data/synthetic.py``), so skip-ahead is exact with zero replay.
+* **preemption** — :class:`PreemptionGuard`: SIGTERM/SIGINT set a flag;
+  the loop checkpoints at the next step boundary and exits cleanly.
+* **transient-failure retry** — a step that raises one of
+  :data:`TRANSIENT_ERRORS` is retried up to ``max_retries`` times from the
+  last good state before the job surrenders.
+* **bounded-stale metrics** — a step's metrics are copied to pinned host
+  memory without blocking and read ``metrics_every`` steps later, so the
+  host never waits for the step it has just queued.
+
+:class:`InjectedFault` and :class:`FaultInjector` wrap any
+``serving.ServableProgram`` (an ``ExecutionPlan``, a ``CachedPlan``
+handle) so launches raise synthetic errors probabilistically or on
+schedule, and land seeded bit flips in the live operands or the cold
+tier — what the retry / chain-fallback / quarantine ladder and the
+integrity layer (``runtime.integrity`` + the frontend's recovery rung)
+exist to handle.
 """
 from __future__ import annotations
 
+import logging
+import signal
 import threading
+import time
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from .integrity import entry_layers, unwrap_chain
+
+log = logging.getLogger(__name__)
+
+
+class PreemptionGuard:
+    """Converts SIGTERM/SIGINT into a checkpoint-at-next-boundary flag."""
+
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self.requested = False
+        self._prev = {}
+        for s in signals:
+            try:
+                self._prev[s] = signal.signal(s, self._handler)
+            except ValueError:      # not the main thread
+                pass
+
+    def _handler(self, signum, frame):
+        log.warning("preemption signal %s received", signum)
+        self.requested = True
+
+    def restore(self):
+        for s, h in self._prev.items():
+            signal.signal(s, h)
 
 
 class InjectedFault(RuntimeError):
@@ -253,3 +293,128 @@ class FaultInjector:
     def run(self, x):
         self._maybe_fail(int(x.shape[0]))
         return self._plan.run(x)
+
+
+#: the errors a step is retried on: the port's counterpart of the
+#: reference's ``jax.errors.JaxRuntimeError``.  Exhausted device memory
+#: and an injected fault leave the device usable; a sticky CUDA error (an
+#: illegal address, a launch failure) does not, so it is not retried.
+TRANSIENT_ERRORS = (torch.OutOfMemoryError, InjectedFault)
+
+
+class _Pending:
+    """One step's metrics on their way to the host: each CUDA tensor is
+    copied without blocking into pinned memory and an event recorded
+    after the copies; :meth:`fetch` waits for that event only."""
+
+    def __init__(self, step: int, metrics: dict):
+        self.step = step
+        self.event = None
+        self.values = {}
+        for k, v in metrics.items():
+            if isinstance(v, torch.Tensor) and v.device.type == "cuda":
+                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                host.copy_(v.detach(), non_blocking=True)
+                self.event = self.event or torch.cuda.Event()
+                self.values[k] = host
+            elif isinstance(v, torch.Tensor):
+                self.values[k] = v.detach().clone()
+            else:
+                self.values[k] = v
+        if self.event is not None:
+            self.event.record()
+
+    def fetch(self) -> dict:
+        if self.event is not None:
+            self.event.synchronize()
+        return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                for k, v in self.values.items()}
+
+
+class FaultTolerantLoop:
+    """Run ``step_fn(state, batch) -> (state, metrics)`` with checkpoints,
+    preemption, retries and bounded-stale metrics.
+
+    A step that raises one of :data:`TRANSIENT_ERRORS` is retried from
+    the last good state; after ``max_retries`` the state is checkpointed
+    and the run ends as ``"failed"``.  Any other error propagates
+    unchanged — a sticky CUDA error (illegal address, launch failure)
+    leaves the CUDA context unusable, so it is neither retried nor
+    swallowed.  ``on_metrics(step, metrics)`` gets every
+    ``metrics_every``-th step's metrics as numpy values, read
+    ``metrics_every`` steps after that step was queued.  ``saves`` logs
+    (step, seconds) of every checkpoint written; a step already
+    checkpointed by this loop is not written again at the end of a run.
+    """
+
+    def __init__(self, step_fn: Callable, manager, *,
+                 ckpt_every: int = 100, metrics_every: int = 10,
+                 max_retries: int = 3,
+                 on_metrics: Optional[Callable] = None):
+        self.step_fn = step_fn
+        self.manager = manager
+        self.ckpt_every = ckpt_every
+        self.metrics_every = metrics_every
+        self.max_retries = max_retries
+        self.on_metrics = on_metrics or (lambda step, m: None)
+        self.saves: list = []
+
+    def resume_or(self, init_state: Any) -> tuple:
+        """(state, start_step): the latest checkpoint restored into
+        ``init_state``'s structure and devices if one exists, else
+        ``init_state`` and 0."""
+        step = self.manager.latest_step()
+        if step is None:
+            return init_state, 0
+        state, meta = self.manager.restore(init_state, step)
+        log.info("resumed from step %d", meta["step"])
+        return state, meta["step"]
+
+    def _save(self, step: int, state: Any) -> None:
+        if self.saves and self.saves[-1][0] == step:
+            return
+        t0 = time.perf_counter()
+        self.manager.save(step, state)
+        self.saves.append((step, time.perf_counter() - t0))
+
+    def run(self, state: Any, batches: Iterator, *, start_step: int = 0,
+            total_steps: int = 1000) -> tuple:
+        """Returns (state, last_step, reason) with reason in
+        {"done", "preempted", "failed"}."""
+        guard = PreemptionGuard()
+        pending: Optional[_Pending] = None
+        step = start_step
+        try:
+            while step < total_steps:
+                if guard.requested:
+                    self._save(step, state)
+                    return state, step, "preempted"
+                batch = next(batches)
+                retries = 0
+                while True:
+                    try:
+                        new_state, metrics = self.step_fn(state, batch)
+                        break
+                    except TRANSIENT_ERRORS as e:
+                        retries += 1
+                        log.warning("step %d failed (%s), retry %d/%d",
+                                    step, e, retries, self.max_retries)
+                        if retries > self.max_retries:
+                            self._save(step, state)
+                            return state, step, "failed"
+                        time.sleep(0.1 * retries)
+                state = new_state
+                step += 1
+                # bounded-stale metrics: read those of N steps ago
+                if step % self.metrics_every == 0:
+                    if pending is not None:
+                        self.on_metrics(pending.step, pending.fetch())
+                    pending = _Pending(step, metrics)
+                if step % self.ckpt_every == 0:
+                    self._save(step, state)
+            if pending is not None:
+                self.on_metrics(pending.step, pending.fetch())
+            self._save(step, state)
+            return state, step, "done"
+        finally:
+            guard.restore()

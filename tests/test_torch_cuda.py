@@ -25,7 +25,10 @@ codes of the chain and of every layer table, ω in a table's
 descriptors).  The LM path: ``freeze_tree`` of a stacked leaf bitwise
 against the plain version, an ``LMProgram`` on the card giving the CPU
 program's tokens through ws and stream, and SmolLM-360M's FFN shapes
-(960→2560, 2560→960) within the fp32 gate.
+(960→2560, 2560→960) within the fp32 gate.  LM training: two smoke
+train steps on the card within ``rtol=1e-4`` of the CPU's, one ECL
+launch a grouped pass, a card checkpoint restored bitwise; the input feed
+places pinned batches on the card.
 """
 import array
 import ctypes
@@ -719,3 +722,61 @@ def test_smollm_ffn_shapes_on_the_card(cuda_device, rows):
         x = torch.randn((rows, dims[0]), device=cuda_device)
         want = ops.fantastic4_mlp_chain(x, pack["layers"], use_kernel=False)
         _close(plan.run(x), want, False)
+
+
+def test_lm_train_steps_on_the_card_match_the_cpu(cuda_device):
+    """The LM train step at the smoke config in fp32: two card steps
+    within rtol=1e-4 of two CPU steps from one init, each making exactly
+    2 ecl_quant launches (the grouped fake-quant forward and the
+    probability update, 14 segments each), and a checkpoint of the card
+    state restoring onto the card bitwise."""
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as T
+    from repro_torch.nn import transformer as TT
+    from repro_torch.optim import ec4t
+    from repro_torch.tree import leaves
+
+    cfg = T.lm_config("smollm-360m", smoke=True)
+    params = TT.lm_init(cfg, seed=0, device="cpu")
+    batch_fn = T.lm_batch_fn(cfg, batch=4, seq=32)
+    step_fn = T.lm_step_fn(cfg, steps=10, lr=1e-3, lam=0.3, lam_ramp=1,
+                           dtype=torch.float32)
+    losses = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        state = ec4t.init_train_state(_to(params, dev))
+        out = []
+        for i in range(2):
+            before = eq.LAUNCHES
+            state, m = step_fn(state, pipeline.place(batch_fn(i), device=dev))
+            out.append(float(m["loss"]))
+            if dev.type == "cuda":
+                assert eq.LAUNCHES - before == 2
+        losses[dev.type] = out
+        if dev.type == "cuda":
+            with tempfile.TemporaryDirectory() as tmp:
+                mgr = CheckpointManager(tmp)
+                mgr.save(2, state)
+                restored, _ = mgr.restore(ec4t.init_train_state(
+                    TT.lm_init(cfg, seed=1, device=dev)))
+            assert all(a.device == b.device and torch.equal(a, b)
+                       for a, b in zip(leaves(restored), leaves(state)))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def test_feed_places_batches_on_the_card(cuda_device):
+    """ShardedFeed pins each batch in its worker and copies it to the card
+    without blocking; the values are the step's."""
+    from repro_torch.data import pipeline, synthetic
+
+    cfg = synthetic.LMDataCfg(vocab=64, seq_len=8, global_batch=2)
+    feed = pipeline.ShardedFeed(lambda s: synthetic.lm_batch(cfg, s),
+                                start_step=3, device=cuda_device)
+    try:
+        got = next(feed)
+    finally:
+        feed.close()
+    assert got["tokens"].device.type == "cuda"
+    np.testing.assert_array_equal(got["tokens"].cpu().numpy(),
+                                  synthetic.lm_batch(cfg, 3)["tokens"])

@@ -97,3 +97,17 @@ def test_launcher_serves_several_packs_through_the_frontend(capsys):
     with pytest.raises(SystemExit, match="duplicates"):
         tserve.main(["--arch", "mlp-hr", "--engine", "--async", "--multi",
                      "mlp-hr", "--device", "cpu"])
+
+
+def test_elastic_restart_example_runs_on_the_cpu():
+    """``examples/elastic_restart_torch.py``: train, get preempted by a
+    SIGTERM, resume from the checkpoint bitwise."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    proc = subprocess.run(
+        [sys.executable,
+         os.path.join(REPO, "examples", "elastic_restart_torch.py"),
+         "--device", "cpu"], capture_output=True, text=True, timeout=300,
+        env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert "preempted at step" in proc.stdout
+    assert "elastic restart OK" in proc.stdout
