@@ -71,7 +71,11 @@ Phases (any failure raises and the script exits non-zero):
    launch gaps included), and the device time from a torch.profiler
    trace: the kernel's own (``device_ms``, summed over the chain's seven
    launches; a kernel missing from the trace fails the run) and the sum of
-   every kernel the yardstick launches (``library_device_ms``).  The
+   every kernel the yardstick launches (``library_device_ms``).  Each
+   device time has a ``..._from`` key beside it: ``"trace"``, or
+   ``"queued_events"`` when no trace of it was whole (no device event,
+   or fewer of ecl_quant's records than its launches; the time is then
+   ``_queued_ms``'s).  The
    cluster schedules (batch_tiled, db, ws) are also timed at 16 CTAs per
    cluster after an equality check against the default 8.  ecl_quant at
    every MLP-GSC layer shape one tensor a launch, and MLP-GSC's seven
@@ -82,9 +86,10 @@ Phases (any failure raises and the script exits non-zero):
    -- the cluster size of the cluster kernels, PDL on or off for each of
    the chain's seven, the cooperative grid of stream -- and the
    dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
-   phase 3, phase 3b's serving check, phase 3c, phase 5, phase 6), one
-   ``path``, one ``train``, one ``frontend``, one ``lm`` and one
-   ``lm_train`` JSON line.
+   phase 3, phase 3b's serving check, phase 3c, phase 5, phase 6, phase
+   7), one
+   ``path``, one ``train``, one ``frontend``, one ``lm``, one
+   ``lm_train`` and one ``moe`` JSON line.
 5. The LM serving path at full width, run after phase 3c: SmolLM-360M
    (32 blocks of d_model 960, 15 heads, 5 KV heads, d_ff 2560, vocab
    49,152) from ``lm_init(seed=0)`` on the card, frozen with
@@ -132,8 +137,39 @@ Phases (any failure raises and the script exits non-zero):
    the host synchronisations of a step, peak device memory, checkpoint
    bytes and save / restore ms, export bytes, ratio and write / load ms).
 
+7. MoE serving at full width, run after phase 6: grok-1-314b at its
+   published widths (d_model 6144, 48 heads, 8 KV heads, 8 experts of
+   d_ff 32768, top-2 softmax gate, vocab 131,072) cut to one layer, the
+   most one card holds through the freeze (~26 GB of fp32 masters, ~25 GB
+   of codes and ŵ).  First the launcher a user runs (``launch.serve
+   --arch grok-1-314b --layers 1``: init, ``freeze_tree``, 4 prompts of
+   16 ids, 16 greedy tokens through ``lm_apply``), with the ecl_quant
+   counter zeroed just before and read just after; then the same init,
+   freeze and prompts again for the gates, whose tokens must equal the
+   launcher's.  Gates: exactly ⌈28 / 32⌉ = 1
+   ecl_quant launch in the freeze (4 attention segments + 3 banks x 8
+   experts); codes of layer 0's q and of experts 0 and 7 of every bank
+   bitwise equal to ``ecl_quant_plain`` on the card; ``route`` on the
+   card against the CPU on the prefill's router logits and on the same
+   rounded to integers (ties): ids bitwise, weights and aux within 1e-6;
+   the last decode step's MoE output within 1e-4 relative of a per-token
+   reference that decodes only each token's chosen experts; a forced-skew
+   prefill (router column 0 solved so every token's expert-0 logit is 50:
+   all 64 pick it, 24 are kept) whose dispatch equals the CPU's
+   ``_dispatch_indices`` and whose output matches the kept-only reference
+   within 1e-4; no decode step drops an assignment (C = 8); each
+   sequence's last decode step's logits within 1e-4 relative of a
+   re-prefill of its 31 tokens without a cache at capacity factor E / k
+   (no drops; at the served factor the re-prefill drops by design, and
+   the drops are counted); the smoke
+   config card vs CPU, tokens equal and logits within 1e-5.  Prints the
+   freeze's ms, device ms and bounds, prefill and decode ms, a decode
+   step's device ms, operations and idle share, peak device memory of the
+   freeze and the decode, and the skew run's drops, each beside the
+   card's name and power limit, and one ``moe`` JSON line.
+
 The script ends with a line that counts the profiler traces taken and
-retaken, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
+retaken and the device times taken from queued CUDA events, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -155,7 +191,8 @@ WIDE_CLUSTER = 16                          # non-portable size, timed beside 8
 FMA_LATENCY = 4                            # cycles of a dependent FFMA (Hopper)
 SPIN_CYCLES = 200_000_000                  # ~0.1 s: the host enqueues meanwhile
 TRACE_TRIES = 8                            # a trace now and then comes back empty
-TRACES = {"taken": 0, "retried": 0}        # profiler traces, and those retaken
+TRACES = {"taken": 0, "retried": 0, "events": 0}   # profiler traces, those
+# retaken, and device times taken from CUDA events when no trace was whole
 PEAK_FP32_FLOPS = 67e12                    # H100 SXM, CUDA cores, dense
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3
 GSC_DIMS = (512, 512, 512, 256, 256, 128, 128, 12)
@@ -660,35 +697,52 @@ def _is_kernel(evt):
     return "CUDA" in str(getattr(evt, "device_type", ""))
 
 
-def _device_ms(fn, dev, iters, symbol):
-    """Device time per call of the CUDA function ``symbol``, summed from a
-    torch.profiler trace.  A trace now and then comes back with no device
-    events at all; such a trace is taken again, up to TRACE_TRIES times,
-    and the run fails when none has the kernel."""
-    for _ in range(TRACE_TRIES):
+def _retrace(attempt):
+    """A trace came back without the device time sought: count it and
+    wait a little longer each time before the next."""
+    TRACES["retried"] += 1
+    time.sleep(0.5 * (attempt + 1))
+
+
+def _device_time(fn, dev, iters, symbol=None, key="device_ms",
+                 launches=None):
+    """Device time per call as ``{key: ms, key + "_from": source}``.  From
+    torch.profiler traces (source ``"trace"``): the CUDA function
+    ``symbol``'s time, or with no symbol every kernel's (the library
+    yardstick's many small kernels).  ``launches`` reads the wrapper's
+    launch count: a trace must then hold one record of ``symbol`` for
+    every launch it made.  A trace now and then comes back with no device
+    event at all, or with too few of the kernel's records; such a trace
+    is taken again, up to TRACE_TRIES times, and if none is whole the
+    time comes from CUDA events with the calls queued behind a spin
+    kernel (``_queued_ms``, source ``"queued_events"``).  The run fails
+    when traces have device events but never the kernel's."""
+    lost_only = True
+    for attempt in range(TRACE_TRIES):
+        before = launches() if launches else 0
         evts = _trace(fn, dev, iters)
-        total_us = sum(_kernel_us(e) for e in evts
-                       if _is_kernel(e) and symbol in e.key)
-        if total_us > 0:
-            return total_us / 1e3 / iters
-        TRACES["retried"] += 1
-        seen = sorted({e.key[:80] for e in evts if _is_kernel(e)})
-        print(f"trace without {symbol!r}; its kernels: {seen}",
-              file=sys.stderr)
-    raise AssertionError(f"no device time for kernel {symbol!r} in "
-                         f"{TRACE_TRIES} traces")
-
-
-def _all_device_ms(fn, dev, iters):
-    """Device time per call of every kernel ``fn`` launches (the library
-    yardstick's many small kernels), from a torch.profiler trace."""
-    for _ in range(TRACE_TRIES):
-        total_us = sum(_kernel_us(e) for e in _trace(fn, dev, iters)
-                       if _is_kernel(e))
-        if total_us > 0:
-            return total_us / 1e3 / iters
-        TRACES["retried"] += 1
-    raise AssertionError(f"no device time in {TRACE_TRIES} traces")
+        # _trace calls fn once more, untraced, before its iters
+        want = ((launches() - before) // (iters + 1) * iters
+                if launches else None)
+        kernels = [e for e in evts if _is_kernel(e)]
+        mine = [e for e in kernels if symbol is None or symbol in e.key]
+        total_us = sum(_kernel_us(e) for e in mine)
+        got = sum(e.count for e in mine)
+        if total_us > 0 and want in (None, got):
+            return {key: total_us / 1e3 / iters, f"{key}_from": "trace"}
+        lost_only = lost_only and (bool(mine) or not kernels)
+        print(f"trace without the device time of {symbol or 'fn'!r}: "
+              f"{got} of its records (launched {want}); its kernels: "
+              f"{sorted({e.key[:80] for e in kernels})}, host events "
+              f"{len(evts) - len(kernels)}", file=sys.stderr)
+        _retrace(attempt)
+    if not lost_only:
+        raise AssertionError(f"no device time for {symbol!r} in "
+                             f"{TRACE_TRIES} traces")
+    TRACES["events"] += 1
+    print(f"no whole trace of {symbol!r} in {TRACE_TRIES}; its device time "
+          "from CUDA events (queued calls)", file=sys.stderr)
+    return {key: _queued_ms(fn, dev, iters), f"{key}_from": "queued_events"}
 
 
 def bound(batch, dims):
@@ -734,16 +788,17 @@ def timings(dev):
             size=(batch, GSC_DIMS[0])).astype(np.float32)).to(dev)
         iters = 50 if batch <= 64 else 20
         lib_ms = _time_ms(lambda: library(x), dev, iters)
-        lib_dev_ms = _all_device_ms(lambda: library(x), dev, 10)
+        lib_dev = _device_time(lambda: library(x), dev, 10,
+                               key="library_device_ms")
         b_ms, b_by = bound(batch, GSC_DIMS)
         for name, (sched, _) in KERNELS.items():
             row = {
                 "ms": _time_ms(lambda: s.kernel(name, x), dev, iters),
-                "device_ms": _device_ms(lambda: s.kernel(name, x), dev, 10,
-                                        SYMBOLS[sched]),
+                **_device_time(lambda: s.kernel(name, x), dev, 10,
+                               SYMBOLS[sched]),
                 "queued_ms": _queued_ms(lambda: s.kernel(name, x), dev, 20),
                 "plain_ms": _time_ms(lambda: s.plain(name, x), dev, iters),
-                "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                "library_ms": lib_ms, **lib_dev,
                 "library_queued_ms": _queued_ms(lambda: library(x), dev, 20),
                 "bound_ms": b_ms, "bound_by": b_by}
             if sched == "chain":
@@ -762,8 +817,8 @@ def timings(dev):
                              "kernel": SYMBOLS[sched],
                              **ffm.LAST_LAUNCH["stream"]})
             if sched in CLUSTER_SCHEDULES:
-                row["device_ms_cluster16"], launch16 = _wide_cluster(
-                    s, name, x, dev)
+                wide, launch16 = _wide_cluster(s, name, x, dev)
+                row.update(wide)
                 ffm.LAST_LAUNCH.clear()
                 s.kernel(name, x)
                 (kind, launch), = ffm.LAST_LAUNCH.items()
@@ -789,9 +844,9 @@ def _wide_cluster(s, name, x, dev):
         raise AssertionError(f"{name} at cluster {WIDE_CLUSTER} differs from "
                              f"cluster {ffm.CLUSTER}")
     (_, launch), = ffm.LAST_LAUNCH.items()
-    ms = _device_ms(lambda: s.cluster_kernel(name, x, WIDE_CLUSTER), dev, 10,
-                    SYMBOLS[KERNELS[name][0]])
-    return ms, launch
+    return _device_time(lambda: s.cluster_kernel(name, x, WIDE_CLUSTER),
+                        dev, 10, SYMBOLS[KERNELS[name][0]],
+                        key="device_ms_cluster16"), launch
 
 
 def contract_floor(dev):
@@ -817,7 +872,8 @@ def ecl_timings(dev):
 
     def row(fn, plain, n, iters):
         return {"ms": _time_ms(fn, dev, iters),
-                "device_ms": _device_ms(fn, dev, 50, ECL_SYMBOL),
+                **_device_time(fn, dev, 50, ECL_SYMBOL,
+                               launches=lambda: eq.LAUNCHES),
                 "queued_ms": _queued_ms(fn, dev, 50),
                 "plain_ms": _time_ms(plain, dev, 20), "library_ms": None,
                 "bound_ms": ECL_BYTES_PER_ELEM * n / PEAK_BYTES * 1e3,
@@ -835,6 +891,8 @@ def ecl_timings(dev):
     whole = {key: sum(r[key] for r in per_layer)
              for key in ("ms", "device_ms", "queued_ms", "plain_ms",
                          "bound_ms")}
+    whole["device_ms_from"] = "+".join(sorted(
+        {r["device_ms_from"] for r in per_layer}))
     group = [cases[shape] for shape in GSC_LAYERS]
     before = eq.LAUNCHES
     for c in group:
@@ -1662,7 +1720,8 @@ def _lm_freeze(dev, cfg):
 
     ecl_row = {
         "ms": _time_ms(grouped, dev, 3),
-        "device_ms": _device_ms(grouped, dev, 2, ECL_SYMBOL),
+        **_device_time(grouped, dev, 2, ECL_SYMBOL,
+                       launches=lambda: eq.LAUNCHES),
         "plain_ms": _time_ms(plain_all, dev, 1),
         "bound_ms": ECL_BYTES_PER_ELEM * n_quant / PEAK_BYTES * 1e3,
         # assign_many throws ŵ away: the bytes the freeze itself needs
@@ -1735,74 +1794,87 @@ def _lm_ffn_checks(dev, prog):
             timed[f"{label} rows {rows}"] = {
                 "schedule": sched, "rows": rows,
                 "ms": _time_ms(lambda: s.kernel(kname, x), dev, 50),
-                "device_ms": _device_ms(lambda: s.kernel(kname, x), dev, 10,
-                                        SYMBOLS[sched]),
+                **_device_time(lambda: s.kernel(kname, x), dev, 10,
+                               SYMBOLS[sched]),
                 "plain_ms": _time_ms(lambda: s.plain(kname, x), dev, 10),
                 "library_ms": _time_ms(lambda: library(x), dev, 50),
                 "bound_ms": b_ms, "bound_by": b_by}
     return checks, timed
 
 
-def _lm_direct(dev, cfg, frozen, prompts, tokens):
-    """The direct path on the same frozen tree (``lm_apply``: dense decode
-    + ``torch.matmul``, no FantastIC4 kernel), teacher-forced over
-    ``tokens``: each step's last-position logits, and its prefill and
-    per-step decode ms (CUDA events)."""
+def _lm_direct(dev, cfg, frozen, prompts, new, tokens=None):
+    """The direct path on a frozen tree (``lm_apply``: dense decode +
+    ``torch.matmul``, no FantastIC4 kernel): a prefill, then ``new - 1``
+    decode steps fed ``tokens`` (teacher forcing) or, without them, each
+    step's greedy pick.  Returns the greedy picks (B, new), each step's
+    last-position logits (B, new, vocab) and the cache; on the card also
+    prefill ms and decode ms a step (CUDA events) and the decode steps'
+    peak device memory."""
     import torch
     from repro_torch.nn import transformer as T
     from repro_torch.nn.module import FP32_CTX
 
     b, s = prompts.shape
-    new = tokens.shape[1]
+    on_card = dev.type == "cuda"
     cache = T.init_cache(cfg, b, s + new, dtype=torch.float32, device=dev)
     tok = torch.from_numpy(prompts).to(dev)
-    tf = torch.from_numpy(tokens).to(dev)
     pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-    start, mid, end = (torch.cuda.Event(enable_timing=True)
-                       for _ in range(3))
-    torch.cuda.synchronize(dev)
+    tf = None if tokens is None else torch.from_numpy(tokens).to(dev)
+    clock = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
+        if on_card else None
+    if on_card:
+        torch.cuda.synchronize(dev)
+        clock[0].record()
     with torch.no_grad():
-        start.record()
         logits, cache, _ = T.lm_apply(frozen, 0, tok, FP32_CTX, cfg,
                                       positions=pos, cache=cache)
+        if on_card:
+            clock[1].record()
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
         steps = [logits[:, -1, :cfg.vocab]]
-        mid.record()
+        toks = [torch.argmax(steps[-1], dim=-1)]
         for t in range(new - 1):
             p_t = torch.full((b, 1), s + t, dtype=torch.int32, device=dev)
-            logits, cache, _ = T.lm_apply(frozen, 0, tf[:, t:t + 1],
-                                          FP32_CTX, cfg, positions=p_t,
-                                          cache=cache)
+            fed = toks[-1][:, None] if tf is None else tf[:, t:t + 1]
+            logits, cache, _ = T.lm_apply(frozen, 0, fed, FP32_CTX, cfg,
+                                          positions=p_t, cache=cache)
             steps.append(logits[:, -1, :cfg.vocab])
-        end.record()
-    torch.cuda.synchronize(dev)
-    return (torch.stack(steps, dim=1), start.elapsed_time(mid),
-            mid.elapsed_time(end) / max(new - 1, 1))
+            toks.append(torch.argmax(steps[-1], dim=-1))
+        if on_card:
+            clock[2].record()
+            torch.cuda.synchronize(dev)
+    out = {"tokens": torch.stack(toks, dim=1).cpu().numpy(),
+           "logits": torch.stack(steps, dim=1), "cache": cache}
+    if on_card:
+        out.update(prefill_ms=clock[0].elapsed_time(clock[1]),
+                   decode_ms=clock[1].elapsed_time(clock[2]) / max(new - 1, 1),
+                   decode_peak_bytes=torch.cuda.max_memory_allocated(dev))
+    return out
 
 
-def _lm_decode_trace(dev, prog, prompts, steps=4):
-    """A decode step at len(prompts) sequences (the rows the frontend
-    hands the program): its wall ms over ``steps`` runs, and its device
-    ms from one torch.profiler trace over as many; the idle share is the
-    part of the wall time the device is not busy."""
-    import numpy as np
+def _step_trace(fn, dev, steps):
+    """``fn`` (one serving step) run ``steps`` times: its wall ms a step,
+    and from one torch.profiler trace over as many runs its device ms and
+    device operations a step; the idle share is the part of the wall time
+    the device is not busy.  Returns (that dict, device ms a step by
+    kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    sids = [prog.prefill(p)[0] for p in prompts]
-    rows = np.stack([prog.encode_decode(sid) for sid in sids])
-    prog.run(rows)
+    fn()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for _ in range(steps):
-        prog.run(rows)
+        fn()
     torch.cuda.synchronize(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    for _ in range(TRACE_TRIES):
+    for attempt in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
-                prog.run(rows)
+                fn()
             torch.cuda.synchronize(dev)
             traced_ms = (time.perf_counter() - t0) * 1e3 / steps
         TRACES["taken"] += 1
@@ -1814,23 +1886,35 @@ def _lm_decode_trace(dev, prog, prompts, steps=4):
                 ops_n += evt.count
         if kernels:
             break
-        TRACES["retried"] += 1
+        _retrace(attempt)
     else:
         raise AssertionError(f"no device time in {TRACE_TRIES} traces of "
-                             "an LM decode step")
-    for sid in sids:
-        prog.release(sid)
+                             "a serving step")
     device_ms = sum(kernels.values())
-    f4_ms = sum(v for k, v in kernels.items()
-                if any(sym in k for sym in set(SYMBOLS.values())))
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms_per_step": wall_ms,
             "traced_wall_ms_per_step": traced_ms,
             "device_ms_per_step": device_ms,
-            "fantastic4_kernels_device_ms": f4_ms,
             "device_idle_share": 1.0 - device_ms / wall_ms,
             "device_ops_per_step": ops_n / steps,
-            "top_device_ms": [[k[:80], v] for k, v in top]}
+            "top_device_ms": [[k[:80], v] for k, v in top]}, kernels
+
+
+def _lm_decode_trace(dev, prog, prompts, steps=4):
+    """A decode step at len(prompts) sequences (the rows the frontend
+    hands the program), traced by :func:`_step_trace`, with the FantastIC4
+    kernels' share of its device time."""
+    import numpy as np
+
+    sids = [prog.prefill(p)[0] for p in prompts]
+    rows = np.stack([prog.encode_decode(sid) for sid in sids])
+    trace, kernels = _step_trace(lambda: prog.run(rows), dev, steps)
+    for sid in sids:
+        prog.release(sid)
+    trace["fantastic4_kernels_device_ms"] = sum(
+        v for k, v in kernels.items()
+        if any(sym in k for sym in set(SYMBOLS.values())))
+    return trace
 
 
 def lm_path(dev):
@@ -1910,8 +1994,9 @@ def lm_path(dev):
     direct_tokens, logits = prog.generate(prompts, new, return_logits=True)
     if not np.array_equal(engine, direct_tokens):
         raise AssertionError("engine tokens != LMProgram.generate")
-    want, direct_prefill_ms, direct_decode_ms = _lm_direct(
-        dev, cfg, frozen, prompts, engine)
+    direct = _lm_direct(dev, cfg, frozen, prompts, new, tokens=engine)
+    want = direct.pop("logits")
+    del direct["cache"]
     worst = 0.0
     for t in range(new):
         scale = float(want[:, t].abs().max())
@@ -1936,10 +2021,10 @@ def lm_path(dev):
         "program_build_ms": build_ms, "warmup_ms": warmup_ms,
         "device_memory_after_build_bytes": memory,
         "prefill_ms_per_sequence_engine": prefill_ms / b,
-        "direct_prefill_ms_4_sequences": direct_prefill_ms,
+        "direct_prefill_ms_4_sequences": direct["prefill_ms"],
         "decode_ms_per_step_engine": float(np.median(step_ms)),
         "decode_ms_per_step_engine_all": step_ms,
-        "decode_ms_per_step_direct": direct_decode_ms,
+        "decode_ms_per_step_direct": direct["decode_ms"],
         "decode_step_trace": trace,
         "engine_launches": stats["launches"],
         "kernel_launches": launches,
@@ -1956,7 +2041,7 @@ def lm_path(dev):
           f"built in {build_ms:.0f} ms; engine == generate bitwise, logits "
           f"within {worst:.2e} of the direct path; decode "
           f"{lm['decode_ms_per_step_engine']:.2f} ms/step (engine), "
-          f"{direct_decode_ms:.2f} ms/step (direct); launches {launches}; "
+          f"{direct['decode_ms']:.2f} ms/step (direct); launches {launches}; "
           f"done in {lm['wall_s']:.1f} s")
     prog.forget()
     return lm
@@ -2073,7 +2158,7 @@ def _lm_train_trace(dev, step_fn, state, batch):
         return call
 
     n = LM_TRAIN_TRACED_STEPS
-    for _ in range(TRACE_TRIES):
+    for attempt in range(TRACE_TRIES):
         originals = [getattr(mod, attr) for mod, attr, _ in annotate]
         for (mod, attr, label), fn in zip(annotate, originals):
             setattr(mod, attr, annotated(fn, label))
@@ -2100,7 +2185,7 @@ def _lm_train_trace(dev, step_fn, state, batch):
                     spans[span] = max(spans.get(span, 0.0), total / 1e3 / n)
         if kernels:
             break
-        TRACES["retried"] += 1
+        _retrace(attempt)
     else:
         raise AssertionError(f"no device time in {TRACE_TRIES} traces of "
                              "an LM train step")
@@ -2303,7 +2388,8 @@ def lm_train_path(dev):
                 for w, om, pen in zip(ws, omegas, pens)
                 for l in range(cfg.n_layers)]
     ecl_row = {"ms": _time_ms(ecl_pass, dev, 3),
-               "device_ms": _device_ms(ecl_pass, dev, 2, ECL_SYMBOL),
+               **_device_time(ecl_pass, dev, 2, ECL_SYMBOL,
+                              launches=lambda: eq.LAUNCHES),
                "queued_ms": _queued_ms(ecl_pass, dev, 3),
                "plain_ms": _time_ms(ecl_plain, dev, 1),
                "bound_ms": pass_bound, "bound_by": "bytes",
@@ -2340,6 +2426,486 @@ def lm_train_path(dev):
           f"freeze_tree; {trace['ms_per_step']:.1f} ms/step; done in "
           f"{out['wall_s']:.1f} s")
     return out
+
+
+# ------------------------------------------------------------- phase 7
+
+MOE = dict(arch="grok-1-314b", layers=1, seed=0, prompts=4, prompt_len=16,
+           max_new=16)
+MOE_REL = 1e-4            # MoE output and re-prefill: of the largest |value|
+ROUTE_TOL = 1e-6          # routing weights and aux, card vs CPU
+MOE_SMOKE_TOL = 1e-5      # the smoke config's logits, card vs CPU
+MOE_BANKS = ("gate", "up", "down")
+MOE_SKEW_LOGIT = 50.0     # expert 0's logit for every token of the skew run
+PLAIN_CHUNK = 1 << 24     # elements a plain-version call (its cost tensor)
+
+
+def _moe_cfg():
+    """grok-1-314b at its published widths, cut to MOE["layers"] layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE["arch"]),
+                               n_layers=MOE["layers"])
+
+
+def _plain_codes(w, omega, pen):
+    """``ecl_quant_plain`` of one segment, PLAIN_CHUNK elements a call (the
+    function is elementwise, so the chunks give its codes bitwise)."""
+    import torch
+    from repro_torch.kernels import ecl_quant as eq
+    rows = max(1, PLAIN_CHUNK // w.shape[-1])
+    return torch.cat([eq.ecl_quant_plain(w[r:r + rows], omega, pen)[0]
+                      for r in range(0, w.shape[0], rows)])
+
+
+def _moe_freeze(dev, cfg):
+    """Init on the card and ``freeze_tree`` with the ecl_quant counter
+    zeroed just before and read just after: the exact launch count the
+    segments give, codes of layer 0's q and of the first and last expert
+    of every bank (segments 0 and 7 at grok's widths) bitwise equal to the
+    plain version on the same card tensors, the grouped pass timed against
+    its bounds, peak device memory."""
+    import torch
+    from repro_torch.core import bitplanes, ecl, qat
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.nn import transformer as T
+    from repro_torch.tree import leaves
+
+    params = T.lm_init(cfg, seed=MOE["seed"], device=dev)
+    qstate = qat.build_qstate(params)
+    nodes = list(qat._quant_leaves(params, qstate))     # (leaf, its state)
+    segments = sum(n["omega"][..., 0].numel() for n, _ in nodes)
+    elements = sum(n["w"].numel() for n, _ in nodes)
+    want_segments = cfg.n_layers * (4 + len(MOE_BANKS) * cfg.n_experts)
+    if segments != want_segments:
+        raise AssertionError(f"{segments} ECL segments, expected "
+                             f"{want_segments} (q/k/v/o + 3 banks x "
+                             f"{cfg.n_experts} experts a layer)")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eq.LAUNCHES = 0
+    t0 = time.perf_counter()
+    frozen = qat.freeze_tree(params, qstate, cfg.lam)
+    torch.cuda.synchronize(dev)
+    freeze_ms = (time.perf_counter() - t0) * 1e3
+    launches = eq.LAUNCHES
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != -(-segments // eq.MAX_SEGMENTS):
+        raise AssertionError(f"freeze_tree made {launches} ecl_quant "
+                             f"launches for {segments} segments")
+
+    checks = [(("attn", "q", "kernel"), (0,))] + [
+        (("moe", "experts", b), (0, e)) for b in MOE_BANKS
+        for e in (0, cfg.n_experts - 1)]
+    for path, idx in checks:
+        node, qs, fnode = (t["stacks"]["moe"] for t in (params, qstate,
+                                                        frozen))
+        for k in path:
+            node, qs, fnode = node[k], qs[k], fnode[k]
+        pen = ecl.penalty(node["w"], qs["probs"], cfg.lam)
+        got = bitplanes.unpack_codes_rows(fnode["packed"][idx])
+        want = _plain_codes(node["w"][idx], node["omega"][idx], pen[idx])
+        if not torch.equal(got, want):
+            raise AssertionError(f"freeze codes of {'.'.join(path)}{idx} "
+                                 "!= the plain version")
+
+    ws = [n["w"] for n, _ in nodes]
+    oms = [n["omega"] for n, _ in nodes]
+    prs = [qs["probs"] for _, qs in nodes]
+
+    def grouped():
+        return ecl.assign_many(ws, oms, prs, cfg.lam)
+
+    pens = [ecl.penalty(w, p, cfg.lam) for w, p in zip(ws, prs)]
+
+    def plain_all():
+        return [_plain_codes(w3[i], om3[i], pn3[i])
+                for w, om, pn in zip(ws, oms, pens)
+                for w3, om3, pn3 in [(w.reshape(-1, *w.shape[-2:]),
+                                      om.reshape(-1, 4), pn.reshape(-1, 16))]
+                for i in range(w3.shape[0])]
+
+    row = {
+        "ms": _time_ms(grouped, dev, 1),
+        **_device_time(grouped, dev, 1, ECL_SYMBOL,
+                       launches=lambda: eq.LAUNCHES),
+        "plain_ms": _once_ms(plain_all, dev),
+        "bound_ms": ECL_BYTES_PER_ELEM * elements / PEAK_BYTES * 1e3,
+        "codes_only_bound_ms":
+            ECL_CODES_BYTES_PER_ELEM * elements / PEAK_BYTES * 1e3,
+        "bound_by": "bytes", "library_ms": None, "elements": elements,
+        "segments": segments, "launches_per_call": launches}
+    freeze = {"ms": freeze_ms, "ecl_quant_launches": launches,
+              "segments": segments, "quant_weights": elements,
+              "peak_device_bytes": peak,
+              "packed_bytes": sum(t.numel() for t in leaves(frozen)
+                                  if t.dtype == torch.uint8),
+              "codes_checked": [".".join(p) + str(list(i))
+                                for p, i in checks]}
+    return frozen, freeze, row
+
+
+def _once_ms(fn, dev):
+    """ms of one call (CUDA events), for a call too long to repeat."""
+    import torch
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end)
+
+
+class _MoeRecorder:
+    """Records each ``moe_ffn`` call's input and output while in use (the
+    transformer looks ``moe_ffn`` up on its module at every call)."""
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+        self.calls, self._orig = [], moe.moe_ffn
+
+        def record(p, q, x, ctx, **kw):
+            y, aux = self._orig(p, q, x, ctx, **kw)
+            self.calls.append((x.detach().clone(), y.detach().clone()))
+            return y, aux
+        moe.moe_ffn = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import moe
+        moe.moe_ffn = self._orig
+
+
+def _moe_dense_ref(p, x, cfg, keep=None):
+    """The port's mirror of tests/test_moe.py::_dense_ref on the card:
+    per token, each chosen expert's SwiGLU from that expert's codes alone
+    (decoded once per expert that some token chose), added in assignment
+    order; ``keep`` (N, k) leaves dropped assignments out."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import qat
+    from repro_torch.nn import moe
+
+    xt = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    ids, w, _ = moe.route(xt @ p["router"]["w"], p["router"]["bias_correction"],
+                          top_k=cfg.top_k, gate=cfg.moe_gate,
+                          routed_scaling=cfg.routed_scaling)
+    parts = torch.zeros((cfg.top_k,) + xt.shape, dtype=torch.float32,
+                        device=xt.device)
+    for e in sorted(set(ids.flatten().tolist())):
+        bank = {n: qat.decode_frozen({"packed": p["experts"][n]["packed"][e],
+                                      "omega": p["experts"][n]["omega"][e]})
+                for n in MOE_BANKS}
+        for i, j in (ids == e).nonzero().tolist():
+            if keep is not None and not bool(keep[i, j]):
+                continue
+            h = F.silu(xt[i] @ bank["gate"]) * (xt[i] @ bank["up"])
+            parts[j, i] = w[i, j] * (h @ bank["down"])
+        del bank
+    out = torch.zeros_like(xt)
+    for j in range(cfg.top_k):
+        out = out + parts[j]
+    return out.reshape(x.shape), ids
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _moe_route_checks(dev, cfg, p, x):
+    """``route`` on the card against the CPU on the same logits tensor
+    (the prefill's router logits, and the same rounded to integers, full
+    of ties): ids bitwise, weights and aux within ROUTE_TOL."""
+    import torch
+    from repro_torch.nn import moe
+
+    logits = x.reshape(-1, x.shape[-1]) @ p["router"]["w"]
+    worst = 0.0
+    for name, lg in (("prefill", logits), ("ties", logits.round())):
+        kw = dict(top_k=cfg.top_k, gate=cfg.moe_gate,
+                  routed_scaling=cfg.routed_scaling)
+        ids, w, aux = moe.route(lg, p["router"]["bias_correction"], **kw)
+        hids, hw, haux = moe.route(lg.cpu(),
+                                   p["router"]["bias_correction"].cpu(), **kw)
+        err = max(float((w.cpu() - hw).abs().max()),
+                  abs(float(aux) - float(haux)))
+        if not torch.equal(ids.cpu(), hids) or err > ROUTE_TOL:
+            raise AssertionError(f"route ({name}) card != CPU: ids equal "
+                                 f"{torch.equal(ids.cpu(), hids)}, err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def _moe_skew(dev, cfg, p, x):
+    """A forced-skew prefill: router column 0 solved so that expert 0's
+    logit is MOE_SKEW_LOGIT for every token of ``x``, so all of them pick
+    it first and only its first C slots are kept.  The card's dispatch
+    equals the CPU's ``_dispatch_indices`` on the same ids, and the layer's
+    output matches the kept-only reference."""
+    import torch
+    from repro_torch.nn import moe
+    from repro_torch.nn.module import FP32_CTX
+
+    xt = x.reshape(-1, x.shape[-1])
+    h = xt.cpu().double()
+    col = torch.linalg.pinv(h) @ torch.full((h.shape[0],), MOE_SKEW_LOGIT,
+                                            dtype=torch.float64)
+    w = p["router"]["w"].clone()
+    w[:, 0] = col.to(torch.float32).to(dev)
+    ps = {**p, "router": {**p["router"], "w": w}}
+    y, _ = moe.moe_apply(ps, 0, x, FP32_CTX, top_k=cfg.top_k,
+                         gate=cfg.moe_gate,
+                         capacity_factor=cfg.capacity_factor,
+                         routed_scaling=cfg.routed_scaling)
+    ids, _, _ = moe.route(xt @ w, p["router"]["bias_correction"],
+                          top_k=cfg.top_k, gate=cfg.moe_gate,
+                          routed_scaling=cfg.routed_scaling)
+    if not bool((ids[:, 0] == 0).all()):
+        raise AssertionError("skew run: a token did not pick expert 0 first")
+    n = xt.shape[0]
+    cap = moe._capacity(n * cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    slot, keep = moe._dispatch_indices(ids.reshape(-1), cfg.n_experts, cap)
+    hslot, hkeep = moe._dispatch_indices(ids.reshape(-1).cpu(),
+                                         cfg.n_experts, cap)
+    if not (torch.equal(slot.cpu(), hslot) and torch.equal(keep.cpu(), hkeep)):
+        raise AssertionError("skew run: the card's dispatch != the CPU's")
+    want, _ = _moe_dense_ref(ps, x, cfg, keep=keep.view(n, cfg.top_k))
+    rel = _rel(y, want)
+    if rel > MOE_REL:
+        raise AssertionError(f"skew run: output off the kept-only "
+                             f"reference by {rel} relative")
+    kept0 = int(keep.view(n, cfg.top_k)[:, 0].sum())
+    if kept0 != min(n, cap):
+        raise AssertionError(f"skew run: expert 0 kept {kept0} of {n}, "
+                             f"capacity {cap}")
+    return {"tokens": n, "capacity": cap, "kept_expert_0": kept0,
+            "dropped": int((~keep).sum()), "max_rel_err": rel}
+
+
+def _dispatch_of(p, x, cfg):
+    """(ids (N, k), keep (N, k), capacity) of the MoE layer ``p`` on the
+    tokens of ``x`` at ``cfg``'s capacity factor."""
+    from repro_torch.nn import moe
+
+    xt = x.reshape(-1, x.shape[-1])
+    ids, _, _ = moe.route(xt @ p["router"]["w"], p["router"]["bias_correction"],
+                          top_k=cfg.top_k, gate=cfg.moe_gate,
+                          routed_scaling=cfg.routed_scaling)
+    cap = moe._capacity(xt.shape[0] * cfg.top_k, cfg.n_experts,
+                        cfg.capacity_factor)
+    _, keep = moe._dispatch_indices(ids.reshape(-1), cfg.n_experts, cap)
+    return ids, keep.view(-1, cfg.top_k), cap
+
+
+def _moe_re_prefill(dev, cfg, frozen, tokens, last):
+    """Each sequence's last decode step's logits against a prefill of its
+    same tokens without a cache, at capacity factor E / k: an expert's
+    capacity then covers every token and no assignment drops (a decode
+    step of 4 tokens drops none either: C = 8).  At the served factor a
+    re-prefill drops assignments (counted), and a dropped token's logits
+    differ by design.  Returns (max relative error, drops at the served
+    factor)."""
+    import dataclasses
+    import torch
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import FP32_CTX
+
+    no_drop = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    p = _layer0(frozen["stacks"]["moe"]["moe"])
+    worst, served_drops = 0.0, 0
+    for b in range(tokens.shape[0]):
+        seq = torch.from_numpy(tokens[b:b + 1]).to(dev)
+        with torch.no_grad(), _MoeRecorder() as rec:
+            full, none, _ = T.lm_apply(frozen, 0, seq, FP32_CTX, no_drop)
+        if none is not None:
+            raise AssertionError("lm_apply without a cache returned one")
+        x = rec.calls[0][0]
+        if not bool(_dispatch_of(p, x, no_drop)[1].all()):
+            raise AssertionError(f"re-prefill of sequence {b} dropped an "
+                                 "assignment at capacity factor E / k")
+        served_drops += int((~_dispatch_of(p, x, cfg)[1]).sum())
+        rel = _rel(last[b], full[0, -1, :cfg.vocab])
+        if rel > MOE_REL:
+            raise AssertionError(f"sequence {b}: the last decode step's "
+                                 f"logits off the re-prefill by {rel}")
+        worst = max(worst, rel)
+    return worst, served_drops
+
+
+def _layer0(tree):
+    from repro_torch import tree as tr
+    return tr.map_(lambda a: a[0], tree)
+
+
+def _moe_smoke_card_vs_cpu(dev):
+    """grok's smoke config from one CPU init, frozen on each device (the
+    kernel on the card, the plain version on the CPU), then the same
+    prompts served greedily: tokens equal, logits within MOE_SMOKE_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import qat
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config(MOE["arch"]).smoke()
+    params = T.lm_init(cfg, seed=MOE["seed"], device="cpu")
+    prompts = np.random.default_rng(MOE["seed"]).integers(
+        0, cfg.vocab, (MOE["prompts"], MOE["prompt_len"]))
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        p = tree.map_(lambda t: t.to(where), params)
+        frozen = qat.freeze_tree(p, qat.build_qstate(p), cfg.lam)
+        runs[where.type] = _lm_direct(where, cfg, frozen, prompts,
+                                      MOE["max_new"])
+    card, cpu = runs["cuda"], runs["cpu"]
+    if not np.array_equal(card["tokens"], cpu["tokens"]):
+        raise AssertionError("grok smoke: card tokens != CPU tokens")
+    got, want = card["logits"].cpu(), cpu["logits"]
+    if not torch.allclose(got, want, atol=MOE_SMOKE_TOL, rtol=MOE_SMOKE_TOL):
+        raise AssertionError(f"grok smoke: logits off the CPU's by "
+                             f"{float((got - want).abs().max())}")
+    return {"tokens_equal": True,
+            "max_abs_logit_err": float((got - want).abs().max())}
+
+
+def moe_path(dev, gpu):
+    """Phase 7: grok-1-314b at its published widths, cut to one layer,
+    frozen to 4 bits on the card and served through the direct
+    ``lm_apply`` path, first by the launcher a user runs."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _moe_cfg()
+    b, s, new = MOE["prompts"], MOE["prompt_len"], MOE["max_new"]
+
+    # the main path, as a user runs it
+    argv = ["--arch", MOE["arch"], "--layers", str(MOE["layers"]),
+            "--batch", str(b), "--prompt-len", str(s), "--max-new",
+            str(new), "--seed", str(MOE["seed"])]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eq.LAUNCHES = 0
+    t0 = time.perf_counter()
+    gen = serve.main(argv)
+    torch.cuda.synchronize(dev)
+    launcher = {"argv": argv, "wall_s": time.perf_counter() - t0,
+                "ecl_quant_launches": eq.LAUNCHES,
+                "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    if gen.shape != (b, new) or not ((gen >= 0) & (gen < cfg.vocab)).all():
+        raise AssertionError(f"launcher returned ids of shape {gen.shape}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    frozen, freeze, ecl_row = _moe_freeze(dev, cfg)
+    if launcher["ecl_quant_launches"] != freeze["ecl_quant_launches"]:
+        raise AssertionError(f"the launcher made "
+                             f"{launcher['ecl_quant_launches']} ecl_quant "
+                             f"launches, the freeze "
+                             f"{freeze['ecl_quant_launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated(dev)
+
+    # the launcher's prompts (seeded as it seeds them): the same tokens
+    prompts = np.random.default_rng(MOE["seed"]).integers(
+        0, cfg.vocab, (b, s))
+    with _MoeRecorder() as rec:
+        run = _lm_direct(dev, cfg, frozen, prompts, new)
+    if not bool(torch.isfinite(run["logits"]).all()):
+        raise AssertionError("non-finite logits")
+    if not np.array_equal(run["tokens"], gen):
+        raise AssertionError("the gated run's tokens != the launcher's")
+    p = _layer0(frozen["stacks"]["moe"]["moe"])
+    x_pre, _ = rec.calls[0]
+    x_dec, y_dec = rec.calls[-1]
+    if len(rec.calls) != new or x_pre.shape != (b, s, cfg.d_model) \
+            or x_dec.shape != (b, 1, cfg.d_model):
+        raise AssertionError(f"{len(rec.calls)} MoE calls recorded")
+    route_err = _moe_route_checks(dev, cfg, p, x_pre)
+    want, _ = _moe_dense_ref(p, x_dec, cfg)
+    decode_rel = _rel(y_dec, want)
+    if decode_rel > MOE_REL:
+        raise AssertionError(f"decode step: MoE output off the per-token "
+                             f"reference by {decode_rel} relative")
+    skew = _moe_skew(dev, cfg, p, x_pre)
+    seqs = np.concatenate([prompts, run["tokens"][:, :-1]], axis=1)
+    re_prefill, re_prefill_drops = _moe_re_prefill(
+        dev, cfg, frozen, seqs, run["logits"][:, -1])
+    _, keep_pre, cap_pre = _dispatch_of(p, x_pre, cfg)
+    _, keep_dec, _ = _dispatch_of(p, x_dec, cfg)
+    if not bool(keep_dec.all()):
+        raise AssertionError("a decode step dropped an assignment")
+
+    step_tok = torch.from_numpy(run["tokens"][:, -1:]).to(dev)
+    step_pos = torch.full((b, 1), s + new - 1, dtype=torch.int32, device=dev)
+
+    def decode_step():
+        from repro_torch.nn import transformer as T
+        from repro_torch.nn.module import FP32_CTX
+        with torch.no_grad():
+            return T.lm_apply(frozen, 0, step_tok, FP32_CTX, cfg,
+                              positions=step_pos, cache=run["cache"])
+
+    trace, _ = _step_trace(decode_step, dev, 3)
+    smoke = _moe_smoke_card_vs_cpu(dev)
+
+    moe = {
+        "arch": cfg.name, "layers": cfg.n_layers,
+        "published_layers": get_config(MOE["arch"]).n_layers,
+        "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+        "n_experts": cfg.n_experts, "top_k": cfg.top_k, "vocab": cfg.vocab,
+        "sequences": b, "prompt_len": s, "max_new": new,
+        "launcher": launcher, "freeze": freeze, "ecl_quant": ecl_row,
+        "resident_device_bytes": resident,
+        "prefill_ms": run["prefill_ms"],
+        "decode_ms_per_step": run["decode_ms"],
+        "decode_peak_device_bytes": run["decode_peak_bytes"],
+        "decode_step_trace": trace,
+        "route_max_err_card_vs_cpu": route_err,
+        "decode_moe_max_rel_err": decode_rel, "skew": skew,
+        "re_prefill_max_rel_err": re_prefill,
+        "re_prefill_dropped_at_served_capacity": re_prefill_drops,
+        "prefill_capacity": cap_pre,
+        "prefill_dropped": int((~keep_pre).sum()),
+        "smoke_card_vs_cpu": smoke,
+        "tokens_0": run["tokens"][0].tolist(), "gpu": gpu,
+        "wall_s": time.perf_counter() - t_phase}
+    gb = 1e-9
+    print(f"phase 7: {cfg.name} at depth {cfg.n_layers} (published "
+          f"{moe['published_layers']}), {cfg.n_experts} experts of "
+          f"{cfg.d_model}x{cfg.d_ff}: frozen in {freeze['ms']:.1f} ms "
+          f"({freeze['ecl_quant_launches']} ecl_quant launch, "
+          f"{freeze['segments']} segments; ECL device "
+          f"{ecl_row['device_ms']:.2f} ms against a {ecl_row['bound_ms']:.2f}"
+          f" ms byte bound, {ecl_row['codes_only_bound_ms']:.2f} codes-only), "
+          f"peak {freeze['peak_device_bytes'] * gb:.1f} GB ({gpu})")
+    print(f"phase 7: prefill {run['prefill_ms']:.2f} ms, decode "
+          f"{run['decode_ms']:.2f} ms/step at {b} sequences, device "
+          f"{trace['device_ms_per_step']:.2f} ms/step, "
+          f"{trace['device_ops_per_step']:.0f} device ops, idle "
+          f"{trace['device_idle_share']:.3f}; decode peak "
+          f"{run['decode_peak_bytes'] * gb:.1f} GB ({gpu})")
+    print(f"phase 7: skew run dropped {skew['dropped']} of "
+          f"{skew['tokens'] * cfg.top_k} assignments (capacity "
+          f"{skew['capacity']}), the served prefill "
+          f"{moe['prefill_dropped']} (capacity {cap_pre}); MoE output "
+          f"within {decode_rel:.2e}, "
+          f"re-prefill within {re_prefill:.2e}, smoke card vs CPU "
+          f"{smoke['max_abs_logit_err']:.2e}; done in {moe['wall_s']:.1f} s "
+          f"({gpu})")
+    del frozen, run
+    return moe
 
 
 def main() -> int:
@@ -2383,6 +2949,7 @@ def main() -> int:
     frontend = frontend_path(dev, trained)
     lm = lm_path(dev)
     lm_train = lm_train_path(dev)
+    moe = moe_path(dev, gpu)
 
     report = []
     for name, (sched, replaces) in KERNELS.items():
@@ -2402,9 +2969,11 @@ def main() -> int:
             "int8_max_rel_err": max_rel8[name],
             "ms": head["ms"], "kernel_ms": head["ms"],
             "device_ms": head["device_ms"],
+            "device_ms_from": head["device_ms_from"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "library_device_ms": head["library_device_ms"],
+            "library_device_ms_from": head["library_device_ms_from"],
             "at": "mlp-gsc batch 64 fp32",
             "by_batch": {str(b): v for b, v in per.items()},
             "smollm_shapes": {k: v for k, v in lm["ffn_timed"].items()
@@ -2416,16 +2985,19 @@ def main() -> int:
         "launches": train["ecl_quant_launches"],
         "launches_by_path": {"training": train["ecl_quant_launches"],
                              "lm": lm["freeze"]["ecl_quant_launches"],
-                             "lm_training": lm_train["ecl_quant_launches"]},
+                             "lm_training": lm_train["ecl_quant_launches"],
+                             "moe": moe["launcher"]["ecl_quant_launches"]},
         "max_abs_err": ecl_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
-        "device_ms": head["device_ms"], "queued_ms": head["queued_ms"],
-        "plain_ms": head["plain_ms"],
+        "device_ms": head["device_ms"],
+        "device_ms_from": head["device_ms_from"],
+        "queued_ms": head["queued_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "library_device_ms": None,
         "at": "mlp-gsc 7 tensors, one grouped launch",
         "by_shape": ecl_times,
         "smollm_freeze": lm["ecl_quant"],
+        "grok_freeze": moe["ecl_quant"],
         "smollm_training": {
             "pass": lm_train["ecl_quant_pass"],
             **{k: lm_train[k] for k in (
@@ -2438,8 +3010,11 @@ def main() -> int:
     print(json.dumps({"frontend": frontend}))
     print(json.dumps({"lm": lm}))
     print(json.dumps({"lm_train": lm_train}))
+    print(json.dumps({"moe": moe}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "
-          "retaken for want of the kernel's device time")
+          "retaken for want of the kernel's device time; "
+          f"{TRACES['events']} device times from CUDA events for want of "
+          "a whole trace")
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,15 +32,19 @@ def codebook(omega: torch.Tensor) -> torch.Tensor:
 def decode(codes: torch.Tensor, omega: torch.Tensor,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """codes (*lead, R, C) with omega (*lead, 4), or any codes with an
-    unbatched (4,) omega -> values of ``dtype``; W = Σ_i ω_i B_i."""
-    out = torch.zeros(codes.shape, dtype=dtype, device=codes.device)
-    c = codes.to(torch.int64)
-    for i in range(NUM_BASIS):
-        bit = ((c >> i) & 1).to(dtype)
-        w_i = omega[..., i].to(dtype)
-        if omega.ndim > 1:
-            w_i = w_i[..., None, None]
-        out = out + w_i * bit
+    unbatched (4,) omega -> values of ``dtype``; W = Σ_i ω_i B_i.
+
+    Each value is gathered from its lead index's :func:`codebook` in
+    ``dtype``, whose entries add the four terms in the order above, so the
+    weights are bitwise those of the term-by-term sum over the bit-planes.
+    The only temporary is an int32 index of one lead slice: a stacked
+    expert bank decodes one slice at a time into its output."""
+    books = codebook(omega.to(dtype)).reshape(-1, NUM_CODES)
+    out = torch.empty(codes.shape, dtype=dtype, device=codes.device)
+    rows = codes.reshape(books.shape[0], -1)
+    flat = out.view(books.shape[0], -1)
+    for j in range(books.shape[0]):
+        torch.index_select(books[j], 0, rows[j].to(torch.int32), out=flat[j])
     return out
 
 

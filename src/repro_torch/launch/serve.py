@@ -1,10 +1,11 @@
-"""Serve a frozen paper MLP, or a frozen 4-bit dense LM, through the port:
+"""Serve a frozen paper MLP, or a frozen 4-bit LM, through the port:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mlp-gsc --batch 64 --engine
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mlp-hr --batch 32 \
         --engine --async --multi lenet-300-100,mlp-gsc --verify-launch \
         --max-hot-models 2 --flip-rate 0.05 --streams 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --engine
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --layers 1
 
 Initialises the MLP from a seed, freezes it to the packed 4-bit pack,
 resolves an ``ExecutionPlan`` (mode, row tile, int8 calibration, bucket ->
@@ -17,18 +18,24 @@ the micro-batcher and checks the result against the batch; ``--engine
 ``--multi`` co-serves more frozen packs, and the integrity, cold-tier,
 fault-injection and stream flags follow the JAX package's launcher.
 
-A dense LM arch (``--arch smollm-360m``, ``--smoke`` for the reduced
-config) runs ``lm_init`` -> ``build_qstate`` -> ``freeze_tree``, then a
-prefill of ``--batch`` prompts of ``--prompt-len`` ids and ``--max-new``
-greedy tokens through ``lm_apply`` on the frozen tree, and prints the
-prefill ms, the decode ms per token and the generated ids.  ``--engine``
-serves the same prompts through an ``LMProgram`` registered in a
-``ServingFrontend`` (each sequence prefilled, then lockstep decode rows)
-and checks its tokens against ``LMProgram.generate`` bit for bit.
+An LM arch of the dense or moe family (``--arch smollm-360m``,
+``grok-1-314b``; ``--smoke`` for the reduced config, ``--layers N`` to
+cut the depth at the published widths) runs ``lm_init`` ->
+``build_qstate`` -> ``freeze_tree``, then a prefill of ``--batch``
+prompts of ``--prompt-len`` ids and ``--max-new`` greedy tokens through
+``lm_apply`` on the frozen tree, and prints the prefill ms, the decode ms
+per token and the generated ids.  ``--engine`` serves the same prompts
+through an ``LMProgram`` registered in a ``ServingFrontend`` (each
+sequence prefilled, then lockstep decode rows) and checks its tokens
+against ``LMProgram.generate`` bit for bit; ``LMProgram`` serves the
+dense family only, so a moe arch exits there with its message, as the
+JAX launcher does.  The other families (MLA, ssm, hybrid, vlm, audio)
+raise ``NotImplementedError`` (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -324,19 +331,36 @@ def serve_mlp_async(args, cfg, plan, x, y_ref):
 
 
 def lm_archs() -> list:
-    """The registered archs the port's LM path serves (dense family)."""
-    return [n for n in list_configs() if get_config(n).family == "dense"]
+    """The registered archs the port's LM path serves: the dense family,
+    and the moe family without MLA."""
+    served = []
+    for name in list_configs():
+        try:
+            T.check_supported(get_config(name))
+        except NotImplementedError:
+            continue
+        served.append(name)
+    return served
 
 
 @torch.no_grad()
 def serve_lm(args) -> np.ndarray:
     """The direct LM path: init, freeze, then prefill and greedy decode
     through ``lm_apply`` on the frozen tree (dense decode + ``torch.matmul``,
-    no FantastIC4 kernel).  Returns the generated ids (batch, max_new)."""
-    dev = resolve_device(args.device)
+    no FantastIC4 kernel; a MoE layer's experts through ``torch.bmm``).
+    Returns the generated ids (batch, max_new)."""
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    T.check_supported(cfg)
+    if args.layers is not None:
+        if args.layers > cfg.n_layers:
+            raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.n_layers} layers; the flag only cuts")
+        print(f"{cfg.name}: depth cut to {args.layers} layers (--layers; "
+              f"the config has {cfg.n_layers})")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    dev = resolve_device(args.device)
     params = T.lm_init(cfg, seed=args.seed, device=dev)
     frozen = qat.freeze_tree(params, qat.build_qstate(params), cfg.lam)
     del params
@@ -361,8 +385,11 @@ def serve_lm(args) -> np.ndarray:
     gen, t_dec = _once_ms(decode, dev)
     gen = gen.cpu().numpy().astype(np.int64)
     clock = "CUDA events" if dev.type == "cuda" else "host clock, CPU"
+    experts = (f", {cfg.n_experts} experts top-{cfg.top_k}"
+               if cfg.family == "moe" else "")
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab}, frozen to 4 bits on {dev}")
+          f"{cfg.d_ff}{experts}, vocab {cfg.vocab}, frozen to 4 bits on "
+          f"{dev}")
     print(f"prefill: {t_prefill:.3f} ms  decode: "
           f"{t_dec / (new - 1) if new > 1 else 0.0:.3f} ms/token "
           f"({b} sequences, {clock})")
@@ -450,6 +477,10 @@ def check_flags(args) -> None:
         raise SystemExit("--flip-rate corrupts live weights; add "
                          "--verify-launch so the corruption is caught "
                          "(and, with the pack cache flags, recovered)")
+    if args.layers is not None and args.arch in MLPS:
+        raise SystemExit("--layers applies to LM archs")
+    if args.layers is not None and args.layers < 1:
+        raise SystemExit(f"--layers must be >= 1, got {args.layers}")
     if args.multi and not (args.engine and args.async_frontend):
         raise SystemExit("--multi requires --engine --async")
     if args.async_frontend and not args.engine:
@@ -459,9 +490,15 @@ def check_flags(args) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mlp-gsc",
-                    choices=sorted(MLPS) + lm_archs())
+                    choices=sorted(MLPS) + list_configs(),
+                    help="a paper MLP or an LM arch; the port serves "
+                    f"{', '.join(lm_archs())} (the others raise "
+                    "NotImplementedError)")
     ap.add_argument("--smoke", action="store_true",
                     help="LM archs: the reduced same-family config")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="LM archs: serve the config cut to N layers "
+                    "(the widths stay)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16,
                     help="LM archs: prompt ids per sequence")

@@ -192,7 +192,7 @@ def lm_config(arch: str, *, smoke: bool = False,
     if smoke:
         cfg = cfg.smoke()
     cfg = dataclasses.replace(cfg, lam=lam)
-    T.check_dense(cfg)
+    steps_mod.check_trainable(cfg)
     return cfg
 
 

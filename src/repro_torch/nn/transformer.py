@@ -1,18 +1,20 @@
 """Decoder-only transformer (the JAX package's ``nn/transformer.py``),
-dense family.
+dense and moe families.
 
-Layers are **stacked**: every leaf of ``params["stacks"]["dense"]`` has a
-leading (L, ...) axis, as in the reference, and :func:`lm_apply` runs
-them with a Python loop over the layers in place of ``jax.lax.scan``
-(each layer reads views of the stacked leaves).  Per-layer quantization
-state and KV caches are stacked the same way.  Under EC4T training
-(``ctx.quant``) the forward fake-quantizes every stacked quantized leaf
-once, before the layer loop, in one grouped quantization
-(:func:`quantize_stack`); each layer then reads its view of the stacked
-ŵ.  The reference's sharding and rematerialisation arguments have no
-counterpart here.
+Layers are **stacked**: every leaf of ``params["stacks"][kind]`` has a
+leading (L, ...) axis, one stack per layer kind (``"dense"``, ``"moe"``)
+as in the reference, and :func:`lm_apply` runs the stacks in the
+reference's order with a Python loop over each stack's layers in place of
+``jax.lax.scan`` (each layer reads views of the stacked leaves).  An
+expert bank is stacked (L, E, ...): each (layer, expert) has its own ω
+and probabilities.  Per-layer quantization state and KV caches are
+stacked the same way.  Under EC4T training (``ctx.quant``) the forward
+fake-quantizes every stacked quantized leaf once, before the layer loop,
+in one grouped quantization (:func:`quantize_stack`); each layer then
+reads its view of the stacked ŵ.  The reference's sharding and
+rematerialisation arguments have no counterpart here.
 
-The other families (moe, ssm, hybrid, mla, vlm, audio) raise
+The other families (ssm, hybrid, mla, vlm, audio) raise
 ``NotImplementedError``: they wait for ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..configs.base import ArchConfig
 from ..core import qat
 from ..tree import leaves, map_, unflatten
 from . import attention as attn
+from . import moe as moe_lib
 from .layers import (embedding_init, gelu_mlp, gelu_mlp_init, layer_norm,
                      layer_norm_init, linear_init, rms_norm, rms_norm_init,
                      rope_cos_sin, subtree, swiglu, swiglu_init)
@@ -34,14 +37,21 @@ from .module import QuantCtx
 HUGE_WINDOW = 1 << 30     # "global attention" encoded as a very wide window
 
 
-def check_dense(cfg: ArchConfig) -> None:
+KINDS = ("dense", "moe")       # the stacks, in the reference's order
+
+
+def check_supported(cfg: ArchConfig) -> None:
     """Raise for every arch the port's stack does not build yet."""
-    if (cfg.family != "dense" or cfg.mla is not None or cfg.encdec
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name} uses MLA (multi-head latent attention), which is "
+            "not ported yet (ROADMAP queue 1 item 8)")
+    if (cfg.family not in KINDS or cfg.encdec
             or cfg.mrope_sections is not None):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family} family) is not ported yet: the port's "
-            "transformer builds dense-family archs only (moe, ssm, hybrid, "
-            "mla, vlm and audio wait for ROADMAP queue 1 item 8)")
+            "transformer builds the dense and moe families only (ssm, "
+            "hybrid, mla, vlm and audio wait for ROADMAP queue 1 item 8)")
 
 
 def _norm_init(cfg: ArchConfig, d: int, device) -> dict:
@@ -70,27 +80,50 @@ def _mlp(cfg: ArchConfig, p: dict, q: Any, x: torch.Tensor,
 
 def _layer_init(generator: torch.Generator, cfg: ArchConfig,
                 kind: str = "dense") -> dict:
-    if kind != "dense":
+    """kind: dense | moe (from the family, per depth)."""
+    if kind not in KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
                                   "(ROADMAP queue 1 item 8)")
     d, dev = cfg.d_model, generator.device
-    return {
+    p = {
         "ln1": _norm_init(cfg, d, dev),
         "attn": attn.gqa_init(generator, d, cfg.n_heads, cfg.n_kv,
                               cfg.resolved_head_dim, cfg.quantize,
                               qkv_bias=cfg.qkv_bias),
         "ln2": _norm_init(cfg, d, dev),
-        "mlp": _mlp_init(generator, cfg, cfg.dense_ff or cfg.d_ff),
     }
+    if kind == "moe":
+        p["moe"] = moe_lib.moe_init(generator, d, cfg.d_ff, cfg.n_experts,
+                                    cfg.quantize,
+                                    n_shared=cfg.n_shared_experts)
+    else:
+        p["mlp"] = _mlp_init(generator, cfg, cfg.dense_ff or cfg.d_ff)
+    return p
 
 
 def _stack(trees: list) -> Any:
+    """(L, ...) leaves; one layer stacks as a view, without a copy (a
+    full-width expert bank is 6.4 GB)."""
+    if len(trees) == 1:
+        return map_(lambda x: x.unsqueeze(0), trees[0])
     return map_(lambda *xs: torch.stack(xs), *trees)
 
 
 def _layer_kinds(cfg: ArchConfig) -> list:
-    check_dense(cfg)
+    check_supported(cfg)
+    if cfg.family == "moe":
+        return (["dense"] * cfg.n_dense_layers
+                + ["moe"] * (cfg.n_layers - cfg.n_dense_layers))
     return ["dense"] * cfg.n_layers
+
+
+def _kind_layers(cfg: ArchConfig) -> dict:
+    """kind -> the indices of its layers, for each kind present, in the
+    reference's stack order."""
+    kinds = _layer_kinds(cfg)
+    out = {kind: [i for i, k in enumerate(kinds) if k == kind]
+           for kind in KINDS}
+    return {kind: idx for kind, idx in out.items() if idx}
 
 
 def lm_init(cfg: ArchConfig, *, seed: int = 0,
@@ -104,12 +137,14 @@ def lm_init(cfg: ArchConfig, *, seed: int = 0,
         generator = torch.Generator(
             device=resolve_device(device)).manual_seed(seed)
     kinds = _layer_kinds(cfg)
+    layers = [_layer_init(generator, cfg, kind) for kind in kinds]
     p = {
         "embed": embedding_init(generator, cfg.padded_vocab, cfg.d_model),
         "final_norm": _norm_init(cfg, cfg.d_model, generator.device),
-        "stacks": {"dense": _stack([_layer_init(generator, cfg, kind)
-                                    for kind in kinds])},
+        "stacks": {kind: _stack([layers[i] for i in idx])
+                   for kind, idx in _kind_layers(cfg).items()},
     }
+    del layers
     if not cfg.tie_embeddings:
         p["lm_head"] = linear_init(generator, cfg.d_model, cfg.padded_vocab,
                                    quantize=False)
@@ -123,11 +158,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Stacked per-layer decode state, ``max_len`` slots a layer (callers
     that prefill keep the full length, so multi-token writes never
     wrap)."""
-    n = len(_layer_kinds(cfg))
-    per = {"attn": attn.init_kv_cache(batch, max_len, cfg.n_kv,
-                                      cfg.resolved_head_dim, dtype,
-                                      device=resolve_device(device))}
-    return {"dense": _stack([per] * n)}
+    def per():
+        return {"attn": attn.init_kv_cache(batch, max_len, cfg.n_kv,
+                                           cfg.resolved_head_dim, dtype,
+                                           device=resolve_device(device))}
+    return {kind: _stack([per()] * len(idx))
+            for kind, idx in _kind_layers(cfg).items()}
 
 
 # ---------------------------------------------------------------- forward
@@ -141,9 +177,9 @@ def _windows_for(cfg: ArchConfig, idx: list) -> Optional[list]:
             for i in idx]
 
 
-def _block(cfg: ArchConfig, lp: dict, lq: Any, x: torch.Tensor,
+def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
            ctx: QuantCtx, *, cos_sin, positions, lcache, window) -> tuple:
-    """One dense transformer block; returns (x, new_lcache)."""
+    """One transformer block; returns (x, new_lcache, aux)."""
     h = _norm(cfg, lp["ln1"], x)
     acache = lcache["attn"] if lcache is not None else None
     ay, new_ac = attn.gqa_apply(lp["attn"], subtree(lq, "attn"), h, ctx,
@@ -154,8 +190,16 @@ def _block(cfg: ArchConfig, lp: dict, lq: Any, x: torch.Tensor,
                                 chunk=cfg.attn_chunk)
     x = x + ay
     h2 = _norm(cfg, lp["ln2"], x)
-    x = x + _mlp(cfg, lp["mlp"], subtree(lq, "mlp"), h2, ctx)
-    return x, ({"attn": new_ac} if new_ac is not None else {})
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "moe":
+        y2, aux = moe_lib.moe_ffn(lp["moe"], subtree(lq, "moe"), h2, ctx,
+                                  top_k=cfg.top_k, gate=cfg.moe_gate,
+                                  capacity_factor=cfg.capacity_factor,
+                                  routed_scaling=cfg.routed_scaling)
+        x = x + y2
+    else:
+        x = x + _mlp(cfg, lp["mlp"], subtree(lq, "mlp"), h2, ctx)
+    return x, ({"attn": new_ac} if new_ac is not None else {}), aux
 
 
 def _layer(tree: Any, l: int) -> Any:
@@ -208,7 +252,6 @@ def lm_apply(params: dict, qstate: Any, tokens: torch.Tensor,
     ``tokens`` (B, S) int.  ``positions`` (B, S) absolute positions
     (decode passes the cache offset); default arange.
     """
-    kinds = _layer_kinds(cfg)
     x = params["embed"]["table"].to(ctx.dtype)[tokens]
     b, s = tokens.shape
     if positions is None:
@@ -218,24 +261,32 @@ def lm_apply(params: dict, qstate: Any, tokens: torch.Tensor,
     rotary_dim = int(cfg.resolved_head_dim * cfg.rotary_frac)
     cos_sin = rope_cos_sin(positions, rotary_dim, cfg.rope_theta,
                            dtype=torch.float32)
-    windows = _windows_for(cfg, list(range(len(kinds))))
-    stack_p = params["stacks"]["dense"]
-    stack_q = subtree(subtree(qstate, "stacks"), "dense")
-    stack_c = cache.get("dense") if cache is not None else None
-    layer_p = _unstack(quantize_stack(stack_p, stack_q, ctx), len(kinds)) \
-        if ctx.quant else None
-    new_layers = []
-    for l in range(len(kinds)):
-        window = cfg.window if windows is None else windows[l]
-        lp = layer_p[l] if layer_p is not None else _layer(stack_p, l)
-        x, nc = _block(cfg, lp, _layer(stack_q, l), x, ctx,
-                       cos_sin=cos_sin, positions=positions,
-                       lcache=_layer(stack_c, l) if stack_c is not None
-                       else None, window=window)
-        new_layers.append(nc)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = {} if cache is not None else None
+    for kind, idx in _kind_layers(cfg).items():
+        windows = _windows_for(cfg, idx)
+        stack_p = params["stacks"][kind]
+        stack_q = subtree(subtree(qstate, "stacks"), kind)
+        stack_c = cache.get(kind) if cache is not None else None
+        layer_p = _unstack(quantize_stack(stack_p, stack_q, ctx), len(idx)) \
+            if ctx.quant else None
+        # the reference's scan carry: a stack's aux from an fp32 zero, in
+        # layer order, then added to the total
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        new_layers = []
+        for l in range(len(idx)):
+            window = cfg.window if windows is None else windows[l]
+            lp = layer_p[l] if layer_p is not None else _layer(stack_p, l)
+            x, nc, a = _block(cfg, kind, lp, _layer(stack_q, l), x, ctx,
+                              cos_sin=cos_sin, positions=positions,
+                              lcache=_layer(stack_c, l)
+                              if stack_c is not None else None,
+                              window=window)
+            aux = aux + a
+            new_layers.append(nc)
+        aux_total = aux_total + aux
+        if stack_c is not None:
+            new_cache[kind] = _stack(new_layers)
 
     logits = readout(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    new_cache = {"dense": _stack(new_layers)} if stack_c is not None \
-        else None
-    return logits, new_cache, aux
+    return logits, new_cache, aux_total

@@ -77,6 +77,31 @@ def test_codebook_and_decode_exact(lead):
         np.testing.assert_array_equal(dec, book[codes])
 
 
+def _decode_bit_planes(codes, omega, dtype):
+    """The term-by-term sum over int64 bit-planes that ``decode`` computed
+    before it gathered from the codebook."""
+    out = torch.zeros(codes.shape, dtype=dtype)
+    c = codes.to(torch.int64)
+    for i in range(tbp.NUM_BASIS):
+        w_i = omega[..., i].to(dtype)
+        if omega.ndim > 1:
+            w_i = w_i[..., None, None]
+        out = out + w_i * ((c >> i) & 1).to(dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead", [(), (3,), (2, 4)])
+def test_decode_bitwise_equals_the_bit_plane_sum(lead, dtype):
+    om = torch.from_numpy(_omega(7, lead) * 0.05)
+    codes = torch.from_numpy(_codes((*lead, 34, 20), seed=8))
+    got, want = tbp.decode(codes, om, dtype), _decode_bit_planes(codes, om,
+                                                                dtype)
+    assert got.dtype == dtype and got.shape == codes.shape
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
 def test_init_omega_exact():
     w = RNG.normal(size=(2, 12, 7)).astype(np.float32)
     np.testing.assert_array_equal(

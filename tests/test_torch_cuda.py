@@ -28,7 +28,9 @@ program's tokens through ws and stream, and SmolLM-360M's FFN shapes
 (960→2560, 2560→960) within the fp32 gate.  LM training: two smoke
 train steps on the card within ``rtol=1e-4`` of the CPU's, one ECL
 launch a grouped pass, a card checkpoint restored bitwise; the input feed
-places pinned batches on the card.
+places pinned batches on the card.  MoE: grok's smoke stack frozen on the
+card bitwise equal to the CPU freeze, and a frozen layer's routing and
+dispatch exactly, its output within 1e-5, equal to the CPU's.
 """
 import array
 import ctypes
@@ -681,6 +683,50 @@ def test_freeze_tree_stacked_leaf_bitwise_on_the_card(cuda_device):
     for l in range(3):
         want, _ = eq.ecl_quant_plain(w[l], params["k"]["omega"][l], pen[l])
         assert torch.equal(got[l], want)
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(cuda_device):
+    """grok's smoke MoE stack frozen on the card (one grouped launch for
+    its (L, E) banks) equals the CPU freeze bitwise; a frozen layer's
+    routing ids, dispatch and output (drops included) on the card equal
+    the CPU's, ids and slots exactly, the output within 1e-5; a batched
+    bank decodes bitwise on both."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import moe
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import FP32_CTX
+    from repro_torch.tree import map_
+
+    cfg = get_config("grok-1-314b").smoke()
+    params = T.lm_init(cfg, seed=0, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 24, cfg.d_model)).astype(np.float32))
+    out = {}
+    for name, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        p = _to(params, dev)
+        before = eq.LAUNCHES
+        frozen = qat.freeze_tree(p, qat.build_qstate(p), cfg.lam)
+        assert eq.LAUNCHES == before + (name == "card")
+        layer = map_(lambda a: a[0], frozen["stacks"]["moe"]["moe"])
+        xt = x.to(dev).reshape(-1, cfg.d_model)
+        ids, _, _ = moe.route(xt @ layer["router"]["w"],
+                              layer["router"]["bias_correction"], top_k=2,
+                              gate="softmax")
+        slot, keep = moe._dispatch_indices(ids.reshape(-1), 4, 8)
+        y, aux = moe.moe_apply(layer, 0, x.to(dev), FP32_CTX, top_k=2,
+                               capacity_factor=0.5)
+        banks = frozen["stacks"]["moe"]["moe"]["experts"]
+        out[name] = [t.cpu() for t in (ids, slot, keep, y, aux)] + [
+            t.cpu() for bank in ("gate", "up", "down") for t in (
+                banks[bank]["packed"], bitplanes.decode(
+                    bitplanes.unpack_codes_rows(banks[bank]["packed"]),
+                    banks[bank]["omega"]))]
+    card, cpu = out["card"], out["cpu"]
+    for a, b in zip(card[:3] + card[5:], cpu[:3] + cpu[5:]):
+        assert torch.equal(a, b)
+    assert not cpu[2].all()               # capacity 8 drops some
+    torch.testing.assert_close(card[3], cpu[3], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(card[4], cpu[4], atol=1e-6, rtol=1e-6)
 
 
 def _to(tree, device):

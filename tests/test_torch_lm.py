@@ -39,7 +39,19 @@ from repro_torch.nn.module import FP32_CTX, QuantCtx, materialize
 JCTX = JQuantCtx(quant=False, compute_dtype=jnp.float32)
 TOL = dict(atol=1e-5, rtol=1e-5)
 STACK_TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ("smollm-360m", "h2o-danube-1.8b", "glm4-9b")
+AUX_TOL = dict(atol=1e-6, rtol=1e-6)
+# built identically in both packages: deepseek-v3's smoke config without
+# MLA (one dense layer, then MoE with the sigmoid gate and a shared expert)
+DS_NOMLA = "deepseek-v3-671b-nomla"
+DENSE_ARCHS = ("smollm-360m", "h2o-danube-1.8b", "glm4-9b")
+ARCHS = DENSE_ARCHS + ("grok-1-314b", DS_NOMLA)
+
+
+def _smoke(get, arch):
+    """The smoke config of ``arch`` from one package's ``get_config``."""
+    if arch == DS_NOMLA:
+        return dataclasses.replace(get("deepseek-v3-671b").smoke(), mla=None)
+    return get(arch).smoke()
 
 
 def _np(tree):
@@ -75,7 +87,7 @@ def test_configs_equal_the_reference_field_by_field():
 
 def test_non_dense_families_are_refused():
     for name in ("mamba2-1.3b", "deepseek-v3-671b", "hymba-1.5b",
-                 "qwen2-vl-2b", "whisper-base", "grok-1-314b"):
+                 "qwen2-vl-2b", "whisper-base"):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             TT.lm_init(get_config(name).smoke(), device="cpu")
 
@@ -234,7 +246,7 @@ def _jax_world(arch):
     """(cfg, params, qstate, frozen) of the JAX package at smoke size, made
     once per arch in this process (the JAX side dominates the run time)."""
     if arch not in _WORLDS:
-        cfg = jget_config(arch).smoke()
+        cfg = _smoke(jget_config, arch)
         params = JT.lm_init(jax.random.PRNGKey(0), cfg)
         qstate = jqat.build_qstate(params)
         _WORLDS[arch] = (cfg, params, qstate,
@@ -242,11 +254,13 @@ def _jax_world(arch):
     return _WORLDS[arch]
 
 
-@pytest.mark.parametrize("weights", ["fp32", "frozen"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,weights", [
+    (arch, weights) for arch in ARCHS for weights in ("fp32", "frozen")
+    # the moe archs as served, frozen (the JAX side's eager cost)
+    if weights == "frozen" or arch in DENSE_ARCHS])
 def test_lm_apply_matches_reference_prefill_and_cached_decode(arch, weights):
     cfg, params, qstate, frozen = _jax_world(arch)
-    tcfg = get_config(arch).smoke()
+    tcfg = _smoke(get_config, arch)
     if weights == "frozen":
         params, qstate = frozen, 0
     tparams, tq = _t(params), _t(qstate)
@@ -258,14 +272,16 @@ def test_lm_apply_matches_reference_prefill_and_cached_decode(arch, weights):
         tok = toks[:, t0:t1].astype(np.int32)
         pos = np.broadcast_to(np.arange(t0, t1, dtype=np.int32),
                               tok.shape).copy()
-        jl, jcache, _ = JT.lm_apply(params, qstate, jnp.asarray(tok), JCTX,
-                                    cfg, positions=jnp.asarray(pos),
-                                    cache=jcache)
-        tl, tcache, _ = TT.lm_apply(tparams, tq, torch.from_numpy(tok),
-                                    FP32_CTX, tcfg,
-                                    positions=torch.from_numpy(pos),
-                                    cache=tcache)
+        jl, jcache, jaux = JT.lm_apply(params, qstate, jnp.asarray(tok),
+                                       JCTX, cfg, positions=jnp.asarray(pos),
+                                       cache=jcache)
+        tl, tcache, taux = TT.lm_apply(tparams, tq, torch.from_numpy(tok),
+                                       FP32_CTX, tcfg,
+                                       positions=torch.from_numpy(pos),
+                                       cache=tcache)
         _close(tl, jl, STACK_TOL)
+        _close(taux, jaux, AUX_TOL)
+        assert sorted(tcache) == sorted(jcache)
 
 
 def test_lm_apply_without_cache_matches_reference():
@@ -298,52 +314,60 @@ def test_lm_loss_matches_reference():
 # ---------------------------------------------------------------- freezing
 
 def _costs(w, omega, probs, lam):
-    """Per element and code, the ECL cost in float32 (the port's order)."""
+    """Per element and code, the ECL cost in float32 (the port's order),
+    for a leaf with any leading dims (layers, experts)."""
     w, omega, probs = (torch.from_numpy(np.asarray(a)) for a in
                        (w, omega, probs))
     from repro_torch.core import ecl
-    pen = ecl.penalty(w, probs, lam)                          # (L, 16)
-    book = tbp.codebook(omega)                                # (L, 16)
-    return (w[..., None] - book[:, None, None, :]) ** 2 \
-        + pen[:, None, None, :]
+    pen = ecl.penalty(w, probs, lam)                          # (*lead, 16)
+    book = tbp.codebook(omega)                                # (*lead, 16)
+    return (w[..., None] - book[..., None, None, :]) ** 2 \
+        + pen[..., None, None, :]
 
 
-def test_freeze_tree_codes_match_reference():
-    cfg, params, qstate, _ = _jax_world("smollm-360m")
-    rng = np.random.default_rng(4)
-    # non-uniform probabilities, so the entropy penalty decides codes too
+def _trained_like(params, qstate, seed):
+    """Non-uniform probabilities, so the entropy penalty decides codes too,
+    and centroids off the power-of-two init, as training leaves them: the
+    reference's batched codebook (an einsum) then rounds some subset sums
+    differently from its decode."""
+    rng = np.random.default_rng(seed)
     qstate = jax.tree_util.tree_map(
         lambda a: jnp.asarray(rng.dirichlet(np.ones(16), a.shape[:-1])
                               .astype(np.float32))
         if a.ndim and a.shape[-1] == 16 and a.dtype == jnp.float32 else a,
         qstate)
-    # centroids off the power-of-two init, as training leaves them: the
-    # reference's batched codebook (an einsum) then rounds some subset
-    # sums differently from its decode
     params = jax.tree_util.tree_map(
         lambda n: {**n, "omega": n["omega"] * jnp.asarray(
             rng.uniform(0.8, 1.2, n["omega"].shape).astype(np.float32))}
         if jqat.is_quant_leaf(n) else n, params,
         is_leaf=jqat.is_quant_leaf)
-    lam = 0.3
+    return params, qstate
+
+
+def _frozen_leaves(jtree, ttree, params, qstate, path=()):
+    """(path, JAX frozen leaf, port frozen leaf, source leaf, its state)
+    for every quantized leaf, in sorted key order."""
+    if jqat.is_frozen_leaf(jtree):
+        yield path, jtree, ttree, params, qstate
+    elif isinstance(jtree, dict):
+        for k in sorted(jtree):
+            yield from _frozen_leaves(jtree[k], ttree[k], params[k],
+                                      qstate[k], path + (k,))
+
+
+def _freeze_both(arch, lam, seed):
+    """Both packages' ``freeze_tree`` of the same perturbed JAX world;
+    asserts every leaf's ω equal and its codes equal except cost ties
+    within 4 ulp.  Returns (params, qstate, port frozen tree, leaf paths,
+    differing codes, codes)."""
+    _, params, qstate, _ = _jax_world(arch)
+    params, qstate = _trained_like(params, qstate, seed)
     jfrozen = jqat.freeze_tree(params, qstate, lam)
     tfrozen = tqat.freeze_tree(_t(params), _t(qstate), lam)
-    mlp_j = jfrozen["stacks"]["dense"]["mlp"]
-    mlp_t = tfrozen["stacks"]["dense"]["mlp"]
-    attn_j = jfrozen["stacks"]["dense"]["attn"]
-    attn_t = tfrozen["stacks"]["dense"]["attn"]
-    np.testing.assert_array_equal(tfrozen["embed"]["table"].numpy(),
-                                  np.asarray(params["embed"]["table"]))
-    ties = total = 0
-    for (jl, tl, src, qs) in [
-            (mlp_j[n]["kernel"], mlp_t[n]["kernel"],
-             params["stacks"]["dense"]["mlp"][n]["kernel"],
-             qstate["stacks"]["dense"]["mlp"][n]["kernel"])
-            for n in ("gate", "up", "down")] + [
-            (attn_j[n]["kernel"], attn_t[n]["kernel"],
-             params["stacks"]["dense"]["attn"][n]["kernel"],
-             qstate["stacks"]["dense"]["attn"][n]["kernel"])
-            for n in ("q", "k", "v", "o")]:
+    paths, ties, total = [], 0, 0
+    for path, jl, tl, src, qs in _frozen_leaves(jfrozen, tfrozen, params,
+                                                qstate):
+        paths.append(path)
         assert tl["packed"].dtype == torch.uint8
         np.testing.assert_array_equal(tl["omega"].numpy(),
                                       np.asarray(jl["omega"]))
@@ -356,15 +380,70 @@ def test_freeze_tree_codes_match_reference():
             for idx in map(tuple, diff):
                 a, b = cost[idx + (jc[idx],)], cost[idx + (tc[idx],)]
                 ulp = np.spacing(np.float32(max(abs(a), abs(b))))
-                assert abs(a - b) <= 4 * ulp, (idx, a, b)
+                assert abs(a - b) <= 4 * ulp, (path, idx, a, b)
             ties += len(diff)
+    return params, qstate, tfrozen, paths, ties, total
+
+
+def test_freeze_tree_codes_match_reference():
+    params, _, tfrozen, paths, ties, total = _freeze_both("smollm-360m",
+                                                          0.3, 4)
+    assert len(paths) == 7
+    np.testing.assert_array_equal(tfrozen["embed"]["table"].numpy(),
+                                  np.asarray(params["embed"]["table"]))
     print(f"freeze_tree: {ties} of {total} codes differ from the "
           "reference, each a cost tie within 4 ulp")
 
 
+def test_freeze_tree_codes_and_stats_match_reference_on_expert_banks():
+    """grok's (L, E) banks: each (layer, expert) a segment with its own ω
+    and probabilities; ``stats`` over them as the reference's."""
+    cfg = get_config("grok-1-314b").smoke()
+    params, qstate, tfrozen, paths, ties, total = _freeze_both(
+        "grok-1-314b", 0.3, 5)
+    banks = [p for p in paths if "experts" in p]
+    assert len(banks) == 3 and len(paths) == 7
+    for bank in ("down", "gate", "up"):
+        leaf = tfrozen["stacks"]["moe"]["moe"]["experts"][bank]
+        assert leaf["omega"].shape == (cfg.n_layers, cfg.n_experts, 4)
+        assert leaf["packed"].shape[:2] == (cfg.n_layers, cfg.n_experts)
+    want = jqat.stats(params, qstate, 0.3)
+    got = tqat.stats(_t(params), _t(qstate), 0.3)
+    assert got["quant_params"] == int(want["quant_params"])
+    for key in ("sparsity", "entropy_bits_per_weight"):
+        _close(got[key], want[key], AUX_TOL)
+    print(f"freeze_tree on expert banks: {ties} of {total} codes differ "
+          "from the reference, each a cost tie within 4 ulp")
+
+
+def test_moe_tree_round_trips_through_convert():
+    """The JAX MoE trees (the fp32 router's w and bias_correction, the
+    (L, E, d_in, d_out) banks as quant params, the shared expert, the
+    probabilities and the frozen (L, E, d/2, ff) ``packed``) cross to the
+    port and back with every array and dtype intact."""
+    from repro_torch.convert import tree_to_numpy
+    cfg, params, qstate, frozen = _jax_world(DS_NOMLA)
+    for tree in (params, qstate, frozen):
+        want = _np(tree)
+        got = tree_to_numpy(_t(tree))
+        flat_w, wdef = jax.tree_util.tree_flatten(want)
+        flat_g, gdef = jax.tree_util.tree_flatten(got)
+        assert wdef == gdef
+        for a, b in zip(flat_w, flat_g):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    moe = _t(frozen)["stacks"]["moe"]["moe"]
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    assert moe["experts"]["gate"]["packed"].shape == (
+        n_moe, cfg.n_experts, cfg.d_model // 2, cfg.d_ff)
+    assert moe["router"]["bias_correction"].shape == (n_moe, cfg.n_experts)
+    assert {"router", "experts", "shared"} <= set(moe)
+
+
 # -------------------------------------------------------------- generation
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "h2o-danube-1.8b",
+                                  "grok-1-314b"])
 def test_generate_matches_reference_tokens(arch):
     """14 prompt + 4 new tokens: danube's decode slides past its window."""
     cfg, _, _, frozen = _jax_world(arch)
@@ -372,5 +451,30 @@ def test_generate_matches_reference_tokens(arch):
     want = jlm.generate(frozen, 0, jnp.asarray(prompt, jnp.int32), JCTX,
                         cfg, max_new=4)
     got = tlm.generate(_t(frozen), 0, torch.from_numpy(prompt), FP32_CTX,
-                       get_config(arch).smoke(), max_new=4)
+                       _smoke(get_config, arch), max_new=4)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_decode_with_cache_equals_re_prefill():
+    """Prefill 9 tokens, decode 3 through the cache: each step's logits
+    equal a prefill of the whole sequence so far without a cache.  The
+    capacity factor is E / k, so an expert's capacity covers every token
+    and no assignment drops: with drops, a token's second-layer keys and
+    values depend on which other tokens share its prefill."""
+    _, _, _, frozen = _jax_world("grok-1-314b")
+    cfg = get_config("grok-1-314b").smoke()
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    tf = _t(frozen)
+    toks = torch.from_numpy(
+        np.random.default_rng(7).integers(0, cfg.vocab, (2, 12)))
+    cache = TT.init_cache(cfg, 2, 12, dtype=torch.float32, device="cpu")
+    pos = torch.arange(9, dtype=torch.int32).expand(2, 9)
+    _, cache, _ = TT.lm_apply(tf, 0, toks[:, :9], FP32_CTX, cfg,
+                              positions=pos, cache=cache)
+    for t in range(9, 12):
+        p_t = torch.full((2, 1), t, dtype=torch.int32)
+        step, cache, _ = TT.lm_apply(tf, 0, toks[:, t:t + 1], FP32_CTX, cfg,
+                                     positions=p_t, cache=cache)
+        full, none, _ = TT.lm_apply(tf, 0, toks[:, :t + 1], FP32_CTX, cfg)
+        assert none is None
+        _close(step[:, 0], full[:, -1], STACK_TOL)
