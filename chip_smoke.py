@@ -87,9 +87,9 @@ Phases (any failure raises and the script exits non-zero):
    the chain's seven, the cooperative grid of stream -- and the
    dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
    phase 3, phase 3b's serving check, phase 3c, phase 5, phase 6, phase
-   7), one
+   7, phase 8), one
    ``path``, one ``train``, one ``frontend``, one ``lm``, one
-   ``lm_train`` and one ``moe`` JSON line.
+   ``lm_train``, one ``moe`` and one ``moe_train`` JSON line.
 5. The LM serving path at full width, run after phase 3c: SmolLM-360M
    (32 blocks of d_model 960, 15 heads, 5 KV heads, d_ff 2560, vocab
    49,152) from ``lm_init(seed=0)`` on the card, frozen with
@@ -167,6 +167,40 @@ Phases (any failure raises and the script exits non-zero):
    step's device ms, operations and idle share, peak device memory of the
    freeze and the decode, and the skew run's drops, each beside the
    card's name and power limit, and one ``moe`` JSON line.
+
+8. MoE training at published widths, run after phase 7: one card's share
+   of grok-1-314b (``experts_held=(0, 2)``: experts 0-1 of 8, the router
+   all 8 wide, top-2; vocabulary 32,768 of 131,072; one shard of a 4-wide
+   expert-parallel 'model' axis, as the reference's ``moe_ffn`` picks
+   ``moe_apply_ep`` there) at depth 1 from ``lm_init(seed=0)``, EC4T-
+   trained through the launcher's functions (``lm_step_fn``,
+   ``lm_batch_fn``, ``ShardedFeed``, ``FaultTolerantLoop``) for 6 steps at
+   batch 8 x seq 64 in bf16 with phase 6's λ ramp and warmup-cosine: 3
+   through the loop with its one checkpoint at step 3, 3 more in memory;
+   then ``export_quantized``.  Counters are zeroed just before and read
+   just after.  Gates: first, at the smoke width on the card, shares
+   (0, 2) + (2, 2) of one layer equal the uncut layer within 1e-5
+   relative, and a smoke share's fp32 loss and aux (1e-5) and gradients
+   of the router ``w``, the down bank and its ω (1e-4 relative) equal the
+   CPU's; the full-width share's gradients equal bit for bit when its
+   backward runs twice; exactly 1 ecl_quant launch a pass over the 10
+   segments (q, k, v, o, 3 banks x 2 experts), 12 in the 6 steps and 1 in
+   the export; the first and the last step's fake-quant codes and ŵ of q
+   and of expert 1 of down bitwise equal to ``ecl_quant_plain``; losses
+   and aux finite, the first within 0.5 of ln 32768; ``bias_correction``
+   bitwise unchanged; a fresh state restored from the checkpoint takes
+   steps 4-6 with the same losses and leaf digests bit for bit;
+   ``load_quantized`` of the export (Huffman decoded on the card) turned
+   into a serving tree equals ``freeze_tree`` leaf for leaf, and both
+   serve the same 4 x (16 + 8) greedy tokens through ``lm_apply``; no
+   host synchronisation inside a step (``set_sync_debug_mode``).
+   Prints the reduced list and the deployment, ms a step, device ms,
+   idle share and device operations (profiler), the ECL pass's and
+   ``adam.apply``'s device ms against their byte bounds,
+   ``FakeQuantGroup.backward``'s and ``update_qstate``'s, peak memory
+   after the forward, the backward, Adam and the update, checkpoint and
+   export bytes and ms, and the assignments dropped a step, each beside
+   the card's name and power limit, and one ``moe_train`` JSON line.
 
 The script ends with a line that counts the profiler traces taken and
 retaken and the device times taken from queued CUDA events, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -2064,11 +2098,15 @@ class _EclRecorder:
     """Wraps ``core.ecl.quantize_many`` (every grouped ECL pass of a
     forward, an update, a freeze or an export goes through it): counts
     each call's kernel launches, and for the calls in ``keep`` copies the
-    inputs and outputs of blocks ``blocks`` of every leaf."""
+    inputs and outputs of blocks ``blocks`` of every leaf, or with
+    ``picks`` [(tensor index, lead index)] holds those segments' codes and
+    ŵ against ``check`` during the call and keeps the verdicts."""
 
-    def __init__(self, ecl_mod, eq_mod, keep, blocks):
+    def __init__(self, ecl_mod, eq_mod, keep, blocks, picks=None,
+                 check=None):
         self.ecl, self.eq = ecl_mod, eq_mod
-        self.keep, self.blocks = set(keep), blocks
+        self.keep, self.blocks, self.picks = set(keep), blocks, picks
+        self.check = check
         self.calls = []
         self.orig = ecl_mod.quantize_many
 
@@ -2083,13 +2121,23 @@ class _EclRecorder:
         before = self.eq.LAUNCHES
         outs = self.orig(ws, omegas, pens)
         entry = {"launches": self.eq.LAUNCHES - before,
-                 "segments": sum(o.shape[0] if o.ndim > 1 else 1
-                                 for o in omegas)}
-        if len(self.calls) in self.keep:
+                 "segments": sum(o[..., 0].numel() for o in omegas)}
+        if len(self.calls) in self.keep and self.picks is None:
             entry["blocks"] = [
                 (l, *(t[l].detach().clone() for t in (w, om, pen, c, wh)))
                 for w, om, pen, (c, wh) in zip(ws, omegas, pens, outs)
                 for l in self.blocks]
+        elif len(self.calls) in self.keep:
+            # each picked segment held against ``check`` (w, ω, penalty)
+            # -> (codes, ŵ) at once, so no copy outlives the call
+            import torch
+            entry["equal"] = []
+            for i, idx in self.picks:
+                w, om, pen, (c, wh) = ws[i], omegas[i], pens[i], outs[i]
+                want_c, want_w = self.check(w[idx], om[idx], pen[idx])
+                entry["equal"].append(
+                    ((i, idx), bool(torch.equal(c[idx], want_c)
+                                    and torch.equal(wh[idx], want_w))))
         self.calls.append(entry)
         return outs
 
@@ -2104,40 +2152,65 @@ def _state_equal(a, b):
         for x, y in zip(la, lb))
 
 
-def _lm_train_trace(dev, step_fn, state, batch):
+def _lm_train_trace(dev, step_fn, holder, batch,
+                    timed=LM_TRAIN_TIMED_STEPS):
     """Device ms, idle share and device operations of LM train steps from
     one torch.profiler trace, with the ECL kernel's, the fake-quant
     backward's, Adam's and the probability update's device ms a step;
-    host ms a step (CUDA synchronised) over back-to-back steps; the host
-    synchronisations one step makes, named by where they happen, and that
-    step's peak device memory (the trained state included)."""
+    host ms a step (CUDA synchronised) over ``timed`` back-to-back steps;
+    the host synchronisations one step makes, named by where they happen,
+    and that step's peak device memory (the trained state included) after
+    its forward, its backward, Adam and the probability update.  The steps
+    chain from ``holder[0]``, each replacing it, so no earlier state stays
+    alive unless the caller holds it."""
     import warnings
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.core import qat
+    from repro_torch.models import lm as lm_model
     from repro_torch.optim import adam
 
     def steps(n):
-        st = state
+        m = None
         for _ in range(n):
-            st, m = step_fn(st, batch)
+            holder[0], m = step_fn(holder[0], batch)
         return m
 
     steps(1)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    steps(LM_TRAIN_TIMED_STEPS)
+    steps(timed)
     torch.cuda.synchronize(dev)
-    ms = (time.perf_counter() - t0) * 1e3 / LM_TRAIN_TIMED_STEPS
+    ms = (time.perf_counter() - t0) * 1e3 / timed
 
+    # peak memory at the end of each stage of one step: patched where the
+    # step looks the functions up, read on the host (no synchronisation)
+    peaks = {}
+
+    def marked(fn, before, after):
+        def call(*a, **k):
+            if before:
+                peaks[before] = torch.cuda.max_memory_allocated(dev)
+            out = fn(*a, **k)
+            peaks[after] = torch.cuda.max_memory_allocated(dev)
+            return out
+        return call
+    stages = ((lm_model, "lm_forward_loss", None, "forward"),
+              (adam, "apply", "backward", "adam"),
+              (qat, "update_qstate", None, "update_qstate"))
+    originals = [getattr(mod, attr) for mod, attr, _, _ in stages]
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.set_sync_debug_mode("warn")
     try:
+        for (mod, attr, before, after), fn in zip(stages, originals):
+            setattr(mod, attr, marked(fn, before, after))
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             steps(1)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+        for (mod, attr, _, _), fn in zip(stages, originals):
+            setattr(mod, attr, fn)
     torch.cuda.synchronize(dev)
     step_peak = torch.cuda.max_memory_allocated(dev)
     syncs = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}: "
@@ -2203,6 +2276,7 @@ def _lm_train_trace(dev, step_fn, state, batch):
                 spans.get("qat.update_qstate"),
             "host_syncs_per_step": syncs,
             "peak_device_memory_bytes_one_step": step_peak,
+            "peak_device_memory_bytes_by_stage": peaks,
             "top_device_ms": [[k[:240], v] for k, v in top]}
 
 
@@ -2348,26 +2422,26 @@ def lm_train_path(dev):
         del restored
 
         # export: codes and ω equal to freeze_tree's on the same state
+        # (Huffman streams decoded on the card)
         t0 = time.perf_counter()
-        loaded = load_quantized(export_dir)
+        loaded = load_quantized(export_dir, device=dev)
         load_ms = (time.perf_counter() - t0) * 1e3
         frozen = qat.freeze_tree(state["params"], state["qstate"], cfg.lam)
         sf = frozen["stacks"]["dense"]
         for grp, name in LM_LEAVES:
             key = SEP.join(("stacks", "dense", grp, name, "kernel"))
             want = bitplanes.unpack_codes_rows(
-                sf[grp][name]["kernel"]["packed"]).cpu().numpy()
-            if not (np.array_equal(loaded[key]["codes"], want)
-                    and np.array_equal(
-                        loaded[key]["omega"],
-                        sf[grp][name]["kernel"]["omega"].cpu().numpy())):
+                sf[grp][name]["kernel"]["packed"])
+            if not (torch.equal(loaded[key]["codes"], want)
+                    and torch.equal(loaded[key]["omega"],
+                                    sf[grp][name]["kernel"]["omega"])):
                 raise AssertionError(f"export {key}: codes or ω != "
                                      "freeze_tree's")
         del frozen, loaded
         export_bytes = os.path.getsize(os.path.join(export_dir,
                                                     "export.npz"))
 
-    trace = _lm_train_trace(dev, step_fn, state, batch)
+    trace = _lm_train_trace(dev, step_fn, [state], batch)
     card_vs_cpu = _lm_smoke_card_vs_cpu(dev)
     # one grouped ECL pass of a train step (the fake-quant forward's:
     # codes and ŵ of all 224 segments), its plain version, its bound
@@ -2908,6 +2982,594 @@ def moe_path(dev, gpu):
     return moe
 
 
+# ------------------------------------------------------------- phase 8
+
+MOE_TRAIN = dict(arch="grok-1-314b", layers=1, experts_held=(0, 2),
+                 vocab=32768, seed=0, steps=6, ckpt_at=3, batch=8, seq=64,
+                 lr=1e-3, lam=0.05, lam_ramp=50, prompts=4, prompt_len=16,
+                 max_new=8)
+MOE_TRAIN_AXIS = 4        # the 'model' axis width the share is one shard of
+# ECL passes whose q segment and expert 1 of down are held against the
+# plain version: the first step's forward and the last step's
+MOE_TRAIN_CHECKED_CALLS = (0, 2 * MOE_TRAIN["steps"] - 2)
+MOE_SHARE_REL = 1e-5      # shares (0, 2) + (2, 2) vs the uncut layer, smoke
+MOE_CARD_CPU_FWD = 1e-5   # smoke share: loss and aux, card vs CPU
+MOE_CARD_CPU_GRAD = 1e-4  # smoke share: router w, a bank and its ω
+MOE_LOSS0_TOL = 0.5       # the first loss within this of ln(vocab)
+ADAM_BYTES_PER_PARAM = 28  # read p, g, m, v; write p, m, v (fp32)
+CKPT_ROOM = 1.1           # free disk wanted over the state's bytes
+
+
+def _ms(value):
+    return "not measured" if value is None else f"{value:.2f}"
+
+
+def _moe_train_cfg():
+    """grok-1-314b at published widths, one shard's share of a 4-wide
+    expert-parallel 'model' axis, cut to MOE_TRAIN["layers"] layers."""
+    import dataclasses
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as T
+    cfg = dataclasses.replace(
+        T.lm_config(MOE_TRAIN["arch"], lam=MOE_TRAIN["lam"]),
+        n_layers=MOE_TRAIN["layers"],
+        experts_held=MOE_TRAIN["experts_held"], vocab=MOE_TRAIN["vocab"])
+    steps_mod.check_trainable(cfg)
+    return cfg
+
+
+def _plain_pair(w, omega, pen):
+    """``ecl_quant_plain`` of one segment (codes, ŵ), PLAIN_CHUNK elements
+    a call (elementwise, so bitwise the whole segment's)."""
+    import torch
+    from repro_torch.kernels import ecl_quant as eq
+    rows = max(1, PLAIN_CHUNK // w.shape[-1])
+    parts = [eq.ecl_quant_plain(w[r:r + rows], omega, pen)
+             for r in range(0, w.shape[0], rows)]
+    return (torch.cat([c for c, _ in parts]),
+            torch.cat([h for _, h in parts]))
+
+
+def _digest(tree):
+    """Two int64 sums over every leaf's bits (plain and position-weighted,
+    taken on the card in chunks): equal digests for bitwise equal
+    trees."""
+    import torch
+    from repro_torch.tree import leaves
+    views = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    out = []
+    for t in leaves(tree):
+        flat = t.detach().reshape(-1)
+        flat = flat.view(views[flat.element_size()])
+        acc = torch.zeros(2, dtype=torch.int64, device=flat.device)
+        for i in range(0, flat.numel(), PLAIN_CHUNK):
+            v = flat[i:i + PLAIN_CHUNK].to(torch.int64)
+            pos = torch.arange(i, i + v.numel(), dtype=torch.int64,
+                               device=v.device) % 1_000_003 + 1
+            acc += torch.stack([v.sum(), (v * pos).sum()])
+        out.append(acc)
+    return torch.stack(out).cpu()
+
+
+class _DropCounter:
+    """Wraps ``moe_ffn`` while in use: for each call, on the device and
+    without a host synchronisation, the assignments the capacity dropped
+    over all experts, and those kept for the held experts."""
+
+    def __init__(self, cfg):
+        self.cfg, self.counts = cfg, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.nn import moe
+        self._orig, cfg = moe.moe_ffn, self.cfg
+        first, count = moe.held_experts(cfg.experts_held, cfg.n_experts)
+
+        def count_drops(p, q, x, ctx, **kw):
+            with torch.no_grad():
+                xt = x.reshape(-1, x.shape[-1]).to(torch.float32)
+                ids, _, _ = moe.route(xt @ p["router"]["w"],
+                                      p["router"]["bias_correction"],
+                                      top_k=cfg.top_k, gate=cfg.moe_gate,
+                                      routed_scaling=cfg.routed_scaling)
+                cap = moe._capacity(xt.shape[0] * cfg.top_k, cfg.n_experts,
+                                    cfg.capacity_factor)
+                flat = ids.reshape(-1)
+                _, keep = moe._dispatch_indices(flat, cfg.n_experts, cap)
+                held = (flat >= first) & (flat < first + count)
+                self.counts.append(torch.stack([
+                    (~keep).sum(), (held & keep).sum(), held.sum()]))
+            return self._orig(p, q, x, ctx, **kw)
+        moe.moe_ffn = count_drops
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import moe
+        moe.moe_ffn = self._orig
+
+
+def _moe_train_smoke_checks(dev):
+    """At grok's smoke width on the card: the shares (0, 2) and (2, 2) of
+    one uncut layer add up to it (no shared expert in grok), and a
+    share's fp32 loss, aux and the gradients of the router ``w``, the
+    ``down`` bank and its ω equal the CPU's from the same init."""
+    import dataclasses
+    import torch
+    from repro_torch import convert, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import qat
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as T
+    from repro_torch.nn import moe
+    from repro_torch.nn import transformer as TT
+    from repro_torch.nn.module import FP32_CTX
+
+    cfg = get_config(MOE_TRAIN["arch"]).smoke()
+    layer = tree.map_(lambda t: t.to(dev), _layer0(TT.lm_init(
+        cfg, seed=MOE_TRAIN["seed"], device="cpu")["stacks"]["moe"]["moe"]))
+    x = torch.randn((MOE_TRAIN["batch"], MOE_TRAIN["seq"], cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    kw = dict(top_k=cfg.top_k, gate=cfg.moe_gate,
+              capacity_factor=cfg.capacity_factor,
+              routed_scaling=cfg.routed_scaling)
+    half = cfg.n_experts // 2
+    with torch.no_grad():
+        whole, _ = moe.moe_apply(layer, 0, x, FP32_CTX, **kw)
+        parts = [moe.moe_apply(convert.take_experts(layer, f, half, axis=0),
+                               0, x, FP32_CTX, experts_held=(f, half), **kw)[0]
+                 for f in (0, half)]
+    share_rel = _rel(parts[0] + parts[1], whole)
+    if share_rel > MOE_SHARE_REL:
+        raise AssertionError(f"smoke shares off the uncut layer by "
+                             f"{share_rel} relative")
+
+    scfg = dataclasses.replace(cfg, experts_held=(0, half),
+                               lam=MOE_TRAIN["lam"])
+    params = TT.lm_init(scfg, seed=MOE_TRAIN["seed"], device="cpu")
+    batch = T.lm_batch_fn(scfg, batch=MOE_TRAIN["batch"],
+                          seq=MOE_TRAIN["seq"])(0)
+    loss_fn = steps_mod._loss_fn(scfg, dtype=torch.float32)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        p = tree.map_(lambda t: t.to(where).detach().requires_grad_()
+                      if t.is_floating_point() else t.to(where), params)
+        loss, m = loss_fn(p, qat.build_qstate(p),
+                          pipeline.place(batch, device=where), scfg.lam)
+        lp = p["stacks"]["moe"]["moe"]
+        picked = (lp["router"]["w"], lp["experts"]["down"]["w"],
+                  lp["experts"]["down"]["omega"])
+        grads = torch.autograd.grad(loss, picked)
+        runs.append((float(loss.detach()), float(m["aux"].detach()),
+                     [g.cpu() for g in grads]))
+    (lc, ac, gc), (lh, ah, gh) = runs
+    fwd_rel = max(abs(lc - lh) / abs(lh), abs(ac - ah) / abs(ah))
+    grad_rel = [_rel(a, b) for a, b in zip(gc, gh)]
+    if fwd_rel > MOE_CARD_CPU_FWD or max(grad_rel) > MOE_CARD_CPU_GRAD:
+        raise AssertionError(f"smoke share card vs CPU: loss/aux "
+                             f"{fwd_rel}, gradients {grad_rel}")
+    return {"shares_vs_uncut_max_rel": share_rel,
+            "card_vs_cpu_loss_aux_max_rel": fwd_rel,
+            "card_vs_cpu_grad_max_rel": dict(zip(
+                ("router_w", "down_w", "down_omega"), grad_rel)),
+            "loss_card": lc, "loss_cpu": lh}
+
+
+def _moe_backward_twice(dev, cfg, state, batch):
+    """The share's full-width loss differentiated twice from one state on
+    the card: every gradient equal bit for bit."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import steps as steps_mod
+
+    loss_fn = steps_mod._loss_fn(cfg)
+
+    def grads():
+        leaves = [t.detach().requires_grad_() if t.is_floating_point()
+                  else t for t in tree.leaves(state["params"])]
+        loss, _ = loss_fn(tree.unflatten(state["params"], leaves),
+                          state["qstate"], batch, cfg.lam)
+        wants = [t for t in leaves if t.requires_grad]
+        return [g for g in torch.autograd.grad(loss, wants,
+                                               allow_unused=True)
+                if g is not None]
+    first = grads()
+    second = grads()
+    differ = sum(not torch.equal(a, b) for a, b in zip(first, second))
+    if len(first) != len(second) or differ:
+        raise AssertionError(f"the MoE backward twice: {differ} of "
+                             f"{len(first)} gradients differ")
+    return len(first)
+
+
+def _host_vs_card_decode(formats, export_dir: str, prefix: str,
+                         dev) -> dict:
+    """One tensor of an export decoded by the host codec and on the card,
+    each timed, the codes compared: what decoding the export on the card
+    saves at this size."""
+    import numpy as np
+    import torch
+    sep = "//"
+    with np.load(os.path.join(export_dir, "export.npz")) as z:
+        fmt = z[prefix + sep + "format"].tobytes().decode()
+        shape = tuple(int(d) for d in z[prefix + sep + "shape"])
+        meta = {"format", "shape", "omega"}
+        payload = {k[len(prefix + sep):]: z[k] for k in z.files
+                   if k.startswith(prefix + sep)
+                   and k[len(prefix + sep):] not in meta}
+    ct = formats.CompressedTensor(fmt, (int(np.prod(shape[:-1])), shape[-1]),
+                                  payload)
+    t0 = time.perf_counter()
+    host = formats.decode(ct)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    card = formats.decode(ct, dev)
+    torch.cuda.synchronize(dev)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(card.cpu().numpy(), host):
+        raise AssertionError(f"{prefix}: the card's decode != the host's")
+    return {"tensor": prefix, "format": fmt, "codes": int(host.size),
+            "host_ms": host_ms, "card_ms": card_ms}
+
+
+def moe_train_path(dev, gpu):
+    """Phase 8: EC4T-train one device's share of grok-1-314b at published
+    widths (experts 0-1 of 8 and ids 0-32,767 of the vocabulary, one
+    shard of a 4-wide expert-parallel 'model' axis) at depth 1 through the
+    launcher's functions: 3 steps through ``FaultTolerantLoop`` and a
+    checkpoint, 3 more in memory; a fresh state restored from the
+    checkpoint takes the same 3 bit for bit; the 4-bit export, loaded
+    back, serves the same greedy tokens as ``freeze_tree``'s tree."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint.manager import (CheckpointManager,
+                                                _paths, export_quantized,
+                                                frozen_tree, load_quantized)
+    from repro_torch.configs import get_config
+    from repro_torch.core import ecl, formats, qat
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import train as T
+    from repro_torch.nn import moe
+    from repro_torch.nn import transformer as TT
+    from repro_torch.optim import ec4t
+    from repro_torch.runtime.fault import FaultTolerantLoop
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _moe_train_cfg()
+    published = get_config(MOE_TRAIN["arch"])
+    first, count = cfg.experts_held
+    reduced = [f"depth {published.n_layers} -> {cfg.n_layers}",
+               f"experts held {count} of {cfg.n_experts} ({first}-"
+               f"{first + count - 1})",
+               f"vocabulary {cfg.vocab:,} of {published.vocab:,} (ids 0-"
+               f"{cfg.vocab - 1:,})"]
+    deployment = (f"one shard of a {MOE_TRAIN_AXIS}-wide 'model' axis, "
+                  f"expert-parallel as moe_ffn picks it ({cfg.n_experts} "
+                  f"experts % {MOE_TRAIN_AXIS} == 0, the vocabulary "
+                  f"sharded over it); attention whole on this card, more "
+                  f"than its share")
+    print(f"phase 8: {cfg.name} share: reduced {reduced}; deployment: "
+          f"{deployment}")
+    smoke = _moe_train_smoke_checks(dev)
+
+    steps, at = MOE_TRAIN["steps"], MOE_TRAIN["ckpt_at"]
+    step_fn = T.lm_step_fn(cfg, steps=steps, lr=MOE_TRAIN["lr"],
+                           lam=MOE_TRAIN["lam"],
+                           lam_ramp=MOE_TRAIN["lam_ramp"])
+    batch_fn = T.lm_batch_fn(cfg, batch=MOE_TRAIN["batch"],
+                             seq=MOE_TRAIN["seq"])
+    state = ec4t.init_train_state(TT.lm_init(cfg, seed=MOE_TRAIN["seed"],
+                                             device=dev))
+    params_n = sum(t.numel() for t in tree.leaves(state["params"])
+                   if t.is_floating_point())
+    stack_p = state["params"]["stacks"]["moe"]
+    stack_q = state["qstate"]["stacks"]["moe"]
+    nodes = list(qat._quant_leaves(stack_p, stack_q))
+    segments = sum(n["omega"][..., 0].numel() for n, _ in nodes)
+    elements = sum(n["w"].numel() for n, _ in nodes)
+    per_pass = -(-segments // eq.MAX_SEGMENTS)
+    if segments != cfg.n_layers * (4 + len(MOE_BANKS) * count):
+        raise AssertionError(f"{segments} ECL segments, expected q/k/v/o "
+                             f"+ 3 banks x {count} held experts a layer")
+    # each quantized leaf's place in a grouped pass (the tree's order)
+    order = qat._map_quant_many(lambda ns, qs: list(range(len(ns))),
+                                stack_p, stack_q, keep_params=True)
+    picks = [(order["attn"]["q"]["kernel"], (0,)),
+             (order["moe"]["experts"]["down"], (0, 1))]
+    del order, nodes, stack_p, stack_q
+    bias0 = state["params"]["stacks"]["moe"]["moe"]["router"][
+        "bias_correction"].clone()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.leaves(state))
+    first_batch = pipeline.place(batch_fn(0), device=dev)
+    grads_checked = _moe_backward_twice(dev, cfg, state, first_batch)
+    del first_batch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        print(f"phase 8: checkpoint directory {tmp}: {free / 1e9:.1f} GB "
+              f"free, the state is {state_bytes / 1e9:.1f} GB ({gpu})")
+        if free < CKPT_ROOM * state_bytes:
+            raise AssertionError(
+                f"no room for the checkpoint: {free / 1e9:.1f} GB free in "
+                f"{tmp}, {CKPT_ROOM * state_bytes / 1e9:.1f} GB wanted")
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        export_dir = os.path.join(tmp, "export")
+        history = []
+        loop = FaultTolerantLoop(
+            step_fn, CheckpointManager(ckpt_dir, keep=1), ckpt_every=at,
+            metrics_every=1, on_metrics=lambda s, m: history.append(
+                {"step": s, **{k: float(v) for k, v in m.items()}}))
+
+        # the main path: counters zeroed just before, read just after
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eq.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with _EclRecorder(ecl, eq, MOE_TRAIN_CHECKED_CALLS, None,
+                          picks=picks, check=_plain_pair) as rec, \
+                _DropCounter(cfg) as drops:
+            feed = pipeline.ShardedFeed(batch_fn, start_step=0, device=dev)
+            # the loop holds the only reference, so each step frees the
+            # state before it (one state is 20.4 GB)
+            held = [state]
+            del state
+            try:
+                state, last, reason = loop.run(held.pop(), feed,
+                                               start_step=0, total_steps=at)
+            finally:
+                feed.close()
+            tail = []
+            for i in range(at, steps):
+                state, m = step_fn(state, pipeline.place(batch_fn(i),
+                                                         device=dev))
+                tail.append(m)
+            torch.cuda.synchronize(dev)
+            train_s = time.perf_counter() - t0
+            step_launches = eq.LAUNCHES
+            t0 = time.perf_counter()
+            report = export_quantized(export_dir, state["params"],
+                                      state["qstate"], cfg.lam)
+            export_ms = (time.perf_counter() - t0) * 1e3
+        export_launches = eq.LAUNCHES - step_launches
+        peak_train = torch.cuda.max_memory_allocated(dev)
+        if (reason, last) != ("done", at) or [s for s, _ in loop.saves] \
+                != [at]:
+            raise AssertionError(f"the loop ended {reason} at {last}, "
+                                 f"saves {loop.saves}")
+        history += [{"step": at + 1 + i, **{k: float(v) for k, v in
+                                            m.items()}}
+                    for i, m in enumerate(tail)]
+        losses = [h["loss"] for h in history]
+        auxes = [h["aux"] for h in history]
+        if len(losses) != steps or not np.isfinite(losses + auxes).all():
+            raise AssertionError(f"losses {losses}, aux {auxes}")
+        if abs(losses[0] - np.log(cfg.vocab)) > MOE_LOSS0_TOL:
+            raise AssertionError(f"first loss {losses[0]}, ln(vocab) "
+                                 f"{np.log(cfg.vocab)}")
+        per_call = [c["launches"] for c in rec.calls]
+        if per_call != [per_pass] * (ECL_PASSES_PER_STEP * steps + 1) or \
+                step_launches != per_pass * ECL_PASSES_PER_STEP * steps or \
+                export_launches != per_pass:
+            raise AssertionError(
+                f"ecl_quant launches per grouped pass {per_call}: "
+                f"{step_launches} in {steps} steps, {export_launches} in "
+                f"the export; expected {per_pass} a pass")
+        if any(c["segments"] != segments for c in rec.calls):
+            raise AssertionError(f"an ECL pass did not take all {segments}"
+                                 " segments")
+        checked = []
+        for i in MOE_TRAIN_CHECKED_CALLS:
+            for (t_i, idx), equal in rec.calls[i]["equal"]:
+                if not equal:
+                    raise AssertionError(f"ECL pass {i}, tensor {t_i}"
+                                         f"{list(idx)}: codes or ŵ != the "
+                                         "plain version")
+                checked.append([i, t_i, list(idx)])
+        del rec
+        dropped = torch.stack(drops.counts).cpu().tolist()
+        bias = state["params"]["stacks"]["moe"]["moe"]["router"][
+            "bias_correction"]
+        if not torch.equal(bias, bias0):
+            raise AssertionError("bias_correction moved in training")
+        digest = _digest(state)
+        ckpt_bytes = os.path.getsize(os.path.join(
+            ckpt_dir, f"step_{at:08d}", "state.npz"))
+
+        # the export loaded back == freeze_tree, and served alike
+        t0 = time.perf_counter()
+        loaded = load_quantized(export_dir, device=dev)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        served = frozen_tree(loaded, device=dev)
+        del loaded
+        codec = _host_vs_card_decode(formats, export_dir,
+                                     "stacks//moe//moe//experts//down", dev)
+        eq.LAUNCHES = 0
+        frozen = qat.freeze_tree(state["params"], state["qstate"], cfg.lam)
+        freeze_launches = eq.LAUNCHES
+        want, got = dict(_paths(frozen)), dict(_paths(served))
+        if sorted(want) != sorted(got) or not all(
+                got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                for k in want):
+            raise AssertionError("the loaded export != freeze_tree's tree")
+        bank = got["stacks//moe//moe//experts//down//packed"]
+        if tuple(bank.shape) != (cfg.n_layers, count, cfg.d_ff // 2,
+                                 cfg.d_model):
+            raise AssertionError(f"packed down bank {tuple(bank.shape)}")
+        prompts = np.random.default_rng(MOE_TRAIN["seed"]).integers(
+            0, cfg.vocab, (MOE_TRAIN["prompts"], MOE_TRAIN["prompt_len"]))
+        serve_export = _lm_direct(dev, cfg, served, prompts,
+                                  MOE_TRAIN["max_new"])
+        serve_freeze = _lm_direct(dev, cfg, frozen, prompts,
+                                  MOE_TRAIN["max_new"])
+        if not (np.array_equal(serve_export["tokens"],
+                               serve_freeze["tokens"])
+                and bool(torch.isfinite(serve_export["logits"]).all())):
+            raise AssertionError("the export's tokens != freeze_tree's")
+        export_bytes = os.path.getsize(os.path.join(export_dir,
+                                                    "export.npz"))
+        del served, frozen, want, got, bank, serve_freeze
+        serve_export.pop("cache")
+
+        # resume: a fresh state restored from the step-3 checkpoint takes
+        # steps 4-6 as the uninterrupted run took them, bit for bit
+        del state, bias
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh = ec4t.init_train_state(TT.lm_init(
+            cfg, seed=MOE_TRAIN["seed"] + 1, device=dev))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        restored, start = FaultTolerantLoop(
+            step_fn, CheckpointManager(ckpt_dir, keep=1)).resume_or(fresh)
+        torch.cuda.synchronize(dev)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        del fresh
+        resumed = []
+        for i in range(at, steps):
+            restored, m = step_fn(restored, pipeline.place(batch_fn(i),
+                                                           device=dev))
+            resumed.append(m["loss"])
+        resumed = [float(v) for v in resumed]
+        if start != at or resumed != losses[at:] or \
+                not torch.equal(_digest(restored), digest):
+            raise AssertionError(f"resumed at {start}: losses {resumed}, "
+                                 f"uninterrupted {losses[at:]}; digests "
+                                 "equal "
+                                 f"{torch.equal(_digest(restored), digest)}")
+
+    # one grouped ECL pass of a train step, its plain version, its bounds
+    sp, sq = restored["params"]["stacks"]["moe"], \
+        restored["qstate"]["stacks"]["moe"]
+    nodes = list(qat._quant_leaves(sp, sq))
+    ws = [n["w"] for n, _ in nodes]
+    oms = [n["omega"] for n, _ in nodes]
+    pens = [ecl.penalty(n["w"], q["probs"], cfg.lam) for n, q in nodes]
+
+    def ecl_pass():
+        return ecl.quantize_many(ws, oms, pens)
+
+    def ecl_plain():
+        for w, om, pn in zip(ws, oms, pens):
+            w3, om3, pn3 = (w.reshape(-1, *w.shape[-2:]), om.reshape(-1, 4),
+                            pn.reshape(-1, 16))
+            for i in range(w3.shape[0]):
+                _plain_pair(w3[i], om3[i], pn3[i])
+    pass_bound = ECL_BYTES_PER_ELEM * elements / PEAK_BYTES * 1e3
+    ecl_row = {"ms": _time_ms(ecl_pass, dev, 1),
+               **_device_time(ecl_pass, dev, 1, ECL_SYMBOL,
+                              launches=lambda: eq.LAUNCHES),
+               "queued_ms": _queued_ms(ecl_pass, dev, 2),
+               "plain_ms": _once_ms(ecl_plain, dev),
+               "bound_ms": pass_bound, "bound_by": "bytes",
+               "codes_only_bound_ms":
+                   ECL_CODES_BYTES_PER_ELEM * elements / PEAK_BYTES * 1e3,
+               "library_ms": None, "segments": segments,
+               "elements": elements, "launches_per_call": per_pass}
+    del ws, oms, pens, nodes, sp, sq
+    holder = [restored]
+    del restored
+    trace = _lm_train_trace(
+        dev, step_fn, holder,
+        pipeline.place(batch_fn(steps), device=dev), timed=3)
+    del holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    if trace["host_syncs_per_step"]:
+        raise AssertionError(f"host synchronisations inside a step: "
+                             f"{trace['host_syncs_per_step']}")
+    adam_bound = ADAM_BYTES_PER_PARAM * params_n / PEAK_BYTES * 1e3
+    per_step = [{"dropped": d, "kept_held": k, "assigned_held": a}
+                for d, k, a in dropped]
+    out = {
+        **MOE_TRAIN, "arch": cfg.name, "published_layers":
+            published.n_layers, "published_vocab": published.vocab,
+        "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+        "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+        "capacity": moe._capacity(
+            MOE_TRAIN["batch"] * MOE_TRAIN["seq"] * cfg.top_k,
+            cfg.n_experts, cfg.capacity_factor),
+        "reduced": reduced, "deployment": deployment,
+        "compute_dtype": "bfloat16", "params": params_n,
+        "quant_weights": elements, "state_bytes": state_bytes,
+        "losses": losses, "aux": auxes, "resumed_losses": resumed,
+        "train_wall_s": train_s, "ecl_quant_launches": step_launches,
+        "ecl_quant_launches_export": export_launches,
+        "ecl_quant_launches_freeze": freeze_launches,
+        "ecl_quant_launches_per_pass": per_pass,
+        "ecl_quant_passes": len(per_call), "ecl_segments_checked": checked,
+        "backward_twice_gradients_equal": grads_checked,
+        "dropped_by_step": per_step, **trace,
+        "ecl_quant_bound_ms_per_pass": pass_bound,
+        "ecl_quant_bound_ms_per_step": ECL_PASSES_PER_STEP * pass_bound,
+        "ecl_quant_pass": ecl_row, "adam_bound_ms": adam_bound,
+        "peak_device_memory_bytes": peak_train,
+        "checkpoint_bytes": ckpt_bytes,
+        "checkpoint_save_ms": [s * 1e3 for _, s in loop.saves],
+        "checkpoint_restore_ms": restore_ms,
+        "export_bytes": export_bytes,
+        "export_compressed_bytes": report["compressed_bytes"],
+        "export_compression_ratio": report["compression_ratio"],
+        "export_formats": sorted({t["format"] for t in
+                                  report["tensors"].values()}),
+        "export_ms": export_ms, "export_load_ms": load_ms,
+        "export_down_bank_decode": codec,
+        "served_tokens_0": serve_export["tokens"][0].tolist(),
+        "smoke": smoke, "gpu": gpu,
+        "wall_s": time.perf_counter() - t_phase}
+    gb = 1e-9
+    peaks = trace["peak_device_memory_bytes_by_stage"]
+    print(f"phase 8: {cfg.name} share EC4T-trained {steps} steps at batch "
+          f"{MOE_TRAIN['batch']} x seq {MOE_TRAIN['seq']} (bf16): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, aux {auxes[0]:.4f} -> "
+          f"{auxes[-1]:.4f}; {step_launches} ecl_quant launches ({per_pass} "
+          f"a pass, {segments} segments) + {export_launches} in the export; "
+          f"resume bitwise; export == freeze_tree, tokens equal ({gpu})")
+    print(f"phase 8: {trace['ms_per_step']:.1f} ms/step, device "
+          f"{trace['device_ms_per_step']:.1f} ms/step, idle "
+          f"{trace['device_idle_share']:.3f}, "
+          f"{trace['device_ops_per_step']:.0f} device ops; ECL "
+          f"{trace['ecl_quant_device_ms_per_step']:.2f} ms/step against "
+          f"{2 * pass_bound:.2f} (bytes; codes only "
+          f"{2 * ecl_row['codes_only_bound_ms']:.2f}); adam.apply "
+          f"{_ms(trace['adam_apply_device_ms_per_step'])} ms against "
+          f"{adam_bound:.2f}; FakeQuantGroup.backward "
+          f"{_ms(trace['fake_quant_backward_device_ms_per_step'])} ms; "
+          f"update_qstate {_ms(trace['update_qstate_device_ms_per_step'])} "
+          f"ms ({gpu})")
+    print(f"phase 8: peak memory after forward "
+          f"{peaks.get('forward', 0) * gb:.1f} GB, backward "
+          f"{peaks.get('backward', 0) * gb:.1f}, adam "
+          f"{peaks.get('adam', 0) * gb:.1f}, update "
+          f"{peaks.get('update_qstate', 0) * gb:.1f}; main path peak "
+          f"{peak_train * gb:.1f} GB; checkpoint "
+          f"{ckpt_bytes * gb:.2f} GB saved in "
+          f"{out['checkpoint_save_ms'][0]:.0f} ms, restored in "
+          f"{restore_ms:.0f} ms; export {export_bytes * gb:.3f} GB "
+          f"({report['compression_ratio']:.2f}x) in {export_ms:.0f} ms, "
+          f"loaded in {load_ms:.0f} ms (the down bank's "
+          f"{codec['codes']:,} codes, {codec['format']}: decoded on the "
+          f"host in {codec['host_ms']:.0f} ms, on the card in "
+          f"{codec['card_ms']:.0f} ms, the same codes); dropped a step "
+          f"{[d for d, _, _ in dropped]}, held kept "
+          f"{[k for _, k, _ in dropped]} of {[a for _, _, a in dropped]} "
+          f"({gpu})")
+    print(f"phase 8: smoke shares vs uncut {smoke['shares_vs_uncut_max_rel']:.2e}"
+          f", card vs CPU loss/aux "
+          f"{smoke['card_vs_cpu_loss_aux_max_rel']:.2e}, gradients "
+          f"{max(smoke['card_vs_cpu_grad_max_rel'].values()):.2e}; done in "
+          f"{out['wall_s']:.1f} s ({gpu})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2950,6 +3612,7 @@ def main() -> int:
     lm = lm_path(dev)
     lm_train = lm_train_path(dev)
     moe = moe_path(dev, gpu)
+    moe_train = moe_train_path(dev, gpu)
 
     report = []
     for name, (sched, replaces) in KERNELS.items():
@@ -2986,7 +3649,9 @@ def main() -> int:
         "launches_by_path": {"training": train["ecl_quant_launches"],
                              "lm": lm["freeze"]["ecl_quant_launches"],
                              "lm_training": lm_train["ecl_quant_launches"],
-                             "moe": moe["launcher"]["ecl_quant_launches"]},
+                             "moe": moe["launcher"]["ecl_quant_launches"],
+                             "moe_train": moe_train["ecl_quant_launches"]
+                             + moe_train["ecl_quant_launches_export"]},
         "max_abs_err": ecl_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
         "device_ms": head["device_ms"],
@@ -2998,6 +3663,11 @@ def main() -> int:
         "by_shape": ecl_times,
         "smollm_freeze": lm["ecl_quant"],
         "grok_freeze": moe["ecl_quant"],
+        "grok_share_training": {
+            "pass": moe_train["ecl_quant_pass"],
+            **{k: moe_train[k] for k in (
+                "ecl_quant_device_ms_per_step", "ecl_quant_bound_ms_per_step",
+                "quant_weights")}},
         "smollm_training": {
             "pass": lm_train["ecl_quant_pass"],
             **{k: lm_train[k] for k in (
@@ -3011,6 +3681,7 @@ def main() -> int:
     print(json.dumps({"lm": lm}))
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"moe_train": moe_train}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "
           "retaken for want of the kernel's device time; "
           f"{TRACES['events']} device times from CUDA events for want of "

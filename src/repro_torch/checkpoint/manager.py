@@ -11,8 +11,12 @@ The port of the JAX package's ``checkpoint/manager.py``, in its formats:
   each array on its template leaf's device (or one named device).
 * **serving exports** (:func:`export_quantized` / :func:`load_quantized`)
   — per quantized tensor the ECL codes in their cheapest lossless format
-  (CSR / bitmask / dense4, or Huffman) + the 4 fp32 centroids; every
-  tensor is assigned in one grouped call.
+  (CSR / bitmask / dense4, or Huffman) + the fp32 centroids; every
+  tensor is assigned in one grouped call, a Huffman stream is encoded
+  where its codes lie (and decoded on a device named at load).  An
+  L-stacked leaf keeps its shape ((L, E, d_in, d_out) codes and (L, E, 4)
+  ω for a MoE bank), and :func:`frozen_tree` turns a loaded export into
+  the tree ``qat.freeze_tree`` gives, to serve it.
 * **frozen serving packs** (:func:`export_pack` / :func:`load_pack`) —
   ``pack.npz`` (the cold tier's
   :class:`~repro_torch.serving.pack_cache.ColdPack`, flattened by
@@ -32,7 +36,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..core import ecl, formats, qat
+from .. import resolve_device
+from ..core import bitplanes, ecl, formats, qat
 from ..runtime.integrity import IntegrityError
 
 SEP = "//"
@@ -153,6 +158,27 @@ class CheckpointManager:
 
 # ------------------------------------------------------------- exports
 
+def _visit(prefix: str, node: Any, qs: Any, quant: list,
+           plain: list) -> None:
+    """Collect (prefix, node, state) of every quantized leaf into
+    ``quant`` and (prefix, leaf) of every other into ``plain``; a
+    module-level walk, so no closure cycle keeps the tree's tensors
+    alive after the export."""
+    if qat.is_quant_leaf(node):
+        quant.append((prefix, node, qs))
+    elif isinstance(node, dict):
+        for k in node:
+            _visit(prefix + SEP + k if prefix else k, node[k],
+                   qs[k] if isinstance(qs, dict) else 0, quant, plain)
+    elif isinstance(node, (list, tuple)):
+        for i, sub in enumerate(node):
+            _visit(f"{prefix}{SEP}{i}", sub,
+                   qs[i] if isinstance(qs, (list, tuple)) else 0, quant,
+                   plain)
+    else:
+        plain.append((prefix, node))
+
+
 def export_quantized(path: str, params: Any, qstate: Any, lam) -> dict:
     """Write the 4-bit serving artifact ``export.npz`` + ``report.json``:
     each quantized tensor's codes in their cheapest lossless format +
@@ -162,22 +188,7 @@ def export_quantized(path: str, params: Any, qstate: Any, lam) -> dict:
     os.makedirs(path, exist_ok=True)
     quant: list = []
     plain: list = []
-
-    def visit(prefix, node, qs):
-        if qat.is_quant_leaf(node):
-            quant.append((prefix, node, qs))
-        elif isinstance(node, dict):
-            for k in node:
-                visit(prefix + SEP + k if prefix else k, node[k],
-                      qs[k] if isinstance(qs, dict) else 0)
-        elif isinstance(node, (list, tuple)):
-            for i, sub in enumerate(node):
-                visit(f"{prefix}{SEP}{i}", sub,
-                      qs[i] if isinstance(qs, (list, tuple)) else 0)
-        else:
-            plain.append((prefix, node))
-
-    visit("", params, qstate)
+    _visit("", params, qstate, quant, plain)
     all_codes = ecl.assign_many([n["w"] for _, n, _ in quant],
                                 [n["omega"] for _, n, _ in quant],
                                 [q["probs"] for _, _, q in quant], lam)
@@ -187,7 +198,8 @@ def export_quantized(path: str, params: Any, qstate: Any, lam) -> dict:
     for (prefix, node, _), codes_t in zip(quant, all_codes):
         codes = _host(codes_t)
         flat2d = codes.reshape(-1, codes.shape[-1])
-        ct = formats.encode(flat2d, formats.select_format_ext(flat2d))
+        ct = formats.encode(codes_t.reshape(flat2d.shape),
+                            formats.select_format_ext(flat2d))
         payload[prefix + SEP + "format"] = np.frombuffer(
             ct.format.encode(), dtype=np.uint8)
         payload[prefix + SEP + "shape"] = np.asarray(codes.shape)
@@ -215,11 +227,14 @@ def export_quantized(path: str, params: Any, qstate: Any, lam) -> dict:
     return report
 
 
-def load_quantized(path: str) -> dict:
+def load_quantized(path: str, device=None) -> dict:
     """Read an :func:`export_quantized` artifact back: ``{tensor prefix:
-    {"codes": (…, n) uint8, "omega": (4,) or (L, 4) fp32}}`` for each
-    quantized tensor plus ``{prefix: array}`` for the unquantized leaves,
-    all numpy (the decoded-code form ``bitplanes.decode`` takes)."""
+    {"codes": (…, n) uint8, "omega": (*lead, 4) fp32}}`` for each
+    quantized tensor plus ``{prefix: array}`` for the unquantized leaves
+    (the decoded-code form ``bitplanes.decode`` takes): all numpy, or all
+    tensors on ``device`` when one is named, a Huffman stream then
+    decoded there (the card decodes a MoE bank's in a fraction of the
+    host's time)."""
     with np.load(os.path.join(path, "export.npz")) as z:
         payload = {k: z[k] for k in z.files}
     quant_prefixes = sorted(
@@ -239,13 +254,41 @@ def load_quantized(path: str) -> dict:
                     ct_payload[field] = payload[key]
         flat2d_shape = (int(np.prod(shape[:-1])), shape[-1])
         ct = formats.CompressedTensor(fmt, flat2d_shape, ct_payload)
-        out[prefix] = {"codes": formats.decode(ct).reshape(shape),
-                       "omega": payload[prefix + SEP + "omega"]}
+        out[prefix] = {"codes": formats.decode(ct, device).reshape(shape),
+                       "omega": _on(payload[prefix + SEP + "omega"], device)}
         claimed.update(meta_keys)
         claimed.update(prefix + SEP + k for k in ct_payload)
     for key, arr in payload.items():
         if key not in claimed:
-            out[key] = arr
+            out[key] = _on(arr, device)
+    return out
+
+
+def _on(arr: np.ndarray, device):
+    return arr if device is None else torch.from_numpy(arr).to(device)
+
+
+def frozen_tree(loaded: dict, device=None) -> dict:
+    """The serving tree of a :func:`load_quantized` result (numpy, or
+    tensors on ``device``), as ``qat.freeze_tree`` makes it: each quantized tensor ``{"packed":
+    row-pair-packed uint8 (*lead, K/2, N), "omega": fp32}`` (a MoE bank
+    (L, E, d_in/2, d_out)), every other leaf a tensor of its dtype, all
+    on ``device`` (default: the card), nested by the ``//`` paths."""
+    dev = resolve_device(device)
+    out: dict = {}
+    for key, value in loaded.items():
+        node = out
+        *parents, leaf = key.split(SEP)
+        for name in parents:
+            node = node.setdefault(name, {})
+        if isinstance(value, dict):
+            codes = torch.as_tensor(value["codes"], device=dev)
+            node[leaf] = {"packed": bitplanes.pack_codes_rows(codes),
+                          "omega": torch.as_tensor(value["omega"],
+                                                   dtype=torch.float32,
+                                                   device=dev)}
+        else:
+            node[leaf] = torch.as_tensor(value, device=dev)
     return out
 
 

@@ -8,6 +8,24 @@ few experts, tiny vocab — same code paths, same block structure.
 Quantization policy fields implement DESIGN.md §5: ``quantize`` turns EC4T
 on for FC-family projection weights; embeddings / norms / biases / router /
 SSM dynamics always stay high-precision (the paper's mixed-precision rule).
+
+``experts_held`` is the port's own field (the JAX package's ArchConfig has
+no such field).  A non-None ``(first, count)`` makes the config one
+device's share of an expert-parallel deployment: ``n_experts`` spread over
+a ``model`` mesh axis of width tp with ``n_experts % tp == 0`` (where the
+reference's ``moe_ffn`` picks ``moe_apply_ep``), shard r holding experts
+``[r * n_experts / tp, (r + 1) * n_experts / tp)``.  The layer is the
+per-shard body of ``moe_apply_ep`` (its ``local_moe``) without the two
+all-to-alls: it routes over every expert and adds its own experts' part.
+That holds for the dispatch and the expert FFN, not for the combine: in
+``local_moe`` the return all-to-all brings each token's owner the outputs
+of all k chosen experts, while the share keeps only its own experts'.  So
+a share's output, its loss and its gradients to the router, attention,
+embedding and head are not those of any shard of the deployment; only
+the per-expert work (dispatch, the held banks' FFN, their ECL pass, Adam
+and the probability update) stands for one chip's.
+For example grok-1-314b's 8 experts over a 4-wide model axis: shard 0
+holds ``(0, 2)``.  The launchers leave it None (every expert held).
 """
 from __future__ import annotations
 
@@ -58,6 +76,10 @@ class ArchConfig:
     routed_scaling: float = 1.0
     capacity_factor: float = 1.25
     aux_loss_coef: float = 0.001
+    # (first expert, count) held here: one shard of an expert-parallel
+    # deployment (see the module docstring); the router keeps all
+    # n_experts outputs.  None holds every expert.
+    experts_held: Optional[Tuple[int, int]] = None
     # --- SSM (mamba2 / hymba)
     ssm_state: int = 0
     ssm_expand: int = 2

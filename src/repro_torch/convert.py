@@ -3,7 +3,10 @@
 Every function takes the JAX package's trees with every array already
 turned into numpy (``np.asarray`` on the caller's side, so this module
 imports nothing of JAX) and return the port's tensors on ``device``;
-:func:`tree_to_numpy` is the way back.
+:func:`tree_to_numpy` is the way back.  A MoE tree comes across whole
+(router, (L, E, ...) banks, (L, E, 4) ω, (L, E, 16) probabilities, the
+Adam moments); :func:`take_experts` cuts it to one device's share of the
+experts.
 """
 from __future__ import annotations
 
@@ -80,6 +83,34 @@ def lm_train_state_from_numpy(state: dict, *, device=None) -> dict:
     port's tensors, each array keeping its dtype: a train step or a
     checkpoint of either package then starts from the same state."""
     return _to_torch(state, resolve_device(device))
+
+
+def take_experts(tree: Any, first: int, count: int, *, axis: int = 1
+                 ) -> Any:
+    """``tree`` with every array under an ``"experts"`` key cut to experts
+    ``[first, first + count)`` along ``axis`` (1 for an L-stacked LM tree:
+    banks (L, E, d_in, d_out), their ω (L, E, 4), probabilities (L, E, 16)
+    and Adam moments; 0 for one ``moe_init`` layer), as contiguous copies;
+    the router (all E outputs) and every other leaf are kept.  This is how
+    a test gives the JAX package's whole tree (numpy or the port's
+    tensors) to a config whose ``experts_held`` is ``(first, count)``."""
+    index = (slice(None),) * axis + (slice(first, first + count),)
+    return _take(tree, index, False)
+
+
+def _take(node: Any, index: tuple, cut: bool) -> Any:
+    if isinstance(node, dict):
+        return {k: _take(v, index, cut or k == "experts")
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_take(v, index, cut) for v in node)
+    if not cut:
+        return node
+    if isinstance(node, torch.Tensor):
+        return node[index].contiguous()
+    if isinstance(node, np.ndarray):
+        return np.ascontiguousarray(node[index])
+    return node
 
 
 def tree_to_numpy(tree: Any) -> Any:

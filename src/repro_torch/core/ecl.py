@@ -85,17 +85,30 @@ def assign_many(ws: Sequence[torch.Tensor], omegas: Sequence[torch.Tensor],
         return [c for c, _ in quantize_many(ws, omegas, pens)]
 
 
-def histogram(codes: torch.Tensor, lead_ndim: int = 0) -> torch.Tensor:
-    """Normalised 16-bin histogram of codes (float32, sums to 1 per lead).
+def code_counts(codes: torch.Tensor, lead_ndim: int = 0) -> torch.Tensor:
+    """Exact int64 count of each of the 16 codes per lead index: (*lead,
+    16) for codes (*lead, ...).  One comparison a code, so the largest
+    temporary is one byte per code element, not the reference's (n, 16)
+    one-hot; no host synchronisation (``torch.bincount`` on the card reads
+    the largest code back first).  Each match mask is summed as bytes
+    into int32 (exact: a segment holds fewer than 2**31 codes, else
+    int64), which the card reduces faster than a bool sum into int64."""
+    flat = codes.reshape(*codes.shape[:lead_ndim], -1)
+    acc = torch.int32 if flat.shape[-1] < 2**31 else torch.int64
+    return torch.stack([(flat == c).view(torch.uint8).sum(-1, dtype=acc)
+                        for c in range(NUM_CODES)], dim=-1).to(torch.int64)
 
-    Each bin counts its matches as a float32 sum of 0/1: exact integers up
-    to 2**24 whatever the order, so equal to the reference's one-hot sum,
-    with a bool (n, 16) intermediate instead of its float one."""
-    lead = codes.shape[:lead_ndim]
-    bins = torch.arange(NUM_CODES, dtype=codes.dtype, device=codes.device)
-    hits = codes.reshape(*lead, -1, 1) == bins
-    counts = hits.sum(-2, dtype=torch.float32)
-    return counts / torch.clamp(counts.sum(-1, keepdim=True), min=1.0)
+
+def histogram(codes: torch.Tensor, lead_ndim: int = 0) -> torch.Tensor:
+    """Normalised 16-bin histogram of codes (float32, sums to 1 per lead):
+    the exact :func:`code_counts` divided in fp32 by their total.  Where
+    the reference's fp32 one-hot sums are exact (every count and the total
+    below 2**24) the result equals its bit for bit; past 2**24 the
+    reference's sums round and these counts do not."""
+    counts = code_counts(codes, lead_ndim)
+    total = counts.sum(-1, keepdim=True)
+    return counts.to(torch.float32) / torch.clamp(
+        total.to(torch.float32), min=1.0)
 
 
 def update_probs(probs: torch.Tensor, codes: torch.Tensor,

@@ -18,7 +18,10 @@ plus a canonical Huffman code over the 16 cluster ids (``select_format_ext``).
 These are host-side codecs: checkpoint payloads, the serving cold tier and
 host→device transfer accounting.  On the card execution always uses the
 row-pair packed dense4 form the kernels read; ``csr``/``bitmask``/``huffman``
-are decoded on load.
+are decoded on load.  The Huffman codec is PyTorch and runs where its
+codes lie, or on a device named at decode: a MoE bank holds hundreds of
+millions of codes, which the card encodes and decodes in a fraction of
+the host's time.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from dataclasses import dataclass, field
 from typing import Dict
 
 import numpy as np
+import torch
 
 CHUNK = 256  # paper's adder-tree width; CSR column pointers are 8-bit within a chunk
 
@@ -152,12 +156,24 @@ _ENC = {"dense4": encode_dense4, "bitmask": encode_bitmask, "csr": encode_csr}
 _DEC = {"dense4": decode_dense4, "bitmask": decode_bitmask, "csr": decode_csr}
 
 
-def encode(codes: np.ndarray, fmt: str) -> CompressedTensor:
+def encode(codes, fmt: str) -> CompressedTensor:
+    """``codes`` (a numpy array or a tensor) in format ``fmt``: Huffman
+    where the codes lie, the other formats on the host."""
+    if fmt == "huffman":
+        return encode_huffman(codes)
+    if isinstance(codes, torch.Tensor):
+        codes = codes.cpu().numpy()
     return _ENC[fmt](np.asarray(codes, np.uint8))
 
 
-def decode(ct: CompressedTensor) -> np.ndarray:
-    return _DEC[ct.format](ct)
+def decode(ct: CompressedTensor, device=None):
+    """The codes of ``ct``: numpy, or a tensor on ``device`` when one is
+    named (a Huffman stream is decoded there, the other formats on the
+    host and moved)."""
+    if ct.format == "huffman":
+        return decode_huffman(ct, device)
+    codes = _DEC[ct.format](ct)
+    return codes if device is None else torch.from_numpy(codes).to(device)
 
 
 def analytic_size_bits(shape: tuple, nnz: int, fmt: str) -> int:
@@ -247,66 +263,134 @@ def _canonical_codes(lengths: np.ndarray):
     return codes
 
 
-#: symbols encoded at a time (bounds the (symbols, longest code) table)
-_ENCODE_CHUNK = 1 << 22
-
-
-def encode_huffman(codes: np.ndarray) -> CompressedTensor:
-    """Canonical Huffman, MSB first: each symbol's codeword bits come from
-    a (16, longest code) bit table, the valid ones kept in order, then
-    packed; the JAX package's bytes."""
-    flat = codes.reshape(-1).astype(np.uint8)
-    counts = np.bincount(flat, minlength=16)
-    lengths = _huffman_lengths(counts)
+def _huffman_tables(lengths: np.ndarray) -> tuple:
+    """(codeword bits (16, L) uint8, valid (16, L) bool) over the longest
+    code L, MSB first: what :func:`encode_huffman` writes per symbol."""
     cw = _canonical_codes(lengths)
-    width = int(lengths.max()) if flat.size else 0
+    width = int(lengths.max())
     col = np.arange(width)
     table = ((cw[:, None].astype(np.int64)
               >> np.maximum(lengths[:, None].astype(np.int64) - 1 - col, 0))
              & 1).astype(np.uint8)
-    valid = col < lengths[:, None]
-    parts = [table[chunk][valid[chunk]]
-             for chunk in (flat[i:i + _ENCODE_CHUNK]
-                           for i in range(0, flat.size, _ENCODE_CHUNK))]
-    bits = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
-    return CompressedTensor("huffman", codes.shape, {
-        "bits": np.packbits(bits),
+    return table, col < lengths[:, None]
+
+
+#: codes :func:`encode_huffman` selects bits for at a time (bounds the
+#: (codes, longest code) table)
+_ENCODE_CHUNK = 1 << 24
+
+
+def encode_huffman(codes) -> CompressedTensor:
+    """Canonical Huffman, MSB first, the JAX package's bytes.  ``codes`` is
+    a numpy array or a tensor and is encoded where it lies (a MoE bank's
+    codes on the card): the 16 counts and the code lengths on the host,
+    then each code's bits from a (16, longest code) bit table, the valid
+    ones kept in order and packed, ``_ENCODE_CHUNK`` codes at a time."""
+    flat = torch.as_tensor(codes).reshape(-1)
+    dev = flat.device
+    counts = torch.bincount(flat, minlength=16).cpu()
+    lengths = _huffman_lengths(counts.numpy())
+    table, valid = _huffman_tables(lengths)
+    table_t = torch.from_numpy(table).to(dev)
+    valid_t = torch.from_numpy(valid).to(dev)
+    parts = []
+    for i in range(0, flat.numel(), _ENCODE_CHUNK):
+        chunk = flat[i:i + _ENCODE_CHUNK].to(torch.int32)
+        parts.append(torch.index_select(table_t, 0, chunk)[
+            torch.index_select(valid_t, 0, chunk)])
+    bits = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.uint8,
+                                                      device=dev)
+    nbits = bits.numel()
+    pad = (-nbits) % 8
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros(pad)])
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                           device=dev)
+    packed = (bits.view(-1, 8) * weights).sum(-1, dtype=torch.uint8)
+    return CompressedTensor("huffman", tuple(codes.shape), {
+        "bits": packed.cpu().numpy(),
         "lengths": lengths,
-        "nbits": np.asarray([bits.size], np.int64),
+        "nbits": np.asarray([nbits], np.int64),
     })
 
 
-#: code starts a jump of the decoder's chain skips (2**5)
+#: code starts a jump of the host chain skips (2**5)
 _JUMP_LOG2 = 5
 
 
-def decode_huffman(ct: CompressedTensor) -> np.ndarray:
-    """Table-driven canonical decode, in numpy.  Every bit position's next
-    ``L`` bits (``L`` the longest code) index one table of (symbol,
-    length), so each position knows where the next code would start if a
-    code started there.  The code starts are the chain from bit 0: a
-    table of 64-start jumps (six squarings of that map) lets a Python
-    loop walk one start in 64, and 64 gathers fill in the rest.  The JAX
-    package's decoder matches bit by bit in Python and gives the same
-    symbols far slower (a cold-tier decode is on the serving frontend's
-    recovery path; an export's load decodes every weight of a model)."""
+def _starts_walk(nxt: torch.Tensor, n: int) -> torch.Tensor:
+    """The first ``n`` code starts, the chain from bit 0 through the
+    next-start map ``nxt``, on the host: a table of 32-start jumps (five
+    squarings of the map) lets a Python loop walk one start in 32, and 32
+    gathers fill in the rest."""
+    step = nxt.numpy()
+    jump = step
+    for _ in range(_JUMP_LOG2):
+        jump = jump[jump]
+    span = 1 << _JUMP_LOG2
+    m = -(-n // span)
+    coarse = np.empty(m, step.dtype)
+    p = 0
+    for i in range(m):
+        coarse[i] = p
+        p = jump[p]
+    starts = np.empty((m, span), step.dtype)
+    cur = coarse
+    for t in range(span):
+        starts[:, t] = cur
+        cur = step[cur]
+    return torch.from_numpy(starts.reshape(-1)[:n])
+
+
+def _starts_doubling(nxt: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`_starts_walk` on a device, by doubling: with J the map, the
+    first 2**(b+1) starts are the first 2**b followed by J**(2**b) of
+    them, and J squares itself each round (log2 n gathers over the bits,
+    no walk on the host)."""
+    starts = nxt.new_zeros(1)
+    jump = nxt
+    while starts.numel() < n:
+        starts = torch.cat([starts, torch.index_select(jump, 0, starts)])
+        if starts.numel() < n:
+            jump = torch.index_select(jump, 0, jump)
+    return starts[:n]
+
+
+def decode_huffman(ct: CompressedTensor, device=None):
+    """Table-driven canonical decode with PyTorch, on ``device`` (default:
+    the host).  Every bit position's next ``L`` bits (``L`` the longest
+    code) index one table of (symbol, length), so each position knows
+    where the next code would start if a code started there.  The code
+    starts are the chain from bit 0, walked on the host
+    (:func:`_starts_walk`) or by doubling on a card
+    (:func:`_starts_doubling`).  Returns numpy when no device is named,
+    else a tensor on it.  The JAX package's decoder matches bit by bit in
+    Python and gives the same symbols far slower (a cold-tier decode is
+    on the serving frontend's recovery path; an export's load decodes
+    every weight of a model)."""
+    dev = torch.device("cpu" if device is None else device)
     lengths = np.asarray(ct.payload["lengths"]).astype(np.int64)
     n = int(np.prod(ct.shape))
     nbits = int(ct.payload["nbits"][0])
     if n == 0:
-        return np.zeros(ct.shape, np.uint8)
+        out = torch.zeros(ct.shape, dtype=torch.uint8, device=dev)
+        return out.numpy() if device is None else out
     cw = _canonical_codes(lengths)
     width = int(lengths.max())
     if width == 0:
         raise ValueError("huffman payload has no code lengths")
-    bits = np.unpackbits(ct.payload["bits"])[:nbits]
-    if bits.size != nbits:
-        raise ValueError(f"huffman payload holds {bits.size} of {nbits} bits")
-    padded = np.concatenate([bits, np.zeros(width, np.uint8)])
-    window = np.zeros(nbits, np.uint16)
+    packed = torch.from_numpy(np.asarray(ct.payload["bits"], np.uint8)).to(dev)
+    if packed.numel() * 8 < nbits:
+        raise ValueError(f"huffman payload holds {packed.numel() * 8} of "
+                         f"{nbits} bits")
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
+    bits = ((packed[:, None] >> shifts) & 1).reshape(-1)[:nbits]
+    padded = torch.cat([bits, bits.new_zeros(width)])
+    del bits
+    window = torch.zeros(nbits, dtype=torch.int32, device=dev)
     for j in range(width):
-        np.left_shift(window, 1, out=window)
-        np.bitwise_or(window, padded[j:j + nbits], out=window)
+        window.mul_(2).add_(padded[j:j + nbits])
+    del padded
     sym_t = np.zeros(1 << width, np.uint8)
     len_t = np.zeros(1 << width, np.int32)       # 0: no code starts so
     for sym in range(16):
@@ -315,33 +399,22 @@ def decode_huffman(ct: CompressedTensor) -> np.ndarray:
             lo = int(cw[sym]) << (width - l)
             sym_t[lo:lo + (1 << (width - l))] = sym
             len_t[lo:lo + (1 << (width - l))] = l
+    idx = torch.int64 if nbits + 2 > np.iinfo(np.int32).max else torch.int32
+    sym_at = torch.index_select(torch.from_numpy(sym_t).to(dev), 0, window)
+    step = torch.index_select(torch.from_numpy(len_t).to(dev), 0,
+                              window).to(idx)
+    del window
     # next start after a start at each bit; nbits (the end) and nbits + 1
     # (no code starts there, or it runs past the end) map to themselves
-    idx = np.int64 if nbits + 2 > np.iinfo(np.int32).max else np.int32
-    step = len_t[window]
-    nxt = np.empty(nbits + 2, idx)
-    nxt[:nbits] = np.arange(nbits, dtype=idx) + step
-    nxt[:nbits][(step == 0) | (nxt[:nbits] > nbits)] = nbits + 1
-    nxt[nbits:] = (nbits, nbits + 1)
-    jump = nxt
-    for _ in range(_JUMP_LOG2):
-        jump = jump[jump]
-    span = 1 << _JUMP_LOG2
-    m = -(-n // span)
-    coarse = np.empty(m, idx)
-    p = 0
-    for i in range(m):
-        coarse[i] = p
-        p = jump[p]
-    starts = np.empty((m, span), idx)
-    cur = coarse
-    for t in range(span):
-        starts[:, t] = cur
-        cur = nxt[cur]
-    starts = starts.reshape(-1)[:n]
-    bad = np.flatnonzero(starts >= nbits)
-    if bad.size:
-        j = int(bad[0])
+    nxt = torch.arange(nbits + 2, dtype=idx, device=dev)
+    head = nxt[:nbits]
+    head += step
+    head.masked_fill_((step == 0) | (head > nbits), nbits + 1)
+    del step, head
+    starts = (_starts_walk if dev.type == "cpu" else _starts_doubling)(nxt, n)
+    bad = torch.nonzero(starts >= nbits)
+    if bad.numel():
+        j = int(bad[0, 0])
         raise ValueError(f"huffman payload ends or breaks at bit "
                          f"{int(starts[j - 1]) if j else 0} after {j} of "
                          f"{n} symbols")
@@ -350,7 +423,8 @@ def decode_huffman(ct: CompressedTensor) -> np.ndarray:
         raise ValueError(f"huffman payload: {n} symbols end at bit "
                          f"{end if end <= nbits else 'past the end'} of "
                          f"{nbits}")
-    return sym_t[window[starts]].reshape(ct.shape)
+    out = torch.index_select(sym_at, 0, starts).reshape(ct.shape)
+    return out.numpy() if device is None else out
 
 
 _ENC["huffman"] = encode_huffman

@@ -60,7 +60,10 @@ class FakeQuantGroup(torch.autograd.Function):
     """ŵ of every leaf from the ECL codes forward, in one grouped
     quantization; per leaf, straight-through to w and eq. (2) to ω
     backward.  No gradient reaches the penalties (they are a stop-gradient
-    in the reference).  ``apply(n, *ws, *omegas, *pens)`` -> n ŵ."""
+    in the reference).  A batched leaf ((L, R, C) with ω (L, 4), or an
+    (L, E)-stacked expert bank with ω (L, E, 4)) gets one ω gradient per
+    lead index, summed over its last two dims.  ``apply(n, *ws, *omegas,
+    *pens)`` -> n ŵ."""
 
     @staticmethod
     def forward(ctx, n, *tensors):

@@ -24,15 +24,9 @@ REMAT = ("none",)
 
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise for every arch the port cannot train yet: those its stack
-    does not build, and the moe family, which it serves but does not
-    train."""
+    does not build (MLA, ssm, hybrid, vlm, audio).  The dense and moe
+    families train, a moe config's share (``experts_held``) included."""
     check_supported(cfg)
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training (ROADMAP queue 1 item 8) is not "
-            "ported yet (the aux loss in the step, update_moe_bias and the "
-            "fake-quant backward over (L, E)-stacked banks); the port "
-            "serves MoE archs through launch.serve")
 
 
 def check_remat(remat: str) -> None:
@@ -46,7 +40,9 @@ def check_remat(remat: str) -> None:
 def _loss_fn(cfg: ArchConfig, mesh=None, remat: str = "none",
              dtype: torch.dtype = torch.bfloat16) -> Callable:
     """``loss(params, qstate, batch, lam) -> (loss, metrics)``.  The
-    reference's ``use_ep`` (expert parallelism) waits for MoE training."""
+    reference's ``use_ep`` (expert parallelism over a mesh) waits for
+    ROADMAP queue 1 item 6; one shard's share of it trains through
+    ``cfg.experts_held``."""
     if mesh is not None:
         raise NotImplementedError(
             "a loss over a mesh is not ported yet (ROADMAP queue 1 item 6, "

@@ -6,6 +6,7 @@ transformer LM (the JAX package's ``launch/train.py``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --smoke \
         --device cpu --steps 25 --ckpt-dir /tmp/ckpt --export /tmp/export
+    PYTHONPATH=src python -m repro_torch.launch.train --arch grok-1-314b --smoke --device cpu
 
 **MLP branch** (``--arch mlp-gsc``, ``mlp-hr``, ``lenet-300-100``): the
 MLP trainer of the JAX package (``benchmarks/common.py`` ``train_mlp``,
@@ -17,8 +18,10 @@ accuracy, sparsity and entropy and ms per step, freezes the net
 it against the eval-mode forward (``atol=rtol=1e-2``, as
 ``examples/train_mlp_gsc.py:54``).
 
-**LM branch** (every dense-family arch, ``--smoke`` for the reduced
-config): config → ``lm_init`` → ``ec4t.init_train_state`` → the EC4T step
+**LM branch** (every dense- and moe-family arch without MLA, ``--smoke``
+for the reduced config; a MoE arch adds ``aux_loss_coef`` times its
+load-balance loss, as the reference does): config → ``lm_init`` →
+``ec4t.init_train_state`` → the EC4T step
 (``launch/steps.py`` loss in bf16, λ ramped over ``--lam-ramp`` steps,
 Adam with a warmup-cosine learning rate) → ``ShardedFeed`` (step-seeded
 synthetic tokens, prefetched, pinned, copied without blocking) →
@@ -27,15 +30,19 @@ synthetic tokens, prefetched, pinned, copied without blocking) →
 SIGTERM/SIGINT checkpoint and stop, transient errors retried) →
 ``export_quantized`` to ``--export``.  It prints a ``step … loss … ce …
 gnorm … lam …`` line every 10 steps and a ``finished:`` line, and
-``main`` returns that history.  The other families (moe, ssm, hybrid,
-mla, vlm, audio) raise ``NotImplementedError`` (ROADMAP queue 1 item 8),
-as does ``--remat full|dots`` (queue 1 item 10).
+``main`` returns that history.  MLA (deepseek-v3-671b, ROADMAP queue 1
+item 8.2) and the ssm, hybrid, vlm and audio families raise
+``NotImplementedError`` (queue 1 item 8), as does ``--remat full|dots``
+(queue 1 item 10).  A published MoE arch trains every expert on one
+device; one device's share of an expert-parallel deployment
+(``ArchConfig.experts_held``) is set by a caller, not by a flag.
 
 In both branches every step's fake-quant forward and EMA probability
 update each quantize every quantized tensor in one grouped call of the
 ECL op (``kernels/ecl_quant.py``): on the card ⌈segments / 32⌉ launches
-of the hand-written CUDA kernel (SmolLM-360M: 224 segments, 7 launches),
-on ``--device cpu`` its plain version.  Defaults differ by branch
+of the hand-written CUDA kernel (SmolLM-360M: 224 segments, 7 launches;
+one card's share of a Grok-1 layer, q, k, v, o and 3 banks x 2 experts:
+10 segments, 1 launch), on ``--device cpu`` its plain version.  Defaults differ by branch
 (:data:`MLP_DEFAULTS`, :data:`LM_DEFAULTS`).
 """
 from __future__ import annotations
@@ -293,8 +300,8 @@ def main(argv=None):
     history of its ``step`` lines."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mlp-gsc",
-                    help=f"one of {', '.join(sorted(MLPS))} or a dense LM "
-                    "arch (smollm-360m, h2o-danube-1.8b, ...)")
+                    help=f"one of {', '.join(sorted(MLPS))} or a dense or "
+                    "moe LM arch (smollm-360m, grok-1-314b, ...)")
     ap.add_argument("--steps", type=int, default=None,
                     help="MLP 300, LM 100")
     ap.add_argument("--lam", type=float, default=None, help="MLP 0.3, LM 0.05")

@@ -8,10 +8,12 @@ reference's order with a Python loop over each stack's layers in place of
 ``jax.lax.scan`` (each layer reads views of the stacked leaves).  An
 expert bank is stacked (L, E, ...): each (layer, expert) has its own ω
 and probabilities.  Per-layer quantization state and KV caches are
-stacked the same way.  Under EC4T training (``ctx.quant``) the forward
-fake-quantizes every stacked quantized leaf once, before the layer loop,
-in one grouped quantization (:func:`quantize_stack`); each layer then
-reads its view of the stacked ŵ.  The reference's sharding and
+stacked the same way.  A config with ``experts_held`` builds and runs one
+shard's share of each MoE layer (``nn/moe.py``).  Under EC4T training
+(``ctx.quant``) the forward fake-quantizes every stacked quantized leaf
+once, before the layer loop, in one grouped quantization
+(:func:`quantize_stack`); each layer then reads its view of the stacked
+ŵ.  The reference's sharding and
 rematerialisation arguments have no counterpart here.
 
 The other families (ssm, hybrid, mla, vlm, audio) raise
@@ -45,7 +47,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name} uses MLA (multi-head latent attention), which is "
-            "not ported yet (ROADMAP queue 1 item 8)")
+            "not ported yet (ROADMAP queue 1 item 8.2)")
     if (cfg.family not in KINDS or cfg.encdec
             or cfg.mrope_sections is not None):
         raise NotImplementedError(
@@ -95,7 +97,8 @@ def _layer_init(generator: torch.Generator, cfg: ArchConfig,
     if kind == "moe":
         p["moe"] = moe_lib.moe_init(generator, d, cfg.d_ff, cfg.n_experts,
                                     cfg.quantize,
-                                    n_shared=cfg.n_shared_experts)
+                                    n_shared=cfg.n_shared_experts,
+                                    experts_held=cfg.experts_held)
     else:
         p["mlp"] = _mlp_init(generator, cfg, cfg.dense_ff or cfg.d_ff)
     return p
@@ -195,7 +198,8 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
         y2, aux = moe_lib.moe_ffn(lp["moe"], subtree(lq, "moe"), h2, ctx,
                                   top_k=cfg.top_k, gate=cfg.moe_gate,
                                   capacity_factor=cfg.capacity_factor,
-                                  routed_scaling=cfg.routed_scaling)
+                                  routed_scaling=cfg.routed_scaling,
+                                  experts_held=cfg.experts_held)
         x = x + y2
     else:
         x = x + _mlp(cfg, lp["mlp"], subtree(lq, "mlp"), h2, ctx)

@@ -12,9 +12,13 @@ One training step =
 
 λ and the learning-rate scale are read from the device's step counter
 ``opt["step"]`` as 0-d device tensors: a step queues its work without
-waiting for the card.  The MoE bias balancing of the reference
-(``update_moe_bias``) waits for the moe family (ROADMAP queue 1 item 8),
-and a mesh for scale-out (queue 1 item 6).
+waiting for the card.  A MoE arch's router ``bias_correction`` is
+detached in the forward, so its gradient is zero and Adam leaves it bit
+for bit as it was.  :func:`update_moe_bias` (deepseek-v3's aux-loss-free
+balancing) is ported, and, as in the reference, not called by the step:
+the reference's module docstring lists it as a fifth stage, but its step
+does not run it (ROADMAP queue 3).  A mesh waits for scale-out (queue 1
+item 6).
 """
 from __future__ import annotations
 
@@ -62,11 +66,10 @@ def make_train_step(loss_fn: Callable, adam_cfg: adam.AdamConfig, *,
         loss, metrics = loss_fn(tree.unflatten(p, train), qs, batch, lam_t)
         wants = [t for t in train if t.requires_grad]
         found = iter(torch.autograd.grad(loss, wants, allow_unused=True))
-        grads = []
-        for t in train:
-            g = next(found) if t.requires_grad else None
-            grads.append(torch.zeros_like(t) if g is None else g)
-        grads = tree.unflatten(p, grads)
+        grads = [next(found) if t.requires_grad else None for t in train]
+        grads = tree.unflatten(p, [torch.zeros_like(t) if g is None else g
+                                   for g, t in zip(grads, train)])
+        del found, wants
 
         err = state.get("err")
         if compress is not None and err is not None:
@@ -74,6 +77,8 @@ def make_train_step(loss_fn: Callable, adam_cfg: adam.AdamConfig, *,
 
         new_p, new_opt, opt_metrics = adam.apply(p, grads, opt, adam_cfg,
                                                  lr_scale=lr_scale)
+        del grads      # not needed by the probability update (1.6 GB for a
+        # full-width expert bank)
         new_qs = qat.update_qstate(new_p, qs, lam_t, probs_momentum)
 
         dev = opt["step"].device
@@ -97,3 +102,27 @@ def init_train_state(params: Any,
     if compress is not None:
         state["err"] = init_error_state(params, compress)
     return state
+
+
+def update_moe_bias(params: Any, load_frac: torch.Tensor, *,
+                    gamma: float = 1e-3) -> Any:
+    """deepseek-v3 aux-loss-free balancing: decrease the routing bias of
+    overloaded experts, increase underloaded (sign update, rate γ).
+    ``load_frac``: (E,) fraction of assignments per expert this step.
+    Returns a new tree; every leaf but a ``router/bias_correction`` is
+    kept (the reference's ``tree_map_with_path`` over the whole tree)."""
+    return _nudge_bias(params, "", load_frac, gamma)
+
+
+def _nudge_bias(node: Any, path: str, load_frac: torch.Tensor,
+                gamma: float) -> Any:
+    if isinstance(node, dict):
+        return {k: _nudge_bias(v, f"{path}/{k}", load_frac, gamma)
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_nudge_bias(v, f"{path}/{i}", load_frac, gamma)
+                          for i, v in enumerate(node))
+    if path.endswith("router/bias_correction"):
+        target = 1.0 / node.shape[-1]
+        return node + gamma * torch.sign(target - load_frac)
+    return node

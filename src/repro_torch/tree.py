@@ -18,17 +18,20 @@ def leaves(tree: Any) -> List[Any]:
 
 
 def unflatten(tree: Any, new_leaves) -> Any:
-    """``tree``'s structure with ``new_leaves`` (in :func:`leaves` order)."""
-    it = iter(new_leaves)
+    """``tree``'s structure with ``new_leaves`` (in :func:`leaves` order).
+    No reference to ``new_leaves`` outlives the call: a recursive closure
+    over its iterator would be a reference cycle, holding every leaf (a
+    train step's gradients) until the cyclic collector ran."""
+    return _build(tree, iter(new_leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-    return build(tree)
+
+def _build(t: Any, it) -> Any:
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def map_(fn: Callable, tree: Any, *rest: Any) -> Any:

@@ -30,7 +30,10 @@ train steps on the card within ``rtol=1e-4`` of the CPU's, one ECL
 launch a grouped pass, a card checkpoint restored bitwise; the input feed
 places pinned batches on the card.  MoE: grok's smoke stack frozen on the
 card bitwise equal to the CPU freeze, and a frozen layer's routing and
-dispatch exactly, its output within 1e-5, equal to the CPU's.
+dispatch exactly, its output within 1e-5, equal to the CPU's; a share of
+grok's smoke config trained on the card within ``rtol=1e-4`` of the CPU,
+its backward twice bitwise.  The Huffman codec on the card gives the
+host's bytes and codes.
 """
 import array
 import ctypes
@@ -826,3 +829,72 @@ def test_feed_places_batches_on_the_card(cuda_device):
     assert got["tokens"].device.type == "cuda"
     np.testing.assert_array_equal(got["tokens"].cpu().numpy(),
                                   synthetic.lm_batch(cfg, 3)["tokens"])
+
+
+def test_moe_share_train_steps_on_the_card(cuda_device):
+    """A share of grok's smoke config (experts 0-1 of 4) in fp32: two
+    card train steps within rtol=1e-4 of two CPU steps from one init,
+    one ecl_quant launch a grouped pass (20 segments), the backward run
+    twice on the card bitwise, the routing bias untouched."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as T
+    from repro_torch.nn import transformer as TT
+    from repro_torch.optim import ec4t
+
+    cfg = dataclasses.replace(T.lm_config("grok-1-314b", smoke=True),
+                              experts_held=(0, 2))
+    params = TT.lm_init(cfg, seed=0, device="cpu")
+    batch_fn = T.lm_batch_fn(cfg, batch=4, seq=32)
+    step_fn = T.lm_step_fn(cfg, steps=10, lr=1e-3, lam=0.3, lam_ramp=1,
+                           dtype=torch.float32)
+    losses = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        state = ec4t.init_train_state(_to(params, dev))
+        out = []
+        for i in range(2):
+            before = eq.LAUNCHES
+            state, m = step_fn(state, pipeline.place(batch_fn(i), device=dev))
+            out.append(float(m["loss"]))
+            if dev.type == "cuda":
+                assert eq.LAUNCHES - before == 2
+        losses[dev.type] = out
+        router = state["params"]["stacks"]["moe"]["moe"]["router"]
+        assert not router["bias_correction"].any()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+    p = _to(params, cuda_device)
+    qs = qat.build_qstate(p)
+    batch = pipeline.place(batch_fn(3), device=cuda_device)
+    loss_fn = steps_mod._loss_fn(cfg)
+
+    def grads():
+        leaves = [t.detach().requires_grad_() for t in tree.leaves(p)]
+        loss, _ = loss_fn(tree.unflatten(p, leaves), qs, batch, 0.3)
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+    for a, b in zip(grads(), grads()):
+        assert (a is None) == (b is None)
+        assert a is None or torch.equal(a, b)
+
+
+def test_huffman_on_the_card_equals_the_host_codec(cuda_device):
+    """The export's Huffman codec on the card: the host's bytes and its
+    codes, for a near-uniform and a skewed code tensor."""
+    from repro_torch.core import formats
+
+    rng = np.random.default_rng(0)
+    p = np.array([0.3, 0.15, 0.15, 0.1] + [0.3 / 12] * 12)
+    for codes in (rng.integers(0, 16, (300, 1000)).astype(np.uint8),
+                  rng.choice(16, size=(512, 777), p=p).astype(np.uint8)):
+        want = formats.encode_huffman(codes)
+        got = formats.encode_huffman(torch.from_numpy(codes).to(
+            cuda_device))
+        for key in want.payload:
+            np.testing.assert_array_equal(got.payload[key],
+                                          want.payload[key])
+        on = formats.decode_huffman(want, cuda_device)
+        assert on.device.type == "cuda"
+        np.testing.assert_array_equal(on.cpu().numpy(), codes)

@@ -100,3 +100,62 @@ def test_huffman_lengths_and_canonical_codes_equal():
         np.testing.assert_array_equal(lt, lj)
         np.testing.assert_array_equal(tf._canonical_codes(lt),
                                       jf._canonical_codes(lj))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_huffman_of_a_tensor_equals_the_reference(kind):
+    """``encode_huffman`` of a tensor (the export passes the codes where
+    they lie) gives the reference's payload byte for byte; ``decode``
+    with a device named gives the codes as a tensor there."""
+    import torch
+    codes = _codes(kind, (37, 129), seed=3)
+    want = jf.encode_huffman(codes)
+    got = tf.encode(torch.from_numpy(codes), "huffman")
+    assert got.shape == want.shape
+    for key in want.payload:
+        np.testing.assert_array_equal(got.payload[key], want.payload[key])
+    on = tf.decode(want, "cpu")
+    assert isinstance(on, torch.Tensor) and on.dtype == torch.uint8
+    np.testing.assert_array_equal(on.numpy(), codes)
+    np.testing.assert_array_equal(tf.decode(want), codes)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_huffman_chain_by_doubling_equals_the_walk(seed):
+    """The card's chain of code starts (pointer doubling) equals the
+    host's walk on one next-start map, here both on the CPU: a map of
+    steps 1..15 with, for seed 2, positions where no code starts
+    (mapped to ``nbits + 1``), as a broken stream gives."""
+    import torch
+    rng = np.random.default_rng(seed)
+    nbits = 5000 + 777 * seed
+    nxt = np.arange(nbits + 2, dtype=np.int32)
+    nxt[:nbits] += rng.integers(1, 16, nbits).astype(np.int32)
+    if seed == 2:
+        nxt[:nbits][rng.random(nbits) < 0.01] = nbits + 1
+    nxt[:nbits][nxt[:nbits] > nbits] = nbits + 1
+    nxt_t = torch.from_numpy(nxt)
+    for n in (1, 31, 32, 33, nbits // 8, nbits):
+        np.testing.assert_array_equal(
+            tf._starts_doubling(nxt_t, n).numpy(),
+            tf._starts_walk(nxt_t, n).numpy())
+
+
+def test_huffman_decode_raises_on_a_broken_stream():
+    """A truncated payload, or a bit count that is short or long, fails
+    with the bit where the stream breaks; the reference fails too."""
+    codes = _codes("skewed", (40, 25), seed=4)
+    ct = tf.encode_huffman(codes)
+    nbits = int(ct.payload["nbits"][0])
+    broken = {"truncated": {**ct.payload, "bits": ct.payload["bits"][:-9]},
+              "short": {**ct.payload, "nbits": np.asarray([nbits - 3],
+                                                          np.int64)},
+              "long": {**ct.payload, "nbits": np.asarray([nbits + 5],
+                                                         np.int64)}}
+    for name, payload in broken.items():
+        bad = tf.CompressedTensor("huffman", ct.shape, payload)
+        with pytest.raises(ValueError, match="huffman payload"):
+            tf.decode_huffman(bad)
+        with pytest.raises(Exception):
+            jf.decode_huffman(jf.CompressedTensor("huffman", ct.shape,
+                                                  payload))

@@ -455,6 +455,31 @@ def test_lm_launcher_resumes_where_an_uninterrupted_run_ends(tmp_path):
         assert torch.equal(a, b)
 
 
+def test_moe_launcher_resumes_where_an_uninterrupted_run_ends(tmp_path):
+    """The same for grok-1-314b's smoke config (the moe family: the aux
+    loss in the step, (L, E) banks, ω and probabilities in the
+    checkpoint): steps 6-10 after a restart from step 5 bit for bit, and
+    the router's bias correction untouched."""
+    import shutil
+    cfg = ttrain.lm_config("grok-1-314b", smoke=True)
+    kw = dict(steps=10, batch=2, seq=16, lr=1e-3, lam=0.05, lam_ramp=4,
+              ckpt_every=5, device="cpu", metrics_every=1, log=lambda s: 0)
+    whole = ttrain.train_lm(cfg, ckpt_dir=str(tmp_path / "a"), **kw)
+    os.makedirs(tmp_path / "b")
+    shutil.copytree(tmp_path / "a" / "step_00000005",
+                    tmp_path / "b" / "step_00000005")
+    rest = ttrain.train_lm(cfg, ckpt_dir=str(tmp_path / "b"), **kw)
+    assert rest["start"] == 5 and rest["reason"] == "done"
+    assert [h["loss"] for h in whole["history"][5:]] == \
+        [h["loss"] for h in rest["history"]]
+    assert all(np.isfinite(h["aux"]) and h["aux"] > 0
+               for h in whole["history"])
+    for a, b in zip(tree.leaves(whole["state"]), tree.leaves(rest["state"])):
+        assert torch.equal(a, b)
+    router = whole["state"]["params"]["stacks"]["moe"]["moe"]["router"]
+    assert not router["bias_correction"].any()
+
+
 def test_lm_launcher_flags_per_branch():
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         ttrain.main(["--arch", ARCH, "--smoke", "--remat", "full",
