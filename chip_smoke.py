@@ -87,9 +87,10 @@ Phases (any failure raises and the script exits non-zero):
    the chain's seven, the cooperative grid of stream -- and the
    dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
    phase 3, phase 3b's serving check, phase 3c, phase 5, phase 6, phase
-   7, phase 8), one
+   7, phase 8, phase 9), one
    ``path``, one ``train``, one ``frontend``, one ``lm``, one
-   ``lm_train``, one ``moe`` and one ``moe_train`` JSON line.
+   ``lm_train``, one ``moe``, one ``moe_train`` and one ``mla`` JSON
+   line.
 5. The LM serving path at full width, run after phase 3c: SmolLM-360M
    (32 blocks of d_model 960, 15 heads, 5 KV heads, d_ff 2560, vocab
    49,152) from ``lm_init(seed=0)`` on the card, frozen with
@@ -190,8 +191,10 @@ Phases (any failure raises and the script exits non-zero):
    and aux finite, the first within 0.5 of ln 32768; ``bias_correction``
    bitwise unchanged; a fresh state restored from the checkpoint takes
    steps 4-6 with the same losses and leaf digests bit for bit;
-   ``load_quantized`` of the export (Huffman decoded on the card) turned
-   into a serving tree equals ``freeze_tree`` leaf for leaf, and both
+   ``load_quantized`` of the export (Huffman decoded on the card; the
+   attention q's 37.7 M codes also decoded on the host, timed, the same
+   codes) turned into a serving tree equals ``freeze_tree`` leaf for
+   leaf, and both
    serve the same 4 x (16 + 8) greedy tokens through ``lm_apply``; no
    host synchronisation inside a step (``set_sync_debug_mode``).
    Prints the reduced list and the deployment, ms a step, device ms,
@@ -201,6 +204,47 @@ Phases (any failure raises and the script exits non-zero):
    after the forward, the backward, Adam and the update, checkpoint and
    export bytes and ms, and the assignments dropped a step, each beside
    the card's name and power limit, and one ``moe_train`` JSON line.
+
+9. MLA serving at published widths, run after phase 8 (whose state is
+   freed first: the phase gates that at most 1 GiB is allocated when it
+   starts): one GPU's share of deepseek-v3-671b (d_model 7168, 128
+   heads, MLA with q_lora 1536, kv_lora 512, nope 128, rope 64, v 128;
+   dense d_ff 18,432; 256 experts of d_ff 2048, sigmoid gate, top-8,
+   routed scaling 2.5, a shared expert; vocabulary 129,280) at depth 4
+   (the 3 leading dense layers and the first MoE layer) with experts 0-7
+   of 256 held (``experts_held=(0, 8)``, one GPU of the DeepSeek-V3
+   report's EP32 prefill unit), frozen to 4 bits and served through the
+   direct ``lm_apply`` path: first by the launcher's
+   ``serve_lm_config`` on the share (init, ``freeze_tree``, 2 prompts of
+   8,192 ids from numpy seed 0, 16 greedy tokens), the ecl_quant counter
+   zeroed just before and read just after; then the same init, freeze
+   and prompts again for the gates, whose tokens must equal the
+   launcher's.  Gates: exactly ⌈56 / 32⌉ = 2 ecl_quant launches (5 MLA
+   + 3 FFN segments a dense layer, 5 MLA + 3 banks x 8 + 3 shared in
+   the MoE layer); codes of layer 0's q_down and kv_up and of held
+   experts 0 and 7 of every bank bitwise equal to ``ecl_quant_plain``;
+   layer 0's MLA output in the prefill (the naive form, the latent
+   decompressed a KV chunk at a time) within 1e-4 relative of a plain
+   fp32 reference that decompresses K and V whole and runs
+   ``dense_attention_ref`` 16 heads at a time (TF32 off; the tolerance
+   covers the fp32 summation order over 192-wide dot products and 8,192
+   keys); at the first decode step, from the same cache, the absorbed
+   and the naive form within 1e-4 relative; each sequence's last decode
+   step's logits within 1e-4 relative of a re-prefill of its 8,207
+   tokens without a cache at capacity factor E / k (no drops; the drops
+   at the served factor counted); the last decode step's MoE output,
+   and the prefill's (its dropped assignments left out), within 1e-4
+   relative of a per-token reference of the held experts chosen plus
+   the shared expert; ``route`` card vs CPU on the prefill's router
+   logits (and the same rounded: ties), ids bitwise, weights and aux
+   within 1e-6; deepseek-v3's smoke config with MLA card vs CPU, tokens
+   equal and logits within 1e-5; every frozen leaf and the cache on the
+   card.  Prints the reduced list and the deployment, the freeze's ms,
+   device ms and bounds, prefill ms and decode ms a step, one decode
+   step's device ms, operations and idle share, peak device memory of
+   the freeze, the prefill and the decode, the latent cache's bytes
+   against the uncompressed K and V's, and the assignments dropped, each
+   beside the card's name and power limit, and one ``mla`` JSON line.
 
 The script ends with a line that counts the profiler traces taken and
 retaken and the device times taken from queued CUDA events, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -1842,8 +1886,8 @@ def _lm_direct(dev, cfg, frozen, prompts, new, tokens=None):
     decode steps fed ``tokens`` (teacher forcing) or, without them, each
     step's greedy pick.  Returns the greedy picks (B, new), each step's
     last-position logits (B, new, vocab) and the cache; on the card also
-    prefill ms and decode ms a step (CUDA events) and the decode steps'
-    peak device memory."""
+    prefill ms and decode ms a step (CUDA events) and the prefill's and
+    the decode steps' peak device memory."""
     import torch
     from repro_torch.nn import transformer as T
     from repro_torch.nn.module import FP32_CTX
@@ -1858,6 +1902,7 @@ def _lm_direct(dev, cfg, frozen, prompts, new, tokens=None):
         if on_card else None
     if on_card:
         torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         clock[0].record()
     with torch.no_grad():
         logits, cache, _ = T.lm_apply(frozen, 0, tok, FP32_CTX, cfg,
@@ -1865,6 +1910,7 @@ def _lm_direct(dev, cfg, frozen, prompts, new, tokens=None):
         if on_card:
             clock[1].record()
             torch.cuda.synchronize(dev)
+            prefill_peak = torch.cuda.max_memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
         steps = [logits[:, -1, :cfg.vocab]]
         toks = [torch.argmax(steps[-1], dim=-1)]
@@ -1883,6 +1929,7 @@ def _lm_direct(dev, cfg, frozen, prompts, new, tokens=None):
     if on_card:
         out.update(prefill_ms=clock[0].elapsed_time(clock[1]),
                    decode_ms=clock[1].elapsed_time(clock[2]) / max(new - 1, 1),
+                   prefill_peak_bytes=prefill_peak,
                    decode_peak_bytes=torch.cuda.max_memory_allocated(dev))
     return out
 
@@ -2533,28 +2580,39 @@ def _plain_codes(w, omega, pen):
 
 
 def _moe_freeze(dev, cfg):
+    """Phase 7's freeze (:func:`_gated_freeze`): grok's q/k/v/o and 3
+    banks x 8 experts a layer; codes of layer 0's q and of the first and
+    last expert of every bank checked."""
+    checks = [("moe", ("attn", "q", "kernel"), (0,))] + [
+        ("moe", ("moe", "experts", b), (0, e)) for b in MOE_BANKS
+        for e in (0, cfg.n_experts - 1)]
+    want = cfg.n_layers * (4 + len(MOE_BANKS) * cfg.n_experts)
+    return _gated_freeze(dev, cfg, MOE["seed"], want,
+                         "q/k/v/o + 3 banks x "
+                         f"{cfg.n_experts} experts a layer", checks)
+
+
+def _gated_freeze(dev, cfg, seed, want_segments, layout, checks):
     """Init on the card and ``freeze_tree`` with the ecl_quant counter
-    zeroed just before and read just after: the exact launch count the
-    segments give, codes of layer 0's q and of the first and last expert
-    of every bank (segments 0 and 7 at grok's widths) bitwise equal to the
-    plain version on the same card tensors, the grouped pass timed against
-    its bounds, peak device memory."""
+    zeroed just before and read just after: the segment count ``layout``
+    names, the exact launch count the segments give, the codes of each
+    ``(stack, path, index)`` of ``checks`` bitwise equal to the plain
+    version on the same card tensors, the grouped pass timed against its
+    bounds, peak device memory."""
     import torch
     from repro_torch.core import bitplanes, ecl, qat
     from repro_torch.kernels import ecl_quant as eq
     from repro_torch.nn import transformer as T
     from repro_torch.tree import leaves
 
-    params = T.lm_init(cfg, seed=MOE["seed"], device=dev)
+    params = T.lm_init(cfg, seed=seed, device=dev)
     qstate = qat.build_qstate(params)
     nodes = list(qat._quant_leaves(params, qstate))     # (leaf, its state)
     segments = sum(n["omega"][..., 0].numel() for n, _ in nodes)
     elements = sum(n["w"].numel() for n, _ in nodes)
-    want_segments = cfg.n_layers * (4 + len(MOE_BANKS) * cfg.n_experts)
     if segments != want_segments:
         raise AssertionError(f"{segments} ECL segments, expected "
-                             f"{want_segments} (q/k/v/o + 3 banks x "
-                             f"{cfg.n_experts} experts a layer)")
+                             f"{want_segments} ({layout})")
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     eq.LAUNCHES = 0
@@ -2568,11 +2626,8 @@ def _moe_freeze(dev, cfg):
         raise AssertionError(f"freeze_tree made {launches} ecl_quant "
                              f"launches for {segments} segments")
 
-    checks = [(("attn", "q", "kernel"), (0,))] + [
-        (("moe", "experts", b), (0, e)) for b in MOE_BANKS
-        for e in (0, cfg.n_experts - 1)]
-    for path, idx in checks:
-        node, qs, fnode = (t["stacks"]["moe"] for t in (params, qstate,
+    for stack, path, idx in checks:
+        node, qs, fnode = (t["stacks"][stack] for t in (params, qstate,
                                                         frozen))
         for k in path:
             node, qs, fnode = node[k], qs[k], fnode[k]
@@ -2614,8 +2669,8 @@ def _moe_freeze(dev, cfg):
               "peak_device_bytes": peak,
               "packed_bytes": sum(t.numel() for t in leaves(frozen)
                                   if t.dtype == torch.uint8),
-              "codes_checked": [".".join(p) + str(list(i))
-                                for p, i in checks]}
+              "codes_checked": [".".join((st,) + p) + str(list(i))
+                                for st, p, i in checks]}
     return frozen, freeze, row
 
 
@@ -2653,10 +2708,12 @@ class _MoeRecorder:
 
 
 def _moe_dense_ref(p, x, cfg, keep=None):
-    """The port's mirror of tests/test_moe.py::_dense_ref on the card:
-    per token, each chosen expert's SwiGLU from that expert's codes alone
-    (decoded once per expert that some token chose), added in assignment
-    order; ``keep`` (N, k) leaves dropped assignments out."""
+    """The port's mirror of tests/test_moe.py::_dense_ref on the card, in
+    plain fp32 PyTorch: per token, each chosen expert that the layer holds
+    (all, or the share ``cfg.experts_held``), decoded from that expert's
+    codes alone and weighted, added in assignment order, then the shared
+    expert where the layer has one; ``keep`` (N, k) leaves dropped
+    assignments out.  Returns (output, ids)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import qat
@@ -2666,21 +2723,31 @@ def _moe_dense_ref(p, x, cfg, keep=None):
     ids, w, _ = moe.route(xt @ p["router"]["w"], p["router"]["bias_correction"],
                           top_k=cfg.top_k, gate=cfg.moe_gate,
                           routed_scaling=cfg.routed_scaling)
+    first, count = moe.held_experts(cfg.experts_held, cfg.n_experts)
     parts = torch.zeros((cfg.top_k,) + xt.shape, dtype=torch.float32,
                         device=xt.device)
-    for e in sorted(set(ids.flatten().tolist())):
-        bank = {n: qat.decode_frozen({"packed": p["experts"][n]["packed"][e],
-                                      "omega": p["experts"][n]["omega"][e]})
-                for n in MOE_BANKS}
-        for i, j in (ids == e).nonzero().tolist():
-            if keep is not None and not bool(keep[i, j]):
-                continue
-            h = F.silu(xt[i] @ bank["gate"]) * (xt[i] @ bank["up"])
-            parts[j, i] = w[i, j] * (h @ bank["down"])
+    for e in range(first, first + count):
+        hit = ids == e
+        if keep is not None:
+            hit &= keep
+        tok, j = hit.nonzero(as_tuple=True)
+        if not tok.numel():
+            continue
+        bank = {n: qat.decode_frozen(
+            {"packed": p["experts"][n]["packed"][e - first],
+             "omega": p["experts"][n]["omega"][e - first]})
+            for n in MOE_BANKS}
+        xe = xt[tok]
+        hid = F.silu(xe @ bank["gate"]) * (xe @ bank["up"])
+        parts[j, tok] = w[tok, j, None] * (hid @ bank["down"])
         del bank
     out = torch.zeros_like(xt)
     for j in range(cfg.top_k):
         out = out + parts[j]
+    if "shared" in p:
+        sh = {n: qat.decode_frozen(p["shared"][n]["kernel"])
+              for n in MOE_BANKS}
+        out = out + (F.silu(xt @ sh["gate"]) * (xt @ sh["up"])) @ sh["down"]
     return out.reshape(x.shape), ids
 
 
@@ -2814,9 +2881,9 @@ def _layer0(tree):
     return tr.map_(lambda a: a[0], tree)
 
 
-def _moe_smoke_card_vs_cpu(dev):
-    """grok's smoke config from one CPU init, frozen on each device (the
-    kernel on the card, the plain version on the CPU), then the same
+def _moe_smoke_card_vs_cpu(dev, arch=MOE["arch"]):
+    """``arch``'s smoke config from one CPU init, frozen on each device
+    (the kernel on the card, the plain version on the CPU), then the same
     prompts served greedily: tokens equal, logits within MOE_SMOKE_TOL."""
     import numpy as np
     import torch
@@ -2825,7 +2892,7 @@ def _moe_smoke_card_vs_cpu(dev):
     from repro_torch.core import qat
     from repro_torch.nn import transformer as T
 
-    cfg = get_config(MOE["arch"]).smoke()
+    cfg = get_config(arch).smoke()
     params = T.lm_init(cfg, seed=MOE["seed"], device="cpu")
     prompts = np.random.default_rng(MOE["seed"]).integers(
         0, cfg.vocab, (MOE["prompts"], MOE["prompt_len"]))
@@ -2837,10 +2904,10 @@ def _moe_smoke_card_vs_cpu(dev):
                                       MOE["max_new"])
     card, cpu = runs["cuda"], runs["cpu"]
     if not np.array_equal(card["tokens"], cpu["tokens"]):
-        raise AssertionError("grok smoke: card tokens != CPU tokens")
+        raise AssertionError(f"{cfg.name}: card tokens != CPU tokens")
     got, want = card["logits"].cpu(), cpu["logits"]
     if not torch.allclose(got, want, atol=MOE_SMOKE_TOL, rtol=MOE_SMOKE_TOL):
-        raise AssertionError(f"grok smoke: logits off the CPU's by "
+        raise AssertionError(f"{cfg.name}: logits off the CPU's by "
                              f"{float((got - want).abs().max())}")
     return {"tokens_equal": True,
             "max_abs_logit_err": float((got - want).abs().max())}
@@ -3391,7 +3458,7 @@ def moe_train_path(dev, gpu):
         served = frozen_tree(loaded, device=dev)
         del loaded
         codec = _host_vs_card_decode(formats, export_dir,
-                                     "stacks//moe//moe//experts//down", dev)
+                                     "stacks//moe//attn//q//kernel", dev)
         eq.LAUNCHES = 0
         frozen = qat.freeze_tree(state["params"], state["qstate"], cfg.lam)
         freeze_launches = eq.LAUNCHES
@@ -3521,7 +3588,7 @@ def moe_train_path(dev, gpu):
         "export_formats": sorted({t["format"] for t in
                                   report["tensors"].values()}),
         "export_ms": export_ms, "export_load_ms": load_ms,
-        "export_down_bank_decode": codec,
+        "export_host_vs_card_decode": codec,
         "served_tokens_0": serve_export["tokens"][0].tolist(),
         "smoke": smoke, "gpu": gpu,
         "wall_s": time.perf_counter() - t_phase}
@@ -3555,7 +3622,7 @@ def moe_train_path(dev, gpu):
           f"{out['checkpoint_save_ms'][0]:.0f} ms, restored in "
           f"{restore_ms:.0f} ms; export {export_bytes * gb:.3f} GB "
           f"({report['compression_ratio']:.2f}x) in {export_ms:.0f} ms, "
-          f"loaded in {load_ms:.0f} ms (the down bank's "
+          f"loaded in {load_ms:.0f} ms (the attention q's "
           f"{codec['codes']:,} codes, {codec['format']}: decoded on the "
           f"host in {codec['host_ms']:.0f} ms, on the card in "
           f"{codec['card_ms']:.0f} ms, the same codes); dropped a step "
@@ -3567,6 +3634,424 @@ def moe_train_path(dev, gpu):
           f"{smoke['card_vs_cpu_loss_aux_max_rel']:.2e}, gradients "
           f"{max(smoke['card_vs_cpu_grad_max_rel'].values()):.2e}; done in "
           f"{out['wall_s']:.1f} s ({gpu})")
+    return out
+
+
+# ------------------------------------------------------------- phase 9
+
+MLA_SERVE = dict(arch="deepseek-v3-671b", layers=4, experts_held=(0, 8),
+                 ep=32, seed=0, prompts=2, prompt_len=8192, max_new=16)
+MLA_DECODE_UNIT = dict(ep=320, experts_held=1)
+MLA_REL = 1e-4            # MLA, the two forms, re-prefill, MoE: relative
+MLA_REF_HEADS = 16        # heads of the plain reference's attention a pass
+EMPTY_CARD_BYTES = 1 << 30   # what phase 9 may find allocated at its start
+
+
+def _mla_serve_cfg():
+    """deepseek-v3-671b at its published widths: depth 4 (the 3 leading
+    dense layers and the first MoE layer) and experts 0-7 of 256 held,
+    one GPU's share of an EP32 deployment."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MLA_SERVE["arch"]),
+                               n_layers=MLA_SERVE["layers"],
+                               experts_held=MLA_SERVE["experts_held"])
+
+
+def _mla_freeze(dev, cfg):
+    """Phase 9's freeze (:func:`_gated_freeze`): 5 MLA leaves a layer, the
+    dense FFN's 3, the held experts' 3 banks and the shared expert's 3;
+    codes of layer 0's q_down and kv_up and of the first and last held
+    expert of every bank checked."""
+    first, count = cfg.experts_held
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    want = (cfg.n_dense_layers * (5 + 3)
+            + n_moe * (5 + len(MOE_BANKS) * count + 3))
+    checks = [("dense", ("attn", name, "kernel"), (0,))
+              for name in ("q_down", "kv_up")] + [
+        ("moe", ("moe", "experts", b), (0, e)) for b in MOE_BANKS
+        for e in (0, count - 1)]
+    return _gated_freeze(dev, cfg, MLA_SERVE["seed"], want,
+                         "5 MLA + 3 FFN a dense layer; 5 MLA + 3 banks x "
+                         f"{count} held experts + 3 shared a MoE layer",
+                         checks)
+
+
+class _MlaRecorder:
+    """Records the calls of ``mla_apply`` whose index is in ``picks``
+    (its input, keyword arguments, input cache and output) while in use;
+    the transformer looks ``mla_apply`` up on its module at every call."""
+
+    def __init__(self, picks):
+        self.picks, self.calls, self.n = set(picks), {}, 0
+
+    def __enter__(self):
+        from repro_torch.nn import attention
+        self._orig = attention.mla_apply
+
+        def record(p, q, x, ctx, cfg, **kw):
+            y, cache = self._orig(p, q, x, ctx, cfg, **kw)
+            if self.n in self.picks:
+                self.calls[self.n] = (x.detach().clone(), kw,
+                                      y.detach().clone())
+            self.n += 1
+            return y, cache
+        attention.mla_apply = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import attention
+        attention.mla_apply = self._orig
+
+
+def _mla_plain_ref(p, x, cfg, positions):
+    """The MLA block in plain fp32 PyTorch: every weight decoded from its
+    codes, K and V decompressed from the latent whole, rotary applied, and
+    ``dense_attention_ref`` over all keys, MLA_REF_HEADS heads a pass."""
+    import torch
+    from repro_torch.core import qat
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.layers import apply_rotary, rope_cos_sin
+
+    m = cfg.mla
+    nope, rope, dv, r = (m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
+                         m.kv_lora_rank)
+    h = cfg.n_heads
+    b, s, _ = x.shape
+    w = {k: qat.decode_frozen(p[k]["kernel"])
+         for k in ("q_down", "q_up", "kv_down", "kv_up", "o")}
+    q = ((x @ w["q_down"]) @ w["q_up"]).view(b, s, h, nope + rope)
+    kv = x @ w["kv_down"]
+    cos, sin = rope_cos_sin(positions, rope, cfg.rope_theta)
+    q = torch.cat([q[..., :nope], apply_rotary(q[..., nope:], cos, sin)], -1)
+    kr = apply_rotary(kv[..., None, r:], cos, sin)          # (b, s, 1, rope)
+    kvu = (kv[..., :r] @ w["kv_up"]).view(b, s, h, nope + dv)
+    k = torch.cat([kvu[..., :nope], kr.expand(b, s, h, rope)], -1)
+    out = torch.empty((b, s, h, dv), dtype=torch.float32, device=x.device)
+    for h0 in range(0, h, MLA_REF_HEADS):
+        sl = slice(h0, h0 + MLA_REF_HEADS)
+        out[:, :, sl] = attn.dense_attention_ref(
+            q[:, :, sl], k[:, :, sl], kvu[:, :, sl, nope:], positions,
+            positions, causal=True, scale=(nope + rope) ** -0.5)
+    return out.reshape(b, s, h * dv) @ w["o"]
+
+
+def _moe_decode_checks(cfg, p, calls):
+    """Every recorded decode call of the MoE layer ``p`` against the
+    per-token share reference: (max relative error, held assignments a
+    step); a decode step must drop nothing."""
+    first, count = cfg.experts_held
+    rel, held = 0.0, []
+    for x, y in calls:
+        if x.shape[1] != 1:
+            raise AssertionError(f"a decode MoE call of shape {x.shape}")
+        if not bool(_dispatch_of(p, x, cfg)[1].all()):
+            raise AssertionError("a decode step dropped an assignment")
+        want, ids = _moe_dense_ref(p, x, cfg)
+        rel = max(rel, _rel(y, want))
+        held.append(int(((ids >= first) & (ids < first + count)).sum()))
+    return rel, held
+
+
+def _decode_unit(dev, cfg, frozen, cache, tokens, s):
+    """The decode at one GPU's share of the DeepSeek-V3 report's decode
+    unit (arXiv:2412.19437 §3.4.2: EP320, one routed expert a GPU): the
+    held banks cut to the first held expert (``convert.take_experts``),
+    then the ``new - 1`` decode steps of the served run fed its tokens,
+    from its cache rewound to the prompt (``len`` back to ``s``: each step
+    rewrites its own slot, and the causal mask hides the later ones).  At
+    depth 4 the MoE layer comes last, so every attention input, and with
+    it the cache, is the served run's.  Returns ms a step (CUDA events),
+    a traced step's device ms, operations and idle share, the held
+    assignments a step, and the MoE output of every step against the
+    per-token share reference (gated at MLA_REL)."""
+    import dataclasses
+    import torch
+    from repro_torch.convert import take_experts
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import FP32_CTX
+
+    first, _ = cfg.experts_held
+    held = (first, MLA_DECODE_UNIT["experts_held"])
+    ucfg = dataclasses.replace(cfg, experts_held=held)
+    ufrozen = take_experts(frozen, 0, held[1])
+    b, new = tokens.shape
+    fed = torch.from_numpy(tokens).to(dev)
+    state = {kind: {"attn": {**c["attn"], "len": c["attn"]["len"] - (new - 1)}}
+             for kind, c in cache.items()}
+    clock = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def step(t, c):
+        p_t = torch.full((b, 1), s + t, dtype=torch.int32, device=dev)
+        return T.lm_apply(ufrozen, 0, fed[:, t:t + 1], FP32_CTX, ucfg,
+                          positions=p_t, cache=c)
+
+    with torch.no_grad(), _MoeRecorder() as rec:
+        torch.cuda.synchronize(dev)
+        clock[0].record()
+        for t in range(new - 1):
+            _, state, _ = step(t, state)
+        clock[1].record()
+        torch.cuda.synchronize(dev)
+    ms = clock[0].elapsed_time(clock[1]) / max(new - 1, 1)
+    rel, held_by_step = _moe_decode_checks(
+        ucfg, _layer0(ufrozen["stacks"]["moe"]["moe"]), rec.calls)
+    if rel > MLA_REL:
+        raise AssertionError(f"decode unit: MoE output off the per-token "
+                             f"share reference by {rel} relative")
+
+    def last_step():
+        with torch.no_grad():
+            return step(new - 2, state)
+
+    trace, _ = _step_trace(last_step, dev, 3)
+    return {"deployment": f"one GPU of EP{MLA_DECODE_UNIT['ep']}, "
+                          "arXiv:2412.19437 §3.4.2, the decode unit",
+            "experts_held": list(held), "decode_ms_per_step": ms,
+            "trace": trace, "held_by_step": held_by_step,
+            "moe_max_rel_err": rel}
+
+
+def _on_card(tree):
+    from repro_torch.tree import leaves
+    return all(t.device.type == "cuda" for t in leaves(tree)
+               if hasattr(t, "device"))
+
+
+def mla_serve_path(dev, gpu):
+    """Phase 9: one GPU's share of deepseek-v3-671b at its published widths
+    (depth 4, experts 0-7 of 256), frozen to 4 bits on the card and served
+    with multi-head latent attention through the direct ``lm_apply`` path,
+    first by the launcher's serving function on the share."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import serve
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import FP32_CTX
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated(dev)
+    if start_bytes > EMPTY_CARD_BYTES:
+        raise AssertionError(f"phase 9 starts with {start_bytes / 1e9:.2f} "
+                             "GB allocated on the card")
+    cfg = _mla_serve_cfg()
+    m, first, count = cfg.mla, *cfg.experts_held
+    b, s, new = (MLA_SERVE["prompts"], MLA_SERVE["prompt_len"],
+                 MLA_SERVE["max_new"])
+    published = get_config(cfg.name).n_layers
+    print(f"phase 9: {cfg.name}, reduced: depth {published} -> "
+          f"{cfg.n_layers} (the {cfg.n_dense_layers} dense layers and "
+          f"one MoE layer), experts {cfg.n_experts} -> {count} held "
+          f"({first}-{first + count - 1}: one GPU of EP{MLA_SERVE['ep']}); "
+          f"router {cfg.n_experts} wide, top-{cfg.top_k}, shared expert, "
+          f"attention and vocabulary {cfg.vocab} whole ({gpu})")
+
+    # the main path, as the launcher serves a share a caller hands it
+    argv = ["--arch", MLA_SERVE["arch"], "--batch", str(b), "--prompt-len",
+            str(s), "--max-new", str(new), "--seed", str(MLA_SERVE["seed"])]
+    args = serve.parse_args(argv)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eq.LAUNCHES = 0
+    t0 = time.perf_counter()
+    gen = serve.serve_lm_config(cfg, args)
+    torch.cuda.synchronize(dev)
+    launcher = {"argv": argv, "experts_held": list(cfg.experts_held),
+                "wall_s": time.perf_counter() - t0,
+                "ecl_quant_launches": eq.LAUNCHES,
+                "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    if gen.shape != (b, new) or not ((gen >= 0) & (gen < cfg.vocab)).all():
+        raise AssertionError(f"launcher returned ids of shape {gen.shape}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    frozen, freeze, ecl_row = _mla_freeze(dev, cfg)
+    if launcher["ecl_quant_launches"] != freeze["ecl_quant_launches"]:
+        raise AssertionError(f"the launcher made "
+                             f"{launcher['ecl_quant_launches']} ecl_quant "
+                             f"launches, the freeze "
+                             f"{freeze['ecl_quant_launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated(dev)
+
+    prompts = np.random.default_rng(MLA_SERVE["seed"]).integers(
+        0, cfg.vocab, (b, s))
+    n_layers = cfg.n_layers
+    with _MoeRecorder() as rec, _MlaRecorder((0, n_layers)) as mrec:
+        run = _lm_direct(dev, cfg, frozen, prompts, new)
+    if not bool(torch.isfinite(run["logits"]).all()):
+        raise AssertionError("non-finite logits")
+    if not np.array_equal(run["tokens"], gen):
+        raise AssertionError("the gated run's tokens != the launcher's")
+    if not (_on_card(frozen) and _on_card(run["cache"])):
+        raise AssertionError("a frozen leaf or the cache left the card")
+
+    # MLA at full width: the naive prefill against the plain reference
+    pa = _layer0(frozen["stacks"]["dense"]["attn"])
+    x0, kw0, y0 = mrec.calls[0]
+    want = _mla_plain_ref(pa, x0, cfg, kw0["positions"])
+    naive_rel = _rel(y0, want)
+    del want, x0, y0
+    if naive_rel > MLA_REL:
+        raise AssertionError(f"MLA prefill (naive) off the plain reference "
+                             f"by {naive_rel} relative")
+    # the two forms at the first decode step, from the same cache
+    x1, kw1, y1 = mrec.calls[n_layers]
+    mcfg = T._mla_cfg(cfg)
+    forms = {}
+    with torch.no_grad():
+        for name, force in (("absorbed", True), ("naive", False)):
+            forms[name], _ = attn.mla_apply(pa, 0, x1, FP32_CTX, mcfg,
+                                            force_absorbed=force, **kw1)
+    forms_rel = _rel(forms["absorbed"], forms["naive"])
+    served_rel = _rel(y1, forms["absorbed"])
+    if max(forms_rel, served_rel) > MLA_REL:
+        raise AssertionError(f"decode step: the absorbed form off the naive "
+                             f"by {forms_rel}, the served step off the "
+                             f"absorbed form by {served_rel} relative")
+    del mrec, forms, kw1, x1, y1
+
+    # the MoE layer: routing card vs CPU, the decode step and the prefill
+    # against the per-token share reference
+    p = _layer0(frozen["stacks"]["moe"]["moe"])
+    x_pre, y_pre = rec.calls[0]
+    if len(rec.calls) != new or x_pre.shape != (b, s, cfg.d_model):
+        raise AssertionError(f"{len(rec.calls)} MoE calls recorded")
+    route_err = _moe_route_checks(dev, cfg, p, x_pre)
+    decode_rel, held_dec = _moe_decode_checks(cfg, p, rec.calls[1:])
+    ids_pre, keep_pre, cap_pre = _dispatch_of(p, x_pre, cfg)
+    prefill_moe_rel = _rel(y_pre,
+                           _moe_dense_ref(p, x_pre, cfg, keep_pre)[0])
+    if max(decode_rel, prefill_moe_rel) > MLA_REL:
+        raise AssertionError(f"MoE output off the per-token share reference "
+                             f"by {decode_rel} (decode), {prefill_moe_rel} "
+                             "(prefill) relative")
+    if not sum(held_dec):
+        raise AssertionError(f"none of the {new - 1} decode steps routed an "
+                             "assignment to a held expert: the decode gate "
+                             "held no bank against the reference")
+    held = lambda ids: (ids >= first) & (ids < first + count)   # noqa: E731
+    routed = {"prefill_assignments": int(ids_pre.numel()),
+              "prefill_held": int(held(ids_pre).sum()),
+              "prefill_dropped": int((~keep_pre).sum()),
+              "prefill_held_dropped": int((held(ids_pre) & ~keep_pre).sum()),
+              "prefill_capacity": cap_pre,
+              "decode_held_by_step": held_dec}
+    del rec, x_pre, y_pre
+
+    # the cache against a re-prefill of each sequence's 8,207 tokens
+    seqs = np.concatenate([prompts, run["tokens"][:, :-1]], axis=1)
+    re_prefill, re_prefill_drops = _moe_re_prefill(
+        dev, cfg, frozen, seqs, run["logits"][:, -1])
+
+    cache = run["cache"]
+    latent = sum(c["attn"][k].numel() * c["attn"][k].element_size()
+                 for c in cache.values() for k in ("ckv", "krope"))
+    slots = b * (s + new) * n_layers
+    kv_bytes = slots * cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim
+                                      + m.v_head_dim) * 4
+    step_tok = torch.from_numpy(run["tokens"][:, -1:]).to(dev)
+    step_pos = torch.full((b, 1), s + new - 1, dtype=torch.int32, device=dev)
+
+    def decode_step():
+        with torch.no_grad():
+            return T.lm_apply(frozen, 0, step_tok, FP32_CTX, cfg,
+                              positions=step_pos, cache=cache)
+
+    trace, _ = _step_trace(decode_step, dev, 3)
+    timing = {k: run[k] for k in ("prefill_ms", "decode_ms",
+                                  "prefill_peak_bytes", "decode_peak_bytes")}
+    unit = _decode_unit(dev, cfg, frozen, cache, run["tokens"], s)
+    del frozen, run, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = _moe_smoke_card_vs_cpu(dev, MLA_SERVE["arch"])
+
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers,
+        "published_layers": published,
+        "reduced": {"n_layers": [published, n_layers],
+                    "experts_held": [cfg.n_experts, count]},
+        "deployment": f"one GPU of EP{MLA_SERVE['ep']} (DeepSeek-V3 report, "
+                      "arXiv:2412.19437 §3.4.1, the prefill unit); the "
+                      "decode metrics at this share too, and `decode_unit` "
+                      "at the decode unit's",
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+        "mla": {"q_lora": m.q_lora_rank, "kv_lora": m.kv_lora_rank,
+                "nope": m.qk_nope_dim, "rope": m.qk_rope_dim,
+                "v": m.v_head_dim},
+        "dense_ff": cfg.dense_ff, "d_ff": cfg.d_ff,
+        "n_experts": cfg.n_experts, "experts_held": list(cfg.experts_held),
+        "top_k": cfg.top_k, "vocab": cfg.vocab,
+        "sequences": b, "prompt_len": s, "max_new": new,
+        "start_device_bytes": start_bytes,
+        "launcher": launcher, "freeze": freeze, "ecl_quant": ecl_row,
+        "resident_device_bytes": resident,
+        "prefill_ms": timing["prefill_ms"],
+        "decode_ms_per_step": timing["decode_ms"],
+        "prefill_peak_device_bytes": timing["prefill_peak_bytes"],
+        "decode_peak_device_bytes": timing["decode_peak_bytes"],
+        "decode_step_trace": trace, "decode_unit": unit,
+        "latent_cache_bytes": latent, "uncompressed_kv_bytes": kv_bytes,
+        "latent_bytes_per_token_layer": latent // slots,
+        "kv_bytes_per_token_layer": kv_bytes // slots,
+        "mla_naive_vs_plain_max_rel": naive_rel,
+        "absorbed_vs_naive_max_rel": forms_rel,
+        "served_step_vs_absorbed_max_rel": served_rel,
+        "route_max_err_card_vs_cpu": route_err,
+        "decode_moe_max_rel_err": decode_rel,
+        "prefill_moe_max_rel_err": prefill_moe_rel, "routing": routed,
+        "re_prefill_max_rel_err": re_prefill,
+        "re_prefill_dropped_at_served_capacity": re_prefill_drops,
+        "smoke_card_vs_cpu": smoke, "tokens_0": gen[0].tolist(), "gpu": gpu,
+        "wall_s": time.perf_counter() - t_phase}
+    gb = 1e-9
+    print(f"phase 9: frozen in {freeze['ms']:.1f} ms "
+          f"({freeze['ecl_quant_launches']} ecl_quant launches, "
+          f"{freeze['segments']} segments, {freeze['quant_weights']:,} "
+          f"elements; ECL device {ecl_row['device_ms']:.2f} ms "
+          f"[{ecl_row['device_ms_from']}] against a "
+          f"{ecl_row['bound_ms']:.2f} ms byte bound, "
+          f"{ecl_row['codes_only_bound_ms']:.2f} codes-only), peak "
+          f"{freeze['peak_device_bytes'] * gb:.1f} GB ({gpu})")
+    print(f"phase 9: prefill of {b} x {s} {timing['prefill_ms']:.1f} ms "
+          f"(peak {timing['prefill_peak_bytes'] * gb:.1f} GB), decode "
+          f"{timing['decode_ms']:.2f} ms/step (peak "
+          f"{timing['decode_peak_bytes'] * gb:.1f} GB), device "
+          f"{trace['device_ms_per_step']:.2f} ms/step, "
+          f"{trace['device_ops_per_step']:.0f} device ops, idle "
+          f"{trace['device_idle_share']:.3f}; the launcher's peak "
+          f"{launcher['peak_device_bytes'] * gb:.1f} GB ({gpu})")
+    print(f"phase 9: decode at the decode unit's share ({unit['deployment']}"
+          f"): {unit['decode_ms_per_step']:.2f} ms/step, device "
+          f"{unit['trace']['device_ms_per_step']:.2f} ms/step, idle "
+          f"{unit['trace']['device_idle_share']:.3f}, "
+          f"{sum(unit['held_by_step'])} held assignments in "
+          f"{len(unit['held_by_step'])} steps, MoE "
+          f"{unit['moe_max_rel_err']:.2e} ({gpu})")
+    print(f"phase 9: latent cache {latent / 1e6:.1f} MB "
+          f"({out['latent_bytes_per_token_layer']} B a token a layer) "
+          f"against {kv_bytes / 1e6:.1f} MB of K and V "
+          f"({out['kv_bytes_per_token_layer']} B), "
+          f"{kv_bytes / latent:.1f}x less; prefill dropped "
+          f"{routed['prefill_dropped']} of {routed['prefill_assignments']} "
+          f"assignments (held: {routed['prefill_held_dropped']} of "
+          f"{routed['prefill_held']}, capacity {cap_pre}), the re-prefills "
+          f"{re_prefill_drops} at the served factor ({gpu})")
+    print(f"phase 9: MLA naive vs plain {naive_rel:.2e}, absorbed vs naive "
+          f"{forms_rel:.2e}, MoE decode {decode_rel:.2e} / prefill "
+          f"{prefill_moe_rel:.2e} ({sum(held_dec)} held decode assignments in "
+          f"{new - 1} steps), re-prefill {re_prefill:.2e}, route "
+          f"{route_err:.2e}, smoke card vs CPU "
+          f"{smoke['max_abs_logit_err']:.2e}; done in {out['wall_s']:.1f} s "
+          f"({gpu})")
     return out
 
 
@@ -3613,6 +4098,7 @@ def main() -> int:
     lm_train = lm_train_path(dev)
     moe = moe_path(dev, gpu)
     moe_train = moe_train_path(dev, gpu)
+    mla = mla_serve_path(dev, gpu)
 
     report = []
     for name, (sched, replaces) in KERNELS.items():
@@ -3651,7 +4137,8 @@ def main() -> int:
                              "lm_training": lm_train["ecl_quant_launches"],
                              "moe": moe["launcher"]["ecl_quant_launches"],
                              "moe_train": moe_train["ecl_quant_launches"]
-                             + moe_train["ecl_quant_launches_export"]},
+                             + moe_train["ecl_quant_launches_export"],
+                             "mla": mla["launcher"]["ecl_quant_launches"]},
         "max_abs_err": ecl_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
         "device_ms": head["device_ms"],
@@ -3663,6 +4150,7 @@ def main() -> int:
         "by_shape": ecl_times,
         "smollm_freeze": lm["ecl_quant"],
         "grok_freeze": moe["ecl_quant"],
+        "deepseek_freeze": mla["ecl_quant"],
         "grok_share_training": {
             "pass": moe_train["ecl_quant_pass"],
             **{k: moe_train[k] for k in (
@@ -3682,6 +4170,7 @@ def main() -> int:
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"moe_train": moe_train}))
+    print(json.dumps({"mla": mla}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "
           "retaken for want of the kernel's device time; "
           f"{TRACES['events']} device times from CUDA events for want of "

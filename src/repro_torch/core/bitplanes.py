@@ -4,7 +4,9 @@ A quantized weight tensor is ``codes`` (uint8 cluster ids in [0, 16)) plus
 ``omega``, the 4 basis centroids; code ``c`` decodes to the subset sum
 ``v_c = Σ_i ω_i · bit_i(c)``, so ``W = Σ_i ω_i B_i`` and code 0 is an exact
 zero.  Packed storage keeps two codes per byte along the contraction axis
-(byte r = c[2r] | c[2r+1] << 4), the layout the CUDA kernels read.
+(byte r = c[2r] | c[2r+1] << 4), the layout the CUDA kernels read;
+:func:`pack_codes` is the reference's flat packing along the last axis,
+and :func:`codes_to_bitplanes` the paper's bit-plane view B_i.
 
 Every decode adds the four terms in the same order (i = 0..3, one rounding
 per add), so the plain versions, the codebook and the kernels' decode give
@@ -16,6 +18,23 @@ import torch
 
 NUM_BASIS = 4
 NUM_CODES = 16
+
+
+def codes_to_bitplanes(codes: torch.Tensor) -> torch.Tensor:
+    """uint8 codes (...) -> bool bit-planes (4, ...), LSB first."""
+    codes = codes.to(torch.uint8)
+    return torch.stack([(codes >> i) & 1 for i in range(NUM_BASIS)]).to(
+        torch.bool)
+
+
+def bitplanes_to_codes(planes: torch.Tensor) -> torch.Tensor:
+    """bool bit-planes (4, ...) -> uint8 codes (...)."""
+    planes = planes.to(torch.uint8)
+    out = torch.zeros(planes.shape[1:], dtype=torch.uint8,
+                      device=planes.device)
+    for i in range(NUM_BASIS):
+        out = out | (planes[i] << i)
+    return out
 
 
 def codebook(omega: torch.Tensor) -> torch.Tensor:
@@ -46,6 +65,25 @@ def decode(codes: torch.Tensor, omega: torch.Tensor,
     for j in range(books.shape[0]):
         torch.index_select(books[j], 0, rows[j].to(torch.int32), out=flat[j])
     return out
+
+
+def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """uint8 codes (..., K) -> packed uint8 (..., K//2), low nibble first
+    along the last axis; K even."""
+    if codes.shape[-1] % 2:
+        raise ValueError(
+            f"trailing dim must be even, got {tuple(codes.shape)}")
+    lo = codes[..., 0::2].to(torch.uint8)
+    hi = codes[..., 1::2].to(torch.uint8)
+    return (lo & 0xF) | (hi << 4)
+
+
+def unpack_codes(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_codes`: (..., K//2) -> (..., K)."""
+    lo = packed & 0xF
+    hi = (packed >> 4) & 0xF
+    out = torch.stack([lo, hi], dim=-1)
+    return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
 
 
 def pack_codes_rows(codes: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,7 @@
         --max-hot-models 2 --flip-rate 0.05 --streams 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --engine
     PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --layers 1
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
 
 Initialises the MLP from a seed, freezes it to the packed 4-bit pack,
 resolves an ``ExecutionPlan`` (mode, row tile, int8 calibration, bucket ->
@@ -19,18 +20,27 @@ the micro-batcher and checks the result against the batch; ``--engine
 fault-injection and stream flags follow the JAX package's launcher.
 
 An LM arch of the dense or moe family (``--arch smollm-360m``,
-``grok-1-314b``; ``--smoke`` for the reduced config, ``--layers N`` to
-cut the depth at the published widths) runs ``lm_init`` ->
-``build_qstate`` -> ``freeze_tree``, then a prefill of ``--batch``
-prompts of ``--prompt-len`` ids and ``--max-new`` greedy tokens through
-``lm_apply`` on the frozen tree, and prints the prefill ms, the decode ms
-per token and the generated ids.  ``--engine`` serves the same prompts
-through an ``LMProgram`` registered in a ``ServingFrontend`` (each
-sequence prefilled, then lockstep decode rows) and checks its tokens
-against ``LMProgram.generate`` bit for bit; ``LMProgram`` serves the
-dense family only, so a moe arch exits there with its message, as the
-JAX launcher does.  The other families (MLA, ssm, hybrid, vlm, audio)
-raise ``NotImplementedError`` (ROADMAP queue 1 item 8).
+``grok-1-314b``, ``deepseek-v3-671b`` with its latent attention;
+``--smoke`` for the reduced config, ``--layers N`` to cut the depth at the
+published widths) runs ``lm_init`` -> ``build_qstate`` -> ``freeze_tree``,
+then a prefill of ``--batch`` prompts of ``--prompt-len`` ids and
+``--max-new`` greedy tokens through ``lm_apply`` on the frozen tree, and
+prints the prefill ms, the decode ms per token and the generated ids.
+``--engine`` serves the same prompts through an ``LMProgram`` registered
+in a ``ServingFrontend`` (each sequence prefilled, then lockstep decode
+rows) and checks its tokens against ``LMProgram.generate`` bit for bit;
+``LMProgram`` serves the dense family only, so a moe arch exits there
+with its message, as the JAX launcher does.  The other families (ssm,
+hybrid, vlm, audio) raise ``NotImplementedError`` (ROADMAP queue 1 item
+8).
+
+:func:`serve_lm_config` serves a config its caller hands it, such as one
+card's share of an expert-parallel deployment
+(``dataclasses.replace(cfg, experts_held=(first, count))``): a share is
+set by a caller, not by a flag.  deepseek-v3-671b at its published widths
+needs one on an 80 GB card: one MoE layer's 256 experts alone are 45 GB
+of fp32 masters before the freeze (``chip_smoke.py`` phase 9 serves 8 of
+them, one GPU's share of the DeepSeek-V3 report's EP32 prefill unit).
 """
 from __future__ import annotations
 
@@ -331,8 +341,8 @@ def serve_mlp_async(args, cfg, plan, x, y_ref):
 
 
 def lm_archs() -> list:
-    """The registered archs the port's LM path serves: the dense family,
-    and the moe family without MLA."""
+    """The registered archs the port's LM path serves: the dense and moe
+    families, MLA included."""
     served = []
     for name in list_configs():
         try:
@@ -343,12 +353,9 @@ def lm_archs() -> list:
     return served
 
 
-@torch.no_grad()
-def serve_lm(args) -> np.ndarray:
-    """The direct LM path: init, freeze, then prefill and greedy decode
-    through ``lm_apply`` on the frozen tree (dense decode + ``torch.matmul``,
-    no FantastIC4 kernel; a MoE layer's experts through ``torch.bmm``).
-    Returns the generated ids (batch, max_new)."""
+def lm_config(args):
+    """The LM config the flags name: ``--arch``, ``--smoke``, the depth
+    cut by ``--layers``."""
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -360,6 +367,17 @@ def serve_lm(args) -> np.ndarray:
         print(f"{cfg.name}: depth cut to {args.layers} layers (--layers; "
               f"the config has {cfg.n_layers})")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
+
+
+@torch.no_grad()
+def serve_lm_config(cfg, args) -> np.ndarray:
+    """The direct LM path on ``cfg``: init, freeze, then prefill and greedy
+    decode through ``lm_apply`` on the frozen tree (dense decode +
+    ``torch.matmul``, no FantastIC4 kernel; a MoE layer's experts through
+    ``torch.bmm``).  ``args`` gives the traffic (``--batch``,
+    ``--prompt-len``, ``--max-new``), ``--seed``, ``--device`` and
+    ``--engine``.  Returns the generated ids (batch, max_new)."""
     dev = resolve_device(args.device)
     params = T.lm_init(cfg, seed=args.seed, device=dev)
     frozen = qat.freeze_tree(params, qat.build_qstate(params), cfg.lam)
@@ -387,6 +405,11 @@ def serve_lm(args) -> np.ndarray:
     clock = "CUDA events" if dev.type == "cuda" else "host clock, CPU"
     experts = (f", {cfg.n_experts} experts top-{cfg.top_k}"
                if cfg.family == "moe" else "")
+    if cfg.experts_held is not None:
+        first, count = cfg.experts_held
+        experts += f" (experts {first}-{first + count - 1} held)"
+    if cfg.mla is not None:
+        experts += f", MLA (kv_lora {cfg.mla.kv_lora_rank})"
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
           f"{cfg.d_ff}{experts}, vocab {cfg.vocab}, frozen to 4 bits on "
           f"{dev}")
@@ -487,7 +510,8 @@ def check_flags(args) -> None:
         raise SystemExit("--async requires --engine")
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The launcher's flags, checked (:func:`check_flags`)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mlp-gsc",
                     choices=sorted(MLPS) + list_configs(),
@@ -563,9 +587,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     check_flags(args)
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.arch in MLPS:
         return serve_mlp(args)
-    return serve_lm(args)
+    return serve_lm_config(lm_config(args), args)
 
 
 if __name__ == "__main__":

@@ -24,9 +24,15 @@ REMAT = ("none",)
 
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise for every arch the port cannot train yet: those its stack
-    does not build (MLA, ssm, hybrid, vlm, audio).  The dense and moe
-    families train, a moe config's share (``experts_held``) included."""
+    does not build (ssm, hybrid, vlm, audio), and MLA, which it serves but
+    does not train yet.  The dense and moe families train, a moe config's
+    share (``experts_held``) included."""
     check_supported(cfg)
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name} uses MLA (multi-head latent attention): the port "
+            "serves it, but training it is not ported yet (the rest of "
+            "ROADMAP queue 1 item 8.2)")
 
 
 def check_remat(remat: str) -> None:

@@ -16,8 +16,10 @@ once, before the layer loop, in one grouped quantization
 ŵ.  The reference's sharding and
 rematerialisation arguments have no counterpart here.
 
-The other families (ssm, hybrid, mla, vlm, audio) raise
-``NotImplementedError``: they wait for ROADMAP queue 1 item 8.
+A config with ``mla`` (deepseek-v3) builds multi-head latent attention
+in every layer and a latent cache (``nn/attention.py``).  The other
+families (ssm, hybrid, vlm, audio) raise ``NotImplementedError``: they
+wait for ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -44,16 +46,21 @@ KINDS = ("dense", "moe")       # the stacks, in the reference's order
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for every arch the port's stack does not build yet."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name} uses MLA (multi-head latent attention), which is "
-            "not ported yet (ROADMAP queue 1 item 8.2)")
     if (cfg.family not in KINDS or cfg.encdec
             or cfg.mrope_sections is not None):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family} family) is not ported yet: the port's "
-            "transformer builds the dense and moe families only (ssm, "
-            "hybrid, mla, vlm and audio wait for ROADMAP queue 1 item 8)")
+            "transformer builds the dense and moe families only, with GQA "
+            "or MLA attention (ssm, hybrid, vlm and audio wait for ROADMAP "
+            "queue 1 item 8)")
+
+
+def _mla_cfg(cfg: ArchConfig) -> attn.MLACfg:
+    m = cfg.mla
+    return attn.MLACfg(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                       q_lora_rank=m.q_lora_rank, kv_lora_rank=m.kv_lora_rank,
+                       qk_nope_dim=m.qk_nope_dim, qk_rope_dim=m.qk_rope_dim,
+                       v_head_dim=m.v_head_dim)
 
 
 def _norm_init(cfg: ArchConfig, d: int, device) -> dict:
@@ -87,13 +94,14 @@ def _layer_init(generator: torch.Generator, cfg: ArchConfig,
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
                                   "(ROADMAP queue 1 item 8)")
     d, dev = cfg.d_model, generator.device
-    p = {
-        "ln1": _norm_init(cfg, d, dev),
-        "attn": attn.gqa_init(generator, d, cfg.n_heads, cfg.n_kv,
-                              cfg.resolved_head_dim, cfg.quantize,
-                              qkv_bias=cfg.qkv_bias),
-        "ln2": _norm_init(cfg, d, dev),
-    }
+    if cfg.mla is not None:
+        attn_p = attn.mla_init(generator, _mla_cfg(cfg), cfg.quantize)
+    else:
+        attn_p = attn.gqa_init(generator, d, cfg.n_heads, cfg.n_kv,
+                               cfg.resolved_head_dim, cfg.quantize,
+                               qkv_bias=cfg.qkv_bias)
+    p = {"ln1": _norm_init(cfg, d, dev), "attn": attn_p,
+         "ln2": _norm_init(cfg, d, dev)}
     if kind == "moe":
         p["moe"] = moe_lib.moe_init(generator, d, cfg.d_ff, cfg.n_experts,
                                     cfg.quantize,
@@ -160,11 +168,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Stacked per-layer decode state, ``max_len`` slots a layer (callers
     that prefill keep the full length, so multi-token writes never
-    wrap)."""
+    wrap).  An MLA arch caches the latent and the rope key
+    (:func:`attention.init_mla_cache`)."""
+    dev = resolve_device(device)
+
     def per():
+        if cfg.mla is not None:
+            return {"attn": attn.init_mla_cache(batch, max_len, _mla_cfg(cfg),
+                                                dtype, device=dev)}
         return {"attn": attn.init_kv_cache(batch, max_len, cfg.n_kv,
                                            cfg.resolved_head_dim, dtype,
-                                           device=resolve_device(device))}
+                                           device=dev)}
     return {kind: _stack([per()] * len(idx))
             for kind, idx in _kind_layers(cfg).items()}
 
@@ -185,12 +199,18 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
     """One transformer block; returns (x, new_lcache, aux)."""
     h = _norm(cfg, lp["ln1"], x)
     acache = lcache["attn"] if lcache is not None else None
-    ay, new_ac = attn.gqa_apply(lp["attn"], subtree(lq, "attn"), h, ctx,
-                                n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                                head_dim=cfg.resolved_head_dim,
-                                cos_sin=cos_sin, positions=positions,
-                                causal=True, window=window, cache=acache,
-                                chunk=cfg.attn_chunk)
+    if cfg.mla is not None:
+        ay, new_ac = attn.mla_apply(lp["attn"], subtree(lq, "attn"), h, ctx,
+                                    _mla_cfg(cfg), cos_sin=cos_sin,
+                                    positions=positions, cache=acache,
+                                    chunk=cfg.attn_chunk)
+    else:
+        ay, new_ac = attn.gqa_apply(lp["attn"], subtree(lq, "attn"), h, ctx,
+                                    n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                                    head_dim=cfg.resolved_head_dim,
+                                    cos_sin=cos_sin, positions=positions,
+                                    causal=True, window=window, cache=acache,
+                                    chunk=cfg.attn_chunk)
     x = x + ay
     h2 = _norm(cfg, lp["ln2"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -262,7 +282,8 @@ def lm_apply(params: dict, qstate: Any, tokens: torch.Tensor,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
 
-    rotary_dim = int(cfg.resolved_head_dim * cfg.rotary_frac)
+    rotary_dim = cfg.mla.qk_rope_dim if cfg.mla is not None \
+        else int(cfg.resolved_head_dim * cfg.rotary_frac)
     cos_sin = rope_cos_sin(positions, rotary_dim, cfg.rope_theta,
                            dtype=torch.float32)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)

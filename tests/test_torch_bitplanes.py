@@ -204,3 +204,28 @@ def test_quantize_int8_rounds_half_to_even():
     y = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 300.0, -300.0])
     np.testing.assert_array_equal(tref.quantize_int8(y, 1.0).numpy(),
                                   [0, 2, 2, 0, -2, 127, -127])
+
+
+@pytest.mark.parametrize("shape", [(6,), (3, 8), (2, 5, 4)])
+def test_bitplanes_and_flat_packing_exact(shape):
+    """``codes_to_bitplanes`` / ``bitplanes_to_codes`` and the flat
+    ``pack_codes`` / ``unpack_codes`` bitwise against the reference."""
+    codes = _codes(shape, seed=9)
+    planes = tbp.codes_to_bitplanes(torch.from_numpy(codes))
+    want = np.asarray(jbp.codes_to_bitplanes(jnp.asarray(codes)))
+    assert planes.dtype == torch.bool and planes.shape == (4, *shape)
+    np.testing.assert_array_equal(planes.numpy(), want)
+    back = tbp.bitplanes_to_codes(planes)
+    assert back.dtype == torch.uint8
+    np.testing.assert_array_equal(back.numpy(), codes)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jbp.bitplanes_to_codes(jnp.asarray(want))))
+    packed = tbp.pack_codes(torch.from_numpy(codes))
+    jpacked = np.asarray(jbp.pack_codes(jnp.asarray(codes)))
+    np.testing.assert_array_equal(packed.numpy(), jpacked)
+    np.testing.assert_array_equal(tbp.unpack_codes(packed).numpy(), codes)
+    np.testing.assert_array_equal(
+        tbp.unpack_codes(packed).numpy(),
+        np.asarray(jbp.unpack_codes(jnp.asarray(jpacked))))
+    with pytest.raises(ValueError):
+        tbp.pack_codes(torch.zeros((*shape[:-1], 3), dtype=torch.uint8))

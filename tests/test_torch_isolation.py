@@ -69,3 +69,21 @@ def test_chip_smoke_fails_alone(tmp_path):
                           env=env)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+
+def test_torch_examples_import_nothing_of_jax():
+    """No ``examples/*_torch.py`` imports JAX or the JAX package (read
+    from each file's import statements: some examples run at import)."""
+    import ast
+    names = sorted(f for f in os.listdir(os.path.join(REPO, "examples"))
+                   if f.endswith("_torch.py"))
+    assert {"serve_lm_4bit_torch.py", "train_mlp_gsc_torch.py"} <= set(names)
+    for name in names:
+        with open(os.path.join(REPO, "examples", name)) as f:
+            tree = ast.parse(f.read())
+        roots = {a.name.split(".")[0] for n in ast.walk(tree)
+                 if isinstance(n, ast.Import) for a in n.names}
+        roots |= {n.module.split(".")[0] for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module}
+        assert not roots & {"jax", "jaxlib", "repro"}, (name, roots)

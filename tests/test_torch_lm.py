@@ -4,7 +4,9 @@ The same parameters go through both packages: JAX's trees (``lm_init``
 params, ``build_qstate`` state, ``freeze_tree`` frozen trees, caches) are
 carried across as numpy (``repro_torch.convert.lm_tree_from_numpy``).
 Tolerances: configs equal field by field; norms, rotary, MLPs and
-attention ``atol=rtol=1e-5``; whole-stack logits ``atol=rtol=1e-4``;
+attention ``atol=rtol=1e-5``; whole-stack logits ``atol=rtol=1e-4``
+(deepseek-v3 with MLA among them: the naive form at the prefill, the
+absorbed form at each decode step);
 freeze codes bitwise, or a cost tie within 4 ulp where the reference's
 batched codebook (an einsum) rounds differently from its own decode;
 greedy tokens equal.
@@ -43,8 +45,10 @@ AUX_TOL = dict(atol=1e-6, rtol=1e-6)
 # built identically in both packages: deepseek-v3's smoke config without
 # MLA (one dense layer, then MoE with the sigmoid gate and a shared expert)
 DS_NOMLA = "deepseek-v3-671b-nomla"
+# deepseek-v3's smoke config as registered: MLA in every layer
+DS = "deepseek-v3-671b"
 DENSE_ARCHS = ("smollm-360m", "h2o-danube-1.8b", "glm4-9b")
-ARCHS = DENSE_ARCHS + ("grok-1-314b", DS_NOMLA)
+ARCHS = DENSE_ARCHS + ("grok-1-314b", DS_NOMLA, DS)
 
 
 def _smoke(get, arch):
@@ -94,8 +98,8 @@ def test_configs_equal_the_reference_field_by_field():
 
 
 def test_non_dense_families_are_refused():
-    for name in ("mamba2-1.3b", "deepseek-v3-671b", "hymba-1.5b",
-                 "qwen2-vl-2b", "whisper-base"):
+    for name in ("mamba2-1.3b", "hymba-1.5b", "qwen2-vl-2b",
+                 "whisper-base"):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             TT.lm_init(get_config(name).smoke(), device="cpu")
 
@@ -236,7 +240,8 @@ def test_cache_update_wraps_as_the_reference(writes):
         pos = np.arange(start, start + s, dtype=np.int32)[None]
         jc = jattn._cache_update(jc, jnp.asarray(k), jnp.asarray(v),
                                  jnp.asarray(pos))
-        tc = tattn._cache_update(tc, torch.from_numpy(k), torch.from_numpy(v),
+        tc = tattn._cache_update(tc, {"k": torch.from_numpy(k),
+                                      "v": torch.from_numpy(v)},
                                  torch.from_numpy(pos))
         start += s
         for key in ("k", "v", "pos", "len"):
@@ -451,7 +456,7 @@ def test_moe_tree_round_trips_through_convert():
 # -------------------------------------------------------------- generation
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "h2o-danube-1.8b",
-                                  "grok-1-314b"])
+                                  "grok-1-314b", DS])
 def test_generate_matches_reference_tokens(arch):
     """14 prompt + 4 new tokens: danube's decode slides past its window."""
     cfg, _, _, frozen = _jax_world(arch)
@@ -486,3 +491,126 @@ def test_decode_with_cache_equals_re_prefill():
         full, none, _ = TT.lm_apply(tf, 0, toks[:, :t + 1], FP32_CTX, cfg)
         assert none is None
         _close(step[:, 0], full[:, -1], STACK_TOL)
+
+
+# ------------------------------------------------- deepseek-v3 with MLA
+
+def test_mla_stack_has_the_reference_leaves():
+    """deepseek-v3 smoke with MLA: the port builds the reference's tree
+    (every key and shape of ``lm_init``), and its cache is the latent."""
+    cfg, params, _, _ = _jax_world(DS)
+    tcfg = _smoke(get_config, DS)
+    mine = TT.lm_init(tcfg, seed=0, device="cpu")
+    want = jax.tree_util.tree_flatten_with_path(_np(params))[0]
+    got = jax.tree_util.tree_flatten_with_path(
+        jax.tree_util.tree_map(lambda t: np.zeros(t.shape), mine))[0]
+    assert [(str(k), v.shape) for k, v in got] == \
+        [(str(k), v.shape) for k, v in want]
+    tc = TT.init_cache(tcfg, 2, 5, dtype=torch.float32, device="cpu")
+    jc = JT.init_cache(cfg, 2, 5, dtype=jnp.float32)
+    assert sorted(tc) == sorted(jc) == ["dense", "moe"]
+    for kind in tc:
+        assert sorted(tc[kind]["attn"]) == ["ckv", "krope", "len", "pos"]
+        for key in tc[kind]["attn"]:
+            assert tuple(tc[kind]["attn"][key].shape) == \
+                jc[kind]["attn"][key].shape
+
+
+def test_freeze_tree_codes_and_stats_match_reference_with_mla():
+    """Every MLA leaf (q_down, q_up, kv_down, kv_up, o) of both stacks,
+    the dense FFN, the (L, E) banks and the shared expert frozen in one
+    grouped call, as the reference freezes them; ``stats`` alike."""
+    params, qstate, tfrozen, paths, ties, total = _freeze_both(DS, 0.3, 6)
+    mla = {p for p in paths if p[1:2] in (("dense",), ("moe",))
+           and p[2] == "attn"}
+    assert len(mla) == 10 and len(paths) == 19
+    kv_up = tfrozen["stacks"]["moe"]["attn"]["kv_up"]["kernel"]
+    m = get_config(DS).smoke().mla
+    assert kv_up["packed"].shape == (1, m.kv_lora_rank // 2,
+                                     4 * (m.qk_nope_dim + m.v_head_dim))
+    want = jqat.stats(params, qstate, 0.3)
+    got = tqat.stats(_t(params), _t(qstate), 0.3)
+    assert got["quant_params"] == int(want["quant_params"])
+    for key in ("sparsity", "entropy_bits_per_weight"):
+        _close(got[key], want[key], AUX_TOL)
+    print(f"freeze_tree with MLA: {ties} of {total} codes differ from the "
+          "reference, each a cost tie within 4 ulp")
+
+
+def test_mla_decode_with_cache_equals_re_prefill():
+    """deepseek-v3 smoke: prefill 9 tokens into the latent cache, decode 3
+    (absorbed form): each step's logits equal a prefill of the whole
+    sequence so far without a cache (naive form), at capacity factor
+    E / k so that no assignment drops."""
+    _, _, _, frozen = _jax_world(DS)
+    cfg = get_config(DS).smoke()
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    tf = _t(frozen)
+    toks = torch.from_numpy(
+        np.random.default_rng(8).integers(0, cfg.vocab, (2, 12)))
+    cache = TT.init_cache(cfg, 2, 12, dtype=torch.float32, device="cpu")
+    pos = torch.arange(9, dtype=torch.int32).expand(2, 9)
+    _, cache, _ = TT.lm_apply(tf, 0, toks[:, :9], FP32_CTX, cfg,
+                              positions=pos, cache=cache)
+    for t in range(9, 12):
+        p_t = torch.full((2, 1), t, dtype=torch.int32)
+        step, cache, _ = TT.lm_apply(tf, 0, toks[:, t:t + 1], FP32_CTX, cfg,
+                                     positions=p_t, cache=cache)
+        full, none, _ = TT.lm_apply(tf, 0, toks[:, :t + 1], FP32_CTX, cfg)
+        assert none is None
+        _close(step[:, 0], full[:, -1], STACK_TOL)
+    assert int(cache["moe"]["attn"]["len"][0]) == 12
+
+
+def test_mla_tree_round_trips_through_convert():
+    """The JAX trees with MLA (params, probabilities, the frozen tree)
+    cross to the port and back with every array and dtype intact, and
+    ``take_experts`` cuts a frozen deepseek tree's banks only."""
+    from repro_torch.convert import take_experts, tree_to_numpy
+    cfg, params, qstate, frozen = _jax_world(DS)
+    for tree in (params, qstate, frozen):
+        want = _np(tree)
+        got = tree_to_numpy(_t(tree))
+        flat_w, wdef = jax.tree_util.tree_flatten(want)
+        flat_g, gdef = jax.tree_util.tree_flatten(got)
+        assert wdef == gdef
+        for a, b in zip(flat_w, flat_g):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    share = take_experts(_t(frozen), 2, 2)
+    moe = share["stacks"]["moe"]
+    whole = _t(frozen)["stacks"]["moe"]
+    assert torch.equal(moe["moe"]["experts"]["up"]["packed"],
+                       whole["moe"]["experts"]["up"]["packed"][:, 2:4])
+    assert torch.equal(moe["attn"]["kv_up"]["kernel"]["packed"],
+                       whole["attn"]["kv_up"]["kernel"]["packed"])
+    assert moe["moe"]["router"]["w"].shape[-1] == cfg.n_experts
+
+
+def test_frozen_shares_add_up_to_the_reference_layer():
+    """The serving path's share (the ``model-configs`` guide's test): the
+    frozen MoE layer of deepseek-v3 smoke (sigmoid gate, top-2 of 4,
+    routed scaling 2.5, a shared expert) as shares (0, 2) and (2, 2), the
+    shared expert counted once, adds up to JAX's uncut frozen layer
+    (``atol=rtol=1e-5``)."""
+    from repro.nn import moe as jmoe
+    from repro_torch.convert import take_experts
+    from repro_torch.nn import moe as tmoe
+    cfg, _, _, frozen = _jax_world(DS)
+    p = jax.tree_util.tree_map(lambda a: a[0],
+                               frozen["stacks"]["moe"]["moe"])
+    kw = dict(top_k=cfg.top_k, gate=cfg.moe_gate,
+              capacity_factor=cfg.capacity_factor,
+              routed_scaling=cfg.routed_scaling)
+    x = _rand(14, (2, 9, cfg.d_model))
+    want, jaux = jax.jit(lambda p, x: jmoe.moe_apply(p, 0, x, JCTX, **kw))(
+        p, jnp.asarray(x))
+    tp, xt = _t(p), torch.from_numpy(x)
+    total = None
+    for first in (0, 2):
+        y, aux = tmoe.moe_ffn(take_experts(tp, first, 2, axis=0), 0, xt,
+                              FP32_CTX, experts_held=(first, 2), **kw)
+        total = y if total is None else total + y
+        _close(aux, jaux, AUX_TOL)
+    total = total - tlayers.swiglu(tp["shared"], 0, xt, FP32_CTX)
+    _close(total, want)

@@ -190,14 +190,33 @@ def test_serve_launcher_serves_grok_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "depth cut to 1 layers" in out and "4 experts top-2" in out
     assert gen.shape == (2, 3) and "grok-1-314b" in serve.lm_archs()
-    assert "deepseek-v3-671b" not in serve.lm_archs()
+    assert "deepseek-v3-671b" in serve.lm_archs()
+
+
+def test_serve_launcher_serves_deepseek_with_mla_on_the_cpu(capsys):
+    """deepseek-v3 smoke (MLA, a dense layer then MoE with the sigmoid
+    gate and a shared expert) through the launcher, and a share of it
+    handed to ``serve_lm_config`` by a caller: both serve greedy ids of
+    the vocabulary."""
+    import dataclasses
+    from repro_torch.launch import serve
+    argv = ["--arch", "deepseek-v3-671b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "5", "--max-new", "3"]
+    gen = serve.main(argv)
+    out = capsys.readouterr().out
+    assert "MLA (kv_lora 16)" in out and "4 experts top-2" in out
+    assert gen.shape == (2, 3) and ((gen >= 0) & (gen < 256)).all()
+    args = serve.parse_args(argv)
+    share = dataclasses.replace(serve.lm_config(args), experts_held=(0, 2))
+    gen = serve.serve_lm_config(share, args)
+    assert "(experts 0-1 held)" in capsys.readouterr().out
+    assert gen.shape == (2, 3)
 
 
 def test_launchers_refuse_what_is_not_ported():
     from repro_torch.launch import serve, train
-    with pytest.raises(NotImplementedError, match="MLA.*queue 1 item 8"):
-        serve.main(["--arch", "deepseek-v3-671b", "--smoke", "--device",
-                    "cpu"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--engine: LMProgram serves "
                        "dense-family archs only"):
         serve.main(["--arch", "grok-1-314b", "--smoke", "--engine",

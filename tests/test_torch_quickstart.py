@@ -4,7 +4,12 @@ launcher's frontend flags.
 * ``core.ecl.ecl_fit`` gives the JAX ``ecl_fit``'s codes and probabilities
   on the same (w, ω, λ) (codes exact; probabilities exact: both are
   counts over the same codes divided alike);
-* ``examples/quickstart_torch.py --device cpu`` runs and checks itself;
+* ``examples/quickstart_torch.py --device cpu`` runs and checks itself,
+  as do ``examples/serve_lm_4bit_torch.py`` (through the launcher's
+  ``serve_lm_config``: for a dense arch the engine's tokens against
+  ``LMProgram.generate``, the direct loop alone for moe and MLA archs) and
+  ``examples/train_mlp_gsc_torch.py`` at a few steps (served logits
+  within 1e-2 of the eval forward);
 * ``launch/serve.py`` refuses the same flag combinations with the JAX
   launcher's messages, and ``--engine --async`` serves several packs
   through the frontend on the CPU with the integrity, cold-tier, fault and
@@ -111,3 +116,33 @@ def test_elastic_restart_example_runs_on_the_cpu():
     assert proc.returncode == 0, proc.stderr
     assert "preempted at step" in proc.stdout
     assert "elastic restart OK" in proc.stdout
+
+
+def _run_example(name, *argv):
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples", name), *argv,
+         "--device", "cpu"], capture_output=True, text=True, timeout=300,
+        env=env)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-v3-671b"])
+def test_serve_lm_4bit_example_runs_on_the_cpu(arch):
+    """The dense arch through the engine (its tokens checked against
+    ``LMProgram.generate`` by the launcher), deepseek-v3 with MLA through
+    the direct loop alone: the path is chosen from the config."""
+    out = _run_example("serve_lm_4bit_torch.py", "--arch", arch, "--batch",
+                       "2", "--prompt-len", "6", "--max-new", "3")
+    assert "generated 3 tokens for 2 requests" in out
+    assert ("engine (LM program)" in out) == (arch == "smollm-360m")
+    assert ("decode bit-identical to the direct generate loop" in out) == (
+        arch == "smollm-360m")
+
+
+def test_train_mlp_gsc_example_runs_on_the_cpu():
+    out = _run_example("train_mlp_gsc_torch.py", "--steps", "4")
+    assert "training MLP-GSC (512-512-256-256-128-128-12)" in out
+    assert "compression, formats per layer" in out
+    assert "serving path verified" in out
