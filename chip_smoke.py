@@ -2,6 +2,13 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 1,10
+
+With no argument every phase runs, in the order below.  ``--phases``
+names the phases to run (phase 1, the build, always runs; 3c brings 3b,
+whose trained pack it serves); each runs with the gates it has in the
+whole run, and the script ends with the same last line.  The ``grid``
+and ``kernels`` lines need every phase and are printed only then.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -87,10 +94,10 @@ Phases (any failure raises and the script exits non-zero):
    the chain's seven, the cooperative grid of stream -- and the
    dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
    phase 3, phase 3b's serving check, phase 3c, phase 5, phase 6, phase
-   7, phase 8, phase 9), one
+   7, phase 8, phase 9, phase 10), one
    ``path``, one ``train``, one ``frontend``, one ``lm``, one
-   ``lm_train``, one ``moe``, one ``moe_train`` and one ``mla`` JSON
-   line.
+   ``lm_train``, one ``moe``, one ``moe_train``, one ``mla`` and one
+   ``mla_train`` JSON line.
 5. The LM serving path at full width, run after phase 3c: SmolLM-360M
    (32 blocks of d_model 960, 15 heads, 5 KV heads, d_ff 2560, vocab
    49,152) from ``lm_init(seed=0)`` on the card, frozen with
@@ -245,6 +252,51 @@ Phases (any failure raises and the script exits non-zero):
    the freeze, the prefill and the decode, the latent cache's bytes
    against the uncompressed K and V's, and the assignments dropped, each
    beside the card's name and power limit, and one ``mla`` JSON line.
+
+10. MLA training at published widths, run after phase 9 (whose state is
+   freed first: at most 1 GiB allocated at its start): one GPU's share of
+   deepseek-v3-671b in the DeepSeek-V3 report's training layout
+   (arXiv:2412.19437 §3.2: PP16, EP64, ZeRO-1 DP) -- layers 0 and 3 (one
+   dense, one MoE: ``n_layers=2, n_dense_layers=1``), experts 0-3 of 256
+   (``experts_held=(0, 4)``, the router 256 wide and top-8), vocabulary
+   32,768 of 129,280; MLA, the shared expert and every width whole
+   (1.462 B parameters) -- from ``lm_init(seed=0)``, EC4T-trained through
+   the launcher's functions (``lm_step_fn``, ``lm_batch_fn``,
+   ``ShardedFeed``, ``FaultTolerantLoop`` with no checkpoint at this
+   width) for 4 steps at batch 1 x seq 4,096 in bf16 (4 KV chunks of
+   1,024 a layer, each chunk's body checkpointed) with ``remat="none"``,
+   then ``export_quantized``.  Counters are zeroed just before and read
+   just after.  Gates: first, at the smoke width on the card with MLA at
+   3 KV chunks, one fp32 loss and aux (1e-5) and the gradients of layer
+   0's kv_up (w and ω), q_up and the router (1e-4 relative) equal the
+   CPU's, and the launcher's ``main`` (``--remat full``, 6 steps,
+   checkpoints at 3 and 6, an export) resumed from its step-3
+   checkpoint gives the same losses, step-6 checkpoint and export bit
+   for bit; exactly 1 ecl_quant launch a pass over the 28 segments (5 MLA
+   + 3 FFN, 5 MLA + 3 banks x 4 + 3 shared), 8 in the 4 steps and 1 in the
+   export; the first and the last step's fake-quant codes and ŵ of layer
+   0's kv_up and of held expert 3 of down bitwise equal to
+   ``ecl_quant_plain``; losses and aux finite, the first within 0.5 of
+   ln 32768; ``bias_correction`` bitwise unchanged; from step 4's input
+   state and batch the loss and backward under ``none`` (twice),
+   ``full`` and ``dots``: the loss, a digest of every gradient and kv_up's
+   w and ω gradients bitwise equal, 1 ecl_quant launch each and the MoE
+   layer counted once (no recompute counted), and a whole step under
+   ``full`` and ``dots`` giving step 4's new state bit for bit;
+   ``load_quantized`` of the export on the card equals ``freeze_tree``
+   leaf for leaf, and both serve the same 2 x (16 + 8) greedy tokens
+   (absorbed decode) through ``lm_apply``; no host synchronisation inside
+   a step (``set_sync_debug_mode``).  Prints the reduced list and the
+   deployment, ms a step, device ms, idle share and device operations
+   (profiler), the ECL pass's device ms against its 2.66 ms byte bound,
+   ``adam.apply``'s, ``update_qstate``'s and
+   ``FakeQuantGroup.backward``'s device ms, layer 0's MLA attention
+   forward and backward device ms, peak memory after the forward and the
+   backward of each remat and after the forward, the backward, Adam and
+   the update of a step under each with that step's ms (host clock,
+   synchronised; none's from the timed steps), the dropped assignments a
+   step and export bytes and ms, each beside the card's name and power
+   limit, and one ``mla_train`` JSON line.
 
 The script ends with a line that counts the profiler traces taken and
 retaken and the device times taken from queued CUDA events, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -2199,6 +2251,48 @@ def _state_equal(a, b):
         for x, y in zip(la, lb))
 
 
+class _StagePeaks:
+    """While in use, the peak device memory at the end of each stage of a
+    train step (its forward, its backward, Adam and the probability
+    update), from a peak reset on entry: the functions are patched where
+    the step looks them up, and the peaks read on the host (no
+    synchronisation)."""
+
+    def __init__(self, dev):
+        from repro_torch.core import qat
+        from repro_torch.models import lm as lm_model
+        from repro_torch.optim import adam
+        self.dev, self.peaks = dev, {}
+        self.stages = ((lm_model, "lm_forward_loss", None, "forward"),
+                       (adam, "apply", "backward", "adam"),
+                       (qat, "update_qstate", None, "update_qstate"))
+
+    def _marked(self, fn, before, after):
+        import torch
+
+        def call(*a, **k):
+            if before:
+                self.peaks[before] = torch.cuda.max_memory_allocated(self.dev)
+            out = fn(*a, **k)
+            self.peaks[after] = torch.cuda.max_memory_allocated(self.dev)
+            return out
+        return call
+
+    def __enter__(self):
+        import torch
+        self.originals = [getattr(mod, attr) for mod, attr, _, _ in
+                          self.stages]
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        for (mod, attr, before, after), fn in zip(self.stages,
+                                                  self.originals):
+            setattr(mod, attr, self._marked(fn, before, after))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, attr, _, _), fn in zip(self.stages, self.originals):
+            setattr(mod, attr, fn)
+
+
 def _lm_train_trace(dev, step_fn, holder, batch,
                     timed=LM_TRAIN_TIMED_STEPS):
     """Device ms, idle share and device operations of LM train steps from
@@ -2214,7 +2308,6 @@ def _lm_train_trace(dev, step_fn, holder, batch,
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.core import qat
-    from repro_torch.models import lm as lm_model
     from repro_torch.optim import adam
 
     def steps(n):
@@ -2230,36 +2323,17 @@ def _lm_train_trace(dev, step_fn, holder, batch,
     torch.cuda.synchronize(dev)
     ms = (time.perf_counter() - t0) * 1e3 / timed
 
-    # peak memory at the end of each stage of one step: patched where the
-    # step looks the functions up, read on the host (no synchronisation)
-    peaks = {}
-
-    def marked(fn, before, after):
-        def call(*a, **k):
-            if before:
-                peaks[before] = torch.cuda.max_memory_allocated(dev)
-            out = fn(*a, **k)
-            peaks[after] = torch.cuda.max_memory_allocated(dev)
-            return out
-        return call
-    stages = ((lm_model, "lm_forward_loss", None, "forward"),
-              (adam, "apply", "backward", "adam"),
-              (qat, "update_qstate", None, "update_qstate"))
-    originals = [getattr(mod, attr) for mod, attr, _, _ in stages]
-    torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.set_sync_debug_mode("warn")
     try:
-        for (mod, attr, before, after), fn in zip(stages, originals):
-            setattr(mod, attr, marked(fn, before, after))
-        with warnings.catch_warnings(record=True) as caught:
+        with _StagePeaks(dev) as staged, \
+                warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             steps(1)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        for (mod, attr, _, _), fn in zip(stages, originals):
-            setattr(mod, attr, fn)
     torch.cuda.synchronize(dev)
     step_peak = torch.cuda.max_memory_allocated(dev)
+    peaks = staged.peaks
     syncs = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}: "
              f"{str(w.message).splitlines()[0][:120]}" for w in caught
              if "synchroniz" in str(w.message)]
@@ -3075,14 +3149,11 @@ def _moe_train_cfg():
     """grok-1-314b at published widths, one shard's share of a 4-wide
     expert-parallel 'model' axis, cut to MOE_TRAIN["layers"] layers."""
     import dataclasses
-    from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as T
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         T.lm_config(MOE_TRAIN["arch"], lam=MOE_TRAIN["lam"]),
         n_layers=MOE_TRAIN["layers"],
         experts_held=MOE_TRAIN["experts_held"], vocab=MOE_TRAIN["vocab"])
-    steps_mod.check_trainable(cfg)
-    return cfg
 
 
 def _plain_pair(w, omega, pen):
@@ -3118,10 +3189,76 @@ def _digest(tree):
     return torch.stack(out).cpu()
 
 
+def _share_ecl_gates(rec, per_pass, segments, steps, step_launches,
+                     export_launches, checked_calls):
+    """A share's main path through ``_EclRecorder``: exactly ``per_pass``
+    ecl_quant launches in each grouped pass (2 a step, then the
+    export's), every pass over all ``segments``, and the picked segments
+    of the passes ``checked_calls`` bitwise equal to the plain version.
+    Returns the launches of each pass and the segments checked."""
+    per_call = [c["launches"] for c in rec.calls]
+    if per_call != [per_pass] * (ECL_PASSES_PER_STEP * steps + 1) or \
+            step_launches != per_pass * ECL_PASSES_PER_STEP * steps or \
+            export_launches != per_pass:
+        raise AssertionError(
+            f"ecl_quant launches per grouped pass {per_call}: "
+            f"{step_launches} in {steps} steps, {export_launches} in "
+            f"the export; expected {per_pass} a pass")
+    if any(c["segments"] != segments for c in rec.calls):
+        raise AssertionError(f"an ECL pass did not take all {segments}"
+                             " segments")
+    checked = []
+    for i in checked_calls:
+        for (t_i, idx), equal in rec.calls[i]["equal"]:
+            if not equal:
+                raise AssertionError(f"ECL pass {i}, tensor {t_i}"
+                                     f"{list(idx)}: codes or ŵ != the "
+                                     "plain version")
+            checked.append([i, t_i, list(idx)])
+    return per_call, checked
+
+
+def _share_ecl_pass(dev, params, qstate, lam, segments, per_pass):
+    """One grouped ECL pass of a train step over every quantized leaf of
+    ``params`` (as the step's forward makes it), its plain version and
+    its byte bounds: the ``ecl_quant_pass`` row."""
+    from repro_torch.core import ecl, qat
+    from repro_torch.kernels import ecl_quant as eq
+    nodes = list(qat._quant_leaves(params, qstate))
+    ws = [n["w"] for n, _ in nodes]
+    oms = [n["omega"] for n, _ in nodes]
+    pens = [ecl.penalty(n["w"], q["probs"], lam) for n, q in nodes]
+    elements = sum(w.numel() for w in ws)
+
+    def ecl_pass():
+        return ecl.quantize_many(ws, oms, pens)
+
+    def ecl_plain():
+        for w, om, pn in zip(ws, oms, pens):
+            w3, om3, pn3 = (w.reshape(-1, *w.shape[-2:]), om.reshape(-1, 4),
+                            pn.reshape(-1, 16))
+            for i in range(w3.shape[0]):
+                _plain_pair(w3[i], om3[i], pn3[i])
+    return {"ms": _time_ms(ecl_pass, dev, 1),
+            **_device_time(ecl_pass, dev, 1, ECL_SYMBOL,
+                           launches=lambda: eq.LAUNCHES),
+            "queued_ms": _queued_ms(ecl_pass, dev, 2),
+            "plain_ms": _once_ms(ecl_plain, dev),
+            "bound_ms": ECL_BYTES_PER_ELEM * elements / PEAK_BYTES * 1e3,
+            "bound_by": "bytes",
+            "codes_only_bound_ms":
+                ECL_CODES_BYTES_PER_ELEM * elements / PEAK_BYTES * 1e3,
+            "library_ms": None, "segments": segments,
+            "elements": elements, "launches_per_call": per_pass}
+
+
 class _DropCounter:
     """Wraps ``moe_ffn`` while in use: for each call, on the device and
     without a host synchronisation, the assignments the capacity dropped
-    over all experts, and those kept for the held experts."""
+    over all experts, and those kept for the held experts.  A call made
+    by the backward (a rematerialised forward) is not counted again; it
+    runs the same operations, so a selective checkpoint's cache of saved
+    products stays in step."""
 
     def __init__(self, cfg):
         self.cfg, self.counts = cfg, []
@@ -3144,8 +3281,10 @@ class _DropCounter:
                 flat = ids.reshape(-1)
                 _, keep = moe._dispatch_indices(flat, cfg.n_experts, cap)
                 held = (flat >= first) & (flat < first + count)
-                self.counts.append(torch.stack([
-                    (~keep).sum(), (held & keep).sum(), held.sum()]))
+                counts = torch.stack([(~keep).sum(), (held & keep).sum(),
+                                      held.sum()])
+            if torch._C._current_graph_task_id() == -1:   # not a recompute
+                self.counts.append(counts)
             return self._orig(p, q, x, ctx, **kw)
         moe.moe_ffn = count_drops
         return self
@@ -3422,25 +3561,9 @@ def moe_train_path(dev, gpu):
         if abs(losses[0] - np.log(cfg.vocab)) > MOE_LOSS0_TOL:
             raise AssertionError(f"first loss {losses[0]}, ln(vocab) "
                                  f"{np.log(cfg.vocab)}")
-        per_call = [c["launches"] for c in rec.calls]
-        if per_call != [per_pass] * (ECL_PASSES_PER_STEP * steps + 1) or \
-                step_launches != per_pass * ECL_PASSES_PER_STEP * steps or \
-                export_launches != per_pass:
-            raise AssertionError(
-                f"ecl_quant launches per grouped pass {per_call}: "
-                f"{step_launches} in {steps} steps, {export_launches} in "
-                f"the export; expected {per_pass} a pass")
-        if any(c["segments"] != segments for c in rec.calls):
-            raise AssertionError(f"an ECL pass did not take all {segments}"
-                                 " segments")
-        checked = []
-        for i in MOE_TRAIN_CHECKED_CALLS:
-            for (t_i, idx), equal in rec.calls[i]["equal"]:
-                if not equal:
-                    raise AssertionError(f"ECL pass {i}, tensor {t_i}"
-                                         f"{list(idx)}: codes or ŵ != the "
-                                         "plain version")
-                checked.append([i, t_i, list(idx)])
+        per_call, checked = _share_ecl_gates(
+            rec, per_pass, segments, steps, step_launches, export_launches,
+            MOE_TRAIN_CHECKED_CALLS)
         del rec
         dropped = torch.stack(drops.counts).cpu().tolist()
         bias = state["params"]["stacks"]["moe"]["moe"]["router"][
@@ -3513,35 +3636,10 @@ def moe_train_path(dev, gpu):
                                  "equal "
                                  f"{torch.equal(_digest(restored), digest)}")
 
-    # one grouped ECL pass of a train step, its plain version, its bounds
-    sp, sq = restored["params"]["stacks"]["moe"], \
-        restored["qstate"]["stacks"]["moe"]
-    nodes = list(qat._quant_leaves(sp, sq))
-    ws = [n["w"] for n, _ in nodes]
-    oms = [n["omega"] for n, _ in nodes]
-    pens = [ecl.penalty(n["w"], q["probs"], cfg.lam) for n, q in nodes]
-
-    def ecl_pass():
-        return ecl.quantize_many(ws, oms, pens)
-
-    def ecl_plain():
-        for w, om, pn in zip(ws, oms, pens):
-            w3, om3, pn3 = (w.reshape(-1, *w.shape[-2:]), om.reshape(-1, 4),
-                            pn.reshape(-1, 16))
-            for i in range(w3.shape[0]):
-                _plain_pair(w3[i], om3[i], pn3[i])
-    pass_bound = ECL_BYTES_PER_ELEM * elements / PEAK_BYTES * 1e3
-    ecl_row = {"ms": _time_ms(ecl_pass, dev, 1),
-               **_device_time(ecl_pass, dev, 1, ECL_SYMBOL,
-                              launches=lambda: eq.LAUNCHES),
-               "queued_ms": _queued_ms(ecl_pass, dev, 2),
-               "plain_ms": _once_ms(ecl_plain, dev),
-               "bound_ms": pass_bound, "bound_by": "bytes",
-               "codes_only_bound_ms":
-                   ECL_CODES_BYTES_PER_ELEM * elements / PEAK_BYTES * 1e3,
-               "library_ms": None, "segments": segments,
-               "elements": elements, "launches_per_call": per_pass}
-    del ws, oms, pens, nodes, sp, sq
+    ecl_row = _share_ecl_pass(dev, restored["params"]["stacks"],
+                              restored["qstate"]["stacks"], cfg.lam,
+                              segments, per_pass)
+    pass_bound = ecl_row["bound_ms"]
     holder = [restored]
     del restored
     trace = _lm_train_trace(
@@ -4055,7 +4153,665 @@ def mla_serve_path(dev, gpu):
     return out
 
 
-def main() -> int:
+# ------------------------------------------------------------ phase 10
+
+MLA_TRAIN = dict(arch="deepseek-v3-671b", layers=2, dense_layers=1,
+                 experts_held=(0, 4), ep=64, pp=16, vocab=32768, seed=0,
+                 steps=4, batch=1, seq=4096, lr=1e-3, lam=0.05, lam_ramp=50,
+                 prompts=2, prompt_len=16, max_new=8)
+# ECL passes whose layer-0 kv_up and held expert 3 of down are held
+# against the plain version: the first step's forward and the last step's
+MLA_TRAIN_CHECKED_CALLS = (0, 2 * MLA_TRAIN["steps"] - 2)
+# the smoke config with MLA: seq 40 at its attn_chunk 16 is 3 KV chunks,
+# the last one padded
+MLA_SMOKE = dict(batch=2, seq=40, steps=6, ckpt_every=3)
+MLA_CARD_CPU_FWD = 1e-5   # smoke: loss and aux, card vs CPU
+MLA_CARD_CPU_GRAD = 1e-4  # smoke: kv_up w and ω, q_up w, the router w
+REMATS = ("none", "full", "dots")
+
+
+def _mla_train_cfg():
+    """deepseek-v3-671b at published widths, one GPU's training share:
+    layers 0 and 3 (one dense, one MoE), experts 0-3 of 256, vocabulary
+    cut as phase 8 cuts grok's."""
+    import dataclasses
+    from repro_torch.launch import train as T
+    return dataclasses.replace(
+        T.lm_config(MLA_TRAIN["arch"], lam=MLA_TRAIN["lam"]),
+        n_layers=MLA_TRAIN["layers"], n_dense_layers=MLA_TRAIN["dense_layers"],
+        experts_held=MLA_TRAIN["experts_held"], vocab=MLA_TRAIN["vocab"])
+
+
+class _Discard:
+    """A checkpoint manager that keeps nothing: the loop's end-of-run
+    save of a 17.5 GB state is skipped (phase 8 gates checkpointing)."""
+
+    def save(self, step, state):
+        pass
+
+    def latest_step(self):
+        return None
+
+
+def _mla_launcher_resume(dev):
+    """The launcher's ``main`` on the card at deepseek-v3's smoke width
+    with MLA and ``--remat full``: 6 steps with checkpoints at 3 and 6,
+    then again from a copy of the step-3 checkpoint alone.  The resumed
+    run's losses of steps 4-6, its step-6 checkpoint (every leaf) and its
+    export equal the uninterrupted run's bit for bit."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import train as T
+
+    argv = ["--arch", MLA_TRAIN["arch"], "--smoke", "--remat", "full",
+            "--steps", str(MLA_SMOKE["steps"]), "--ckpt-every",
+            str(MLA_SMOKE["ckpt_every"]), "--batch", str(MLA_SMOKE["batch"]),
+            "--seq", str(MLA_SMOKE["seq"]), "--log-every", "1"]
+    at, last = MLA_SMOKE["ckpt_every"], MLA_SMOKE["steps"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mla_") as tmp:
+        runs = {}
+        for name in ("whole", "resumed"):
+            ckpt = os.path.join(tmp, name, "ckpt")
+            if name == "resumed":
+                shutil.copytree(
+                    os.path.join(tmp, "whole", "ckpt", f"step_{at:08d}"),
+                    os.path.join(ckpt, f"step_{at:08d}"))
+            hist = T.main(argv + ["--ckpt-dir", ckpt, "--export",
+                                  os.path.join(tmp, name, "export")])
+            with np.load(os.path.join(ckpt, f"step_{last:08d}",
+                                      "state.npz")) as z:
+                leaves = {k: z[k] for k in z.files}
+            with np.load(os.path.join(tmp, name, "export",
+                                      "export.npz")) as z:
+                export = {k: z[k] for k in z.files}
+            runs[name] = ({h["step"]: h["loss"] for h in hist}, leaves,
+                          export)
+    (whole, wl, we), (rest, rl, re_) = runs["whole"], runs["resumed"]
+    if sorted(rest) != list(range(at + 1, last + 1)) or \
+            [whole[s] for s in sorted(rest)] != [rest[s] for s in
+                                                 sorted(rest)]:
+        raise AssertionError(f"launcher resume: losses {rest}, "
+                             f"uninterrupted {whole}")
+    for mine, theirs, what in ((rl, wl, "checkpoint"), (re_, we, "export")):
+        if sorted(mine) != sorted(theirs) or not all(
+                mine[k].dtype == theirs[k].dtype
+                and np.array_equal(mine[k], theirs[k]) for k in mine):
+            raise AssertionError(f"launcher resume: the step-{last} {what} "
+                                 "differs from the uninterrupted run's")
+    return {"losses": [whole[s] for s in sorted(whole)],
+            "resumed_losses": [rest[s] for s in sorted(rest)],
+            "checkpoint_leaves": len(wl), "export_arrays": len(we)}
+
+
+def _mla_train_smoke_checks(dev):
+    """At deepseek-v3's smoke width with MLA on the card: one fp32 loss
+    and its gradients of layer 0's kv_up (w and ω) and q_up and of the
+    router equal the CPU's from the same init, at 3 KV chunks; and the
+    launcher resumes bitwise under ``--remat full``."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import qat
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as T
+    from repro_torch.nn import transformer as TT
+
+    cfg = dataclasses.replace(get_config(MLA_TRAIN["arch"]).smoke(),
+                              lam=MLA_TRAIN["lam"])
+    if -(-MLA_SMOKE["seq"] // cfg.attn_chunk) < 3:
+        raise AssertionError("the smoke check needs 3 KV chunks or more")
+    params = TT.lm_init(cfg, seed=MLA_TRAIN["seed"], device="cpu")
+    batch = T.lm_batch_fn(cfg, batch=MLA_SMOKE["batch"],
+                          seq=MLA_SMOKE["seq"])(0)
+    loss_fn = steps_mod._loss_fn(cfg, dtype=torch.float32)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        p = tree.map_(lambda t: t.to(where).detach().requires_grad_()
+                      if t.is_floating_point() else t.to(where), params)
+        loss, m = loss_fn(p, qat.build_qstate(p),
+                          pipeline.place(batch, device=where), cfg.lam)
+        attn = p["stacks"]["dense"]["attn"]
+        picked = (attn["kv_up"]["kernel"]["w"],
+                  attn["kv_up"]["kernel"]["omega"],
+                  attn["q_up"]["kernel"]["w"],
+                  p["stacks"]["moe"]["moe"]["router"]["w"])
+        grads = torch.autograd.grad(loss, picked)
+        runs.append((float(loss.detach()), float(m["aux"].detach()),
+                     [g.cpu() for g in grads]))
+    (lc, ac, gc), (lh, ah, gh) = runs
+    fwd_rel = max(abs(lc - lh) / abs(lh), abs(ac - ah) / abs(ah))
+    grad_rel = [_rel(a, b) for a, b in zip(gc, gh)]
+    if fwd_rel > MLA_CARD_CPU_FWD or max(grad_rel) > MLA_CARD_CPU_GRAD:
+        raise AssertionError(f"deepseek smoke card vs CPU: loss/aux "
+                             f"{fwd_rel}, gradients {grad_rel}")
+    return {"card_vs_cpu_loss_aux_max_rel": fwd_rel,
+            "card_vs_cpu_grad_max_rel": dict(zip(
+                ("kv_up_w", "kv_up_omega", "q_up_w", "router_w"), grad_rel)),
+            "loss_card": lc, "loss_cpu": lh,
+            "launcher_resume": _mla_launcher_resume(dev)}
+
+
+def _mla_grads(dev, cfg, state, batch, lam, remat):
+    """The share's loss at λ ``lam`` and its gradients from ``state``
+    under ``remat``, once: the loss, a digest of every gradient, layer 0's
+    kv_up w and ω gradients, the ecl_quant launches and the MoE calls
+    counted, and the peak device memory after the forward and after the
+    backward."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import steps as steps_mod
+
+    loss_fn = steps_mod._loss_fn(cfg, remat=remat)
+    leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
+              for t in tree.leaves(state["params"])]
+    params = tree.unflatten(state["params"], leaves)
+    kv_up = params["stacks"]["dense"]["attn"]["kv_up"]["kernel"]
+    wants = [t for t in leaves if t.requires_grad]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = eq.LAUNCHES
+    with _DropCounter(cfg) as drops:
+        loss, _ = loss_fn(params, state["qstate"], batch, lam)
+        peak_fwd = torch.cuda.max_memory_allocated(dev)
+        grads = torch.autograd.grad(loss, wants, allow_unused=True)
+    peak_bwd = torch.cuda.max_memory_allocated(dev)
+    by_leaf = {id(t): g for t, g in zip(wants, grads)}
+    out = {"loss": loss.detach(), "launches": eq.LAUNCHES - before,
+           "digest": _digest([g for g in grads if g is not None]),
+           "gradients": sum(g is not None for g in grads),
+           "kv_up": (by_leaf[id(kv_up["w"])], by_leaf[id(kv_up["omega"])]),
+           "drops": torch.stack(drops.counts).cpu().tolist(),
+           "peak_forward_bytes": peak_fwd, "peak_backward_bytes": peak_bwd}
+    del grads, by_leaf, leaves, params, wants
+    return out
+
+
+def _mla_attention_times(dev, cfg, batch, seq):
+    """Device ms of layer 0's MLA block (``mla_apply``, the naive form
+    over cfg.attn_chunk-key chunks) at the step's shape in bf16: the
+    forward, and the forward and backward together (weights from seeded
+    draws; the time does not depend on their values)."""
+    import torch
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn import transformer as TT
+    from repro_torch.nn.layers import rope_cos_sin
+    from repro_torch.nn.module import QuantCtx
+
+    g = torch.Generator(device=dev).manual_seed(MLA_TRAIN["seed"] + 7)
+    mcfg = TT._mla_cfg(cfg)
+    p = {k: {"kernel": v["kernel"].to(torch.bfloat16).requires_grad_()}
+         for k, v in attn.mla_init(g, mcfg, quantize=False).items()}
+    ctx = QuantCtx(quant=False, compute_dtype=torch.bfloat16)
+    x = (torch.randn((batch, seq, cfg.d_model), generator=g, device=dev)
+         .to(torch.bfloat16).requires_grad_())
+    pos = torch.arange(seq, dtype=torch.int32, device=dev).expand(batch, seq)
+    cos_sin = rope_cos_sin(pos, mcfg.qk_rope_dim, cfg.rope_theta,
+                           dtype=torch.float32)
+    wants = [x] + [v["kernel"] for v in p.values()]
+    gy = torch.randn((batch, seq, cfg.d_model), generator=g,
+                     device=dev).to(torch.bfloat16)
+
+    def forward():
+        return attn.mla_apply(p, 0, x, ctx, mcfg, cos_sin=cos_sin,
+                              positions=pos, chunk=cfg.attn_chunk)[0]
+
+    def forward_backward():
+        torch.autograd.grad(forward(), wants, gy)
+    fwd = _device_time(forward, dev, 1)
+    both = _device_time(forward_backward, dev, 1)
+    return {"shape": [batch, seq, cfg.n_heads],
+            "chunks": -(-seq // cfg.attn_chunk),
+            "forward_device_ms": fwd["device_ms"],
+            "forward_device_ms_from": fwd["device_ms_from"],
+            "forward_backward_device_ms": both["device_ms"],
+            "forward_backward_device_ms_from": both["device_ms_from"],
+            "backward_device_ms": both["device_ms"] - fwd["device_ms"]}
+
+
+def mla_train_path(dev, gpu):
+    """Phase 10: EC4T-train one GPU's share of deepseek-v3-671b with MLA
+    at published widths (depth 2, experts 0-3 of 256, vocabulary 32,768)
+    through the launcher's functions, 4 steps at 1 x 4,096 tokens in
+    bf16; from step 4's input the loss and backward again under each
+    remat (bitwise); the 4-bit export, loaded back, serves the same
+    greedy tokens as ``freeze_tree``'s tree."""
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint.manager import (_paths, export_quantized,
+                                                frozen_tree, load_quantized)
+    from repro_torch.configs import get_config
+    from repro_torch.core import ecl, qat
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import train as T
+    from repro_torch.nn import moe
+    from repro_torch.nn import transformer as TT
+    from repro_torch.optim import ec4t, schedule
+    from repro_torch.runtime.fault import FaultTolerantLoop
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated(dev)
+    if start_bytes > EMPTY_CARD_BYTES:
+        raise AssertionError(f"phase 10 starts with {start_bytes / 1e9:.2f} "
+                             "GB allocated on the card")
+    cfg = _mla_train_cfg()
+    published = get_config(MLA_TRAIN["arch"])
+    first, count = cfg.experts_held
+    reduced = [f"depth {published.n_layers} -> {cfg.n_layers} (layers 0 "
+               f"and {published.n_dense_layers}: one dense, one MoE)",
+               f"experts held {count} of {cfg.n_experts} ({first}-"
+               f"{first + count - 1})",
+               f"vocabulary {cfg.vocab:,} of {published.vocab:,} (ids 0-"
+               f"{cfg.vocab - 1:,})"]
+    deployment = (f"one GPU of the DeepSeek-V3 report's training layout "
+                  f"(arXiv:2412.19437 §3.2: PP{MLA_TRAIN['pp']}, "
+                  f"EP{MLA_TRAIN['ep']}, ZeRO-1 DP): {cfg.n_experts} / "
+                  f"{MLA_TRAIN['ep']} = {count} experts, the router "
+                  f"{cfg.n_experts} wide and top-{cfg.top_k}; half a PP "
+                  "stage's depth with its whole fp32 master and Adam state "
+                  "(no ZeRO-1 in the port); attention, the shared expert "
+                  "and every width whole")
+    print(f"phase 10: {cfg.name} share: reduced {reduced}; deployment: "
+          f"{deployment} ({gpu})")
+    smoke = _mla_train_smoke_checks(dev)
+
+    steps = MLA_TRAIN["steps"]
+    step_fn = T.lm_step_fn(cfg, steps=steps, lr=MLA_TRAIN["lr"],
+                           lam=MLA_TRAIN["lam"],
+                           lam_ramp=MLA_TRAIN["lam_ramp"])
+    batch_fn = T.lm_batch_fn(cfg, batch=MLA_TRAIN["batch"],
+                             seq=MLA_TRAIN["seq"])
+    state = ec4t.init_train_state(TT.lm_init(cfg, seed=MLA_TRAIN["seed"],
+                                             device=dev))
+    params_n = sum(t.numel() for t in tree.leaves(state["params"])
+                   if t.is_floating_point())
+    stacks_p = state["params"]["stacks"]
+    stacks_q = state["qstate"]["stacks"]
+    nodes = list(qat._quant_leaves(stacks_p, stacks_q))
+    segments = sum(n["omega"][..., 0].numel() for n, _ in nodes)
+    elements = sum(n["w"].numel() for n, _ in nodes)
+    per_pass = -(-segments // eq.MAX_SEGMENTS)
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    if segments != cfg.n_dense_layers * (5 + 3) + n_moe * (
+            5 + len(MOE_BANKS) * count + 3):
+        raise AssertionError(f"{segments} ECL segments, expected 5 MLA + 3 "
+                             f"FFN a dense layer, 5 MLA + 3 banks x {count} "
+                             "held experts + 3 shared a MoE layer")
+    # each quantized leaf's place in a grouped pass (the stacks' order)
+    order = qat._map_quant_many(lambda ns, qs: list(range(len(ns))),
+                                stacks_p, stacks_q, keep_params=True)
+    picks = [(order["dense"]["attn"]["kv_up"]["kernel"], (0,)),
+             (order["moe"]["moe"]["experts"]["down"], (0, count - 1))]
+    del order, nodes, stacks_p, stacks_q
+    bias0 = state["params"]["stacks"]["moe"]["moe"]["router"][
+        "bias_correction"].clone()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.leaves(state))
+
+    history, kept = [], {"calls": 0}
+
+    def step_keeping_the_last_input(st, batch):
+        # the last step's input state and batch are kept for the remat
+        # runs (the loop retries nothing here: every call is a step)
+        kept["calls"] += 1
+        if kept["calls"] == steps:
+            kept.update(state=st, batch=batch)
+        return step_fn(st, batch)
+    loop = FaultTolerantLoop(
+        step_keeping_the_last_input, _Discard(), ckpt_every=steps + 1,
+        metrics_every=1, on_metrics=lambda s, m: history.append(
+            {"step": s, **{k: float(v) for k, v in m.items()}}))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mla_") as tmp:
+        export_dir = os.path.join(tmp, "export")
+        # the main path: counters zeroed just before, read just after
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eq.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with _EclRecorder(ecl, eq, MLA_TRAIN_CHECKED_CALLS, None,
+                          picks=picks, check=_plain_pair) as rec, \
+                _DropCounter(cfg) as drops:
+            feed = pipeline.ShardedFeed(batch_fn, start_step=0, device=dev)
+            held = [state]
+            del state
+            try:
+                state, last, reason = loop.run(held.pop(), feed,
+                                               start_step=0,
+                                               total_steps=steps)
+            finally:
+                feed.close()
+            torch.cuda.synchronize(dev)
+            train_s = time.perf_counter() - t0
+            step_launches = eq.LAUNCHES
+            t0 = time.perf_counter()
+            report = export_quantized(export_dir, state["params"],
+                                      state["qstate"], cfg.lam)
+            export_ms = (time.perf_counter() - t0) * 1e3
+        export_launches = eq.LAUNCHES - step_launches
+        peak_train = torch.cuda.max_memory_allocated(dev)
+        if (reason, last) != ("done", steps) or "state" not in kept:
+            raise AssertionError(f"the loop ended {reason} at {last}")
+        losses = [h["loss"] for h in history]
+        auxes = [h["aux"] for h in history]
+        if len(losses) != steps or not np.isfinite(losses + auxes).all():
+            raise AssertionError(f"losses {losses}, aux {auxes}")
+        if abs(losses[0] - np.log(cfg.vocab)) > MOE_LOSS0_TOL:
+            raise AssertionError(f"first loss {losses[0]}, ln(vocab) "
+                                 f"{np.log(cfg.vocab)}")
+        per_call, checked = _share_ecl_gates(
+            rec, per_pass, segments, steps, step_launches, export_launches,
+            MLA_TRAIN_CHECKED_CALLS)
+        del rec
+        dropped = torch.stack(drops.counts).cpu().tolist()
+        if not torch.equal(state["params"]["stacks"]["moe"]["moe"][
+                "router"]["bias_correction"], bias0):
+            raise AssertionError("bias_correction moved in training")
+        digest = _digest(state)
+
+        # the export loaded back == freeze_tree, and served alike
+        t0 = time.perf_counter()
+        loaded = load_quantized(export_dir, device=dev)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        served = frozen_tree(loaded, device=dev)
+        del loaded
+        eq.LAUNCHES = 0
+        frozen = qat.freeze_tree(state["params"], state["qstate"], cfg.lam)
+        freeze_launches = eq.LAUNCHES
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        want, got = dict(_paths(frozen)), dict(_paths(served))
+        if sorted(want) != sorted(got) or not all(
+                got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                for k in want):
+            raise AssertionError("the loaded export != freeze_tree's tree")
+        prompts = np.random.default_rng(MLA_TRAIN["seed"]).integers(
+            0, cfg.vocab, (MLA_TRAIN["prompts"], MLA_TRAIN["prompt_len"]))
+        serve_export = _lm_direct(dev, cfg, served, prompts,
+                                  MLA_TRAIN["max_new"])
+        serve_freeze = _lm_direct(dev, cfg, frozen, prompts,
+                                  MLA_TRAIN["max_new"])
+        if not (np.array_equal(serve_export["tokens"],
+                               serve_freeze["tokens"])
+                and bool(torch.isfinite(serve_export["logits"]).all())):
+            raise AssertionError("the export's tokens != freeze_tree's")
+        export_bytes = os.path.getsize(os.path.join(export_dir,
+                                                    "export.npz"))
+        del served, frozen, want, got, serve_freeze
+        serve_export.pop("cache")
+
+    # from step 4's input: the loss and the backward under each remat, the
+    # none run twice; every gradient bitwise none's
+    s3, b3 = kept.pop("state"), kept.pop("batch")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lam3 = schedule.lambda_ramp(s3["opt"]["step"], lam=MLA_TRAIN["lam"],
+                                ramp_steps=MLA_TRAIN["lam_ramp"])
+    runs = {}
+    for remat in ("none",) + REMATS:
+        run = _mla_grads(dev, cfg, s3, b3, lam3, remat)
+        if remat not in runs:
+            runs[remat] = run
+        elif not (torch.equal(run["digest"], runs[remat]["digest"])
+                  and all(torch.equal(a, b) for a, b in
+                          zip(run["kv_up"], runs[remat]["kv_up"]))):
+            raise AssertionError("the full-width backward twice differs")
+        del run
+    base = runs["none"]
+    for remat, run in runs.items():
+        if not (torch.equal(run["loss"], base["loss"])
+                and torch.equal(run["digest"], base["digest"])
+                and all(torch.equal(a, b) for a, b in
+                        zip(run["kv_up"], base["kv_up"]))
+                and run["gradients"] == base["gradients"]):
+            raise AssertionError(f"remat={remat}: the loss or a gradient "
+                                 "differs from remat=none's")
+        if run["launches"] != per_pass or run["drops"] != base["drops"] \
+                or len(run["drops"]) != n_moe:
+            raise AssertionError(
+                f"remat={remat}: {run['launches']} ecl_quant launches "
+                f"(want {per_pass}), MoE calls counted {run['drops']} "
+                f"(none: {base['drops']})")
+    if float(base["loss"]) != losses[-1]:
+        raise AssertionError(f"the none run's loss {float(base['loss'])} "
+                             f"!= step {steps}'s {losses[-1]}")
+    remat_runs = {r: {"loss": float(run["loss"]),
+                      "gradients": run["gradients"],
+                      "ecl_quant_launches": run["launches"],
+                      "peak_forward_bytes": run["peak_forward_bytes"],
+                      "peak_backward_bytes": run["peak_backward_bytes"]}
+                  for r, run in runs.items()}
+    del runs, base
+
+    # a whole step under full and dots: its new state bitwise step 4's
+    for remat in REMATS[1:]:
+        fn = T.lm_step_fn(cfg, steps=steps, lr=MLA_TRAIN["lr"],
+                          lam=MLA_TRAIN["lam"],
+                          lam_ramp=MLA_TRAIN["lam_ramp"], remat=remat)
+        before = eq.LAUNCHES
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with _StagePeaks(dev) as staged:
+            new, m = fn(s3, b3)
+        torch.cuda.synchronize(dev)
+        remat_runs[remat]["step_ms"] = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(_digest(new), digest)
+                and float(m["loss"]) == losses[-1]
+                and eq.LAUNCHES - before == ECL_PASSES_PER_STEP * per_pass):
+            raise AssertionError(f"remat={remat}: step {steps} differs "
+                                 "from remat=none's")
+        remat_runs[remat]["peak_step_bytes_by_stage"] = staged.peaks
+        del new, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ecl_row = _share_ecl_pass(dev, s3["params"]["stacks"],
+                              s3["qstate"]["stacks"], cfg.lam, segments,
+                              per_pass)
+    pass_bound = ecl_row["bound_ms"]
+    holder = [s3]
+    del s3
+    trace = _lm_train_trace(dev, step_fn, holder, b3, timed=2)
+    del holder, b3
+    gc.collect()
+    torch.cuda.empty_cache()
+    if trace["host_syncs_per_step"]:
+        raise AssertionError(f"host synchronisations inside a step: "
+                             f"{trace['host_syncs_per_step']}")
+    remat_runs["none"]["peak_step_bytes_by_stage"] = \
+        trace["peak_device_memory_bytes_by_stage"]
+    remat_runs["none"]["step_ms"] = trace["ms_per_step"]
+    attention = _mla_attention_times(dev, cfg, MLA_TRAIN["batch"],
+                                     MLA_TRAIN["seq"])
+    adam_bound = ADAM_BYTES_PER_PARAM * params_n / PEAK_BYTES * 1e3
+    out = {
+        **MLA_TRAIN, "arch": cfg.name, "published_layers":
+            published.n_layers, "published_vocab": published.vocab,
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+        "dense_ff": cfg.dense_ff, "d_ff": cfg.d_ff,
+        "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+        "attn_chunk": cfg.attn_chunk,
+        "capacity": moe._capacity(
+            MLA_TRAIN["batch"] * MLA_TRAIN["seq"] * cfg.top_k,
+            cfg.n_experts, cfg.capacity_factor),
+        "reduced": reduced, "deployment": deployment,
+        "compute_dtype": "bfloat16", "params": params_n,
+        "quant_weights": elements, "ecl_segments": segments,
+        "state_bytes": state_bytes, "losses": losses, "aux": auxes,
+        "train_wall_s": train_s, "ecl_quant_launches": step_launches,
+        "ecl_quant_launches_export": export_launches,
+        "ecl_quant_launches_freeze": freeze_launches,
+        "ecl_quant_launches_per_pass": per_pass,
+        "ecl_quant_passes": len(per_call), "ecl_segments_checked": checked,
+        "remat": remat_runs,
+        "dropped_by_step": [{"dropped": d, "kept_held": k,
+                             "assigned_held": a} for d, k, a in dropped],
+        **trace,
+        "ecl_quant_bound_ms_per_pass": pass_bound,
+        "ecl_quant_bound_ms_per_step": ECL_PASSES_PER_STEP * pass_bound,
+        "ecl_quant_pass": ecl_row, "adam_bound_ms": adam_bound,
+        "mla_attention": attention,
+        "peak_device_memory_bytes": peak_train,
+        "export_bytes": export_bytes,
+        "export_compressed_bytes": report["compressed_bytes"],
+        "export_compression_ratio": report["compression_ratio"],
+        "export_ms": export_ms, "export_load_ms": load_ms,
+        "served_tokens_0": serve_export["tokens"][0].tolist(),
+        "smoke": smoke, "gpu": gpu,
+        "wall_s": time.perf_counter() - t_phase}
+    gb = 1e-9
+
+    def peaks(r):
+        st = remat_runs[r]["peak_step_bytes_by_stage"]
+        return (f"{r} ({remat_runs[r]['step_ms']:.1f} ms a step): "
+                f"forward {remat_runs[r]['peak_forward_bytes'] * gb:.1f}"
+                f" / backward {remat_runs[r]['peak_backward_bytes'] * gb:.1f}"
+                f" GB; in a step forward {st.get('forward', 0) * gb:.1f}, "
+                f"backward {st.get('backward', 0) * gb:.1f}, adam "
+                f"{st.get('adam', 0) * gb:.1f}, update "
+                f"{st.get('update_qstate', 0) * gb:.1f}")
+    print(f"phase 10: {cfg.name} share EC4T-trained {steps} steps at batch "
+          f"{MLA_TRAIN['batch']} x seq {MLA_TRAIN['seq']} (bf16, "
+          f"{params_n / 1e9:.3f} B parameters): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, aux {auxes[0]:.4f} -> {auxes[-1]:.4f}; "
+          f"{step_launches} ecl_quant launches ({per_pass} a pass, "
+          f"{segments} segments, {elements:,} elements) + "
+          f"{export_launches} in the export; remat full and dots bitwise "
+          f"none's (loss, {remat_runs['none']['gradients']} gradients, a "
+          "whole step); the backward twice bitwise; export == freeze_tree, "
+          f"tokens equal ({gpu})")
+    print(f"phase 10: {trace['ms_per_step']:.1f} ms/step, device "
+          f"{trace['device_ms_per_step']:.1f} ms/step, idle "
+          f"{trace['device_idle_share']:.3f}, "
+          f"{trace['device_ops_per_step']:.0f} device ops; ECL pass "
+          f"{ecl_row['device_ms']:.3f} ms ({ecl_row['device_ms_from']}) "
+          f"against {pass_bound:.3f} (bytes), "
+          f"{trace['ecl_quant_device_ms_per_step']:.2f} ms/step in the "
+          f"trace; adam.apply "
+          f"{_ms(trace['adam_apply_device_ms_per_step'])} ms against "
+          f"{adam_bound:.2f}; FakeQuantGroup.backward "
+          f"{_ms(trace['fake_quant_backward_device_ms_per_step'])} ms; "
+          f"update_qstate {_ms(trace['update_qstate_device_ms_per_step'])} "
+          f"ms; MLA attention (layer 0, {attention['chunks']} chunks) "
+          f"forward {attention['forward_device_ms']:.2f} ms, backward "
+          f"{attention['backward_device_ms']:.2f} ms ({gpu})")
+    print(f"phase 10: peak memory {'; '.join(peaks(r) for r in REMATS)}; "
+          f"main path peak {peak_train * gb:.1f} GB ({gpu})")
+    print(f"phase 10: export {export_bytes * gb:.3f} GB "
+          f"({report['compression_ratio']:.2f}x) in {export_ms:.0f} ms, "
+          f"loaded in {load_ms:.0f} ms; dropped a step "
+          f"{[d for d, _, _ in dropped]} of "
+          f"{MLA_TRAIN['batch'] * MLA_TRAIN['seq'] * cfg.top_k}, held kept "
+          f"{[k for _, k, _ in dropped]} of {[a for _, _, a in dropped]}; "
+          f"smoke card vs CPU loss/aux "
+          f"{smoke['card_vs_cpu_loss_aux_max_rel']:.2e}, gradients "
+          f"{max(smoke['card_vs_cpu_grad_max_rel'].values()):.2e}, launcher "
+          f"resume bitwise; done in {out['wall_s']:.1f} s ({gpu})")
+    return out
+
+
+def kernels_report(r):
+    """The ``kernels`` line: every kernel's launches by path, error, times
+    and bound, from the results ``r`` of a run of every phase."""
+    report = []
+    for name, (sched, replaces) in KERNELS.items():
+        per = r["times"][name]
+        head = per[64]
+        report.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "schedule": sched,
+            "launches": r["launches"][name],
+            "launches_by_path": {
+                "serving": r["launches"][name],
+                "training_serve": r["train"]["serve_launches"][
+                    "fantastic4_matmul" if sched == "chain" else sched],
+                "frontend": r["frontend"]["session"]["launches"][name],
+                "lm": r["lm"]["kernel_launches"][name]},
+            "max_abs_err": r["max_err"][name],
+            "int8_max_rel_err": r["max_rel8"][name],
+            "ms": head["ms"], "kernel_ms": head["ms"],
+            "device_ms": head["device_ms"],
+            "device_ms_from": head["device_ms_from"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library_device_ms": head["library_device_ms"],
+            "library_device_ms_from": head["library_device_ms_from"],
+            "at": "mlp-gsc batch 64 fp32",
+            "by_batch": {str(b): v for b, v in per.items()},
+            "smollm_shapes": {k: v for k, v in r["lm"]["ffn_timed"].items()
+                              if v["schedule"] == sched}})
+    head = r["ecl_times"]["mlp-gsc 7 tensors grouped"]
+    report.append({
+        "name": "ecl_quant", "route": "cuda", "source": ECL_SOURCE,
+        "replaces": TPU_KERNELS + "ecl_quant.py:56",
+        "launches": r["train"]["ecl_quant_launches"],
+        "launches_by_path": {"training": r["train"]["ecl_quant_launches"],
+                             "lm": r["lm"]["freeze"]["ecl_quant_launches"],
+                             "lm_training": r["lm_train"]["ecl_quant_launches"],
+                             "moe": r["moe"]["launcher"]["ecl_quant_launches"],
+                             "moe_train": r["moe_train"]["ecl_quant_launches"]
+                             + r["moe_train"]["ecl_quant_launches_export"],
+                             "mla": r["mla"]["launcher"]["ecl_quant_launches"],
+                             "mla_train": r["mla_train"]["ecl_quant_launches"]
+                             + r["mla_train"]["ecl_quant_launches_export"]},
+        "max_abs_err": r["ecl_err"],
+        "ms": head["ms"], "kernel_ms": head["ms"],
+        "device_ms": head["device_ms"],
+        "device_ms_from": head["device_ms_from"],
+        "queued_ms": head["queued_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "library_device_ms": None,
+        "at": "mlp-gsc 7 tensors, one grouped launch",
+        "by_shape": r["ecl_times"],
+        "smollm_freeze": r["lm"]["ecl_quant"],
+        "grok_freeze": r["moe"]["ecl_quant"],
+        "deepseek_freeze": r["mla"]["ecl_quant"],
+        **{name: {"pass": r[key]["ecl_quant_pass"],
+                  **{k: r[key][k] for k in (
+                      "ecl_quant_device_ms_per_step",
+                      "ecl_quant_bound_ms_per_step", "quant_weights")}}
+           for name, key in (("grok_share_training", "moe_train"),
+                             ("smollm_training", "lm_train"),
+                             ("deepseek_share_training", "mla_train"))}})
+    return report
+
+
+PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10")
+
+
+def parse_phases(argv):
+    """The phases ``--phases 1,10`` names (phase 1, the build, always
+    runs; 3c needs 3b's trained pack, so naming it runs 3b too), or every
+    phase without the argument."""
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after phase 1, "
+                    f"of {','.join(PHASES)} (default: all)")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return set(PHASES)
+    named = {p.strip() for p in args.phases.split(",") if p.strip()}
+    unknown = named - set(PHASES) - {"1"}
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}; have 1,"
+                 f"{','.join(PHASES)}")
+    if "3c" in named:
+        named.add("3b")
+    return named - {"1"}
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(argv)
     try:
         import torch
     except ImportError:
@@ -4084,93 +4840,40 @@ def main() -> int:
     print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}; "
           f"allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
 
-    max_err, max_rel8 = check_kernels(dev)
-    ecl_err = check_ecl_quant(dev)
-    launches, path = main_path(dev)
-    trained, train = train_path(dev)
-    times, grid = timings(dev)
-    floor = contract_floor(dev)
-    ecl_times = ecl_timings(dev)
-    train["step_timing"] = train_step_timing(dev)
+    r = {}
+    if "2" in phases:
+        r["max_err"], r["max_rel8"] = check_kernels(dev)
+        r["ecl_err"] = check_ecl_quant(dev)
+    if "3" in phases:
+        r["launches"], r["path"] = main_path(dev)
+    if "3b" in phases:
+        r["trained"], r["train"] = train_path(dev)
+    if "4" in phases:
+        r["times"], r["grid"] = timings(dev)
+        r["floor"] = contract_floor(dev)
+        r["ecl_times"] = ecl_timings(dev)
+        r["step_timing"] = train_step_timing(dev)
+        if "train" in r:
+            r["train"]["step_timing"] = r["step_timing"]
     # the threaded phase runs after the single-stream timings
-    frontend = frontend_path(dev, trained)
-    lm = lm_path(dev)
-    lm_train = lm_train_path(dev)
-    moe = moe_path(dev, gpu)
-    moe_train = moe_train_path(dev, gpu)
-    mla = mla_serve_path(dev, gpu)
+    steps = (("3c", "frontend", lambda: frontend_path(dev, r["trained"])),
+             ("5", "lm", lambda: lm_path(dev)),
+             ("6", "lm_train", lambda: lm_train_path(dev)),
+             ("7", "moe", lambda: moe_path(dev, gpu)),
+             ("8", "moe_train", lambda: moe_train_path(dev, gpu)),
+             ("9", "mla", lambda: mla_serve_path(dev, gpu)),
+             ("10", "mla_train", lambda: mla_train_path(dev, gpu)))
+    for phase, key, run in steps:
+        if phase in phases:
+            r[key] = run()
 
-    report = []
-    for name, (sched, replaces) in KERNELS.items():
-        per = times[name]
-        head = per[64]
-        report.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "schedule": sched,
-            "launches": launches[name],
-            "launches_by_path": {
-                "serving": launches[name],
-                "training_serve": train["serve_launches"][
-                    "fantastic4_matmul" if sched == "chain" else sched],
-                "frontend": frontend["session"]["launches"][name],
-                "lm": lm["kernel_launches"][name]},
-            "max_abs_err": max_err[name],
-            "int8_max_rel_err": max_rel8[name],
-            "ms": head["ms"], "kernel_ms": head["ms"],
-            "device_ms": head["device_ms"],
-            "device_ms_from": head["device_ms_from"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "library_device_ms": head["library_device_ms"],
-            "library_device_ms_from": head["library_device_ms_from"],
-            "at": "mlp-gsc batch 64 fp32",
-            "by_batch": {str(b): v for b, v in per.items()},
-            "smollm_shapes": {k: v for k, v in lm["ffn_timed"].items()
-                              if v["schedule"] == sched}})
-    head = ecl_times["mlp-gsc 7 tensors grouped"]
-    report.append({
-        "name": "ecl_quant", "route": "cuda", "source": ECL_SOURCE,
-        "replaces": TPU_KERNELS + "ecl_quant.py:56",
-        "launches": train["ecl_quant_launches"],
-        "launches_by_path": {"training": train["ecl_quant_launches"],
-                             "lm": lm["freeze"]["ecl_quant_launches"],
-                             "lm_training": lm_train["ecl_quant_launches"],
-                             "moe": moe["launcher"]["ecl_quant_launches"],
-                             "moe_train": moe_train["ecl_quant_launches"]
-                             + moe_train["ecl_quant_launches_export"],
-                             "mla": mla["launcher"]["ecl_quant_launches"]},
-        "max_abs_err": ecl_err,
-        "ms": head["ms"], "kernel_ms": head["ms"],
-        "device_ms": head["device_ms"],
-        "device_ms_from": head["device_ms_from"],
-        "queued_ms": head["queued_ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None, "library_device_ms": None,
-        "at": "mlp-gsc 7 tensors, one grouped launch",
-        "by_shape": ecl_times,
-        "smollm_freeze": lm["ecl_quant"],
-        "grok_freeze": moe["ecl_quant"],
-        "deepseek_freeze": mla["ecl_quant"],
-        "grok_share_training": {
-            "pass": moe_train["ecl_quant_pass"],
-            **{k: moe_train[k] for k in (
-                "ecl_quant_device_ms_per_step", "ecl_quant_bound_ms_per_step",
-                "quant_weights")}},
-        "smollm_training": {
-            "pass": lm_train["ecl_quant_pass"],
-            **{k: lm_train[k] for k in (
-                "ecl_quant_device_ms_per_step", "ecl_quant_bound_ms_per_step",
-                "quant_weights")}}})
-    print(json.dumps({"grid": grid, "contract_floor": floor}))
-    print(json.dumps({"kernels": report}))
-    print(json.dumps({"path": path}))
-    print(json.dumps({"train": train}))
-    print(json.dumps({"frontend": frontend}))
-    print(json.dumps({"lm": lm}))
-    print(json.dumps({"lm_train": lm_train}))
-    print(json.dumps({"moe": moe}))
-    print(json.dumps({"moe_train": moe_train}))
-    print(json.dumps({"mla": mla}))
+    if phases == set(PHASES):
+        print(json.dumps({"grid": r["grid"], "contract_floor": r["floor"]}))
+        print(json.dumps({"kernels": kernels_report(r)}))
+    for key in ("path", "train", "frontend", "lm", "lm_train", "moe",
+                "moe_train", "mla", "mla_train"):
+        if key in r:
+            print(json.dumps({key: r[key]}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "
           "retaken for want of the kernel's device time; "
           f"{TRACES['events']} device times from CUDA events for want of "
@@ -4183,4 +4886,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

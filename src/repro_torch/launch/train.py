@@ -7,6 +7,8 @@ transformer LM (the JAX package's ``launch/train.py``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --smoke \
         --device cpu --steps 25 --ckpt-dir /tmp/ckpt --export /tmp/export
     PYTHONPATH=src python -m repro_torch.launch.train --arch grok-1-314b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b --smoke \
+        --device cpu --steps 3 --remat full
 
 **MLP branch** (``--arch mlp-gsc``, ``mlp-hr``, ``lenet-300-100``): the
 MLP trainer of the JAX package (``benchmarks/common.py`` ``train_mlp``,
@@ -18,9 +20,9 @@ accuracy, sparsity and entropy and ms per step, freezes the net
 it against the eval-mode forward (``atol=rtol=1e-2``, as
 ``examples/train_mlp_gsc.py:54``).
 
-**LM branch** (every dense- and moe-family arch without MLA, ``--smoke``
-for the reduced config; a MoE arch adds ``aux_loss_coef`` times its
-load-balance loss, as the reference does): config → ``lm_init`` →
+**LM branch** (every dense- and moe-family arch, with GQA or MLA,
+``--smoke`` for the reduced config; a MoE arch adds ``aux_loss_coef``
+times its load-balance loss, as the reference does): config → ``lm_init`` →
 ``ec4t.init_train_state`` → the EC4T step
 (``launch/steps.py`` loss in bf16, λ ramped over ``--lam-ramp`` steps,
 Adam with a warmup-cosine learning rate) → ``ShardedFeed`` (step-seeded
@@ -30,19 +32,25 @@ synthetic tokens, prefetched, pinned, copied without blocking) →
 SIGTERM/SIGINT checkpoint and stop, transient errors retried) →
 ``export_quantized`` to ``--export``.  It prints a ``step … loss … ce …
 gnorm … lam …`` line every 10 steps and a ``finished:`` line, and
-``main`` returns that history.  MLA (deepseek-v3-671b, ROADMAP queue 1
-item 8.2) and the ssm, hybrid, vlm and audio families raise
-``NotImplementedError`` (queue 1 item 8), as does ``--remat full|dots``
-(queue 1 item 10).  A published MoE arch trains every expert on one
-device; one device's share of an expert-parallel deployment
-(``ArchConfig.experts_held``) is set by a caller, not by a flag.
+``main`` returns that history.  ``--remat`` rematerialises each layer
+in the backward as the reference's ``jax.checkpoint`` of its scan body:
+``none`` keeps every activation, ``full`` a layer's inputs only, ``dots``
+also its projections' products; the loss and the gradients are bitwise
+the same under all three.  Under autograd the online softmax keeps only
+each KV chunk's inputs and carries, and re-forms the chunk's scores in
+the backward (``nn/attention.py``).  The ssm, hybrid, vlm and audio
+families raise ``NotImplementedError`` (ROADMAP queue 1 item 8).  A
+published MoE arch trains every expert on one device; one device's share
+of an expert-parallel deployment (``ArchConfig.experts_held``) is set by
+a caller, not by a flag.
 
 In both branches every step's fake-quant forward and EMA probability
 update each quantize every quantized tensor in one grouped call of the
 ECL op (``kernels/ecl_quant.py``): on the card ⌈segments / 32⌉ launches
 of the hand-written CUDA kernel (SmolLM-360M: 224 segments, 7 launches;
 one card's share of a Grok-1 layer, q, k, v, o and 3 banks x 2 experts:
-10 segments, 1 launch), on ``--device cpu`` its plain version.  Defaults differ by branch
+10 segments, 1 launch; one GPU's share of DeepSeek-V3 at depth 2, 28
+segments, 1 launch), on ``--device cpu`` its plain version.  Defaults differ by branch
 (:data:`MLP_DEFAULTS`, :data:`LM_DEFAULTS`).
 """
 from __future__ import annotations
@@ -75,14 +83,15 @@ BATCH = 128
 EVAL_STEP0 = 10_000          # held-out batches are steps 10,000 + j
 EVAL_BATCHES = 5
 SERVE_STEP = 99_999          # the serving check's batch of 256
-MLP_DEFAULTS = dict(steps=300, lam=0.3, lam_ramp=60, lr=5e-3)
+LM_METRICS_EVERY = 10
+MLP_DEFAULTS = dict(steps=300, lam=0.3, lam_ramp=60, lr=5e-3, log_every=50)
 LM_DEFAULTS = dict(steps=100, lam=0.05, lam_ramp=50, lr=1e-3, batch=8,
                    seq=64, ckpt_every=50, remat="none",
+                   log_every=LM_METRICS_EVERY,
                    ckpt_dir=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_ckpt"))
 LM_ONLY = ("smoke", "batch", "seq", "ckpt_dir", "ckpt_every", "export",
            "remat")
-LM_METRICS_EVERY = 10
 
 
 def data_cfg(cfg: MLPConfig, seed: int, batch: int = BATCH
@@ -199,7 +208,7 @@ def lm_config(arch: str, *, smoke: bool = False,
     if smoke:
         cfg = cfg.smoke()
     cfg = dataclasses.replace(cfg, lam=lam)
-    steps_mod.check_trainable(cfg)
+    T.check_supported(cfg)
     return cfg
 
 
@@ -301,7 +310,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mlp-gsc",
                     help=f"one of {', '.join(sorted(MLPS))} or a dense or "
-                    "moe LM arch (smollm-360m, grok-1-314b, ...)")
+                    "moe LM arch (smollm-360m, grok-1-314b, "
+                    "deepseek-v3-671b, ...)")
     ap.add_argument("--steps", type=int, default=None,
                     help="MLP 300, LM 100")
     ap.add_argument("--lam", type=float, default=None, help="MLP 0.3, LM 0.05")
@@ -311,8 +321,8 @@ def main(argv=None):
                     help="MLP 5e-3, LM 1e-3")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--log-every", type=int, default=50,
-                    help="MLP: print every N steps")
+    ap.add_argument("--log-every", type=int, default=None,
+                    help="print every N steps (MLP 50, LM 10)")
     lm_flags = ap.add_argument_group("LM branch only")
     lm_flags.add_argument("--smoke", action="store_true", default=None,
                           help="reduced config (CPU-sized)")
@@ -324,7 +334,10 @@ def main(argv=None):
     lm_flags.add_argument("--export", default=None,
                           help="directory for the 4-bit serving export")
     lm_flags.add_argument("--remat", default=None,
-                          help="none (full and dots are not ported)")
+                          choices=T.REMAT,
+                          help="none (keep every activation), full (keep "
+                          "each layer's inputs) or dots (and its "
+                          "projections' products); default none")
     args = ap.parse_args(argv)
     if args.arch not in MLPS:
         _resolve(args, LM_DEFAULTS)
@@ -334,6 +347,7 @@ def main(argv=None):
                         lam_ramp=args.lam_ramp, ckpt_dir=args.ckpt_dir,
                         ckpt_every=args.ckpt_every, export=args.export,
                         remat=args.remat, device=args.device,
+                        metrics_every=args.log_every,
                         seed=args.seed)["history"]
     given = [f"--{k.replace('_', '-')}" for k in LM_ONLY
              if getattr(args, k) is not None]

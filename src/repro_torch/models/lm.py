@@ -29,9 +29,11 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
 
 
 def lm_forward_loss(params, qstate, batch: dict, ctx: QuantCtx,
-                    cfg: ArchConfig) -> tuple:
-    """The train forward: (loss, metrics)."""
-    logits, _, aux = T.lm_apply(params, qstate, batch["tokens"], ctx, cfg)
+                    cfg: ArchConfig, *, remat: str = "none") -> tuple:
+    """The train forward: (loss, metrics); ``remat`` as
+    :func:`~repro_torch.nn.transformer.lm_apply` takes it."""
+    logits, _, aux = T.lm_apply(params, qstate, batch["tokens"], ctx, cfg,
+                                remat=remat)
     ce = lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
     loss = ce + cfg.aux_loss_coef * aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}

@@ -20,10 +20,12 @@ decompression for MLA.  The score products accumulate in fp32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import apply_rotary, linear, linear_init, subtree
 from .module import QuantCtx, materialize
@@ -91,12 +93,11 @@ def chunked_attention(q: torch.Tensor, kv_parts: tuple, *,
     l = torch.zeros((b, n_kv, rep, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, n_kv, rep, sq, dv), dtype=torch.float32,
                       device=q.device)
-    for start in range(0, skv + pad, chunk):
-        parts_c = tuple(a[:, start:start + chunk] for a in kv_parts)
+
+    def body(m, l, acc, qf, pos_c, *parts_c):
         kc, vc = parts_c if kv_chunk_fn is None else kv_chunk_fn(parts_c)
         s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kc.to(torch.float32))
-        s = s + _mask_bias(q_pos, kv_pos[:, start:start + chunk],
-                           causal=causal, window=window,
+        s = s + _mask_bias(q_pos, pos_c, causal=causal, window=window,
                            kv_len=kv_len)[:, None, None]
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
@@ -104,7 +105,18 @@ def chunked_attention(q: torch.Tensor, kv_parts: tuple, *,
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum(
             "bgrqk,bkgd->bgrqd", p, vc.to(torch.float32))
-        m = m_new
+        return m_new, l, acc
+
+    # the reference's jax.checkpoint(body): under autograd each chunk keeps
+    # only its inputs and the carries, and the backward re-forms the
+    # chunk's scores (same operations, same order: bitwise the gradients
+    # of the loop without it)
+    step = body
+    if torch.is_grad_enabled():
+        step = functools.partial(checkpoint, body, use_reentrant=False)
+    for start in range(0, skv + pad, chunk):
+        m, l, acc = step(m, l, acc, qf, kv_pos[:, start:start + chunk],
+                         *(a[:, start:start + chunk] for a in kv_parts))
     out = acc / torch.clamp(l, min=1e-30)[..., None]           # (B,G,r,Sq,dv)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv)
 

@@ -13,8 +13,8 @@ shard's share of each MoE layer (``nn/moe.py``).  Under EC4T training
 (``ctx.quant``) the forward fake-quantizes every stacked quantized leaf
 once, before the layer loop, in one grouped quantization
 (:func:`quantize_stack`); each layer then reads its view of the stacked
-ŵ.  The reference's sharding and
-rematerialisation arguments have no counterpart here.
+ŵ.  ``remat`` is the reference's rematerialisation of the layer body
+(:func:`_remat`); its sharding arguments have no counterpart here.
 
 A config with ``mla`` (deepseek-v3) builds multi-head latent attention
 in every layer and a latent cache (``nn/attention.py``).  The other
@@ -23,9 +23,12 @@ wait for ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
@@ -42,6 +45,12 @@ HUGE_WINDOW = 1 << 30     # "global attention" encoded as a very wide window
 
 
 KINDS = ("dense", "moe")       # the stacks, in the reference's order
+REMAT = ("none", "full", "dots")
+# the products ``dots`` keeps: a projection's 2-D matmul (``linear``'s
+# ``x @ w``), not a product with batch dims (attention's and the expert
+# banks' einsums and bmm), as dots_with_no_batch_dims_saveable
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                         torch.ops.aten.addmm.default})
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -226,6 +235,34 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
     return x, ({"attn": new_ac} if new_ac is not None else {}), aux
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def check_remat(remat: str) -> None:
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: one of {', '.join(REMAT)}")
+
+
+def _remat(fn, remat: str):
+    """``fn`` wrapped as the reference's ``jax.checkpoint`` of the scan
+    body: ``full`` keeps a layer's inputs only and runs its forward again
+    in the backward, ``dots`` also keeps its projections' products.  A
+    non-reentrant checkpoint records the same graph, so the loss and the
+    gradients are bitwise ``none``'s; without grad mode ``fn`` runs as
+    is."""
+    check_remat(remat)
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _dots_policy))
+
+
 def _layer(tree: Any, l: int) -> Any:
     """Layer ``l`` of an L-stacked tree (views); a non-tree state is kept."""
     if isinstance(tree, (dict, list, tuple)):
@@ -239,7 +276,9 @@ def quantize_stack(stack_p: Any, stack_q: Any, ctx: QuantCtx) -> Any:
     them in one grouped quantization (on the card ⌈segments / 32⌉
     ecl_quant launches: SmolLM-360M's 32 × 7 leaves take 7).  Each layer
     is a segment with its own ω, probabilities and mean(w²), as the
-    reference quantizes one layer at a time inside its scan."""
+    reference quantizes one layer at a time inside its scan.
+    :func:`lm_apply` hands it every stack at once (``params["stacks"]``),
+    so a dense and a MoE stack share the launches."""
     return qat.fake_quant_tree(stack_p, stack_q, ctx.lam, ctx.dtype)
 
 
@@ -270,11 +309,14 @@ def readout(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 def lm_apply(params: dict, qstate: Any, tokens: torch.Tensor,
              ctx: QuantCtx, cfg: ArchConfig, *,
              positions: Optional[torch.Tensor] = None,
-             cache: Optional[dict] = None) -> tuple:
+             cache: Optional[dict] = None, remat: str = "none") -> tuple:
     """Forward pass.  Returns (logits, new_cache, aux_loss).
 
     ``tokens`` (B, S) int.  ``positions`` (B, S) absolute positions
-    (decode passes the cache offset); default arange.
+    (decode passes the cache offset); default arange.  ``remat``: one of
+    :data:`REMAT`, each block's rematerialisation under autograd (the
+    grouped ŵ is made once before the loop either way, so it adds no ECL
+    pass).
     """
     x = params["embed"]["table"].to(ctx.dtype)[tokens]
     b, s = tokens.shape
@@ -288,13 +330,16 @@ def lm_apply(params: dict, qstate: Any, tokens: torch.Tensor,
                            dtype=torch.float32)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {} if cache is not None else None
+    w_hat = quantize_stack(params["stacks"], subtree(qstate, "stacks"),
+                           ctx) if ctx.quant else None
     for kind, idx in _kind_layers(cfg).items():
+        block = _remat(functools.partial(_block, cfg, kind), remat)
         windows = _windows_for(cfg, idx)
         stack_p = params["stacks"][kind]
         stack_q = subtree(subtree(qstate, "stacks"), kind)
         stack_c = cache.get(kind) if cache is not None else None
-        layer_p = _unstack(quantize_stack(stack_p, stack_q, ctx), len(idx)) \
-            if ctx.quant else None
+        layer_p = _unstack(w_hat[kind], len(idx)) \
+            if w_hat is not None else None
         # the reference's scan carry: a stack's aux from an fp32 zero, in
         # layer order, then added to the total
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -302,11 +347,11 @@ def lm_apply(params: dict, qstate: Any, tokens: torch.Tensor,
         for l in range(len(idx)):
             window = cfg.window if windows is None else windows[l]
             lp = layer_p[l] if layer_p is not None else _layer(stack_p, l)
-            x, nc, a = _block(cfg, kind, lp, _layer(stack_q, l), x, ctx,
-                              cos_sin=cos_sin, positions=positions,
-                              lcache=_layer(stack_c, l)
-                              if stack_c is not None else None,
-                              window=window)
+            x, nc, a = block(lp, _layer(stack_q, l), x, ctx,
+                             cos_sin=cos_sin, positions=positions,
+                             lcache=_layer(stack_c, l)
+                             if stack_c is not None else None,
+                             window=window)
             aux = aux + a
             new_layers.append(nc)
         aux_total = aux_total + aux

@@ -32,7 +32,9 @@ places pinned batches on the card.  MoE: grok's smoke stack frozen on the
 card bitwise equal to the CPU freeze, and a frozen layer's routing and
 dispatch exactly, its output within 1e-5, equal to the CPU's; a share of
 grok's smoke config trained on the card within ``rtol=1e-4`` of the CPU,
-its backward twice bitwise.  The Huffman codec on the card gives the
+its backward twice bitwise.  MLA: deepseek-v3's smoke config trained
+on the card within ``rtol=1e-4`` of the CPU, and bitwise alike under
+remat none, full and dots.  The Huffman codec on the card gives the
 host's bytes and codes.
 """
 import array
@@ -878,6 +880,43 @@ def test_moe_share_train_steps_on_the_card(cuda_device):
     for a, b in zip(grads(), grads()):
         assert (a is None) == (b is None)
         assert a is None or torch.equal(a, b)
+
+
+def test_mla_train_steps_on_the_card_under_every_remat(cuda_device):
+    """deepseek-v3's smoke config with MLA in fp32 at 3 KV chunks: two
+    card train steps within rtol=1e-4 of two CPU steps from one init,
+    each making 2 ecl_quant launches (the dense and the MoE stack in one
+    grouped pass, then the update), and the same two steps under remat
+    full and dots on the card bitwise equal to none's."""
+    from repro_torch import tree
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as T
+    from repro_torch.nn import transformer as TT
+    from repro_torch.optim import ec4t
+
+    cfg = T.lm_config("deepseek-v3-671b", smoke=True)
+    params = TT.lm_init(cfg, seed=0, device="cpu")
+    batch_fn = T.lm_batch_fn(cfg, batch=2, seq=40)
+    runs = {}
+    for dev, remat in ((cuda_device, "none"), (torch.device("cpu"), "none"),
+                       (cuda_device, "full"), (cuda_device, "dots")):
+        step_fn = T.lm_step_fn(cfg, steps=10, lr=1e-3, lam=0.3, lam_ramp=1,
+                               remat=remat, dtype=torch.float32)
+        state = ec4t.init_train_state(_to(params, dev))
+        out = []
+        for i in range(2):
+            before = eq.LAUNCHES
+            state, m = step_fn(state, pipeline.place(batch_fn(i), device=dev))
+            out.append(float(m["loss"]))
+            if dev.type == "cuda":
+                assert eq.LAUNCHES - before == 2
+        runs[dev.type, remat] = (out, tree.leaves(state))
+    np.testing.assert_allclose(runs["cuda", "none"][0], runs["cpu", "none"][0],
+                               rtol=1e-4)
+    for remat in ("full", "dots"):
+        assert runs["cuda", remat][0] == runs["cuda", "none"][0]
+        assert all(torch.equal(a, b) for a, b in zip(
+            runs["cuda", remat][1], runs["cuda", "none"][1]))
 
 
 def test_huffman_on_the_card_equals_the_host_codec(cuda_device):

@@ -223,10 +223,17 @@ def test_step_refuses_a_mesh_and_remat():
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         tec4t.make_train_step(lambda *a: None, tadam.AdamConfig(),
                               mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tsteps._loss_fn(get_config(ARCH).smoke(), remat="full")
+    with pytest.raises(ValueError, match="remat='bogus': one of none, full, "
+                       "dots"):
+        tsteps._loss_fn(get_config(ARCH).smoke(), remat="bogus")
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tsteps._loss_fn(get_config("mamba2-1.3b").smoke())
+    # full runs (held bitwise to none in tests/test_torch_mla_training.py)
+    cfg, jstate = _jax_state(perturb=False)
+    state = _carry(jstate)
+    loss, _ = tsteps._loss_fn(cfg, remat="full", dtype=torch.float32)(
+        state["params"], state["qstate"], _batch(cfg.vocab, 0)[1], 0.1)
+    assert np.isfinite(float(loss))
 
 
 # --------------------------------------------- grouped fake-quant path
@@ -292,7 +299,8 @@ def test_grouped_fake_quant_equals_per_leaf(monkeypatch):
     stacked = g_hat[0]
     for i, (l, (grp, name)) in enumerate(
             (l, leaf) for l in range(n_layers) for leaf in leaves):
-        assert torch.equal(stacked[grp][name]["kernel"][l], p_hat[i]), \
+        assert torch.equal(stacked["dense"][grp][name]["kernel"][l],
+                           p_hat[i]), \
             (l, grp, name)
     assert torch.equal(g_loss, p_loss)
     for a, b in zip(g_grads, p_grads):
@@ -455,15 +463,22 @@ def test_lm_launcher_resumes_where_an_uninterrupted_run_ends(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_moe_launcher_resumes_where_an_uninterrupted_run_ends(tmp_path):
-    """The same for grok-1-314b's smoke config (the moe family: the aux
-    loss in the step, (L, E) banks, ω and probabilities in the
-    checkpoint): steps 6-10 after a restart from step 5 bit for bit, and
-    the router's bias correction untouched."""
+@pytest.mark.parametrize("arch,remat,seq", [
+    ("grok-1-314b", "none", 16),
+    # MLA at 3 KV chunks of attn_chunk 16, each layer rematerialised
+    ("deepseek-v3-671b", "full", 40)])
+def test_moe_launcher_resumes_where_an_uninterrupted_run_ends(
+        tmp_path, arch, remat, seq):
+    """The same for the moe family's smoke configs (the aux loss in the
+    step, (L, E) banks, ω and probabilities in the checkpoint; deepseek-v3
+    with MLA, a dense layer and a shared expert): steps 6-10 after a
+    restart from step 5 bit for bit, and the router's bias correction
+    untouched."""
     import shutil
-    cfg = ttrain.lm_config("grok-1-314b", smoke=True)
-    kw = dict(steps=10, batch=2, seq=16, lr=1e-3, lam=0.05, lam_ramp=4,
-              ckpt_every=5, device="cpu", metrics_every=1, log=lambda s: 0)
+    cfg = ttrain.lm_config(arch, smoke=True)
+    kw = dict(steps=10, batch=2, seq=seq, lr=1e-3, lam=0.05, lam_ramp=4,
+              ckpt_every=5, device="cpu", metrics_every=1, log=lambda s: 0,
+              remat=remat)
     whole = ttrain.train_lm(cfg, ckpt_dir=str(tmp_path / "a"), **kw)
     os.makedirs(tmp_path / "b")
     shutil.copytree(tmp_path / "a" / "step_00000005",
@@ -480,10 +495,16 @@ def test_moe_launcher_resumes_where_an_uninterrupted_run_ends(tmp_path):
     assert not router["bias_correction"].any()
 
 
-def test_lm_launcher_flags_per_branch():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        ttrain.main(["--arch", ARCH, "--smoke", "--remat", "full",
+def test_lm_launcher_flags_per_branch(tmp_path, capsys):
+    with pytest.raises(SystemExit):
+        ttrain.main(["--arch", ARCH, "--smoke", "--remat", "bogus",
                      "--device", "cpu"])
+    assert "invalid choice: 'bogus'" in capsys.readouterr().err
+    hist = ttrain.main(["--arch", ARCH, "--smoke", "--remat", "full",
+                        "--steps", "2", "--batch", "2", "--seq", "16",
+                        "--log-every", "1", "--device", "cpu",
+                        "--ckpt-dir", str(tmp_path)])
+    assert [h["step"] for h in hist] == [1, 2]
     with pytest.raises(SystemExit):
         ttrain.main(["--arch", "mlp-hr", "--smoke", "--device", "cpu"])
     if not torch.cuda.is_available():

@@ -223,9 +223,8 @@ def test_launchers_refuse_what_is_not_ported():
                     "--device", "cpu", "--batch", "1", "--max-new", "2"])
     with pytest.raises(SystemExit, match="--layers applies to LM archs"):
         serve.main(["--arch", "mlp-hr", "--layers", "1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"MLA.*queue 1 item 8\.2"):
-        train.main(["--arch", "deepseek-v3-671b", "--smoke", "--device",
-                    "cpu"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        train.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu"])
 
 
 def test_serve_layers_only_cuts_the_depth():

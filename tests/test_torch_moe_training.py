@@ -1,8 +1,11 @@
 """The port's MoE EC4T training against the JAX package, on the CPU at
 smoke size: ``grok-1-314b.smoke()`` (2 layers, 4 experts, top-2, softmax
-gate) and ``deepseek-v3-671b.smoke()`` without MLA, built identically in
-both packages (a leading dense layer, then a MoE layer with a sigmoid
-gate, a bias correction and a shared expert).
+gate) and ``deepseek-v3-671b.smoke()`` with MLA and without it, built
+identically in both packages (a leading dense layer, then a MoE layer
+with a sigmoid gate, a bias correction and a shared expert; with MLA the
+step runs at seq 40, three KV chunks of the smoke's 16, the last one
+padded, and the gradients of every MLA projection and its ω are held as
+the banks' are).
 
 The JAX train state (params with ω moved off its init and a nonzero
 routing bias, probabilities off uniform, Adam ``m``, ``v`` and ``step``)
@@ -68,7 +71,8 @@ GRAD_REL = 1e-4
 STATE_ATOL = 1e-5
 PROBS_ATOL = 1e-6
 SHARE_TOL = dict(atol=1e-6, rtol=1e-6)
-VARIANTS = ("grok", "deepseek_no_mla")
+VARIANTS = ("grok", "deepseek_no_mla", "deepseek")
+SEQS = {"deepseek": 40}       # 3 KV chunks of attn_chunk 16
 
 
 def _configs(variant):
@@ -76,6 +80,9 @@ def _configs(variant):
     if variant == "grok":
         return (jget_config("grok-1-314b").smoke(),
                 get_config("grok-1-314b").smoke())
+    if variant == "deepseek":
+        return (jget_config("deepseek-v3-671b").smoke(),
+                get_config("deepseek-v3-671b").smoke())
     return (dataclasses.replace(jget_config("deepseek-v3-671b").smoke(),
                                 mla=None),
             dataclasses.replace(get_config("deepseek-v3-671b").smoke(),
@@ -139,8 +146,8 @@ def _port_step(variant):
             s, base_lr=1.0, warmup=1, total=TOTAL))
 
 
-def _batch(vocab, step):
-    b = synthetic.lm_batch(synthetic.LMDataCfg(vocab=vocab, seq_len=SEQ,
+def _batch(vocab, step, seq=SEQ):
+    b = synthetic.lm_batch(synthetic.LMDataCfg(vocab=vocab, seq_len=seq,
                                                global_batch=BATCH), step)
     return ({"tokens": b["tokens"], "labels": b["labels"]},
             {"tokens": torch.from_numpy(b["tokens"]),
@@ -168,7 +175,8 @@ def _one_step(variant):
     _, jstate = _jax_state(variant)
     jstate["opt"]["step"] = jnp.asarray(2, jnp.int32)
     tstate = _carry(jstate)
-    jb, tb = _batch(_configs(variant)[0].vocab, 0)
+    jb, tb = _batch(_configs(variant)[0].vocab, 0,
+                    SEQS.get(variant, SEQ))
     jnew, jm = _jax_step(variant)(jstate, jb)
     tnew, tm = _port_step(variant)(tstate, tb)
     return (dict(_named(_np(jstate))), dict(_named(_np(jnew))),
@@ -194,6 +202,11 @@ def test_one_ec4t_step_matches_reference(variant):
     cfg = _configs(variant)[1]
     assert len(graded) == 7 and want[moe_m + "experts.down.omega"].shape \
         == (cfg.n_layers - cfg.n_dense_layers, cfg.n_experts, 4)
+    if variant == "deepseek":     # every MLA projection of both stacks
+        mla = [n for n in want if n.startswith("opt.m.stacks.")
+               and ".attn." in n]
+        assert len(mla) == 2 * 5 * 2
+        graded += mla
     for name in graded:
         assert np.abs(want[name]).max() > 0, name
         assert _rel(got[name], want[name]) <= GRAD_REL, name
@@ -494,9 +507,8 @@ def test_train_launcher_trains_grok_smoke(tmp_path, capsys):
     loaded = tman.load_quantized(str(tmp_path / "export"))
     assert loaded["stacks//moe//moe//experts//up"]["codes"].shape == \
         (2, 4, 64, 128)
-    with pytest.raises(NotImplementedError, match=r"MLA.*queue 1 item 8\.2"):
-        ttrain.main(["--arch", "deepseek-v3-671b", "--smoke", "--device",
-                     "cpu"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        ttrain.main(["--arch", "hymba-1.5b", "--smoke", "--device", "cpu"])
 
 
 # ----------------------------------------------- the histogram past 2**24
