@@ -94,10 +94,10 @@ Phases (any failure raises and the script exits non-zero):
    the chain's seven, the cooperative grid of stream -- and the
    dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
    phase 3, phase 3b's serving check, phase 3c, phase 5, phase 6, phase
-   7, phase 8, phase 9, phase 10), one
+   7, phase 8, phase 9, phase 10, phases 11 and 12 by arch), one
    ``path``, one ``train``, one ``frontend``, one ``lm``, one
-   ``lm_train``, one ``moe``, one ``moe_train``, one ``mla`` and one
-   ``mla_train`` JSON line.
+   ``lm_train``, one ``moe``, one ``moe_train``, one ``mla``, one
+   ``mla_train``, one ``ssm`` and one ``ssm_train`` JSON line.
 5. The LM serving path at full width, run after phase 3c: SmolLM-360M
    (32 blocks of d_model 960, 15 heads, 5 KV heads, d_ff 2560, vocab
    49,152) from ``lm_init(seed=0)`` on the card, frozen with
@@ -297,6 +297,68 @@ Phases (any failure raises and the script exits non-zero):
    synchronised; none's from the timed steps), the dropped assignments a
    step and export bytes and ms, each beside the card's name and power
    limit, and one ``mla_train`` JSON line.
+
+11. The ssm and hybrid families served at published widths and depths,
+   run after phase 10 (at most 1 GiB allocated at the start of each
+   arch): mamba2-1.3b (48 SSD blocks of d_model 2048, d_inner 4096, 64
+   heads of 64, state 128, chunk 256, tied vocabulary 50,280) and
+   hymba-1.5b (32 hybrid layers of d_model 1600: GQA 25 heads, 5 KV, SWA
+   1,024 but layers 0, 15 and 31 global, beside an SSD block of 50 heads,
+   state 16, then an MLP of 5,504; vocabulary 32,001), each from
+   ``lm_init(seed=0)``, first through the launcher (``launch.serve
+   --arch ... --batch 2 --prompt-len 8192 --max-new 16``: init,
+   ``freeze_tree``, prefill and greedy decode through ``lm_apply`` with
+   an fp32 cache), the ecl_quant counter zeroed just before and read just
+   after; then the same init, freeze and prompts again for the gates,
+   whose tokens must equal the launcher's.  Gates: exactly 3 (mamba2: 96
+   segments) and 9 (hymba: 288) ecl_quant launches in the freeze; codes
+   of layer 0's in_proj and the last layer's out_proj bitwise equal to
+   ``ecl_quant_plain``; layer 0's ``ssd_chunked`` on the card, on its
+   recorded prefill inputs, within 1e-4 relative of the sequential
+   recurrence in fp64, from zeros and from the recurrence's state at
+   token 4,096 (outputs and final state); layer 0's SSD block over the
+   last 16 prompt tokens by ``ssm_step`` after ``ssm_apply`` over the
+   rest, against ``ssm_apply`` over all, within 1e-4 (outputs, state,
+   conv tail); the last decode step's logits within 1e-3 relative of a
+   no-cache forward over the prompt and the generated tokens; the decode
+   state a sequence the same bytes at init, after 8,208 and after 1,040
+   tokens; the smoke config card vs CPU, tokens equal and logits within
+   1e-5; every frozen leaf and the cache on the card.  Prints per arch the
+   freeze's ms, device ms and bounds, prefill ms and peak memory, decode
+   ms a step (CUDA events and host clock), one decode step's device ms,
+   operations and idle share at 2 x 8,192 and again after 2 x 1,024
+   prompts, the state and KV bytes a sequence, each beside the card's
+   name and power limit, and one ``ssm`` JSON line.
+12. The ssm and hybrid families EC4T-trained at published widths and
+   depths, run after phase 11: mamba2-1.3b at 2 x 2,048 tokens for 4
+   steps and hymba-1.5b at 1 x 2,048 for 3, from ``lm_init(seed=0)``, in
+   bf16 under ``remat="full"`` through the launcher's functions
+   (``lm_step_fn``, ``lm_batch_fn``, ``ShardedFeed``,
+   ``FaultTolerantLoop`` with no checkpoint at this width), λ 0.05 ramped
+   over 50 steps, then ``export_quantized``.  Counters are zeroed just
+   before and read just after.  Gates: first, at the smoke width on the
+   card (seq 20: a ragged SSD chunk), one fp32 loss (1e-5) and the
+   gradients of layer 0's in_proj (w and ω), conv_w, A_log and dt_bias
+   (1e-4 relative) equal the CPU's, and the launcher's ``main``
+   (``--remat full``, 6 steps, checkpoints at 3 and 6, an export) resumed
+   from its step-3 checkpoint gives the same losses, checkpoint and
+   export bit for bit; for mamba2, a whole step at full width cut to depth
+   4 under ``full`` bitwise ``none``'s; exactly 3 (mamba2) and 9 (hymba)
+   ecl_quant launches a pass, 2 passes a step and 1 in the export; the
+   first and the last step's fake-quant codes and ŵ of layer 0's in_proj
+   and the last layer's out_proj bitwise equal to ``ecl_quant_plain``;
+   finite losses; from the last step's input, the loss and every
+   gradient twice, all finite and bitwise equal, the loss the step's;
+   ``load_quantized`` of the export on the card equals ``freeze_tree``
+   leaf for leaf, and both serve the same 2 x (16 + 8) greedy tokens; no
+   host synchronisation inside a step (``set_sync_debug_mode``).  Prints
+   per arch ms a step, device ms, idle share and device operations
+   (profiler), the ECL pass's device ms against its byte bound,
+   ``adam.apply``'s against its bound, ``update_qstate``'s and
+   ``FakeQuantGroup.backward``'s, one SSD block's forward and backward
+   device ms at the step's shape, peak memory by stage, export bytes and
+   ms, each beside the card's name and power limit, and one ``ssm_train``
+   JSON line.
 
 The script ends with a line that counts the profiler traces taken and
 retaken and the device times taken from queued CUDA events, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -1986,12 +2048,12 @@ def _lm_direct(dev, cfg, frozen, prompts, new, tokens=None):
     return out
 
 
-def _step_trace(fn, dev, steps):
+def _step_trace(fn, dev, steps, traced=None):
     """``fn`` (one serving step) run ``steps`` times: its wall ms a step,
-    and from one torch.profiler trace over as many runs its device ms and
-    device operations a step; the idle share is the part of the wall time
-    the device is not busy.  Returns (that dict, device ms a step by
-    kernel)."""
+    and from one torch.profiler trace over ``traced`` runs (default as
+    many) its device ms and device operations a step; the idle share is
+    the part of the wall time the device is not busy.  Returns (that
+    dict, device ms a step by kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2002,20 +2064,21 @@ def _step_trace(fn, dev, steps):
         fn()
     torch.cuda.synchronize(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    traced = steps if traced is None else traced
     for attempt in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(steps):
+            for _ in range(traced):
                 fn()
             torch.cuda.synchronize(dev)
-            traced_ms = (time.perf_counter() - t0) * 1e3 / steps
+            traced_ms = (time.perf_counter() - t0) * 1e3 / traced
         TRACES["taken"] += 1
         kernels, ops_n = {}, 0
         for evt in prof.key_averages():
             if _is_kernel(evt):
                 kernels[evt.key] = kernels.get(evt.key, 0.0) + \
-                    _kernel_us(evt) / 1e3 / steps
+                    _kernel_us(evt) / 1e3 / traced
                 ops_n += evt.count
         if kernels:
             break
@@ -2029,7 +2092,7 @@ def _step_trace(fn, dev, steps):
             "traced_wall_ms_per_step": traced_ms,
             "device_ms_per_step": device_ms,
             "device_idle_share": 1.0 - device_ms / wall_ms,
-            "device_ops_per_step": ops_n / steps,
+            "device_ops_per_step": ops_n / traced,
             "top_device_ms": [[k[:80], v] for k, v in top]}, kernels
 
 
@@ -2294,7 +2357,7 @@ class _StagePeaks:
 
 
 def _lm_train_trace(dev, step_fn, holder, batch,
-                    timed=LM_TRAIN_TIMED_STEPS):
+                    timed=LM_TRAIN_TIMED_STEPS, traced=LM_TRAIN_TRACED_STEPS):
     """Device ms, idle share and device operations of LM train steps from
     one torch.profiler trace, with the ECL kernel's, the fake-quant
     backward's, Adam's and the probability update's device ms a step;
@@ -2351,7 +2414,7 @@ def _lm_train_trace(dev, step_fn, holder, batch,
                 return fn(*a, **k)
         return call
 
-    n = LM_TRAIN_TRACED_STEPS
+    n = traced
     for attempt in range(TRACE_TRIES):
         originals = [getattr(mod, attr) for mod, attr, _ in annotate]
         for (mod, attr, label), fn in zip(annotate, originals):
@@ -4196,52 +4259,9 @@ class _Discard:
 def _mla_launcher_resume(dev):
     """The launcher's ``main`` on the card at deepseek-v3's smoke width
     with MLA and ``--remat full``: 6 steps with checkpoints at 3 and 6,
-    then again from a copy of the step-3 checkpoint alone.  The resumed
-    run's losses of steps 4-6, its step-6 checkpoint (every leaf) and its
-    export equal the uninterrupted run's bit for bit."""
-    import shutil
-    import tempfile
-    import numpy as np
-    from repro_torch.launch import train as T
-
-    argv = ["--arch", MLA_TRAIN["arch"], "--smoke", "--remat", "full",
-            "--steps", str(MLA_SMOKE["steps"]), "--ckpt-every",
-            str(MLA_SMOKE["ckpt_every"]), "--batch", str(MLA_SMOKE["batch"]),
-            "--seq", str(MLA_SMOKE["seq"]), "--log-every", "1"]
-    at, last = MLA_SMOKE["ckpt_every"], MLA_SMOKE["steps"]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mla_") as tmp:
-        runs = {}
-        for name in ("whole", "resumed"):
-            ckpt = os.path.join(tmp, name, "ckpt")
-            if name == "resumed":
-                shutil.copytree(
-                    os.path.join(tmp, "whole", "ckpt", f"step_{at:08d}"),
-                    os.path.join(ckpt, f"step_{at:08d}"))
-            hist = T.main(argv + ["--ckpt-dir", ckpt, "--export",
-                                  os.path.join(tmp, name, "export")])
-            with np.load(os.path.join(ckpt, f"step_{last:08d}",
-                                      "state.npz")) as z:
-                leaves = {k: z[k] for k in z.files}
-            with np.load(os.path.join(tmp, name, "export",
-                                      "export.npz")) as z:
-                export = {k: z[k] for k in z.files}
-            runs[name] = ({h["step"]: h["loss"] for h in hist}, leaves,
-                          export)
-    (whole, wl, we), (rest, rl, re_) = runs["whole"], runs["resumed"]
-    if sorted(rest) != list(range(at + 1, last + 1)) or \
-            [whole[s] for s in sorted(rest)] != [rest[s] for s in
-                                                 sorted(rest)]:
-        raise AssertionError(f"launcher resume: losses {rest}, "
-                             f"uninterrupted {whole}")
-    for mine, theirs, what in ((rl, wl, "checkpoint"), (re_, we, "export")):
-        if sorted(mine) != sorted(theirs) or not all(
-                mine[k].dtype == theirs[k].dtype
-                and np.array_equal(mine[k], theirs[k]) for k in mine):
-            raise AssertionError(f"launcher resume: the step-{last} {what} "
-                                 "differs from the uninterrupted run's")
-    return {"losses": [whole[s] for s in sorted(whole)],
-            "resumed_losses": [rest[s] for s in sorted(rest)],
-            "checkpoint_leaves": len(wl), "export_arrays": len(we)}
+    then again from a copy of the step-3 checkpoint alone
+    (:func:`_launcher_resume`)."""
+    return _launcher_resume(MLA_TRAIN["arch"], MLA_SMOKE["seq"], "full")
 
 
 def _mla_train_smoke_checks(dev):
@@ -4719,6 +4739,825 @@ def mla_train_path(dev, gpu):
     return out
 
 
+# ------------------------------------------------------------ phase 11
+
+SSM_ARCHS = ("mamba2-1.3b", "hymba-1.5b")
+SSM_LEAVES = {"ssm": 2, "hybrid": 9}      # quantized leaves a layer
+SSM_SERVE = dict(seed=0, prompts=2, prompt_len=8192, max_new=16,
+                 short_prompt_len=1024)
+SSM_REL = 1e-4            # the SSD vs fp64 recurrence; steps vs sequence
+SSM_STACK_REL = 1e-3      # cached decode logits vs a no-cache forward
+SSM_SPLIT = 4096          # where the carried-state SSD check starts
+SSM_SHORT_NEW = 2         # tokens of the short-context run before its trace
+SSM_TIMED_STEPS = 2       # decode steps timed on the host clock (then 1 traced)
+
+
+class _Stages:
+    """Seconds of each stage of a phase, on the host clock (each stage
+    ends in a synchronisation or a host read)."""
+
+    def __init__(self):
+        self.seconds, self._t = {}, time.perf_counter()
+
+    def mark(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t
+        self._t = now
+
+
+def _ssm_freeze(dev, cfg):
+    """Phase 11's freeze (:func:`_gated_freeze`): every quantized leaf of
+    the stack; codes of layer 0's in_proj and of the last layer's out_proj
+    checked."""
+    kind = cfg.family
+    checks = [(kind, ("ssm", "in_proj", "kernel"), (0,)),
+              (kind, ("ssm", "out_proj", "kernel"), (cfg.n_layers - 1,))]
+    layout = ("in_proj and out_proj a layer" if kind == "ssm" else
+              "q, k, v, o, gate, up, down, in_proj and out_proj a layer")
+    return _gated_freeze(dev, cfg, SSM_SERVE["seed"],
+                         cfg.n_layers * SSM_LEAVES[kind], layout, checks)
+
+
+class _SsmRecorder:
+    """While in use, keeps the inputs of the first ``ssm.ssd_chunked``
+    call and of the first ``ssm.ssm_apply`` call (layer 0's, in a
+    prefill): the transformer and ``ssm_apply`` look both up on the module
+    at every call."""
+
+    def __enter__(self):
+        from repro_torch.nn import ssm
+        self._orig = (ssm.ssd_chunked, ssm.ssm_apply)
+        self.ssd = self.u = None
+
+        def ssd(x, a, B, C, chunk, init_state=None):
+            if self.ssd is None:
+                self.ssd = tuple(t.detach().clone() for t in (x, a, B, C))
+            return self._orig[0](x, a, B, C, chunk, init_state=init_state)
+
+        def apply(p, q, u, ctx, cfg, *, state=None):
+            if self.u is None:
+                self.u = u.detach().clone()
+            return self._orig[1](p, q, u, ctx, cfg, state=state)
+        ssm.ssd_chunked, ssm.ssm_apply = ssd, apply
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import ssm
+        ssm.ssd_chunked, ssm.ssm_apply = self._orig
+
+
+def _ssd_vs_recurrence(x, a, B, C, chunk):
+    """``ssd_chunked`` on the card, on one layer's recorded inputs, against
+    the sequential recurrence in fp64 (s_t = exp(a_t)·s_{t-1} + x_t ⊗ B_t,
+    y_t = s_t · C_t, group g of B and C serving heads g·h/G onward): the
+    whole sequence from zeros, and its part from SSM_SPLIT on from the
+    recurrence's state there (a carried-in state).  Max relative errors of
+    y and of the final state."""
+    import torch
+    from repro_torch.nn import ssm
+
+    b, s, h, p = x.shape
+    rep = h // B.shape[2]
+    f64 = torch.float64
+    Bh = B.to(f64).repeat_interleave(rep, dim=2)
+    Ch = C.to(f64).repeat_interleave(rep, dim=2)
+    xd, decay = x.to(f64), torch.exp(a.to(f64))
+    st = torch.zeros((b, h, p, B.shape[3]), dtype=f64, device=x.device)
+    want = torch.empty((b, s, h, p), dtype=f64, device=x.device)
+    mid = None
+    for t in range(s):
+        if t == SSM_SPLIT:
+            mid = st.clone()
+        st = st * decay[:, t, :, None, None] \
+            + xd[:, t, :, :, None] * Bh[:, t, :, None, :]
+        want[:, t] = torch.einsum("bhpn,bhn->bhp", st, Ch[:, t])
+    del Bh, Ch, xd, decay
+    with torch.no_grad():
+        y, fin = ssm.ssd_chunked(x, a, B, C, chunk)
+        out = {"from_zeros": {"y": _rel(y.to(f64), want),
+                              "state": _rel(fin.to(f64), st)}}
+        cut = slice(SSM_SPLIT, None)
+        y, fin = ssm.ssd_chunked(x[:, cut], a[:, cut], B[:, cut], C[:, cut],
+                                 chunk, init_state=mid.to(torch.float32))
+        out["carried"] = {"y": _rel(y.to(f64), want[:, cut]),
+                          "state": _rel(fin.to(f64), st)}
+    return out
+
+
+def _ssm_steps_vs_sequence(cfg, p, u, steps):
+    """One layer's SSD block (frozen ``p``): ``ssm_apply`` over all of
+    ``u``, against ``ssm_apply`` over all but the last ``steps`` tokens
+    and then ``ssm_step`` over those: max relative errors of the outputs,
+    the SSM state and the conv tail."""
+    import torch
+    from repro_torch.nn import ssm
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import FP32_CTX
+
+    scfg, s = T._ssm_cfg(cfg), u.shape[1]
+    with torch.no_grad():
+        y_all, st_all = ssm.ssm_apply(p, 0, u, FP32_CTX, scfg)
+        _, st = ssm.ssm_apply(p, 0, u[:, :s - steps], FP32_CTX, scfg)
+        ys = []
+        for t in range(s - steps, s):
+            y, st = ssm.ssm_step(p, 0, u[:, t:t + 1], FP32_CTX, scfg, st)
+            ys.append(y)
+    return {"y": _rel(torch.cat(ys, 1), y_all[:, s - steps:]),
+            "state": _rel(st["ssm"], st_all["ssm"]),
+            "conv": _rel(st["conv"], st_all["conv"])}
+
+
+def _ssm_serve_one(dev, gpu, arch):
+    """Phase 11 for one arch: the launcher, the gated freeze, the direct
+    run with its gates, the decode timed at two context lengths."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import serve
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import FP32_CTX
+
+    t_arch = time.perf_counter()
+    stages = _Stages()
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated(dev)
+    if start_bytes > EMPTY_CARD_BYTES:
+        raise AssertionError(f"phase 11 ({arch}) starts with "
+                             f"{start_bytes / 1e9:.2f} GB allocated")
+    cfg = get_config(arch)
+    kind = cfg.family
+    b, s, new = (SSM_SERVE["prompts"], SSM_SERVE["prompt_len"],
+                 SSM_SERVE["max_new"])
+
+    # the main path, as a user serves it
+    argv = ["--arch", arch, "--batch", str(b), "--prompt-len", str(s),
+            "--max-new", str(new), "--seed", str(SSM_SERVE["seed"])]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eq.LAUNCHES = 0
+    t0 = time.perf_counter()
+    gen = serve.main(argv)
+    torch.cuda.synchronize(dev)
+    launcher = {"argv": argv, "wall_s": time.perf_counter() - t0,
+                "ecl_quant_launches": eq.LAUNCHES,
+                "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    if gen.shape != (b, new) or not ((gen >= 0) & (gen < cfg.vocab)).all():
+        raise AssertionError(f"launcher returned ids of shape {gen.shape}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages.mark("launcher")
+
+    frozen, freeze, ecl_row = _ssm_freeze(dev, cfg)
+    stages.mark("gated freeze and its timings")
+    want_launches = -(-cfg.n_layers * SSM_LEAVES[kind] // eq.MAX_SEGMENTS)
+    if not (launcher["ecl_quant_launches"] == freeze["ecl_quant_launches"]
+            == want_launches):
+        raise AssertionError(f"ecl_quant launches: the launcher "
+                             f"{launcher['ecl_quant_launches']}, the freeze "
+                             f"{freeze['ecl_quant_launches']}, want "
+                             f"{want_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated(dev)
+
+    prompts = np.random.default_rng(SSM_SERVE["seed"]).integers(
+        0, cfg.vocab, (b, s))
+    def per_seq(cache, entry):
+        """Bytes a sequence of the cache's ``entry`` ("ssm" or "attn")."""
+        return serve._cache_bytes(cache, entry) // b
+
+    state0 = per_seq(T.init_cache(cfg, b, s + new, dtype=torch.float32,
+                                  device=dev), "ssm")
+    with _SsmRecorder() as rec:
+        run = _lm_direct(dev, cfg, frozen, prompts, new)
+    if not bool(torch.isfinite(run["logits"]).all()):
+        raise AssertionError("non-finite logits")
+    if not np.array_equal(run["tokens"], gen):
+        raise AssertionError("the gated run's tokens != the launcher's")
+    if not (_on_card(frozen) and _on_card(run["cache"])):
+        raise AssertionError("a frozen leaf or the cache left the card")
+    stages.mark("gated run")
+
+    # the SSD scan at full width against the fp64 recurrence
+    ssd = _ssd_vs_recurrence(*rec.ssd, cfg.ssm_chunk)
+    stages.mark("SSD vs fp64 recurrence")
+    # one layer's decode steps against its sequence mode
+    p0 = _layer0(frozen["stacks"][kind]["ssm"])
+    steps_rel = _ssm_steps_vs_sequence(cfg, p0, rec.u, new)
+    del rec, p0
+    stages.mark("steps vs sequence")
+    worst = max([v for d in ssd.values() for v in d.values()]
+                + list(steps_rel.values()))
+    if worst > SSM_REL:
+        raise AssertionError(f"{arch}: SSD off the fp64 recurrence {ssd}, "
+                             f"decode steps off the sequence {steps_rel}")
+
+    # the cached decode against a no-cache forward over the same tokens
+    seqs = torch.from_numpy(np.concatenate(
+        [prompts, run["tokens"][:, :-1]], axis=1)).to(dev)
+    with torch.no_grad():
+        full, _, _ = T.lm_apply(frozen, 0, seqs, FP32_CTX, cfg)
+        no_cache = full[:, -1, :cfg.vocab].clone()
+    del full, seqs
+    stack_rel = _rel(run["logits"][:, -1], no_cache)
+    if stack_rel > SSM_STACK_REL:
+        raise AssertionError(f"{arch}: cached decode logits off a no-cache "
+                             f"forward by {stack_rel} relative")
+    stages.mark("no-cache forward")
+
+    cache = run["cache"]
+    state_bytes, kv_bytes = per_seq(cache, "ssm"), per_seq(cache, "attn")
+    step_tok = torch.from_numpy(run["tokens"][:, -1:]).to(dev)
+    step_pos = torch.full((b, 1), s + new - 1, dtype=torch.int32, device=dev)
+
+    def decode_step():
+        with torch.no_grad():
+            return T.lm_apply(frozen, 0, step_tok, FP32_CTX, cfg,
+                              positions=step_pos, cache=cache)
+
+    trace, _ = _step_trace(decode_step, dev, SSM_TIMED_STEPS, traced=1)
+    timing = {k: run[k] for k in ("prefill_ms", "decode_ms",
+                                  "prefill_peak_bytes", "decode_peak_bytes")}
+    del run, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages.mark("traced decode step")
+
+    # the decode after 2 x 1,024-token prompts: a prefill and one step
+    # into a cache of short + SSM_SHORT_NEW slots, then traced steps
+    short, short_new = SSM_SERVE["short_prompt_len"], SSM_SHORT_NEW
+    run = _lm_direct(dev, cfg, frozen, prompts[:, :short], short_new)
+    short_state = per_seq(run["cache"], "ssm")
+    cache = run["cache"]
+    step_tok = torch.from_numpy(run["tokens"][:, -1:]).to(dev)
+    step_pos = torch.full((b, 1), short + short_new - 1, dtype=torch.int32,
+                          device=dev)
+    short_trace, _ = _step_trace(decode_step, dev, SSM_TIMED_STEPS,
+                                 traced=1)
+    short_run = {"prompt_len": short,
+                 "decode_ms_per_step": short_trace["wall_ms_per_step"],
+                 "kv_bytes_per_sequence": per_seq(cache, "attn"),
+                 "decode_step_trace": short_trace}
+    del run, cache, frozen
+    if not state0 == state_bytes == short_state:
+        raise AssertionError(f"{arch}: the decode state a sequence "
+                             f"{state0} B at init, {state_bytes} after "
+                             f"{s + new}, {short_state} after "
+                             f"{short + short_new}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages.mark("short-context decode")
+    smoke = _moe_smoke_card_vs_cpu(dev, arch)
+    stages.mark("smoke card vs CPU")
+
+    out = {"arch": arch, "family": kind, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+           "ssm_heads": cfg.ssm_heads, "ssm_headdim": cfg.ssm_headdim,
+           "ssm_state": cfg.ssm_state, "ssm_chunk": cfg.ssm_chunk,
+           "vocab": cfg.vocab, "sequences": b, "prompt_len": s,
+           "max_new": new, "start_device_bytes": start_bytes,
+           "launcher": launcher, "freeze": freeze, "ecl_quant": ecl_row,
+           "resident_device_bytes": resident,
+           "prefill_ms": timing["prefill_ms"],
+           "decode_ms_per_step": timing["decode_ms"],
+           "prefill_peak_device_bytes": timing["prefill_peak_bytes"],
+           "decode_peak_device_bytes": timing["decode_peak_bytes"],
+           "decode_step_trace": trace, "short": short_run,
+           "state_bytes_per_sequence": state_bytes,
+           "kv_bytes_per_sequence": kv_bytes,
+           "ssd_vs_fp64_recurrence_max_rel": ssd,
+           "steps_vs_sequence_max_rel": steps_rel,
+           "cached_vs_no_cache_logits_max_rel": stack_rel,
+           "smoke_card_vs_cpu": smoke, "tokens_0": gen[0].tolist(),
+           "stage_s": stages.seconds, "wall_s": time.perf_counter() - t_arch}
+    if kind == "hybrid":
+        out.update(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_ff=cfg.d_ff,
+                   window=cfg.window,
+                   global_layers=list(cfg.global_attn_layers))
+    gb = 1e-9
+    print(f"phase 11: {arch} frozen in {freeze['ms']:.1f} ms "
+          f"({freeze['ecl_quant_launches']} ecl_quant launches, "
+          f"{freeze['segments']} segments, {freeze['quant_weights']:,} "
+          f"elements; ECL device {ecl_row['device_ms']:.2f} ms "
+          f"[{ecl_row['device_ms_from']}] against a "
+          f"{ecl_row['bound_ms']:.3f} ms byte bound, "
+          f"{ecl_row['codes_only_bound_ms']:.3f} codes-only), peak "
+          f"{freeze['peak_device_bytes'] * gb:.1f} GB; stages (s) "
+          f"{ {k: round(v, 1) for k, v in stages.seconds.items()} } ({gpu})")
+    print(f"phase 11: {arch} prefill of {b} x {s} "
+          f"{timing['prefill_ms']:.1f} ms (peak "
+          f"{timing['prefill_peak_bytes'] * gb:.1f} GB), decode "
+          f"{timing['decode_ms']:.2f} ms/step (CUDA events; host clock "
+          f"{trace['wall_ms_per_step']:.2f}), device "
+          f"{trace['device_ms_per_step']:.2f} ms/step, "
+          f"{trace['device_ops_per_step']:.0f} device ops, idle "
+          f"{trace['device_idle_share']:.3f}; after {b} x {short}: "
+          f"{short_run['decode_ms_per_step']:.2f} ms/step (host clock), "
+          "device "
+          f"{short_trace['device_ms_per_step']:.2f}, idle "
+          f"{short_trace['device_idle_share']:.3f} ({gpu})")
+    print(f"phase 11: {arch} decode state {state_bytes:,} B a sequence at "
+          f"{s + new} and at {short + new} tokens; KV cache {kv_bytes:,} B "
+          f"a sequence ({kv_bytes // (s + new):,} B a token); SSD vs "
+          f"fp64 recurrence {ssd}, steps vs sequence {steps_rel}, cached vs "
+          f"no-cache logits {stack_rel:.2e}, smoke card vs CPU "
+          f"{smoke['max_abs_logit_err']:.2e}; {out['wall_s']:.1f} s ({gpu})")
+    return out
+
+
+def ssm_serve_path(dev, gpu):
+    """Phase 11: mamba2-1.3b and hymba-1.5b at their published widths and
+    depths, frozen to 4 bits on the card and served through the
+    launcher's direct path, with the SSD scan and the recurrent decode
+    state gated at full width."""
+    t_phase = time.perf_counter()
+    out = {arch: _ssm_serve_one(dev, gpu, arch) for arch in SSM_ARCHS}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 11: done in {out['wall_s']:.1f} s ({gpu})")
+    return out
+
+
+# ------------------------------------------------------------ phase 12
+
+SSM_TRAIN = {"mamba2-1.3b": dict(batch=2, seq=2048, steps=4),
+             "hymba-1.5b": dict(batch=1, seq=2048, steps=3)}
+SSM_TRAIN_ALL = dict(seed=0, lr=1e-3, lam=0.05, lam_ramp=50, remat="full",
+                     prompts=2, prompt_len=16, max_new=8)
+SSM_REMAT_DEPTH = 4       # mamba2 cut to this depth: a whole step, none vs full
+SSM_SMOKE = dict(batch=2, seq=20)   # seq 20: a ragged SSD chunk
+SSM_CARD_CPU_FWD = 1e-5   # smoke: the loss, card vs CPU
+SSM_CARD_CPU_GRAD = 1e-4  # smoke: in_proj w and ω, conv_w, A_log, dt_bias
+
+
+def _launcher_resume(arch, seq, remat):
+    """The launcher's ``main`` on the card at ``arch``'s smoke width under
+    ``--remat remat``: MLA_SMOKE's steps with checkpoints, then again from
+    a copy of the first checkpoint alone.  The resumed run's losses, its
+    last checkpoint (every leaf) and its export equal the uninterrupted
+    run's bit for bit."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import train as T
+
+    argv = ["--arch", arch, "--smoke", "--remat", remat,
+            "--steps", str(MLA_SMOKE["steps"]), "--ckpt-every",
+            str(MLA_SMOKE["ckpt_every"]), "--batch", str(MLA_SMOKE["batch"]),
+            "--seq", str(seq), "--log-every", "1"]
+    at, last = MLA_SMOKE["ckpt_every"], MLA_SMOKE["steps"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        runs = {}
+        for name in ("whole", "resumed"):
+            ckpt = os.path.join(tmp, name, "ckpt")
+            if name == "resumed":
+                shutil.copytree(
+                    os.path.join(tmp, "whole", "ckpt", f"step_{at:08d}"),
+                    os.path.join(ckpt, f"step_{at:08d}"))
+            hist = T.main(argv + ["--ckpt-dir", ckpt, "--export",
+                                  os.path.join(tmp, name, "export")])
+            with np.load(os.path.join(ckpt, f"step_{last:08d}",
+                                      "state.npz")) as z:
+                leaves = {k: z[k] for k in z.files}
+            with np.load(os.path.join(tmp, name, "export",
+                                      "export.npz")) as z:
+                export = {k: z[k] for k in z.files}
+            runs[name] = ({h["step"]: h["loss"] for h in hist}, leaves,
+                          export)
+    (whole, wl, we), (rest, rl, re_) = runs["whole"], runs["resumed"]
+    if sorted(rest) != list(range(at + 1, last + 1)) or \
+            [whole[s] for s in sorted(rest)] != [rest[s] for s in
+                                                 sorted(rest)]:
+        raise AssertionError(f"{arch} launcher resume: losses {rest}, "
+                             f"uninterrupted {whole}")
+    for mine, theirs, what in ((rl, wl, "checkpoint"), (re_, we, "export")):
+        if sorted(mine) != sorted(theirs) or not all(
+                mine[k].dtype == theirs[k].dtype
+                and np.array_equal(mine[k], theirs[k]) for k in mine):
+            raise AssertionError(f"{arch} launcher resume: the step-{last} "
+                                 f"{what} differs from the uninterrupted "
+                                 "run's")
+    return {"losses": [whole[s] for s in sorted(whole)],
+            "resumed_losses": [rest[s] for s in sorted(rest)],
+            "checkpoint_leaves": len(wl), "export_arrays": len(we)}
+
+
+def _ssm_train_smoke_checks(dev, arch):
+    """At ``arch``'s smoke width on the card: one fp32 loss and the
+    gradients of layer 0's in_proj (w and ω), conv_w, A_log and dt_bias
+    equal the CPU's from the same init (a ragged SSD chunk); and the
+    launcher resumes bitwise under ``--remat full``."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import qat
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as T
+    from repro_torch.nn import transformer as TT
+
+    cfg = dataclasses.replace(get_config(arch).smoke(),
+                              lam=SSM_TRAIN_ALL["lam"])
+    if SSM_SMOKE["seq"] % cfg.ssm_chunk == 0:
+        raise AssertionError("the smoke check wants a ragged last chunk")
+    params = TT.lm_init(cfg, seed=SSM_TRAIN_ALL["seed"], device="cpu")
+    batch = T.lm_batch_fn(cfg, batch=SSM_SMOKE["batch"],
+                          seq=SSM_SMOKE["seq"])(0)
+    loss_fn = steps_mod._loss_fn(cfg, dtype=torch.float32)
+    names = ("in_proj_w", "in_proj_omega", "conv_w", "A_log", "dt_bias")
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        p = tree.map_(lambda t: t.to(where).detach().requires_grad_()
+                      if t.is_floating_point() else t.to(where), params)
+        loss, _ = loss_fn(p, qat.build_qstate(p),
+                          pipeline.place(batch, device=where), cfg.lam)
+        sp = p["stacks"][cfg.family]["ssm"]
+        picked = (sp["in_proj"]["kernel"]["w"],
+                  sp["in_proj"]["kernel"]["omega"], sp["conv_w"],
+                  sp["A_log"], sp["dt_bias"])
+        grads = torch.autograd.grad(loss, picked)
+        runs.append((float(loss.detach()), [g.cpu() for g in grads]))
+    (lc, gc), (lh, gh) = runs
+    fwd_rel = abs(lc - lh) / abs(lh)
+    grad_rel = [_rel(a, b) for a, b in zip(gc, gh)]
+    if fwd_rel > SSM_CARD_CPU_FWD or max(grad_rel) > SSM_CARD_CPU_GRAD:
+        raise AssertionError(f"{arch} smoke card vs CPU: loss {fwd_rel}, "
+                             f"gradients {dict(zip(names, grad_rel))}")
+    return {"card_vs_cpu_loss_rel": fwd_rel,
+            "card_vs_cpu_grad_max_rel": dict(zip(names, grad_rel)),
+            "loss_card": lc, "loss_cpu": lh,
+            "launcher_resume": _launcher_resume(arch, SSM_SMOKE["seq"],
+                                                "full")}
+
+
+def _ssm_grads(dev, cfg, state, batch, lam, remat):
+    """The loss at λ ``lam`` and every gradient from ``state`` under
+    ``remat``, once: the loss, a digest of the gradients, whether all are
+    finite, the ecl_quant launches, and the peak device memory after the
+    forward and after the backward."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import steps as steps_mod
+
+    leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
+              for t in tree.leaves(state["params"])]
+    params = tree.unflatten(state["params"], leaves)
+    wants = [t for t in leaves if t.requires_grad]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = eq.LAUNCHES
+    loss, _ = steps_mod._loss_fn(cfg, remat=remat)(params, state["qstate"],
+                                                   batch, lam)
+    peak_fwd = torch.cuda.max_memory_allocated(dev)
+    grads = torch.autograd.grad(loss, wants)
+    peak_bwd = torch.cuda.max_memory_allocated(dev)
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    out = {"loss": loss.detach(), "launches": eq.LAUNCHES - before,
+           "digest": _digest(list(grads)), "gradients": len(grads),
+           "finite": bool(finite), "peak_forward_bytes": peak_fwd,
+           "peak_backward_bytes": peak_bwd}
+    del grads, leaves, params, wants
+    return out
+
+
+def _ssd_block_times(dev, cfg, batch, seq):
+    """Device ms of one SSD block (``ssm_apply``: the in projection, the
+    conv, the chunked scan, the gated norm, the out projection) at the
+    step's shape in bf16: the forward, and the forward and backward
+    together (weights from seeded draws; the time does not depend on
+    their values)."""
+    import torch
+    from repro_torch.nn import ssm
+    from repro_torch.nn import transformer as TT
+    from repro_torch.nn.module import QuantCtx
+
+    g = torch.Generator(device=dev).manual_seed(SSM_TRAIN_ALL["seed"] + 7)
+    scfg = TT._ssm_cfg(cfg)
+    p = ssm.ssm_init(g, scfg, quantize=False)
+    p = {k: ({"kernel": v["kernel"].to(torch.bfloat16).requires_grad_()}
+             if isinstance(v, dict) else v.requires_grad_())
+         for k, v in p.items()}
+    ctx = QuantCtx(quant=False, compute_dtype=torch.bfloat16)
+    x = (torch.randn((batch, seq, cfg.d_model), generator=g, device=dev)
+         .to(torch.bfloat16).requires_grad_())
+    wants = [x] + [v["kernel"] if isinstance(v, dict) else v
+                   for v in p.values()]
+    gy = torch.randn((batch, seq, cfg.d_model), generator=g,
+                     device=dev).to(torch.bfloat16)
+
+    def forward():
+        return ssm.ssm_apply(p, 0, x, ctx, scfg)[0]
+
+    def forward_backward():
+        torch.autograd.grad(forward(), wants, gy)
+    fwd = _device_time(forward, dev, 1)
+    both = _device_time(forward_backward, dev, 1)
+    return {"shape": [batch, seq, cfg.ssm_heads, cfg.ssm_headdim,
+                      cfg.ssm_state],
+            "chunks": -(-seq // cfg.ssm_chunk),
+            "forward_device_ms": fwd["device_ms"],
+            "forward_device_ms_from": fwd["device_ms_from"],
+            "forward_backward_device_ms": both["device_ms"],
+            "forward_backward_device_ms_from": both["device_ms_from"],
+            "backward_device_ms": both["device_ms"] - fwd["device_ms"]}
+
+
+def _ssm_train_one(dev, gpu, arch):
+    """Phase 12 for one arch: EC4T-train at published widths through the
+    launcher's functions, export; then the gates from the last step's
+    input state."""
+    import dataclasses
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint.manager import (_paths, export_quantized,
+                                                frozen_tree, load_quantized)
+    from repro_torch.configs import get_config
+    from repro_torch.core import ecl, qat
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import train as T
+    from repro_torch.nn import transformer as TT
+    from repro_torch.optim import ec4t, schedule
+    from repro_torch.runtime.fault import FaultTolerantLoop
+
+    t_arch = time.perf_counter()
+    stages = _Stages()
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated(dev)
+    if start_bytes > EMPTY_CARD_BYTES:
+        raise AssertionError(f"phase 12 ({arch}) starts with "
+                             f"{start_bytes / 1e9:.2f} GB allocated")
+    run_cfg = {**SSM_TRAIN_ALL, **SSM_TRAIN[arch]}
+    cfg = T.lm_config(arch, lam=run_cfg["lam"])
+    kind, steps = cfg.family, run_cfg["steps"]
+    remat = run_cfg["remat"]
+    smoke = _ssm_train_smoke_checks(dev, arch)
+
+    def step_fn_for(c, r):
+        return T.lm_step_fn(c, steps=steps, lr=run_cfg["lr"],
+                            lam=run_cfg["lam"],
+                            lam_ramp=run_cfg["lam_ramp"], remat=r)
+    step_fn = step_fn_for(cfg, remat)
+    batch_fn = T.lm_batch_fn(cfg, batch=run_cfg["batch"], seq=run_cfg["seq"])
+    remat_check = None
+    if kind == "ssm":
+        # a whole step under none and under full from one state at full
+        # width, cut in depth: the full depth does not fit under none
+        cut = dataclasses.replace(cfg, n_layers=SSM_REMAT_DEPTH)
+        st = ec4t.init_train_state(TT.lm_init(cut, seed=run_cfg["seed"],
+                                              device=dev))
+        b0 = pipeline.place(batch_fn(0), device=dev)
+        news = {r: step_fn_for(cut, r)(st, b0) for r in ("none", "full")}
+        same = torch.equal(_digest(news["none"][0]),
+                           _digest(news["full"][0])) and float(
+            news["none"][1]["loss"]) == float(news["full"][1]["loss"])
+        if not same:
+            raise AssertionError(f"{arch} at depth {SSM_REMAT_DEPTH}: a "
+                                 "step under remat full != under none")
+        remat_check = {"depth": SSM_REMAT_DEPTH,
+                       "loss": float(news["none"][1]["loss"]),
+                       "whole_step_bitwise": True}
+        del st, b0, news
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    state = ec4t.init_train_state(TT.lm_init(cfg, seed=run_cfg["seed"],
+                                             device=dev))
+    params_n = sum(t.numel() for t in tree.leaves(state["params"])
+                   if t.is_floating_point())
+    stacks_p = state["params"]["stacks"]
+    stacks_q = state["qstate"]["stacks"]
+    nodes = list(qat._quant_leaves(stacks_p, stacks_q))
+    segments = sum(n["omega"][..., 0].numel() for n, _ in nodes)
+    elements = sum(n["w"].numel() for n, _ in nodes)
+    per_pass = -(-segments // eq.MAX_SEGMENTS)
+    if segments != cfg.n_layers * SSM_LEAVES[kind]:
+        raise AssertionError(f"{segments} ECL segments, expected "
+                             f"{SSM_LEAVES[kind]} a layer")
+    order = qat._map_quant_many(lambda ns, qs: list(range(len(ns))),
+                                stacks_p, stacks_q, keep_params=True)
+    picks = [(order[kind]["ssm"]["in_proj"]["kernel"], (0,)),
+             (order[kind]["ssm"]["out_proj"]["kernel"], (cfg.n_layers - 1,))]
+    checked_calls = (0, ECL_PASSES_PER_STEP * steps - 2)
+    del order, nodes
+    # one grouped pass timed on the initial state (its work does not
+    # depend on the values), before the main path's counters are zeroed
+    ecl_row = _share_ecl_pass(dev, stacks_p, stacks_q, cfg.lam, segments,
+                              per_pass)
+    del stacks_p, stacks_q
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.leaves(state))
+
+    history, kept = [], {"calls": 0}
+
+    def step_keeping_the_last_input(st, batch):
+        kept["calls"] += 1
+        if kept["calls"] == steps:
+            kept.update(state=st, batch=batch)
+        return step_fn(st, batch)
+    loop = FaultTolerantLoop(
+        step_keeping_the_last_input, _Discard(), ckpt_every=steps + 1,
+        metrics_every=1, on_metrics=lambda s, m: history.append(
+            {"step": s, **{k: float(v) for k, v in m.items()}}))
+    stages.mark("smoke checks, the remat check, the ECL pass timed")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as tmp:
+        export_dir = os.path.join(tmp, "export")
+        # the main path: counters zeroed just before, read just after
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eq.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with _EclRecorder(ecl, eq, checked_calls, None, picks=picks,
+                          check=_plain_pair) as rec:
+            feed = pipeline.ShardedFeed(batch_fn, start_step=0, device=dev)
+            held = [state]
+            del state
+            try:
+                state, last, reason = loop.run(held.pop(), feed,
+                                               start_step=0,
+                                               total_steps=steps)
+            finally:
+                feed.close()
+            torch.cuda.synchronize(dev)
+            train_s = time.perf_counter() - t0
+            step_launches = eq.LAUNCHES
+            t0 = time.perf_counter()
+            report = export_quantized(export_dir, state["params"],
+                                      state["qstate"], cfg.lam)
+            export_ms = (time.perf_counter() - t0) * 1e3
+        export_launches = eq.LAUNCHES - step_launches
+        peak_train = torch.cuda.max_memory_allocated(dev)
+        if (reason, last) != ("done", steps) or "state" not in kept:
+            raise AssertionError(f"the loop ended {reason} at {last}")
+        losses = [h["loss"] for h in history]
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"{arch} losses {losses}")
+        per_call, checked = _share_ecl_gates(
+            rec, per_pass, segments, steps, step_launches, export_launches,
+            checked_calls)
+        del rec
+        frozen = qat.freeze_tree(state["params"], state["qstate"], cfg.lam)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        stages.mark("main path: steps and export")
+
+        # from the last step's input: the loss and the backward twice
+        s_last, b_last = kept.pop("state"), kept.pop("batch")
+        lam_last = schedule.lambda_ramp(s_last["opt"]["step"],
+                                        lam=run_cfg["lam"],
+                                        ramp_steps=run_cfg["lam_ramp"])
+        runs = [_ssm_grads(dev, cfg, s_last, b_last, lam_last, remat)
+                for _ in range(2)]
+        if not (all(r["finite"] for r in runs)
+                and torch.equal(runs[0]["digest"], runs[1]["digest"])
+                and torch.equal(runs[0]["loss"], runs[1]["loss"])
+                and all(r["launches"] == per_pass for r in runs)
+                and float(runs[0]["loss"]) == losses[-1]):
+            raise AssertionError(
+                f"{arch}: the backward twice: finite "
+                f"{[r['finite'] for r in runs]}, launches "
+                f"{[r['launches'] for r in runs]}, losses "
+                f"{[float(r['loss']) for r in runs]} (step {steps}: "
+                f"{losses[-1]})")
+        grads = {k: runs[0][k] for k in ("gradients", "peak_forward_bytes",
+                                         "peak_backward_bytes")}
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        stages.mark("backward twice")
+
+        holder = [s_last]
+        del s_last
+        trace = _lm_train_trace(dev, step_fn, holder, b_last, timed=2,
+                                traced=1)
+        del holder, b_last
+        gc.collect()
+        torch.cuda.empty_cache()
+        if trace["host_syncs_per_step"]:
+            raise AssertionError(f"host synchronisations inside a step: "
+                                 f"{trace['host_syncs_per_step']}")
+        ssd_times = _ssd_block_times(dev, cfg, run_cfg["batch"],
+                                     run_cfg["seq"])
+        stages.mark("traced steps, SSD block times")
+
+        # the export loaded back == freeze_tree, and served alike; last,
+        # on a card holding only the frozen tree: decoding a leaf's
+        # Huffman stream on the card takes tens of bytes a code
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loaded = load_quantized(export_dir, device=dev)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        load_peak = torch.cuda.max_memory_allocated(dev)
+        served = frozen_tree(loaded, device=dev)
+        del loaded
+        want, got = dict(_paths(frozen)), dict(_paths(served))
+        if sorted(want) != sorted(got) or not all(
+                got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                for k in want):
+            raise AssertionError(f"{arch}: the loaded export != "
+                                 "freeze_tree's tree")
+        prompts = np.random.default_rng(run_cfg["seed"]).integers(
+            0, cfg.vocab, (run_cfg["prompts"], run_cfg["prompt_len"]))
+        serve_export = _lm_direct(dev, cfg, served, prompts,
+                                  run_cfg["max_new"])
+        serve_freeze = _lm_direct(dev, cfg, frozen, prompts,
+                                  run_cfg["max_new"])
+        if not (np.array_equal(serve_export["tokens"],
+                               serve_freeze["tokens"])
+                and bool(torch.isfinite(serve_export["logits"]).all())):
+            raise AssertionError(f"{arch}: the export's tokens != "
+                                 "freeze_tree's")
+        export_bytes = os.path.getsize(os.path.join(export_dir,
+                                                    "export.npz"))
+        del served, frozen, want, got, serve_freeze
+        serve_export.pop("cache")
+        stages.mark("export loaded and served")
+
+    adam_bound = ADAM_BYTES_PER_PARAM * params_n / PEAK_BYTES * 1e3
+    pass_bound = ecl_row["bound_ms"]
+    out = {**run_cfg, "arch": arch, "family": kind, "layers": cfg.n_layers,
+           "published_layers": get_config(arch).n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "compute_dtype": "bfloat16", "params": params_n,
+           "quant_weights": elements, "ecl_segments": segments,
+           "state_bytes": state_bytes, "losses": losses,
+           "train_wall_s": train_s, "ecl_quant_launches": step_launches,
+           "ecl_quant_launches_export": export_launches,
+           "ecl_quant_launches_per_pass": per_pass,
+           "ecl_quant_passes": len(per_call), "ecl_segments_checked": checked,
+           "backward_twice_bitwise": True, "gradients_finite": True,
+           "grads": grads, "remat_none_vs_full": remat_check,
+           **trace, "ecl_quant_bound_ms_per_pass": pass_bound,
+           "ecl_quant_bound_ms_per_step": ECL_PASSES_PER_STEP * pass_bound,
+           "ecl_quant_pass": ecl_row, "adam_bound_ms": adam_bound,
+           "ssd_block": ssd_times, "peak_device_memory_bytes": peak_train,
+           "export_bytes": export_bytes,
+           "export_compressed_bytes": report["compressed_bytes"],
+           "export_compression_ratio": report["compression_ratio"],
+           "export_ms": export_ms, "export_load_ms": load_ms,
+           "export_load_peak_device_bytes": load_peak,
+           "served_tokens_0": serve_export["tokens"][0].tolist(),
+           "smoke": smoke, "stage_s": stages.seconds,
+           "wall_s": time.perf_counter() - t_arch}
+    gb = 1e-9
+    st = trace["peak_device_memory_bytes_by_stage"]
+    print(f"phase 12: {arch} EC4T-trained {steps} steps at batch "
+          f"{run_cfg['batch']} x seq {run_cfg['seq']} (bf16, remat {remat},"
+          f" {cfg.n_layers} layers, {params_n / 1e9:.3f} B parameters): "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {step_launches} "
+          f"ecl_quant launches ({per_pass} a pass, {segments} segments, "
+          f"{elements:,} elements) + {export_launches} in the export; the "
+          f"backward twice bitwise, {grads['gradients']} gradients finite"
+          + (f"; a whole step under full == none at depth "
+             f"{SSM_REMAT_DEPTH}" if remat_check else "")
+          + f"; export == freeze_tree, tokens equal ({gpu})")
+    print(f"phase 12: {arch} {trace['ms_per_step']:.1f} ms/step, device "
+          f"{trace['device_ms_per_step']:.1f} ms/step, idle "
+          f"{trace['device_idle_share']:.3f}, "
+          f"{trace['device_ops_per_step']:.0f} device ops; ECL pass "
+          f"{ecl_row['device_ms']:.3f} ms ({ecl_row['device_ms_from']}) "
+          f"against {pass_bound:.3f} (bytes); adam.apply "
+          f"{_ms(trace['adam_apply_device_ms_per_step'])} ms against "
+          f"{adam_bound:.2f}; FakeQuantGroup.backward "
+          f"{_ms(trace['fake_quant_backward_device_ms_per_step'])} ms; "
+          f"update_qstate {_ms(trace['update_qstate_device_ms_per_step'])} "
+          f"ms; SSD block forward {ssd_times['forward_device_ms']:.2f} ms, "
+          f"backward {ssd_times['backward_device_ms']:.2f} ms a layer "
+          f"({gpu})")
+    print(f"phase 12: {arch} peak memory: main path {peak_train * gb:.1f} GB;"
+          f" in a step forward {st.get('forward', 0) * gb:.1f}, backward "
+          f"{st.get('backward', 0) * gb:.1f}, adam {st.get('adam', 0) * gb:.1f}"
+          f", update {st.get('update_qstate', 0) * gb:.1f}; export "
+          f"{export_bytes * gb:.3f} GB ({report['compression_ratio']:.2f}x) "
+          f"in {export_ms:.0f} ms, loaded in {load_ms:.0f} ms (peak "
+          f"{load_peak * gb:.1f} GB); stages (s) "
+          f"{ {k: round(v, 1) for k, v in stages.seconds.items()} }; smoke card "
+          f"vs CPU loss {smoke['card_vs_cpu_loss_rel']:.2e}, gradients "
+          f"{max(smoke['card_vs_cpu_grad_max_rel'].values()):.2e}, launcher "
+          f"resume bitwise; {out['wall_s']:.1f} s ({gpu})")
+    return out
+
+
+def ssm_train_path(dev, gpu):
+    """Phase 12: EC4T-train mamba2-1.3b (2 x 2,048) and hymba-1.5b (1 x
+    2,048) at published widths and depths in bf16 under remat full,
+    through the launcher's functions."""
+    t_phase = time.perf_counter()
+    out = {arch: _ssm_train_one(dev, gpu, arch) for arch in SSM_ARCHS}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 12: done in {out['wall_s']:.1f} s ({gpu})")
+    return out
+
+
 def kernels_report(r):
     """The ``kernels`` line: every kernel's launches by path, error, times
     and bound, from the results ``r`` of a run of every phase."""
@@ -4762,7 +5601,13 @@ def kernels_report(r):
                              + r["moe_train"]["ecl_quant_launches_export"],
                              "mla": r["mla"]["launcher"]["ecl_quant_launches"],
                              "mla_train": r["mla_train"]["ecl_quant_launches"]
-                             + r["mla_train"]["ecl_quant_launches_export"]},
+                             + r["mla_train"]["ecl_quant_launches_export"],
+                             **{f"ssm {a}": r["ssm"][a]["launcher"][
+                                 "ecl_quant_launches"] for a in SSM_ARCHS},
+                             **{f"ssm_train {a}": r["ssm_train"][a][
+                                 "ecl_quant_launches"] + r["ssm_train"][a][
+                                 "ecl_quant_launches_export"]
+                                for a in SSM_ARCHS}},
         "max_abs_err": r["ecl_err"],
         "ms": head["ms"], "kernel_ms": head["ms"],
         "device_ms": head["device_ms"],
@@ -4775,17 +5620,25 @@ def kernels_report(r):
         "smollm_freeze": r["lm"]["ecl_quant"],
         "grok_freeze": r["moe"]["ecl_quant"],
         "deepseek_freeze": r["mla"]["ecl_quant"],
+        **{f"{a}_freeze": r["ssm"][a]["ecl_quant"] for a in SSM_ARCHS},
         **{name: {"pass": r[key]["ecl_quant_pass"],
                   **{k: r[key][k] for k in (
                       "ecl_quant_device_ms_per_step",
                       "ecl_quant_bound_ms_per_step", "quant_weights")}}
            for name, key in (("grok_share_training", "moe_train"),
                              ("smollm_training", "lm_train"),
-                             ("deepseek_share_training", "mla_train"))}})
+                             ("deepseek_share_training", "mla_train"))},
+        **{f"{a}_training": {"pass": r["ssm_train"][a]["ecl_quant_pass"],
+                             **{k: r["ssm_train"][a][k] for k in (
+                                 "ecl_quant_device_ms_per_step",
+                                 "ecl_quant_bound_ms_per_step",
+                                 "quant_weights")}}
+           for a in SSM_ARCHS}})
     return report
 
 
-PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10")
+PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10", "11",
+          "12")
 
 
 def parse_phases(argv):
@@ -4862,7 +5715,9 @@ def main(argv=None) -> int:
              ("7", "moe", lambda: moe_path(dev, gpu)),
              ("8", "moe_train", lambda: moe_train_path(dev, gpu)),
              ("9", "mla", lambda: mla_serve_path(dev, gpu)),
-             ("10", "mla_train", lambda: mla_train_path(dev, gpu)))
+             ("10", "mla_train", lambda: mla_train_path(dev, gpu)),
+             ("11", "ssm", lambda: ssm_serve_path(dev, gpu)),
+             ("12", "ssm_train", lambda: ssm_train_path(dev, gpu)))
     for phase, key, run in steps:
         if phase in phases:
             r[key] = run()
@@ -4871,7 +5726,7 @@ def main(argv=None) -> int:
         print(json.dumps({"grid": r["grid"], "contract_floor": r["floor"]}))
         print(json.dumps({"kernels": kernels_report(r)}))
     for key in ("path", "train", "frontend", "lm", "lm_train", "moe",
-                "moe_train", "mla", "mla_train"):
+                "moe_train", "mla", "mla_train", "ssm", "ssm_train"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "

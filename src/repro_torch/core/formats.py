@@ -316,6 +316,8 @@ def encode_huffman(codes) -> CompressedTensor:
 
 #: code starts a jump of the host chain skips (2**5)
 _JUMP_LOG2 = 5
+#: entries of the next-start map one in-place squaring step gathers
+_SQUARE_CHUNK = 1 << 26
 
 
 def _starts_walk(nxt: torch.Tensor, n: int) -> torch.Tensor:
@@ -346,13 +348,19 @@ def _starts_doubling(nxt: torch.Tensor, n: int) -> torch.Tensor:
     """:func:`_starts_walk` on a device, by doubling: with J the map, the
     first 2**(b+1) starts are the first 2**b followed by J**(2**b) of
     them, and J squares itself each round (log2 n gathers over the bits,
-    no walk on the host)."""
+    no walk on the host).  ``nxt`` is squared in place, a chunk of
+    entries at a time from the front: J(i) >= i, so a chunk reads only
+    entries not squared yet, and the map takes no second copy (a stream
+    of 3.3 G bits holds 26 GB of int64 entries).  The caller's map is
+    consumed."""
     starts = nxt.new_zeros(1)
     jump = nxt
     while starts.numel() < n:
         starts = torch.cat([starts, torch.index_select(jump, 0, starts)])
         if starts.numel() < n:
-            jump = torch.index_select(jump, 0, jump)
+            for c0 in range(0, jump.numel(), _SQUARE_CHUNK):
+                part = jump[c0:c0 + _SQUARE_CHUNK]
+                part.copy_(torch.index_select(jump, 0, part))
     return starts[:n]
 
 
@@ -401,8 +409,8 @@ def decode_huffman(ct: CompressedTensor, device=None):
             len_t[lo:lo + (1 << (width - l))] = l
     idx = torch.int64 if nbits + 2 > np.iinfo(np.int32).max else torch.int32
     sym_at = torch.index_select(torch.from_numpy(sym_t).to(dev), 0, window)
-    step = torch.index_select(torch.from_numpy(len_t).to(dev), 0,
-                              window).to(idx)
+    step = torch.index_select(torch.from_numpy(len_t.astype(np.uint8)).to(
+        dev), 0, window)                     # code lengths fit a byte
     del window
     # next start after a start at each bit; nbits (the end) and nbits + 1
     # (no code starts there, or it runs past the end) map to themselves
@@ -410,15 +418,20 @@ def decode_huffman(ct: CompressedTensor, device=None):
     head = nxt[:nbits]
     head += step
     head.masked_fill_((step == 0) | (head > nbits), nbits + 1)
-    del step, head
+    del head
+    # the device chain squares the map in place: the last code's end is
+    # read from the code lengths
     starts = (_starts_walk if dev.type == "cpu" else _starts_doubling)(nxt, n)
+    del nxt
     bad = torch.nonzero(starts >= nbits)
     if bad.numel():
         j = int(bad[0, 0])
         raise ValueError(f"huffman payload ends or breaks at bit "
                          f"{int(starts[j - 1]) if j else 0} after {j} of "
                          f"{n} symbols")
-    end = int(nxt[starts[-1]])
+    last, last_len = int(starts[-1]), int(step[starts[-1]])
+    end = last + last_len if last_len and last + last_len <= nbits \
+        else nbits + 1
     if end != nbits:
         raise ValueError(f"huffman payload: {n} symbols end at bit "
                          f"{end if end <= nbits else 'past the end'} of "

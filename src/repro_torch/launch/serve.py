@@ -7,6 +7,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --engine
     PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --layers 1
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu
 
 Initialises the MLP from a seed, freezes it to the packed 4-bit pack,
 resolves an ``ExecutionPlan`` (mode, row tile, int8 calibration, bucket ->
@@ -19,20 +20,23 @@ the micro-batcher and checks the result against the batch; ``--engine
 ``--multi`` co-serves more frozen packs, and the integrity, cold-tier,
 fault-injection and stream flags follow the JAX package's launcher.
 
-An LM arch of the dense or moe family (``--arch smollm-360m``,
-``grok-1-314b``, ``deepseek-v3-671b`` with its latent attention;
-``--smoke`` for the reduced config, ``--layers N`` to cut the depth at the
-published widths) runs ``lm_init`` -> ``build_qstate`` -> ``freeze_tree``,
-then a prefill of ``--batch`` prompts of ``--prompt-len`` ids and
-``--max-new`` greedy tokens through ``lm_apply`` on the frozen tree, and
-prints the prefill ms, the decode ms per token and the generated ids.
-``--engine`` serves the same prompts through an ``LMProgram`` registered
-in a ``ServingFrontend`` (each sequence prefilled, then lockstep decode
-rows) and checks its tokens against ``LMProgram.generate`` bit for bit;
-``LMProgram`` serves the dense family only, so a moe arch exits there
-with its message, as the JAX launcher does.  The other families (ssm,
-hybrid, vlm, audio) raise ``NotImplementedError`` (ROADMAP queue 1 item
-8).
+An LM arch of the dense, moe, ssm or hybrid family (``--arch
+smollm-360m``, ``grok-1-314b``, ``deepseek-v3-671b`` with its latent
+attention, ``mamba2-1.3b``, ``hymba-1.5b``; ``--smoke`` for the reduced
+config, ``--layers N`` to cut the depth at the published widths) runs
+``lm_init`` -> ``build_qstate`` -> ``freeze_tree``, then a prefill of
+``--batch`` prompts of ``--prompt-len`` ids and ``--max-new`` greedy
+tokens through ``lm_apply`` on the frozen tree, and prints the prefill
+ms, the decode ms per token and the generated ids; for ssm and hybrid
+also the recurrent decode state's bytes a sequence (the same at any
+context length; hymba's KV cache comes beside it).  ``--engine`` serves
+the same prompts through an ``LMProgram`` registered in a
+``ServingFrontend`` (each sequence prefilled, then lockstep decode rows)
+and checks its tokens against ``LMProgram.generate`` bit for bit;
+``LMProgram`` serves the dense family only, so another family exits
+there with its message, as the JAX launcher does.  The vlm and audio
+families raise ``NotImplementedError`` (ROADMAP queue 1 items 8.4 and
+8.5).
 
 :func:`serve_lm_config` serves a config its caller hands it, such as one
 card's share of an expert-parallel deployment
@@ -341,8 +345,8 @@ def serve_mlp_async(args, cfg, plan, x, y_ref):
 
 
 def lm_archs() -> list:
-    """The registered archs the port's LM path serves: the dense and moe
-    families, MLA included."""
+    """The registered archs the port's LM path serves: the dense, moe
+    (MLA included), ssm and hybrid families."""
     served = []
     for name in list_configs():
         try:
@@ -375,9 +379,9 @@ def serve_lm_config(cfg, args) -> np.ndarray:
     """The direct LM path on ``cfg``: init, freeze, then prefill and greedy
     decode through ``lm_apply`` on the frozen tree (dense decode +
     ``torch.matmul``, no FantastIC4 kernel; a MoE layer's experts through
-    ``torch.bmm``).  ``args`` gives the traffic (``--batch``,
-    ``--prompt-len``, ``--max-new``), ``--seed``, ``--device`` and
-    ``--engine``.  Returns the generated ids (batch, max_new)."""
+    ``torch.bmm``; an SSD block's scan in PyTorch).  ``args`` gives the
+    traffic (``--batch``, ``--prompt-len``, ``--max-new``), ``--seed``,
+    ``--device`` and ``--engine``.  Returns the generated ids (batch, max_new)."""
     dev = resolve_device(args.device)
     params = T.lm_init(cfg, seed=args.seed, device=dev)
     frozen = qat.freeze_tree(params, qat.build_qstate(params), cfg.lam)
@@ -403,23 +407,51 @@ def serve_lm_config(cfg, args) -> np.ndarray:
     gen, t_dec = _once_ms(decode, dev)
     gen = gen.cpu().numpy().astype(np.int64)
     clock = "CUDA events" if dev.type == "cuda" else "host clock, CPU"
-    experts = (f", {cfg.n_experts} experts top-{cfg.top_k}"
-               if cfg.family == "moe" else "")
-    if cfg.experts_held is not None:
-        first, count = cfg.experts_held
-        experts += f" (experts {first}-{first + count - 1} held)"
-    if cfg.mla is not None:
-        experts += f", MLA (kv_lora {cfg.mla.kv_lora_rank})"
-    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
-          f"{cfg.d_ff}{experts}, vocab {cfg.vocab}, frozen to 4 bits on "
-          f"{dev}")
+    print(f"{_lm_description(cfg)}, frozen to 4 bits on {dev}")
     print(f"prefill: {t_prefill:.3f} ms  decode: "
           f"{t_dec / (new - 1) if new > 1 else 0.0:.3f} ms/token "
           f"({b} sequences, {clock})")
+    if cfg.family in ("ssm", "hybrid"):
+        print(f"decode state: {_cache_bytes(cache, 'ssm') // b:,} B a "
+              "sequence (the SSM state and conv tail, at any context "
+              "length)" + (f"; KV cache {_cache_bytes(cache, 'attn') // b:,}"
+                           f" B a sequence at {s + new} slots"
+                           if cfg.family == "hybrid" else ""))
     print("generated ids[0]:", gen[0].tolist())
     if args.engine:
         serve_lm_engine(args, cfg, frozen, prompt, gen)
     return gen
+
+
+def _lm_description(cfg) -> str:
+    """One line: the config's name, family and widths."""
+    if cfg.family == "ssm":
+        body = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
+                f"{cfg.ssm_headdim}, state {cfg.ssm_state}")
+    else:
+        body = f"d_ff {cfg.d_ff}"
+        if cfg.family == "moe":
+            body += f", {cfg.n_experts} experts top-{cfg.top_k}"
+        if cfg.experts_held is not None:
+            first, count = cfg.experts_held
+            body += f" (experts {first}-{first + count - 1} held)"
+        if cfg.mla is not None:
+            body += f", MLA (kv_lora {cfg.mla.kv_lora_rank})"
+        if cfg.family == "hybrid":
+            body += (f", {cfg.n_heads} heads (kv {cfg.n_kv}) beside "
+                     f"{cfg.ssm_heads} SSM heads, state {cfg.ssm_state}, "
+                     f"window {cfg.window} but layers "
+                     f"{list(cfg.global_attn_layers)} global")
+    return (f"{cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {body}, vocab {cfg.vocab}")
+
+
+def _cache_bytes(cache: dict, entry: str) -> int:
+    """Bytes of every stack's ``entry`` ("ssm" or "attn") in ``cache``
+    that hold sequences ((L, B, ...) leaves: not the slots' positions)."""
+    from ..tree import leaves
+    return sum(t.numel() * t.element_size() for c in cache.values()
+               if entry in c for t in leaves(c[entry]) if t.ndim >= 3)
 
 
 def serve_lm_engine(args, cfg, frozen, prompt: np.ndarray,

@@ -31,7 +31,7 @@ def _loss_fn(cfg: ArchConfig, mesh=None, remat: str = "none",
         raise NotImplementedError(
             "a loss over a mesh is not ported yet (ROADMAP queue 1 item 6, "
             "scale-out); pass mesh=None")
-    check_supported(cfg)     # the dense and moe families, GQA or MLA
+    check_supported(cfg)     # dense, moe (GQA or MLA), ssm and hybrid
     check_remat(remat)
 
     def loss(params, qstate, batch, lam):

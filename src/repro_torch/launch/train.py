@@ -9,6 +9,8 @@ transformer LM (the JAX package's ``launch/train.py``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch grok-1-314b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b --smoke \
         --device cpu --steps 3 --remat full
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --smoke \
+        --device cpu --steps 3
 
 **MLP branch** (``--arch mlp-gsc``, ``mlp-hr``, ``lenet-300-100``): the
 MLP trainer of the JAX package (``benchmarks/common.py`` ``train_mlp``,
@@ -20,7 +22,8 @@ accuracy, sparsity and entropy and ms per step, freezes the net
 it against the eval-mode forward (``atol=rtol=1e-2``, as
 ``examples/train_mlp_gsc.py:54``).
 
-**LM branch** (every dense- and moe-family arch, with GQA or MLA,
+**LM branch** (every arch of the dense and moe families, with GQA or
+MLA, and of the ssm (mamba2-1.3b) and hybrid (hymba-1.5b) families,
 ``--smoke`` for the reduced config; a MoE arch adds ``aux_loss_coef``
 times its load-balance loss, as the reference does): config → ``lm_init`` →
 ``ec4t.init_train_state`` → the EC4T step
@@ -38,8 +41,11 @@ in the backward as the reference's ``jax.checkpoint`` of its scan body:
 also its projections' products; the loss and the gradients are bitwise
 the same under all three.  Under autograd the online softmax keeps only
 each KV chunk's inputs and carries, and re-forms the chunk's scores in
-the backward (``nn/attention.py``).  The ssm, hybrid, vlm and audio
-families raise ``NotImplementedError`` (ROADMAP queue 1 item 8).  A
+the backward (``nn/attention.py``).  An SSD block (``nn/ssm.py``) pads
+a sequence to a multiple of its chunk (``ssm_chunk``, 256 at the
+published widths) and computes the padding too, so ``--seq`` is best a
+multiple of it.  The vlm and audio families raise
+``NotImplementedError`` (ROADMAP queue 1 items 8.4 and 8.5).  A
 published MoE arch trains every expert on one device; one device's share
 of an expert-parallel deployment (``ArchConfig.experts_held``) is set by
 a caller, not by a flag.
@@ -50,7 +56,9 @@ ECL op (``kernels/ecl_quant.py``): on the card ⌈segments / 32⌉ launches
 of the hand-written CUDA kernel (SmolLM-360M: 224 segments, 7 launches;
 one card's share of a Grok-1 layer, q, k, v, o and 3 banks x 2 experts:
 10 segments, 1 launch; one GPU's share of DeepSeek-V3 at depth 2, 28
-segments, 1 launch), on ``--device cpu`` its plain version.  Defaults differ by branch
+segments, 1 launch; mamba2-1.3b's 48 x 2 projections, 3 launches;
+hymba-1.5b's 32 x 9, 9 launches), on ``--device cpu`` its plain
+version.  Defaults differ by branch
 (:data:`MLP_DEFAULTS`, :data:`LM_DEFAULTS`).
 """
 from __future__ import annotations
@@ -309,9 +317,10 @@ def main(argv=None):
     history of its ``step`` lines."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mlp-gsc",
-                    help=f"one of {', '.join(sorted(MLPS))} or a dense or "
-                    "moe LM arch (smollm-360m, grok-1-314b, "
-                    "deepseek-v3-671b, ...)")
+                    help=f"one of {', '.join(sorted(MLPS))} or an LM arch "
+                    "of the dense, moe, ssm or hybrid family (smollm-360m, "
+                    "grok-1-314b, deepseek-v3-671b, mamba2-1.3b, "
+                    "hymba-1.5b, ...)")
     ap.add_argument("--steps", type=int, default=None,
                     help="MLP 300, LM 100")
     ap.add_argument("--lam", type=float, default=None, help="MLP 0.3, LM 0.05")
@@ -327,7 +336,11 @@ def main(argv=None):
     lm_flags.add_argument("--smoke", action="store_true", default=None,
                           help="reduced config (CPU-sized)")
     lm_flags.add_argument("--batch", type=int, default=None, help="8")
-    lm_flags.add_argument("--seq", type=int, default=None, help="64")
+    lm_flags.add_argument("--seq", type=int, default=None,
+                          help="64; for ssm and hybrid archs best a "
+                          "multiple of ssm_chunk (256 at the published "
+                          "widths, 8 in --smoke): a shorter last chunk is "
+                          "padded and computed")
     lm_flags.add_argument("--ckpt-dir", default=None,
                           help="$TMPDIR/repro_torch_ckpt")
     lm_flags.add_argument("--ckpt-every", type=int, default=None, help="50")

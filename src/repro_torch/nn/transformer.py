@@ -1,25 +1,32 @@
-"""Decoder-only transformer (the JAX package's ``nn/transformer.py``),
-dense and moe families.
+"""Decoder-only transformer (the JAX package's ``nn/transformer.py``):
+the dense, moe, ssm and hybrid families.
 
 Layers are **stacked**: every leaf of ``params["stacks"][kind]`` has a
-leading (L, ...) axis, one stack per layer kind (``"dense"``, ``"moe"``)
-as in the reference, and :func:`lm_apply` runs the stacks in the
-reference's order with a Python loop over each stack's layers in place of
-``jax.lax.scan`` (each layer reads views of the stacked leaves).  An
-expert bank is stacked (L, E, ...): each (layer, expert) has its own ω
-and probabilities.  Per-layer quantization state and KV caches are
-stacked the same way.  A config with ``experts_held`` builds and runs one
-shard's share of each MoE layer (``nn/moe.py``).  Under EC4T training
-(``ctx.quant``) the forward fake-quantizes every stacked quantized leaf
-once, before the layer loop, in one grouped quantization
-(:func:`quantize_stack`); each layer then reads its view of the stacked
-ŵ.  ``remat`` is the reference's rematerialisation of the layer body
-(:func:`_remat`); its sharding arguments have no counterpart here.
+leading (L, ...) axis, one stack per layer kind (``"dense"``, ``"moe"``,
+``"ssm"``, ``"hybrid"``) as in the reference, and :func:`lm_apply` runs
+the stacks in the reference's order with a Python loop over each stack's
+layers in place of ``jax.lax.scan`` (each layer reads views of the
+stacked leaves).  An expert bank is stacked (L, E, ...): each (layer,
+expert) has its own ω and probabilities.  Per-layer quantization state
+and caches are stacked the same way.  A config with ``experts_held``
+builds and runs one shard's share of each MoE layer (``nn/moe.py``).
+Under EC4T training (``ctx.quant``) the forward fake-quantizes every
+stacked quantized leaf once, before the layer loop, in one grouped
+quantization (:func:`quantize_stack`); each layer then reads its view of
+the stacked ŵ.  ``remat`` is the reference's rematerialisation of the
+layer body (:func:`_remat`); its sharding arguments have no counterpart
+here.
 
 A config with ``mla`` (deepseek-v3) builds multi-head latent attention
-in every layer and a latent cache (``nn/attention.py``).  The other
-families (ssm, hybrid, vlm, audio) raise ``NotImplementedError``: they
-wait for ROADMAP queue 1 item 8.
+in every layer and a latent cache (``nn/attention.py``).  An ``ssm``
+layer (mamba2) is a Mamba2 SSD block alone (``nn/ssm.py``), with no
+attention, no FFN and no rotary; a ``hybrid`` layer (hymba) runs GQA
+attention and the SSD block side by side on the same normed input and
+averages their RMS-normed outputs, then an MLP.  Their caches hold the
+recurrent state (``"ssm"``: the (B, H, P, N) state and the conv tail) for
+every layer, and a hybrid layer a KV cache beside it.  The vlm and audio
+families raise ``NotImplementedError``: they wait for ROADMAP queue 1
+items 8.4 and 8.5.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from ..core import qat
 from ..tree import leaves, map_, unflatten
 from . import attention as attn
 from . import moe as moe_lib
+from . import ssm as ssm_lib
 from .layers import (embedding_init, gelu_mlp, gelu_mlp_init, layer_norm,
                      layer_norm_init, linear_init, rms_norm, rms_norm_init,
                      rope_cos_sin, subtree, swiglu, swiglu_init)
@@ -44,7 +52,7 @@ from .module import QuantCtx
 HUGE_WINDOW = 1 << 30     # "global attention" encoded as a very wide window
 
 
-KINDS = ("dense", "moe")       # the stacks, in the reference's order
+KINDS = ("dense", "moe", "ssm", "hybrid")   # the stacks, the reference's order
 REMAT = ("none", "full", "dots")
 # the products ``dots`` keeps: a projection's 2-D matmul (``linear``'s
 # ``x @ w``), not a product with batch dims (attention's and the expert
@@ -55,13 +63,24 @@ _SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for every arch the port's stack does not build yet."""
-    if (cfg.family not in KINDS or cfg.encdec
-            or cfg.mrope_sections is not None):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family} family) is not ported yet: the port's "
-            "transformer builds the dense and moe families only, with GQA "
-            "or MLA attention (ssm, hybrid, vlm and audio wait for ROADMAP "
-            "queue 1 item 8)")
+    if cfg.encdec or cfg.family == "audio":
+        waits = "item 8.5 (the audio encoder-decoder)"
+    elif cfg.mrope_sections is not None or cfg.family == "vlm":
+        waits = "item 8.4 (vlm's M-RoPE)"
+    elif cfg.family not in KINDS:
+        waits = "item 8"
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name} ({cfg.family} family) is not ported yet: the port's "
+        "transformer builds the dense, moe, ssm and hybrid families; this "
+        f"one waits for ROADMAP queue 1 {waits}")
+
+
+def _ssm_cfg(cfg: ArchConfig) -> ssm_lib.SSMCfg:
+    return ssm_lib.SSMCfg(d_model=cfg.d_model, d_inner=cfg.d_inner,
+                          n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
+                          n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk)
 
 
 def _mla_cfg(cfg: ArchConfig) -> attn.MLACfg:
@@ -98,24 +117,34 @@ def _mlp(cfg: ArchConfig, p: dict, q: Any, x: torch.Tensor,
 
 def _layer_init(generator: torch.Generator, cfg: ArchConfig,
                 kind: str = "dense") -> dict:
-    """kind: dense | moe (from the family, per depth)."""
+    """kind: dense | moe | ssm | hybrid (from the family, per depth)."""
     if kind not in KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
-                                  "(ROADMAP queue 1 item 8)")
+        raise ValueError(f"layer kind {kind!r}: one of {', '.join(KINDS)}")
     d, dev = cfg.d_model, generator.device
-    if cfg.mla is not None:
-        attn_p = attn.mla_init(generator, _mla_cfg(cfg), cfg.quantize)
-    else:
-        attn_p = attn.gqa_init(generator, d, cfg.n_heads, cfg.n_kv,
-                               cfg.resolved_head_dim, cfg.quantize,
-                               qkv_bias=cfg.qkv_bias)
-    p = {"ln1": _norm_init(cfg, d, dev), "attn": attn_p,
-         "ln2": _norm_init(cfg, d, dev)}
+    p = {"ln1": _norm_init(cfg, d, dev)}
+    if kind != "ssm":
+        if cfg.mla is not None:
+            p["attn"] = attn.mla_init(generator, _mla_cfg(cfg), cfg.quantize)
+        else:
+            p["attn"] = attn.gqa_init(generator, d, cfg.n_heads, cfg.n_kv,
+                                      cfg.resolved_head_dim, cfg.quantize,
+                                      qkv_bias=cfg.qkv_bias)
+    if kind in ("ssm", "hybrid"):
+        p["ssm"] = ssm_lib.ssm_init(generator, _ssm_cfg(cfg), cfg.quantize)
+    if kind == "hybrid":
+        # always RMS, whatever cfg.norm, as the reference's
+        p["attn_norm"] = rms_norm_init(d, dev)
+        p["ssm_norm"] = rms_norm_init(d, dev)
+    if kind == "ssm":
+        return p
+    p["ln2"] = _norm_init(cfg, d, dev)
     if kind == "moe":
         p["moe"] = moe_lib.moe_init(generator, d, cfg.d_ff, cfg.n_experts,
                                     cfg.quantize,
                                     n_shared=cfg.n_shared_experts,
                                     experts_held=cfg.experts_held)
+    elif kind == "hybrid":
+        p["mlp"] = _mlp_init(generator, cfg, cfg.d_ff)
     else:
         p["mlp"] = _mlp_init(generator, cfg, cfg.dense_ff or cfg.d_ff)
     return p
@@ -134,6 +163,8 @@ def _layer_kinds(cfg: ArchConfig) -> list:
     if cfg.family == "moe":
         return (["dense"] * cfg.n_dense_layers
                 + ["moe"] * (cfg.n_layers - cfg.n_dense_layers))
+    if cfg.family in ("ssm", "hybrid"):
+        return [cfg.family] * cfg.n_layers
     return ["dense"] * cfg.n_layers
 
 
@@ -174,21 +205,38 @@ def lm_init(cfg: ArchConfig, *, seed: int = 0,
 # ------------------------------------------------------------------ cache
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> dict:
-    """Stacked per-layer decode state, ``max_len`` slots a layer (callers
-    that prefill keep the full length, so multi-token writes never
-    wrap).  An MLA arch caches the latent and the rope key
-    (:func:`attention.init_mla_cache`)."""
+               dtype=torch.bfloat16, cap_window: bool = False,
+               device=None) -> dict:
+    """Stacked per-layer decode state.  An attention layer gets ``max_len``
+    slots (callers that prefill keep the full length, so multi-token
+    writes never wrap); with ``cap_window`` (decode-only use) an SWA arch
+    with no global layers gets a window-sized ring, O(window) memory at
+    any context length, while hymba's global layers force the full length.
+    An MLA arch caches the latent and the rope key
+    (:func:`attention.init_mla_cache`).  An ssm or hybrid layer also keeps
+    its recurrent state (``"ssm"``: fp32 whatever ``dtype``, as the
+    reference's), the same size at any context length."""
     dev = resolve_device(device)
 
-    def per():
+    def attn_cache():
         if cfg.mla is not None:
-            return {"attn": attn.init_mla_cache(batch, max_len, _mla_cfg(cfg),
-                                                dtype, device=dev)}
-        return {"attn": attn.init_kv_cache(batch, max_len, cfg.n_kv,
-                                           cfg.resolved_head_dim, dtype,
-                                           device=dev)}
-    return {kind: _stack([per()] * len(idx))
+            return attn.init_mla_cache(batch, max_len, _mla_cfg(cfg), dtype,
+                                       device=dev)
+        kv_len = max_len
+        if cap_window and cfg.window and not cfg.global_attn_layers:
+            kv_len = min(max_len, cfg.window)
+        return attn.init_kv_cache(batch, kv_len, cfg.n_kv,
+                                  cfg.resolved_head_dim, dtype, device=dev)
+
+    def per(kind):
+        out = {}
+        if kind != "ssm":
+            out["attn"] = attn_cache()
+        if kind in ("ssm", "hybrid"):
+            out["ssm"] = ssm_lib.init_ssm_state(batch, _ssm_cfg(cfg),
+                                                device=dev)
+        return out
+    return {kind: _stack([per(kind)] * len(idx))
             for kind, idx in _kind_layers(cfg).items()}
 
 
@@ -203,10 +251,31 @@ def _windows_for(cfg: ArchConfig, idx: list) -> Optional[list]:
             for i in idx]
 
 
+def _ssm_branch(cfg: ArchConfig, lp: dict, lq: Any, h: torch.Tensor,
+                ctx: QuantCtx, lcache) -> tuple:
+    """The SSD block on ``h``: one decode step from the cached state when
+    one token comes with a cache, else sequence mode seeded by the cached
+    state (a prefill from zeros, or its continuation)."""
+    st = lcache["ssm"] if lcache is not None else None
+    if h.shape[1] == 1 and st is not None:
+        return ssm_lib.ssm_step(lp["ssm"], subtree(lq, "ssm"), h, ctx,
+                                _ssm_cfg(cfg), st)
+    return ssm_lib.ssm_apply(lp["ssm"], subtree(lq, "ssm"), h, ctx,
+                             _ssm_cfg(cfg), state=st)
+
+
 def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
            ctx: QuantCtx, *, cos_sin, positions, lcache, window) -> tuple:
     """One transformer block; returns (x, new_lcache, aux)."""
     h = _norm(cfg, lp["ln1"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = {}
+    if kind == "ssm":
+        y, new_st = _ssm_branch(cfg, lp, lq, h, ctx, lcache)
+        if lcache is not None:
+            new_cache["ssm"] = new_st
+        return x + y, new_cache, aux
+
     acache = lcache["attn"] if lcache is not None else None
     if cfg.mla is not None:
         ay, new_ac = attn.mla_apply(lp["attn"], subtree(lq, "attn"), h, ctx,
@@ -220,9 +289,17 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
                                     cos_sin=cos_sin, positions=positions,
                                     causal=True, window=window, cache=acache,
                                     chunk=cfg.attn_chunk)
+    if new_ac is not None:
+        new_cache["attn"] = new_ac
+    if kind == "hybrid":
+        # hymba: the mean of the two branches' normed outputs, both on h
+        sy, new_st = _ssm_branch(cfg, lp, lq, h, ctx, lcache)
+        if lcache is not None:
+            new_cache["ssm"] = new_st
+        ay = 0.5 * (rms_norm(lp["attn_norm"], ay)
+                    + rms_norm(lp["ssm_norm"], sy))
     x = x + ay
     h2 = _norm(cfg, lp["ln2"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "moe":
         y2, aux = moe_lib.moe_ffn(lp["moe"], subtree(lq, "moe"), h2, ctx,
                                   top_k=cfg.top_k, gate=cfg.moe_gate,
@@ -232,7 +309,7 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
         x = x + y2
     else:
         x = x + _mlp(cfg, lp["mlp"], subtree(lq, "mlp"), h2, ctx)
-    return x, ({"attn": new_ac} if new_ac is not None else {}), aux
+    return x, new_cache, aux
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -324,10 +401,12 @@ def lm_apply(params: dict, qstate: Any, tokens: torch.Tensor,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
 
-    rotary_dim = cfg.mla.qk_rope_dim if cfg.mla is not None \
-        else int(cfg.resolved_head_dim * cfg.rotary_frac)
-    cos_sin = rope_cos_sin(positions, rotary_dim, cfg.rope_theta,
-                           dtype=torch.float32)
+    cos_sin = None         # attention-free: no rotary (and no head_dim)
+    if cfg.family != "ssm":
+        rotary_dim = cfg.mla.qk_rope_dim if cfg.mla is not None \
+            else int(cfg.resolved_head_dim * cfg.rotary_frac)
+        cos_sin = rope_cos_sin(positions, rotary_dim, cfg.rope_theta,
+                               dtype=torch.float32)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {} if cache is not None else None
     w_hat = quantize_stack(params["stacks"], subtree(qstate, "stacks"),

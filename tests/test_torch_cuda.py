@@ -34,8 +34,11 @@ dispatch exactly, its output within 1e-5, equal to the CPU's; a share of
 grok's smoke config trained on the card within ``rtol=1e-4`` of the CPU,
 its backward twice bitwise.  MLA: deepseek-v3's smoke config trained
 on the card within ``rtol=1e-4`` of the CPU, and bitwise alike under
-remat none, full and dots.  The Huffman codec on the card gives the
-host's bytes and codes.
+remat none, full and dots.  The ssm and hybrid families: the SSD scan on
+the card within 1e-5 of the CPU's (2 groups, a ragged chunk, a carried
+state), and mamba2's and hymba's smoke configs trained on the card
+within ``rtol=1e-4`` of the CPU, bitwise alike under remat none and full.
+The Huffman codec on the card gives the host's bytes and codes.
 """
 import array
 import ctypes
@@ -917,6 +920,58 @@ def test_mla_train_steps_on_the_card_under_every_remat(cuda_device):
         assert runs["cuda", remat][0] == runs["cuda", "none"][0]
         assert all(torch.equal(a, b) for a, b in zip(
             runs["cuda", remat][1], runs["cuda", "none"][1]))
+
+
+def test_ssd_chunked_on_the_card_matches_the_cpu(cuda_device):
+    from repro_torch.nn import ssm
+    g = torch.Generator().manual_seed(0)
+    x, B, C = (torch.randn(shape, generator=g) for shape in
+               ((3, 21, 4, 3), (3, 21, 2, 5), (3, 21, 2, 5)))
+    a = -torch.rand((3, 21, 4), generator=g) * 3
+    s0 = torch.randn((3, 4, 3, 5), generator=g)
+    want = ssm.ssd_chunked(x, a, B, C, 8, init_state=s0)
+    got = ssm.ssd_chunked(*(t.to(cuda_device) for t in (x, a, B, C)), 8,
+                          init_state=s0.to(cuda_device))
+    for w, t in zip(want, got):
+        assert t.device.type == "cuda"
+        np.testing.assert_allclose(t.cpu().numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_ssm_train_steps_on_the_card_under_remat(cuda_device, arch):
+    """An ssm or hybrid smoke config in fp32 (seq 20: a ragged SSD chunk):
+    two card train steps within rtol=1e-4 of two CPU steps from one init,
+    each making 2 ecl_quant launches, and the same two steps under remat
+    full on the card bitwise equal to none's."""
+    from repro_torch import tree
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as T
+    from repro_torch.nn import transformer as TT
+    from repro_torch.optim import ec4t
+
+    cfg = T.lm_config(arch, smoke=True)
+    params = TT.lm_init(cfg, seed=0, device="cpu")
+    batch_fn = T.lm_batch_fn(cfg, batch=2, seq=20)
+    runs = {}
+    for dev, remat in ((cuda_device, "none"), (torch.device("cpu"), "none"),
+                       (cuda_device, "full")):
+        step_fn = T.lm_step_fn(cfg, steps=10, lr=1e-3, lam=0.3, lam_ramp=1,
+                               remat=remat, dtype=torch.float32)
+        state = ec4t.init_train_state(_to(params, dev))
+        out = []
+        for i in range(2):
+            before = eq.LAUNCHES
+            state, m = step_fn(state, pipeline.place(batch_fn(i), device=dev))
+            out.append(float(m["loss"]))
+            if dev.type == "cuda":
+                assert eq.LAUNCHES - before == 2
+        runs[dev.type, remat] = (out, tree.leaves(state))
+    np.testing.assert_allclose(runs["cuda", "none"][0], runs["cpu", "none"][0],
+                               rtol=1e-4)
+    assert runs["cuda", "full"][0] == runs["cuda", "none"][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs["cuda", "full"][1],
+                                                 runs["cuda", "none"][1]))
 
 
 def test_huffman_on_the_card_equals_the_host_codec(cuda_device):

@@ -121,12 +121,15 @@ def test_huffman_of_a_tensor_equals_the_reference(kind):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_huffman_chain_by_doubling_equals_the_walk(seed):
+def test_huffman_chain_by_doubling_equals_the_walk(seed, monkeypatch):
     """The card's chain of code starts (pointer doubling) equals the
     host's walk on one next-start map, here both on the CPU: a map of
     steps 1..15 with, for seed 2, positions where no code starts
-    (mapped to ``nbits + 1``), as a broken stream gives."""
+    (mapped to ``nbits + 1``), as a broken stream gives.  The doubling
+    squares its map in place, 777 entries at a time here (so each
+    squaring crosses chunks); it gets a copy."""
     import torch
+    monkeypatch.setattr(tf, "_SQUARE_CHUNK", 777)
     rng = np.random.default_rng(seed)
     nbits = 5000 + 777 * seed
     nxt = np.arange(nbits + 2, dtype=np.int32)
@@ -137,7 +140,7 @@ def test_huffman_chain_by_doubling_equals_the_walk(seed):
     nxt_t = torch.from_numpy(nxt)
     for n in (1, 31, 32, 33, nbits // 8, nbits):
         np.testing.assert_array_equal(
-            tf._starts_doubling(nxt_t, n).numpy(),
+            tf._starts_doubling(nxt_t.clone(), n).numpy(),
             tf._starts_walk(nxt_t, n).numpy())
 
 

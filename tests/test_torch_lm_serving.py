@@ -104,9 +104,12 @@ def test_servable_protocol_surface(world):
 
 
 def test_rejects_non_dense_family():
+    """As the reference's: a real frozen mamba2 smoke tree, refused."""
+    cfg = get_config("mamba2-1.3b").smoke()
+    params = TT.lm_init(cfg, device="cpu")
+    frozen = qat.freeze_tree(params, qat.build_qstate(params), cfg.lam)
     with pytest.raises(ValueError, match="dense-family"):
-        serving.LMProgram({}, get_config("mamba2-1.3b").smoke(),
-                          max_prompt=4, max_new=4, device="cpu")
+        serving.LMProgram(frozen, cfg, max_prompt=4, max_new=4, device="cpu")
 
 
 def test_default_device_is_the_card(world):
