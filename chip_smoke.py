@@ -94,10 +94,11 @@ Phases (any failure raises and the script exits non-zero):
    the chain's seven, the cooperative grid of stream -- and the
    dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
    phase 3, phase 3b's serving check, phase 3c, phase 5, phase 6, phase
-   7, phase 8, phase 9, phase 10, phases 11 and 12 by arch), one
+   7, phase 8, phase 9, phase 10, phases 11 to 14 by arch), one
    ``path``, one ``train``, one ``frontend``, one ``lm``, one
    ``lm_train``, one ``moe``, one ``moe_train``, one ``mla``, one
-   ``mla_train``, one ``ssm`` and one ``ssm_train`` JSON line.
+   ``mla_train``, one ``ssm``, one ``ssm_train``, one ``vlm_audio`` and
+   one ``vlm_audio_train`` JSON line.
 5. The LM serving path at full width, run after phase 3c: SmolLM-360M
    (32 blocks of d_model 960, 15 heads, 5 KV heads, d_ff 2560, vocab
    49,152) from ``lm_init(seed=0)`` on the card, frozen with
@@ -359,6 +360,74 @@ Phases (any failure raises and the script exits non-zero):
    device ms at the step's shape, peak memory by stage, export bytes and
    ms, each beside the card's name and power limit, and one ``ssm_train``
    JSON line.
+13. The vlm and audio families served at published widths and depths,
+   run after phase 12 (at most 1 GiB allocated at the start of each
+   arch), fp32 compute and cache.  qwen2-vl-2b (28 layers of d_model
+   1536, 12 heads with 2 KV heads of 128, QKV bias, d_ff 8,960, M-RoPE
+   sections (16, 24, 24), tied vocabulary 151,936): first the launcher
+   (``launch.serve --arch qwen2-vl-2b --batch 2 --prompt-len 1024
+   --max-new 16``, token prompts), the ecl_quant counter zeroed just
+   before and read just after; then the gated freeze, and a prefill of 2
+   x 8,192 patch embeddings drawn from seed 0 through ``lm_apply(embeds=)``
+   and 16 greedy tokens by id.  Gates: exactly 7 ecl_quant launches (196
+   segments) in the launcher's and in the gated freeze, codes of layer
+   0's q and layer 27's down bitwise equal to ``ecl_quant_plain``;
+   ``mrope_cos_sin`` at head dim 128 on three identical streams bitwise
+   ``rope_cos_sin``, and on three distinct streams to position 8,207
+   each stream's section bitwise ``rope_cos_sin`` of that stream; layer
+   0's attention over the prefill's recorded input, a cached prefill and
+   16 decode steps against the whole sequence without a cache, within
+   1e-4 relative; at 2 x 1,024 patch embeddings, the cached decode's
+   logits within 1e-3 relative of a no-cache forward over the
+   embeddings and the generated tokens' rows; the KV cache 57,344 B a
+   token a sequence; the smoke config card vs CPU, tokens equal and
+   logits within 1e-5.  whisper-base (6 + 6 layers of d_model 512, 8
+   heads of 64, d_ff 2,048, vocabulary 51,865, 1,500 frames, MAX_TGT
+   448): the gated freeze (``whisper_init``), then 8 utterances of 1,500
+   stubbed frames drawn from seed 0 served in the order of the
+   reference's prefill and decode bodies: ``whisper_encode``,
+   ``precompute_cross``, ``init_dec_cache(..., MAX_TGT)``,
+   ``whisper_decode`` of the 4-token start-of-transcript prompt, then 123
+   cached greedy steps.  Gates: exactly 3 ecl_quant launches (96
+   segments), codes of encoder layer 0's q and decoder layer 5's cross v
+   bitwise; every cached step's logits within 1e-3 relative of a no-cache
+   decode of the same prefix; the cross K/V 36,864,000 B a sequence; the
+   smoke config card vs CPU, tokens equal and logits within 1e-5; every
+   frozen leaf, the cache and the cross K/V on the card.  Prints per arch
+   the freeze's ms, device ms and bounds, prefill (or encode, cross and
+   prompt) ms and peak memory, decode ms a step (CUDA events and host
+   clock), one decode step's device ms, operations and idle share, each
+   beside the card's name and power limit, and one ``vlm_audio`` JSON
+   line.
+14. The vlm and audio families EC4T-trained at published widths and
+   depths in bf16, run after phase 13: qwen2-vl-2b at 1 x 2,048 (patch
+   embeddings and labels, no tokens) for 3 steps under ``remat="full"``,
+   whisper-base at 8 x (1,500 frames, 448 tokens) for 10 steps, from
+   ``lm_init`` / ``whisper_init(seed=0)`` through the launcher's
+   functions (``lm_step_fn``, ``lm_batch_fn``, ``ShardedFeed``,
+   ``FaultTolerantLoop`` with no checkpoint at this width), λ 0.05
+   ramped over 50 steps, then ``export_quantized``.  Counters are zeroed
+   just before and read just after.  Gates: first, at the smoke width on
+   the card, one fp32 loss (1e-5) and picked gradients (1e-4 relative)
+   equal the CPU's, and the launcher's ``main`` (``--remat full``, 6
+   steps, checkpoints at 3 and 6, an export) resumed from its step-3
+   checkpoint gives the same losses, checkpoint and export bit for bit;
+   for qwen2-vl a whole step at full width cut to depth 2 under
+   ``full`` bitwise ``none``'s; exactly 7 (qwen2-vl) and 3 (whisper)
+   ecl_quant launches a pass, 2 passes a step and 1 in the export, every
+   pass over all segments; the first and the last step's fake-quant codes
+   and ŵ of the first layer's q and the last layer's down (qwen2-vl) or
+   cross v (whisper) bitwise equal to ``ecl_quant_plain``; finite losses;
+   from the last step's input the loss and every gradient twice, finite
+   and bitwise equal, the loss the step's; ``load_quantized`` of the
+   export on the card equals ``freeze_tree`` leaf for leaf, and both
+   serve the same greedy tokens; no host synchronisation inside a step
+   (``set_sync_debug_mode``).  Prints per arch ms a step, device ms, idle
+   share and device operations (profiler), the ECL pass's device ms
+   against its byte bound, ``adam.apply``'s against its bound,
+   ``update_qstate``'s and ``FakeQuantGroup.backward``'s, peak memory by
+   stage, export bytes and ms, each beside the card's name and power
+   limit, and one ``vlm_audio_train`` JSON line.
 
 The script ends with a line that counts the profiler traces taken and
 retaken and the device times taken from queued CUDA events, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -1994,22 +2063,24 @@ def _lm_ffn_checks(dev, prog):
     return checks, timed
 
 
-def _lm_direct(dev, cfg, frozen, prompts, new, tokens=None):
+def _lm_direct(dev, cfg, frozen, prompts, new, tokens=None, embeds=None):
     """The direct path on a frozen tree (``lm_apply``: dense decode +
-    ``torch.matmul``, no FantastIC4 kernel): a prefill, then ``new - 1``
-    decode steps fed ``tokens`` (teacher forcing) or, without them, each
-    step's greedy pick.  Returns the greedy picks (B, new), each step's
-    last-position logits (B, new, vocab) and the cache; on the card also
-    prefill ms and decode ms a step (CUDA events) and the prefill's and
-    the decode steps' peak device memory."""
+    ``torch.matmul``, no FantastIC4 kernel): a prefill of the ``prompts``
+    ids, or of ``embeds`` (B, S, d) on the device in their place (a vlm's
+    patch embeddings), then ``new - 1`` decode steps fed ``tokens``
+    (teacher forcing) or, without them, each step's greedy pick.  Returns
+    the greedy picks (B, new), each step's last-position logits (B, new,
+    vocab) and the cache; on the card also prefill ms and decode ms a step
+    (CUDA events) and the prefill's and the decode steps' peak device
+    memory."""
     import torch
     from repro_torch.nn import transformer as T
     from repro_torch.nn.module import FP32_CTX
 
-    b, s = prompts.shape
+    b, s = prompts.shape if embeds is None else embeds.shape[:2]
     on_card = dev.type == "cuda"
     cache = T.init_cache(cfg, b, s + new, dtype=torch.float32, device=dev)
-    tok = torch.from_numpy(prompts).to(dev)
+    tok = None if embeds is not None else torch.from_numpy(prompts).to(dev)
     pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     tf = None if tokens is None else torch.from_numpy(tokens).to(dev)
     clock = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
@@ -2020,7 +2091,8 @@ def _lm_direct(dev, cfg, frozen, prompts, new, tokens=None):
         clock[0].record()
     with torch.no_grad():
         logits, cache, _ = T.lm_apply(frozen, 0, tok, FP32_CTX, cfg,
-                                      positions=pos, cache=cache)
+                                      embeds=embeds, positions=pos,
+                                      cache=cache)
         if on_card:
             clock[1].record()
             torch.cuda.synchronize(dev)
@@ -2324,9 +2396,11 @@ class _StagePeaks:
     def __init__(self, dev):
         from repro_torch.core import qat
         from repro_torch.models import lm as lm_model
+        from repro_torch.models import whisper
         from repro_torch.optim import adam
         self.dev, self.peaks = dev, {}
         self.stages = ((lm_model, "lm_forward_loss", None, "forward"),
+                       (whisper, "whisper_forward_loss", None, "forward"),
                        (adam, "apply", "backward", "adam"),
                        (qat, "update_qstate", None, "update_qstate"))
 
@@ -2729,11 +2803,13 @@ def _moe_freeze(dev, cfg):
                          f"{cfg.n_experts} experts a layer", checks)
 
 
-def _gated_freeze(dev, cfg, seed, want_segments, layout, checks):
-    """Init on the card and ``freeze_tree`` with the ecl_quant counter
-    zeroed just before and read just after: the segment count ``layout``
-    names, the exact launch count the segments give, the codes of each
-    ``(stack, path, index)`` of ``checks`` bitwise equal to the plain
+def _gated_freeze(dev, cfg, seed, want_segments, layout, checks,
+                  init=None):
+    """Init on the card (``init``, default ``lm_init``) and ``freeze_tree``
+    with the ecl_quant counter zeroed just before and read just after: the
+    segment count ``layout`` names, the exact launch count the segments
+    give, the codes of each ``(stack, path, index)`` of ``checks`` (stack
+    None: ``path`` from the tree's root) bitwise equal to the plain
     version on the same card tensors, the grouped pass timed against its
     bounds, peak device memory."""
     import torch
@@ -2742,7 +2818,7 @@ def _gated_freeze(dev, cfg, seed, want_segments, layout, checks):
     from repro_torch.nn import transformer as T
     from repro_torch.tree import leaves
 
-    params = T.lm_init(cfg, seed=seed, device=dev)
+    params = (init or T.lm_init)(cfg, seed=seed, device=dev)
     qstate = qat.build_qstate(params)
     nodes = list(qat._quant_leaves(params, qstate))     # (leaf, its state)
     segments = sum(n["omega"][..., 0].numel() for n, _ in nodes)
@@ -2764,8 +2840,8 @@ def _gated_freeze(dev, cfg, seed, want_segments, layout, checks):
                              f"launches for {segments} segments")
 
     for stack, path, idx in checks:
-        node, qs, fnode = (t["stacks"][stack] for t in (params, qstate,
-                                                        frozen))
+        node, qs, fnode = (t if stack is None else t["stacks"][stack]
+                           for t in (params, qstate, frozen))
         for k in path:
             node, qs, fnode = node[k], qs[k], fnode[k]
         pen = ecl.penalty(node["w"], qs["probs"], cfg.lam)
@@ -2806,7 +2882,7 @@ def _gated_freeze(dev, cfg, seed, want_segments, layout, checks):
               "peak_device_bytes": peak,
               "packed_bytes": sum(t.numel() for t in leaves(frozen)
                                   if t.dtype == torch.uint8),
-              "codes_checked": [".".join((st,) + p) + str(list(i))
+              "codes_checked": [".".join((st,) * bool(st) + p) + str(list(i))
                                 for st, p, i in checks]}
     return frozen, freeze, row
 
@@ -3808,6 +3884,20 @@ MLA_REF_HEADS = 16        # heads of the plain reference's attention a pass
 EMPTY_CARD_BYTES = 1 << 30   # what phase 9 may find allocated at its start
 
 
+def _empty_card(dev, what):
+    """Free what the last phase left and gate that at most
+    EMPTY_CARD_BYTES stay allocated; returns the bytes allocated."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated(dev)
+    if start_bytes > EMPTY_CARD_BYTES:
+        raise AssertionError(f"{what} starts with {start_bytes / 1e9:.2f} "
+                             "GB allocated")
+    return start_bytes
+
+
 def _mla_serve_cfg():
     """deepseek-v3-671b at its published widths: depth 4 (the 3 leading
     dense layers and the first MoE layer) and experts 0-7 of 256 held,
@@ -3995,12 +4085,7 @@ def mla_serve_path(dev, gpu):
     from repro_torch.nn.module import FP32_CTX
 
     t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    start_bytes = torch.cuda.memory_allocated(dev)
-    if start_bytes > EMPTY_CARD_BYTES:
-        raise AssertionError(f"phase 9 starts with {start_bytes / 1e9:.2f} "
-                             "GB allocated on the card")
+    start_bytes = _empty_card(dev, "phase 9")
     cfg = _mla_serve_cfg()
     m, first, count = cfg.mla, *cfg.experts_held
     b, s, new = (MLA_SERVE["prompts"], MLA_SERVE["prompt_len"],
@@ -4417,12 +4502,7 @@ def mla_train_path(dev, gpu):
     from repro_torch.runtime.fault import FaultTolerantLoop
 
     t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    start_bytes = torch.cuda.memory_allocated(dev)
-    if start_bytes > EMPTY_CARD_BYTES:
-        raise AssertionError(f"phase 10 starts with {start_bytes / 1e9:.2f} "
-                             "GB allocated on the card")
+    start_bytes = _empty_card(dev, "phase 10")
     cfg = _mla_train_cfg()
     published = get_config(MLA_TRAIN["arch"])
     first, count = cfg.experts_held
@@ -4881,12 +4961,7 @@ def _ssm_serve_one(dev, gpu, arch):
 
     t_arch = time.perf_counter()
     stages = _Stages()
-    gc.collect()
-    torch.cuda.empty_cache()
-    start_bytes = torch.cuda.memory_allocated(dev)
-    if start_bytes > EMPTY_CARD_BYTES:
-        raise AssertionError(f"phase 11 ({arch}) starts with "
-                             f"{start_bytes / 1e9:.2f} GB allocated")
+    start_bytes = _empty_card(dev, f"phase 11 ({arch})")
     cfg = get_config(arch)
     kind = cfg.family
     b, s, new = (SSM_SERVE["prompts"], SSM_SERVE["prompt_len"],
@@ -5082,16 +5157,6 @@ def ssm_serve_path(dev, gpu):
 
 # ------------------------------------------------------------ phase 12
 
-SSM_TRAIN = {"mamba2-1.3b": dict(batch=2, seq=2048, steps=4),
-             "hymba-1.5b": dict(batch=1, seq=2048, steps=3)}
-SSM_TRAIN_ALL = dict(seed=0, lr=1e-3, lam=0.05, lam_ramp=50, remat="full",
-                     prompts=2, prompt_len=16, max_new=8)
-SSM_REMAT_DEPTH = 4       # mamba2 cut to this depth: a whole step, none vs full
-SSM_SMOKE = dict(batch=2, seq=20)   # seq 20: a ragged SSD chunk
-SSM_CARD_CPU_FWD = 1e-5   # smoke: the loss, card vs CPU
-SSM_CARD_CPU_GRAD = 1e-4  # smoke: in_proj w and ω, conv_w, A_log, dt_bias
-
-
 def _launcher_resume(arch, seq, remat):
     """The launcher's ``main`` on the card at ``arch``'s smoke width under
     ``--remat remat``: MLA_SMOKE's steps with checkpoints, then again from
@@ -5144,86 +5209,6 @@ def _launcher_resume(arch, seq, remat):
             "checkpoint_leaves": len(wl), "export_arrays": len(we)}
 
 
-def _ssm_train_smoke_checks(dev, arch):
-    """At ``arch``'s smoke width on the card: one fp32 loss and the
-    gradients of layer 0's in_proj (w and ω), conv_w, A_log and dt_bias
-    equal the CPU's from the same init (a ragged SSD chunk); and the
-    launcher resumes bitwise under ``--remat full``."""
-    import dataclasses
-    import torch
-    from repro_torch import tree
-    from repro_torch.configs import get_config
-    from repro_torch.core import qat
-    from repro_torch.data import pipeline
-    from repro_torch.launch import steps as steps_mod
-    from repro_torch.launch import train as T
-    from repro_torch.nn import transformer as TT
-
-    cfg = dataclasses.replace(get_config(arch).smoke(),
-                              lam=SSM_TRAIN_ALL["lam"])
-    if SSM_SMOKE["seq"] % cfg.ssm_chunk == 0:
-        raise AssertionError("the smoke check wants a ragged last chunk")
-    params = TT.lm_init(cfg, seed=SSM_TRAIN_ALL["seed"], device="cpu")
-    batch = T.lm_batch_fn(cfg, batch=SSM_SMOKE["batch"],
-                          seq=SSM_SMOKE["seq"])(0)
-    loss_fn = steps_mod._loss_fn(cfg, dtype=torch.float32)
-    names = ("in_proj_w", "in_proj_omega", "conv_w", "A_log", "dt_bias")
-    runs = []
-    for where in (dev, torch.device("cpu")):
-        p = tree.map_(lambda t: t.to(where).detach().requires_grad_()
-                      if t.is_floating_point() else t.to(where), params)
-        loss, _ = loss_fn(p, qat.build_qstate(p),
-                          pipeline.place(batch, device=where), cfg.lam)
-        sp = p["stacks"][cfg.family]["ssm"]
-        picked = (sp["in_proj"]["kernel"]["w"],
-                  sp["in_proj"]["kernel"]["omega"], sp["conv_w"],
-                  sp["A_log"], sp["dt_bias"])
-        grads = torch.autograd.grad(loss, picked)
-        runs.append((float(loss.detach()), [g.cpu() for g in grads]))
-    (lc, gc), (lh, gh) = runs
-    fwd_rel = abs(lc - lh) / abs(lh)
-    grad_rel = [_rel(a, b) for a, b in zip(gc, gh)]
-    if fwd_rel > SSM_CARD_CPU_FWD or max(grad_rel) > SSM_CARD_CPU_GRAD:
-        raise AssertionError(f"{arch} smoke card vs CPU: loss {fwd_rel}, "
-                             f"gradients {dict(zip(names, grad_rel))}")
-    return {"card_vs_cpu_loss_rel": fwd_rel,
-            "card_vs_cpu_grad_max_rel": dict(zip(names, grad_rel)),
-            "loss_card": lc, "loss_cpu": lh,
-            "launcher_resume": _launcher_resume(arch, SSM_SMOKE["seq"],
-                                                "full")}
-
-
-def _ssm_grads(dev, cfg, state, batch, lam, remat):
-    """The loss at λ ``lam`` and every gradient from ``state`` under
-    ``remat``, once: the loss, a digest of the gradients, whether all are
-    finite, the ecl_quant launches, and the peak device memory after the
-    forward and after the backward."""
-    import torch
-    from repro_torch import tree
-    from repro_torch.kernels import ecl_quant as eq
-    from repro_torch.launch import steps as steps_mod
-
-    leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
-              for t in tree.leaves(state["params"])]
-    params = tree.unflatten(state["params"], leaves)
-    wants = [t for t in leaves if t.requires_grad]
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    before = eq.LAUNCHES
-    loss, _ = steps_mod._loss_fn(cfg, remat=remat)(params, state["qstate"],
-                                                   batch, lam)
-    peak_fwd = torch.cuda.max_memory_allocated(dev)
-    grads = torch.autograd.grad(loss, wants)
-    peak_bwd = torch.cuda.max_memory_allocated(dev)
-    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-    out = {"loss": loss.detach(), "launches": eq.LAUNCHES - before,
-           "digest": _digest(list(grads)), "gradients": len(grads),
-           "finite": bool(finite), "peak_forward_bytes": peak_fwd,
-           "peak_backward_bytes": peak_bwd}
-    del grads, leaves, params, wants
-    return out
-
-
 def _ssd_block_times(dev, cfg, batch, seq):
     """Device ms of one SSD block (``ssm_apply``: the in projection, the
     conv, the chunked scan, the gated norm, the out projection) at the
@@ -5235,7 +5220,7 @@ def _ssd_block_times(dev, cfg, batch, seq):
     from repro_torch.nn import transformer as TT
     from repro_torch.nn.module import QuantCtx
 
-    g = torch.Generator(device=dev).manual_seed(SSM_TRAIN_ALL["seed"] + 7)
+    g = torch.Generator(device=dev).manual_seed(TRAIN_ALL["seed"] + 7)
     scfg = TT._ssm_cfg(cfg)
     p = ssm.ssm_init(g, scfg, quantize=False)
     p = {k: ({"kernel": v["kernel"].to(torch.bfloat16).requires_grad_()}
@@ -5266,10 +5251,669 @@ def _ssd_block_times(dev, cfg, batch, seq):
             "backward_device_ms": both["device_ms"] - fwd["device_ms"]}
 
 
-def _ssm_train_one(dev, gpu, arch):
-    """Phase 12 for one arch: EC4T-train at published widths through the
-    launcher's functions, export; then the gates from the last step's
-    input state."""
+# ------------------------------------------------------------ phase 13
+
+VLM_ARCH, AUDIO_ARCH = "qwen2-vl-2b", "whisper-base"
+VLM_LEAVES = 7            # q, k, v, o, gate, up, down a layer
+AUDIO_LEAVES = (6, 10)    # an encoder layer's, a decoder layer's (+ cross)
+VLM_SERVE = dict(seed=0, prompts=2, prompt_len=8192, max_new=16,
+                 short_prompt_len=1024, launcher_prompt_len=1024)
+VLM_STEPS_REL = 1e-4      # layer 0's decode steps vs its sequence
+VLM_STACK_REL = 1e-3      # cached decode logits vs a no-cache forward
+# whisper's start of transcript: <|startoftranscript|> <|en|> <|transcribe|>
+# <|notimestamps|>, then greedy text tokens
+AUDIO_PROMPT = (50258, 50259, 50359, 50363)
+AUDIO_SERVE = dict(seed=0, utterances=8, max_new=124)
+AUDIO_STACK_REL = 1e-3    # cached decoder logits vs a no-cache decode
+SMOKE_TOL = 1e-5          # a smoke config's logits, card vs CPU
+
+
+def _mrope_gates(dev, cfg, s):
+    """M-RoPE on the card at the config's head dim, positions 0 .. s - 1:
+    three identical streams give ``rope_cos_sin`` bit for bit; three
+    distinct streams (t ascending, h descending, w a seeded permutation)
+    give, in each stream's section of the rotary pairs, ``rope_cos_sin``
+    of that stream bit for bit."""
+    import torch
+    from repro_torch.nn.layers import mrope_cos_sin, rope_cos_sin
+
+    hd, theta, sec = cfg.resolved_head_dim, cfg.rope_theta, \
+        cfg.mrope_sections
+    t = torch.arange(s, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    streams = torch.stack([t, t.flip(0), t[torch.randperm(
+        s, generator=g, device=dev)]])[:, None]              # (3, 1, s)
+    same = all(torch.equal(a, b) for a, b in zip(
+        mrope_cos_sin(torch.stack([t[None]] * 3), hd, theta, sec),
+        rope_cos_sin(t[None], hd, theta)))
+    got, start, per_stream = mrope_cos_sin(streams, hd, theta, sec), 0, []
+    for i, width in enumerate(sec):
+        want = rope_cos_sin(streams[i], hd, theta)
+        per_stream.append(all(torch.equal(a[..., start:start + width],
+                                          b[..., start:start + width])
+                              for a, b in zip(got, want)))
+        start += width
+    if not (same and all(per_stream)):
+        raise AssertionError(f"M-RoPE != rope_cos_sin: identical streams "
+                             f"{same}, each stream's section {per_stream}")
+    return {"positions": s, "head_dim": hd, "sections": list(sec),
+            "identical_streams_bitwise": True,
+            "distinct_streams_bitwise_per_section": True}
+
+
+class _AttnRecorder:
+    """While in use, keeps the input of the first ``attention.gqa_apply``
+    call (layer 0's normed input in a prefill): the transformer looks it
+    up on the module at every call."""
+
+    def __enter__(self):
+        from repro_torch.nn import attention
+        self._orig, self.x = attention.gqa_apply, None
+
+        def record(p, q, x, ctx, **kw):
+            if self.x is None:
+                self.x = x.detach().clone()
+            return self._orig(p, q, x, ctx, **kw)
+        attention.gqa_apply = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import attention
+        attention.gqa_apply = self._orig
+
+
+def _gqa_steps_vs_sequence(cfg, p, h, steps):
+    """One layer's attention (frozen ``p``, M-RoPE) over all of ``h``
+    without a cache, against a cached prefill of all but the last
+    ``steps`` positions and then one decode step a position: the max
+    relative error of the last ``steps`` outputs."""
+    import torch
+    from repro_torch.nn import attention
+    from repro_torch.nn.layers import mrope_cos_sin
+    from repro_torch.nn.module import FP32_CTX
+
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    pos = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=hd,
+              chunk=cfg.attn_chunk)
+
+    def run(x, at, cache=None):
+        cs = mrope_cos_sin(torch.stack([at] * 3), hd, cfg.rope_theta,
+                           cfg.mrope_sections)
+        return attention.gqa_apply(p, 0, x, FP32_CTX, cos_sin=cs,
+                                   positions=at, cache=cache, **kw)
+    with torch.no_grad():
+        y_all, _ = run(h, pos)
+        cache = attention.init_kv_cache(b, s, cfg.n_kv, hd, torch.float32,
+                                        device=h.device)
+        _, cache = run(h[:, :s - steps], pos[:, :s - steps], cache)
+        ys = []
+        for t in range(s - steps, s):
+            y, cache = run(h[:, t:t + 1], pos[:, t:t + 1], cache)
+            ys.append(y)
+    return _rel(torch.cat(ys, 1), y_all[:, s - steps:])
+
+
+def _vlm_serve(dev, gpu):
+    """Phase 13, qwen2-vl-2b: the launcher on token prompts, the gated
+    freeze, a prefill of 2 x 8,192 patch embeddings and 16 greedy tokens,
+    with M-RoPE, layer 0's decode and the stack gated at full width."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import serve
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import FP32_CTX
+
+    t_arch = time.perf_counter()
+    stages = _Stages()
+    start_bytes = _empty_card(dev, f"phase 13 ({VLM_ARCH})")
+    cfg = get_config(VLM_ARCH)
+    run_cfg = VLM_SERVE
+    b, s, new = run_cfg["prompts"], run_cfg["prompt_len"], run_cfg["max_new"]
+
+    # the main path as a user serves it: token prompts through the launcher
+    argv = ["--arch", VLM_ARCH, "--batch", str(b), "--prompt-len",
+            str(run_cfg["launcher_prompt_len"]), "--max-new", str(new),
+            "--seed", str(run_cfg["seed"]), "--device", dev.type]
+    torch.cuda.synchronize(dev)
+    eq.LAUNCHES = 0
+    t0 = time.perf_counter()
+    gen = serve.main(argv)
+    torch.cuda.synchronize(dev)
+    launcher = {"argv": argv, "wall_s": time.perf_counter() - t0,
+                "ecl_quant_launches": eq.LAUNCHES}
+    if gen.shape != (b, new) or not ((gen >= 0) & (gen < cfg.vocab)).all():
+        raise AssertionError(f"launcher returned ids of shape {gen.shape}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages.mark("launcher")
+
+    checks = [("dense", ("attn", "q", "kernel"), (0,)),
+              ("dense", ("mlp", "down", "kernel"), (cfg.n_layers - 1,))]
+    frozen, freeze, ecl_row = _gated_freeze(
+        dev, cfg, run_cfg["seed"], cfg.n_layers * VLM_LEAVES,
+        "q, k, v, o, gate, up, down a layer", checks)
+    want_launches = -(-cfg.n_layers * VLM_LEAVES // eq.MAX_SEGMENTS)
+    if not (launcher["ecl_quant_launches"] == freeze["ecl_quant_launches"]
+            == want_launches):
+        raise AssertionError(f"ecl_quant launches: the launcher "
+                             f"{launcher['ecl_quant_launches']}, the freeze "
+                             f"{freeze['ecl_quant_launches']}, want "
+                             f"{want_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages.mark("gated freeze and its timings")
+    mrope = _mrope_gates(dev, cfg, s + new)
+    stages.mark("M-RoPE gates")
+
+    # patch embeddings from the seed, prefilled, then greedy decode by id
+    g = torch.Generator(device=dev).manual_seed(run_cfg["seed"])
+    embeds = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+    with _AttnRecorder() as rec:
+        run = _lm_direct(dev, cfg, frozen, None, new, embeds=embeds)
+    if not bool(torch.isfinite(run["logits"]).all()):
+        raise AssertionError("non-finite logits")
+    if not (_on_card(frozen) and _on_card(run["cache"])):
+        raise AssertionError("a frozen leaf or the cache left the card")
+    slots = run["cache"]["dense"]["attn"]["k"].shape[2]
+    kv_token = serve._cache_bytes(run["cache"], "attn") // b // slots
+    want_kv = cfg.n_layers * 2 * cfg.n_kv * cfg.resolved_head_dim * 4
+    if kv_token != want_kv:
+        raise AssertionError(f"KV cache {kv_token} B a token a sequence, "
+                             f"expected {want_kv}")
+    stages.mark("prefill and decode")
+    steps_rel = _gqa_steps_vs_sequence(
+        cfg, _layer0(frozen["stacks"]["dense"]["attn"]), rec.x, new)
+    del rec
+    if steps_rel > VLM_STEPS_REL:
+        raise AssertionError(f"layer 0's decode steps off its sequence by "
+                             f"{steps_rel} relative")
+    stages.mark("layer 0 steps vs sequence")
+
+    cache = run["cache"]
+    step_tok = torch.from_numpy(run["tokens"][:, -1:]).to(dev)
+    step_pos = torch.full((b, 1), s + new - 1, dtype=torch.int32, device=dev)
+
+    def decode_step():
+        with torch.no_grad():
+            return T.lm_apply(frozen, 0, step_tok, FP32_CTX, cfg,
+                              positions=step_pos, cache=cache)
+
+    trace, _ = _step_trace(decode_step, dev, SSM_TIMED_STEPS, traced=1)
+    timing = {k: run[k] for k in ("prefill_ms", "decode_ms",
+                                  "prefill_peak_bytes", "decode_peak_bytes")}
+    tokens_0 = run["tokens"][0].tolist()
+    del run, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages.mark("traced decode step")
+
+    # at 2 x 1,024: the cached decode against a no-cache forward over the
+    # prompt's embeddings and the generated tokens' (the table's rows)
+    short = run_cfg["short_prompt_len"]
+    head = embeds[:, :short].contiguous()
+    del embeds
+    run = _lm_direct(dev, cfg, frozen, None, new, embeds=head)
+    fed = torch.from_numpy(run["tokens"][:, :-1]).to(dev)
+    with torch.no_grad():
+        seq = torch.cat([head, frozen["embed"]["table"][fed]], dim=1)
+        full, _, _ = T.lm_apply(frozen, 0, None, FP32_CTX, cfg, embeds=seq)
+        no_cache = full[:, short - 1:, :cfg.vocab].clone()
+    del full, seq
+    stack_rel = _rel(run["logits"], no_cache)
+    del run, no_cache, head, frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    if stack_rel > VLM_STACK_REL:
+        raise AssertionError(f"cached decode logits off a no-cache forward "
+                             f"by {stack_rel} relative")
+    stages.mark("cached vs no-cache at 1,024")
+    smoke = _moe_smoke_card_vs_cpu(dev, VLM_ARCH)
+    stages.mark("smoke card vs CPU")
+
+    out = {"arch": VLM_ARCH, "family": cfg.family, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab, "padded_vocab": cfg.padded_vocab,
+           "mrope_sections": list(cfg.mrope_sections), "reduced": "none",
+           "sequences": b, "prompt_len": s, "prompt": "patch embeddings",
+           "max_new": new, "start_device_bytes": start_bytes,
+           "launcher": launcher, "freeze": freeze, "ecl_quant": ecl_row,
+           "mrope": mrope, "prefill_ms": timing["prefill_ms"],
+           "decode_ms_per_step": timing["decode_ms"],
+           "prefill_peak_device_bytes": timing["prefill_peak_bytes"],
+           "decode_peak_device_bytes": timing["decode_peak_bytes"],
+           "decode_step_trace": trace, "kv_bytes_per_token_sequence": kv_token,
+           "layer0_steps_vs_sequence_max_rel": steps_rel,
+           "cached_vs_no_cache_logits_max_rel": stack_rel,
+           "cached_vs_no_cache_prompt_len": short,
+           "smoke_card_vs_cpu": smoke, "tokens_0": tokens_0,
+           "stage_s": stages.seconds, "wall_s": time.perf_counter() - t_arch}
+    gb = 1e-9
+    print(f"phase 13: {VLM_ARCH} frozen in {freeze['ms']:.1f} ms "
+          f"({freeze['ecl_quant_launches']} ecl_quant launches, "
+          f"{freeze['segments']} segments, {freeze['quant_weights']:,} "
+          f"elements; ECL device {ecl_row['device_ms']:.2f} ms "
+          f"[{ecl_row['device_ms_from']}] against a "
+          f"{ecl_row['bound_ms']:.3f} ms byte bound, "
+          f"{ecl_row['codes_only_bound_ms']:.3f} codes-only), peak "
+          f"{freeze['peak_device_bytes'] * gb:.1f} GB; M-RoPE == RoPE bitwise "
+          f"to position {s + new - 1} ({gpu})")
+    print(f"phase 13: {VLM_ARCH} prefill of {b} x {s} patch embeddings "
+          f"{timing['prefill_ms']:.1f} ms (peak "
+          f"{timing['prefill_peak_bytes'] * gb:.1f} GB), decode "
+          f"{timing['decode_ms']:.2f} ms/step (CUDA events; host clock "
+          f"{trace['wall_ms_per_step']:.2f}), device "
+          f"{trace['device_ms_per_step']:.2f} ms/step, "
+          f"{trace['device_ops_per_step']:.0f} device ops, idle "
+          f"{trace['device_idle_share']:.3f}; KV {kv_token:,} B a token a "
+          f"sequence; layer 0 steps vs sequence {steps_rel:.2e}, cached vs "
+          f"no-cache at {short} {stack_rel:.2e}, smoke card vs CPU "
+          f"{smoke['max_abs_logit_err']:.2e}; stages (s) "
+          f"{ {k: round(v, 1) for k, v in stages.seconds.items()} } ({gpu})")
+    return out
+
+
+def _whisper_serve_run(dev, cfg, frozen, frames, prompt, new):
+    """The reference's serving bodies on a frozen whisper tree: its
+    prefill (``whisper_encode``, ``precompute_cross``, ``init_dec_cache``
+    of ``MAX_TGT`` slots, ``whisper_decode`` of the ``prompt`` ids), then
+    ``new - 1`` cached greedy decode steps; fp32 compute and cache.
+    Returns the greedy picks (B, new), each step's last logits (B, new,
+    vocab), the cache and the cross K/V; on the card also encode, cross,
+    prompt and decode-step ms (CUDA events) and the peak device memory."""
+    import torch
+    from repro_torch.models import whisper as W
+    from repro_torch.nn.module import FP32_CTX
+
+    b, s = prompt.shape
+    on_card = dev.type == "cuda"
+    clock = [torch.cuda.Event(enable_timing=True) for _ in range(5)] \
+        if on_card else None
+
+    def mark(i):
+        if on_card:
+            clock[i].record()
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        mark(0)
+        enc = W.whisper_encode(frozen, 0, frames, FP32_CTX, cfg)
+        mark(1)
+        cross = W.precompute_cross(frozen, 0, enc, FP32_CTX, cfg)
+        mark(2)
+        del enc
+        cache = W.init_dec_cache(cfg, b, W.MAX_TGT, dtype=torch.float32,
+                                 device=dev)
+        logits, cache = W.whisper_decode(frozen, 0, prompt, cross, FP32_CTX,
+                                         cfg, cache=cache)
+        mark(3)
+        steps = [logits[:, -1, :cfg.vocab]]
+        toks = [torch.argmax(steps[-1], dim=-1)]
+        for t in range(new - 1):
+            p_t = torch.full((b, 1), s + t, dtype=torch.int32, device=dev)
+            logits, cache = W.whisper_decode(frozen, 0, toks[-1][:, None],
+                                             cross, FP32_CTX, cfg,
+                                             positions=p_t, cache=cache)
+            steps.append(logits[:, -1, :cfg.vocab])
+            toks.append(torch.argmax(steps[-1], dim=-1))
+        mark(4)
+    out = {"tokens": torch.stack(toks, dim=1).cpu().numpy(),
+           "logits": torch.stack(steps, dim=1), "cache": cache,
+           "cross": cross}
+    if on_card:
+        torch.cuda.synchronize(dev)
+        ms = [clock[i].elapsed_time(clock[i + 1]) for i in range(4)]
+        out.update(encode_ms=ms[0], cross_ms=ms[1], prompt_ms=ms[2],
+                   decode_ms=ms[3] / max(new - 1, 1),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def _whisper_smoke_card_vs_cpu(dev):
+    """whisper-base's smoke config from one CPU init, frozen on each
+    device, then the same utterances served (:func:`_whisper_serve_run`):
+    tokens equal, logits within SMOKE_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import qat
+    from repro_torch.models import whisper as W
+
+    cfg = get_config(AUDIO_ARCH).smoke()
+    rng = np.random.default_rng(AUDIO_SERVE["seed"])
+    frames = rng.standard_normal((2, cfg.enc_len, cfg.d_model),
+                                 dtype=np.float32)
+    prompt = rng.integers(0, cfg.vocab, (2, len(AUDIO_PROMPT)))
+    params = W.whisper_init(cfg, seed=AUDIO_SERVE["seed"], device="cpu")
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        p = tree.map_(lambda t: t.to(where), params)
+        frozen = qat.freeze_tree(p, qat.build_qstate(p), cfg.lam)
+        runs.append(_whisper_serve_run(
+            where, cfg, frozen, torch.from_numpy(frames).to(where),
+            torch.from_numpy(prompt).to(where), 8))
+    card, cpu = runs
+    got, want = card["logits"].cpu(), cpu["logits"]
+    err = float((got - want).abs().max())
+    if not np.array_equal(card["tokens"], cpu["tokens"]) or \
+            not torch.allclose(got, want, atol=SMOKE_TOL, rtol=SMOKE_TOL):
+        raise AssertionError(f"{cfg.name}: card tokens {card['tokens']} vs "
+                             f"CPU {cpu['tokens']}, logits off by {err}")
+    return {"tokens_equal": True, "max_abs_logit_err": err}
+
+
+def _audio_freeze(dev, cfg, seed):
+    """Phase 13's whisper freeze (:func:`_gated_freeze`): both stacks'
+    leaves; codes of encoder layer 0's q and of the last decoder layer's
+    cross v checked."""
+    from repro_torch.models import whisper as W
+    checks = [(None, ("enc_layers", "attn", "q", "kernel"), (0,)),
+              (None, ("dec_layers", "cross", "v", "kernel"),
+               (cfg.n_layers - 1,))]
+    want = cfg.n_enc_layers * AUDIO_LEAVES[0] + cfg.n_layers * AUDIO_LEAVES[1]
+    return _gated_freeze(dev, cfg, seed, want,
+                         "q, k, v, o, fc1, fc2 an encoder layer; and cross "
+                         "q, k, v, o a decoder layer", checks,
+                         init=W.whisper_init)
+
+
+def _audio_serve(dev, gpu):
+    """Phase 13, whisper-base: the gated freeze, then 8 utterances of
+    1,500 stubbed frames served in the reference's prefill and decode
+    bodies (the start-of-transcript prompt, 124 greedy tokens)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.models import whisper as W
+    from repro_torch.nn.module import FP32_CTX
+
+    t_arch = time.perf_counter()
+    stages = _Stages()
+    start_bytes = _empty_card(dev, f"phase 13 ({AUDIO_ARCH})")
+    cfg = get_config(AUDIO_ARCH)
+    b, new = AUDIO_SERVE["utterances"], AUDIO_SERVE["max_new"]
+    frozen, freeze, ecl_row = _audio_freeze(dev, cfg, AUDIO_SERVE["seed"])
+    segments = cfg.n_enc_layers * AUDIO_LEAVES[0] \
+        + cfg.n_layers * AUDIO_LEAVES[1]
+    if freeze["ecl_quant_launches"] != -(-segments // eq.MAX_SEGMENTS):
+        raise AssertionError(f"{freeze['ecl_quant_launches']} ecl_quant "
+                             f"launches for {segments} segments")
+    stages.mark("gated freeze and its timings")
+
+    g = torch.Generator(device=dev).manual_seed(AUDIO_SERVE["seed"])
+    frames = torch.randn((b, cfg.enc_len, cfg.d_model), generator=g,
+                         device=dev)
+    prompt = torch.tensor([AUDIO_PROMPT] * b, dtype=torch.int64).to(dev)
+    s = prompt.shape[1]
+    run = _whisper_serve_run(dev, cfg, frozen, frames, prompt, new)
+    if not bool(torch.isfinite(run["logits"]).all()):
+        raise AssertionError("non-finite logits")
+    if not (_on_card(frozen) and _on_card(run["cache"])
+            and _on_card(run["cross"])):
+        raise AssertionError("a frozen leaf, the cache or the cross K/V "
+                             "left the card")
+    cross_bytes = sum(t.numel() * t.element_size() for t in run["cross"]) // b
+    want_cross = cfg.n_layers * 2 * cfg.enc_len * cfg.n_kv \
+        * cfg.resolved_head_dim * 4
+    if cross_bytes != want_cross:
+        raise AssertionError(f"cross K/V {cross_bytes} B a sequence, "
+                             f"expected {want_cross}")
+    stages.mark("encode, cross, prompt and decode")
+
+    # the cached decode against a no-cache decode of the same prefix
+    fed = torch.cat([prompt, torch.from_numpy(run["tokens"][:, :-1]).to(dev)],
+                    dim=1)
+    with torch.no_grad():
+        full, none = W.whisper_decode(frozen, 0, fed, run["cross"], FP32_CTX,
+                                      cfg)
+    stack_rel = _rel(run["logits"], full[:, s - 1:, :cfg.vocab])
+    del full
+    if none is not None or stack_rel > AUDIO_STACK_REL:
+        raise AssertionError(f"cached decoder logits off a no-cache decode "
+                             f"by {stack_rel} relative")
+    stages.mark("cached vs no-cache")
+
+    cache, cross = run["cache"], run["cross"]
+    step_tok = torch.from_numpy(run["tokens"][:, -1:]).to(dev)
+    step_pos = torch.full((b, 1), s + new - 1, dtype=torch.int32, device=dev)
+
+    def decode_step():
+        with torch.no_grad():
+            return W.whisper_decode(frozen, 0, step_tok, cross, FP32_CTX,
+                                    cfg, positions=step_pos, cache=cache)
+
+    trace, _ = _step_trace(decode_step, dev, SSM_TIMED_STEPS, traced=1)
+    timing = {k: run[k] for k in ("encode_ms", "cross_ms", "prompt_ms",
+                                  "decode_ms", "peak_bytes")}
+    tokens_0 = run["tokens"][0].tolist()
+    del run, cache, cross, frozen, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages.mark("traced decode step")
+    smoke = _whisper_smoke_card_vs_cpu(dev)
+    stages.mark("smoke card vs CPU")
+
+    out = {"arch": AUDIO_ARCH, "family": cfg.family,
+           "enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab, "padded_vocab": cfg.padded_vocab,
+           "enc_len": cfg.enc_len, "max_tgt": W.MAX_TGT, "reduced": "none",
+           "utterances": b, "prompt": list(AUDIO_PROMPT), "max_new": new,
+           "start_device_bytes": start_bytes, "freeze": freeze,
+           "ecl_quant": ecl_row, "encode_ms": timing["encode_ms"],
+           "cross_ms": timing["cross_ms"], "prompt_ms": timing["prompt_ms"],
+           "decode_ms_per_step": timing["decode_ms"],
+           "peak_device_bytes": timing["peak_bytes"],
+           "decode_step_trace": trace, "cross_bytes_per_sequence": cross_bytes,
+           "cached_vs_no_cache_logits_max_rel": stack_rel,
+           "smoke_card_vs_cpu": smoke, "tokens_0": tokens_0,
+           "stage_s": stages.seconds, "wall_s": time.perf_counter() - t_arch}
+    gb = 1e-9
+    print(f"phase 13: {AUDIO_ARCH} frozen in {freeze['ms']:.1f} ms "
+          f"({freeze['ecl_quant_launches']} ecl_quant launches, "
+          f"{freeze['segments']} segments, {freeze['quant_weights']:,} "
+          f"elements; ECL device {ecl_row['device_ms']:.3f} ms "
+          f"[{ecl_row['device_ms_from']}] against a "
+          f"{ecl_row['bound_ms']:.4f} ms byte bound); {b} utterances x "
+          f"{cfg.enc_len} frames: encode {timing['encode_ms']:.1f} ms, cross "
+          f"K/V {timing['cross_ms']:.2f} ms ({cross_bytes:,} B a sequence), "
+          f"prompt {timing['prompt_ms']:.2f} ms, decode "
+          f"{timing['decode_ms']:.2f} ms/step (CUDA events; host clock "
+          f"{trace['wall_ms_per_step']:.2f}), device "
+          f"{trace['device_ms_per_step']:.2f} ms/step, "
+          f"{trace['device_ops_per_step']:.0f} device ops, idle "
+          f"{trace['device_idle_share']:.3f}; peak "
+          f"{timing['peak_bytes'] * gb:.2f} GB; cached vs no-cache "
+          f"{stack_rel:.2e}, smoke card vs CPU "
+          f"{smoke['max_abs_logit_err']:.2e}; stages (s) "
+          f"{ {k: round(v, 1) for k, v in stages.seconds.items()} } ({gpu})")
+    return out
+
+
+def vlm_audio_serve_path(dev, gpu):
+    """Phase 13: qwen2-vl-2b and whisper-base at their published widths
+    and depths, frozen to 4 bits on the card and served: the vlm from
+    patch embeddings through ``lm_apply(embeds=)``, whisper through the
+    reference's prefill and decode bodies."""
+    t_phase = time.perf_counter()
+    out = {VLM_ARCH: _vlm_serve(dev, gpu), AUDIO_ARCH: _audio_serve(dev, gpu)}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 13: done in {out['wall_s']:.1f} s ({gpu})")
+    return out
+
+
+# ------------------------------------------------------ phases 12 and 14
+
+TRAIN_RUNS = {   # each arch's run at published widths, and its smoke run
+    "mamba2-1.3b": dict(phase="12", batch=2, seq=2048, steps=4,
+                        smoke_seq=20, remat_depth=4),
+    "hymba-1.5b": dict(phase="12", batch=1, seq=2048, steps=3, smoke_seq=20),
+    VLM_ARCH: dict(phase="14", batch=1, seq=2048, steps=3, smoke_seq=12,
+                   remat_depth=2),
+    AUDIO_ARCH: dict(phase="14", batch=8, seq=448, steps=10, smoke_seq=8)}
+# remat_depth: the arch cut to it (widths kept) for a whole step under
+# full held to none's; an SSD smoke seq of 20 leaves a ragged chunk
+TRAIN_ALL = dict(seed=0, lr=1e-3, lam=0.05, lam_ramp=50, remat="full",
+                 prompts=2, prompt_len=16, max_new=8, smoke_batch=2)
+TRAIN_CARD_CPU_FWD = 1e-5    # smoke: the loss, card vs CPU
+TRAIN_CARD_CPU_GRAD = 1e-4   # smoke: the picked gradients, card vs CPU
+
+
+def _train_leaves(cfg):
+    """What phases 12 and 14 hold of ``cfg``'s tree: the quantized
+    segments it must have, the smoke gradients [(name, path from the
+    root)] and the ECL picks [(path, index)], the first layer's and the
+    last layer's."""
+    last = (cfg.n_layers - 1,)
+    if cfg.family in ("ssm", "hybrid"):
+        ssm = ("stacks", cfg.family, "ssm")
+        inp = ssm + ("in_proj", "kernel")
+        grads = [("in_proj_w", inp + ("w",)),
+                 ("in_proj_omega", inp + ("omega",)),
+                 ("conv_w", ssm + ("conv_w",)), ("A_log", ssm + ("A_log",)),
+                 ("dt_bias", ssm + ("dt_bias",))]
+        picks = [(inp, (0,)), (ssm + ("out_proj", "kernel"), last)]
+        segments = cfg.n_layers * SSM_LEAVES[cfg.family]
+    elif cfg.family == "vlm":
+        q = ("stacks", "dense", "attn", "q")
+        down = ("stacks", "dense", "mlp", "down", "kernel")
+        grads = [("q_w", q + ("kernel", "w")),
+                 ("q_omega", q + ("kernel", "omega")),
+                 ("q_bias", q + ("bias",)), ("down_w", down + ("w",)),
+                 ("embed", ("embed", "table"))]
+        picks = [(q + ("kernel",), (0,)), (down, last)]
+        segments = cfg.n_layers * VLM_LEAVES
+    else:
+        q = ("enc_layers", "attn", "q", "kernel")
+        cv = ("dec_layers", "cross", "v", "kernel")
+        grads = [("enc_q_w", q + ("w",)), ("enc_q_omega", q + ("omega",)),
+                 ("cross_v_w", cv + ("w",)),
+                 ("dec_fc1_bias", ("dec_layers", "mlp", "fc1", "bias")),
+                 ("dec_pos", ("dec_pos",))]
+        picks = [(q, (0,)), (cv, last)]
+        segments = cfg.n_enc_layers * AUDIO_LEAVES[0] \
+            + cfg.n_layers * AUDIO_LEAVES[1]
+    return segments, grads, picks
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _train_smoke_checks(dev, arch):
+    """At ``arch``'s smoke width on the card: one fp32 loss and the picked
+    gradients equal the CPU's from the same init; and the launcher
+    resumes bitwise under ``--remat full``."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import qat
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as T
+
+    seq = TRAIN_RUNS[arch]["smoke_seq"]
+    cfg = dataclasses.replace(get_config(arch).smoke(), lam=TRAIN_ALL["lam"])
+    if cfg.family in ("ssm", "hybrid") and seq % cfg.ssm_chunk == 0:
+        raise AssertionError("the smoke check wants a ragged last chunk")
+    params = T.lm_init(cfg, seed=TRAIN_ALL["seed"], device="cpu")
+    batch = T.lm_batch_fn(cfg, batch=TRAIN_ALL["smoke_batch"], seq=seq)(0)
+    loss_fn = steps_mod._loss_fn(cfg, dtype=torch.float32)
+    _, picked, _ = _train_leaves(cfg)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        p = tree.map_(lambda t: t.to(where).detach().requires_grad_()
+                      if t.is_floating_point() else t.to(where), params)
+        loss, _ = loss_fn(p, qat.build_qstate(p),
+                          pipeline.place(batch, device=where), cfg.lam)
+        grads = torch.autograd.grad(loss, [_at(p, path)
+                                           for _, path in picked])
+        runs.append((float(loss.detach()), [g.cpu() for g in grads]))
+    (lc, gc), (lh, gh) = runs
+    fwd_rel = abs(lc - lh) / abs(lh)
+    grad_rel = {name: _rel(a, b) for (name, _), a, b in zip(picked, gc, gh)}
+    if fwd_rel > TRAIN_CARD_CPU_FWD or \
+            max(grad_rel.values()) > TRAIN_CARD_CPU_GRAD:
+        raise AssertionError(f"{arch} smoke card vs CPU: loss {fwd_rel}, "
+                             f"gradients {grad_rel}")
+    return {"card_vs_cpu_loss_rel": fwd_rel,
+            "card_vs_cpu_grad_max_rel": grad_rel, "loss_card": lc,
+            "loss_cpu": lh,
+            "launcher_resume": _launcher_resume(arch, seq, "full")}
+
+
+def _train_grads(dev, cfg, state, batch, lam, remat):
+    """The loss at λ ``lam`` and every gradient from ``state`` under
+    ``remat``, once: the loss, a digest of the gradients, whether all are
+    finite, the ecl_quant launches, and the peak device memory after the
+    forward and after the backward."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import steps as steps_mod
+
+    leaves = [t.detach().requires_grad_() if t.is_floating_point() else t
+              for t in tree.leaves(state["params"])]
+    params = tree.unflatten(state["params"], leaves)
+    wants = [t for t in leaves if t.requires_grad]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = eq.LAUNCHES
+    loss, _ = steps_mod._loss_fn(cfg, remat=remat)(params, state["qstate"],
+                                                   batch, lam)
+    peak_fwd = torch.cuda.max_memory_allocated(dev)
+    grads = torch.autograd.grad(loss, wants)
+    peak_bwd = torch.cuda.max_memory_allocated(dev)
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    out = {"loss": loss.detach(), "launches": eq.LAUNCHES - before,
+           "digest": _digest(list(grads)), "gradients": len(grads),
+           "finite": bool(finite), "peak_forward_bytes": peak_fwd,
+           "peak_backward_bytes": peak_bwd}
+    del grads, leaves, params, wants
+    return out
+
+
+def _train_serve_check(dev, cfg, frozen, served):
+    """The same greedy tokens from the exported tree ``served`` and from
+    ``frozen`` (``freeze_tree``'s): token prompts through ``lm_apply``, or
+    for whisper frames and prompts through its serving bodies; returns the
+    export's tokens of sequence 0."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(TRAIN_ALL["seed"])
+    b, new = TRAIN_ALL["prompts"], TRAIN_ALL["max_new"]
+    prompts = rng.integers(0, cfg.vocab, (b, TRAIN_ALL["prompt_len"]))
+    if cfg.family == "audio":
+        frames = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_len, cfg.d_model), dtype=np.float32)).to(dev)
+        prompt = torch.from_numpy(prompts[:, :len(AUDIO_PROMPT)]).to(dev)
+        runs = [_whisper_serve_run(dev, cfg, t, frames, prompt, new)
+                for t in (served, frozen)]
+    else:
+        runs = [_lm_direct(dev, cfg, t, prompts, new)
+                for t in (served, frozen)]
+    if not (np.array_equal(runs[0]["tokens"], runs[1]["tokens"])
+            and bool(torch.isfinite(runs[0]["logits"]).all())):
+        raise AssertionError(f"{cfg.name}: the export's tokens != "
+                             "freeze_tree's")
+    return runs[0]["tokens"][0].tolist()
+
+
+def _train_one(dev, gpu, arch):
+    """Phase 12 or 14 for one arch: EC4T-train at published widths and
+    depths through the launcher's functions, export; then the gates from
+    the last step's input state."""
     import dataclasses
     import gc
     import tempfile
@@ -5278,28 +5922,22 @@ def _ssm_train_one(dev, gpu, arch):
     from repro_torch import tree
     from repro_torch.checkpoint.manager import (_paths, export_quantized,
                                                 frozen_tree, load_quantized)
-    from repro_torch.configs import get_config
     from repro_torch.core import ecl, qat
     from repro_torch.data import pipeline
     from repro_torch.kernels import ecl_quant as eq
     from repro_torch.launch import train as T
-    from repro_torch.nn import transformer as TT
     from repro_torch.optim import ec4t, schedule
     from repro_torch.runtime.fault import FaultTolerantLoop
 
     t_arch = time.perf_counter()
     stages = _Stages()
-    gc.collect()
-    torch.cuda.empty_cache()
-    start_bytes = torch.cuda.memory_allocated(dev)
-    if start_bytes > EMPTY_CARD_BYTES:
-        raise AssertionError(f"phase 12 ({arch}) starts with "
-                             f"{start_bytes / 1e9:.2f} GB allocated")
-    run_cfg = {**SSM_TRAIN_ALL, **SSM_TRAIN[arch]}
+    run_cfg = {**TRAIN_ALL, **TRAIN_RUNS[arch]}
+    phase = run_cfg["phase"]
+    start_bytes = _empty_card(dev, f"phase {phase} ({arch})")
     cfg = T.lm_config(arch, lam=run_cfg["lam"])
-    kind, steps = cfg.family, run_cfg["steps"]
-    remat = run_cfg["remat"]
-    smoke = _ssm_train_smoke_checks(dev, arch)
+    steps, remat = run_cfg["steps"], run_cfg["remat"]
+    want_segments, _, pick_paths = _train_leaves(cfg)
+    smoke = _train_smoke_checks(dev, arch)
 
     def step_fn_for(c, r):
         return T.lm_step_fn(c, steps=steps, lr=run_cfg["lr"],
@@ -5307,52 +5945,48 @@ def _ssm_train_one(dev, gpu, arch):
                             lam_ramp=run_cfg["lam_ramp"], remat=r)
     step_fn = step_fn_for(cfg, remat)
     batch_fn = T.lm_batch_fn(cfg, batch=run_cfg["batch"], seq=run_cfg["seq"])
-    remat_check = None
-    if kind == "ssm":
+    remat_check, depth = None, run_cfg.get("remat_depth")
+    if depth is not None:
         # a whole step under none and under full from one state at full
-        # width, cut in depth: the full depth does not fit under none
-        cut = dataclasses.replace(cfg, n_layers=SSM_REMAT_DEPTH)
-        st = ec4t.init_train_state(TT.lm_init(cut, seed=run_cfg["seed"],
-                                              device=dev))
+        # width, cut in depth (mamba2's full depth does not fit under none)
+        cut = dataclasses.replace(cfg, n_layers=depth)
+        st = ec4t.init_train_state(T.lm_init(cut, seed=run_cfg["seed"],
+                                             device=dev))
         b0 = pipeline.place(batch_fn(0), device=dev)
         news = {r: step_fn_for(cut, r)(st, b0) for r in ("none", "full")}
-        same = torch.equal(_digest(news["none"][0]),
-                           _digest(news["full"][0])) and float(
-            news["none"][1]["loss"]) == float(news["full"][1]["loss"])
-        if not same:
-            raise AssertionError(f"{arch} at depth {SSM_REMAT_DEPTH}: a "
-                                 "step under remat full != under none")
-        remat_check = {"depth": SSM_REMAT_DEPTH,
-                       "loss": float(news["none"][1]["loss"]),
+        if not (torch.equal(_digest(news["none"][0]),
+                            _digest(news["full"][0]))
+                and float(news["none"][1]["loss"])
+                == float(news["full"][1]["loss"])):
+            raise AssertionError(f"{arch} at depth {depth}: a step under "
+                                 "remat full != under none")
+        remat_check = {"depth": depth, "loss": float(news["none"][1]["loss"]),
                        "whole_step_bitwise": True}
         del st, b0, news
         gc.collect()
         torch.cuda.empty_cache()
 
-    state = ec4t.init_train_state(TT.lm_init(cfg, seed=run_cfg["seed"],
-                                             device=dev))
+    state = ec4t.init_train_state(T.lm_init(cfg, seed=run_cfg["seed"],
+                                            device=dev))
     params_n = sum(t.numel() for t in tree.leaves(state["params"])
                    if t.is_floating_point())
-    stacks_p = state["params"]["stacks"]
-    stacks_q = state["qstate"]["stacks"]
-    nodes = list(qat._quant_leaves(stacks_p, stacks_q))
+    nodes = list(qat._quant_leaves(state["params"], state["qstate"]))
     segments = sum(n["omega"][..., 0].numel() for n, _ in nodes)
     elements = sum(n["w"].numel() for n, _ in nodes)
     per_pass = -(-segments // eq.MAX_SEGMENTS)
-    if segments != cfg.n_layers * SSM_LEAVES[kind]:
+    if segments != want_segments:
         raise AssertionError(f"{segments} ECL segments, expected "
-                             f"{SSM_LEAVES[kind]} a layer")
+                             f"{want_segments}")
     order = qat._map_quant_many(lambda ns, qs: list(range(len(ns))),
-                                stacks_p, stacks_q, keep_params=True)
-    picks = [(order[kind]["ssm"]["in_proj"]["kernel"], (0,)),
-             (order[kind]["ssm"]["out_proj"]["kernel"], (cfg.n_layers - 1,))]
+                                state["params"], state["qstate"],
+                                keep_params=True)
+    picks = [(_at(order, path), idx) for path, idx in pick_paths]
     checked_calls = (0, ECL_PASSES_PER_STEP * steps - 2)
     del order, nodes
     # one grouped pass timed on the initial state (its work does not
     # depend on the values), before the main path's counters are zeroed
-    ecl_row = _share_ecl_pass(dev, stacks_p, stacks_q, cfg.lam, segments,
-                              per_pass)
-    del stacks_p, stacks_q
+    ecl_row = _share_ecl_pass(dev, state["params"], state["qstate"], cfg.lam,
+                              segments, per_pass)
     state_bytes = sum(t.numel() * t.element_size()
                       for t in tree.leaves(state))
 
@@ -5368,7 +6002,7 @@ def _ssm_train_one(dev, gpu, arch):
         metrics_every=1, on_metrics=lambda s, m: history.append(
             {"step": s, **{k: float(v) for k, v in m.items()}}))
     stages.mark("smoke checks, the remat check, the ECL pass timed")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         export_dir = os.path.join(tmp, "export")
         # the main path: counters zeroed just before, read just after
         torch.cuda.synchronize(dev)
@@ -5415,7 +6049,7 @@ def _ssm_train_one(dev, gpu, arch):
         lam_last = schedule.lambda_ramp(s_last["opt"]["step"],
                                         lam=run_cfg["lam"],
                                         ramp_steps=run_cfg["lam_ramp"])
-        runs = [_ssm_grads(dev, cfg, s_last, b_last, lam_last, remat)
+        runs = [_train_grads(dev, cfg, s_last, b_last, lam_last, remat)
                 for _ in range(2)]
         if not (all(r["finite"] for r in runs)
                 and torch.equal(runs[0]["digest"], runs[1]["digest"])
@@ -5445,9 +6079,11 @@ def _ssm_train_one(dev, gpu, arch):
         if trace["host_syncs_per_step"]:
             raise AssertionError(f"host synchronisations inside a step: "
                                  f"{trace['host_syncs_per_step']}")
-        ssd_times = _ssd_block_times(dev, cfg, run_cfg["batch"],
-                                     run_cfg["seq"])
-        stages.mark("traced steps, SSD block times")
+        ssd_times = None
+        if cfg.family in ("ssm", "hybrid"):
+            ssd_times = _ssd_block_times(dev, cfg, run_cfg["batch"],
+                                         run_cfg["seq"])
+        stages.mark("traced steps")
 
         # the export loaded back == freeze_tree, and served alike; last,
         # on a card holding only the frozen tree: decoding a leaf's
@@ -5465,31 +6101,22 @@ def _ssm_train_one(dev, gpu, arch):
                 for k in want):
             raise AssertionError(f"{arch}: the loaded export != "
                                  "freeze_tree's tree")
-        prompts = np.random.default_rng(run_cfg["seed"]).integers(
-            0, cfg.vocab, (run_cfg["prompts"], run_cfg["prompt_len"]))
-        serve_export = _lm_direct(dev, cfg, served, prompts,
-                                  run_cfg["max_new"])
-        serve_freeze = _lm_direct(dev, cfg, frozen, prompts,
-                                  run_cfg["max_new"])
-        if not (np.array_equal(serve_export["tokens"],
-                               serve_freeze["tokens"])
-                and bool(torch.isfinite(serve_export["logits"]).all())):
-            raise AssertionError(f"{arch}: the export's tokens != "
-                                 "freeze_tree's")
+        del want, got
+        served_tokens = _train_serve_check(dev, cfg, frozen, served)
         export_bytes = os.path.getsize(os.path.join(export_dir,
                                                     "export.npz"))
-        del served, frozen, want, got, serve_freeze
-        serve_export.pop("cache")
+        del served, frozen
         stages.mark("export loaded and served")
 
     adam_bound = ADAM_BYTES_PER_PARAM * params_n / PEAK_BYTES * 1e3
     pass_bound = ecl_row["bound_ms"]
-    out = {**run_cfg, "arch": arch, "family": kind, "layers": cfg.n_layers,
-           "published_layers": get_config(arch).n_layers,
+    out = {**run_cfg, "arch": arch, "family": cfg.family,
+           "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab,
-           "compute_dtype": "bfloat16", "params": params_n,
-           "quant_weights": elements, "ecl_segments": segments,
-           "state_bytes": state_bytes, "losses": losses,
+           "compute_dtype": "bfloat16", "reduced": "none",
+           "params": params_n, "quant_weights": elements,
+           "ecl_segments": segments, "state_bytes": state_bytes,
+           "start_device_bytes": start_bytes, "losses": losses,
            "train_wall_s": train_s, "ecl_quant_launches": step_launches,
            "ecl_quant_launches_export": export_launches,
            "ecl_quant_launches_per_pass": per_pass,
@@ -5505,39 +6132,40 @@ def _ssm_train_one(dev, gpu, arch):
            "export_compression_ratio": report["compression_ratio"],
            "export_ms": export_ms, "export_load_ms": load_ms,
            "export_load_peak_device_bytes": load_peak,
-           "served_tokens_0": serve_export["tokens"][0].tolist(),
-           "smoke": smoke, "stage_s": stages.seconds,
-           "wall_s": time.perf_counter() - t_arch}
+           "served_tokens_0": served_tokens, "smoke": smoke,
+           "stage_s": stages.seconds, "wall_s": time.perf_counter() - t_arch}
     gb = 1e-9
     st = trace["peak_device_memory_bytes_by_stage"]
-    print(f"phase 12: {arch} EC4T-trained {steps} steps at batch "
+    print(f"phase {phase}: {arch} EC4T-trained {steps} steps at batch "
           f"{run_cfg['batch']} x seq {run_cfg['seq']} (bf16, remat {remat},"
-          f" {cfg.n_layers} layers, {params_n / 1e9:.3f} B parameters): "
+          f" {cfg.n_layers} layers, {params_n / 1e9:.4f} B parameters): "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {step_launches} "
           f"ecl_quant launches ({per_pass} a pass, {segments} segments, "
           f"{elements:,} elements) + {export_launches} in the export; the "
           f"backward twice bitwise, {grads['gradients']} gradients finite"
-          + (f"; a whole step under full == none at depth "
-             f"{SSM_REMAT_DEPTH}" if remat_check else "")
+          + (f"; a whole step under full == none at depth {depth}"
+             if remat_check else "")
           + f"; export == freeze_tree, tokens equal ({gpu})")
-    print(f"phase 12: {arch} {trace['ms_per_step']:.1f} ms/step, device "
+    print(f"phase {phase}: {arch} {trace['ms_per_step']:.1f} ms/step, device "
           f"{trace['device_ms_per_step']:.1f} ms/step, idle "
           f"{trace['device_idle_share']:.3f}, "
           f"{trace['device_ops_per_step']:.0f} device ops; ECL pass "
           f"{ecl_row['device_ms']:.3f} ms ({ecl_row['device_ms_from']}) "
-          f"against {pass_bound:.3f} (bytes); adam.apply "
+          f"against {pass_bound:.4f} (bytes); adam.apply "
           f"{_ms(trace['adam_apply_device_ms_per_step'])} ms against "
           f"{adam_bound:.2f}; FakeQuantGroup.backward "
           f"{_ms(trace['fake_quant_backward_device_ms_per_step'])} ms; "
           f"update_qstate {_ms(trace['update_qstate_device_ms_per_step'])} "
-          f"ms; SSD block forward {ssd_times['forward_device_ms']:.2f} ms, "
-          f"backward {ssd_times['backward_device_ms']:.2f} ms a layer "
-          f"({gpu})")
-    print(f"phase 12: {arch} peak memory: main path {peak_train * gb:.1f} GB;"
-          f" in a step forward {st.get('forward', 0) * gb:.1f}, backward "
+          "ms"
+          + (f"; SSD block forward {ssd_times['forward_device_ms']:.2f} ms, "
+             f"backward {ssd_times['backward_device_ms']:.2f} ms a layer"
+             if ssd_times else "") + f" ({gpu})")
+    print(f"phase {phase}: {arch} peak memory: main path "
+          f"{peak_train * gb:.1f} GB; in a step forward "
+          f"{st.get('forward', 0) * gb:.1f}, backward "
           f"{st.get('backward', 0) * gb:.1f}, adam {st.get('adam', 0) * gb:.1f}"
           f", update {st.get('update_qstate', 0) * gb:.1f}; export "
-          f"{export_bytes * gb:.3f} GB ({report['compression_ratio']:.2f}x) "
+          f"{export_bytes * gb:.4f} GB ({report['compression_ratio']:.2f}x) "
           f"in {export_ms:.0f} ms, loaded in {load_ms:.0f} ms (peak "
           f"{load_peak * gb:.1f} GB); stages (s) "
           f"{ {k: round(v, 1) for k, v in stages.seconds.items()} }; smoke card "
@@ -5552,9 +6180,21 @@ def ssm_train_path(dev, gpu):
     2,048) at published widths and depths in bf16 under remat full,
     through the launcher's functions."""
     t_phase = time.perf_counter()
-    out = {arch: _ssm_train_one(dev, gpu, arch) for arch in SSM_ARCHS}
+    out = {arch: _train_one(dev, gpu, arch) for arch in SSM_ARCHS}
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 12: done in {out['wall_s']:.1f} s ({gpu})")
+    return out
+
+
+def vlm_audio_train_path(dev, gpu):
+    """Phase 14: EC4T-train qwen2-vl-2b (1 x 2,048 patch embeddings) and
+    whisper-base (8 x (1,500 frames, 448 tokens)) at published widths and
+    depths in bf16, through the launcher's functions."""
+    t_phase = time.perf_counter()
+    out = {arch: _train_one(dev, gpu, arch) for arch in (VLM_ARCH,
+                                                         AUDIO_ARCH)}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 14: done in {out['wall_s']:.1f} s ({gpu})")
     return out
 
 
@@ -5607,7 +6247,16 @@ def kernels_report(r):
                              **{f"ssm_train {a}": r["ssm_train"][a][
                                  "ecl_quant_launches"] + r["ssm_train"][a][
                                  "ecl_quant_launches_export"]
-                                for a in SSM_ARCHS}},
+                                for a in SSM_ARCHS},
+                             f"vlm {VLM_ARCH}": r["vlm_audio"][VLM_ARCH][
+                                 "launcher"]["ecl_quant_launches"],
+                             f"audio {AUDIO_ARCH}": r["vlm_audio"][
+                                 AUDIO_ARCH]["freeze"]["ecl_quant_launches"],
+                             **{f"vlm_audio_train {a}": r["vlm_audio_train"][
+                                 a]["ecl_quant_launches"] + r[
+                                 "vlm_audio_train"][a][
+                                 "ecl_quant_launches_export"]
+                                for a in (VLM_ARCH, AUDIO_ARCH)}},
         "max_abs_err": r["ecl_err"],
         "ms": head["ms"], "kernel_ms": head["ms"],
         "device_ms": head["device_ms"],
@@ -5628,17 +6277,21 @@ def kernels_report(r):
            for name, key in (("grok_share_training", "moe_train"),
                              ("smollm_training", "lm_train"),
                              ("deepseek_share_training", "mla_train"))},
-        **{f"{a}_training": {"pass": r["ssm_train"][a]["ecl_quant_pass"],
-                             **{k: r["ssm_train"][a][k] for k in (
+        **{f"{a}_freeze": r["vlm_audio"][a]["ecl_quant"]
+           for a in (VLM_ARCH, AUDIO_ARCH)},
+        **{f"{a}_training": {"pass": r[key][a]["ecl_quant_pass"],
+                             **{k: r[key][a][k] for k in (
                                  "ecl_quant_device_ms_per_step",
                                  "ecl_quant_bound_ms_per_step",
                                  "quant_weights")}}
-           for a in SSM_ARCHS}})
+           for key, archs in (("ssm_train", SSM_ARCHS),
+                              ("vlm_audio_train", (VLM_ARCH, AUDIO_ARCH)))
+           for a in archs}})
     return report
 
 
 PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10", "11",
-          "12")
+          "12", "13", "14")
 
 
 def parse_phases(argv):
@@ -5717,7 +6370,10 @@ def main(argv=None) -> int:
              ("9", "mla", lambda: mla_serve_path(dev, gpu)),
              ("10", "mla_train", lambda: mla_train_path(dev, gpu)),
              ("11", "ssm", lambda: ssm_serve_path(dev, gpu)),
-             ("12", "ssm_train", lambda: ssm_train_path(dev, gpu)))
+             ("12", "ssm_train", lambda: ssm_train_path(dev, gpu)),
+             ("13", "vlm_audio", lambda: vlm_audio_serve_path(dev, gpu)),
+             ("14", "vlm_audio_train",
+              lambda: vlm_audio_train_path(dev, gpu)))
     for phase, key, run in steps:
         if phase in phases:
             r[key] = run()
@@ -5726,7 +6382,8 @@ def main(argv=None) -> int:
         print(json.dumps({"grid": r["grid"], "contract_floor": r["floor"]}))
         print(json.dumps({"kernels": kernels_report(r)}))
     for key in ("path", "train", "frontend", "lm", "lm_train", "moe",
-                "moe_train", "mla", "mla_train", "ssm", "ssm_train"):
+                "moe_train", "mla", "mla_train", "ssm", "ssm_train",
+                "vlm_audio", "vlm_audio_train"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "

@@ -8,6 +8,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --layers 1
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b --smoke --device cpu
 
 Initialises the MLP from a seed, freezes it to the packed 4-bit pack,
 resolves an ``ExecutionPlan`` (mode, row tile, int8 calibration, bucket ->
@@ -20,9 +21,11 @@ the micro-batcher and checks the result against the batch; ``--engine
 ``--multi`` co-serves more frozen packs, and the integrity, cold-tier,
 fault-injection and stream flags follow the JAX package's launcher.
 
-An LM arch of the dense, moe, ssm or hybrid family (``--arch
+An LM arch of the dense, moe, ssm, hybrid or vlm family (``--arch
 smollm-360m``, ``grok-1-314b``, ``deepseek-v3-671b`` with its latent
-attention, ``mamba2-1.3b``, ``hymba-1.5b``; ``--smoke`` for the reduced
+attention, ``mamba2-1.3b``, ``hymba-1.5b``, ``qwen2-vl-2b`` with its
+M-RoPE, served from token prompts as the reference's launcher serves
+it; ``--smoke`` for the reduced
 config, ``--layers N`` to cut the depth at the published widths) runs
 ``lm_init`` -> ``build_qstate`` -> ``freeze_tree``, then a prefill of
 ``--batch`` prompts of ``--prompt-len`` ids and ``--max-new`` greedy
@@ -34,9 +37,11 @@ the same prompts through an ``LMProgram`` registered in a
 ``ServingFrontend`` (each sequence prefilled, then lockstep decode rows)
 and checks its tokens against ``LMProgram.generate`` bit for bit;
 ``LMProgram`` serves the dense family only, so another family exits
-there with its message, as the JAX launcher does.  The vlm and audio
-families raise ``NotImplementedError`` (ROADMAP queue 1 items 8.4 and
-8.5).
+there with its message, as the JAX launcher does.  The audio family
+(whisper-base, an encoder-decoder) exits with the JAX launcher's message:
+it is served by driving ``models/whisper.py`` (``whisper_encode``,
+``precompute_cross``, ``init_dec_cache``, ``whisper_decode``), as
+``chip_smoke.py`` phase 13 does.
 
 :func:`serve_lm_config` serves a config its caller hands it, such as one
 card's share of an expert-parallel deployment
@@ -344,17 +349,14 @@ def serve_mlp_async(args, cfg, plan, x, y_ref):
         np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 
 
+ENC_DEC_MESSAGE = "use examples/serve_whisper-style driving for enc-dec"
+
+
 def lm_archs() -> list:
-    """The registered archs the port's LM path serves: the dense, moe
-    (MLA included), ssm and hybrid families."""
-    served = []
-    for name in list_configs():
-        try:
-            T.check_supported(get_config(name))
-        except NotImplementedError:
-            continue
-        served.append(name)
-    return served
+    """The registered archs the launcher's LM path serves: every family
+    but audio (an encoder-decoder, :data:`ENC_DEC_MESSAGE`)."""
+    return [name for name in list_configs()
+            if get_config(name).family != "audio"]
 
 
 def lm_config(args):
@@ -363,6 +365,8 @@ def lm_config(args):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if cfg.family == "audio":
+        raise SystemExit(ENC_DEC_MESSAGE)
     T.check_supported(cfg)
     if args.layers is not None:
         if args.layers > cfg.n_layers:
@@ -437,6 +441,8 @@ def _lm_description(cfg) -> str:
             body += f" (experts {first}-{first + count - 1} held)"
         if cfg.mla is not None:
             body += f", MLA (kv_lora {cfg.mla.kv_lora_rank})"
+        if cfg.mrope_sections is not None:
+            body += f", M-RoPE sections {tuple(cfg.mrope_sections)}"
         if cfg.family == "hybrid":
             body += (f", {cfg.n_heads} heads (kv {cfg.n_kv}) beside "
                      f"{cfg.ssm_heads} SSM heads, state {cfg.ssm_state}, "
@@ -547,9 +553,9 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mlp-gsc",
                     choices=sorted(MLPS) + list_configs(),
-                    help="a paper MLP or an LM arch; the port serves "
-                    f"{', '.join(lm_archs())} (the others raise "
-                    "NotImplementedError)")
+                    help="a paper MLP or an LM arch: "
+                    f"{', '.join(lm_archs())} (an audio arch, an "
+                    "encoder-decoder, exits with the reference's message)")
     ap.add_argument("--smoke", action="store_true",
                     help="LM archs: the reduced same-family config")
     ap.add_argument("--layers", type=int, default=None, metavar="N",

@@ -1,9 +1,10 @@
 """The LM train step's loss (the JAX package's ``launch/steps.py``
-``_loss_fn``): ``lm_forward_loss`` under a ``QuantCtx`` that fake-
-quantizes every quantized leaf when the arch quantizes, in the
-reference's bf16 compute dtype unless the caller names another, with the
-layer body rematerialised as ``remat`` says (``none``, ``full`` or
-``dots``: ``nn/transformer.py`` ``lm_apply``).
+``_loss_fn``): ``lm_forward_loss``, or ``whisper_forward_loss`` for the
+audio family, under a ``QuantCtx`` that fake-quantizes every quantized
+leaf when the arch quantizes, in the reference's bf16 compute dtype
+unless the caller names another, with the layer body rematerialised as
+``remat`` says (``none``, ``full`` or ``dots``: ``nn/transformer.py``
+``lm_apply``; whisper's forward ignores it, as the reference's does).
 
 The reference's step bundles over a mesh (``build_train_step``,
 ``build_prefill_step``, ``build_decode_step``) wait for ROADMAP queue 1
@@ -17,6 +18,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..models import lm as lm_model
+from ..models import whisper as W
 from ..nn.module import QuantCtx
 from ..nn.transformer import check_remat, check_supported
 
@@ -31,11 +33,12 @@ def _loss_fn(cfg: ArchConfig, mesh=None, remat: str = "none",
         raise NotImplementedError(
             "a loss over a mesh is not ported yet (ROADMAP queue 1 item 6, "
             "scale-out); pass mesh=None")
-    check_supported(cfg)     # dense, moe (GQA or MLA), ssm and hybrid
+    check_supported(cfg)
     check_remat(remat)
+    audio = cfg.family == "audio"
 
     def loss(params, qstate, batch, lam):
         ctx = QuantCtx(quant=cfg.quantize, lam=lam, compute_dtype=dtype)
-        return lm_model.lm_forward_loss(params, qstate, batch, ctx, cfg,
-                                        remat=remat)
+        fwd = W.whisper_forward_loss if audio else lm_model.lm_forward_loss
+        return fwd(params, qstate, batch, ctx, cfg, remat=remat)
     return loss

@@ -11,6 +11,10 @@ transformer LM (the JAX package's ``launch/train.py``):
         --device cpu --steps 3 --remat full
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --smoke \
         --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-2b --smoke \
+        --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base --smoke \
+        --device cpu --steps 3
 
 **MLP branch** (``--arch mlp-gsc``, ``mlp-hr``, ``lenet-300-100``): the
 MLP trainer of the JAX package (``benchmarks/common.py`` ``train_mlp``,
@@ -22,10 +26,12 @@ accuracy, sparsity and entropy and ms per step, freezes the net
 it against the eval-mode forward (``atol=rtol=1e-2``, as
 ``examples/train_mlp_gsc.py:54``).
 
-**LM branch** (every arch of the dense and moe families, with GQA or
-MLA, and of the ssm (mamba2-1.3b) and hybrid (hymba-1.5b) families,
-``--smoke`` for the reduced config; a MoE arch adds ``aux_loss_coef``
-times its load-balance loss, as the reference does): config → ``lm_init`` →
+**LM branch** (every registered LM arch: the dense and moe families,
+with GQA or MLA, the ssm (mamba2-1.3b), hybrid (hymba-1.5b), vlm
+(qwen2-vl-2b) and audio (whisper-base) families, ``--smoke`` for the
+reduced config; a MoE arch adds ``aux_loss_coef`` times its load-balance
+loss, as the reference does): config → ``lm_init`` (``whisper_init`` for
+audio) →
 ``ec4t.init_train_state`` → the EC4T step
 (``launch/steps.py`` loss in bf16, λ ramped over ``--lam-ramp`` steps,
 Adam with a warmup-cosine learning rate) → ``ShardedFeed`` (step-seeded
@@ -44,11 +50,14 @@ each KV chunk's inputs and carries, and re-forms the chunk's scores in
 the backward (``nn/attention.py``).  An SSD block (``nn/ssm.py``) pads
 a sequence to a multiple of its chunk (``ssm_chunk``, 256 at the
 published widths) and computes the padding too, so ``--seq`` is best a
-multiple of it.  The vlm and audio families raise
-``NotImplementedError`` (ROADMAP queue 1 items 8.4 and 8.5).  A
-published MoE arch trains every expert on one device; one device's share
-of an expert-parallel deployment (``ArchConfig.experts_held``) is set by
-a caller, not by a flag.
+multiple of it.  A vlm batch holds the stubbed vision frontend's patch
+embeddings (batch, seq, d_model) and labels, no tokens; an audio batch
+adds the stubbed conv frontend's frame embeddings (batch, ``enc_len``,
+d_model) to its decoder tokens, whose ``--seq`` may not pass whisper's
+``MAX_TGT`` = 448 (:func:`lm_batch_fn`).  A published MoE arch trains
+every expert on one device; one device's share of an expert-parallel
+deployment (``ArchConfig.experts_held``) is set by a caller, not by a
+flag.
 
 In both branches every step's fake-quant forward and EMA probability
 update each quantize every quantized tensor in one grouped call of the
@@ -57,8 +66,9 @@ of the hand-written CUDA kernel (SmolLM-360M: 224 segments, 7 launches;
 one card's share of a Grok-1 layer, q, k, v, o and 3 banks x 2 experts:
 10 segments, 1 launch; one GPU's share of DeepSeek-V3 at depth 2, 28
 segments, 1 launch; mamba2-1.3b's 48 x 2 projections, 3 launches;
-hymba-1.5b's 32 x 9, 9 launches), on ``--device cpu`` its plain
-version.  Defaults differ by branch
+hymba-1.5b's 32 x 9, 9 launches; qwen2-vl-2b's 28 x 7, 7 launches;
+whisper-base's encoder and decoder, 6 x 6 + 6 x 10, 3 launches), on
+``--device cpu`` its plain version.  Defaults differ by branch
 (:data:`MLP_DEFAULTS`, :data:`LM_DEFAULTS`).
 """
 from __future__ import annotations
@@ -81,6 +91,7 @@ from ..configs.paper_mlps import MLPS, MLPConfig
 from ..core import qat
 from ..data import pipeline, synthetic
 from ..models import mlp as M
+from ..models import whisper as W
 from ..nn import transformer as T
 from ..nn.module import QuantCtx
 from ..optim import adam, ec4t, schedule
@@ -210,8 +221,7 @@ def serving_check(cfg: MLPConfig, params, qstate, bn, pack, lam: float,
 
 def lm_config(arch: str, *, smoke: bool = False,
               lam: float = LM_DEFAULTS["lam"]) -> ArchConfig:
-    """The arch's config (reduced with ``smoke``) at λ ``lam``; raises
-    ``NotImplementedError`` for a family the port does not build yet."""
+    """The arch's config (reduced with ``smoke``) at λ ``lam``."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
@@ -235,15 +245,40 @@ def lm_step_fn(cfg: ArchConfig, *, steps: int, lr: float, lam: float,
             step, base_lr=1.0, warmup=max(steps // 20, 1), total=steps))
 
 
+def lm_init(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
+    """The arch's parameters: ``whisper_init`` for the audio family,
+    ``lm_init`` for every other."""
+    init = W.whisper_init if cfg.family == "audio" else T.lm_init
+    return init(cfg, seed=seed, device=device)
+
+
 def lm_batch_fn(cfg: ArchConfig, *, batch: int, seq: int) -> Callable:
     """``step -> {"tokens", "labels"}`` (numpy int32 (batch, seq)) of the
-    step-seeded synthetic LM stream."""
+    step-seeded synthetic LM stream, as the reference's launcher feeds
+    them: a vlm batch swaps the tokens for patch embeddings (batch, seq,
+    d_model), an audio batch adds frame embeddings (batch, ``enc_len``,
+    d_model), both fp32 standard normals from a numpy generator seeded
+    with the step (the reference draws them with ``jax.random``, so the
+    values differ).  Raises ``ValueError`` for an audio ``seq`` past
+    ``MAX_TGT``: the reference would train such positions on a clamped
+    ``dec_pos`` row."""
+    if cfg.family == "audio" and seq > W.MAX_TGT:
+        raise ValueError(f"--seq {seq}: {cfg.name}'s decoder holds "
+                         f"{W.MAX_TGT} positions (MAX_TGT); use --seq <= "
+                         f"{W.MAX_TGT}")
     data_cfg = synthetic.LMDataCfg(vocab=cfg.vocab, seq_len=seq,
                                    global_batch=batch)
+    frames = {"audio": cfg.enc_len, "vlm": seq}.get(cfg.family)
 
     def batch_fn(step: int) -> dict:
         b = synthetic.lm_batch(data_cfg, step)
-        return {"tokens": b["tokens"], "labels": b["labels"]}
+        out = {"tokens": b["tokens"], "labels": b["labels"]}
+        if frames is not None:
+            out["embeds"] = np.random.default_rng(step).standard_normal(
+                (batch, frames, cfg.d_model), dtype=np.float32)
+            if cfg.family == "vlm":
+                del out["tokens"]
+        return out
     return batch_fn
 
 
@@ -253,7 +288,7 @@ def train_lm(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
              remat: str = "none", device=None,
              metrics_every: int = LM_METRICS_EVERY, seed: int = 0,
              log: Callable = print) -> dict:
-    """The LM branch: init (``lm_init(seed=seed)``), resume from the
+    """The LM branch: init (:func:`lm_init` with ``seed``), resume from the
     latest checkpoint under ``ckpt_dir`` if there is one, train through
     ``FaultTolerantLoop`` up to step ``steps``, and export to ``export``.
     Returns ``{"state", "history", "start", "last", "reason",
@@ -263,9 +298,10 @@ def train_lm(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
     ``saves`` (step, seconds) of each checkpoint written, ``export`` the
     export's size report and ``export_s`` its seconds."""
     dev = resolve_device(device)
+    batch_fn = lm_batch_fn(cfg, batch=batch, seq=seq)
     step_fn = lm_step_fn(cfg, steps=steps, lr=lr, lam=lam,
                          lam_ramp=lam_ramp, remat=remat)
-    state = ec4t.init_train_state(T.lm_init(cfg, seed=seed, device=dev))
+    state = ec4t.init_train_state(lm_init(cfg, seed=seed, device=dev))
     history = []
 
     def on_metrics(step, m):
@@ -279,8 +315,7 @@ def train_lm(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
                              metrics_every=metrics_every,
                              on_metrics=on_metrics)
     state, start = loop.resume_or(state)
-    feed = pipeline.ShardedFeed(lm_batch_fn(cfg, batch=batch, seq=seq),
-                                start_step=start, device=dev)
+    feed = pipeline.ShardedFeed(batch_fn, start_step=start, device=dev)
     t0 = time.perf_counter()
     try:
         state, last, reason = loop.run(state, feed, start_step=start,
@@ -318,9 +353,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mlp-gsc",
                     help=f"one of {', '.join(sorted(MLPS))} or an LM arch "
-                    "of the dense, moe, ssm or hybrid family (smollm-360m, "
-                    "grok-1-314b, deepseek-v3-671b, mamba2-1.3b, "
-                    "hymba-1.5b, ...)")
+                    "of any family (smollm-360m, grok-1-314b, "
+                    "deepseek-v3-671b, mamba2-1.3b, hymba-1.5b, "
+                    "qwen2-vl-2b, whisper-base, ...)")
     ap.add_argument("--steps", type=int, default=None,
                     help="MLP 300, LM 100")
     ap.add_argument("--lam", type=float, default=None, help="MLP 0.3, LM 0.05")
@@ -340,7 +375,8 @@ def main(argv=None):
                           help="64; for ssm and hybrid archs best a "
                           "multiple of ssm_chunk (256 at the published "
                           "widths, 8 in --smoke): a shorter last chunk is "
-                          "padded and computed")
+                          "padded and computed; at most 448 for "
+                          "whisper-base (its decoder's MAX_TGT)")
     lm_flags.add_argument("--ckpt-dir", default=None,
                           help="$TMPDIR/repro_torch_ckpt")
     lm_flags.add_argument("--ckpt-every", type=int, default=None, help="50")

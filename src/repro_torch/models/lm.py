@@ -30,9 +30,12 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
 
 def lm_forward_loss(params, qstate, batch: dict, ctx: QuantCtx,
                     cfg: ArchConfig, *, remat: str = "none") -> tuple:
-    """The train forward: (loss, metrics); ``remat`` as
+    """The train forward: (loss, metrics).  The input is the batch's
+    ``tokens`` or its ``embeds`` (the stubbed vlm frontend's: a vlm batch
+    holds embeds and labels, no tokens); ``remat`` as
     :func:`~repro_torch.nn.transformer.lm_apply` takes it."""
-    logits, _, aux = T.lm_apply(params, qstate, batch["tokens"], ctx, cfg,
+    logits, _, aux = T.lm_apply(params, qstate, batch.get("tokens"), ctx,
+                                cfg, embeds=batch.get("embeds"),
                                 remat=remat)
     ce = lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
     loss = ce + cfg.aux_loss_coef * aux

@@ -3,6 +3,8 @@
 * **GQA** (smollm, danube, glm4, ...) — ``n_kv <= n_heads`` KV heads,
   queries grouped; MHA is the ``n_kv == n_heads`` case.
 * **SWA** (danube) — a sliding-window mask of width ``window``.
+* **Cross-attention** (whisper's decoder) — ``gqa_apply(kv_override=)``:
+  queries from ``x``, K and V precomputed from the encoder.
 * **MLA** (deepseek-v3) — low-rank latent compression of Q and KV.  The
   cache holds only the latent c_kv (``kv_lora_rank`` wide) and the shared
   rope key (``qk_rope_dim``); a prefill decompresses the latent one KV
@@ -230,15 +232,25 @@ def gqa_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
               positions: Optional[torch.Tensor] = None,
               causal: bool = True, window=None,
               cache: Optional[dict] = None,
+              kv_override: Optional[tuple] = None,
               chunk: int = 1024) -> tuple:
-    """Self-attention.  Returns (y, new_cache).  ``positions``: (B, Sq)
-    absolute positions of x."""
+    """Self-attention, or cross-attention when ``kv_override`` = (k, v)
+    (B, Skv, n_kv, D) is given: those keys and values as they are (no
+    rotary, no cache update, no causal mask), at positions 0 .. Skv - 1.
+    Returns (y, new_cache).  ``positions``: (B, Sq) absolute positions of
+    x."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
-    q, k, v = gqa_project(p, q_state, x, ctx, n_heads=n_heads, n_kv=n_kv,
-                          head_dim=head_dim, cos_sin=cos_sin)
+    if kv_override is None:
+        q, k, v = gqa_project(p, q_state, x, ctx, n_heads=n_heads,
+                              n_kv=n_kv, head_dim=head_dim, cos_sin=cos_sin)
+    else:
+        q = linear(p["q"], subtree(q_state, "q"), x, ctx).reshape(
+            b, s, n_heads, head_dim)
+        k, v = kv_override
+        cache, causal = None, False
 
     new_cache = None
     if cache is not None:

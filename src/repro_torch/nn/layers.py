@@ -1,11 +1,10 @@
 """Shared layers (the JAX package's ``nn/layers.py``): norms, the
-quantization-aware linear, embeddings, rotary embeddings (RoPE and
-partial rotary) and the MLP blocks.
+quantization-aware linear, embeddings, rotary embeddings (RoPE, partial
+rotary and Qwen2-VL's multimodal M-RoPE), whisper's sinusoidal positions
+and the MLP blocks.
 
 Each ``*_init`` draws from an explicit ``torch.Generator`` and puts its
-tensors on the generator's device.  ``mrope_cos_sin`` and
-``sinusoidal_positions`` wait for the vlm and audio families (ROADMAP
-queue 1).
+tensors on the generator's device.
 """
 from __future__ import annotations
 
@@ -88,15 +87,41 @@ def unembed(p: dict, x: torch.Tensor, ctx: QuantCtx) -> torch.Tensor:
 
 # ----------------------------------------------------------------- rotary
 
-def rope_cos_sin(positions: torch.Tensor, rotary_dim: int, theta: float,
-                 dtype=torch.float32) -> tuple:
-    """positions (..., S) -> cos, sin (..., S, rotary_dim // 2)."""
-    half = rotary_dim // 2
+def _rope_angles(positions: torch.Tensor, half: int,
+                 theta: float) -> torch.Tensor:
+    """positions (...) -> fp32 angles (..., half): position x θ^(-i/half)."""
     expo = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
     freqs = 1.0 / (theta ** expo)
-    ang = positions.to(torch.float32)[..., None] * freqs
+    return positions.to(torch.float32)[..., None] * freqs
+
+
+def rope_cos_sin(positions: torch.Tensor, rotary_dim: int, theta: float,
+                 dtype=torch.float32) -> tuple:
+    """positions (..., S) -> cos, sin (..., S, rotary_dim // 2)."""
+    ang = _rope_angles(positions, rotary_dim // 2, theta)
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def mrope_cos_sin(positions: torch.Tensor, rotary_dim: int, theta: float,
+                  sections, dtype=torch.float32) -> tuple:
+    """Qwen2-VL's multimodal RoPE.  positions (3, B, S): the (t, h, w)
+    streams; ``sections`` the rotary *pairs* of each stream (summing to
+    rotary_dim // 2).  Each pair takes its angle from the stream its index
+    falls in, picked by a gather (the reference's one-hot einsum selects
+    the same fp32 angle exactly).  -> cos, sin (B, S, rotary_dim // 2)."""
+    half = rotary_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"rotary_dim // 2 = {half}")
+    ang = _rope_angles(positions, half, theta)           # (3, B, S, half)
+    pair = torch.arange(half, device=positions.device)
+    # each pair's stream: 0, 1 or 2 by the section its index falls in
+    # (built on the device: no host-to-device copy)
+    stream = (pair >= sections[0]).to(torch.int64) \
+        + (pair >= sections[0] + sections[1]).to(torch.int64)
+    sel = torch.gather(ang, 0, stream.expand(ang.shape[1:])[None])[0]
+    return torch.cos(sel).to(dtype), torch.sin(sel).to(dtype)
 
 
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
@@ -112,6 +137,49 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
     s = sin[:, :, None, :].to(x.dtype)
     out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
     return torch.cat([out, x_pass], dim=-1) if x_pass.shape[-1] else out
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """fp32 a·b + c rounded once (the fp64 product of two fp32 is exact);
+    a number among b and c is an fp32 constant."""
+    def f64(v):
+        return torch.as_tensor(v, dtype=torch.float32).to(torch.float64)
+    return (f64(a) * f64(b) + f64(c)).to(torch.float32)
+
+
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 exp by the reference's arithmetic: XLA's CPU exp, Cephes'
+    polynomial in fused multiply-adds (``polynomial_approximations``'s
+    ``GenerateVF32Exp``).  It is not correctly rounded (one ulp off on
+    about one argument in ten), and a one-ulp frequency moves a sinusoid
+    at position 1,500 by ~1e-4, so the table takes the reference's
+    frequencies bit for bit this way, on the CPU and on the card."""
+    n = torch.floor(_fma(x, 1.44269504088896341, 0.5)).clamp(-127, 127)
+    r = _fma(-n, 0.693359375, x)
+    r = _fma(-n, -2.12194440e-4, r)
+    z = _fma(r, 1.9875691500e-4, 1.3981999507e-3)
+    for c in (8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1,
+              5.0000001201e-1):
+        z = _fma(z, r, c)
+    z = 1.0 + _fma(z, r * r, r)
+    # 2^n from its exponent bits, exact (0 at n = -127, as XLA's)
+    return z * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def sinusoidal_positions(n: int, d: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (n, d): sin then cos of
+    position x exp(-ln(10000) i / (d/2 - 1))."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=device)
+    # ln(10000) in fp32 on the host: a 0-d CPU tensor enters a device
+    # product as a scalar, with no copy; the divisor is a tensor, since
+    # CUDA divides by a scalar through its reciprocal (not IEEE division)
+    freqs = _exp_f32(-torch.log(torch.tensor(10000.0)) * i
+                     / torch.full_like(i, half - 1))
+    ang = torch.arange(n, dtype=torch.float32, device=device)[:, None] \
+        * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # -------------------------------------------------------------------- MLP

@@ -24,9 +24,12 @@ attention, no FFN and no rotary; a ``hybrid`` layer (hymba) runs GQA
 attention and the SSD block side by side on the same normed input and
 averages their RMS-normed outputs, then an MLP.  Their caches hold the
 recurrent state (``"ssm"``: the (B, H, P, N) state and the conv tail) for
-every layer, and a hybrid layer a KV cache beside it.  The vlm and audio
-families raise ``NotImplementedError``: they wait for ROADMAP queue 1
-items 8.4 and 8.5.
+every layer, and a hybrid layer a KV cache beside it.  The vlm family
+(qwen2-vl) is a dense stack whose rotary is M-RoPE (``mrope_sections``),
+fed token ids or the stubbed vision frontend's patch embeddings
+(``lm_apply(embeds=)``).  For an audio (enc-dec) config ``lm_init`` and
+``lm_apply`` build and run a dense decoder-only stack, as the reference's
+do; whisper's encoder-decoder is ``models/whisper.py``.
 """
 from __future__ import annotations
 
@@ -45,8 +48,9 @@ from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (embedding_init, gelu_mlp, gelu_mlp_init, layer_norm,
-                     layer_norm_init, linear_init, rms_norm, rms_norm_init,
-                     rope_cos_sin, subtree, swiglu, swiglu_init)
+                     layer_norm_init, linear_init, mrope_cos_sin, rms_norm,
+                     rms_norm_init, rope_cos_sin, subtree, swiglu,
+                     swiglu_init)
 from .module import QuantCtx
 
 HUGE_WINDOW = 1 << 30     # "global attention" encoded as a very wide window
@@ -61,20 +65,16 @@ _SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
                          torch.ops.aten.addmm.default})
 
 
+FAMILIES = KINDS + ("vlm", "audio")        # every registered arch's
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for every arch the port's stack does not build yet."""
-    if cfg.encdec or cfg.family == "audio":
-        waits = "item 8.5 (the audio encoder-decoder)"
-    elif cfg.mrope_sections is not None or cfg.family == "vlm":
-        waits = "item 8.4 (vlm's M-RoPE)"
-    elif cfg.family not in KINDS:
-        waits = "item 8"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name} ({cfg.family} family) is not ported yet: the port's "
-        "transformer builds the dense, moe, ssm and hybrid families; this "
-        f"one waits for ROADMAP queue 1 {waits}")
+    """Raise for a family the port does not build (every registered arch
+    is built)."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not one the port builds "
+            f"({', '.join(FAMILIES)})")
 
 
 def _ssm_cfg(cfg: ArchConfig) -> ssm_lib.SSMCfg:
@@ -165,7 +165,7 @@ def _layer_kinds(cfg: ArchConfig) -> list:
                 + ["moe"] * (cfg.n_layers - cfg.n_dense_layers))
     if cfg.family in ("ssm", "hybrid"):
         return [cfg.family] * cfg.n_layers
-    return ["dense"] * cfg.n_layers
+    return ["dense"] * cfg.n_layers         # dense, vlm and audio
 
 
 def _kind_layers(cfg: ArchConfig) -> dict:
@@ -383,20 +383,28 @@ def readout(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def lm_apply(params: dict, qstate: Any, tokens: torch.Tensor,
+def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
              ctx: QuantCtx, cfg: ArchConfig, *,
+             embeds: Optional[torch.Tensor] = None,
              positions: Optional[torch.Tensor] = None,
              cache: Optional[dict] = None, remat: str = "none") -> tuple:
     """Forward pass.  Returns (logits, new_cache, aux_loss).
 
-    ``tokens`` (B, S) int.  ``positions`` (B, S) absolute positions
-    (decode passes the cache offset); default arange.  ``remat``: one of
-    :data:`REMAT`, each block's rematerialisation under autograd (the
-    grouped ŵ is made once before the loop either way, so it adds no ECL
-    pass).
+    ``tokens`` (B, S) int, or ``embeds`` (B, S, d): the stubbed vlm / audio
+    frontends' embeddings, the input as they are in place of the token
+    lookup.  ``positions`` (B, S) absolute positions (decode passes the
+    cache offset); default arange.  With ``mrope_sections`` the rotary is
+    M-RoPE over three identical (t, h, w) streams of ``positions``, as
+    the reference feeds it.  ``remat``: one of :data:`REMAT`, each
+    block's rematerialisation under autograd (the grouped ŵ is made once
+    before the loop either way, so it adds no ECL pass).
     """
-    x = params["embed"]["table"].to(ctx.dtype)[tokens]
-    b, s = tokens.shape
+    if embeds is None:
+        x = params["embed"]["table"].to(ctx.dtype)[tokens]
+        b, s = tokens.shape
+    else:
+        x = embeds.to(ctx.dtype)
+        b, s = embeds.shape[:2]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
@@ -405,8 +413,13 @@ def lm_apply(params: dict, qstate: Any, tokens: torch.Tensor,
     if cfg.family != "ssm":
         rotary_dim = cfg.mla.qk_rope_dim if cfg.mla is not None \
             else int(cfg.resolved_head_dim * cfg.rotary_frac)
-        cos_sin = rope_cos_sin(positions, rotary_dim, cfg.rope_theta,
-                               dtype=torch.float32)
+        if cfg.mrope_sections is not None:
+            cos_sin = mrope_cos_sin(torch.stack([positions] * 3),
+                                    rotary_dim, cfg.rope_theta,
+                                    cfg.mrope_sections, dtype=torch.float32)
+        else:
+            cos_sin = rope_cos_sin(positions, rotary_dim, cfg.rope_theta,
+                                   dtype=torch.float32)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {} if cache is not None else None
     w_hat = quantize_stack(params["stacks"], subtree(qstate, "stacks"),

@@ -38,7 +38,11 @@ remat none, full and dots.  The ssm and hybrid families: the SSD scan on
 the card within 1e-5 of the CPU's (2 groups, a ragged chunk, a carried
 state), and mamba2's and hymba's smoke configs trained on the card
 within ``rtol=1e-4`` of the CPU, bitwise alike under remat none and full.
-The Huffman codec on the card gives the host's bytes and codes.
+The vlm and audio families: whisper's sinusoid frequencies (the
+reference's exp) bitwise the CPU's and its table within 1e-6, and
+qwen2-vl's and whisper's smoke configs trained on the card within
+``rtol=1e-4`` of the CPU.  The Huffman codec on the card gives the host's
+bytes and codes.
 """
 import array
 import ctypes
@@ -972,6 +976,50 @@ def test_ssm_train_steps_on_the_card_under_remat(cuda_device, arch):
     assert runs["cuda", "full"][0] == runs["cuda", "none"][0]
     assert all(torch.equal(a, b) for a, b in zip(runs["cuda", "full"][1],
                                                  runs["cuda", "none"][1]))
+
+
+def test_positions_on_the_card_match_the_cpu(cuda_device):
+    """``_exp_f32`` (XLA's exp, emulated) bitwise the CPU's on 200,000
+    arguments, so whisper's 1,500 x 512 sinusoids take the CPU's (and
+    the reference's) frequencies: the table within 1e-6 of the CPU's."""
+    from repro_torch.nn import layers
+    x = torch.empty(200_000).uniform_(-87.0, 88.0,
+                                      generator=torch.Generator()
+                                      .manual_seed(0))
+    assert torch.equal(layers._exp_f32(x.to(cuda_device)).cpu(),
+                       layers._exp_f32(x))
+    got = layers.sinusoidal_positions(1500, 512, device=cuda_device)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               layers.sinusoidal_positions(1500, 512).numpy(),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-base"])
+def test_vlm_and_audio_train_steps_on_the_card(cuda_device, arch):
+    """qwen2-vl's (patch embeddings) and whisper's (frames and tokens)
+    smoke configs in fp32: two card train steps within rtol=1e-4 of two
+    CPU steps from one init, each making 2 ecl_quant launches."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as T
+    from repro_torch.optim import ec4t
+
+    cfg = T.lm_config(arch, smoke=True)
+    params = T.lm_init(cfg, seed=0, device="cpu")
+    batch_fn = T.lm_batch_fn(cfg, batch=2, seq=12)
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        step_fn = T.lm_step_fn(cfg, steps=10, lr=1e-3, lam=0.3, lam_ramp=1,
+                               dtype=torch.float32)
+        state = ec4t.init_train_state(_to(params, dev))
+        out = []
+        for i in range(2):
+            before = eq.LAUNCHES
+            state, m = step_fn(state, pipeline.place(batch_fn(i), device=dev))
+            out.append(float(m["loss"]))
+            if dev.type == "cuda":
+                assert eq.LAUNCHES - before == 2
+        runs[dev.type] = out
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-4)
 
 
 def test_huffman_on_the_card_equals_the_host_codec(cuda_device):

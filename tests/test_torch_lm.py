@@ -98,12 +98,23 @@ def test_configs_equal_the_reference_field_by_field():
 
 
 def test_non_dense_families_are_refused():
-    # ssm and hybrid are built (tests/test_torch_ssm.py); vlm and audio
-    # wait for queue 1 items 8.4 and 8.5
-    for name, item in (("qwen2-vl-2b", r"8\.4"), ("whisper-base", r"8\.5")):
-        with pytest.raises(NotImplementedError,
-                           match=rf"queue 1 item {item}"):
-            TT.lm_init(get_config(name).smoke(), device="cpu")
+    """Every registered family is built now (vlm and audio since items
+    8.4 and 8.5; tests/test_torch_vlm.py, test_torch_whisper.py): their
+    ``lm_init`` builds the reference's dense stack, with M-RoPE sections
+    for vlm; a family the port does not know is refused."""
+    for name in list_configs():
+        TT.check_supported(get_config(name))
+    for name in ("qwen2-vl-2b", "whisper-base"):
+        cfg = get_config(name).smoke()
+        params = TT.lm_init(cfg, device="cpu")
+        ref = JT.lm_init(jax.random.PRNGKey(0), jget_config(name).smoke())
+        assert sorted(params["stacks"]) == sorted(ref["stacks"]) == ["dense"]
+        assert params["stacks"]["dense"]["attn"]["q"]["kernel"]["w"].shape \
+            == ref["stacks"]["dense"]["attn"]["q"]["kernel"]["w"].shape
+    with pytest.raises(NotImplementedError, match="family 'bogus' is not "
+                       "one the port builds"):
+        TT.lm_init(dataclasses.replace(get_config("smollm-360m").smoke(),
+                                       family="bogus"), device="cpu")
 
 
 # ------------------------------------------------------- building blocks

@@ -15,6 +15,7 @@ the reference's numbers, ``core/acm.py`` and ``ecl.assign_general``
 against the reference, and the launcher's LM branch end to end on the
 CPU (checkpoint, export, resume).
 """
+import dataclasses
 import os
 
 import jax
@@ -226,8 +227,12 @@ def test_step_refuses_a_mesh_and_remat():
     with pytest.raises(ValueError, match="remat='bogus': one of none, full, "
                        "dots"):
         tsteps._loss_fn(get_config(ARCH).smoke(), remat="bogus")
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 8\.4"):
-        tsteps._loss_fn(get_config("qwen2-vl-2b").smoke())
+    # every registered family has a loss now (vlm and audio included);
+    # a family the port does not know is refused
+    tsteps._loss_fn(get_config("qwen2-vl-2b").smoke())
+    with pytest.raises(NotImplementedError, match="family 'bogus'"):
+        tsteps._loss_fn(dataclasses.replace(get_config(ARCH).smoke(),
+                                            family="bogus"))
     # full runs (held bitwise to none in tests/test_torch_mla_training.py)
     cfg, jstate = _jax_state(perturb=False)
     state = _carry(jstate)

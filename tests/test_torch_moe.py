@@ -215,16 +215,24 @@ def test_serve_launcher_serves_deepseek_with_mla_on_the_cpu(capsys):
 
 def test_launchers_refuse_what_is_not_ported():
     from repro_torch.launch import serve, train
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 8\.4"):
-        serve.main(["--arch", "qwen2-vl-2b", "--smoke", "--device", "cpu"])
+    # vlm is served by the direct path now; audio exits with the
+    # reference's message
+    gen = serve.main(["--arch", "qwen2-vl-2b", "--smoke", "--device", "cpu",
+                      "--batch", "1", "--prompt-len", "4", "--max-new", "2"])
+    assert gen.shape == (1, 2)
+    with pytest.raises(SystemExit, match="use examples/serve_whisper-style "
+                       "driving for enc-dec"):
+        serve.main(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit, match="--engine: LMProgram serves "
                        "dense-family archs only"):
         serve.main(["--arch", "grok-1-314b", "--smoke", "--engine",
                     "--device", "cpu", "--batch", "1", "--max-new", "2"])
     with pytest.raises(SystemExit, match="--layers applies to LM archs"):
         serve.main(["--arch", "mlp-hr", "--layers", "1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"item 8\.5"):
-        train.main(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
+    with pytest.raises(ValueError, match=r"--seq 500: .* holds 448 "
+                       "positions"):
+        train.main(["--arch", "whisper-base", "--smoke", "--device", "cpu",
+                    "--seq", "500"])
 
 
 def test_serve_layers_only_cuts_the_depth():

@@ -508,9 +508,16 @@ def test_serve_launcher_serves_on_the_cpu(arch, capsys):
 
 
 def test_the_other_families_still_refuse():
-    for name, item in (("qwen2-vl-2b", r"8\.4"), ("whisper-base", r"8\.5")):
-        with pytest.raises(NotImplementedError,
-                           match=rf"queue 1 item {item} "):
-            TT.lm_init(get_config(name).smoke(), device="cpu")
+    """No registered family is refused any more (vlm and audio are built,
+    tests/test_torch_vlm.py and test_torch_whisper.py); only a family the
+    port does not know is."""
+    from repro_torch.configs import list_configs
+    assert {get_config(n).family for n in list_configs()} == set(
+        TT.FAMILIES)
+    for name in ("qwen2-vl-2b", "whisper-base"):
+        TT.check_supported(get_config(name).smoke())
+    with pytest.raises(NotImplementedError, match="family 'bogus'"):
+        TT.lm_init(dataclasses.replace(get_config("mamba2-1.3b").smoke(),
+                                       family="bogus"), device="cpu")
     assert dataclasses.replace(get_config("mamba2-1.3b"),
                                n_layers=1).attention_free
