@@ -94,11 +94,11 @@ Phases (any failure raises and the script exits non-zero):
    the chain's seven, the cooperative grid of stream -- and the
    dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
    phase 3, phase 3b's serving check, phase 3c, phase 5, phase 6, phase
-   7, phase 8, phase 9, phase 10, phases 11 to 14 by arch), one
-   ``path``, one ``train``, one ``frontend``, one ``lm``, one
+   7, phase 8, phase 9, phase 10, phases 11 to 14 by arch, phase 15),
+   one ``path``, one ``train``, one ``frontend``, one ``lm``, one
    ``lm_train``, one ``moe``, one ``moe_train``, one ``mla``, one
-   ``mla_train``, one ``ssm``, one ``ssm_train``, one ``vlm_audio`` and
-   one ``vlm_audio_train`` JSON line.
+   ``mla_train``, one ``ssm``, one ``ssm_train``, one ``vlm_audio``, one
+   ``vlm_audio_train`` and one ``scale_out`` JSON line.
 5. The LM serving path at full width, run after phase 3c: SmolLM-360M
    (32 blocks of d_model 960, 15 heads, 5 KV heads, d_ff 2560, vocab
    49,152) from ``lm_init(seed=0)`` on the card, frozen with
@@ -428,6 +428,37 @@ Phases (any failure raises and the script exits non-zero):
    ``update_qstate``'s and ``FakeQuantGroup.backward``'s, peak memory by
    stage, export bytes and ms, each beside the card's name and power
    limit, and one ``vlm_audio_train`` JSON line.
+
+15. Scale-out serving over ``torch.distributed``, run last: 4 ranks
+   spawned by ``launch.mesh.RankPool`` (after the kernels are built
+   here) share the card over gloo, every collective staged through host
+   buffers; a rank that fails fails the phase.  (a) MLP-GSC, MLP-HR and
+   LeNet-300-100 frozen from seeds 150-152 at the paper's widths, served
+   column-sharded (``ShardedStack``, kernel 1 at (K, N/tp) on each rank,
+   one all-gather after each split layer) on meshes (1, 4) and (2, 2),
+   fp32 and int8, at 1, 3, 8, 64 and 256 rows.  In each rank the
+   matmul_kernel counter is zeroed just before a call and read just
+   after.  Gates: every rank's logits bitwise equal to the unsharded
+   per-layer chain kernel on the card, within the fp32 gate (int8
+   relative ``< 5e-3``) of the plain oracle, one launch a layer a call,
+   the ranks alike.  Recorded per rank: launches a call, the bytes each
+   layer's gather brings, the ms a served batch (CUDA events; labelled
+   "4 ranks sharing one H100 over gloo", not a claim).  (b)
+   grok-1-314b at published widths (d 6,144, d_ff 32,768, 8 experts,
+   top-2), depth 1, vocabulary cut to 32,768 so that four ranks' whole
+   non-expert weights fit, capacity factor E / k: first the single
+   process serves the whole layer (every expert drawn from a generator
+   of its own, as each rank draws its share), then each rank inits and
+   freezes its 2 experts in turn (ecl_quant counted) and runs
+   ``generate(mesh=)`` over 4 prompts of 16 ids and 4 tokens through
+   ``moe_apply_ep`` (two all-to-alls a layer) on mesh (1, 4).  Gates:
+   tokens equal to the single process's, a no-cache forward's logits
+   within 1e-4 relative, at least one ecl_quant launch a rank.  Peak
+   memory per rank recorded.  (c) ``moe_apply_tp`` at the smoke widths,
+   2 experts over 4 ranks (``moe_ffn`` chooses it), within 1e-5 of
+   ``moe_apply`` on the card; expert TP at grok's widths needs a 16-wide
+   axis, more ranks than one card holds.  Prints one ``scale_out`` JSON
+   line.
 
 The script ends with a line that counts the profiler traces taken and
 retaken and the device times taken from queued CUDA events, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -6198,6 +6229,284 @@ def vlm_audio_train_path(dev, gpu):
     return out
 
 
+# ------------------------------------------------------------ phase 15
+
+SCALE_OUT = dict(world=4, meshes=((1, 4), (2, 2)), rows=(1, 3, 8, 64, 256),
+                 iters=5, seed=150, timeout=900)
+SCALE_OUT_LABEL = "4 ranks sharing one H100 over gloo"
+SCALE_OUT_MLPS = ("mlp-gsc", "mlp-hr", "lenet-300-100")
+# grok-1-314b at published widths, depth 1; the vocabulary cut as phase 8
+# cuts it, so that four ranks' whole non-expert weights fit one card
+SCALE_OUT_MOE = dict(arch="grok-1-314b", layers=1, vocab=32768, prompts=4,
+                     prompt_len=16, max_new=4, seed=0, bank_seed=15,
+                     mesh=(1, 4))
+SCALE_OUT_MOE_REL = 1e-4   # logits, EP ranks vs the single process
+SCALE_OUT_TP = dict(experts=2, tokens=24, seed=151, mesh=(1, 4))
+SCALE_OUT_TP_TOL = 1e-5    # moe_apply_tp vs moe_apply, fp32
+
+
+def _scale_out_mlps(dev, pool):
+    """(a): the paper MLPs column-sharded over the ranks, each call gated
+    in its rank against the unsharded chain kernel (bitwise) and the
+    plain oracle (fp32 gate / int8 relative)."""
+    import numpy as np
+    from repro_torch.configs.paper_mlps import MLPS
+    from repro_torch.convert import tree_to_numpy
+    from repro_torch.core import qat
+    from repro_torch.launch import ranks
+    from repro_torch.models import mlp as M
+    from repro_torch.serving import plans
+
+    out, launches = {}, 0
+    for i, arch in enumerate(SCALE_OUT_MLPS):
+        cfg = MLPS[arch]
+        params, bn = M.mlp_init(cfg, seed=SCALE_OUT["seed"] + i, device=dev)
+        pack = M.freeze_mlp(params, qat.build_qstate(params), bn,
+                            lam=cfg.lam)
+        layers = tree_to_numpy(pack["layers"])   # what a rank is handed
+        n_layers = len(layers)
+        xs = [_x(r, cfg.d_in, SCALE_OUT["seed"] + r)
+              for r in SCALE_OUT["rows"]]
+        for act in ("float32", "int8"):
+            scales = None
+            if act == "int8":
+                scales = plans.calibrate_act_scales(
+                    pack, xs[-1])["act_scales"]
+            res = pool.run(ranks.sharded_mlp, layers, xs,
+                           SCALE_OUT["meshes"], act_dtype=act,
+                           act_scales=scales, iters=SCALE_OUT["iters"])
+            for mi, mesh in enumerate(SCALE_OUT["meshes"]):
+                key = f"{arch} {act} mesh {mesh[0]}x{mesh[1]}"
+                desc = res[0][mi]["describe"]
+                rows = {}
+                for ci, r in enumerate(SCALE_OUT["rows"]):
+                    calls = [per[mi]["calls"][ci] for per in res]
+                    tag = f"{key} rows {r}"
+                    for rank, c in enumerate(calls):
+                        if not c["bitwise"]:
+                            raise AssertionError(
+                                f"{tag} rank {rank}: the sharded logits "
+                                "differ from the unsharded chain kernel")
+                        if c["launches"] != n_layers:
+                            raise AssertionError(
+                                f"{tag} rank {rank}: {c['launches']} "
+                                f"matmul_kernel launches, want {n_layers}")
+                        if not np.array_equal(c["y"], calls[0]["y"]):
+                            raise AssertionError(f"{tag}: ranks disagree")
+                    y, plain = calls[0]["y"], calls[0]["plain"]
+                    if act == "int8":
+                        err = float(np.abs(y - plain).max()
+                                    / np.abs(plain).max())
+                        if not err < INT8_REL:
+                            raise AssertionError(f"{tag}: int8 relative "
+                                                 f"error {err}")
+                    else:
+                        err = float(np.abs(y - plain).max())
+                        np.testing.assert_allclose(
+                            y, plain, atol=FP32_ATOL, rtol=FP32_RTOL,
+                            err_msg=tag)
+                    launches += sum(c["launches"] for c in calls)
+                    local = r // mesh[0] if r % mesh[0] == 0 else r
+                    rows[str(r)] = {
+                        "launches_per_rank": [c["launches"] for c in calls],
+                        "bitwise": True, "max_err_vs_plain": err,
+                        "ms_per_rank": [c["ms"] for c in calls],
+                        "gathered_bytes_per_layer": [
+                            b * local for b in desc["gathered_bytes_per_row"]]}
+                out[key] = {"col_sharded_layers": desc["col_sharded_layers"],
+                            "replicated_layers": desc["replicated_layers"],
+                            "collectives": desc["collectives"], "rows": rows}
+    return out, launches
+
+
+def _scale_out_moe_cfg():
+    """grok-1-314b at published widths, cut to depth 1 and the vocabulary
+    SCALE_OUT_MOE gives, at capacity factor E / k (nothing drops)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(SCALE_OUT_MOE["arch"])
+    return dataclasses.replace(cfg, n_layers=SCALE_OUT_MOE["layers"],
+                               vocab=SCALE_OUT_MOE["vocab"],
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def _scale_out_single(dev, cfg, prompt):
+    """(b)'s single-process path, run before any rank: the whole layer
+    (every expert, drawn as the ranks draw theirs) frozen on the card, its
+    greedy tokens and a no-cache forward's logits over prompt + tokens."""
+    import torch
+    from repro_torch.core import qat
+    from repro_torch.launch import ranks
+    from repro_torch.models import lm as LM
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import FP32_CTX
+
+    share = ranks.expert_share_cfg(cfg, SCALE_OUT_MOE["mesh"], 0)
+    torch.zeros((), device=dev)     # the allocator is live before its reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the share's init: the non-expert draws of every rank's share
+    params = T.lm_init(share, seed=SCALE_OUT_MOE["seed"], device=dev)
+    ranks.seeded_banks(params, share, range(cfg.n_experts),
+                       SCALE_OUT_MOE["bank_seed"], dev)
+    frozen = qat.freeze_tree(params, qat.build_qstate(params), cfg.lam)
+    del params
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(prompt).to(dev)
+    gen = LM.generate(frozen, 0, tokens, FP32_CTX, cfg,
+                      max_new=SCALE_OUT_MOE["max_new"])
+    full = torch.cat([tokens.to(torch.int32), gen], dim=1)
+    logits = T.lm_apply(frozen, 0, full, FP32_CTX, cfg)[0][..., :cfg.vocab]
+    out = (gen.cpu().numpy(), logits.cpu().numpy(),
+           torch.cuda.max_memory_allocated(dev))
+    del frozen, logits
+    return out
+
+
+def _scale_out_moe(dev, pool, single, cfg, prompt):
+    """(b): the EP ranks' tokens and logits against the single path's."""
+    import numpy as np
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import ranks
+    gen, logits, single_peak = single
+    res = pool.run(ranks.ep_serve, cfg, prompt, SCALE_OUT_MOE["max_new"],
+                   SCALE_OUT_MOE["mesh"], seed=SCALE_OUT_MOE["seed"],
+                   bank_seed=SCALE_OUT_MOE["bank_seed"])
+    per_rank = []
+    for rank, r in enumerate(res):
+        if not np.array_equal(r["tokens"], gen):
+            raise AssertionError(f"EP rank {rank}: tokens {r['tokens']} "
+                                 f"differ from the single process's {gen}")
+        rel = float(np.abs(r["logits"] - logits).max()
+                    / np.abs(logits).max())
+        if not rel < SCALE_OUT_MOE_REL:
+            raise AssertionError(f"EP rank {rank}: logits {rel} relative "
+                                 "from the single process's")
+        # q, k, v, o and 3 banks of the rank's experts a layer, in one
+        # grouped pass: MAX_SEGMENTS segments a launch
+        segments = cfg.n_layers * (4 + 3 * r["experts_held"][1])
+        if not (r["ecl_segments"] == segments and r["ecl_quant_launches"]
+                == -(-segments // eq.MAX_SEGMENTS)):
+            raise AssertionError(
+                f"EP rank {rank}: {r['ecl_quant_launches']} ecl_quant "
+                f"launches for {r['ecl_segments']} segments, want "
+                f"{-(-segments // eq.MAX_SEGMENTS)} for {segments}")
+        per_rank.append({"experts_held": r["experts_held"],
+                         "ecl_quant_launches": r["ecl_quant_launches"],
+                         "ecl_segments": r["ecl_segments"],
+                         "logits_rel_err": rel, "aux": r["aux"],
+                         "freeze_ms": r["ms"]["freeze"],
+                         "generate_ms": r["ms"]["generate"],
+                         "peak_gb": None if r["peak_bytes"] is None
+                         else r["peak_bytes"] / 1e9})
+    return {"tokens_equal": True, "tokens": gen.tolist(),
+            "single_peak_gb": single_peak / 1e9, "ranks": per_rank}
+
+
+def _scale_out_tp(dev, pool):
+    """(c): moe_apply_tp at the smoke widths, 2 experts over 4 ranks,
+    against moe_apply on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_tree_from_numpy, tree_to_numpy
+    from repro_torch.launch import ranks
+    from repro_torch.nn import moe
+    from repro_torch.nn.module import FP32_CTX
+
+    cfg = get_config(SCALE_OUT_MOE["arch"]).smoke()
+    e = SCALE_OUT_TP["experts"]
+    p = tree_to_numpy(moe.moe_init(
+        torch.Generator().manual_seed(SCALE_OUT_TP["seed"]), cfg.d_model,
+        cfg.d_ff, e, False))
+    x = _x(SCALE_OUT_TP["tokens"], cfg.d_model, SCALE_OUT_TP["seed"])
+    kw = dict(top_k=cfg.top_k, capacity_factor=e / cfg.top_k)
+    want, want_aux = moe.moe_apply(lm_tree_from_numpy(p, device=dev), 0,
+                                   torch.from_numpy(x).to(dev), FP32_CTX,
+                                   **kw)
+    res = pool.run(ranks.moe_layer, p, x, SCALE_OUT_TP["mesh"], path="ffn",
+                   **kw)
+    for rank, r in enumerate(res):
+        if r["path"] != "tp":
+            raise AssertionError(f"TP rank {rank}: moe_ffn chose {r['path']}")
+        np.testing.assert_allclose(r["y"], want.cpu().numpy(),
+                                   atol=SCALE_OUT_TP_TOL,
+                                   rtol=SCALE_OUT_TP_TOL,
+                                   err_msg=f"TP rank {rank}")
+        np.testing.assert_allclose(r["aux"], float(want_aux),
+                                   atol=SCALE_OUT_TP_TOL,
+                                   rtol=SCALE_OUT_TP_TOL)
+    return {"experts": e, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+            "mesh": list(SCALE_OUT_TP["mesh"]), "path": "tp",
+            "max_abs_err": max(float(np.abs(r["y"] - want.cpu().numpy())
+                                     .max()) for r in res),
+            "published_widths": "not run: expert TP needs E % tp != 0 and "
+            "ff % tp == 0, grok's 8 experts on a 16-wide model axis, 16 "
+            "ranks' non-expert weights, more than one card holds"}
+
+
+def scale_out_path(dev, gpu):
+    """Phase 15: the serving half of scale-out over torch.distributed, 4
+    gloo ranks sharing the card (staged through host buffers)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    _empty_card(dev, "phase 15")
+    cfg = _scale_out_moe_cfg()
+    prompt = np.random.default_rng(SCALE_OUT_MOE["seed"]).integers(
+        0, cfg.vocab, (SCALE_OUT_MOE["prompts"], SCALE_OUT_MOE["prompt_len"]))
+    t0 = time.perf_counter()
+    single = _scale_out_single(dev, cfg, prompt)
+    single_s = time.perf_counter() - t0
+    _empty_card(dev, "phase 15's ranks")
+    print(f"phase 15: grok-1-314b EP reference (one process, 8 experts) in "
+          f"{single_s:.1f} s, peak {single[2] / 1e9:.2f} GB ({gpu})")
+    t0 = time.perf_counter()
+    with M.RankPool(SCALE_OUT["world"], backend="gloo", device="cuda",
+                    timeout=SCALE_OUT["timeout"]) as pool:
+        world = pool.run(M.describe_world)
+        spawn_s = time.perf_counter() - t0
+        mlps, launches = _scale_out_mlps(dev, pool)
+        if launches < 1:
+            raise AssertionError("phase 15: matmul_kernel never launched")
+        t1 = time.perf_counter()
+        moe_ep = _scale_out_moe(dev, pool, single, cfg, prompt)
+        moe_ep["ranks_s"] = time.perf_counter() - t1
+        tp = _scale_out_tp(dev, pool)
+    out = {
+        "label": SCALE_OUT_LABEL, "gpu": gpu, "world": world,
+        "spawn_s": spawn_s, "matmul_kernel_launches": launches,
+        "ecl_quant_launches": sum(r["ecl_quant_launches"]
+                                  for r in moe_ep["ranks"]),
+        "mlp": mlps,
+        "moe_ep": {"arch": SCALE_OUT_MOE["arch"], "layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+                   "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+                   "mesh": list(SCALE_OUT_MOE["mesh"]),
+                   "reduced": {"n_layers": "64 -> 1",
+                               "vocab": "131072 -> 32768 (four ranks' "
+                               "whole non-expert weights on one card)"},
+                   "capacity_factor": cfg.capacity_factor,
+                   "single_s": single_s, **moe_ep},
+        "moe_tp": tp}
+    out["wall_s"] = time.perf_counter() - t_phase
+    for key, m in mlps.items():
+        for rows in (SCALE_OUT["rows"][0], SCALE_OUT["rows"][-1]):
+            r = m["rows"][str(rows)]
+            print(f"phase 15: {key}: rows {rows}, "
+                  f"{r['launches_per_rank'][0]} matmul_kernel launches a "
+                  f"rank, ms a batch {[round(v, 3) for v in r['ms_per_rank']]}"
+                  f" ({SCALE_OUT_LABEL}; {gpu})")
+    print(f"phase 15: grok EP over {SCALE_OUT_MOE['mesh']}: tokens equal, "
+          f"logits rel {max(r['logits_rel_err'] for r in moe_ep['ranks']):.2e}"
+          f", ecl_quant {[r['ecl_quant_launches'] for r in moe_ep['ranks']]},"
+          f" peak GB {[r['peak_gb'] for r in moe_ep['ranks']]}")
+    print(f"phase 15: done in {out['wall_s']:.1f} s ({gpu})")
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_report(r):
     """The ``kernels`` line: every kernel's launches by path, error, times
     and bound, from the results ``r`` of a run of every phase."""
@@ -6214,7 +6523,9 @@ def kernels_report(r):
                 "training_serve": r["train"]["serve_launches"][
                     "fantastic4_matmul" if sched == "chain" else sched],
                 "frontend": r["frontend"]["session"]["launches"][name],
-                "lm": r["lm"]["kernel_launches"][name]},
+                "lm": r["lm"]["kernel_launches"][name],
+                **({"scale_out": r["scale_out"]["matmul_kernel_launches"]}
+                   if sched == "chain" else {})},
             "max_abs_err": r["max_err"][name],
             "int8_max_rel_err": r["max_rel8"][name],
             "ms": head["ms"], "kernel_ms": head["ms"],
@@ -6256,7 +6567,9 @@ def kernels_report(r):
                                  a]["ecl_quant_launches"] + r[
                                  "vlm_audio_train"][a][
                                  "ecl_quant_launches_export"]
-                                for a in (VLM_ARCH, AUDIO_ARCH)}},
+                                for a in (VLM_ARCH, AUDIO_ARCH)},
+                             "scale_out": r["scale_out"][
+                                 "ecl_quant_launches"]},
         "max_abs_err": r["ecl_err"],
         "ms": head["ms"], "kernel_ms": head["ms"],
         "device_ms": head["device_ms"],
@@ -6291,7 +6604,7 @@ def kernels_report(r):
 
 
 PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10", "11",
-          "12", "13", "14")
+          "12", "13", "14", "15")
 
 
 def parse_phases(argv):
@@ -6373,7 +6686,8 @@ def main(argv=None) -> int:
              ("12", "ssm_train", lambda: ssm_train_path(dev, gpu)),
              ("13", "vlm_audio", lambda: vlm_audio_serve_path(dev, gpu)),
              ("14", "vlm_audio_train",
-              lambda: vlm_audio_train_path(dev, gpu)))
+              lambda: vlm_audio_train_path(dev, gpu)),
+             ("15", "scale_out", lambda: scale_out_path(dev, gpu)))
     for phase, key, run in steps:
         if phase in phases:
             r[key] = run()
@@ -6383,7 +6697,7 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": kernels_report(r)}))
     for key in ("path", "train", "frontend", "lm", "lm_train", "moe",
                 "moe_train", "mla", "mla_train", "ssm", "ssm_train",
-                "vlm_audio", "vlm_audio_train"):
+                "vlm_audio", "vlm_audio_train", "scale_out"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "

@@ -8,8 +8,10 @@ worker thread puts each batch into pinned host memory, and the consumer
 copies it to the card without blocking, on its current stream: the copy
 is queued behind the step that is running and the host goes on.
 
-Only ``mesh=None`` is ported: sharded placement over a device mesh waits
-for ROADMAP queue 1 item 6 (scale-out).
+With a mesh (``launch.mesh``) each rank places only its block of the
+batch: the leading dim cut over the data axes in mesh order
+(:func:`batch_sharding`), as the reference lays a batch out over its
+devices.  Every rank makes the same step-seeded batch and keeps its rows.
 """
 from __future__ import annotations
 
@@ -21,13 +23,24 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..runtime.sharding import shard_slice
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded placement over a mesh is not ported yet (ROADMAP "
-            "queue 1 item 6, scale-out); pass mesh=None")
+def batch_sharding(mesh, ndim: int, data_axes=("pod", "data")) -> tuple:
+    """The spec of an ``ndim`` batch array: dim 0 over the mesh's data
+    axes, the rest replicated."""
+    return (tuple(a for a in data_axes if a in mesh.axis_names),) \
+        + (None,) * (ndim - 1)
+
+
+def _rows(value, mesh) -> np.ndarray:
+    """This rank's block of ``value``'s leading dim under
+    :func:`batch_sharding`."""
+    a = np.asarray(value)
+    if mesh is None or a.ndim == 0:
+        return a
+    return shard_slice(torch.from_numpy(a), batch_sharding(mesh, a.ndim),
+                       mesh).numpy()
 
 
 def _host(value, pin: bool) -> torch.Tensor:
@@ -37,17 +50,19 @@ def _host(value, pin: bool) -> torch.Tensor:
 
 def place(batch: dict, mesh=None, device=None) -> dict:
     """A batch of numpy arrays as tensors on ``device`` (the card unless
-    the caller names another).  On CUDA each array goes through pinned
-    memory and is copied without blocking on the current stream."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    the caller names another; a mesh's own device with a mesh), each cut
+    to this rank's rows under a mesh.  On CUDA each array goes through
+    pinned memory and is copied without blocking on the current stream."""
+    dev = resolve_device(mesh.device if device is None and mesh is not None
+                         else device)
     pin = dev.type == "cuda"
-    return {k: _host(v, pin).to(dev, non_blocking=pin)
+    return {k: _host(_rows(v, mesh), pin).to(dev, non_blocking=pin)
             for k, v in batch.items()}
 
 
 class ShardedFeed:
-    """Prefetching iterator over step-seeded batches.
+    """Prefetching iterator over step-seeded batches (this rank's rows of
+    each under ``mesh``).
 
     ``batch_fn(step) -> dict of numpy``; a restart constructs the feed
     with ``start_step`` from the checkpoint (exact skip-ahead, no replay).
@@ -57,9 +72,10 @@ class ShardedFeed:
 
     def __init__(self, batch_fn: Callable[[int], dict], mesh=None,
                  start_step: int = 0, depth: int = 2, device=None):
-        _no_mesh(mesh)
         self._fn = batch_fn
-        self._dev = resolve_device(device)
+        self._mesh = mesh
+        self._dev = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
         self._pin = self._dev.type == "cuda"
         self._step = start_step
         self._q: queue.Queue = queue.Queue(maxsize=depth)
@@ -71,7 +87,7 @@ class ShardedFeed:
         step = self._step
         while not self._stop.is_set():
             try:
-                item = (step, {k: _host(v, self._pin)
+                item = (step, {k: _host(_rows(v, self._mesh), self._pin)
                                for k, v in self._fn(step).items()})
             except Exception as exc:       # handed to the consumer
                 item = (step, exc)

@@ -512,8 +512,8 @@ def build_ws_operands(packed, omega, alpha1, bias, scale, *, shapes,
 def _stacked_plain(x, packed_stack, omega_stack, alpha1_stack, bias_stack,
                    meta_stack, *, shapes, act_dtype) -> torch.Tensor:
     """Each layer on its true (even-padded) dims of the stacked operands,
-    so the matmuls have the chain's shapes and the CPU plain schedules stay
-    bitwise equal to each other on the int8 grid."""
+    its product tiled as the chain's (``ref.tiled_matmul``), so the CPU
+    plain schedules stay bitwise equal to each other on the int8 grid."""
     _check_x(x, shapes)
     d = packed_stack.shape[-1]
     act = _pad2(x.to(torch.float32), x.shape[0], d)
@@ -521,7 +521,7 @@ def _stacked_plain(x, packed_stack, omega_stack, alpha1_stack, bias_stack,
         n = shapes[l][1]
         w = ref.decode_weights(packed_stack[l, :kp // 2, :n],
                                omega_stack[l, 0])
-        y = act[:, :kp] @ w
+        y = ref.tiled_matmul(act[:, :kp], w)
         y = y * alpha1_stack[l, 0, :n] + bias_stack[l, 0, :n]
         y = ref.apply_activation_coded(y, meta_stack[l, 0, 1])
         s = meta_stack[l, 0, 0]

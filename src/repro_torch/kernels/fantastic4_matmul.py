@@ -138,12 +138,13 @@ def fantastic4_matmul_plain(x, packed, omega, alpha1, bias, alpha2, *,
                             activation: Optional[str] = None,
                             quant_scale: Optional[float] = None
                             ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (fp32 out)."""
+    """The kernel's function in plain PyTorch (fp32 out), its product
+    tiled as the kernel tiles it (``ref.tiled_matmul``)."""
     _check(x, packed)
     y = ref.fantastic4_matmul_ref(
         x, packed, omega, bias=bias, alpha1=alpha1,
         alpha2=None if quant_scale is not None else alpha2,
-        activation=activation, out_dtype=torch.float32)
+        activation=activation, out_dtype=torch.float32, tiled=True)
     if quant_scale is not None:
         y = ref.quantize_int8(y, quant_scale)
     return y

@@ -68,6 +68,38 @@ def _epilogue(y: torch.Tensor, bias, alpha1, alpha2,
     return y.to(out_dtype)
 
 
+TILE_ROWS, TILE_COLS = 32, 16     # the chain kernel's row tile and slice
+
+
+def tiled_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (K, N) in fp32, on the CPU as the card's kernels tile
+    it: each (32-row, 16-column) block of the output is one product of
+    that fixed shape (zero-padded), so an output's bits depend neither on
+    the batch's other rows nor on the layer's width.  A batch cut into
+    rows or a layer cut into column blocks (the sharded stack) then gives
+    the same bits as the whole, as it does on the card; one matmul of the
+    whole shape does not (the CPU library's blocking follows the shape).
+    One batched product a row tile, over the column blocks (at least two:
+    a batch of one takes another CPU path, with other bits), both
+    operands views (the row tile broadcast, the weights' column blocks
+    strided), so the temporaries stay O(M·K + K·N + M·N).  A CUDA tensor
+    takes one matmul."""
+    x = x.to(torch.float32)
+    w = w.to(torch.float32)
+    if x.device.type != "cpu":
+        return x @ w
+    m, k = x.shape
+    n = w.shape[1]
+    t = max(-(-m // TILE_ROWS), 1)
+    s = max(-(-n // TILE_COLS), 2)
+    xt = F.pad(x, (0, 0, 0, t * TILE_ROWS - m)).view(t, TILE_ROWS, k)
+    ws = F.pad(w, (0, s * TILE_COLS - n)).view(k, s, TILE_COLS) \
+        .permute(1, 0, 2)
+    y = torch.cat([torch.bmm(xt[i].expand(s, TILE_ROWS, k), ws)
+                   for i in range(t)], dim=1)
+    return y.permute(1, 0, 2).reshape(t * TILE_ROWS, s * TILE_COLS)[:m, :n]
+
+
 def unpack_rows(packed: torch.Tensor) -> torch.Tensor:
     """(K//2, N) uint8 -> (K, N) uint8 codes; byte r = c[2r] | c[2r+1]<<4."""
     return bitplanes.unpack_codes_rows(packed)
@@ -81,10 +113,13 @@ def decode_weights(packed: torch.Tensor, omega: torch.Tensor,
 def fantastic4_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
                           omega: torch.Tensor, bias=None, alpha1=None,
                           alpha2=None, activation: Optional[str] = None,
-                          out_dtype=None) -> torch.Tensor:
+                          out_dtype=None, tiled: bool = False
+                          ) -> torch.Tensor:
+    """The oracle: decode, one fp32 matmul (``tiled``: :func:`tiled_matmul`,
+    the kernels' plain versions), the epilogue."""
     out_dtype = out_dtype or x.dtype
     w = decode_weights(packed, omega, torch.float32)
-    y = x.to(torch.float32) @ w
+    y = tiled_matmul(x, w) if tiled else x.to(torch.float32) @ w
     return _epilogue(y, bias, alpha1, alpha2, activation, out_dtype)
 
 

@@ -4,6 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mlp-hr --batch 32 \
         --engine --async --multi lenet-300-100,mlp-gsc --verify-launch \
         --max-hot-models 2 --flip-rate 0.05 --streams 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mlp-gsc --batch 8 \
+        --shard --world 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --engine
     PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --layers 1
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
@@ -20,6 +22,12 @@ the micro-batcher and checks the result against the batch; ``--engine
 --async`` serves them through the threaded ``ServingFrontend`` instead,
 ``--multi`` co-serves more frozen packs, and the integrity, cold-tier,
 fault-injection and stream flags follow the JAX package's launcher.
+``--shard`` serves the MLP through ``ExecutionPlan(mode="sharded")`` on a
+``('data', 'model')`` mesh of ranks (``launch.mesh.fit_mesh``): under
+torchrun it joins torchrun's world, else it spawns ``--world`` ranks
+(gloo on the CPU; on CUDA NCCL with a card a rank, or ``--backend gloo``
+for ranks sharing a card).  Rank 0 prints; its logits equal
+``--no-fused``'s.
 
 An LM arch of the dense, moe, ssm, hybrid or vlm family (``--arch
 smollm-360m``, ``grok-1-314b``, ``deepseek-v3-671b`` with its latent
@@ -54,11 +62,15 @@ them, one GPU's share of the DeepSeek-V3 report's EP32 prefill unit).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..configs import get_config, list_configs
@@ -71,6 +83,8 @@ from ..nn.module import FP32_CTX
 from .. import serving
 from ..serving import plans
 from ..serving.batcher import MicroBatcher
+from . import mesh as mesh_lib
+from .mesh import describe as describe_mesh
 
 
 def freeze_mlp_pack(cfg, *, seed: int = 0, device=None) -> dict:
@@ -118,17 +132,19 @@ def _timed(fn, iters: int, dev: torch.device) -> tuple:
     return y, (time.perf_counter() - t0) * 1e3 / iters
 
 
-def serve_mlp(args) -> torch.Tensor:
-    dev = resolve_device(args.device)
+def serve_mlp(args, mesh=None) -> torch.Tensor:
+    """Freeze, plan and serve ``--arch``; with ``mesh`` (``--shard``) this
+    rank's part of the column-sharded plan."""
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     cfg = MLPS[args.arch]
     pack = freeze_mlp_pack(cfg, seed=args.seed, device=dev)
     g = torch.Generator().manual_seed(args.seed + 1)
     x = torch.randn((args.batch, cfg.d_in), generator=g).to(dev)
+    args.mode_kwargs = _mode_kwargs(args, mesh)
     plan = plans.build_plan(
-        pack, mode="fused" if args.fused else "per_layer",
-        act_dtype="int8" if args.int8 else "float32",
+        pack, act_dtype="int8" if args.int8 else "float32",
         double_buffer=args.double_buffer,
-        calib_x=x if args.int8 else None, device=dev)
+        calib_x=x if args.int8 else None, device=dev, **args.mode_kwargs)
 
     desc = plan.describe()
     print(f"plan: requested {desc['requested_mode']}"
@@ -137,6 +153,11 @@ def serve_mlp(args) -> torch.Tensor:
           f"{desc['resolved_mode']} on {desc['device']} (batch {args.batch}: "
           f"{plan.mode_label(args.batch)}; block_m {desc['block_m']} "
           f"[{desc['block_source']}], buckets {desc['bucket_sizes']})")
+    if desc.get("sharding"):
+        sh = desc["sharding"]
+        print(f"plan: sharded over {sh['mesh']} — column-split layers "
+              f"{sh['col_sharded_layers']}, replicated "
+              f"{sh['replicated_layers'] or 'none'}")
     print("plan: bucket -> schedule " + ", ".join(
         f"{b}:{desc['bucket_schedules'][b]}[bm={desc['bucket_block_m'][b]}]"
         for b in desc["bucket_sizes"]))
@@ -180,8 +201,45 @@ def _per_model(opt, flag, names, cast):
         raise SystemExit(f"{flag}: {e}")
 
 
-def _mode_kwargs(args) -> dict:
+def _mode_kwargs(args, mesh=None) -> dict:
+    """The plan-mode kwargs the flags resolve to, shared by the primary
+    plan, ``--multi`` co-served packs and the pack-cache registration."""
+    if mesh is not None:
+        print(f"shard: ('data','model') mesh {dict(mesh.shape)} over "
+              f"{mesh.size} device(s) [{describe_mesh(mesh)['collectives']}]")
+        return {"mode": "sharded", "mesh": mesh}
     return {"mode": "fused" if args.fused else "per_layer"}
+
+
+def _shard_rank(argv) -> None:
+    """One rank of ``--shard``: the launcher's MLP path on this rank's
+    mesh; rank 0 prints."""
+    args = parse_args(argv)
+    mesh = mesh_lib.fit_mesh(device=mesh_lib.default_device())
+    if mesh.rank:
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve_mlp(args, mesh)
+    else:
+        serve_mlp(args, mesh)
+
+
+def serve_sharded(args, argv) -> None:
+    """``--shard``: the MLP path over a mesh of ``--world`` ranks (torchrun's
+    world when it started this process, else ranks spawned here: NCCL a
+    card each, or gloo on the CPU or when ``--backend gloo`` lets ranks
+    share a card)."""
+    if mesh_lib.world_from_env() is not None:
+        mesh_lib.init_from_env(backend=args.backend, device=args.device)
+        try:
+            _shard_rank(argv)
+        finally:
+            dist.destroy_process_group()
+        return
+    dev = torch.device(args.device)
+    world = args.world or (torch.cuda.device_count()
+                           if dev.type == "cuda" else 1)
+    mesh_lib.run_ranks(_shard_rank, world, backend=args.backend,
+                       device=dev, args=(argv,))
 
 
 def serve_mlp_async(args, cfg, plan, x, y_ref):
@@ -205,7 +263,7 @@ def serve_mlp_async(args, cfg, plan, x, y_ref):
             mpack, act_dtype="int8" if args.int8 else "float32",
             double_buffer=args.double_buffer,
             calib_x=mx if args.int8 else None, device=dev,
-            **_mode_kwargs(args))
+            **args.mode_kwargs)
         models[mcfg.name] = (mplan, list(mx.cpu().numpy()))
 
     names = list(models)
@@ -255,7 +313,7 @@ def serve_mlp_async(args, cfg, plan, x, y_ref):
             frontend.register_pack(
                 name, mplan.pack,
                 plan_kwargs={
-                    **_mode_kwargs(args),
+                    **args.mode_kwargs,
                     "act_dtype": "int8" if args.int8 else "float32",
                     "double_buffer": args.double_buffer,
                     "calib": ({"act_scales": list(mplan.act_scales)}
@@ -518,9 +576,18 @@ def check_flags(args) -> None:
     if args.streams > 1 and not args.async_frontend:
         raise SystemExit("--streams applies to the async frontend: add "
                          "--engine --async")
-    if args.shard:
-        raise SystemExit("--shard is not ported yet (ROADMAP queue 1: "
-                         "scale-out)")
+    if args.shard and args.arch not in MLPS:
+        raise SystemExit("--shard applies to the paper-MLP serving path "
+                         f"(--arch one of {sorted(MLPS)})")
+    if args.shard and args.async_frontend:
+        raise SystemExit("--shard serves through the plan and the "
+                         "micro-batcher; --async would order each rank's "
+                         "collectives by its own threads")
+    if (args.world is not None or args.backend is not None) \
+            and not args.shard:
+        raise SystemExit("--world/--backend apply to --shard")
+    if args.world is not None and args.world < 1:
+        raise SystemExit(f"--world must be >= 1, got {args.world}")
     if (args.tier or args.max_delay or args.max_queued is not None
             or args.inject_fault) and not args.async_frontend:
         raise SystemExit("--tier/--max-delay/--max-queued/--inject-fault "
@@ -619,8 +686,17 @@ def parse_args(argv=None):
                     help="with --engine --async: N stream workers, each "
                          "on a CUDA stream of its own")
     ap.add_argument("--shard", action="store_true",
-                    help="column-shard the plan over several devices "
-                         "(not ported yet)")
+                    help="MLP path: column-shard the plan over a "
+                         "('data','model') mesh of ranks (launch.mesh."
+                         "fit_mesh): wide layers split their output "
+                         "features per rank, indivisible widths replicate")
+    ap.add_argument("--world", type=int, default=None, metavar="N",
+                    help="with --shard: ranks to spawn (default: torchrun's "
+                         "world, else one a card, one on the CPU)")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="with --shard: the process group's backend "
+                         "(default NCCL a card each, gloo on the CPU; "
+                         "gloo lets several ranks share a card)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -630,6 +706,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.shard:
+        return serve_sharded(args, sys.argv[1:] if argv is None else argv)
     if args.arch in MLPS:
         return serve_mlp(args)
     return serve_lm_config(lm_config(args), args)

@@ -26,13 +26,15 @@ from ..nn.transformer import check_remat, check_supported
 def _loss_fn(cfg: ArchConfig, mesh=None, remat: str = "none",
              dtype: torch.dtype = torch.bfloat16) -> Callable:
     """``loss(params, qstate, batch, lam) -> (loss, metrics)``.  The
-    reference's ``use_ep`` (expert parallelism over a mesh) waits for
-    ROADMAP queue 1 item 6; one shard's share of it trains through
+    reference's ``use_ep`` (expert parallelism over a mesh, whose forward
+    ``nn.moe`` serves) trains with the next slice, training over a mesh
+    (ROADMAP queue 1 item 6); one shard's share of it trains through
     ``cfg.experts_held``."""
     if mesh is not None:
         raise NotImplementedError(
-            "a loss over a mesh is not ported yet (ROADMAP queue 1 item 6, "
-            "scale-out); pass mesh=None")
+            "a loss over a mesh is not ported yet: it comes with training "
+            "over a mesh, the next slice (ROADMAP queue 1 item 6, its "
+            "training half); pass mesh=None")
     check_supported(cfg)
     check_remat(remat)
     audio = cfg.family == "audio"

@@ -44,30 +44,55 @@ def lm_forward_loss(params, qstate, batch: dict, ctx: QuantCtx,
 
 def greedy_step(params, qstate, tokens: torch.Tensor, ctx: QuantCtx,
                 cfg: ArchConfig, *, positions: torch.Tensor,
-                cache: dict) -> tuple:
+                cache: dict, mesh=None, use_ep: bool = True) -> tuple:
     """One serving step: feed tokens, return (next_token (B, 1), cache)."""
     logits, cache, _ = T.lm_apply(params, qstate, tokens, ctx, cfg,
-                                  positions=positions, cache=cache)
+                                  positions=positions, cache=cache,
+                                  mesh=mesh, use_ep=use_ep)
     nxt = torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(torch.int32)
     return nxt, cache
 
 
+def batch_rows(mesh, b: int) -> Optional[slice]:
+    """This rank's rows of a batch of ``b`` over ``mesh``'s data axes (the
+    reference's ``batch_spec``: split when they divide, else every row);
+    None for every row."""
+    if mesh is None:
+        return None
+    n = mesh.axis_size(mesh.data_axes)
+    if n == 1 or b % n:
+        return None
+    i = mesh.axis_index(mesh.data_axes)
+    return slice(i * (b // n), (i + 1) * (b // n))
+
+
 @torch.no_grad()
 def generate(params, qstate, prompt: torch.Tensor, ctx: QuantCtx,
-             cfg: ArchConfig, *, max_new: int) -> torch.Tensor:
+             cfg: ArchConfig, *, max_new: int, mesh=None,
+             use_ep: bool = True) -> torch.Tensor:
     """Greedy generation: prefill the prompt, then decode ``max_new - 1``
-    more tokens; (B, max_new) int32 on the prompt's device."""
+    more tokens; (B, max_new) int32 on the prompt's device.  Over a
+    ``mesh`` every rank takes the whole prompt, runs its rows (split over
+    the data axes) with its own cache through the MoE exchanges, and the
+    tokens are gathered back, so every rank returns every row."""
+    rows = batch_rows(mesh, prompt.shape[0])
+    if rows is not None:
+        prompt = prompt[rows]
     b, s = prompt.shape
     dev = prompt.device
     cache = T.init_cache(cfg, b, s + max_new, dtype=torch.float32,
                          device=dev)
     pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    kw = dict(mesh=mesh, use_ep=use_ep)
     nxt, cache = greedy_step(params, qstate, prompt, ctx, cfg,
-                             positions=pos, cache=cache)
+                             positions=pos, cache=cache, **kw)
     outs = [nxt]
     for t in range(max_new - 1):
         p_t = torch.full((b, 1), s + t, dtype=torch.int32, device=dev)
         nxt, cache = greedy_step(params, qstate, nxt, ctx, cfg,
-                                 positions=p_t, cache=cache)
+                                 positions=p_t, cache=cache, **kw)
         outs.append(nxt)
-    return torch.cat(outs, dim=1)
+    out = torch.cat(outs, dim=1)
+    if rows is not None:
+        out = mesh.all_gather(out, mesh.data_axes, dim=0)
+    return out

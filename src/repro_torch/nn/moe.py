@@ -32,9 +32,17 @@ expert, once).  The shards' outputs, less all but one shared expert, add
 up to the whole layer's.  A shard's own output is not ``local_moe``'s: the
 reference's return all-to-all gives each token all k experts' outputs,
 the share only those of the experts it holds, so a share's loss and its
-non-expert gradients belong to no shard of the deployment.  The collective exchange of ``moe_apply_ep`` and
-the expert-TP path ``moe_apply_tp`` need a mesh and wait for ROADMAP queue
-1 item 6.
+non-expert gradients belong to no shard of the deployment.
+
+Over a mesh of ranks (``launch.mesh``) the reference's two exchanges run
+on ``torch.distributed``: :func:`moe_apply_ep` (experts over 'model', two
+all-to-alls a layer, each token getting all k of its experts' outputs
+back) and :func:`moe_apply_tp` (every expert's FFN width over 'model',
+one all-reduce of the down-projection), chosen by :func:`moe_ffn` as the
+reference chooses.  A rank brings its rows of the batch (the same rows on
+every rank of one 'model' slice, as the reference lays a batch over the
+data axes) and gets their outputs back.  These paths serve; their
+backward is the training slice's.
 
 The backward is deterministic on the card: each token enters the
 dispatch through an expand (its gradient a sum over its k assignments,
@@ -186,13 +194,60 @@ def _capacity(n_assign: int, n_experts: int, factor: float) -> int:
 
 # ------------------------------------------------------------ one device
 
-def _bank_experts(experts: dict) -> int:
-    """Experts in a bank: a tensor, a quantized ``{"w", ...}`` or a frozen
-    ``{"packed", ...}`` leaf, each (E, ...)."""
+def _gate_bank(experts: dict) -> torch.Tensor:
+    """The gate bank's (E, d, ff) tensor: itself, a quantized ``{"w",
+    ...}`` leaf's ``w`` or a frozen ``{"packed", ...}`` leaf's codes."""
     bank = experts["gate"]
     if isinstance(bank, dict):
         bank = bank["w"] if "w" in bank else bank["packed"]
-    return bank.shape[0]
+    return bank
+
+
+def _bank_experts(experts: dict) -> int:
+    """Experts in a bank."""
+    return _gate_bank(experts).shape[0]
+
+
+def _dispatch(xt: torch.Tensor, router: dict, e: int, cap: int, *,
+              top_k: int, gate: str, routed_scaling: float, dtype,
+              held: tuple) -> tuple:
+    """Route ``xt`` (n, d) and scatter its kept assignments to the held
+    experts ``held = (first, count)`` into a (count, cap, d) buffer (an
+    assignment that is dropped or not held goes to a sink row past it);
+    returns (buf, slot, keep, w, aux) with ``slot`` in the buffer."""
+    n, d = xt.shape
+    first, count = held
+    logits = xt.to(torch.float32) @ router["w"]
+    ids, w, aux = route(logits, router["bias_correction"].detach(),
+                        top_k=top_k, gate=gate, routed_scaling=routed_scaling)
+    slot, keep = _dispatch_indices(ids.reshape(-1), e, cap)
+    if (first, count) != (0, e):
+        keep = keep & (slot >= first * cap) & (slot < (first + count) * cap)
+        slot = slot - first * cap
+    sink = count * cap
+    at = torch.where(keep, slot, sink)
+    xk = xt.unsqueeze(1).expand(n, top_k, d).reshape(n * top_k, d)
+    buf = torch.zeros((sink + 1, d), dtype=dtype, device=xt.device)
+    buf[at] = xk.to(dtype)
+    return buf[:sink].view(count, cap, d), slot, keep, w, aux
+
+
+def _combine(out: torch.Tensor, slot, keep, w, n: int, top_k: int,
+             dtype) -> torch.Tensor:
+    """Each token's k weighted expert outputs from ``out`` (.., cap, d),
+    added in assignment order from zero (a dropped or unheld assignment
+    reads a zero row)."""
+    d = out.shape[-1]
+    out = out.reshape(-1, d)
+    sink = out.shape[0]
+    out = torch.cat([out, out.new_zeros((1, d))])
+    gathered = (out[torch.where(keep, slot, sink)]
+                * (w.reshape(-1, 1) * keep[:, None]).to(dtype)
+                ).view(n, top_k, d)
+    y = torch.zeros((n, d), dtype=dtype, device=out.device)
+    for j in range(top_k):
+        y = y + gathered[:, j]
+    return y
 
 
 def moe_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
@@ -207,54 +262,193 @@ def moe_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
     xt = x.reshape(-1, d)
     n = xt.shape[0]
     e = p["router"]["w"].shape[1]
-    first, count = held_experts(experts_held, e)
-    if _bank_experts(p["experts"]) != count:
+    held = held_experts(experts_held, e)
+    if _bank_experts(p["experts"]) != held[1]:
         raise ValueError(f"the banks hold {_bank_experts(p['experts'])} "
                          f"experts, experts_held={experts_held} names "
-                         f"{count}")
-
-    logits = xt.to(torch.float32) @ p["router"]["w"]
-    ids, w, aux = route(logits, p["router"]["bias_correction"].detach(),
-                        top_k=top_k, gate=gate,
-                        routed_scaling=routed_scaling)
+                         f"{held[1]}")
     cap = _capacity(n * top_k, e, capacity_factor)
-    slot, keep = _dispatch_indices(ids.reshape(-1), e, cap)
-    if experts_held is not None:
-        keep = keep & (slot >= first * cap) & (slot < (first + count) * cap)
-        slot = slot - first * cap
-
-    # each assignment's held slot, or a sink row past this shard's buffer
-    sink = count * cap
-    at = torch.where(keep, slot, sink)
-    xk = xt.unsqueeze(1).expand(n, top_k, d).reshape(n * top_k, d)
-    buf = torch.zeros((sink + 1, d), dtype=ctx.dtype, device=x.device)
-    buf[at] = xk.to(ctx.dtype)
-    out = _expert_ffn(p["experts"], subtree(q_state, "experts"),
-                      buf[:sink].view(count, cap, d), ctx).reshape(sink, d)
-    out = torch.cat([out, out.new_zeros((1, d))])
-
-    gathered = (out[at] * (w.reshape(-1, 1) * keep[:, None]).to(ctx.dtype)
-                ).view(n, top_k, d)
-    y = torch.zeros((n, d), dtype=ctx.dtype, device=x.device)
-    for j in range(top_k):
-        y = y + gathered[:, j]
+    buf, slot, keep, w, aux = _dispatch(
+        xt, p["router"], e, cap, top_k=top_k, gate=gate,
+        routed_scaling=routed_scaling, dtype=ctx.dtype, held=held)
+    out = _expert_ffn(p["experts"], subtree(q_state, "experts"), buf, ctx)
+    y = _combine(out, slot, keep, w, n, top_k, ctx.dtype)
     if "shared" in p:
         y = y + swiglu(p["shared"], subtree(q_state, "shared"), xt, ctx)
     return y.reshape(shape), aux
 
 
+# ------------------------------------------------------------ over a mesh
+
+def _axis_slice(node: Any, dim: int, index: int, count: int) -> Any:
+    """A bank leaf (a tensor, ``{"w", "omega"}`` or ``{"packed", "omega"}``)
+    cut to block ``index`` of ``count`` along ``dim`` of its (E, d_in,
+    d_out) bank (a packed bank's d_in is in row pairs: its rows halve)."""
+    if isinstance(node, dict):
+        out = dict(node)
+        key = "w" if "w" in node else "packed"
+        if dim == 0:
+            out["omega"] = _axis_slice(node["omega"], 0, index, count)
+        out[key] = _axis_slice(node[key], dim, index, count)
+        return out
+    blk = node.shape[dim] // count
+    return node.narrow(dim, index * blk, blk)
+
+
+def _rank_tokens(xt: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """This rank's block of the token rows ``xt`` (n, d), padded with zero
+    rows to a multiple of the ranks along ``axes`` (a zero row routes
+    like any token; its output is cut away)."""
+    k = mesh.axis_size(axes)
+    pad = (-xt.shape[0]) % k
+    if pad:
+        xt = torch.cat([xt, xt.new_zeros((pad, xt.shape[1]))])
+    blk = xt.shape[0] // k
+    return xt.narrow(0, mesh.axis_index(axes) * blk, blk)
+
+
+def _rank_experts(p: dict, q_state: Any, e: int, ep: int,
+                  index: int) -> tuple:
+    """(banks, their q-state) of this rank's E/ep experts: whole banks are
+    cut; banks built for the rank's share (``experts_held``) are kept."""
+    held = _bank_experts(p["experts"])
+    eq = subtree(q_state, "experts")
+    if held == e // ep:
+        return p["experts"], eq
+    if held != e:
+        raise ValueError(f"the banks hold {held} experts; expert parallelism "
+                         f"over {ep} ranks needs {e} or {e // ep}")
+    banks = {k: _axis_slice(v, 0, index, ep) for k, v in p["experts"].items()}
+    if isinstance(eq, dict):
+        eq = {k: {kk: _axis_slice(vv, 0, index, ep) for kk, vv in v.items()}
+              if isinstance(v, dict) else v for k, v in eq.items()}
+    return banks, eq
+
+
+def moe_apply_ep(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
+                 mesh, top_k: int, gate: str = "softmax",
+                 capacity_factor: float = 1.25, routed_scaling: float = 1.0,
+                 expert_axis: str = "model",
+                 experts_held: Optional[tuple] = None) -> tuple:
+    """Expert-parallel MoE over ``mesh`` (the reference's
+    ``moe_apply_ep``): experts over ``expert_axis``, tokens over every
+    axis, two all-to-alls a layer.
+
+    ``x`` (..., d) holds this rank's rows, the same on every rank of its
+    ``expert_axis`` slice.  The slice's tokens are padded to its size and
+    each rank routes its block (``local_moe``: capacity per rank, from its
+    own n·k assignments).  The first all-to-all moves the (E, C, d)
+    dispatch to the experts' ranks as (E/ep, ep·C, d); each rank runs its
+    experts; the second moves the outputs back, and each token adds its k
+    outputs in assignment order.  The blocks are gathered over the slice,
+    the shared expert is added after the exchange, and the aux is the mean
+    over all ranks.  ``p``'s banks hold every expert, or this rank's E/ep
+    (``experts_held``)."""
+    shape = x.shape
+    d = shape[-1]
+    xt = x.reshape(-1, d)
+    e = p["router"]["w"].shape[1]
+    ep = mesh.axis_size(expert_axis)
+    if e % ep:
+        raise ValueError(f"{e} experts over a {ep}-wide {expert_axis!r} axis")
+    index = mesh.axis_index(expert_axis)
+    if experts_held is not None and tuple(experts_held) != (
+            index * (e // ep), e // ep):
+        raise ValueError(f"experts_held={tuple(experts_held)} is not rank "
+                         f"{index}'s share of {e} experts over {ep}")
+    banks, eq = _rank_experts(p, q_state, e, ep, index)
+
+    xl = _rank_tokens(xt, mesh, expert_axis)
+    n_l = xl.shape[0]
+    cap = _capacity(n_l * top_k, e, capacity_factor)
+    buf, slot, keep, w, aux = _dispatch(
+        xl, p["router"], e, cap, top_k=top_k, gate=gate,
+        routed_scaling=routed_scaling, dtype=ctx.dtype, held=(0, e))
+    # (E, C, d) -> (E/ep, ep*C, d): slots travel to their expert's rank
+    recv = mesh.all_to_all(buf, expert_axis).view(ep, e // ep, cap, d)
+    out = _expert_ffn(banks, eq, recv.transpose(0, 1).reshape(
+        e // ep, ep * cap, d), ctx)
+    # and back: (E/ep, ep*C, d) -> (E, C, d), each source's slots home
+    out = mesh.all_to_all(out.view(e // ep, ep, cap, d).transpose(0, 1)
+                          .reshape(e, cap, d), expert_axis)
+    y = _combine(out, slot, keep, w, n_l, top_k, ctx.dtype)
+    y = mesh.all_gather(y, expert_axis, dim=0)[:xt.shape[0]]
+    aux = mesh.all_reduce(aux, mesh.axis_names, op="mean")
+    if "shared" in p:
+        y = y + swiglu(p["shared"], subtree(q_state, "shared"), xt, ctx)
+    return y.reshape(shape), aux
+
+
+def moe_apply_tp(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
+                 mesh, top_k: int, gate: str = "softmax",
+                 capacity_factor: float = 1.25, routed_scaling: float = 1.0,
+                 expert_axis: str = "model") -> tuple:
+    """Per-expert tensor parallelism over ``mesh`` (the reference's
+    ``moe_apply_tp``, for few experts on a wide axis): each rank of the
+    ``expert_axis`` slice holds a 1/tp slice of every expert's FFN width.
+    ``x`` holds this rank's rows, the same on every rank of the slice;
+    the dispatch is local, each rank contracts its ff slice, and one
+    all-reduce over the slice sums the row-split down-projection.  The
+    aux is the mean over the data axes.  ``p``'s banks are whole."""
+    shape = x.shape
+    d = shape[-1]
+    xt = x.reshape(-1, d)
+    n = xt.shape[0]
+    e = p["router"]["w"].shape[1]
+    tp = mesh.axis_size(expert_axis)
+    index = mesh.axis_index(expert_axis)
+    if _bank_experts(p["experts"]) != e:
+        raise ValueError("expert TP takes whole banks")
+    cap = _capacity(n * top_k, e, capacity_factor)
+    buf, slot, keep, w, aux = _dispatch(
+        xt, p["router"], e, cap, top_k=top_k, gate=gate,
+        routed_scaling=routed_scaling, dtype=ctx.dtype, held=(0, e))
+    eq = subtree(q_state, "experts")
+
+    def mat(name, dim):
+        return materialize(_axis_slice(p["experts"][name], dim, index, tp),
+                           subtree(eq, name), ctx)
+    g = torch.bmm(buf, mat("gate", 2))                  # the ff/tp slice
+    u = torch.bmm(buf, mat("up", 2))
+    h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(buf.dtype)
+    out = mesh.all_reduce(torch.bmm(h, mat("down", 1)), expert_axis)
+    y = _combine(out, slot, keep, w, n, top_k, ctx.dtype)
+    data_axes = tuple(a for a in mesh.axis_names if a != expert_axis)
+    aux = mesh.all_reduce(aux, data_axes, op="mean")
+    if "shared" in p:
+        y = y + swiglu(p["shared"], subtree(q_state, "shared"), xt, ctx)
+    return y.reshape(shape), aux
+
+
+def moe_path(p: dict, mesh, use_ep: bool = True) -> str:
+    """The reference's choice: ``"ep"`` when the experts divide the mesh's
+    'model' axis, ``"tp"`` when the FFN width does, else ``"local"``
+    (:func:`moe_apply` on this rank's rows)."""
+    e = p["router"]["w"].shape[1]
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    multi = mesh is not None and mesh.size > 1
+    if use_ep and multi and e % tp == 0:
+        return "ep"
+    if use_ep and multi and _gate_bank(p["experts"]).shape[-1] % tp == 0:
+        return "tp"
+    return "local"
+
+
 def moe_ffn(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
             mesh=None, top_k: int, gate: str = "softmax",
             capacity_factor: float = 1.25,
-            routed_scaling: float = 1.0,
+            routed_scaling: float = 1.0, use_ep: bool = True,
             experts_held: Optional[tuple] = None) -> tuple:
-    """The reference's dispatcher: on one device the sort dispatch of
-    :func:`moe_apply` (a shard of it with ``experts_held``).  A mesh
-    (expert parallelism, expert TP) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "MoE over a mesh (moe_apply_ep, moe_apply_tp) is not ported yet "
-            "(ROADMAP queue 1 item 6, scale-out); pass mesh=None")
-    return moe_apply(p, q_state, x, ctx, top_k=top_k, gate=gate,
-                     capacity_factor=capacity_factor,
-                     routed_scaling=routed_scaling, experts_held=experts_held)
+    """The reference's dispatcher (:func:`moe_path`): :func:`moe_apply_ep`,
+    :func:`moe_apply_tp`, or the sort dispatch of :func:`moe_apply` (on
+    one device a shard of it with ``experts_held``).  Over a mesh,
+    ``experts_held`` names this rank's expert-parallel share."""
+    kw = dict(top_k=top_k, gate=gate, capacity_factor=capacity_factor,
+              routed_scaling=routed_scaling)
+    path = moe_path(p, mesh, use_ep)
+    if path == "ep":
+        return moe_apply_ep(p, q_state, x, ctx, mesh=mesh,
+                            experts_held=experts_held, **kw)
+    if path == "tp":
+        return moe_apply_tp(p, q_state, x, ctx, mesh=mesh, **kw)
+    return moe_apply(p, q_state, x, ctx, experts_held=experts_held, **kw)

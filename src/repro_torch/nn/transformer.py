@@ -265,7 +265,8 @@ def _ssm_branch(cfg: ArchConfig, lp: dict, lq: Any, h: torch.Tensor,
 
 
 def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
-           ctx: QuantCtx, *, cos_sin, positions, lcache, window) -> tuple:
+           ctx: QuantCtx, *, cos_sin, positions, lcache, window, mesh=None,
+           use_ep: bool = True) -> tuple:
     """One transformer block; returns (x, new_lcache, aux)."""
     h = _norm(cfg, lp["ln1"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -305,6 +306,7 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
                                   top_k=cfg.top_k, gate=cfg.moe_gate,
                                   capacity_factor=cfg.capacity_factor,
                                   routed_scaling=cfg.routed_scaling,
+                                  mesh=mesh, use_ep=use_ep,
                                   experts_held=cfg.experts_held)
         x = x + y2
     else:
@@ -387,7 +389,8 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
              ctx: QuantCtx, cfg: ArchConfig, *,
              embeds: Optional[torch.Tensor] = None,
              positions: Optional[torch.Tensor] = None,
-             cache: Optional[dict] = None, remat: str = "none") -> tuple:
+             cache: Optional[dict] = None, remat: str = "none",
+             mesh=None, use_ep: bool = True) -> tuple:
     """Forward pass.  Returns (logits, new_cache, aux_loss).
 
     ``tokens`` (B, S) int, or ``embeds`` (B, S, d): the stubbed vlm / audio
@@ -397,7 +400,10 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
     M-RoPE over three identical (t, h, w) streams of ``positions``, as
     the reference feeds it.  ``remat``: one of :data:`REMAT`, each
     block's rematerialisation under autograd (the grouped ŵ is made once
-    before the loop either way, so it adds no ECL pass).
+    before the loop either way, so it adds no ECL pass).  Over a ``mesh``
+    (``launch.mesh``) each rank runs its own rows with its whole non-expert
+    weights and its own cache, and the MoE layers exchange tokens
+    (``nn.moe.moe_ffn``, ``use_ep`` as the reference takes it).
     """
     if embeds is None:
         x = params["embed"]["table"].to(ctx.dtype)[tokens]
@@ -425,7 +431,8 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
     w_hat = quantize_stack(params["stacks"], subtree(qstate, "stacks"),
                            ctx) if ctx.quant else None
     for kind, idx in _kind_layers(cfg).items():
-        block = _remat(functools.partial(_block, cfg, kind), remat)
+        block = _remat(functools.partial(_block, cfg, kind, mesh=mesh,
+                                         use_ep=use_ep), remat)
         windows = _windows_for(cfg, idx)
         stack_p = params["stacks"][kind]
         stack_q = subtree(subtree(qstate, "stacks"), kind)

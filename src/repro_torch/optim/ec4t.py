@@ -17,8 +17,8 @@ detached in the forward, so its gradient is zero and Adam leaves it bit
 for bit as it was.  :func:`update_moe_bias` (deepseek-v3's aux-loss-free
 balancing) is ported, and, as in the reference, not called by the step:
 the reference's module docstring lists it as a fifth stage, but its step
-does not run it (ROADMAP queue 3).  A mesh waits for scale-out (queue 1
-item 6).
+does not run it (ROADMAP queue 3).  A step over a mesh comes with
+training over a mesh, the next slice (queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -52,8 +52,9 @@ def make_train_step(loss_fn: Callable, adam_cfg: adam.AdamConfig, *,
     every metric a 0-d tensor on the parameters' device."""
     if mesh is not None:
         raise NotImplementedError(
-            "a train step over a mesh is not ported yet (ROADMAP queue 1 "
-            "item 6, scale-out); pass mesh=None")
+            "a train step over a mesh is not ported yet: it comes with "
+            "training over a mesh, the next slice (ROADMAP queue 1 item 6, "
+            "its training half); pass mesh=None")
 
     def step(state: dict, batch: dict) -> tuple:
         p, opt, qs = state["params"], state["opt"], state["qstate"]

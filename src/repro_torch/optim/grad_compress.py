@@ -8,8 +8,8 @@ max|g| / 127, dequantized, and the residual carried to the next step
 tracks the sum of the true ones.  Smaller tensors (ω, norms) stay exact.
 
 Only the local round trip is ported (``mesh=None``): the same numerics,
-no collective.  The int8 all-reduce over a data-parallel mesh waits for
-ROADMAP queue 1 item 6 (scale-out).
+no collective.  The int8 all-reduce over a data-parallel mesh comes with
+training over a mesh, the next slice (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -50,8 +50,9 @@ def compress_grads(grads: Any, err: Any, cfg: GradCompressCfg, *,
     """Quantize (grad + error) to int8 and back; returns (grads, err)."""
     if mesh is not None:
         raise NotImplementedError(
-            "the int8 all-reduce over a mesh is not ported yet (ROADMAP "
-            "queue 1 item 6, scale-out); pass mesh=None")
+            "the int8 all-reduce over a mesh is not ported yet: it comes "
+            "with training over a mesh, the next slice (ROADMAP queue 1 "
+            "item 6, its training half); pass mesh=None")
 
     def one(g, e):
         if e.ndim == 0:            # ineligible leaf: exact

@@ -1,0 +1,273 @@
+"""Partition rules: the port of the JAX package's ``runtime/sharding.py``.
+
+Mesh axes (``launch/mesh.py``): ``('data', 'model')`` single-pod,
+``('pod', 'data', 'model')`` multi-pod.  Batch shards over the data axes
+(pod included), weights Megatron-style over ``model``:
+
+* QKV / gate / up / q_up / kv_up: column-sharded (output features);
+* O / down / out_proj: row-sharded (contraction dim);
+* embedding + LM head: vocab-sharded;
+* MoE expert banks: expert-sharded over 'model' when E % tp == 0, else
+  per-expert TP on the FFN width;
+* everything small or sensitive (norms, biases, router, ω, probs, SSM
+  dynamics): replicated.
+
+Every rule is divisibility-guarded: a dim that does not divide by the axis
+size is replicated.  The rules read names and shapes only, so they apply
+to a tree that was never built (the reference's production meshes through
+``launch.mesh.MeshSpec``).  A spec is a plain tuple, one entry per dim:
+an axis name, a tuple of axis names, or None (replicated);
+:func:`shard_slice` cuts this rank's block of a tensor under one.
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Optional, Tuple
+
+import torch
+
+# path-regex -> role; order matters (first match wins)
+_RULES: Tuple[Tuple[str, str], ...] = (
+    (r"embed//table$", "vocab_rows"),
+    (r"lm_head//kernel(//w|//packed)?$", "vocab_cols"),
+    (r"(attn|cross)//(q|k|v)//(kernel(//w|//packed)?|bias)$", "attn_qkv"),
+    (r"(attn|cross)//o//kernel(//w|//packed)?$", "attn_o"),
+    (r"attn//(q_down|kv_down)//kernel(//w|//packed)?$", "col"),
+    (r"attn//(q_up|kv_up)//kernel(//w|//packed)?$", "head_col"),
+    (r"(mlp|shared)//(gate|up|fc1)//(kernel(//w|//packed)?|bias)$", "col"),
+    (r"(mlp|shared)//(down|fc2)//kernel(//w|//packed)?$", "row"),
+    (r"(mlp|shared)//(down|fc2)//bias$", "rep"),
+    (r"moe//experts//(gate|up)//(w|packed)$", "expert_col"),
+    (r"moe//experts//down//(w|packed)$", "expert_row"),
+    (r"moe//experts//(gate|up)$", "expert_col"),
+    (r"moe//experts//down$", "expert_row"),
+    (r"moe//router//", "rep"),
+    (r"ssm//in_proj//kernel(//w|//packed)?$", "row_contract"),
+    (r"ssm//out_proj//kernel(//w|//packed)?$", "row"),
+    (r"//omega$", "rep"),
+    (r"//probs$", "rep"),
+)
+
+_STACK_MARKERS = ("stacks//", "enc_layers//", "dec_layers//", "layers//")
+
+
+def path_name(path) -> str:
+    """``"a//b//0"`` from a path of keys and indices."""
+    return "//".join(str(k) for k in path)
+
+
+def tree_paths(tree: Any, path: tuple = ()):
+    """(path, leaf) pairs of a nested dict / list / tuple tree, dict keys
+    sorted (the JAX flattening order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _map_with_path(fn, tree: Any, path: tuple = ()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def _n_lead(name: str, ndim: int, trailing: int) -> int:
+    """Leading stacked dims (the layer stack) before the logical dims."""
+    for m in _STACK_MARKERS:
+        if m in name:
+            return max(ndim - trailing, 0)
+    return 0
+
+
+def _div(n: int, d: int) -> bool:
+    return d > 0 and n % d == 0
+
+
+def _rep(n: int) -> tuple:
+    return (None,) * n
+
+
+class Rules:
+    """The reference's rules over ``mesh_axes`` of sizes ``mesh_shape``
+    (a dict); ``cfg`` supplies head counts."""
+
+    def __init__(self, mesh_axes: Tuple[str, ...], mesh_shape: dict, cfg):
+        self.axes = tuple(mesh_axes)
+        self.shape = dict(mesh_shape)
+        self.cfg = cfg
+        self.tp = self.shape.get("model", 1)
+        self.dp_axes = tuple(a for a in ("pod", "data") if a in self.axes)
+        self.dp = math.prod(self.shape[a] for a in self.dp_axes)
+
+    @classmethod
+    def for_mesh(cls, mesh, cfg=None) -> "Rules":
+        return cls(tuple(mesh.axis_names), dict(mesh.shape), cfg)
+
+    def _role_spec(self, role: str, shape: Tuple[int, ...]) -> tuple:
+        tp, cfg = self.tp, self.cfg
+        m = "model"
+        if role == "vocab_rows":
+            return (m if _div(shape[0], tp) else None, None)
+        if role == "vocab_cols":
+            return (None, m if _div(shape[1], tp) else None)
+        if role == "attn_qkv":
+            heads_ok = (_div(getattr(cfg, "n_heads", 0), tp)
+                        and _div(getattr(cfg, "n_kv", 0), tp))
+            if len(shape) == 1:      # qkv bias
+                return (m if heads_ok and _div(shape[0], tp) else None,)
+            return (None, m if heads_ok and _div(shape[1], tp) else None)
+        if role == "head_col":       # MLA up-projections: per-head columns
+            heads_ok = _div(getattr(cfg, "n_heads", 0), tp)
+            return (None, m if heads_ok and _div(shape[1], tp) else None)
+        if role == "attn_o":
+            heads_ok = _div(getattr(cfg, "n_heads", 0), tp)
+            return (m if heads_ok and _div(shape[0], tp) else None, None)
+        if role == "col":
+            if len(shape) == 1:
+                return (m if _div(shape[0], tp) else None,)
+            return (None, m if _div(shape[1], tp) else None)
+        if role in ("row", "row_contract"):
+            return (m if _div(shape[0], tp) else None, None)
+        if role == "expert_col":
+            if _div(shape[0], tp):
+                return (m, None, None)
+            return (None, None, m if _div(shape[2], tp) else None)
+        if role == "expert_row":
+            if _div(shape[0], tp):
+                return (m, None, None)
+            return (None, m if _div(shape[1], tp) else None, None)
+        return _rep(len(shape))
+
+    def spec_for(self, name: str, shape: Tuple[int, ...]) -> tuple:
+        shape = tuple(shape)
+        for pattern, role in _RULES:
+            if re.search(pattern, name):
+                if role == "rep":
+                    return _rep(len(shape))
+                arity = 3 if role.startswith("expert") else 2
+                if name.endswith("bias"):
+                    arity = 1
+                lead = _n_lead(name, len(shape), arity)
+                logical = shape[lead:]
+                if len(logical) != arity:
+                    return _rep(len(shape))
+                return _rep(lead) + self._role_spec(role, logical)
+        return _rep(len(shape))
+
+    # ------------------------------------------------------ tree mappers
+
+    def param_specs(self, params: Any) -> Any:
+        return _map_with_path(
+            lambda p, leaf: self.spec_for(path_name(p), _shape(leaf)), params)
+
+    def zero1_spec(self, spec: tuple, shape: Tuple[int, ...]) -> tuple:
+        """Shard the first replicated, divisible dim over the data axes."""
+        if not self.dp_axes or self.dp == 1:
+            return spec
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        for i, (s, dim) in enumerate(zip(parts, shape)):
+            if s is None and _div(dim, self.dp):
+                parts[i] = self.dp_axes if len(self.dp_axes) > 1 \
+                    else self.dp_axes[0]
+                return tuple(parts)
+        return spec
+
+    def opt_specs(self, params: Any, zero1: bool = True) -> Any:
+        """Specs for one params-shaped moment tree (m or v)."""
+        def f(path, leaf):
+            spec = self.spec_for(path_name(path), _shape(leaf))
+            return self.zero1_spec(spec, _shape(leaf)) if zero1 else spec
+        return _map_with_path(f, params)
+
+    def qstate_specs(self, qstate: Any) -> Any:
+        return _map_with_path(lambda p, leaf: _rep(len(_shape(leaf))), qstate)
+
+    def _data_axis(self):
+        if not self.dp_axes:
+            return None
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
+    def batch_spec(self, ndim: int, batch_dim: Optional[int] = None) -> tuple:
+        """Batch over the data axes; replicated when it does not divide."""
+        if batch_dim is not None and not _div(batch_dim, self.dp):
+            return _rep(ndim)
+        return (self._data_axis(),) + _rep(ndim - 1)
+
+    def batch_specs(self, batch: Any) -> Any:
+        def f(path, leaf):
+            shape = _shape(leaf)
+            return self.batch_spec(len(shape), shape[0] if shape else None)
+        return _map_with_path(f, batch)
+
+    def cache_specs(self, cache: Any) -> Any:
+        """KV / SSM caches: batch over the data axes, heads over 'model'
+        when they divide; the leading (L,) stack dim replicated."""
+        tp = self.tp
+
+        def f(path, leaf):
+            name = path_name(path)
+            shape = _shape(leaf)
+            nd = len(shape)
+            if nd <= 1 or name.endswith("len") or name.endswith("pos"):
+                return _rep(nd)
+            bx = self._data_axis() if _div(shape[1], self.dp) else None
+            if name.endswith(("//k", "//v")) and nd == 5:
+                return (None, bx, None,
+                        "model" if _div(shape[3], tp) else None, None)
+            if name.endswith("//ssm") and nd == 5:
+                return (None, bx, "model" if _div(shape[2], tp) else None,
+                        None, None)
+            return (None, bx) + _rep(nd - 2)
+        return _map_with_path(f, cache)
+
+
+def serving_pack_specs(layers, rules: Rules) -> list:
+    """Specs of a frozen serving pack's layer tensors: each layer's
+    ``packed`` (⌈K/2⌉, N) under the ``//packed`` column rule (split over
+    the output features when N divides the model axis), α₁ and b with
+    their layer's split, ω and α₂ replicated.  One dict a layer with keys
+    ``packed / omega / alpha1 / bias / alpha2``."""
+    specs = []
+    for i, layer in enumerate(layers):
+        packed = rules.spec_for(f"layers//{i}//mlp//fc1//kernel//packed",
+                                _shape(layer["packed"]))
+        col_ok = len(packed) == 2 and packed[1] is not None
+        vec = ("model",) if col_ok else (None,)
+        specs.append({
+            "packed": packed,
+            "omega": rules.spec_for(f"layers//{i}//omega",
+                                    _shape(layer["omega"])),
+            "alpha1": vec,
+            "bias": vec,
+            "alpha2": (),
+        })
+    return specs
+
+
+def shard_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` on ``mesh`` (a view: each
+    named dim cut into equal blocks in mesh order)."""
+    if len(spec) > t.ndim:
+        raise ValueError(f"spec {spec} has more dims than {tuple(t.shape)}")
+    for d, axes in enumerate(spec):
+        if axes is None:
+            continue
+        n = mesh.axis_size(axes)
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not divide "
+                             f"over {axes} ({n})")
+        blk = t.shape[d] // n
+        t = t.narrow(d, mesh.axis_index(axes) * blk, blk)
+    return t

@@ -1,8 +1,7 @@
 """Serving: execution plans over frozen packs, SLO policy, micro-batcher,
 the two-tier pack cache and the multi-model frontend.
 
-Mirrors the JAX package's ``serving`` package (less ``sharded``, not
-ported yet):
+Mirrors the JAX package's ``serving`` package:
 
 * :mod:`plans` — one :class:`ExecutionPlan` per frozen pack: mode, row
   tile, int8 calibration and the bucket → kernel schedule bindings,
@@ -19,6 +18,8 @@ ported yet):
   ``streams=N`` workers on CUDA streams of their own.
 * :mod:`lm` — :class:`LMProgram`, greedy prefill/decode of a frozen 4-bit
   transformer as a servable program, its FFN through per-block plans.
+* :mod:`sharded` — :class:`ShardedStack`, one pack's columns split over a
+  mesh of ranks (``ExecutionPlan(mode="sharded")``).
 
 Integrity guards (:class:`GuardedPlan`) and fault injection
 (:class:`FaultInjector`) live in ``runtime`` and are re-exported here.
@@ -38,3 +39,4 @@ from .pack_cache import (CachedPlan, ColdPack, PackCache,     # noqa: F401
 from .frontend import (ModelRegistry, RetryPolicy, Served,    # noqa: F401
                        ServingFrontend)
 from .lm import LMProgram, build_lm_program, freeze_lm      # noqa: F401
+from .sharded import ShardedStack                            # noqa: F401

@@ -4,9 +4,11 @@ Mirrors the JAX package's ``serving/plans.py``.  An :class:`ExecutionPlan`
 fixes, at build time:
 
 * **mode** — ``fused`` (the megakernel schedules), ``per_layer`` (the
-  kernel-1 chain), ``oracle`` (plain PyTorch), with ``auto`` taking the
-  fused schedules when the stack fits them.  The fits are the CUDA
-  kernels' own shared-memory needs (``kernels/fantastic4_fused_mlp.py``).
+  kernel-1 chain), ``oracle`` (plain PyTorch), ``sharded`` (the
+  column-split stack over a mesh of ranks, ``serving/sharded.py``), with
+  ``auto`` taking the fused schedules when the stack fits them.  The fits
+  are the CUDA kernels' own shared-memory needs
+  (``kernels/fantastic4_fused_mlp.py``).
 * **activation dtype** — fp32 or the paper's §VI-C int8; calibration runs
   once here, never per request.
 * **batch buckets** — powers of two up to the plan's ``block_m`` (the
@@ -131,13 +133,13 @@ class ExecutionPlan:
                  block_m: Optional[int] = None,
                  max_bucket: int = DEFAULT_MAX_BUCKET,
                  smem_budget_bytes: int = SMEM_BUDGET_BYTES,
-                 device=None):
+                 device=None, mesh=None):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if mode == "sharded":
-            raise NotImplementedError(
-                "mode='sharded' is not ported yet (ROADMAP queue 1: "
-                "scale-out)")
+        if mode == "sharded" and mesh is None:
+            raise ValueError("mode='sharded' requires mesh= (build one "
+                             "with launch.mesh.fit_mesh)")
+        self.mesh = mesh
         if act_dtype not in ACT_DTYPES:
             raise ValueError(
                 f"act_dtype must be one of {ACT_DTYPES}, got {act_dtype!r}")
@@ -185,6 +187,14 @@ class ExecutionPlan:
                 self.act_scales = list(
                     calibrate_act_scales(pack, calib_x)["act_scales"])
 
+        # ---- sharded: this rank's column split of the stack, cut and
+        # placed once here (serving/sharded.py)
+        self._sharded = None
+        if mode == "sharded":
+            from .sharded import ShardedStack
+            self._sharded = ShardedStack(pack, mesh, act_dtype=act_dtype,
+                                         act_scales=self.act_scales)
+
         # ---- mode resolution against the kernels' shared-memory fits
         fit_kw = dict(smem_budget_bytes=smem_budget_bytes, act_dtype=act_dtype)
         tile = block_m or max_fused_block_m(self.shapes, cap=max_bucket,
@@ -227,7 +237,7 @@ class ExecutionPlan:
             top = min(top, max(self.block_m, 1))
         self.bucket_sizes = _pow2_buckets(max(top, 1))
         self.buckets: Dict[int, BucketPlan] = {}
-        if mode in ("per_layer", "oracle"):
+        if mode in ("per_layer", "oracle", "sharded"):
             for b in self.bucket_sizes:
                 self.buckets[b] = BucketPlan(b, mode)
             self.default_path = mode
@@ -328,7 +338,7 @@ class ExecutionPlan:
         return cached
 
     def _resolve_oversize(self, m: int) -> BucketPlan:
-        if self.resolved_mode in ("per_layer", "oracle"):
+        if self.resolved_mode in ("per_layer", "oracle", "sharded"):
             return BucketPlan(m, self.resolved_mode, source="mode")
         top = self.buckets[max(self.bucket_sizes)]
         if top.path.startswith("fused"):
@@ -358,6 +368,8 @@ class ExecutionPlan:
 
     def _execute(self, x: torch.Tensor, path: str,
                  block_m: Optional[int] = None) -> torch.Tensor:
+        if path == "sharded":
+            return self._sharded(x)
         if path in ("oracle", "per_layer"):
             use_kernel = path == "per_layer"
             if self.act_dtype == "int8":
@@ -446,6 +458,8 @@ class ExecutionPlan:
             "ws_prior_source": self.ws_prior_source,
             "default_path": self.default_path,
             "smem_budget_bytes": self.smem_budget_bytes,
+            "sharding": (None if self._sharded is None
+                         else self._sharded.describe()),
             "notes": list(self.notes),
         }
 
@@ -454,6 +468,7 @@ class ExecutionPlan:
                  "fused_db": "fused megakernel (double-buffered)",
                  "fused_ws": "fused megakernel (weight-stationary)",
                  "fused_stream": "fused megakernel (streaming)",
+                 "sharded": "column-sharded multi-device stack",
                  "per_layer": "per-layer kernel",
                  "oracle": "plain PyTorch oracle"}
         if m is not None:

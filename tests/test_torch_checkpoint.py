@@ -275,11 +275,37 @@ def test_feed_raises_what_the_batch_function_raised():
     assert not feed._thread.is_alive()
 
 
+class _Rank1Of2:
+    """Rank (1, 0) of a (data 2, model 2) mesh, as far as placement
+    reads it."""
+    axis_names = ("data", "model")
+    device = torch.device("cpu")
+
+    def axis_size(self, axes):
+        return 2 if axes else 1
+
+    def axis_index(self, axes):
+        return 1 if axes else 0
+
+
 def test_place_and_feed_refuse_a_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        pipeline.place({"x": np.zeros(2)}, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        pipeline.ShardedFeed(lambda s: {}, mesh=object(), device="cpu")
+    """A batch under a mesh: each rank keeps its block of rows over the
+    data axes (the reference's ``batch_sharding``); a batch that does not
+    divide is refused."""
+    mesh = _Rank1Of2()
+    assert pipeline.batch_sharding(mesh, 3) == (("data",), None, None)
+    got = pipeline.place({"x": np.arange(8, dtype=np.int32).reshape(4, 2)},
+                         mesh=mesh)
+    assert got["x"].tolist() == [[4, 5], [6, 7]]
+    with pytest.raises(ValueError, match="does not divide"):
+        pipeline.place({"x": np.zeros(3)}, mesh=mesh)
+    feed = pipeline.ShardedFeed(
+        lambda s: {"x": np.full((2, 1), s, np.float32) + [[0], [1]]},
+        mesh=mesh)
+    try:
+        assert next(feed)["x"].tolist() == [[1.0]]
+    finally:
+        feed.close()
     got = pipeline.place({"x": np.arange(3, dtype=np.int32)}, device="cpu")
     assert got["x"].dtype == torch.int32 and got["x"].tolist() == [0, 1, 2]
 

@@ -42,7 +42,8 @@ The vlm and audio families: whisper's sinusoid frequencies (the
 reference's exp) bitwise the CPU's and its table within 1e-6, and
 qwen2-vl's and whisper's smoke configs trained on the card within
 ``rtol=1e-4`` of the CPU.  The Huffman codec on the card gives the host's
-bytes and codes.
+bytes and codes.  Scale-out: two gloo ranks sharing the card serve
+MLP-GSC column-sharded and row-split, bitwise the chain kernel.
 """
 import array
 import ctypes
@@ -1040,3 +1041,34 @@ def test_huffman_on_the_card_equals_the_host_codec(cuda_device):
         on = formats.decode_huffman(want, cuda_device)
         assert on.device.type == "cuda"
         np.testing.assert_array_equal(on.cpu().numpy(), codes)
+
+
+@pytest.mark.parametrize("act_dtype", ["float32", "int8"])
+def test_sharded_gsc_over_two_gloo_ranks_is_the_chain_bitwise(cuda_device,
+                                                              act_dtype):
+    """Two gloo ranks sharing the card serve MLP-GSC column-sharded (mesh
+    (1, 2)) and row-split (mesh (2, 1)): every rank's logits bitwise equal
+    to the unsharded chain kernel, one matmul_kernel launch a layer."""
+    from repro_torch.convert import tree_to_numpy
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import ranks
+    from repro_torch.serving.plans import calibrate_act_scales
+
+    pack = _pack(STACKS["gsc"], 15, cuda_device)
+    layers = tree_to_numpy(pack["layers"])
+    rng = np.random.default_rng(15)
+    xs = [rng.normal(size=(r, 512)).astype(np.float32) for r in (1, 3, 64)]
+    scales = calibrate_act_scales(pack, xs[-1])["act_scales"] \
+        if act_dtype == "int8" else None
+    out = tmesh.run_ranks(ranks.sharded_mlp, 2, backend="gloo",
+                          device="cuda", args=(layers, xs, [(1, 2), (2, 1)]),
+                          kwargs={"act_dtype": act_dtype,
+                                  "act_scales": scales}, timeout=300)
+    for per_rank in out:
+        for res in per_rank:
+            assert res["describe"]["collectives"] == \
+                "staged through host buffers"
+            for call in res["calls"]:
+                assert call["bitwise"] and call["launches"] == 7
+                _close(torch.from_numpy(call["y"]),
+                       torch.from_numpy(call["plain"]), act_dtype == "int8")

@@ -186,9 +186,16 @@ def test_plan_budget_one_is_per_layer():
 
 
 def test_plan_sharded_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1: scale-out"):
+    """mode='sharded' is ported: without a mesh it raises the reference's
+    ValueError, and on a one-rank mesh every bucket takes the path."""
+    from repro_torch.launch import mesh as tmesh
+    with pytest.raises(ValueError, match="mode='sharded' requires mesh="):
         tplans.ExecutionPlan(_rand_pack((40, 48, 10)), mode="sharded",
                              device="cpu")
+    plan = tplans.ExecutionPlan(_rand_pack((40, 48, 10)), mode="sharded",
+                                mesh=tmesh.single_device_mesh("cpu"),
+                                device="cpu")
+    assert set(plan.describe()["bucket_paths"].values()) == {"sharded"}
 
 
 @pytest.mark.parametrize("act_dtype", ["float32", "int8"])

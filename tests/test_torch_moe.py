@@ -117,10 +117,20 @@ def test_moe_apply_matches_reference(case):
 
 
 def test_moe_ffn_refuses_a_mesh():
+    """On a one-rank mesh the dispatcher takes the local path (the bits of
+    ``moe_apply``); expert parallelism refuses a share that is not the
+    rank's."""
+    from repro_torch.launch import mesh as tmesh
     p = moe.moe_init(torch.Generator().manual_seed(0), 8, 16, 2, False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        moe.moe_ffn(p, 0, torch.zeros((2, 8)), FP32_CTX, mesh=object(),
-                    top_k=1)
+    x = torch.randn((6, 8), generator=torch.Generator().manual_seed(1))
+    one = tmesh.single_device_mesh("cpu")
+    assert moe.moe_path(p, one) == "local"
+    got = moe.moe_ffn(p, 0, x, FP32_CTX, mesh=one, top_k=1)
+    want = moe.moe_apply(p, 0, x, FP32_CTX, top_k=1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="is not rank 0's share"):
+        moe.moe_apply_ep(p, 0, x, FP32_CTX, mesh=one, top_k=1,
+                         experts_held=(1, 1))
 
 
 # ------------------------------------- the port's mirrors of test_moe.py

@@ -66,7 +66,8 @@ def test_quickstart_example_runs_on_the_cpu():
 @pytest.mark.parametrize("argv,message", [
     (["--streams", "0"], "--streams must be >= 1"),
     (["--streams", "2"], "--streams applies to the async frontend"),
-    (["--shard"], "--shard is not ported yet"),
+    (["--shard", "--arch", "smollm-360m"],
+     "--shard applies to the paper-MLP serving path"),
     (["--tier", "latency"], "--tier/--max-delay/--max-queued/--inject-fault"),
     (["--max-hot-models", "2"], "--max-hot-models/--hot-bytes apply"),
     (["--verify-launch"], "--flip-rate/--scrub-interval/--verify-launch"),
