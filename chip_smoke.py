@@ -94,11 +94,13 @@ Phases (any failure raises and the script exits non-zero):
    the chain's seven, the cooperative grid of stream -- and the
    dependent-FMA floor), one ``kernels`` (each kernel's launches by path:
    phase 3, phase 3b's serving check, phase 3c, phase 5, phase 6, phase
-   7, phase 8, phase 9, phase 10, phases 11 to 14 by arch, phase 15),
+   7, phase 8, phase 9, phase 10, phases 11 to 14 by arch, phases 15 and
+   16),
    one ``path``, one ``train``, one ``frontend``, one ``lm``, one
    ``lm_train``, one ``moe``, one ``moe_train``, one ``mla``, one
    ``mla_train``, one ``ssm``, one ``ssm_train``, one ``vlm_audio``, one
-   ``vlm_audio_train`` and one ``scale_out`` JSON line.
+   ``vlm_audio_train``, one ``scale_out`` and one ``mesh_train`` JSON
+   line.
 5. The LM serving path at full width, run after phase 3c: SmolLM-360M
    (32 blocks of d_model 960, 15 heads, 5 KV heads, d_ff 2560, vocab
    49,152) from ``lm_init(seed=0)`` on the card, frozen with
@@ -429,7 +431,7 @@ Phases (any failure raises and the script exits non-zero):
    stage, export bytes and ms, each beside the card's name and power
    limit, and one ``vlm_audio_train`` JSON line.
 
-15. Scale-out serving over ``torch.distributed``, run last: 4 ranks
+15. Scale-out serving over ``torch.distributed``, run after phase 14: 4 ranks
    spawned by ``launch.mesh.RankPool`` (after the kernels are built
    here) share the card over gloo, every collective staged through host
    buffers; a rank that fails fails the phase.  (a) MLP-GSC, MLP-HR and
@@ -459,6 +461,42 @@ Phases (any failure raises and the script exits non-zero):
    ``moe_apply`` on the card; expert TP at grok's widths needs a 16-wide
    axis, more ranks than one card holds.  Prints one ``scale_out`` JSON
    line.
+
+16. EC4T training over a mesh on ``torch.distributed``, run last: 4
+   gloo ranks share the card as in phase 15; the single-process
+   references run first and are freed.  (a) SmolLM-360M at its published
+   widths and depth from ``lm_init(seed=0)``, a global batch of 8 x 64
+   through ``build_train_step`` and ``ShardedFeed(mesh=)`` on meshes (4,
+   1) and (2, 2): one fp32 step replicated, one with ZeRO-1, one with the
+   int8 all-reduce on the same rows on every data rank, the int8 round
+   trip of the first gradients on distinct rows, then 3 timed bf16 steps
+   with ZeRO-1 off and on.  ecl_quant's counter is zeroed just before
+   each step and read just after, in each rank.  Gates: the mesh's
+   gradients within 1e-4 of each leaf's largest of the single process's,
+   the params after one step within ``atol=rtol=5e-3`` and the loss
+   within ``rtol=1e-4`` (``tests/test_distributed_equivalence.py:70-74``);
+   the reduced gradients and every replicated leaf (params, m, v,
+   probabilities) equal on every rank, ZeRO-1's state the replicated
+   step's and the int8 step on replicated rows the single process's
+   ``compress_grads(mesh=None)`` step's, each by digest (two int64 sums of
+   the bits); the int8 gradients on distinct rows within half the shared
+   scale of the exact mean; exactly 2 passes of ⌈224 / 32⌉ = 7 ecl_quant
+   launches a step a rank.  Recorded: ms a bf16 step a rank (host clock,
+   synchronised), bytes all-reduced a step (fp32 and int8), peak memory a
+   rank with ZeRO-1 off and on.  (b) grok-1-314b's smoke layer (banks
+   from ``seeded_banks``) through ``moe_ffn`` under grad at capacity
+   factor E / k: EP on (1, 4) and (2, 2), whole banks and each rank's
+   share, and expert TP on (1, 4) with 2 experts, where the reference's
+   dispatcher picks it.  Gates: the objective ``Σ y·r + 0.01·aux`` and
+   every gradient (router, banks, tokens) within 1e-5 of the same on one
+   process; the layer under a checkpoint (its exchanges run again in the
+   backward) bitwise the plain one.  (c) ``pipeline_apply`` of the
+   reference test's ``tanh(x @ w)`` stack at d 960, L 32, batch 64 over a
+   4-stage 'pipe' mesh, 4 and 8 micro-batches: the output and the
+   gradients of the stage blocks and the input within 1e-5 of the
+   sequential stack on the card; the ticks and ``bubble_fraction``
+   printed with ms a forward and backward a rank.  Prints one
+   ``mesh_train`` JSON line.
 
 The script ends with a line that counts the profiler traces taken and
 retaken and the device times taken from queued CUDA events, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -6507,6 +6545,422 @@ def scale_out_path(dev, gpu):
     return out
 
 
+# ------------------------------------------------------------ phase 16
+
+MESH_TRAIN = dict(arch="smollm-360m", world=4, meshes=((4, 1), (2, 2)),
+                  batch=8, seq=64, seed=0, lr=1e-3, timed_steps=1,
+                  timed_mesh=(4, 1), timeout=900)
+MESH_TRAIN_GRAD_REL = 1e-4   # mesh grads vs one process: of each leaf's max
+MESH_TRAIN_PARAM_TOL = 5e-3  # tests/test_distributed_equivalence.py:70-74
+MESH_TRAIN_LOSS_RTOL = 1e-4  # the same test's loss gate
+MESH_TRAIN_MOE = dict(arch="grok-1-314b", tokens=24, seed=161, coef=0.01,
+                      bank_seed=16, ep_meshes=((1, 4), (2, 2)),
+                      tp_mesh=(1, 4), tp_experts=2)
+MESH_TRAIN_MOE_TOL = 1e-5    # EP / TP objective and gradients vs one process
+MESH_TRAIN_PP = dict(d=960, layers=32, batch=64, n_micro=(4, 8), seed=162,
+                     iters=3)
+MESH_TRAIN_PP_TOL = 1e-5     # forward: tests/test_pipeline_parallel.py:32;
+#                              gradients: of the gradient's largest |value|
+
+
+def _mesh_train_single(dev, cfg, batches, dps):
+    """(a)'s single-process references on the card, run before any rank
+    and freed after: the fp32 gradients at the initial state on batch 0,
+    the loss and new params of one fp32 step (host numpy), and per data
+    width ``dp`` the digests of one int8 step on the rows one data rank
+    holds (``compress_grads(mesh=None)``)."""
+    import torch
+    from repro_torch.convert import tree_to_numpy
+    from repro_torch.core import qat
+    from repro_torch.launch import ranks
+    from repro_torch.launch import steps as S
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim import adam, ec4t
+    from repro_torch.optim.grad_compress import GradCompressCfg
+
+    params = T.lm_init(cfg, seed=MESH_TRAIN["seed"], device=dev)
+    qstate = qat.build_qstate(params)
+    loss_fn = S._loss_fn(cfg, dtype=torch.float32)
+
+    def on_card(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    b0 = on_card(batches[0])
+    _, grads = ec4t.local_grads(loss_fn, params, qstate, b0, cfg.lam)
+    out = {"grads": tree_to_numpy(grads)}
+    del grads
+    step = ec4t.make_train_step(loss_fn, adam.AdamConfig(
+        lr=MESH_TRAIN["lr"]), lam=cfg.lam)
+    new, metrics = step(ec4t.init_train_state(params), b0)
+    out.update(params=tree_to_numpy(new["params"]),
+               loss=float(metrics["loss"]),
+               grad_norm=float(metrics["grad_norm"]))
+    del new
+    out["int8"] = {}
+    gcfg = GradCompressCfg()
+    for dp in dps:
+        local = on_card({k: v[:MESH_TRAIN["batch"] // dp]
+                         for k, v in batches[0].items()})
+        step = ec4t.make_train_step(loss_fn, adam.AdamConfig(
+            lr=MESH_TRAIN["lr"]), lam=cfg.lam, compress=gcfg)
+        new, _ = step(ec4t.init_train_state(params, gcfg), local)
+        final = {"params": new["params"], "qstate": new["qstate"],
+                 "opt": {"m": new["opt"]["m"], "v": new["opt"]["v"]},
+                 "err": new["err"]}
+        out["int8"][dp] = {n: ranks.digest(t)
+                           for n, t in ranks.named_leaves(final)}
+        del new, final
+    del params, qstate
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_errors(got, want, tol=None):
+    """Over the leaves of ``got`` (numpy by leaf name) and ``want`` (a
+    numpy tree): the largest |got - want|, and the largest of it over the
+    leaf's max |want|; with ``tol`` raise where |got - want| > tol + tol ·
+    |want| (``assert_allclose``'s test, in torch's threads)."""
+    import torch
+    from repro_torch.launch import ranks
+    w = dict(ranks.named_leaves(want))
+    if sorted(got) != sorted(w):
+        raise AssertionError("the mesh's and the single process's leaves "
+                             "differ")
+    worst_abs = worst_rel = 0.0
+    for name, g in got.items():
+        a, b = torch.from_numpy(g), torch.from_numpy(w[name])
+        diff = (a - b).abs()
+        if tol is not None and bool((diff > tol + tol * b.abs()).any()):
+            raise AssertionError(f"{name}: {float(diff.max())} past "
+                                 f"atol=rtol={tol}")
+        err = float(diff.max())
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / max(float(b.abs().max()), 1e-30))
+    return worst_abs, worst_rel
+
+
+def _mesh_train_dp(dev, pool, cfg, batches, single, gpu):
+    """(a): SmolLM-360M data-parallel over each mesh, gated against the
+    single process; the timed bf16 steps with ZeRO-1 off and on."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import ranks
+    from repro_torch.optim.grad_compress import GradCompressCfg
+
+    segments = 7 * cfg.n_layers
+    per_step = ECL_PASSES_PER_STEP * -(-segments // eq.MAX_SEGMENTS)
+    gcfg = GradCompressCfg()
+    out, launches = {}, 0
+    for mesh in MESH_TRAIN["meshes"]:
+        key = f"mesh {mesh[0]}x{mesh[1]}"
+        dp = mesh[0]
+        timed = mesh == MESH_TRAIN["timed_mesh"]
+        tiled = {k: np.concatenate([v[:MESH_TRAIN["batch"] // dp]] * dp)
+                 for k, v in batches[0].items()}
+        runs = [{"state": True, "steps": 1},
+                {"compress": gcfg, "batches": [tiled]}]
+        if timed:       # ZeRO-1 held bitwise over the timed bf16 steps
+            runs += [{"dtype": torch.bfloat16, "zero1": zero1}
+                     for zero1 in (False, True)]
+        else:
+            runs.append({"zero1": True, "steps": 1})
+        t0 = time.perf_counter()
+        dumps = tempfile.mkdtemp(prefix="mesh_train_")
+        try:
+            res = pool.run(ranks.dp_train, cfg, mesh, batches,
+                           seed=MESH_TRAIN["seed"], lr=MESH_TRAIN["lr"],
+                           grads=True, compress_check=gcfg, runs=runs,
+                           out_dir=dumps)
+            ranks_s = time.perf_counter() - t0
+            _, grad_rel = _leaf_errors(
+                ranks.load_dump(os.path.join(dumps, "grads")),
+                single["grads"])
+            param_err, _ = _leaf_errors(
+                ranks.load_dump(os.path.join(dumps, "run0")),
+                single["params"], MESH_TRAIN_PARAM_TOL)
+        finally:
+            shutil.rmtree(dumps)
+        if not grad_rel <= MESH_TRAIN_GRAD_REL:
+            raise AssertionError(f"{key}: gradients {grad_rel} of a leaf's "
+                                 "max from the single process's")
+        zero1_of = (3, 2) if timed else (2, 0)   # (ZeRO-1 run, its twin)
+        for rank, r in enumerate(res):
+            tag = f"{key} rank {rank}"
+            loss = r["runs"][0]["metrics"][0]["loss"]
+            np.testing.assert_allclose(loss, single["loss"],
+                                       rtol=MESH_TRAIN_LOSS_RTOL,
+                                       err_msg=tag)
+            if r["grad_digests"] != res[0]["grad_digests"]:
+                raise AssertionError(f"{tag}: reduced gradients differ")
+            for i, run in enumerate(r["runs"]):
+                if run["digests"] != res[0]["runs"][i]["digests"]:
+                    raise AssertionError(f"{tag}: run {i}'s replica differs "
+                                         "from rank 0's (params, m, v or "
+                                         "probs)")
+            z, twin = (r["runs"][i] for i in zero1_of)
+            if z["block_digests"] != twin["block_digests"] or \
+                    z["digests"] != {k: v for k, v in twin["digests"].items()
+                                     if k.split("/")[1] != "opt"}:
+                raise AssertionError(f"{tag}: ZeRO-1 differs from the "
+                                     "replicated step")
+            if r["runs"][1]["digests"] != single["int8"][dp]:
+                raise AssertionError(f"{tag}: int8 on replicated rows "
+                                     "differs from compress_grads(mesh=None)")
+            if not r["int8_err_over_half_scale"] <= 1.0 + 1e-5:
+                raise AssertionError(
+                    f"{tag}: int8 {r['int8_err_over_half_scale']} half "
+                    "scales from the exact mean")
+            if r["int8_digests"] != res[0]["int8_digests"]:
+                raise AssertionError(f"{tag}: int8 gradients differ")
+            for run in r["runs"]:
+                if run["ecl_launches"] != [per_step] * len(run["ms"]):
+                    raise AssertionError(
+                        f"{tag}: ecl_quant {run['ecl_launches']}, want "
+                        f"{per_step} a step (2 passes of "
+                        f"{-(-segments // eq.MAX_SEGMENTS)})")
+                if not all(np.isfinite(m["loss"]) for m in run["metrics"]):
+                    raise AssertionError(f"{tag}: a loss is not finite")
+                launches += sum(run["ecl_launches"])
+        out[key] = {
+            "loss": res[0]["runs"][0]["metrics"][0]["loss"],
+            "single_loss": single["loss"],
+            "grad_norm": res[0]["runs"][0]["metrics"][0]["grad_norm"],
+            "single_grad_norm": single["grad_norm"],
+            "grad_rel_err": grad_rel, "param_max_abs_err": param_err,
+            "replicas_bitwise": True, "zero1_bitwise": True,
+            "int8_replicated_rows_bitwise": True,
+            "int8_err_over_half_scale": max(
+                r["int8_err_over_half_scale"] for r in res),
+            "ecl_quant_launches_per_step_per_rank": per_step,
+            "reduced_bytes_per_step": {
+                "fp32": res[0]["runs"][0]["reduced_bytes"],
+                "int8": res[0]["runs"][1]["reduced_bytes"]},
+            "fp32_ms_per_step_per_rank": {
+                "replicated": [r["runs"][0]["ms"][0] for r in res],
+                "int8": [r["runs"][1]["ms"][0] for r in res]},
+            "ranks_s": ranks_s, "rank0_s": {
+                **res[0]["s"], "runs": [r["s"] for r in res[0]["runs"]]},
+            "wall_s": time.perf_counter() - t0}
+        line = (f"phase 16: smollm-360m {key}: loss "
+                f"{out[key]['loss']:.6f} (one process {single['loss']:.6f}),"
+                f" grads {grad_rel:.2e} of max, params {param_err:.2e}; "
+                f"replicas, ZeRO-1 and int8 on replicated rows bitwise; fp32"
+                f" ms a step (rank 0) {res[0]['runs'][0]['ms'][0]:.1f}, int8"
+                f" {res[0]['runs'][1]['ms'][0]:.1f}")
+        if timed:
+            out[key].update({
+                "bf16_ms_per_step_per_rank": {
+                    name: [r["runs"][i]["ms"] for r in res]
+                    for i, name in ((2, "replicated"), (3, "zero1"))},
+                "bf16_loss": [m["loss"] for m in res[0]["runs"][2][
+                    "metrics"]],
+                "peak_gb_per_rank": {
+                    name: [r["runs"][i]["peak_bytes"] / 1e9 for r in res]
+                    for i, name in ((2, "replicated"), (3, "zero1"))}})
+            ms, peak = (out[key][k] for k in ("bf16_ms_per_step_per_rank",
+                                               "peak_gb_per_rank"))
+            line += (f"; bf16 ms a step (rank 0) "
+                     f"{[round(v, 1) for v in ms['replicated'][0]]}, ZeRO-1"
+                     f" {[round(v, 1) for v in ms['zero1'][0]]}; peak GB "
+                     f"{peak['replicated'][0]:.2f} / {peak['zero1'][0]:.2f}")
+        print(f"{line}; {out[key]['wall_s']:.1f} s (the ranks "
+              f"{ranks_s:.1f}: {json.dumps(out[key]['rank0_s'])}) "
+              f"({MESH_TRAIN_LABEL}; {gpu})")
+    return out, launches
+
+
+MESH_TRAIN_LABEL = "4 ranks sharing one H100 over gloo"
+
+
+def _mesh_train_moe_layer(dev, cfg, experts):
+    """grok's smoke layer (``experts`` of them) from ``lm_init`` with every
+    bank drawn by ``seeded_banks``, as numpy."""
+    import dataclasses
+    from repro_torch.convert import tree_to_numpy
+    from repro_torch.launch import ranks
+    from repro_torch.nn import transformer as T
+    cfg = dataclasses.replace(cfg, n_experts=experts, n_layers=1,
+                              capacity_factor=experts / cfg.top_k)
+    params = T.lm_init(cfg, seed=MESH_TRAIN_MOE["seed"], device=dev)
+    ranks.seeded_banks(params, cfg, range(experts),
+                       MESH_TRAIN_MOE["bank_seed"], dev)
+    layer = tree_to_numpy(params["stacks"]["moe"]["moe"])
+    return cfg, {k: {kk: (vv[0] if not isinstance(vv, dict) else
+                          {kkk: vvv[0] for kkk, vvv in vv.items()})
+                     for kk, vv in v.items()} for k, v in layer.items()}
+
+
+def _mesh_train_moe(dev, pool, gpu):
+    """(b): grok's smoke layer through ``moe_ffn``'s exchanges under grad,
+    against the same objective on one device."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import ranks
+    base = get_config(MESH_TRAIN_MOE["arch"]).smoke()
+    rng = np.random.default_rng(MESH_TRAIN_MOE["seed"])
+    n = MESH_TRAIN_MOE["tokens"]
+    x = rng.normal(size=(n, base.d_model)).astype(np.float32)
+    r = rng.normal(size=(n, base.d_model)).astype(np.float32)
+    cases = [("ep", m, share, base.n_experts)
+             for m in MESH_TRAIN_MOE["ep_meshes"] for share in (False, True)]
+    cases.append(("ffn", MESH_TRAIN_MOE["tp_mesh"], False,
+                  MESH_TRAIN_MOE["tp_experts"]))
+    out = {}
+    for path, mesh, share, e in cases:
+        cfg, p = _mesh_train_moe_layer(dev, base, e)
+        kw = dict(top_k=cfg.top_k, gate=cfg.moe_gate,
+                  capacity_factor=e / cfg.top_k,
+                  routed_scaling=cfg.routed_scaling,
+                  coef=MESH_TRAIN_MOE["coef"])
+        res = pool.run(ranks.ep_train, p, x, r, mesh, path=path,
+                       share=share, **kw)
+        blocks = 4 if res[0]["path"] == "ep" else mesh[0]
+        val, gx, gp = ranks.moe_single_grads(p, x, r, blocks=blocks,
+                                             device=dev, **kw)
+        flat = dict(ranks.named_leaves(gp))
+        worst = 0.0
+        key = f"{res[0]['path']} {mesh[0]}x{mesh[1]} " \
+              f"{'shares' if share else 'whole banks'} ({e} experts)"
+        for rank, rr in enumerate(res):
+            if not rr["remat_bitwise"]:
+                raise AssertionError(f"{key} rank {rank}: remat full "
+                                     "differs from none")
+            worst = max(worst, abs(rr["obj"] - val) / max(abs(val), 1.0),
+                        float(np.abs(rr["grads"]["x"] - gx).max()))
+            for name, g in ranks.named_leaves(rr["grads"]["p"]):
+                want = flat[name]
+                if rr["experts_held"] is not None \
+                        and name.startswith("/experts/"):
+                    first, count = rr["experts_held"]
+                    want = want[first:first + count]
+                worst = max(worst, float(np.abs(g - want).max()))
+        if not worst <= MESH_TRAIN_MOE_TOL:
+            raise AssertionError(f"{key}: {worst} from one process")
+        out[key] = {"path": res[0]["path"], "mesh": list(mesh),
+                    "experts": e, "shares": share, "max_err": worst,
+                    "remat_full_bitwise": True}
+        print(f"phase 16: grok smoke {key}: objective and every gradient "
+              f"within {worst:.2e} of one process; remat full bitwise none")
+    return out
+
+
+def _mesh_train_pp(dev, pool, gpu):
+    """(c): the tanh stack through ``pipeline_apply`` on a 4-stage 'pipe'
+    mesh against the sequential stack on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import ranks
+    c = MESH_TRAIN_PP
+    rng = np.random.default_rng(c["seed"])
+    ws = (rng.normal(size=(c["layers"], c["d"], c["d"]))
+          * c["d"] ** -0.5).astype(np.float32)
+    x = rng.normal(size=(c["batch"], c["d"])).astype(np.float32)
+    r = rng.normal(size=(c["batch"], c["d"])).astype(np.float32)
+    wt = torch.from_numpy(ws).to(dev).requires_grad_()
+    xt = torch.from_numpy(x).to(dev).requires_grad_()
+    y = ranks._tanh_stack(wt, xt)
+    gw, gx = torch.autograd.grad(torch.sum(y * torch.from_numpy(r).to(dev)),
+                                 (wt, xt))
+    y, gw, gx = (t.detach().cpu().numpy() for t in (y, gw, gx))
+    seq_ms = _time_ms(lambda: ranks._tanh_stack(wt, xt), dev, c["iters"])
+    res = pool.run(ranks.pp_apply, ws, x, r, n_micro=c["n_micro"],
+                   iters=c["iters"])
+    world = len(res)
+    per = c["layers"] // world
+    out = {"d": c["d"], "layers": c["layers"], "batch": c["batch"],
+           "stages": world, "sequential_fwd_ms": seq_ms,
+           "grad_scale": {"stage": float(np.abs(gw).max()),
+                          "x": float(np.abs(gx).max())}, "runs": {}}
+    scale = {"y": 1.0, "stage_grad": float(np.abs(gw).max()),
+             "x_grad": float(np.abs(gx).max())}
+    for i, m in enumerate(c["n_micro"]):
+        err = {"y": 0.0, "stage_grad": 0.0, "x_grad": 0.0}
+        for rank, rr in enumerate(res):
+            got = rr[i]
+            err["y"] = max(err["y"], float(np.abs(got["y"] - y).max()))
+            err["stage_grad"] = max(err["stage_grad"], float(np.abs(
+                got["stage_grad"] - gw[rank * per:(rank + 1) * per]).max()))
+            err["x_grad"] = max(err["x_grad"],
+                                float(np.abs(got["x_grad"] - gx).max()))
+        rel = {k: v / scale[k] for k, v in err.items()}
+        if not max(rel.values()) <= MESH_TRAIN_PP_TOL:
+            raise AssertionError(f"pipeline n_micro {m}: {err} (of "
+                                 f"{scale})")
+        out["runs"][str(m)] = {
+            "ticks": res[0][i]["ticks"], "bubble_fraction": res[0][i][
+                "bubble"], "max_abs_err": err, "max_err_of_scale": rel,
+            "ms_fwd_bwd_per_rank": [rr[i]["ms"] for rr in res]}
+        print(f"phase 16: pipeline d {c['d']} L {c['layers']} over {world} "
+              f"stages, n_micro {m}: {res[0][i]['ticks']} ticks, bubble "
+              f"fraction {res[0][i]['bubble']:.4f}; forward and gradients "
+              f"within {max(rel.values()):.2e} of the sequential stack's "
+              f"(|y| <= 1, gradients of their largest); ms "
+              f"a forward + backward {[round(rr[i]['ms'], 2) for rr in res]}"
+              f" ({MESH_TRAIN_LABEL}; {gpu})")
+    return out
+
+
+def mesh_train_path(dev, gpu):
+    """Phase 16: training over a mesh on torch.distributed, 4 gloo ranks
+    sharing the card (staged through host buffers)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.train import lm_batch_fn
+
+    t_phase = time.perf_counter()
+    _empty_card(dev, "phase 16")
+    cfg = get_config(MESH_TRAIN["arch"])
+    batch_fn = lm_batch_fn(cfg, batch=MESH_TRAIN["batch"],
+                           seq=MESH_TRAIN["seq"])
+    batches = [batch_fn(i) for i in range(MESH_TRAIN["timed_steps"])]
+    t0 = time.perf_counter()
+    single = _mesh_train_single(dev, cfg, batches, sorted(
+        {m[0] for m in MESH_TRAIN["meshes"]}))
+    single_s = time.perf_counter() - t0
+    _empty_card(dev, "phase 16's ranks")
+    print(f"phase 16: smollm-360m single-process references in "
+          f"{single_s:.1f} s ({gpu})")
+    t0 = time.perf_counter()
+    with M.RankPool(MESH_TRAIN["world"], backend="gloo", device="cuda",
+                    timeout=MESH_TRAIN["timeout"]) as pool:
+        world = pool.run(M.describe_world)
+        spawn_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        dp, launches = _mesh_train_dp(dev, pool, cfg, batches, single, gpu)
+        dp_s = time.perf_counter() - t1
+        del single
+        t1 = time.perf_counter()
+        moe = _mesh_train_moe(dev, pool, gpu)
+        moe_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        pp = _mesh_train_pp(dev, pool, gpu)
+        pp_s = time.perf_counter() - t1
+    print(f"phase 16: spawn {spawn_s:.1f} s, (a) {dp_s:.1f} s, (b) "
+          f"{moe_s:.1f} s, (c) {pp_s:.1f} s")
+    if launches < 1:
+        raise AssertionError("phase 16: ecl_quant never launched")
+    out = {"label": MESH_TRAIN_LABEL, "gpu": gpu, "world": world,
+           "spawn_s": spawn_s, "single_s": single_s,
+           "ecl_quant_launches": launches,
+           "dp": {"arch": MESH_TRAIN["arch"], "layers": cfg.n_layers,
+                  "d_model": cfg.d_model, "batch": MESH_TRAIN["batch"],
+                  "seq": MESH_TRAIN["seq"], "reduced": {},
+                  "meshes": dp, "s": dp_s},
+           "moe": {"arch": MESH_TRAIN_MOE["arch"], "widths": "smoke",
+                   "reduced": {"widths": "smoke (d 64, d_ff 128): four "
+                               "ranks of grok's 2-expert training share "
+                               "(58.8 GB each, phase 8) cannot share one "
+                               "card"}, "cases": moe, "s": moe_s},
+           "pipeline": {**pp, "s": pp_s}}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 16: done in {out['wall_s']:.1f} s ({gpu})")
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_report(r):
     """The ``kernels`` line: every kernel's launches by path, error, times
     and bound, from the results ``r`` of a run of every phase."""
@@ -6569,6 +7023,8 @@ def kernels_report(r):
                                  "ecl_quant_launches_export"]
                                 for a in (VLM_ARCH, AUDIO_ARCH)},
                              "scale_out": r["scale_out"][
+                                 "ecl_quant_launches"],
+                             "mesh_train": r["mesh_train"][
                                  "ecl_quant_launches"]},
         "max_abs_err": r["ecl_err"],
         "ms": head["ms"], "kernel_ms": head["ms"],
@@ -6604,7 +7060,7 @@ def kernels_report(r):
 
 
 PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10", "11",
-          "12", "13", "14", "15")
+          "12", "13", "14", "15", "16")
 
 
 def parse_phases(argv):
@@ -6687,7 +7143,8 @@ def main(argv=None) -> int:
              ("13", "vlm_audio", lambda: vlm_audio_serve_path(dev, gpu)),
              ("14", "vlm_audio_train",
               lambda: vlm_audio_train_path(dev, gpu)),
-             ("15", "scale_out", lambda: scale_out_path(dev, gpu)))
+             ("15", "scale_out", lambda: scale_out_path(dev, gpu)),
+             ("16", "mesh_train", lambda: mesh_train_path(dev, gpu)))
     for phase, key, run in steps:
         if phase in phases:
             r[key] = run()
@@ -6697,7 +7154,7 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": kernels_report(r)}))
     for key in ("path", "train", "frontend", "lm", "lm_train", "moe",
                 "moe_train", "mla", "mla_train", "ssm", "ssm_train",
-                "vlm_audio", "vlm_audio_train", "scale_out"):
+                "vlm_audio", "vlm_audio_train", "scale_out", "mesh_train"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "

@@ -8,8 +8,14 @@ process per rank, each with its own device, joined by a process group.
 world's ranks (row-major, so rank ``r`` sits at ``divmod(r, model)``): the
 axis names and sizes, this rank's coordinates, one process group per
 axis slice it belongs to, and its device.  Its collectives (``all_gather``
-tiled in mesh order, ``all_to_all`` over the leading dim, ``all_reduce``)
-are ``torch.distributed``'s over those groups.
+tiled in mesh order, ``all_to_all`` over the leading dim, ``all_reduce``,
+``ppermute``) are ``torch.distributed``'s over those groups, each with its
+adjoint under autograd, as ``shard_map``'s transpose gives the reference
+one: the gather's backward is a reduce-scatter (the gradients summed over
+the slice, this rank's block kept), the all-to-all's the reverse
+all-to-all, a sum's an all-reduce sum of the gradients, a permutation's
+the inverse permutation.  Every rank runs the same backward, so the
+collectives of the backward meet in the same order on every rank.
 
 Backends: NCCL where each rank has a card of its own, gloo on the CPU.
 More ranks than cards (several ranks sharing one card, as on a one-card
@@ -121,9 +127,14 @@ class Mesh(MeshSpec):
         # one group per (axis subset, slice): made on every rank in the
         # same order, kept where this rank belongs
         self._groups: Dict[Tuple[str, ...], Any] = {}
+        # the world ranks of this rank's slice along each axis subset, in
+        # mesh order (a slice member's index is its axis_index)
+        self._members: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
         for r in range(1, len(self.axis_names) + 1):
             for sub in itertools.combinations(self.axis_names, r):
                 for ranks in _slices(dims, self.axis_names, sub):
+                    if self.rank in ranks:
+                        self._members[sub] = ranks
                     if len(ranks) == 1 or len(ranks) == world:
                         continue      # no collective, or the whole world
                     g = dist.new_group(list(ranks))
@@ -162,40 +173,144 @@ class Mesh(MeshSpec):
 
     def all_gather(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
         """Every slice's ``t`` along ``axes``, concatenated on ``dim`` in
-        mesh order (the reference's tiled ``all_gather``)."""
-        n = self.axis_size(axes)
-        if n == 1:
+        mesh order (the reference's tiled ``all_gather``).  Backward: the
+        gradients summed over the slice, this rank's block of them."""
+        if self.axis_size(axes) == 1:
             return t
-        src = self._staged(t.contiguous())
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=self.group(axes))
-        return torch.cat(parts, dim=dim).to(t.device)
+        return _AllGather.apply(t, self, self._key(axes), dim)
 
     def all_to_all(self, t: torch.Tensor, axes) -> torch.Tensor:
         """Dim 0 cut into equal chunks, chunk i to slice member i; the
-        result holds member i's chunk for this rank at chunk i."""
+        result holds member i's chunk for this rank at chunk i.  Backward:
+        the same exchange of the gradients (the chunks go home)."""
         n = self.axis_size(axes)
         if n == 1:
             return t
         if t.shape[0] % n:
             raise ValueError(f"all_to_all over {n} ranks: dim 0 of "
                              f"{tuple(t.shape)} does not divide")
-        src = self._staged(t.contiguous())
-        out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=self.group(axes))
-        return out.to(t.device)
+        return _AllToAll.apply(t, self, self._key(axes))
 
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
                    ) -> torch.Tensor:
-        """The sum (or ``op="mean"``) of ``t`` over the slice along
-        ``axes``; a new tensor."""
+        """The sum (``op="mean"``: over the slice's size; ``"max"``) of
+        ``t`` over the slice along ``axes``; a new tensor.  Backward of a
+        sum: the gradients' sum over the slice (of a mean, the same over
+        the size); ``max`` has none and refuses a tensor under grad."""
+        if op not in ("sum", "mean", "max"):
+            raise ValueError(f"all_reduce op {op!r}: sum, mean or max")
+        if op == "max" and t.requires_grad and torch.is_grad_enabled():
+            raise ValueError("all_reduce(op='max') has no gradient; run it "
+                             "under torch.no_grad()")
         n = self.axis_size(axes)
         if n == 1:
             return t.clone()
-        out = self._staged(t.contiguous()).clone()
-        dist.all_reduce(out, group=self.group(axes))
-        out = out.to(t.device)
+        if op == "max":
+            return self._reduce(t, self._key(axes), dist.ReduceOp.MAX)
+        out = _AllReduceSum.apply(t, self, self._key(axes))
         return out / n if op == "mean" else out
+
+    def ppermute(self, t: torch.Tensor, axis, perm) -> torch.Tensor:
+        """The reference's ``ppermute`` along ``axis``: for each ``(src,
+        dst)`` of ``perm`` (indices along the axis) member ``dst`` gets
+        member ``src``'s ``t``; a member no pair sends to gets zeros.
+        Backward: the inverse permutation of the gradients."""
+        key = self._key(axis)
+        n = self.axis_size(key)
+        perm = tuple((int(s), int(d)) for s, d in perm)
+        srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+        if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
+                or not all(0 <= i < n for i in srcs + dsts)):
+            raise ValueError(f"ppermute over {n} ranks: {perm} is not a "
+                             "partial permutation of them")
+        return _Permute.apply(t, self, key, perm)
+
+    # the collectives themselves, outside autograd
+
+    def _reduce(self, t: torch.Tensor, key, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+        if self.axis_size(key) == 1:
+            return t.clone()
+        out = self._staged(t.contiguous()).clone()
+        dist.all_reduce(out, op=op, group=self.group(key))
+        return out.to(t.device)
+
+    def _gather(self, t: torch.Tensor, key, dim: int) -> torch.Tensor:
+        src = self._staged(t.contiguous())
+        parts = [torch.empty_like(src) for _ in range(self.axis_size(key))]
+        dist.all_gather(parts, src, group=self.group(key))
+        return torch.cat(parts, dim=dim).to(t.device)
+
+    def _exchange(self, t: torch.Tensor, key) -> torch.Tensor:
+        src = self._staged(t.contiguous())
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.group(key))
+        return out.to(t.device)
+
+    def _permute(self, t: torch.Tensor, key, perm) -> torch.Tensor:
+        members, me = self._members[key], self.axis_index(key)
+        src = self._staged(t.contiguous())
+        out = torch.zeros_like(src)
+        ops = []
+        for s, d in perm:
+            if s == me and d == me:
+                out.copy_(src)
+            elif s == me:
+                ops.append(dist.P2POp(dist.isend, src, members[d]))
+            elif d == me:
+                ops.append(dist.P2POp(dist.irecv, out, members[s]))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out.to(t.device)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, key, dim):
+        ctx.mesh, ctx.key, ctx.dim, ctx.size = mesh, key, dim, t.shape[dim]
+        return mesh._gather(t, key, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = ctx.mesh._reduce(g, ctx.key)
+        i = ctx.mesh.axis_index(ctx.key)
+        return (full.narrow(ctx.dim, i * ctx.size, ctx.size).clone(),
+                None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, key):
+        ctx.mesh, ctx.key = mesh, key
+        return mesh._exchange(t, key)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._exchange(g, ctx.key), None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, key):
+        ctx.mesh, ctx.key = mesh, key
+        return mesh._reduce(t, key)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._reduce(g, ctx.key), None, None
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, key, perm):
+        ctx.mesh, ctx.key, ctx.perm = mesh, key, perm
+        return mesh._permute(t, key, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return ctx.mesh._permute(g, ctx.key, inverse), None, None, None
 
 
 def _unravel(rank: int, dims: Tuple[int, ...]) -> Tuple[int, ...]:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import os
 import time
 from typing import Optional, Sequence
 
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..convert import lm_tree_from_numpy, pack_from_numpy, take_experts
+from ..convert import (lm_tree_from_numpy, pack_from_numpy, take_experts,
+                       tree_to_numpy)
 from ..core import qat
 from ..kernels import ecl_quant as eq
 from ..kernels import fantastic4_matmul as fm
@@ -305,4 +307,438 @@ def ep_serve(cfg, prompt: np.ndarray, max_new: int, mesh_shape: tuple, *,
            "ecl_segments": frozen_segments(frozen), "ms": ms}
     out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                          if dev.type == "cuda" else None)
+    return out
+
+
+# -------------------------------------------------- training over a mesh
+
+def collective_grads(xs: Sequence[np.ndarray], rs: Sequence[np.ndarray],
+                     mesh_shape: tuple, exchange: str, **kw) -> dict:
+    """One of the mesh's exchanges under autograd: rank r applies
+    ``exchange`` (``all_gather``, ``all_to_all``, ``all_reduce`` or
+    ``ppermute``, keywords ``kw``) to ``xs[r]`` and takes the gradient of
+    ``Σ out·rs[r]`` (seeded 1: the gradient of the sum over the ranks).
+    Returns this rank's output and gradient."""
+    dev = default_device()
+    mesh = make_mesh(mesh_shape, device=dev)
+    x = torch.from_numpy(xs[mesh.rank]).to(dev).requires_grad_()
+    out = getattr(mesh, exchange)(x, **kw)
+    g, = torch.autograd.grad(
+        torch.sum(out * torch.from_numpy(rs[mesh.rank]).to(dev)), x)
+    return {"out": out.detach().cpu().numpy(), "grad": g.cpu().numpy(),
+            "requires_grad": out.requires_grad}
+
+
+def digest(t: torch.Tensor) -> tuple:
+    """Two int64 sums over ``t``'s bits (plain and position-weighted):
+    equal for bitwise equal tensors, a cheap proxy across processes."""
+    views = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    flat = t.detach().reshape(-1)
+    flat = flat.view(views[flat.element_size()]).to(torch.int64)
+    pos = torch.arange(flat.numel(), dtype=torch.int64,
+                       device=flat.device) % 1_000_003 + 1
+    return int(flat.sum()), int((flat * pos).sum())
+
+
+def named_leaves(tree_, prefix: str = "") -> list:
+    """(``/a/b`` name, leaf) in tree order (dict keys sorted)."""
+    if isinstance(tree_, dict):
+        return [kv for k in sorted(tree_)
+                for kv in named_leaves(tree_[k], f"{prefix}/{k}")]
+    if isinstance(tree_, (list, tuple)):
+        return [kv for i, v in enumerate(tree_)
+                for kv in named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree_)]
+
+
+def _train_state0(cfg, dev, params, qstate, seed):
+    from ..core import qat as Q
+    if params is None:
+        p = T.lm_init(cfg, seed=seed, device=dev)
+        return p, Q.build_qstate(p)
+    return (lm_tree_from_numpy(params, device=dev),
+            lm_tree_from_numpy(qstate, device=dev))
+
+
+def reduced_bytes(params, mesh, compress=None) -> int:
+    """Bytes one step all-reduces over ``mesh`` (each call's buffer once):
+    fp32 sums, or with ``compress`` an eligible leaf's int32 codes (the
+    int8 wire is int32, as the reference's psum) and its scale's max."""
+    from .. import tree
+    from ..runtime.sharding import replica_axes
+    total = 0
+    for g, a in zip(tree.leaves(params), tree.leaves(replica_axes(params,
+                                                                   mesh))):
+        if not a or mesh.axis_size(a) == 1:
+            continue
+        total += 4 * g.numel()
+        if compress is not None and g.is_floating_point() \
+                and g.numel() >= compress.min_size:
+            total += 4
+    return total
+
+
+def dump(tree_, path: str) -> None:
+    """Every leaf of ``tree_`` as ``path/<leaf name>.npy`` (a rank hands a
+    full-width tree to its parent through files: a pipe is the slower
+    way for gigabytes)."""
+    os.makedirs(path, exist_ok=True)
+    for name, t in named_leaves(tree_):
+        np.save(os.path.join(path, name.strip("/").replace("/", ".")
+                             + ".npy"), t.detach().cpu().numpy())
+
+
+def load_dump(path: str) -> dict:
+    """:func:`dump`'s leaves by name (``/a/b``)."""
+    return {"/" + f[:-4].replace(".", "/"): np.load(os.path.join(path, f))
+            for f in sorted(os.listdir(path))}
+
+
+def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
+             runs: Sequence[dict] = ({},), params=None, qstate=None,
+             seed: int = 0, lr: float = 1e-3, grads: bool = False,
+             compress_check=None, out_dir: Optional[str] = None) -> dict:
+    """One rank of data-parallel EC4T training over the mesh: the state
+    from ``params`` / ``qstate`` (numpy) or ``lm_init(cfg, seed)`` on this
+    rank's device, this rank's rows of each global batch of ``batches``
+    through ``ShardedFeed(mesh=)``.
+
+    ``grads``: the gradients at the initial state on ``batches[0]`` (fp32,
+    summed over each leaf's replicas; rank 0 dumps them to
+    ``out_dir/grads``).  ``compress_check``
+    (``GradCompressCfg``): there also the int8 round trip of the same
+    gradients, and the largest ``|deq - exact| / (s / 2)`` of any eligible
+    leaf (``exact``: the mean of the data ranks' ``n·h + e``, ``e = 0``).
+    ``runs``: each a dict of ``build_train_step`` keywords (``zero1``,
+    ``compress``, ``remat``, ``use_ep``, ``dtype``) with ``steps`` (default
+    all batches), ``batches`` (its own, else ``batches``) and ``state``
+    (rank 0 dumps the final params to ``out_dir/run<i>``), each from the
+    initial state.  Per run: metrics a step, ecl_quant launches a
+    step, ms a step, peak memory, the bytes all-reduced a step, the
+    digests of the final params, probabilities, error feedback (this
+    rank's own) and moments (not with ZeRO-1), and ``block_digests``:
+    those of the moments of this rank's ZeRO-1 blocks, whole moments cut
+    or ZeRO-1's own."""
+    from .. import tree
+    from ..data.pipeline import ShardedFeed
+    from ..optim import adam, ec4t
+    from ..optim.grad_compress import (compress_grads, mesh_data_axes,
+                                       split_axes)
+    from ..runtime.sharding import replica_axes, shard_slice, zero1_specs
+    from . import steps as S
+    dev = default_device()
+    mesh = make_mesh(mesh_shape, device=dev)
+    t0 = time.perf_counter()
+    p0, q0 = _train_state0(cfg, dev, params, qstate, seed)
+    out = {"rank": mesh.rank, "runs": [], "s": {}}
+    out["s"]["init"] = time.perf_counter() - t0
+    if grads or compress_check is not None:
+        t0 = time.perf_counter()
+        feed = ShardedFeed(lambda s: batches[s], mesh=mesh)
+        batch = next(feed)
+        feed.close()
+        loss_fn = S._loss_fn(cfg, mesh, remat="none", dtype=torch.float32)
+        metrics, g = ec4t.local_grads(loss_fn, p0, q0, batch, cfg.lam, mesh)
+        axes = replica_axes(p0, mesh)
+        exact = ec4t.reduce_grads(g, axes, mesh)
+        out["grad_metrics"] = {k: float(v.detach())
+                               for k, v in metrics.items()}
+        out["grad_digests"] = {n: digest(t) for n, t in named_leaves(exact)}
+        if grads and mesh.rank == 0:
+            dump(exact, os.path.join(out_dir, "grads"))
+        out["s"]["grads"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if compress_check is not None:
+            err = tree.map_(lambda t: torch.zeros((), device=dev)
+                            if t.numel() < compress_check.min_size
+                            or not t.is_floating_point()
+                            else torch.zeros_like(t, dtype=torch.float32), g)
+            deq, _ = compress_grads(g, err, compress_check, mesh=mesh,
+                                    axes=axes)
+            data = mesh_data_axes(mesh, compress_check)
+            worst = 0.0
+            for gl, el, dl, xl, a in zip(*map(tree.leaves,
+                                              (g, err, deq, exact, axes))):
+                if el.ndim == 0:
+                    continue
+                # the shared scale; with e = 0 the exact mean of the data
+                # ranks' n·h is the exact sum
+                d, o = split_axes(mesh, data, a)
+                h = mesh.all_reduce(gl, o) if o else gl
+                with torch.no_grad():
+                    amax = torch.max(torch.abs(h * mesh.axis_size(d)))
+                    if d:
+                        amax = mesh.all_reduce(amax, d, op="max")
+                half = (amax / 127.0 + 1e-12) / 2
+                worst = max(worst, float(torch.max(torch.abs(dl - xl))
+                                         / half))
+            out["int8_err_over_half_scale"] = worst
+            out["int8_digests"] = {n: digest(t) for n, t in named_leaves(deq)}
+            del deq, err
+        del g, exact, metrics
+        out["s"]["int8_check"] = time.perf_counter() - t0
+    for i, spec in enumerate(runs):
+        t_run = time.perf_counter()
+        spec = dict(spec)
+        data = spec.pop("batches", batches)
+        n_steps = spec.pop("steps", len(data))
+        keep = spec.pop("state", False)
+        zero1 = spec.get("zero1", False)
+        kw = dict(remat="none", use_ep=True, zero1=False,
+                  dtype=torch.float32)
+        kw.update(spec)
+        step, init_state = S.build_train_step(
+            cfg, mesh, adam_cfg=adam.AdamConfig(lr=lr), **kw)
+        state = init_state(p0)
+        state["qstate"] = q0
+        feed = ShardedFeed(lambda s: data[s], mesh=mesh)
+        rec = {"metrics": [], "ecl_launches": [], "ms": []}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(n_steps):
+            batch = next(feed)
+            _sync(dev)
+            if dist.is_initialized():
+                dist.barrier()
+            eq.LAUNCHES = 0
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            _sync(dev)
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["ecl_launches"].append(eq.LAUNCHES)
+            rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+        feed.close()
+        rec["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                             if dev.type == "cuda" else None)
+        rec["reduced_bytes"] = reduced_bytes(p0, mesh, kw.get("compress"))
+        final = {"params": state["params"], "qstate": state["qstate"]}
+        if "err" in state:
+            final["err"] = state["err"]
+        if not zero1:
+            final["opt"] = {k: state["opt"][k] for k in ("m", "v")}
+        rec["digests"] = {n: digest(t) for n, t in named_leaves(final)}
+        # the moments of this rank's ZeRO-1 blocks, either way
+        specs = zero1_specs(p0, mesh)
+        rec["block_digests"] = {n: digest(t) for n, t in named_leaves({
+            k: state["opt"][k] if zero1 else tree.map_(
+                lambda t, spec: shard_slice(t, spec, mesh),
+                state["opt"][k], specs) for k in ("m", "v")})}
+        if keep and mesh.rank == 0:
+            dump(state["params"], os.path.join(out_dir, f"run{i}"))
+        del state, final
+        rec["s"] = time.perf_counter() - t_run
+        out["runs"].append(rec)
+    del p0, q0
+    if dev.type == "cuda":      # the next task's ranks get the card back
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_feedback(shape: tuple, steps: int, seed: int, mesh_shape: tuple,
+                  min_size: int = 16) -> dict:
+    """``steps`` int8 round trips of distinct per-rank gradients (normal,
+    from ``seed`` and the rank) through ``compress_grads(mesh=)`` with
+    this rank's error feedback: the sum of the applied gradients, the sum
+    of the exact ones (the mean of the data ranks' ``n·g``) and each
+    step's shared scale."""
+    from ..optim.grad_compress import (GradCompressCfg, compress_grads,
+                                       init_error_state)
+    dev = default_device()
+    mesh = make_mesh(mesh_shape, device=dev)
+    cfg = GradCompressCfg(min_size=min_size)
+    n = mesh.axis_size(mesh.data_axes)
+    rng = np.random.default_rng([seed, mesh.axis_index(mesh.data_axes)])
+    err = init_error_state({"w": torch.zeros(shape, device=dev)}, cfg)
+    applied = torch.zeros(shape, dtype=torch.float64, device=dev)
+    exact = torch.zeros(shape, dtype=torch.float64, device=dev)
+    scales = []
+    axes = {"w": frozenset(mesh.data_axes)}
+    for _ in range(steps):
+        g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                             ).to(dev) / n
+        gf = g * n + err["w"]
+        with torch.no_grad():
+            s = mesh.all_reduce(torch.max(torch.abs(gf)), mesh.data_axes,
+                                op="max") / 127.0 + 1e-12
+        scales.append(float(s))
+        out, err = compress_grads({"w": g}, err, cfg, mesh=mesh, axes=axes)
+        applied += out["w"].to(torch.float64)
+        exact += mesh.all_reduce(g.to(torch.float64), mesh.data_axes)
+    return {"applied": applied.cpu().numpy(), "exact": exact.cpu().numpy(),
+            "scales": scales, "err_max": float(torch.max(torch.abs(
+                err["w"])))}
+
+
+def rank_rows(batch: dict, mesh_shape: tuple) -> dict:
+    """This rank's rows of ``batch`` as ``ShardedFeed(mesh=)`` places
+    them, or the ``ValueError`` it raises (its message)."""
+    from ..data.pipeline import ShardedFeed
+    mesh = make_mesh(mesh_shape, device=default_device())
+    feed = ShardedFeed(lambda s: batch, mesh=mesh)
+    try:
+        return {k: v.cpu().numpy() for k, v in next(feed).items()}
+    except ValueError as e:
+        return {"error": str(e)}
+    finally:
+        feed.close()
+
+
+def _moe_objective(p, x, r, mesh, *, path, coef, **kw):
+    """``Σ y·r`` over the whole batch + ``coef``·aux on every rank, from
+    this rank's rows ``x`` of it through ``path``."""
+    if path == "ep":
+        y, aux = moe_lib.moe_apply_ep(p, 0, x, FP32_CTX, mesh=mesh, **kw)
+    elif path == "tp":
+        kw.pop("experts_held", None)
+        y, aux = moe_lib.moe_apply_tp(p, 0, x, FP32_CTX, mesh=mesh, **kw)
+    else:
+        y, aux = moe_lib.moe_ffn(p, 0, x, FP32_CTX, mesh=mesh, **kw)
+    num = torch.sum(y * r)
+    num = mesh.all_reduce(num, mesh.data_axes)
+    return num + coef * aux, aux
+
+
+def moe_single_grads(p: dict, x: np.ndarray, r: np.ndarray, *, blocks: int,
+                     top_k: int, gate: str = "softmax",
+                     capacity_factor: float = 1.25,
+                     routed_scaling: float = 1.0, coef: float = 0.01,
+                     device=None) -> tuple:
+    """:func:`ep_train`'s objective on one device: ``moe_apply`` over the
+    whole batch, the aux the mean of ``route``'s over the ``blocks`` token
+    blocks the mesh's ranks route.  Returns (objective, the tokens'
+    gradient, the parameters' gradients), numpy."""
+    from .. import tree
+    tp = lm_tree_from_numpy(p, device=device)
+    leaves = [t.detach().requires_grad_() for t in tree.leaves(tp)]
+    pt = tree.unflatten(tp, leaves)
+    xt = torch.from_numpy(x).to(leaves[0].device).requires_grad_()
+    y, _ = moe_lib.moe_apply(pt, 0, xt, FP32_CTX, top_k=top_k, gate=gate,
+                             capacity_factor=capacity_factor,
+                             routed_scaling=routed_scaling)
+    pad = (-x.shape[0]) % blocks
+    xp = torch.cat([xt, xt.new_zeros((pad, x.shape[1]))])
+    aux = sum(moe_lib.route(b @ pt["router"]["w"],
+                            pt["router"]["bias_correction"], top_k=top_k,
+                            gate=gate, routed_scaling=routed_scaling)[2]
+              for b in xp.chunk(blocks)) / blocks
+    obj = torch.sum(y * torch.from_numpy(r).to(xt.device)) + coef * aux
+    found = torch.autograd.grad(obj, [xt] + leaves, allow_unused=True)
+    found = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(found, [xt] + leaves)]
+    return (float(obj.detach()), found[0].cpu().numpy(),
+            tree_to_numpy(tree.unflatten(tp, found[1:])))
+
+
+def ep_train(p: dict, x: np.ndarray, r: np.ndarray, mesh_shape: tuple, *,
+             path: str, top_k: int, gate: str = "softmax",
+             capacity_factor: float = 1.25, routed_scaling: float = 1.0,
+             coef: float = 0.01, share: bool = False,
+             remats: Sequence[str] = ("none", "full")) -> dict:
+    """One MoE layer over the mesh under grad: ``p`` (numpy,
+    ``moe_init``'s tree, whole banks; ``share`` cuts them to this rank's
+    E/ep experts), ``x`` (n, d) the whole batch, ``r`` (n, d) the
+    objective's weights.  Each rank takes its rows, runs ``path`` and the
+    objective ``Σ y·r + coef·aux`` (whole batch), seeds its backward with
+    1 / world and sums each gradient over the ranks that hold a copy of
+    it (the router, the shared expert and whole banks: the mesh; a
+    share's banks: the data axes; its rows of ``x``: the 'model' axis,
+    then gathered).  Once per ``remats`` entry (``full`` checkpoints the
+    layer: its forward, exchanges included, runs again in the backward);
+    the gradients of each are held bitwise to the first's.  Returns the
+    objective, aux, the dispatcher's choice and the first run's
+    gradients."""
+    from torch.utils.checkpoint import checkpoint
+    from .. import tree
+    from ..optim import ec4t
+    from ..runtime.sharding import replica_axes
+    dev = default_device()
+    mesh = make_mesh(mesh_shape, device=dev)
+    whole = lm_tree_from_numpy(p, device=dev)
+    kw = dict(top_k=top_k, gate=gate, capacity_factor=capacity_factor,
+              routed_scaling=routed_scaling)
+    tree_ = whole
+    if share:
+        per = whole["router"]["w"].shape[1] // mesh.shape["model"]
+        kw["experts_held"] = (mesh.coords["model"] * per, per)
+        tree_ = take_experts(whole, *kw["experts_held"], axis=0)
+    rows = _rows(torch.from_numpy(x).to(dev), mesh)
+    r_rows = _rows(torch.from_numpy(r).to(dev), mesh)
+    axes = replica_axes({"moe": tree_}, mesh)["moe"]
+    first, same = None, True
+    for remat in remats:
+        leaves = [t.detach().requires_grad_() for t in tree.leaves(tree_)]
+        xt = rows.detach().requires_grad_()
+        fn = lambda *a: _moe_objective(tree.unflatten(tree_, a[1:]), a[0],
+                                       r_rows, mesh, path=path, coef=coef,
+                                       **dict(kw))
+        if remat == "full":
+            obj, aux = checkpoint(fn, xt, *leaves, use_reentrant=False)
+        else:
+            obj, aux = fn(xt, *leaves)
+        found = torch.autograd.grad(obj, [xt] + leaves,
+                                    torch.full_like(obj, 1.0 / mesh.size),
+                                    allow_unused=True)
+        g = ec4t.reduce_grads(tree.unflatten(tree_, [
+            torch.zeros_like(t) if f is None else f
+            for f, t in zip(found[1:], leaves)]), axes, mesh)
+        gx = mesh.all_reduce(found[0], "model") \
+            if "model" in mesh.axis_names else found[0]
+        gx = _gather_rows(gx, mesh, x.shape[0])
+        got = {"obj": obj.detach(), "aux": aux.detach(), "x": gx, "p": g}
+        if first is None:
+            first = got
+        else:
+            same = same and all(torch.equal(a, b) for a, b in zip(
+                tree.leaves(first), tree.leaves(got)))
+    return {"obj": float(first["obj"]), "aux": float(first["aux"]),
+            "path": moe_lib.moe_path(whole, mesh),
+            "experts_held": kw.get("experts_held"),
+            "grads": tree_to_numpy({"x": first["x"], "p": first["p"]}),
+            "remat_bitwise": same}
+
+
+def _tanh_stack(ws: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The reference test's layer body: ``x = tanh(x @ w)`` over the
+    stage's (L/S, d, d) weights."""
+    for w in ws.unbind(0):
+        x = torch.tanh(x @ w)
+    return x
+
+
+def pp_apply(ws: np.ndarray, x: np.ndarray, r: np.ndarray, *,
+             n_micro: Sequence[int], iters: int = 0) -> list:
+    """``pipeline_apply`` of the tanh stack ``ws`` (L, d, d) over a
+    ('pipe',) mesh of the world, for each micro-batch count: every rank's
+    output, the objective ``Σ out·r``'s gradients (seeded 1 / world: this
+    rank's stage block of ``ws``, and ``x``'s summed over the ranks), the
+    ticks and, with ``iters``, ms a forward and backward."""
+    from ..runtime import pipeline_parallel as pp
+    dev = default_device()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_mesh((world,), ("pipe",), device=dev)
+    stage = mesh.axis_index("pipe")
+    w = torch.from_numpy(ws).to(dev)
+    xt = torch.from_numpy(x).to(dev)
+    rt = torch.from_numpy(r).to(dev)
+    out = []
+    for m in n_micro:
+        def run():
+            sw = pp.stage_split(w, world).detach().requires_grad_()
+            xi = xt.detach().requires_grad_()
+            y = pp.pipeline_apply(_tanh_stack, sw, xi, mesh=mesh,
+                                  n_micro=m)
+            gw, gx = torch.autograd.grad(torch.sum(y * rt), (sw, xi),
+                                         torch.full((), 1.0 / world,
+                                                    device=dev))
+            return y, gw, mesh.all_reduce(gx, "pipe")
+        y, gw, gx = run()
+        rec = {"n_micro": m, "ticks": m + world - 1,
+               "bubble": pp.bubble_fraction(world, m),
+               "y": y.detach().cpu().numpy(),
+               "stage_grad": gw[stage].cpu().numpy(),
+               "x_grad": gx.cpu().numpy()}
+        if iters:
+            rec["ms"] = _ms(run, iters, dev)
+        out.append(rec)
     return out

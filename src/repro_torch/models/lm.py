@@ -18,26 +18,46 @@ from ..nn.module import QuantCtx
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
-            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            mask: Optional[torch.Tensor] = None, *,
+            mesh=None) -> torch.Tensor:
     """Token-mean cross entropy.  logits (B, S, Vp); labels (B, S) with
-    ids < vocab; the padded-vocab columns were already masked to -1e30."""
+    ids < vocab; the padded-vocab columns were already masked to -1e30.
+    Over a ``mesh`` whose data axes hold several ranks, the mean of the
+    whole batch on every rank: ``Σ nll·mask`` and ``Σ mask`` summed over
+    the data axes (the sum differentiably), not a mean of the ranks'
+    means."""
     lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(lp, -1, labels.to(torch.int64)[..., None])[..., 0]
+    if mesh is None or mesh.axis_size(mesh.data_axes) == 1:
+        if mask is None:
+            return nll.mean()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     if mask is None:
-        return nll.mean()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        num = nll.sum()
+        den = torch.full((), nll.numel(), dtype=torch.float32,
+                         device=nll.device)
+    else:
+        num, den = (nll * mask).sum(), mask.to(torch.float32).sum()
+    num = mesh.all_reduce(num, mesh.data_axes)
+    with torch.no_grad():
+        den = mesh.all_reduce(den, mesh.data_axes)
+    return num / torch.clamp(den, min=1.0)
 
 
 def lm_forward_loss(params, qstate, batch: dict, ctx: QuantCtx,
-                    cfg: ArchConfig, *, remat: str = "none") -> tuple:
+                    cfg: ArchConfig, *, mesh=None, use_ep: bool = True,
+                    remat: str = "none") -> tuple:
     """The train forward: (loss, metrics).  The input is the batch's
     ``tokens`` or its ``embeds`` (the stubbed vlm frontend's: a vlm batch
-    holds embeds and labels, no tokens); ``remat`` as
-    :func:`~repro_torch.nn.transformer.lm_apply` takes it."""
+    holds embeds and labels, no tokens); ``remat``, ``mesh`` and
+    ``use_ep`` as :func:`~repro_torch.nn.transformer.lm_apply` takes
+    them.  Over a mesh the batch is this rank's rows, and ``loss``, ``ce``
+    and ``aux`` are the whole batch's on every rank."""
     logits, _, aux = T.lm_apply(params, qstate, batch.get("tokens"), ctx,
                                 cfg, embeds=batch.get("embeds"),
-                                remat=remat)
-    ce = lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
+                                remat=remat, mesh=mesh, use_ep=use_ep)
+    ce = lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"),
+                 mesh=mesh)
     loss = ce + cfg.aux_loss_coef * aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}
 

@@ -210,18 +210,21 @@ def whisper_decode(params: dict, qstate: Any, tokens: torch.Tensor,
 
 
 def whisper_forward_loss(params: dict, qstate: Any, batch: dict,
-                         ctx: QuantCtx, cfg: ArchConfig, **_) -> tuple:
+                         ctx: QuantCtx, cfg: ArchConfig, *, mesh=None,
+                         **_) -> tuple:
     """The train forward: encode the batch's stubbed ``embeds``, then
     teacher-force the decoder on its ``tokens`` against ``labels``.  Both
     stacks are fake-quantized in one grouped pass first.  Returns (loss,
-    metrics); extra keywords (``remat``) are ignored, as the reference's
-    ``**_`` ignores them."""
+    metrics); over a ``mesh`` the batch is this rank's rows and the loss
+    the whole batch's (``lm_loss(mesh=)``).  Extra keywords (``remat``,
+    ``use_ep``) are ignored, as the reference's ``**_`` ignores them."""
     from .lm import lm_loss
     params = quantize_layers(params, qstate, ctx)
     enc = whisper_encode(params, qstate, batch["embeds"], ctx, cfg)
     cross = precompute_cross(params, qstate, enc, ctx, cfg)
     logits, _ = whisper_decode(params, qstate, batch["tokens"], cross, ctx,
                                cfg)
-    loss = lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
+    loss = lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"),
+                   mesh=mesh)
     zero = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss, {"ce": loss, "aux": zero, "loss": loss}

@@ -41,8 +41,13 @@ back) and :func:`moe_apply_tp` (every expert's FFN width over 'model',
 one all-reduce of the down-projection), chosen by :func:`moe_ffn` as the
 reference chooses.  A rank brings its rows of the batch (the same rows on
 every rank of one 'model' slice, as the reference lays a batch over the
-data axes) and gets their outputs back.  These paths serve; their
-backward is the training slice's.
+data axes) and gets their outputs back.  Both train as well as serve:
+each exchange has its adjoint (``launch.mesh``), so under autograd the
+return all-to-all carries every token's k outputs' gradients back to the
+experts' ranks and the dispatch all-to-all the tokens' gradients home; a
+rank's gradient of the router, the shared expert and the upstream tokens
+is its part of the whole mesh's, and the train step sums them
+(``optim.ec4t``).
 
 The backward is deterministic on the card: each token enters the
 dispatch through an expand (its gradient a sum over its k assignments,
@@ -442,7 +447,8 @@ def moe_ffn(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
     """The reference's dispatcher (:func:`moe_path`): :func:`moe_apply_ep`,
     :func:`moe_apply_tp`, or the sort dispatch of :func:`moe_apply` (on
     one device a shard of it with ``experts_held``).  Over a mesh,
-    ``experts_held`` names this rank's expert-parallel share."""
+    ``experts_held`` names this rank's expert-parallel share, and the
+    local path's aux is the mean over the data axes."""
     kw = dict(top_k=top_k, gate=gate, capacity_factor=capacity_factor,
               routed_scaling=routed_scaling)
     path = moe_path(p, mesh, use_ep)
@@ -451,4 +457,9 @@ def moe_ffn(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
                             experts_held=experts_held, **kw)
     if path == "tp":
         return moe_apply_tp(p, q_state, x, ctx, mesh=mesh, **kw)
-    return moe_apply(p, q_state, x, ctx, experts_held=experts_held, **kw)
+    y, aux = moe_apply(p, q_state, x, ctx, experts_held=experts_held, **kw)
+    if mesh is not None and mesh.size > 1:
+        # each rank routed its own rows: the aux of the mesh is the mean
+        # over the data axes, as the exchanges' paths report it
+        aux = mesh.all_reduce(aux, mesh.data_axes, op="mean")
+    return y, aux

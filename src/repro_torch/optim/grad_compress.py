@@ -7,9 +7,27 @@ max|g| / 127, dequantized, and the residual carried to the next step
 (1-bit-Adam-style error feedback), so the sum of the applied gradients
 tracks the sum of the true ones.  Smaller tensors (ω, norms) stay exact.
 
-Only the local round trip is ported (``mesh=None``): the same numerics,
-no collective.  The int8 all-reduce over a data-parallel mesh comes with
-training over a mesh, the next slice (ROADMAP queue 1 item 6).
+Without a mesh the round trip is local: the reference's numerics, no
+collective.  Over a mesh (``launch.mesh``) each rank brings its own
+gradient, where the reference quantizes gradients that pjit has already
+reduced, each device on its own scale (``src/repro/optim/grad_compress.py:
+68-74``).  Per-rank gradients need one scale, so each eligible leaf
+
+1. is summed exactly over the axes of its replica group that are not data
+   axes (``axes``: the 'model' ranks that hold the same rows);
+2. is taken as this data rank's mean-style gradient ``gf = n·h + e``
+   (``n`` the data axes' size: the step's gradients are sums, each rank
+   seeded with 1 / world);
+3. shares ``s = max|gf| / 127 + 1e-12``, the max over the data axes;
+4. is quantized to int8 here, its int32 sum all-reduced exactly (the wire
+   is int32, as the reference's psum of ``q.astype(int32)``), and
+   dequantized as ``Σq · s / n``; each rank keeps ``gf − q·s`` as its
+   error.
+
+With the same rows on every data rank this is the local round trip bit
+for bit (``n·h`` and ``Σq·s / n`` are exact for a power-of-two ``n``);
+with distinct rows it is within ``s / 2`` of the exact mean of the
+``gf``.  Ineligible leaves are summed exactly.
 """
 from __future__ import annotations
 
@@ -46,22 +64,63 @@ def _quantize(g: torch.Tensor) -> tuple:
 
 
 def compress_grads(grads: Any, err: Any, cfg: GradCompressCfg, *,
-                   mesh: Optional[Any] = None) -> tuple:
-    """Quantize (grad + error) to int8 and back; returns (grads, err)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the int8 all-reduce over a mesh is not ported yet: it comes "
-            "with training over a mesh, the next slice (ROADMAP queue 1 "
-            "item 6, its training half); pass mesh=None")
+                   mesh: Optional[Any] = None,
+                   axes: Optional[Any] = None) -> tuple:
+    """Quantize (grad + error) to int8 and back; returns (grads, err).
+    Over ``mesh`` the grads are this rank's, reduced here over each leaf's
+    replica axes (``axes``: ``runtime.sharding.replica_axes``; default
+    every mesh axis), the data axes of them in int8."""
+    if mesh is None:
+        def one(g, e, _):
+            if e.ndim == 0:        # ineligible leaf: exact
+                return g, e
+            gf = g.to(torch.float32) + e
+            q, s = _quantize(gf)
+            deq = q.to(torch.float32) * s
+            return deq.to(g.dtype), gf - deq
+    else:
+        data = mesh_data_axes(mesh, cfg)
 
-    def one(g, e):
-        if e.ndim == 0:            # ineligible leaf: exact
-            return g, e
-        gf = g.to(torch.float32) + e
-        q, s = _quantize(gf)
-        deq = q.to(torch.float32) * s
-        return deq.to(g.dtype), gf - deq
+        @torch.no_grad()
+        def one(g, e, leaf_axes):
+            d, other = split_axes(mesh, data, leaf_axes)
+            h = mesh.all_reduce(g, other) if other else g
+            if e.ndim == 0:        # ineligible leaf: exact
+                return (mesh.all_reduce(h, d) if d else h), e
+            n = mesh.axis_size(d)
+            gf = h.to(torch.float32) * n + e
+            amax = torch.max(torch.abs(gf))
+            if d:
+                amax = mesh.all_reduce(amax, d, op="max")
+            s = amax / 127.0 + 1e-12
+            q = torch.clamp(torch.round(gf / s), -127, 127).to(torch.int8)
+            qsum = mesh.all_reduce(q.to(torch.int32), d) if d \
+                else q.to(torch.int32)
+            deq = qsum.to(torch.float32) * s / n
+            return deq.to(g.dtype), gf - q.to(torch.float32) * s
 
-    out = [one(g, e) for g, e in zip(tree.leaves(grads), tree.leaves(err))]
-    return (tree.unflatten(grads, [o[0] for o in out]),
-            tree.unflatten(grads, [o[1] for o in out]))
+    if axes is None:
+        every = frozenset(mesh.axis_names if mesh is not None else ())
+        axes = tree.map_(lambda _: every, grads)
+    out = tree.map_(one, grads, err, axes)
+    return (tree.map_(lambda _, o: o[0], grads, out),
+            tree.map_(lambda _, o: o[1], grads, out))
+
+
+def split_axes(mesh, data: tuple, leaf_axes) -> tuple:
+    """A leaf's replica axes split into (the data axes among them, the
+    rest), each in mesh order."""
+    pick = lambda keep: tuple(a for a in mesh.axis_names
+                              if a in leaf_axes and (a in data) == keep)
+    return pick(True), pick(False)
+
+
+def mesh_data_axes(mesh, cfg: GradCompressCfg) -> tuple:
+    """``cfg.data_axes`` that ``mesh`` has (the reference's filter); a
+    name that is no axis of any mesh the port builds raises."""
+    unknown = [a for a in cfg.data_axes
+               if a not in ("pod", "data") and a not in mesh.axis_names]
+    if unknown:
+        raise ValueError(f"GradCompressCfg.data_axes {cfg.data_axes}: mesh "
+                         f"has no axes {unknown}: {mesh.axis_names}")
+    return tuple(a for a in cfg.data_axes if a in mesh.axis_names)

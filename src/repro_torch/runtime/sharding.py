@@ -256,6 +256,53 @@ def serving_pack_specs(layers, rules: Rules) -> list:
     return specs
 
 
+# ------------------------------------------------- the port's own layout
+#
+# The port trains with every non-expert weight whole on each rank (the
+# reference's Megatron specs above describe its TPU layout; the port keeps
+# them for the serving pack and for the specs' tests).  A leaf is then
+# replicated over the whole mesh, except an expert-parallel share's banks
+# (``experts_held``: fewer experts than its router scores), which the ranks
+# of one 'model' index hold alike: replicated over the data axes.
+
+def _share_banks(node: dict) -> bool:
+    """A MoE layer's dict whose banks hold fewer experts than its router
+    scores (an expert-parallel share)."""
+    gate = node["experts"]["gate"]
+    w = gate["w"] if isinstance(gate, dict) else gate
+    return w.shape[-3] < node["router"]["w"].shape[-1]
+
+
+def replica_axes(params: Any, mesh) -> Any:
+    """The mesh axes each leaf of ``params`` is replicated over under the
+    port's layout: the ranks whose gradients of that leaf add up to its
+    gradient (a tree like ``params`` of frozensets of axis names, which the
+    tree functions take as leaves; empty for a leaf no other rank
+    holds)."""
+    every, data = frozenset(mesh.axis_names), frozenset(mesh.data_axes)
+
+    def walk(node, axes):
+        if isinstance(node, dict):
+            moe = "router" in node and "experts" in node and _share_banks(node)
+            return {k: walk(v, data if moe and k == "experts" else axes)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, axes) for v in node)
+        return axes
+    return walk(params, every)
+
+
+def zero1_specs(params: Any, mesh) -> Any:
+    """ZeRO-1's spec of each leaf's Adam moments: :meth:`Rules.zero1_spec`
+    of the port's layout spec (every dim whole on the rank), so the first
+    dim that divides over the data axes is cut over them; a leaf with no
+    such dim keeps whole moments."""
+    rules = Rules.for_mesh(mesh)
+    return _map_with_path(
+        lambda _, leaf: rules.zero1_spec(_rep(leaf.ndim), tuple(leaf.shape)),
+        params)
+
+
 def shard_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's block of ``t`` under ``spec`` on ``mesh`` (a view: each
     named dim cut into equal blocks in mesh order)."""

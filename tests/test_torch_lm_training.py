@@ -42,6 +42,7 @@ from repro_torch.core import acm as tacm
 from repro_torch.core import ecl as tecl
 from repro_torch.core import qat as tqat
 from repro_torch.data import synthetic
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.models import lm as tlm
@@ -221,9 +222,27 @@ def test_grad_compress_step_matches_reference():
 
 
 def test_step_refuses_a_mesh_and_remat():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    # a one-rank mesh: the mesh step runs and is the plain step bit for
+    # bit; a compression axis the mesh does not have raises
+    cfg, jstate = _jax_state(seed=5)
+    mesh = tmesh.Mesh((1, 1), device="cpu")
+    _, batch = _batch(cfg.vocab, 1)
+    tcfg = get_config(ARCH).smoke()
+    plain, _ = tec4t.make_train_step(
+        tsteps._loss_fn(tcfg, dtype=torch.float32),
+        tadam.AdamConfig(lr=LR), lam=0.1)(_carry(jstate), batch)
+    for zero1 in (False, True):
+        state = _carry(jstate)
+        step = tec4t.make_train_step(
+            tsteps._loss_fn(tcfg, mesh, dtype=torch.float32),
+            tadam.AdamConfig(lr=LR), lam=0.1, mesh=mesh, zero1=zero1)
+        new, _ = step(state, batch)
+        for a, b in zip(tree.leaves(new), tree.leaves(plain)):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="mesh has no axes"):
         tec4t.make_train_step(lambda *a: None, tadam.AdamConfig(),
-                              mesh=object())
+                              mesh=mesh, compress=tgc.GradCompressCfg(
+                                  data_axes=("bogus",)))
     with pytest.raises(ValueError, match="remat='bogus': one of none, full, "
                        "dots"):
         tsteps._loss_fn(get_config(ARCH).smoke(), remat="bogus")
@@ -348,8 +367,16 @@ def test_grad_compress_skips_small_tensors_and_refuses_a_mesh():
     cg, _ = tgc.compress_grads(grads, err, cfg)
     assert torch.equal(cg["small"], grads["small"])          # exact
     assert not torch.equal(cg["big"], grads["big"])          # int8 grid
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tgc.compress_grads(grads, err, cfg, mesh=object())
+    # a one-rank mesh gives the local round trip bit for bit; an axis the
+    # mesh does not have raises
+    mesh = tmesh.Mesh((1, 1), device="cpu")
+    mg, merr = tgc.compress_grads(grads, err, cfg, mesh=mesh)
+    _, lerr = tgc.compress_grads(grads, err, cfg)
+    for a, b in zip(tree.leaves((mg, merr)), tree.leaves((cg, lerr))):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="mesh has no axes"):
+        tgc.compress_grads(grads, err, tgc.GradCompressCfg(
+            min_size=1000, data_axes=("bogus",)), mesh=mesh)
 
 
 # -------------------------------------------------- acm, assign_general
