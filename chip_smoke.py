@@ -498,13 +498,52 @@ Phases (any failure raises and the script exits non-zero):
    printed with ms a forward and backward a rank.  Prints one
    ``mesh_train`` JSON line.
 
+17. The autotuner's sweep and the dry run, run last.  (a) A fresh
+   autotune cache file in a temporary directory; MLP-GSC from
+   ``mlp_init(seed=0)`` frozen and served through ``ExecutionPlan(mode=
+   "auto")``, fp32 and int8, with the timed sweep on (the package's own
+   choice on the card; every earlier phase binds from the prior, the
+   script setting ``autotune.tuning`` as the tests do when it starts).
+   Counters are zeroed just before the plans are built
+   and read just after their buckets have served; each fused schedule
+   must have launched.  Gates: the plan's block_m and every fused
+   bucket with ``source == "sweep"``; measure calls equal to the candidate
+   count (the block sweep's and each bucket's); the ws crossover recorded
+   in the cache file; a second build over a cleared memory cache and the
+   same file makes no measure call and binds the same; each bucket's
+   served output within the fp32 gate of the plain oracle (int8: relative
+   ``< 5e-3``); every int8 candidate the sweep timed bitwise equal to the
+   chain kernel.  Prints each bucket's candidates' queued ms, the prior's
+   binding and the winner.  (c) SmolLM-360M's FFN plans as ``LMProgram``
+   builds them (gate, up, down of one block at 960 x 2560, random codes,
+   mode auto, fp32, buckets to 64) with the sweep on, over the same file:
+   every bucket fused with ``source == "sweep"``, measure calls equal to
+   the candidates of gate and down (up, gate's shape, a hit), a warm build
+   with none and the same bindings, each bucket's output within the fp32
+   gate of the plain oracle; queued ms printed as in (a).  (b) SmolLM-360M
+   at published widths: the
+   8 x 64 bf16 train step (``launch.steps.build_train_step`` on a one-rank
+   ``ShapeMesh``) counted by ``launch.op_analysis`` on meta tensors and on
+   the card's real ones, FLOPs and bytes exactly equal (peak live bytes
+   printed beside ``torch.cuda.max_memory_allocated``); ecl_quant's
+   ``LAUNCHES``, zeroed just before the card's step and read just after,
+   is 14 (2 passes x ceil(224 segments / 32)), as the count reports on
+   the card and on meta; on a (4, 1)
+   shape-only mesh the fp32 step's gradient all-reduce is 1,447,288,064 B
+   (phase 16's bytes a step); then ``dryrun.run_cell`` of smollm-360m at
+   the four shapes on pod16x16 (long_500k SKIP), records printed.  Prints
+   one ``autotune`` JSON line.
+
 The script ends with a line that counts the profiler traces taken and
-retaken and the device times taken from queued CUDA events, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
+retaken, the device times taken from queued CUDA events and the queued
+timings taken again behind a longer spin after a host stall, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -520,6 +559,9 @@ CLUSTER_SCHEDULES = ("batch_tiled", "db", "ws")
 WIDE_CLUSTER = 16                          # non-portable size, timed beside 8
 FMA_LATENCY = 4                            # cycles of a dependent FFMA (Hopper)
 SPIN_CYCLES = 200_000_000                  # ~0.1 s: the host enqueues meanwhile
+# queued timings (``_queued_ms``, ``coop_probe``) taken again behind a
+# longer spin after a host stall
+SPIN_RETAKEN = {"spins": 0}
 TRACE_TRIES = 8                            # a trace now and then comes back empty
 TRACES = {"taken": 0, "retried": 0, "events": 0}   # profiler traces, those
 # retaken, and device times taken from CUDA events when no trace was whole
@@ -985,22 +1027,26 @@ def _queued_ms(fn, dev, iters):
     import torch
     for _ in range(3):
         fn()
-    torch.cuda.synchronize(dev)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    spin_done = torch.cuda.Event()
-    torch.cuda._sleep(SPIN_CYCLES)
-    spin_done.record()
-    start.record()
-    for _ in range(iters):
-        fn()
-    # the spin must still hold the stream once every call is queued, or
-    # host gaps would fall between the events
-    if spin_done.query():
-        raise AssertionError("the host fell behind the queued launches")
-    end.record()
-    torch.cuda.synchronize(dev)
-    return start.elapsed_time(end) / iters
+    # a host stall longer than the spin is taken again behind a spin four
+    # times as long, then raises
+    for spin in (SPIN_CYCLES, 4 * SPIN_CYCLES):
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spin_done = torch.cuda.Event()
+        torch.cuda._sleep(spin)
+        spin_done.record()
+        start.record()
+        for _ in range(iters):
+            fn()
+        # the spin must still hold the stream once every call is queued,
+        # or host gaps would fall between the events
+        if not spin_done.query():
+            end.record()
+            torch.cuda.synchronize(dev)
+            return start.elapsed_time(end) / iters
+        SPIN_RETAKEN["spins"] += 1
+    raise AssertionError("the host fell behind the queued launches")
 
 
 def _trace(fn, dev, iters):
@@ -1522,23 +1568,29 @@ def coop_probe(dev, pack):
         for key, fn in (("unordered", unordered), ("ordered", launch)):
             times = {}
             for split in (1, 2):
-                torch.cuda.synchronize(dev)
-                gate = torch.cuda.Event(enable_timing=True)
-                spin_done = torch.cuda.Event()
-                with torch.cuda.stream(s0):
-                    torch.cuda._sleep(SPIN_CYCLES)
-                    spin_done.record()
-                    gate.record()
-                ends, ys = [], []
-                for st in ((s1,) if split == 1 else (s1, s2)):
-                    st.wait_event(gate)
-                    with torch.cuda.stream(st):
-                        for _ in range(2 * COOP_LAUNCHES // split):
-                            ys.append(fn(x))
-                        e = torch.cuda.Event(enable_timing=True)
-                        e.record()
-                        ends.append(e)
-                if spin_done.query():
+                # a host stall longer than the spin is taken again behind
+                # a spin four times as long, then raises
+                for spin in (SPIN_CYCLES, 4 * SPIN_CYCLES):
+                    torch.cuda.synchronize(dev)
+                    gate = torch.cuda.Event(enable_timing=True)
+                    spin_done = torch.cuda.Event()
+                    with torch.cuda.stream(s0):
+                        torch.cuda._sleep(spin)
+                        spin_done.record()
+                        gate.record()
+                    ends, ys = [], []
+                    for st in ((s1,) if split == 1 else (s1, s2)):
+                        st.wait_event(gate)
+                        with torch.cuda.stream(st):
+                            for _ in range(2 * COOP_LAUNCHES // split):
+                                ys.append(fn(x))
+                            e = torch.cuda.Event(enable_timing=True)
+                            e.record()
+                            ends.append(e)
+                    if not spin_done.query():
+                        break
+                    SPIN_RETAKEN["spins"] += 1
+                else:
                     raise AssertionError("the host fell behind the "
                                          "queued stream launches")
                 torch.cuda.synchronize(dev)
@@ -6961,6 +7013,517 @@ def mesh_train_path(dev, gpu):
     return out
 
 
+AUTOTUNE_ARCH = "mlp-gsc"
+AUTOTUNE_SEED = 170
+DRYRUN = dict(arch="smollm-360m", batch=8, seq=64, dp_mesh=(4, 1),
+              grad_bytes=1_447_288_064)      # phase 16's bytes a step
+# the package's own tuning (the sweep on the card), kept while phases
+# 2-16 bind from the prior
+_TUNING = {}
+
+
+def set_tuning(mode):
+    """Plans built after this call bind by the package's sweep
+    (``"sweep"``, its own choice on the card) or from the prior
+    (``"prior"``: phases 2-16, whose gates need the prior's bindings), by
+    setting ``autotune.tuning`` as the tests do."""
+    from repro_torch.kernels import autotune
+    own = _TUNING.setdefault("sweep", autotune.tuning)
+    autotune.tuning = own if mode == "sweep" else (lambda device: "prior")
+
+
+@contextlib.contextmanager
+def recorded_measures(calls):
+    """Every measure the plans built inside make, appended to ``calls`` as
+    (act dtype, rows, schedule or "block", block_m, seconds)."""
+    from repro_torch.serving import plans as P
+    sched_measure = P.ExecutionPlan._schedule_measure
+    block_measure = P.ExecutionPlan._block_measure
+
+    def rec_sched(plan, rows):
+        m = sched_measure(plan, rows)
+
+        def measure(s, bm):
+            t = m(s, bm)
+            calls.append((plan.act_dtype, rows, s, bm, t))
+            return t
+        return measure
+
+    def rec_block(plan, rows):
+        m = block_measure(plan, rows)
+
+        def measure(c):
+            t = m(c)
+            calls.append((plan.act_dtype, rows, "block", c.block_m, t))
+            return t
+        return measure
+
+    P.ExecutionPlan._schedule_measure = rec_sched
+    P.ExecutionPlan._block_measure = rec_block
+    try:
+        yield calls
+    finally:
+        P.ExecutionPlan._schedule_measure = sched_measure
+        P.ExecutionPlan._block_measure = block_measure
+
+
+def _want_measures(plan, max_bucket):
+    """The measure calls a cold build of ``plan`` makes: the block sweep's
+    (when the batch-tiled stack fits) and every bucket's candidates."""
+    from repro_torch.kernels import autotune as at
+    want = sum(len(at.candidate_schedule_blocks(
+        b, plan._eligible_schedules(b))) for b in plan.bucket_sizes)
+    if plan.block_source == "sweep":
+        want += len(at.candidate_blocks(max_bucket, plan.d_in, plan.d_out,
+                                        fused=True))
+    return want
+
+
+def _sweep_plans(dev, gpu):
+    """Phase 17 (a): ExecutionPlan's timed sweep on a fresh cache file."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_mlps import MLPS
+    from repro_torch.core import qat
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import fantastic4_fused_mlp as ffm
+    from repro_torch.kernels import fantastic4_matmul as fm
+    from repro_torch.models import mlp as M
+    from repro_torch.serving import plans as P
+
+    cfg = MLPS[AUTOTUNE_ARCH]
+    params, bn = M.mlp_init(cfg, seed=0, device=dev)
+    pack = M.freeze_mlp(params, qat.build_qstate(params), bn, lam=cfg.lam)
+    rng = np.random.default_rng(AUTOTUNE_SEED)
+    calib_x = rng.normal(size=(64, cfg.d_in)).astype(np.float32)
+    cache_dir = tempfile.mkdtemp(prefix="fantastic4_autotune_")
+    cache_file = os.path.join(cache_dir, "autotune_torch.json")
+    os.environ[at.ENV_CACHE] = cache_file
+    at.clear_memory_cache()
+    # every measure the plans make, and its seconds
+    calls = []
+
+    def build(act, mode):
+        set_tuning(mode)
+        return P.ExecutionPlan(pack, act_dtype=act, device=dev,
+                               calib_x=calib_x if act == "int8" else None)
+
+    def bindings(plan):
+        return {b: (p.path, p.block_m, p.source)
+                for b, p in plan.buckets.items()}
+
+    out = {"arch": AUTOTUNE_ARCH, "cache_file": cache_file, "plans": {}}
+    try:
+        torch.cuda.synchronize(dev)
+        fm.LAUNCHES = 0
+        ffm.reset_launches()
+        t0 = time.perf_counter()
+        plans, warm = {}, {}
+        for act in ("float32", "int8"):
+            n0 = len(calls)
+            with recorded_measures(calls):
+                plans[act] = build(act, "sweep")
+            plan = plans[act]
+            want = _want_measures(plan, P.DEFAULT_MAX_BUCKET)
+            made = len(calls) - n0
+            if made != want:
+                raise AssertionError(f"phase 17: {act} plan made {made} "
+                                     f"measure calls for {want} candidates")
+            if plan.block_source != "sweep":
+                raise AssertionError(f"phase 17: {act} block_m from "
+                                     f"{plan.block_source}")
+            bad = {b: p.source for b, p in plan.buckets.items()
+                   if p.path.startswith("fused") and p.source != "sweep"}
+            if bad or not plan.buckets:
+                raise AssertionError(f"phase 17: {act} buckets not swept: "
+                                     f"{bad}")
+            cross = at.get_ws_crossover(
+                plan.d_in, plan.d_out, backend=plan._backend_key,
+                act_dtype=act, stack=plan._stack_extra)
+            if cross != plan.ws_crossover_rows:
+                raise AssertionError(f"phase 17: {act} crossover "
+                                     f"{cross} recorded, plan "
+                                     f"{plan.ws_crossover_rows}")
+        build_s = time.perf_counter() - t0
+        # a warm build: a new process's view of the same file
+        at.clear_memory_cache()
+        n0 = len(calls)
+        for act in ("float32", "int8"):
+            with recorded_measures(calls):
+                warm[act] = build(act, "sweep")
+            if bindings(warm[act]) != bindings(plans[act]) or \
+                    warm[act].block_m != plans[act].block_m:
+                raise AssertionError(f"phase 17: warm {act} bindings "
+                                     f"{bindings(warm[act])} != "
+                                     f"{bindings(plans[act])}")
+            if warm[act].ws_prior_source != "measured":
+                raise AssertionError(f"phase 17: warm {act} prior from "
+                                     f"{warm[act].ws_prior_source}")
+        if len(calls) != n0:
+            raise AssertionError(f"phase 17: the warm builds measured "
+                                 f"{len(calls) - n0} times")
+        # every bucket serves through its binding
+        served = {}
+        for act, plan in plans.items():
+            for b in plan.bucket_sizes:
+                x = torch.from_numpy(rng.normal(size=(b, cfg.d_in)).astype(
+                    np.float32)).to(dev)
+                served[(act, b)] = (x, plan.entry(b)(x))
+        torch.cuda.synchronize(dev)
+        launches = {"fantastic4_matmul": fm.LAUNCHES}
+        for name, (sched, _) in KERNELS.items():
+            if sched != "chain":
+                launches[name] = ffm.LAUNCHES[sched]
+        never = [n for n, c in launches.items()
+                 if c == 0 and n != "fantastic4_matmul"]
+        if never:
+            raise AssertionError(f"phase 17: never launched {never}: "
+                                 f"{launches}")
+    finally:
+        set_tuning("prior")
+
+    # the checks: each bucket's output against the plain oracle, every
+    # int8 candidate the sweep timed against the chain kernel
+    fm.LAUNCHES = 0
+    ffm.reset_launches()
+    worst = {"float32": 0.0, "int8": 0.0}
+    for act, plan in plans.items():
+        oracle = P.ExecutionPlan(pack, act_dtype=act, mode="oracle",
+                                 device=dev, calib={"act_scales":
+                                                    plan.act_scales})
+        chain = P.ExecutionPlan(pack, act_dtype=act, mode="per_layer",
+                                device=dev, calib={"act_scales":
+                                                   plan.act_scales})
+        for b in plan.bucket_sizes:
+            x, y = served[(act, b)]
+            want = oracle.run(x)
+            err = float((y - want).abs().max())
+            if act == "float32":
+                ok = bool(((y - want).abs() <= FP32_ATOL
+                           + FP32_RTOL * want.abs()).all())
+                worst[act] = max(worst[act], err)
+            else:
+                rel = err / max(float(want.abs().max()), 1e-6)
+                ok = rel < INT8_REL
+                worst[act] = max(worst[act], rel)
+            if not ok or not torch.isfinite(y).all():
+                raise AssertionError(f"phase 17: {act} bucket {b} "
+                                     f"({plan.buckets[b].path}) err {err}")
+            if act == "int8":
+                ref = chain.run(x)
+                for a, rows, s, bm, t in calls:
+                    if a == act and rows == b and s != "block" \
+                            and t != float("inf"):
+                        got = plan._execute(x, P.PATH_BY_SCHEDULE[s],
+                                            block_m=bm)
+                        if not torch.equal(got, ref):
+                            raise AssertionError(
+                                f"phase 17: int8 {s} block_m {bm} at "
+                                f"{b} rows != the chain bitwise")
+    torch.cuda.synchronize(dev)
+    check_launches = {"fantastic4_matmul": fm.LAUNCHES}
+    for name, (sched, _) in KERNELS.items():
+        if sched != "chain":
+            check_launches[name] = ffm.LAUNCHES[sched]
+
+    for act in ("float32", "int8"):
+        plan = plans[act]
+        prior = build(act, "prior")
+        rows_out = {}
+        for b in plan.bucket_sizes:
+            cands = {f"{s}/{bm}": (None if t == float("inf") else t * 1e3)
+                     for a, rows, s, bm, t in calls
+                     if a == act and rows == b and s != "block"}
+            bp, pp = plan.buckets[b], prior.buckets.get(b)
+            rows_out[b] = {
+                "sweep": f"{P.SCHEDULE_BY_PATH.get(bp.path, bp.path)}/"
+                         f"{bp.block_m}",
+                "prior": None if pp is None else
+                f"{P.SCHEDULE_BY_PATH.get(pp.path, pp.path)}/{pp.block_m}",
+                "queued_ms": cands}
+            print(f"phase 17: {act} bucket {b}: prior {rows_out[b]['prior']}"
+                  f", swept {rows_out[b]['sweep']}; queued ms "
+                  + ", ".join(f"{k} {v:.5f}" if v is not None else
+                              f"{k} no fit" for k, v in cands.items())
+                  + f" ({gpu})")
+        blocks = {str(bm): t * 1e3 for a, rows, s, bm, t in calls
+                  if a == act and s == "block"}
+        out["plans"][act] = {
+            "block_m": plan.block_m, "prior_block_m": prior.block_m,
+            "block_queued_ms": blocks, "buckets": rows_out,
+            "ws_crossover_rows": plan.ws_crossover_rows,
+            "describe": plan.describe()}
+        print(f"phase 17: {act} block_m {plan.block_m} (prior "
+              f"{prior.block_m}; queued ms at {P.DEFAULT_MAX_BUCKET} rows "
+              f"{ {k: round(v, 5) for k, v in blocks.items()} }), ws "
+              f"crossover {plan.ws_crossover_rows} rows")
+    out.update(measure_calls=len(calls), build_s=build_s,
+               launches=launches, check_launches=check_launches,
+               max_abs_err=worst["float32"], int8_max_rel_err=worst["int8"],
+               cache_entries=len(json.load(open(cache_file))))
+    print(f"phase 17 (a): {len(calls)} measures in {build_s:.1f} s, warm "
+          f"builds none; launches {launches}; fp32 max abs err "
+          f"{worst['float32']:.3g}, int8 rel {worst['int8']:.3g}, int8 "
+          f"candidates bitwise the chain ({gpu})")
+    return out
+
+
+def _sweep_lm_ffn(dev, gpu):
+    """Phase 17 (c): SmolLM-360M's FFN plans as ``LMProgram`` builds them
+    (``serving/lm.py`` ``_plan_kw``), with the package's sweep on."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import fantastic4_fused_mlp as ffm
+    from repro_torch.kernels import fantastic4_matmul as fm
+    from repro_torch.models.mlp import freeze_dense_layer
+    from repro_torch.serving import plans as P
+
+    cfg = get_config(LM["arch"])
+    d, f = cfg.d_model, cfg.d_ff
+    rng = np.random.default_rng(AUTOTUNE_SEED + 1)
+
+    def layer(k, n):
+        codes = torch.from_numpy(rng.integers(0, 16, (k, n)).astype(
+            np.uint8)).to(dev)
+        omega = torch.from_numpy((rng.normal(size=4) / np.sqrt(k)).astype(
+            np.float32)).to(dev)
+        return freeze_dense_layer(codes, omega, activation=None)
+
+    # gate and up share a shape, so up's plan is a hit of gate's sweep
+    packs = {name: {"layers": [layer(*shape)], "name": f"blk0.{name}"}
+             for name, shape in (("gate", (d, f)), ("up", (d, f)),
+                                 ("down", (f, d)))}
+    kw = dict(mode="auto", act_dtype="float32", max_bucket=LM["max_bucket"],
+              block_m=None, device=dev)
+
+    def bindings(plan):
+        return {b: (p.path, p.block_m, p.source)
+                for b, p in plan.buckets.items()}
+
+    calls, plans, made = [], {}, {}
+    set_tuning("sweep")
+    try:
+        torch.cuda.synchronize(dev)
+        fm.LAUNCHES = 0
+        ffm.reset_launches()
+        t0 = time.perf_counter()
+        for name, pack in packs.items():
+            n0 = len(calls)
+            with recorded_measures(calls):
+                plans[name] = P.build_plan(pack, **kw)
+            made[name] = len(calls) - n0
+        build_s = time.perf_counter() - t0
+        want = {"gate": _want_measures(plans["gate"], LM["max_bucket"]),
+                "up": 0,
+                "down": _want_measures(plans["down"], LM["max_bucket"])}
+        if made != want:
+            raise AssertionError(f"phase 17: SmolLM FFN plans made {made} "
+                                 f"measure calls for {want}")
+        for name, plan in plans.items():
+            bad = {b: p.source for b, p in plan.buckets.items()
+                   if not p.path.startswith("fused") or p.source != "sweep"}
+            if bad or plan.tuning != "sweep":
+                raise AssertionError(f"phase 17: SmolLM {name} buckets not "
+                                     f"swept: {bad} ({plan.tuning})")
+        at.clear_memory_cache()
+        n0 = len(calls)
+        for name, pack in packs.items():
+            with recorded_measures(calls):
+                warm = P.build_plan(pack, **kw)
+            if bindings(warm) != bindings(plans[name]):
+                raise AssertionError(f"phase 17: warm SmolLM {name} "
+                                     f"bindings {bindings(warm)} != "
+                                     f"{bindings(plans[name])}")
+        if len(calls) != n0:
+            raise AssertionError(f"phase 17: the warm SmolLM builds "
+                                 f"measured {len(calls) - n0} times")
+        served = {}
+        for name, plan in plans.items():
+            for b in plan.bucket_sizes:
+                x = torch.from_numpy(rng.normal(size=(b, plan.d_in)).astype(
+                    np.float32)).to(dev)
+                served[(name, b)] = (x, plan.run(x))
+        torch.cuda.synchronize(dev)
+        launches = {"fantastic4_matmul": fm.LAUNCHES}
+        for kname, (sched, _) in KERNELS.items():
+            if sched != "chain":
+                launches[kname] = ffm.LAUNCHES[sched]
+    finally:
+        set_tuning("prior")
+    worst, out = 0.0, {"arch": LM["arch"], "max_bucket": LM["max_bucket"],
+                       "plans": {}}
+    for name, plan in plans.items():
+        oracle = P.build_plan(packs[name], mode="oracle", device=dev)
+        prior = P.build_plan(packs[name], **kw)
+        rows_out = {}
+        for b in plan.bucket_sizes:
+            x, y = served[(name, b)]
+            want_y = oracle.run(x)
+            if not torch.isfinite(y).all() or not bool(
+                    ((y - want_y).abs() <= FP32_ATOL
+                     + FP32_RTOL * want_y.abs()).all()):
+                raise AssertionError(
+                    f"phase 17: SmolLM {name} bucket {b} "
+                    f"({plan.buckets[b].path}) err "
+                    f"{float((y - want_y).abs().max())}")
+            worst = max(worst, float((y - want_y).abs().max()))
+            bp, pp = plan.buckets[b], prior.buckets[b]
+            rows_out[b] = {
+                "sweep": f"{P.SCHEDULE_BY_PATH.get(bp.path, bp.path)}/"
+                         f"{bp.block_m}",
+                "prior": f"{P.SCHEDULE_BY_PATH.get(pp.path, pp.path)}/"
+                         f"{pp.block_m}"}
+        out["plans"][name] = {"shape": [plan.d_in, plan.d_out],
+                              "block_m": plan.block_m,
+                              "block_source": plan.block_source,
+                              "measure_calls": made[name],
+                              "buckets": rows_out}
+    # the candidates' queued ms of the two swept shapes, in sweep order
+    i = 0
+    for name in ("gate", "down"):
+        mine = calls[i:i + made[name]]
+        i += made[name]
+        for b in plans[name].bucket_sizes:
+            cands = {f"{s}/{bm}": (None if t == float("inf") else t * 1e3)
+                     for _, rows, s, bm, t in mine
+                     if rows == b and s != "block"}
+            out["plans"][name]["buckets"][b]["queued_ms"] = cands
+            r = out["plans"][name]["buckets"][b]
+            print(f"phase 17: SmolLM {name} {plans[name].d_in}x"
+                  f"{plans[name].d_out} bucket {b}: prior {r['prior']}, "
+                  f"swept {r['sweep']}; queued ms "
+                  + ", ".join(f"{k} {v:.5f}" if v is not None else
+                              f"{k} no fit" for k, v in cands.items())
+                  + f" ({gpu})")
+    out.update(measure_calls=len(calls), build_s=build_s,
+               launches=launches, max_abs_err=worst)
+    print(f"phase 17 (c): SmolLM-360M FFN plans: {len(calls)} measures in "
+          f"{build_s:.1f} s, warm builds none; launches {launches}; fp32 "
+          f"max abs err {worst:.3g} ({gpu})")
+    return out
+
+
+def _dryrun_counts(dev, gpu):
+    """Phase 17 (b): the dry run's counts on meta against the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config(DRYRUN["arch"])
+    b, s = DRYRUN["batch"], DRYRUN["seq"]
+    out = {"arch": DRYRUN["arch"], "batch": b, "seq": s}
+    t0 = time.perf_counter()
+    bundle = S.build_train_step(cfg, ShapeMesh((1, 1)), remat="none",
+                                zero1=False, dtype=torch.bfloat16)
+
+    def meta_batch(rows):
+        return {k: torch.empty((rows, s), dtype=torch.int32, device="meta")
+                for k in ("tokens", "labels")}
+    meta = op_analysis.analyze(bundle.fn, bundle.args[0], meta_batch(b))
+    del meta["out"]
+    meta_s = time.perf_counter() - t0
+    _empty_card(dev, "phase 17 (b)")
+    rng = np.random.default_rng(DRYRUN.get("seed", 0))
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(
+        np.int32)).to(dev) for k in ("tokens", "labels")}
+    state = bundle.init_state(T.lm_init(cfg, seed=0, device=dev))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    eq.LAUNCHES = 0
+    real = op_analysis.analyze(bundle.fn, state, batch)
+    loss = float(real["out"][1]["loss"])
+    torch.cuda.synchronize(dev)
+    launches = eq.LAUNCHES
+    real_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del real["out"], state
+    for key in ("flops", "bytes", "ops"):
+        if meta[key] != real[key]:
+            raise AssertionError(f"phase 17: {key} on meta {meta[key]} != "
+                                 f"on the card {real[key]}")
+    # each ECL pass groups the step's quantized matrices, MAX_SEGMENTS a
+    # launch: 2 x ceil(32 blocks x 7 / 32) = 14 at published widths
+    want = ECL_PASSES_PER_STEP * -(-cfg.n_layers * len(LM_LEAVES)
+                                   // eq.MAX_SEGMENTS)
+    if not np.isfinite(loss) or launches != want or not (
+            real["kernels"] == meta["kernels"] == {"ecl_quant": want}):
+        raise AssertionError(f"phase 17: loss {loss}, ecl_quant launched "
+                             f"{launches} times for {want}, reported "
+                             f"{real['kernels']} on the card, "
+                             f"{meta['kernels']} on meta")
+    out["step"] = {"flops": meta["flops"], "bytes": meta["bytes"],
+                   "ops": meta["ops"], "ecl_quant_launches": launches,
+                   "kernels_reported_meta": meta["kernels"],
+                   "peak_live_bytes_meta": meta["peak_bytes"],
+                   "peak_live_bytes_card": real["peak_bytes"],
+                   "max_memory_allocated_minus_state": peak,
+                   "argument_bytes": meta["argument_bytes"], "loss": loss,
+                   "meta_s": meta_s, "card_s": real_s}
+    print(f"phase 17: {DRYRUN['arch']} {b} x {s} bf16 step: {meta['flops']:.6g}"
+          f" FLOPs, {meta['bytes']:.6g} B, {meta['ops']} operations on meta "
+          f"and on the card alike; ecl_quant launched {launches} times "
+          f"(LAUNCHES); peak live {meta['peak_bytes']} B (meta), "
+          f"{real['peak_bytes']} B (card) beside max_memory_allocated "
+          f"{peak} B above the state ({gpu})")
+    _empty_card(dev, "phase 17 (b) dp")
+    mesh = ShapeMesh(DRYRUN["dp_mesh"])
+    dp = S.build_train_step(cfg, mesh, remat="none", zero1=False,
+                            dtype=torch.float32)
+    rows = b // mesh.axis_size(mesh.data_axes)
+    counted = op_analysis.analyze(dp.fn, dp.args[0], meta_batch(rows))
+    grad = max(n for k, _, n in mesh.calls if k == "all-reduce")
+    if grad != DRYRUN["grad_bytes"]:
+        raise AssertionError(f"phase 17: the gradient all-reduce moves "
+                             f"{grad} B, phase 16 {DRYRUN['grad_bytes']}")
+    out["dp"] = {"mesh": list(DRYRUN["dp_mesh"]), "gradient_bytes": grad,
+                 "collectives": counted["collectives"]}
+    print(f"phase 17: (4, 1) shape-only mesh: gradient all-reduce {grad} B "
+          f"(phase 16: {DRYRUN['grad_bytes']}); all-reduce in all "
+          f"{counted['collectives']['all-reduce']} B")
+    cells = {}
+    t0 = time.perf_counter()
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        rec = dryrun.run_cell(DRYRUN["arch"], shape, False)
+        rec.pop("traceback", None)
+        if rec["status"] not in ("OK", "SKIP") or (
+                shape == "long_500k") != (rec["status"] == "SKIP"):
+            raise AssertionError(f"phase 17: run_cell {shape}: {rec}")
+        cells[shape] = rec
+        print(f"phase 17: dryrun {json.dumps(rec)}")
+    out["cells"] = cells
+    out["cells_s"] = time.perf_counter() - t0
+    return out
+
+
+def autotune_path(dev, gpu):
+    """Phase 17: the autotuner's sweep and the dry run."""
+    import torch
+    t0 = time.perf_counter()
+    _empty_card(dev, "phase 17")
+    out = {"sweep": _sweep_plans(dev, gpu)}
+    try:
+        out["lm_sweep"] = _sweep_lm_ffn(dev, gpu)
+    finally:
+        shutil.rmtree(os.path.dirname(out["sweep"]["cache_file"]),
+                      ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["dryrun"] = _dryrun_counts(dev, gpu)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 17: done in {out['wall_s']:.1f} s ({gpu})")
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_report(r):
     """The ``kernels`` line: every kernel's launches by path, error, times
     and bound, from the results ``r`` of a run of every phase."""
@@ -6979,7 +7542,12 @@ def kernels_report(r):
                 "frontend": r["frontend"]["session"]["launches"][name],
                 "lm": r["lm"]["kernel_launches"][name],
                 **({"scale_out": r["scale_out"]["matmul_kernel_launches"]}
-                   if sched == "chain" else {})},
+                   if sched == "chain" else {}),
+                "autotune": r["autotune"]["sweep"]["launches"][name],
+                "autotune_checks": r["autotune"]["sweep"][
+                    "check_launches"][name],
+                "autotune_lm": r["autotune"]["lm_sweep"]["launches"][
+                    name]},
             "max_abs_err": r["max_err"][name],
             "int8_max_rel_err": r["max_rel8"][name],
             "ms": head["ms"], "kernel_ms": head["ms"],
@@ -7025,6 +7593,8 @@ def kernels_report(r):
                              "scale_out": r["scale_out"][
                                  "ecl_quant_launches"],
                              "mesh_train": r["mesh_train"][
+                                 "ecl_quant_launches"],
+                             "dryrun_step": r["autotune"]["dryrun"]["step"][
                                  "ecl_quant_launches"]},
         "max_abs_err": r["ecl_err"],
         "ms": head["ms"], "kernel_ms": head["ms"],
@@ -7060,7 +7630,7 @@ def kernels_report(r):
 
 
 PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10", "11",
-          "12", "13", "14", "15", "16")
+          "12", "13", "14", "15", "16", "17")
 
 
 def parse_phases(argv):
@@ -7103,6 +7673,8 @@ def main(argv=None) -> int:
               "repository root", file=sys.stderr)
         return 2
 
+    # plans bind from the prior until phase 17 turns the sweep on
+    set_tuning("prior")
     gpu = smi_line()
     print(f"gpu: {gpu}")
     dev = torch.device("cuda", 0)
@@ -7144,7 +7716,8 @@ def main(argv=None) -> int:
              ("14", "vlm_audio_train",
               lambda: vlm_audio_train_path(dev, gpu)),
              ("15", "scale_out", lambda: scale_out_path(dev, gpu)),
-             ("16", "mesh_train", lambda: mesh_train_path(dev, gpu)))
+             ("16", "mesh_train", lambda: mesh_train_path(dev, gpu)),
+             ("17", "autotune", lambda: autotune_path(dev, gpu)))
     for phase, key, run in steps:
         if phase in phases:
             r[key] = run()
@@ -7154,13 +7727,15 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": kernels_report(r)}))
     for key in ("path", "train", "frontend", "lm", "lm_train", "moe",
                 "moe_train", "mla", "mla_train", "ssm", "ssm_train",
-                "vlm_audio", "vlm_audio_train", "scale_out", "mesh_train"):
+                "vlm_audio", "vlm_audio_train", "scale_out", "mesh_train",
+                "autotune"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "
           "retaken for want of the kernel's device time; "
           f"{TRACES['events']} device times from CUDA events for want of "
-          "a whole trace")
+          f"a whole trace; {SPIN_RETAKEN['spins']} queued timings taken "
+          "again behind a longer spin")
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

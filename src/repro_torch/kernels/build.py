@@ -47,6 +47,9 @@ _lock = threading.Lock()
 _lib = None
 #: guards every kernel's launch counter (``LAUNCHES``) across threads
 COUNT_LOCK = threading.Lock()
+#: called as ``fn(name, launches, flops, bytes)`` for a wrapper's launches
+#: and their work (``launch/op_analysis.py`` listens while it counts a call)
+WORK_LISTENERS: list = []
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,6 +72,13 @@ SIGNATURES = {
     # pointer), count, stream
     "f4_ecl_quant_many": [_P, _I, _P],
 }
+
+
+def note_work(name: str, launches: int, flops: float, nbytes: float) -> None:
+    """Report a wrapper's launches and their work (or those of its
+    stand-in on the meta device) to whoever listens."""
+    for fn in tuple(WORK_LISTENERS):
+        fn(name, launches, flops, nbytes)
 
 
 def build_dir() -> Path:

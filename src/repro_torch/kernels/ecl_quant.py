@@ -37,6 +37,10 @@ LAUNCHES = 0
 #: segments one launch takes (``kMaxSegments`` in csrc/ecl_quant.cu)
 MAX_SEGMENTS = 32
 _INT32_MAX = 2**31 - 1
+# the work of one element and one segment (:func:`_note_work`)
+ELEM_FLOPS = 16 * 4
+ELEM_BYTES = 9
+SEGMENT_BYTES = 4 * (4 + 16)
 
 
 def _check(w: torch.Tensor, omega: torch.Tensor,
@@ -104,11 +108,7 @@ def _launch_group(ws, omegas, pens) -> list:
             raise ValueError(f"w, omega and penalty on {w.device}, "
                              f"{omega.device} and {pen.device}; the group's "
                              f"first w on {dev}")
-        wf, om, pn = _f32(w), _f32(omega), _f32(pen)
-        if wf.data_ptr() % 16:
-            # a view at an odd offset: the kernel reads w at its fresh
-            # outputs' alignment, which a copy has
-            wf = wf.clone()
+        wf, om, pn = _aligned(_f32(w)), _f32(omega), _f32(pen)
         codes = torch.empty_like(wf, dtype=torch.uint8)
         w_hat = torch.empty_like(wf)
         outs.append((codes, w_hat))
@@ -140,6 +140,45 @@ def _launch_group(ws, omegas, pens) -> list:
     return outs
 
 
+def _aligned(wf: torch.Tensor) -> torch.Tensor:
+    """``wf``, or a copy of it when it is a view at an offset the kernel
+    cannot read (it reads w at its fresh outputs' 16-byte alignment)."""
+    if wf.device.type == "meta":
+        # a fresh allocation on the card is aligned: what decides is the
+        # view's offset, which a meta tensor keeps
+        off = wf.storage_offset() * wf.element_size()
+    else:
+        off = wf.data_ptr()
+    return wf.clone() if off % 16 else wf
+
+
+def _note_work(ws, omegas) -> None:
+    """The group's launches and the kernel's work over it, by its
+    contract: one launch per MAX_SEGMENTS segments with elements; per
+    element 16 candidates of a subtract, a multiply, an add and a compare
+    (``ELEM_FLOPS``), w read and the code and ŵ written (``ELEM_BYTES``);
+    per segment its ω and penalty read (``SEGMENT_BYTES``)."""
+    n = sum(w.numel() for w in ws)
+    segs = sum(o.numel() // 4 for w, o in zip(ws, omegas) if w.numel())
+    build.note_work("ecl_quant", -(-segs // MAX_SEGMENTS), ELEM_FLOPS * n,
+                    ELEM_BYTES * n + SEGMENT_BYTES * segs)
+
+
+def _meta_group(ws, omegas, pens) -> list:
+    """The kernel path on the meta device: the same casts, copies and
+    output allocations as :func:`_launch_group`, no values, and the
+    launches' work reported, so a count on meta equals one on the card."""
+    outs = []
+    for w, omega, pen in zip(ws, omegas, pens):
+        _check_group(w, omega, pen)
+        wf = _aligned(_f32(w))
+        _f32(omega), _f32(pen)
+        outs.append((torch.empty_like(wf, dtype=torch.uint8),
+                     torch.empty_like(wf)))
+    _note_work(ws, omegas)
+    return outs
+
+
 def ecl_quant_many(ws: Sequence[torch.Tensor],
                    omegas: Sequence[torch.Tensor],
                    pens: Sequence[torch.Tensor]) -> list:
@@ -154,7 +193,12 @@ def ecl_quant_many(ws: Sequence[torch.Tensor],
         return []
     kinds = {w.device.type for w in ws}
     if kinds == {"cuda"}:
-        return _launch_group(ws, omegas, pens)
+        outs = _launch_group(ws, omegas, pens)
+        if build.WORK_LISTENERS:
+            _note_work(ws, omegas)
+        return outs
+    if kinds == {"meta"}:
+        return _meta_group(ws, omegas, pens)
     if kinds == {"cpu"}:
         return [_plain_group(w, o, p) for w, o, p in zip(ws, omegas, pens)]
     raise ValueError(f"unsupported devices {sorted(kinds)}")

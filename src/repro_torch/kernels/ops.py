@@ -30,6 +30,43 @@ from .fantastic4_matmul import forget_operands as _forget_chain_operands
 from .fantastic4_matmul import staged_operands as _chain_staged
 
 
+# ~10 ms of spin at the H100's boost clock: the host enqueues meanwhile
+SPIN_CYCLES = 20_000_000
+SPIN_TRIES = 4
+
+
+def _timeit(fn, iters: int = 10) -> float:
+    """Seconds per call of ``fn`` on the card, the counterpart of the
+    reference's ``_timeit`` that the autotuner's sweep measures with.  The
+    calls are queued behind a spin kernel (``torch.cuda._sleep``), so the
+    time between the two CUDA events is the device's alone, launch gaps
+    included and host work not.  A spin that ended before the host had
+    queued every call is taken again four times as long; after
+    ``SPIN_TRIES`` such spins this raises.  An exception of ``fn`` (a
+    failed launch) propagates: it is never turned into ``inf``."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    for _ in range(SPIN_TRIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        spun.record()
+        start.record()
+        for _ in range(iters):
+            fn()
+        held = not spun.query()
+        end.record()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters / 1e3
+        cycles *= 4
+    raise RuntimeError(f"the host fell behind {iters} queued calls in "
+                       f"{SPIN_TRIES} spins of up to {cycles // 4} cycles")
+
+
 def fantastic4_matmul(x: torch.Tensor, packed: torch.Tensor,
                       omega: torch.Tensor, bias=None, alpha1=None,
                       alpha2=None, activation: Optional[str] = None,

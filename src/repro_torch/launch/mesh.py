@@ -342,6 +342,78 @@ def _slices(dims, names, sub) -> list:
     return out
 
 
+class ShapeMesh(MeshSpec):
+    """Rank 0's view of a mesh that exists only as shapes: the dry run's
+    stand-in for the reference's 256- and 512-chip meshes
+    (``launch/dryrun.py``).  It has :class:`Mesh`'s exchange interface
+    (``all_gather``, ``all_to_all``, ``all_reduce`` sum / mean / max,
+    ``ppermute``, each with its adjoint under autograd), but an exchange
+    computes no values: it returns an empty tensor of the exchange's
+    output shape on its operand's device (meant for the meta device) and
+    adds the operand's bytes to ``collectives`` under its class --
+    ``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute``, the reference's convention
+    (``launch/hlo_analysis.py``) -- and to every running
+    ``launch.op_analysis`` count.  A gather's backward is the port's
+    all-reduce of the gradients (:class:`Mesh`'s adjoint), so it is
+    counted as one.  An axis of size 1 exchanges nothing, as on a real
+    mesh."""
+
+    CLASSES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str] = AXES,
+                 *, device="meta"):
+        super().__init__(shape, axis_names)
+        self.rank = 0
+        self.coords = {a: 0 for a in self.axis_names}
+        self.device = torch.device(device)
+        self.backend = None
+        self.stage_host = False
+        self.reset()
+
+    def reset(self) -> None:
+        self.collectives = {k: 0 for k in self.CLASSES}
+        self.collectives["count"] = 0
+        self.calls: list = []          # (class, axes, bytes) in order
+
+    _key = Mesh._key
+    axis_size = Mesh.axis_size
+    axis_index = Mesh.axis_index
+    all_gather = Mesh.all_gather
+    all_to_all = Mesh.all_to_all
+    all_reduce = Mesh.all_reduce
+    ppermute = Mesh.ppermute
+
+    def _note(self, kind: str, key, t: torch.Tensor) -> None:
+        from .op_analysis import note_collective
+        nbytes = t.numel() * t.element_size()
+        self.collectives[kind] += nbytes
+        self.collectives["count"] += 1
+        self.calls.append((kind, key, nbytes))
+        note_collective(kind, nbytes)
+
+    def _reduce(self, t: torch.Tensor, key, op=None) -> torch.Tensor:
+        if self.axis_size(key) == 1:
+            return t.clone()
+        self._note("all-reduce", key, t)
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+    def _gather(self, t: torch.Tensor, key, dim: int) -> torch.Tensor:
+        self._note("all-gather", key, t)
+        shape = list(t.shape)
+        shape[dim] *= self.axis_size(key)
+        return t.new_empty(shape)
+
+    def _exchange(self, t: torch.Tensor, key) -> torch.Tensor:
+        self._note("all-to-all", key, t)
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+    def _permute(self, t: torch.Tensor, key, perm) -> torch.Tensor:
+        self._note("collective-permute", key, t)
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+
 _MESHES: Dict[tuple, Mesh] = {}
 
 

@@ -487,9 +487,10 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
         kw = dict(remat="none", use_ep=True, zero1=False,
                   dtype=torch.float32)
         kw.update(spec)
-        step, init_state = S.build_train_step(
-            cfg, mesh, adam_cfg=adam.AdamConfig(lr=lr), **kw)
-        state = init_state(p0)
+        bundle = S.build_train_step(cfg, mesh,
+                                    adam_cfg=adam.AdamConfig(lr=lr), **kw)
+        step = bundle.fn
+        state = bundle.init_state(p0)
         state["qstate"] = q0
         feed = ShardedFeed(lambda s: data[s], mesh=mesh)
         rec = {"metrics": [], "ecl_launches": [], "ms": []}

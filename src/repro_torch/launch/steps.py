@@ -1,36 +1,158 @@
-"""The LM train step's loss and the train step over a mesh (the JAX
-package's ``launch/steps.py`` ``_loss_fn`` and ``build_train_step``).
+"""Step functions (train / prefill / decode) and their layouts: the port
+of the JAX package's ``launch/steps.py``.
+
+:func:`build_step` returns a :class:`StepBundle` for one (arch × shape ×
+mesh) cell: this rank's step ``fn``, the layout of its inputs and outputs
+(``in_specs`` / ``out_specs``, ``runtime/sharding.py`` spec tuples), this
+rank's abstract arguments (meta tensors, ``launch/specs.py``; these three
+built on first read) and the arguments it consumes (``donate``).  The reference hands its bundle to
+``jax.jit``; here ``fn`` runs eagerly, on the abstract arguments under
+``launch/op_analysis.py`` (the dry run, ``launch/dryrun.py``) or on real
+tensors of the same shapes (the card, the tests).
+
+The port's layout (``runtime/sharding.py``): every non-expert weight
+whole on each rank, the batch split over the data axes (every row on each
+rank when it does not divide, the reference's rule), and with expert
+parallelism (``use_ep``, the experts dividing the 'model' axis) each
+rank's share of the experts (``experts_held``, :func:`rank_cfg`).
+Serving steps run on the frozen tree (row-pair-packed 4-bit codes and ω,
+decoded where they are used) or, with ``serve_dtype="bf16"``, on plain
+bf16 weights, the reference's comparison point.
 
 ``_loss_fn`` is ``lm_forward_loss``, or ``whisper_forward_loss`` for the
 audio family, under a ``QuantCtx`` that fake-quantizes every quantized
 leaf when the arch quantizes, in the reference's bf16 compute dtype
 unless the caller names another, with the layer body rematerialised as
-``remat`` says (``none``, ``full`` or ``dots``: ``nn/transformer.py``
-``lm_apply``; whisper's forward ignores it, as the reference's does).
-Over a ``mesh`` (``launch.mesh``) each rank runs its rows through the MoE
-exchanges (``use_ep`` as the reference takes it) and the loss is the
-whole batch's on every rank.
-
-:func:`build_train_step` is the eager counterpart of the reference's
-(``src/repro/launch/steps.py:64-88``): this rank's step and the function
-that builds its state, with ZeRO-1's moments when ``zero1``.  The
-reference's ``StepBundle`` (abstract args and shardings for the dry run)
-and its prefill and decode bundles wait for ROADMAP queue 1 item 9 (XLA
-tooling, ported by analogue).
+``remat`` says (``none``, ``full`` or ``dots``; whisper's forward ignores
+it, as the reference's does).  Over a ``mesh`` each rank runs its rows
+through the MoE exchanges and the loss is the whole batch's on every
+rank.  :func:`build_train_step`'s bundle also carries ``init_state``,
+which builds a rank's train state from its parameters (ZeRO-1's moment
+blocks with ``zero1``, the error feedback with ``compress``).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+import functools
+from typing import Any, Callable, Optional
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..core import qat
 from ..models import lm as lm_model
 from ..models import whisper as W
+from ..nn import transformer as T
 from ..nn.module import QuantCtx
 from ..nn.transformer import check_remat, check_supported
 from ..optim import adam, ec4t
 from ..optim.grad_compress import GradCompressCfg
+from ..runtime.sharding import Rules, zero1_specs
+from ..tree import map_
+from . import specs as specs_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class StepBundle:
+    """A step and its layout.  ``layout()`` returns ``(in_specs,
+    out_specs, args)`` and runs on the first read of any of them, so a
+    caller that only runs ``fn`` on real tensors never builds the abstract
+    tree."""
+    name: str
+    fn: Callable
+    layout: Callable = dataclasses.field(repr=False)
+    donate: tuple = ()
+    init_state: Optional[Callable] = None     # train: params -> state
+
+    @functools.cached_property
+    def _layout(self) -> tuple:
+        return self.layout()
+
+    @property
+    def in_specs(self) -> Any:
+        return self._layout[0]
+
+    @property
+    def out_specs(self) -> Any:
+        return self._layout[1]
+
+    @property
+    def args(self) -> tuple:
+        """This rank's abstract arguments (meta tensors)."""
+        return self._layout[2]
+
+
+def make_rules(cfg: ArchConfig, mesh) -> Rules:
+    return Rules.for_mesh(mesh, cfg)
+
+
+def _ctx(cfg: ArchConfig, *, quant: bool, dtype=torch.bfloat16) -> QuantCtx:
+    return QuantCtx(quant=quant, lam=cfg.lam, compute_dtype=dtype)
+
+
+def rank_cfg(cfg: ArchConfig, mesh, use_ep: bool = True) -> ArchConfig:
+    """``cfg`` cut to this rank's expert share when the MoE layers run
+    expert-parallel over ``mesh`` (the experts divide its 'model' axis);
+    otherwise, or when ``cfg`` already names a share, ``cfg``."""
+    tp = mesh.shape.get("model", 1)
+    if (not cfg.n_experts or cfg.experts_held is not None or not use_ep
+            or mesh.size == 1 or cfg.n_experts % tp):
+        return cfg
+    per = cfg.n_experts // tp
+    return dataclasses.replace(
+        cfg, experts_held=(mesh.axis_index("model") * per, per))
+
+
+# cache leaves with no batch dim: the slots' positions and the length
+_UNBATCHED = ("pos", "len")
+
+
+def _batched(tree: Any, fn: Callable, dim: int,
+             other: Callable = lambda t: t) -> Any:
+    """``fn(leaf)`` on every tensor leaf with a batch dim (``dim``; a
+    cache's ``pos`` and ``len`` have none), ``other(leaf)`` on the other
+    tensor leaves."""
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if not isinstance(node, torch.Tensor):
+            return node
+        if node.ndim <= dim or key in _UNBATCHED:
+            return other(node)
+        return fn(node)
+    return walk(tree)
+
+
+def _rank_rows(tree: Any, mesh, dim: int = 0) -> Any:
+    """This rank's rows of every batched leaf, cut on ``dim`` (a cache's
+    batch dim is 1, after the layer stack) over the data axes
+    (``models/lm.py`` ``batch_rows``: every row when they do not divide),
+    each cut a tensor of its own."""
+    def cut(t):
+        rows = lm_model.batch_rows(mesh, t.shape[dim])
+        return t if rows is None else t.narrow(
+            dim, rows.start, rows.stop - rows.start).clone()
+    return _batched(tree, cut, dim)
+
+
+def _layout_specs(params: Any, cfg: ArchConfig) -> Any:
+    """The port's layout of a parameter tree: each leaf whole on every rank
+    (replicated), a share's expert banks (``cfg.experts_held``) split over
+    'model' on their expert dim (dim 1 of the (L, E, ...) stack)."""
+    def walk(node, banks):
+        if isinstance(node, dict):
+            return {k: walk(v, banks or k == "experts")
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, banks) for v in node)
+        out = [None] * node.ndim
+        if banks and node.ndim >= 2:
+            out[1] = "model"
+        return tuple(out)
+    return walk(params, False) if cfg.experts_held is not None else map_(
+        lambda t: (None,) * t.ndim, params)
 
 
 def _loss_fn(cfg: ArchConfig, mesh=None, use_ep: bool = True,
@@ -51,17 +173,20 @@ def _loss_fn(cfg: ArchConfig, mesh=None, use_ep: bool = True,
     return loss
 
 
-def build_train_step(cfg: ArchConfig, mesh, *, remat: str = "full",
+# ---------------------------------------------------------------- train
+
+def build_train_step(cfg: ArchConfig, mesh, *,
+                     shape_name: str = "train_4k", remat: str = "full",
                      use_ep: bool = True, zero1: bool = True,
                      adam_cfg: Optional[adam.AdamConfig] = None,
                      compress: Optional[GradCompressCfg] = None,
-                     dtype: torch.dtype = torch.bfloat16) -> tuple:
-    """This rank's ``(step, init_state)`` over ``mesh``, with the
-    reference's defaults (remat full, expert parallelism, ZeRO-1, λ
-    ``cfg.lam``): ``init_state(params)`` builds the train state (m and v
-    of this rank's blocks with ``zero1``, the error feedback with
-    ``compress``), and ``step(state, batch)`` takes this rank's rows of
-    the batch (``data.pipeline.ShardedFeed(mesh=)`` places them)."""
+                     dtype: torch.dtype = torch.bfloat16) -> StepBundle:
+    """This rank's train step over ``mesh`` with the reference's defaults
+    (remat full, expert parallelism, ZeRO-1, λ ``cfg.lam``).
+    ``fn(state, batch)`` takes this rank's rows of the batch
+    (``data.pipeline.ShardedFeed(mesh=)`` places them);
+    ``init_state(params)`` builds the state ``fn`` takes."""
+    cfg = rank_cfg(cfg, mesh, use_ep)
     step = ec4t.make_train_step(
         _loss_fn(cfg, mesh, use_ep, remat, dtype),
         adam_cfg or adam.AdamConfig(), lam=cfg.lam, compress=compress,
@@ -70,4 +195,164 @@ def build_train_step(cfg: ArchConfig, mesh, *, remat: str = "full",
     def init_state(params) -> dict:
         return ec4t.init_train_state(params, compress, mesh=mesh,
                                      zero1=zero1)
-    return step, init_state
+
+    def layout() -> tuple:
+        a_params = specs_mod.abstract_params(cfg)
+        a_state = init_state(a_params)
+        g_batch = specs_mod.input_specs(cfg, shape_name)
+        rules = make_rules(cfg, mesh)
+        p_specs = _layout_specs(a_params, cfg)
+        state_specs = {
+            "params": p_specs,
+            "opt": {"m": zero1_specs(a_params, mesh) if zero1 else p_specs,
+                    "v": zero1_specs(a_params, mesh) if zero1 else p_specs,
+                    "step": ()},
+            "qstate": rules.qstate_specs(a_state["qstate"]),
+        }
+        if "err" in a_state:
+            state_specs["err"] = p_specs
+        return ((state_specs, rules.batch_specs(g_batch)),
+                (state_specs, None), (a_state, _rank_rows(g_batch, mesh)))
+    return StepBundle("train", step, layout, donate=(0,),
+                      init_state=init_state)
+
+
+# -------------------------------------------------------------- serving
+
+def _frozen_params(cfg: ArchConfig, serve_dtype: str = "packed4") -> Any:
+    """Abstract serving tree: ``"packed4"`` (codes at 4 bits a weight,
+    decoded where used: the FantastIC4 path) or ``"bf16"`` (plain
+    weights, the comparison point)."""
+    a_params = specs_mod.abstract_params(cfg)
+    if serve_dtype == "bf16":
+        def to_bf16(node):
+            if qat.is_quant_leaf(node):
+                return node["w"].to(torch.bfloat16)
+            if isinstance(node, dict):
+                return {k: to_bf16(v) for k, v in node.items()}
+            return node
+        return to_bf16(a_params)
+    if serve_dtype != "packed4":
+        raise ValueError(f"serve_dtype {serve_dtype!r}: packed4 or bf16")
+    return qat.freeze_tree(a_params, qat.build_qstate(a_params), cfg.lam)
+
+
+def _cache_specs(rules: Rules, cache: Any) -> Any:
+    """A cache's layout: its batch dim (1) over the data axes, every other
+    dim whole (the port keeps attention heads whole on each rank)."""
+    def spec(t):
+        return (None, rules.batch_spec(1, t.shape[1])[0]) + \
+            (None,) * (t.ndim - 2)
+    return _batched(cache, spec, 1, lambda t: (None,) * t.ndim)
+
+
+def _next_token(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(torch.int32)
+
+
+def build_prefill_step(cfg: ArchConfig, mesh, *,
+                       shape_name: str = "prefill_32k",
+                       use_ep: bool = True,
+                       serve_dtype: str = "packed4") -> StepBundle:
+    """``fn(params, batch) -> (next token, cache[, cross K/V])`` of this
+    rank's rows: the cache holds the cell's ``seq`` slots."""
+    cfg = rank_cfg(cfg, mesh, use_ep)
+    info = specs_mod.SHAPES[shape_name]
+    b, s = info["batch"], info["seq"]
+    ctx = _ctx(cfg, quant=False)
+
+    if cfg.family == "audio":
+        @torch.no_grad()
+        def fn(params, batch):
+            enc = W.whisper_encode(params, 0, batch["embeds"], ctx, cfg)
+            cross = W.precompute_cross(params, 0, enc, ctx, cfg)
+            cache = W.init_dec_cache(cfg, batch["tokens"].shape[0],
+                                     W.MAX_TGT, device=enc.device)
+            logits, cache = W.whisper_decode(params, 0, batch["tokens"],
+                                             cross, ctx, cfg, cache=cache)
+            return _next_token(logits, cfg), cache, cross
+
+        def out_specs(rules):
+            g_cache = W.init_dec_cache(cfg, b, W.MAX_TGT,
+                                       device=specs_mod.META)
+            hd = cfg.resolved_head_dim
+            g_cross = (torch.empty(
+                (cfg.n_layers, b, cfg.enc_len, cfg.n_kv, hd),
+                dtype=torch.bfloat16, device=specs_mod.META),) * 2
+            return (rules.batch_spec(2, b), _cache_specs(rules, g_cache),
+                    _cache_specs(rules, g_cross))
+    else:
+        @torch.no_grad()
+        def fn(params, batch):
+            x = batch.get("tokens", batch.get("embeds"))
+            cache = T.init_cache(cfg, x.shape[0], s, device=x.device)
+            logits, cache, _ = T.lm_apply(
+                params, 0, batch.get("tokens"), ctx, cfg,
+                embeds=batch.get("embeds"), cache=cache, mesh=mesh,
+                use_ep=use_ep)
+            return _next_token(logits, cfg), cache
+
+        def out_specs(rules):
+            g_cache = T.init_cache(cfg, b, s, device=specs_mod.META)
+            return (rules.batch_spec(2, b), _cache_specs(rules, g_cache))
+
+    def layout() -> tuple:
+        rules = make_rules(cfg, mesh)
+        a_params = _frozen_params(cfg, serve_dtype)
+        g_batch = specs_mod.input_specs(cfg, shape_name)
+        return ((_layout_specs(a_params, cfg), rules.batch_specs(g_batch)),
+                out_specs(rules), (a_params, _rank_rows(g_batch, mesh)))
+    return StepBundle("prefill", fn, layout)
+
+
+def build_decode_step(cfg: ArchConfig, mesh, *,
+                      shape_name: str = "decode_32k",
+                      use_ep: bool = True,
+                      serve_dtype: str = "packed4") -> StepBundle:
+    """``fn(params, batch) -> (next token, cache)``: one new token a row of
+    this rank's rows against its cache (``batch["cache"]``, consumed)."""
+    cfg = rank_cfg(cfg, mesh, use_ep)
+    ctx = _ctx(cfg, quant=False)
+
+    if cfg.family == "audio":
+        @torch.no_grad()
+        def fn(params, batch):
+            logits, cache = W.whisper_decode(
+                params, 0, batch["tokens"], batch["cross_kv"], ctx, cfg,
+                positions=batch["positions"], cache=batch["cache"])
+            return _next_token(logits, cfg), cache
+    else:
+        @torch.no_grad()
+        def fn(params, batch):
+            logits, cache, _ = T.lm_apply(
+                params, 0, batch.get("tokens"), ctx, cfg,
+                embeds=batch.get("embeds"), positions=batch["positions"],
+                cache=batch["cache"], mesh=mesh, use_ep=use_ep)
+            return _next_token(logits, cfg), cache
+
+    def layout() -> tuple:
+        rules = make_rules(cfg, mesh)
+        a_params = _frozen_params(cfg, serve_dtype)
+        g_batch = specs_mod.input_specs(cfg, shape_name)
+        a_batch = {k: _rank_rows(v, mesh, dim=1 if k in ("cache", "cross_kv")
+                                 else 0) for k, v in g_batch.items()}
+        batch_specs = dict(rules.batch_specs(
+            {k: v for k, v in g_batch.items()
+             if k not in ("cache", "cross_kv")}))
+        for k in ("cache", "cross_kv"):
+            if k in g_batch:
+                batch_specs[k] = _cache_specs(rules, g_batch[k])
+        info = specs_mod.SHAPES[shape_name]
+        out_specs = (rules.batch_spec(2, info["batch"]), batch_specs["cache"])
+        return ((_layout_specs(a_params, cfg), batch_specs), out_specs,
+                (a_params, a_batch))
+    return StepBundle("decode", fn, layout, donate=(1,))
+
+
+BUILDERS = {"train": build_train_step, "prefill": build_prefill_step,
+            "decode": build_decode_step}
+
+
+def build_step(cfg: ArchConfig, mesh, shape_name: str, **kw) -> StepBundle:
+    kind = specs_mod.SHAPES[shape_name]["kind"]
+    return BUILDERS[kind](cfg, mesh, shape_name=shape_name, **kw)

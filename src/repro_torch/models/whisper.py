@@ -36,9 +36,9 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..core import qat
 from ..nn import attention as attn
-from ..nn.layers import (embedding_init, gelu_mlp, gelu_mlp_init, layer_norm,
-                         layer_norm_init, linear, sinusoidal_positions,
-                         subtree)
+from ..nn.layers import (draw, embedding_init, gelu_mlp, gelu_mlp_init,
+                         layer_norm, layer_norm_init, linear,
+                         make_generator, sinusoidal_positions, subtree)
 from ..nn.module import QuantCtx
 from ..nn.transformer import _layer, _stack, _unstack
 
@@ -76,8 +76,8 @@ def whisper_init(cfg: ArchConfig, *, seed: int = 0,
     ``torch.Generator`` on the target device (seeded with ``seed`` when
     none is given).  The values need not equal the JAX package's: a
     comparison carries JAX's tree across (``convert.lm_tree_from_numpy``)."""
-    g = generator if generator is not None else torch.Generator(
-        device=resolve_device(device)).manual_seed(seed)
+    g = generator if generator is not None else make_generator(
+        resolve_device(device), seed)
     return {
         "enc_layers": _stack([_enc_layer_init(g, cfg)
                               for _ in range(cfg.n_enc_layers)]),
@@ -86,8 +86,7 @@ def whisper_init(cfg: ArchConfig, *, seed: int = 0,
                               for _ in range(cfg.n_layers)]),
         "dec_ln": layer_norm_init(cfg.d_model, g.device),
         "embed": embedding_init(g, cfg.padded_vocab, cfg.d_model),
-        "dec_pos": torch.randn((MAX_TGT, cfg.d_model), generator=g,
-                               dtype=torch.float32, device=g.device) * 0.02,
+        "dec_pos": draw(torch.randn, (MAX_TGT, cfg.d_model), g) * 0.02,
     }
 
 

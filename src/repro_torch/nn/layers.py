@@ -4,7 +4,10 @@ rotary and Qwen2-VL's multimodal M-RoPE), whisper's sinusoidal positions
 and the MLP blocks.
 
 Each ``*_init`` draws from an explicit ``torch.Generator`` and puts its
-tensors on the generator's device.
+tensors on the generator's device.  On the meta device, where no
+``torch.Generator`` can live, :func:`make_generator` gives a
+:class:`MetaGenerator` and every draw (:func:`draw`) is an empty meta
+tensor of the same shape and dtype: a tree is built without storage.
 """
 from __future__ import annotations
 
@@ -14,6 +17,30 @@ import torch
 import torch.nn.functional as F
 
 from .module import QuantCtx, materialize, maybe_quant_param
+
+
+# ------------------------------------------------------------------ draws
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device."""
+    device = torch.device("meta")
+
+
+def make_generator(device, seed: int = 0):
+    """A generator on ``device`` seeded with ``seed``; on the meta device a
+    :class:`MetaGenerator`."""
+    if torch.device(device).type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def draw(fn, shape: tuple, generator, dtype=torch.float32) -> torch.Tensor:
+    """``fn(shape)`` (``torch.rand`` or ``torch.randn``) from ``generator``
+    on its device; on the meta device an empty tensor of that shape."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return fn(shape, generator=generator, dtype=dtype,
+              device=generator.device)
 
 
 # ------------------------------------------------------------------ norms
@@ -50,8 +77,8 @@ def linear_init(generator: torch.Generator, d_in: int, d_out: int,
     """Weights uniform in ±1/√d_in, as the reference draws them."""
     dev = generator.device
     scale = 1.0 / (d_in ** 0.5)
-    w = torch.rand((d_in, d_out), generator=generator, dtype=dtype,
-                   device=dev) * (2 * scale) - scale
+    w = draw(torch.rand, (d_in, d_out), generator, dtype) * (2 * scale) \
+        - scale
     p = {"kernel": maybe_quant_param(w, quantize)}
     if bias:
         p["bias"] = torch.zeros((d_out,), dtype=dtype, device=dev)
@@ -71,9 +98,7 @@ def linear(p: dict, q: Any, x: torch.Tensor, ctx: QuantCtx) -> torch.Tensor:
 
 def embedding_init(generator: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32) -> dict:
-    return {"table": torch.randn((vocab, d), generator=generator,
-                                 dtype=dtype, device=generator.device)
-            * 0.02}
+    return {"table": draw(torch.randn, (vocab, d), generator, dtype) * 0.02}
 
 
 def embed(p: dict, ids: torch.Tensor, ctx: QuantCtx) -> torch.Tensor:

@@ -62,7 +62,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import subtree, swiglu, swiglu_init
+from .layers import draw, subtree, swiglu, swiglu_init
 from .module import QuantCtx, materialize, maybe_quant_param
 
 
@@ -95,14 +95,12 @@ def moe_init(generator: torch.Generator, d: int, d_ff: int, n_experts: int,
 
     def expert_bank(d_in, d_out):
         # in place: a full-width bank is 6.4 GB of fp32
-        w = torch.rand((count, d_in, d_out), generator=generator,
-                       dtype=torch.float32, device=dev)
+        w = draw(torch.rand, (count, d_in, d_out), generator)
         return maybe_quant_param(w.mul_(2 * scale).sub_(scale), quantize)
 
     p = {
         "router": {
-            "w": torch.randn((d, n_experts), generator=generator,
-                             dtype=torch.float32, device=dev) * 0.02,
+            "w": draw(torch.randn, (d, n_experts), generator) * 0.02,
             "bias_correction": torch.zeros((n_experts,), dtype=torch.float32,
                                            device=dev),
         },

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .attention import _pad_seq
-from .layers import linear, linear_init, subtree
+from .layers import draw, linear, linear_init, subtree
 from .module import QuantCtx
 
 _MASKED = -1e30     # a finite -inf inside the exp: exp gives 0, no NaN grads
@@ -67,8 +67,8 @@ def ssm_init(generator: torch.Generator, cfg: SSMCfg, quantize: bool) -> dict:
     return {
         "in_proj": linear_init(generator, c.d_model, d_in_proj, quantize),
         "out_proj": linear_init(generator, c.d_inner, c.d_model, quantize),
-        "conv_w": torch.randn((c.conv_width, c.conv_dim), generator=generator,
-                              **f32) * 0.1,
+        "conv_w": draw(torch.randn, (c.conv_width, c.conv_dim),
+                       generator) * 0.1,
         "conv_b": torch.zeros((c.conv_dim,), **f32),
         "A_log": torch.log(torch.linspace(1.0, 16.0, c.n_heads, **f32)),
         "dt_bias": torch.zeros((c.n_heads,), **f32),

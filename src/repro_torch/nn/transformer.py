@@ -48,7 +48,8 @@ from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (embedding_init, gelu_mlp, gelu_mlp_init, layer_norm,
-                     layer_norm_init, linear_init, mrope_cos_sin, rms_norm,
+                     layer_norm_init, linear_init, make_generator,
+                     mrope_cos_sin, rms_norm,
                      rms_norm_init, rope_cos_sin, subtree, swiglu,
                      swiglu_init)
 from .module import QuantCtx
@@ -185,8 +186,7 @@ def lm_init(cfg: ArchConfig, *, seed: int = 0,
     none is given).  The values need not equal the JAX package's: a
     comparison carries JAX's tree across (``convert.lm_tree_from_numpy``)."""
     if generator is None:
-        generator = torch.Generator(
-            device=resolve_device(device)).manual_seed(seed)
+        generator = make_generator(resolve_device(device), seed)
     kinds = _layer_kinds(cfg)
     layers = [_layer_init(generator, cfg, kind) for kind in kinds]
     p = {

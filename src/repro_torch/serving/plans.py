@@ -11,12 +11,21 @@ fixes, at build time:
   (``kernels/fantastic4_fused_mlp.py``).
 * **activation dtype** — fp32 or the paper's §VI-C int8; calibration runs
   once here, never per request.
-* **batch buckets** — powers of two up to the plan's ``block_m`` (the
-  largest row tile the batch-tiled kernel holds), each bound to a kernel
-  schedule by the dataflow prior (``kernels/autotune.py``): ws for the
+* **block sizes** — the plan-wide ``block_m`` (the batch-tiled row tile,
+  which caps the buckets): on the card the autotuner's timed sweep
+  (``kernels/autotune.py`` ``get_block_config``), off it the largest
+  tile the batch-tiled kernel holds.
+* **batch buckets** — powers of two up to ``block_m``, each bound to a
+  ``(schedule, block_m)`` by ``autotune.get_schedule_config``: on the card
+  a timed sweep over every eligible candidate (batch_tiled, db, ws,
+  stream; each timed queued behind a spin kernel, ``kernels/ops.py``
+  ``_timeit``) binds the measured winner and persists it in the port's
+  cache file; off the card the dataflow prior answers (ws for the
   ≤ ``WS_BUCKET_ROWS`` latency buckets, db where requested, batch_tiled
-  otherwise, stream when the stack does not fit the batch-tiled kernel.
-  The timed per-bucket sweep of the JAX package is not ported yet.
+  otherwise, stream when the stack does not fit the batch-tiled kernel).
+  Once every bucket was swept with ws fully eligible, the measured
+  ws / batch-tiled crossover is recorded and replaces ``WS_BUCKET_ROWS``
+  as the prior (``ws_prior_source="measured"``).
 
 The micro-batcher (``serving/batcher.py``) coalesces requests into these
 buckets.
@@ -158,15 +167,32 @@ class ExecutionPlan:
         self.requested_double_buffer = double_buffer
         self.smem_budget_bytes = smem_budget_bytes
         self.notes: List[str] = []
+        self._stack_extra = "stack" + "x".join(str(n) for _, n in
+                                               self.shapes)
+        self._backend_key = autotune.default_backend(self.device)
+        # "sweep" on the card, "prior" elsewhere
+        self.tuning = autotune.tuning(self.device)
 
+        # ws gating: an explicit value is both the eligibility ceiling and
+        # the prior (0 opts out); None leaves eligibility to the fits and
+        # takes the prior from the measured crossover when this backend
+        # has one, else the WS_BUCKET_ROWS constant
         if ws_bucket_rows is not None:
             self.ws_eligible_rows: Optional[int] = ws_bucket_rows
             self.ws_prior_rows = ws_bucket_rows
             self.ws_prior_source = "explicit"
         elif mode in ("auto", "fused"):
             self.ws_eligible_rows = None
-            self.ws_prior_rows = WS_BUCKET_ROWS
-            self.ws_prior_source = "constant"
+            measured = None if self.tuning == "prior" else \
+                autotune.get_ws_crossover(
+                    self.d_in, self.d_out, backend=self._backend_key,
+                    act_dtype=act_dtype, stack=self._stack_extra)
+            if measured is not None:
+                self.ws_prior_rows = measured
+                self.ws_prior_source = "measured"
+            else:
+                self.ws_prior_rows = WS_BUCKET_ROWS
+                self.ws_prior_source = "constant"
         else:
             self.ws_eligible_rows = 0
             self.ws_prior_rows = 0
@@ -223,14 +249,24 @@ class ExecutionPlan:
                 mode = "per_layer"
         self.resolved_mode = mode
 
-        # ---- blocks: the batch-tiled row tile caps the buckets
+        # ---- blocks: the batch-tiled row tile caps the buckets; on the
+        # card the sweep times it at max_bucket rows
         self.block_m = block_m
         self.block_source = "explicit" if block_m is not None else None
         if mode == "fused" and block_m is None:
-            self.block_m = tile if self._stack_fits else \
-                autotune.heuristic_blocks(max_bucket, self.d_in,
-                                          self.d_out).block_m
-            self.block_source = "heuristic"
+            if self._stack_fits and self.tuning == "sweep":
+                cfg = autotune.get_block_config(
+                    max_bucket, self.d_in, self.d_out, dtype="float32",
+                    fused=True, backend=self._backend_key,
+                    act_dtype=act_dtype, extra=self._stack_extra,
+                    measure=self._block_measure(max_bucket))
+                self.block_m, self.block_source = cfg.block_m, cfg.source
+            else:
+                self.block_m = tile if self._stack_fits else \
+                    autotune.heuristic_blocks(max_bucket, self.d_in,
+                                              self.d_out,
+                                              fused=True).block_m
+                self.block_source = "heuristic"
 
         top = max_bucket
         if mode == "fused" and self.block_m:
@@ -243,7 +279,7 @@ class ExecutionPlan:
             self.default_path = mode
         else:
             for b in self.bucket_sizes:
-                self.buckets[b] = self._bind_bucket(b)
+                self.buckets[b] = self._bind_bucket(b, max_bucket)
             if self._stack_fits_db and double_buffer:
                 self.default_path = "fused_db"
             elif self._stack_fits:
@@ -258,15 +294,41 @@ class ExecutionPlan:
                 "after the other)")
         ws_won = [b for b, p in self.buckets.items() if p.path == "fused_ws"]
         self.ws_crossover_rows = max(ws_won) if ws_won else 0
+        fused_srcs = [p.source for p in self.buckets.values()
+                      if p.path.startswith("fused")]
+        if (self.tuning == "sweep" and fused_srcs
+                and self.ws_eligible_rows is None
+                and all(s == "sweep" for s in fused_srcs)):
+            # every bucket measured with ws fully eligible: the crossover
+            # is a measurement (a capped or opted-out plan's is not)
+            autotune.record_ws_crossover(
+                self.ws_crossover_rows, self.d_in, self.d_out,
+                backend=self._backend_key, act_dtype=act_dtype,
+                stack=self._stack_extra)
 
         if double_buffer:
             if mode != "fused":
                 self.notes.append("double_buffer requested but resolved "
                                   f"mode is {mode}: ignored")
             elif not any(p.path == "fused_db" for p in self.buckets.values()):
-                self.notes.append(
-                    "double_buffer requested but no bucket has a >=16-row "
-                    "tile that fits: single-buffered schedule everywhere")
+                if any(p.source == "sweep" for p in self.buckets.values()):
+                    self.notes.append(
+                        "double_buffer requested but the per-bucket "
+                        "schedule sweep bound other schedules everywhere")
+                else:
+                    self.notes.append(
+                        "double_buffer requested but no bucket has a "
+                        ">=16-row tile that fits: single-buffered schedule "
+                        "everywhere")
+        if (mode == "fused" and self.ws_eligible_rows != 0
+                and self.ws_prior_source == "measured"
+                and not any(p.path == "fused_ws"
+                            for p in self.buckets.values())
+                and ws_mlp_fits(self.shapes, rows=1, **fit_kw)):
+            self.notes.append(
+                "weight-stationary schedule measured out (crossover "
+                f"{self.ws_prior_rows} rows): other schedules won every "
+                "bucket")
         self._entries: Dict[int, Callable] = {}
         self._oversize_memo: Dict[int, BucketPlan] = {}
 
@@ -309,17 +371,57 @@ class ExecutionPlan:
             return ws_mlp_fits(self.shapes, rows=rows, **kw)
         return stream_mlp_fits(self.shapes, rows=rows, block_m=bm, **kw)
 
-    def _bind_bucket(self, rows: int) -> BucketPlan:
+    def _block_measure(self, rows: int) -> Callable:
+        """``measure(BlockConfig) -> seconds`` of the batch-tiled kernel
+        at ``rows`` rows (``inf`` for a tile that does not fit)."""
+        xm = torch.zeros((rows, self.d_in), dtype=torch.float32,
+                         device=self.device)
+
+        def measure(cfg: autotune.BlockConfig) -> float:
+            if not self._schedule_fits("batch_tiled", rows, cfg.block_m):
+                return float("inf")
+            return kops._timeit(
+                lambda: self._execute(xm, "fused", block_m=cfg.block_m))
+        return measure
+
+    def _schedule_measure(self, rows: int) -> Callable[[str, int], float]:
+        """``measure(schedule, block_m) -> seconds`` of one bucket's
+        candidate, served as the bucket's entry would serve it; ``inf``
+        for a candidate that does not fit, so the sweep never times the
+        chain fallback under a fused label.  A failed launch raises."""
+        xm = torch.zeros((rows, self.d_in), dtype=torch.float32,
+                         device=self.device)
+
+        def measure(schedule: str, bm: int) -> float:
+            if not self._schedule_fits(schedule, rows, bm):
+                return float("inf")
+            return kops._timeit(lambda: self._execute(
+                xm, PATH_BY_SCHEDULE[schedule], block_m=bm))
+        return measure
+
+    def _bind_bucket(self, rows: int, max_bucket: int) -> BucketPlan:
         eligible = self._eligible_schedules(rows)
         if not eligible:
             return BucketPlan(rows, "per_layer", source="mode")
         prior = self._prior_schedule(rows, eligible)
-        cfg = autotune.get_schedule_config(
-            rows, self.d_in, self.d_out, schedules=eligible, prior=prior,
-            block_m_hint=STREAM_BLOCK_M if prior == "stream"
-            else self.block_m)
+        hint = STREAM_BLOCK_M if prior == "stream" else self.block_m
+        if self.tuning == "prior":
+            cfg = autotune.prior_config(rows, prior, block_m_hint=hint)
+        else:
+            cfg = autotune.get_schedule_config(
+                rows, self.d_in, self.d_out, schedules=eligible,
+                prior=prior, dtype="float32", backend=self._backend_key,
+                act_dtype=self.act_dtype, stack=self._stack_extra,
+                measure=self._schedule_measure(rows), legacy_m=max_bucket,
+                block_m_hint=hint)
+        bm = cfg.block_m
+        if cfg.schedule == "stream" and cfg.source != "sweep" and bm:
+            # a prior or migrated tile was chosen without a fit check:
+            # halve it until the stream working set fits
+            while bm > 8 and not self._schedule_fits("stream", rows, bm):
+                bm //= 2
         return BucketPlan(rows, PATH_BY_SCHEDULE[cfg.schedule],
-                          block_m=cfg.block_m, source=cfg.source)
+                          block_m=bm, source=cfg.source)
 
     def bucket_for(self, m: int) -> Optional[int]:
         """Smallest bucket holding ``m`` rows; None past the largest."""
@@ -446,6 +548,8 @@ class ExecutionPlan:
             "device": str(self.device),
             "block_m": self.block_m,
             "block_source": self.block_source,
+            "tuning": self.tuning,
+            "autotune_backend": self._backend_key,
             "bucket_sizes": list(self.bucket_sizes),
             "bucket_paths": {b: p.path for b, p in self.buckets.items()},
             "bucket_schedules": {

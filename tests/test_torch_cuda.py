@@ -43,7 +43,14 @@ reference's exp) bitwise the CPU's and its table within 1e-6, and
 qwen2-vl's and whisper's smoke configs trained on the card within
 ``rtol=1e-4`` of the CPU.  The Huffman codec on the card gives the host's
 bytes and codes.  Scale-out: two gloo ranks sharing the card serve
-MLP-GSC column-sharded and row-split, bitwise the chain kernel.
+MLP-GSC column-sharded and row-split, bitwise the chain kernel.  Plans
+bind from the prior here (the ``cuda_device`` fixture sets
+``autotune.tuning`` to the prior, as the CPU tests do, with the autotune
+cache in a temporary directory), except in the one test of the
+autotuner's sweep on the card:
+every bucket bound from the sweep, a warm build with no measure, the
+outputs within the gates, and a count of a train step on meta equal to
+the card's.
 """
 import array
 import ctypes
@@ -54,6 +61,7 @@ import torch
 
 from repro_torch.convert import pack_from_numpy
 from repro_torch.core import bitplanes, ecl, qat
+from repro_torch.kernels import autotune
 from repro_torch.kernels import ecl_quant as eq
 from repro_torch.kernels import fantastic4_fused_mlp as ffm
 from repro_torch.kernels import fantastic4_matmul as fm
@@ -62,13 +70,18 @@ from repro_torch.serving.batcher import MicroBatcher
 from repro_torch.serving.plans import ExecutionPlan
 
 SCHEDULES = ("batch_tiled", "db", "ws", "stream")
+# the package's own choice: the sweep on a CUDA device
+TUNING = autotune.tuning
 
 
 @pytest.fixture
-def cuda_device():
+def cuda_device(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: python3 "
                     "chip_smoke.py, or this file with --noconftest)")
+    monkeypatch.setattr(autotune, "tuning", lambda device: "prior")
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "autotune.json"))
+    autotune.clear_memory_cache()
     return torch.device("cuda", 0)
 
 
@@ -274,6 +287,74 @@ def test_plan_and_batcher_on_the_card(cuda_device):
     for r, y in zip(reqs, ys):
         alone = plan.run(torch.from_numpy(r).to(cuda_device)).cpu().numpy()
         np.testing.assert_array_equal(y, alone)
+
+
+def test_plan_sweeps_on_the_card(cuda_device, monkeypatch):
+    """The autotuner's sweep on the card: every fused bucket and the plan's
+    block_m from the sweep, the crossover kept in the cache file, a warm
+    build over the same file with no measure and the same bindings, the
+    outputs within the gates (int8 bitwise the chain)."""
+    from repro_torch.serving import plans
+
+    monkeypatch.setattr(autotune, "tuning", TUNING)
+    pack = _pack((64, 48, 33, 10), 9, cuda_device)
+    calls = []
+    measure = plans.ExecutionPlan._schedule_measure
+
+    def counted(plan, rows):
+        m = measure(plan, rows)
+        return lambda s, bm: calls.append((rows, s, bm)) or m(s, bm)
+    monkeypatch.setattr(plans.ExecutionPlan, "_schedule_measure", counted)
+    x = torch.randn((5, 64), device=cuda_device)
+    for act in ("float32", "int8"):
+        plan = ExecutionPlan(pack, act_dtype=act, device=cuda_device)
+        assert plan.block_source == "sweep"
+        assert all(p.source == "sweep" for p in plan.buckets.values())
+        assert len(calls) == sum(len(autotune.candidate_schedule_blocks(
+            b, plan._eligible_schedules(b))) for b in plan.bucket_sizes)
+        assert autotune.get_ws_crossover(
+            64, 10, backend=plan._backend_key, act_dtype=act,
+            stack=plan._stack_extra) == plan.ws_crossover_rows
+        autotune.clear_memory_cache()
+        calls.clear()
+        warm = ExecutionPlan(pack, act_dtype=act, device=cuda_device)
+        assert calls == [] and warm.ws_prior_source == "measured"
+        assert {b: (p.path, p.block_m) for b, p in warm.buckets.items()} \
+            == {b: (p.path, p.block_m) for b, p in plan.buckets.items()}
+        chain = ExecutionPlan(pack, act_dtype=act, mode="per_layer",
+                              device=cuda_device,
+                              calib={"act_scales": plan.act_scales})
+        got, want = plan.run(x), chain.run(x)
+        if act == "int8":
+            assert torch.equal(got, want)
+        else:
+            _close(got, ops.fantastic4_mlp_chain(x, pack["layers"],
+                                                 use_kernel=False), False)
+
+
+def test_train_step_count_on_meta_equals_the_cards(cuda_device):
+    """launch.op_analysis of one smoke SmolLM train step (its grouped ECL
+    passes on the kernel): FLOPs, bytes and operations on meta tensors
+    equal those on the card's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config("smollm-360m").smoke()
+    b = S.build_train_step(cfg, ShapeMesh((1, 1)), remat="none",
+                           zero1=False, dtype=torch.float32)
+    batch = {k: torch.zeros((2, 16), dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    meta = op_analysis.analyze(b.fn, b.args[0], {
+        k: v.to("meta") for k, v in batch.items()})
+    state = b.init_state(T.lm_init(cfg, seed=0, device=cuda_device))
+    real = op_analysis.analyze(b.fn, state, {
+        k: v.to(cuda_device) for k, v in batch.items()})
+    assert real["kernels"] == meta["kernels"] == {"ecl_quant": 2}
+    for key in ("flops", "bytes", "ops", "peak_bytes"):
+        assert meta[key] == real[key], key
 
 
 def test_cuda_tensor_on_cpu_pack_raises(cuda_device):
