@@ -301,15 +301,16 @@ Phases (any failure raises and the script exits non-zero):
    step and export bytes and ms, each beside the card's name and power
    limit, and one ``mla_train`` JSON line.
 
-11. The ssm and hybrid families served at published widths and depths,
-   run after phase 10 (at most 1 GiB allocated at the start of each
-   arch): mamba2-1.3b (48 SSD blocks of d_model 2048, d_inner 4096, 64
+11. The ssm and hybrid families served at published widths, depths cut
+   for the time limit (``SSM_SERVE["layers"]``: mamba2 48 -> 8, hymba
+   32 -> 8), run after phase 10 (at most 1 GiB allocated at the start of
+   each arch): mamba2-1.3b (48 SSD blocks of d_model 2048, d_inner 4096, 64
    heads of 64, state 128, chunk 256, tied vocabulary 50,280) and
    hymba-1.5b (32 hybrid layers of d_model 1600: GQA 25 heads, 5 KV, SWA
    1,024 but layers 0, 15 and 31 global, beside an SSD block of 50 heads,
    state 16, then an MLP of 5,504; vocabulary 32,001), each from
    ``lm_init(seed=0)``, first through the launcher (``launch.serve
-   --arch ... --batch 2 --prompt-len 8192 --max-new 16``: init,
+   --arch ... --batch 2 --prompt-len 8192 --max-new 16 --layers N``: init,
    ``freeze_tree``, prefill and greedy decode through ``lm_apply`` with
    an fp32 cache), the ecl_quant counter zeroed just before and read just
    after; then the same init, freeze and prompts again for the gates,
@@ -332,8 +333,9 @@ Phases (any failure raises and the script exits non-zero):
    operations and idle share at 2 x 8,192 and again after 2 x 1,024
    prompts, the state and KV bytes a sequence, each beside the card's
    name and power limit, and one ``ssm`` JSON line.
-12. The ssm and hybrid families EC4T-trained at published widths and
-   depths, run after phase 11: mamba2-1.3b at 2 x 2,048 tokens for 4
+12. The ssm and hybrid families EC4T-trained at published widths, depths
+   cut for the time limit (``TRAIN_RUNS``' ``layers``: mamba2 48 -> 8,
+   hymba 32 -> 8), run after phase 11: mamba2-1.3b at 2 x 2,048 tokens for 4
    steps and hymba-1.5b at 1 x 2,048 for 3, from ``lm_init(seed=0)``, in
    bf16 under ``remat="full"`` through the launcher's functions
    (``lm_step_fn``, ``lm_batch_fn``, ``ShardedFeed``,
@@ -362,7 +364,8 @@ Phases (any failure raises and the script exits non-zero):
    device ms at the step's shape, peak memory by stage, export bytes and
    ms, each beside the card's name and power limit, and one ``ssm_train``
    JSON line.
-13. The vlm and audio families served at published widths and depths,
+13. The vlm and audio families served at published widths and depths
+   (qwen2-vl's cut for the time limit, ``VLM_SERVE["layers"]``: 28 -> 8),
    run after phase 12 (at most 1 GiB allocated at the start of each
    arch), fp32 compute and cache.  qwen2-vl-2b (28 layers of d_model
    1536, 12 heads with 2 KV heads of 128, QKV bias, d_ff 8,960, M-RoPE
@@ -402,7 +405,8 @@ Phases (any failure raises and the script exits non-zero):
    beside the card's name and power limit, and one ``vlm_audio`` JSON
    line.
 14. The vlm and audio families EC4T-trained at published widths and
-   depths in bf16, run after phase 13: qwen2-vl-2b at 1 x 2,048 (patch
+   depths (qwen2-vl's cut for the time limit: 28 -> 8) in bf16, run
+   after phase 13: qwen2-vl-2b at 1 x 2,048 (patch
    embeddings and labels, no tokens) for 3 steps under ``remat="full"``,
    whisper-base at 8 x (1,500 frames, 448 tokens) for 10 steps, from
    ``lm_init`` / ``whisper_init(seed=0)`` through the launcher's
@@ -462,24 +466,29 @@ Phases (any failure raises and the script exits non-zero):
    axis, more ranks than one card holds.  Prints one ``scale_out`` JSON
    line.
 
-16. EC4T training over a mesh on ``torch.distributed``, run last: 4
+16. EC4T training over a mesh on ``torch.distributed``: 4
    gloo ranks share the card as in phase 15; the single-process
    references run first and are freed.  (a) SmolLM-360M at its published
    widths and depth from ``lm_init(seed=0)``, a global batch of 8 x 64
    through ``build_train_step`` and ``ShardedFeed(mesh=)`` on meshes (4,
-   1) and (2, 2): one fp32 step replicated, one with ZeRO-1, one with the
-   int8 all-reduce on the same rows on every data rank, the int8 round
-   trip of the first gradients on distinct rows, then 3 timed bf16 steps
-   with ZeRO-1 off and on.  ecl_quant's counter is zeroed just before
-   each step and read just after, in each rank.  Gates: the mesh's
+   1) and (2, 2) (on (2, 2) the dense family's tensor-parallel layout:
+   each rank holds its blocks of the MLP and the tied vocabulary, its 15
+   heads whole, attention sequence-parallel at seq 64): one fp32 step
+   replicated, one with ZeRO-1, one with the int8 all-reduce on the same
+   rows on every data rank, the int8 round trip of the first gradients on
+   distinct rows, then 3 timed bf16 steps with ZeRO-1 off and on.
+   ecl_quant's counter is zeroed just before each step and read just
+   after, in each rank.  Gates: the mesh's
    gradients within 1e-4 of each leaf's largest of the single process's,
    the params after one step within ``atol=rtol=5e-3`` and the loss
    within ``rtol=1e-4`` (``tests/test_distributed_equivalence.py:70-74``);
    the reduced gradients and every replicated leaf (params, m, v,
    probabilities) equal on every rank, ZeRO-1's state the replicated
    step's and the int8 step on replicated rows the single process's
-   ``compress_grads(mesh=None)`` step's, each by digest (two int64 sums of
-   the bits); the int8 gradients on distinct rows within half the shared
+   ``compress_grads(mesh=None)`` step's (on (2, 2): that round trip of the
+   mesh's own exact gradient, each leaf whole), each by digest (two int64
+   sums of the bits, of the whole tree: a rank's blocks' shares summed
+   over 'model'); the int8 gradients on distinct rows within half the shared
    scale of the exact mean; exactly 2 passes of ⌈224 / 32⌉ = 7 ecl_quant
    launches a step a rank.  Recorded: ms a bf16 step a rank (host clock,
    synchronised), bytes all-reduced a step (fp32 and int8), peak memory a
@@ -498,7 +507,7 @@ Phases (any failure raises and the script exits non-zero):
    printed with ms a forward and backward a rank.  Prints one
    ``mesh_train`` JSON line.
 
-17. The autotuner's sweep and the dry run, run last.  (a) A fresh
+17. The autotuner's sweep and the dry run.  (a) A fresh
    autotune cache file in a temporary directory; MLP-GSC from
    ``mlp_init(seed=0)`` frozen and served through ``ExecutionPlan(mode=
    "auto")``, fp32 and int8, with the timed sweep on (the package's own
@@ -533,6 +542,27 @@ Phases (any failure raises and the script exits non-zero):
    (phase 16's bytes a step); then ``dryrun.run_cell`` of smollm-360m at
    the four shapes on pod16x16 (long_500k SKIP), records printed.  Prints
    one ``autotune`` JSON line.
+
+18. Tensor parallelism over 'model' for the dense family, 4 gloo ranks
+   sharing the card as in phase 16, each single-process reference run
+   first and freed.  (a) h2o-danube-1.8b at its published widths and
+   depth (24 layers, d 2,560, 32 heads / 8 KV, d_ff 6,912, vocabulary
+   32,000) over (1, 4), the head-sharded path: each rank draws its blocks
+   (``lm_init(mesh=)``, one layer whole at a time), freezes them (the
+   probabilities' and mean(w²)'s sums over 'model'), then serves 2 x 512
+   prompt tokens and 16 greedy tokens in fp32.  Gates: each rank's frozen
+   tree bitwise its blocks of one process's freeze (by digest) and 6
+   ecl_quant launches in each freeze, as one process's; tokens equal to
+   one process's; the prefill's last 8 positions' logits within 1e-3 of
+   their largest; a rank's KV cache a quarter of one process's.  (b)
+   h2o-danube-1.8b at published widths, depth 24 -> 4, 8 x 64 over (1, 4)
+   and (2, 2) (ZeRO-1): 2 fp32 steps held to one process (phase 16's
+   gates: loss ``rtol=1e-4``, gradients 1e-4 of each leaf's largest,
+   params ``atol=rtol=5e-3``), the probabilities after them bitwise one
+   process's update of the same params, 2 ecl_quant launches a step a
+   rank, then 2 timed bf16 steps.  Prints prefill, decode-step, freeze ms
+   and peak memory a rank beside one process's, ms a step a rank, bytes
+   all-reduced over 'model' a step, and one ``tensor_parallel`` JSON line.
 
 The script ends with a line that counts the profiler traces taken and
 retaken, the device times taken from queued CUDA events and the queued
@@ -4005,6 +4035,14 @@ MLA_REF_HEADS = 16        # heads of the plain reference's attention a pass
 EMPTY_CARD_BYTES = 1 << 30   # what phase 9 may find allocated at its start
 
 
+def _cut_depth(cfg, layers):
+    """``cfg`` cut to ``layers`` layers at its widths (None: as it is)."""
+    import dataclasses
+    if layers is None or layers >= cfg.n_layers:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
 def _empty_card(dev, what):
     """Free what the last phase left and gate that at most
     EMPTY_CARD_BYTES stay allocated; returns the bytes allocated."""
@@ -4945,7 +4983,9 @@ def mla_train_path(dev, gpu):
 SSM_ARCHS = ("mamba2-1.3b", "hymba-1.5b")
 SSM_LEAVES = {"ssm": 2, "hybrid": 9}      # quantized leaves a layer
 SSM_SERVE = dict(seed=0, prompts=2, prompt_len=8192, max_new=16,
-                 short_prompt_len=1024)
+                 short_prompt_len=1024,
+                 # depth cut for the script's time limit (widths kept)
+                 layers={"mamba2-1.3b": 8, "hymba-1.5b": 8})
 SSM_REL = 1e-4            # the SSD vs fp64 recurrence; steps vs sequence
 SSM_STACK_REL = 1e-3      # cached decode logits vs a no-cache forward
 SSM_SPLIT = 4096          # where the carried-state SSD check starts
@@ -5083,14 +5123,15 @@ def _ssm_serve_one(dev, gpu, arch):
     t_arch = time.perf_counter()
     stages = _Stages()
     start_bytes = _empty_card(dev, f"phase 11 ({arch})")
-    cfg = get_config(arch)
+    cfg = _cut_depth(get_config(arch), SSM_SERVE["layers"][arch])
     kind = cfg.family
     b, s, new = (SSM_SERVE["prompts"], SSM_SERVE["prompt_len"],
                  SSM_SERVE["max_new"])
 
     # the main path, as a user serves it
     argv = ["--arch", arch, "--batch", str(b), "--prompt-len", str(s),
-            "--max-new", str(new), "--seed", str(SSM_SERVE["seed"])]
+            "--max-new", str(new), "--seed", str(SSM_SERVE["seed"]),
+            "--layers", str(cfg.n_layers)]
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     eq.LAUNCHES = 0
@@ -5265,8 +5306,9 @@ def _ssm_serve_one(dev, gpu, arch):
 
 
 def ssm_serve_path(dev, gpu):
-    """Phase 11: mamba2-1.3b and hymba-1.5b at their published widths and
-    depths, frozen to 4 bits on the card and served through the
+    """Phase 11: mamba2-1.3b and hymba-1.5b at their published widths,
+    depths cut (``SSM_SERVE["layers"]``), frozen to 4 bits on the card
+    and served through the
     launcher's direct path, with the SSD scan and the recurrent decode
     state gated at full width."""
     t_phase = time.perf_counter()
@@ -5378,7 +5420,8 @@ VLM_ARCH, AUDIO_ARCH = "qwen2-vl-2b", "whisper-base"
 VLM_LEAVES = 7            # q, k, v, o, gate, up, down a layer
 AUDIO_LEAVES = (6, 10)    # an encoder layer's, a decoder layer's (+ cross)
 VLM_SERVE = dict(seed=0, prompts=2, prompt_len=8192, max_new=16,
-                 short_prompt_len=1024, launcher_prompt_len=1024)
+                 short_prompt_len=1024, launcher_prompt_len=1024,
+                 layers=8)     # depth cut for the time limit (widths kept)
 VLM_STEPS_REL = 1e-4      # layer 0's decode steps vs its sequence
 VLM_STACK_REL = 1e-3      # cached decode logits vs a no-cache forward
 # whisper's start of transcript: <|startoftranscript|> <|en|> <|transcribe|>
@@ -5491,14 +5534,15 @@ def _vlm_serve(dev, gpu):
     t_arch = time.perf_counter()
     stages = _Stages()
     start_bytes = _empty_card(dev, f"phase 13 ({VLM_ARCH})")
-    cfg = get_config(VLM_ARCH)
     run_cfg = VLM_SERVE
+    cfg = _cut_depth(get_config(VLM_ARCH), run_cfg["layers"])
     b, s, new = run_cfg["prompts"], run_cfg["prompt_len"], run_cfg["max_new"]
 
     # the main path as a user serves it: token prompts through the launcher
     argv = ["--arch", VLM_ARCH, "--batch", str(b), "--prompt-len",
             str(run_cfg["launcher_prompt_len"]), "--max-new", str(new),
-            "--seed", str(run_cfg["seed"]), "--device", dev.type]
+            "--seed", str(run_cfg["seed"]), "--device", dev.type,
+            "--layers", str(cfg.n_layers)]
     torch.cuda.synchronize(dev)
     eq.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -5875,13 +5919,15 @@ def vlm_audio_serve_path(dev, gpu):
 
 TRAIN_RUNS = {   # each arch's run at published widths, and its smoke run
     "mamba2-1.3b": dict(phase="12", batch=2, seq=2048, steps=4,
-                        smoke_seq=20, remat_depth=4),
-    "hymba-1.5b": dict(phase="12", batch=1, seq=2048, steps=3, smoke_seq=20),
+                        smoke_seq=20, remat_depth=4, layers=8),
+    "hymba-1.5b": dict(phase="12", batch=1, seq=2048, steps=3, smoke_seq=20,
+                       layers=8),
     VLM_ARCH: dict(phase="14", batch=1, seq=2048, steps=3, smoke_seq=12,
-                   remat_depth=2),
+                   remat_depth=2, layers=8),
     AUDIO_ARCH: dict(phase="14", batch=8, seq=448, steps=10, smoke_seq=8)}
 # remat_depth: the arch cut to it (widths kept) for a whole step under
-# full held to none's; an SSD smoke seq of 20 leaves a ragged chunk
+# full held to none's; an SSD smoke seq of 20 leaves a ragged chunk;
+# layers: the run's depth, cut for the script's time limit (widths kept)
 TRAIN_ALL = dict(seed=0, lr=1e-3, lam=0.05, lam_ramp=50, remat="full",
                  prompts=2, prompt_len=16, max_new=8, smoke_batch=2)
 TRAIN_CARD_CPU_FWD = 1e-5    # smoke: the loss, card vs CPU
@@ -6032,9 +6078,10 @@ def _train_serve_check(dev, cfg, frozen, served):
 
 
 def _train_one(dev, gpu, arch):
-    """Phase 12 or 14 for one arch: EC4T-train at published widths and
-    depths through the launcher's functions, export; then the gates from
-    the last step's input state."""
+    """Phase 12 or 14 for one arch: EC4T-train at published widths (the
+    depth ``TRAIN_RUNS``' ``layers`` where it names one) through the
+    launcher's functions, export; then the gates from the last step's
+    input state."""
     import dataclasses
     import gc
     import tempfile
@@ -6055,7 +6102,8 @@ def _train_one(dev, gpu, arch):
     run_cfg = {**TRAIN_ALL, **TRAIN_RUNS[arch]}
     phase = run_cfg["phase"]
     start_bytes = _empty_card(dev, f"phase {phase} ({arch})")
-    cfg = T.lm_config(arch, lam=run_cfg["lam"])
+    cfg = _cut_depth(T.lm_config(arch, lam=run_cfg["lam"]),
+                     run_cfg.get("layers"))
     steps, remat = run_cfg["steps"], run_cfg["remat"]
     want_segments, _, pick_paths = _train_leaves(cfg)
     smoke = _train_smoke_checks(dev, arch)
@@ -6298,7 +6346,7 @@ def _train_one(dev, gpu, arch):
 
 def ssm_train_path(dev, gpu):
     """Phase 12: EC4T-train mamba2-1.3b (2 x 2,048) and hymba-1.5b (1 x
-    2,048) at published widths and depths in bf16 under remat full,
+    2,048) at published widths, depths cut, in bf16 under remat full,
     through the launcher's functions."""
     t_phase = time.perf_counter()
     out = {arch: _train_one(dev, gpu, arch) for arch in SSM_ARCHS}
@@ -6309,8 +6357,8 @@ def ssm_train_path(dev, gpu):
 
 def vlm_audio_train_path(dev, gpu):
     """Phase 14: EC4T-train qwen2-vl-2b (1 x 2,048 patch embeddings) and
-    whisper-base (8 x (1,500 frames, 448 tokens)) at published widths and
-    depths in bf16, through the launcher's functions."""
+    whisper-base (8 x (1,500 frames, 448 tokens)) at published widths
+    (qwen2-vl's depth cut) in bf16, through the launcher's functions."""
     t_phase = time.perf_counter()
     out = {arch: _train_one(dev, gpu, arch) for arch in (VLM_ARCH,
                                                          AUDIO_ARCH)}
@@ -6718,6 +6766,13 @@ def _mesh_train_dp(dev, pool, cfg, batches, single, gpu):
                      for zero1 in (False, True)]
         else:
             runs.append({"zero1": True, "steps": 1})
+        tp = mesh[1] > 1
+        if tp:
+            # tensor-parallel ranks sum the single device's gradient in
+            # another order: int8 on replicated rows is held to the round
+            # trip of the mesh's own exact gradient, each leaf whole
+            runs.append({"compress": gcfg, "batches": [tiled],
+                         "int8_local": True})
         t0 = time.perf_counter()
         dumps = tempfile.mkdtemp(prefix="mesh_train_")
         try:
@@ -6757,7 +6812,10 @@ def _mesh_train_dp(dev, pool, cfg, batches, single, gpu):
                                      if k.split("/")[1] != "opt"}:
                 raise AssertionError(f"{tag}: ZeRO-1 differs from the "
                                      "replicated step")
-            if r["runs"][1]["digests"] != single["int8"][dp]:
+            if r["layout"] != ("tensor parallel" if tp else "replicated"):
+                raise AssertionError(f"{tag}: layout {r['layout']}")
+            int8_want = r["runs"][-1]["digests"] if tp else single["int8"][dp]
+            if r["runs"][1]["digests"] != int8_want:
                 raise AssertionError(f"{tag}: int8 on replicated rows "
                                      "differs from compress_grads(mesh=None)")
             if not r["int8_err_over_half_scale"] <= 1.0 + 1e-5:
@@ -6786,21 +6844,29 @@ def _mesh_train_dp(dev, pool, cfg, batches, single, gpu):
             "int8_err_over_half_scale": max(
                 r["int8_err_over_half_scale"] for r in res),
             "ecl_quant_launches_per_step_per_rank": per_step,
+            "layout": res[0]["layout"],
             "reduced_bytes_per_step": {
                 "fp32": res[0]["runs"][0]["reduced_bytes"],
                 "int8": res[0]["runs"][1]["reduced_bytes"]},
+            "model_allreduce_bytes_per_step": res[0]["runs"][0][
+                "model_bytes"],
+            "fp32_peak_gb_per_rank": [r["runs"][0]["peak_bytes"] / 1e9
+                                      for r in res],
             "fp32_ms_per_step_per_rank": {
                 "replicated": [r["runs"][0]["ms"][0] for r in res],
                 "int8": [r["runs"][1]["ms"][0] for r in res]},
             "ranks_s": ranks_s, "rank0_s": {
                 **res[0]["s"], "runs": [r["s"] for r in res[0]["runs"]]},
             "wall_s": time.perf_counter() - t0}
-        line = (f"phase 16: smollm-360m {key}: loss "
+        line = (f"phase 16: smollm-360m {key} ({res[0]['layout']}): loss "
                 f"{out[key]['loss']:.6f} (one process {single['loss']:.6f}),"
                 f" grads {grad_rel:.2e} of max, params {param_err:.2e}; "
                 f"replicas, ZeRO-1 and int8 on replicated rows bitwise; fp32"
                 f" ms a step (rank 0) {res[0]['runs'][0]['ms'][0]:.1f}, int8"
-                f" {res[0]['runs'][1]['ms'][0]:.1f}")
+                f" {res[0]['runs'][1]['ms'][0]:.1f}; fp32 peak "
+                f"{out[key]['fp32_peak_gb_per_rank'][0]:.2f} GB a rank, "
+                f"{out[key]['model_allreduce_bytes_per_step'][0]} B "
+                f"all-reduced over 'model' a step")
         if timed:
             out[key].update({
                 "bf16_ms_per_step_per_rank": {
@@ -6970,7 +7036,7 @@ def mesh_train_path(dev, gpu):
     batches = [batch_fn(i) for i in range(MESH_TRAIN["timed_steps"])]
     t0 = time.perf_counter()
     single = _mesh_train_single(dev, cfg, batches, sorted(
-        {m[0] for m in MESH_TRAIN["meshes"]}))
+        {m[0] for m in MESH_TRAIN["meshes"] if m[1] == 1}))
     single_s = time.perf_counter() - t0
     _empty_card(dev, "phase 16's ranks")
     print(f"phase 16: smollm-360m single-process references in "
@@ -7524,6 +7590,326 @@ def autotune_path(dev, gpu):
     return out
 
 
+# ------------------------------------------------------------ phase 18
+
+TP = dict(arch="h2o-danube-1.8b", world=4, seed=0, serve_mesh=(1, 4),
+          prompts=2, prompt_len=512, max_new=16, tail=8, train_layers=4,
+          batch=8, seq=64, steps=2, lr=1e-3,
+          train_meshes=((1, 4), (2, 2)), timeout=900)
+TP_LOGIT_REL = LM_LOGIT_REL     # phase 5's gate, of the max |logit|
+TP_LABEL = "4 ranks sharing one H100 over gloo"
+
+
+def _tp_block(t, spec, r, tp):
+    """Rank ``r``'s block of ``t`` over a (1, tp) mesh under ``spec``."""
+    for d, axes in enumerate(spec):
+        if axes is not None:
+            n = t.shape[d] // tp
+            t = t.narrow(d, r * n, n)
+    return t
+
+
+def _tp_serve_single(dev, cfg, prompt):
+    """(a)'s one-process reference, run before any rank and freed after:
+    ``lm_init`` whole, frozen (its ecl_quant launches counted), the
+    digests of each rank's blocks of the frozen tree, and the same
+    greedy serve the ranks run (``ranks.serve_timed``, fp32)."""
+    import torch
+    from repro_torch.core import qat
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import ranks
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import FP32_CTX
+    from repro_torch.runtime.sharding import layout_specs
+    from repro_torch.tree import map_
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = T.lm_init(cfg, seed=TP["seed"], device=dev)
+    qstate = qat.build_qstate(params)
+    torch.cuda.synchronize(dev)
+    eq.LAUNCHES = 0
+    t0 = time.perf_counter()
+    frozen = qat.freeze_tree(params, qstate, cfg.lam)
+    torch.cuda.synchronize(dev)
+    out = {"freeze_ms": (time.perf_counter() - t0) * 1e3,
+           "freeze_launches": eq.LAUNCHES}
+    del params, qstate
+    tp = TP["serve_mesh"][1]
+    specs = layout_specs(frozen, cfg, MeshSpec(TP["serve_mesh"],
+                                               ("data", "model")))
+    out["block_digests"] = [{n: ranks.digest(t) for n, t in ranks.named_leaves(
+        map_(lambda t, sp: _tp_block(t, sp, r, tp), frozen, specs))}
+        for r in range(tp)]
+    out.update(ranks.serve_timed(frozen, torch.from_numpy(prompt).to(dev),
+                                 cfg, FP32_CTX, TP["max_new"], TP["tail"])[0])
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del frozen
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve(dev, pool, cfg, gpu):
+    """(a): h2o-danube-1.8b at published widths and depth served over
+    (1, 4): each rank's freeze bitwise the one process's blocks, tokens
+    equal, logits within 1e-3, a quarter of the KV cache."""
+    import numpy as np
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import ranks
+
+    prompt = np.random.default_rng(TP["seed"] + 180).integers(
+        0, cfg.vocab, (TP["prompts"], TP["prompt_len"])).astype(np.int32)
+    t0 = time.perf_counter()
+    single = _tp_serve_single(dev, cfg, prompt)
+    single_s = time.perf_counter() - t0
+    _empty_card(dev, "phase 18 (a)'s ranks")
+    t0 = time.perf_counter()
+    res = pool.run(ranks.tp_serve_card, cfg, TP["serve_mesh"], TP["seed"],
+                   prompt, TP["max_new"], TP["tail"])
+    ranks_s = time.perf_counter() - t0
+    segments = 7 * cfg.n_layers
+    want_launches = -(-segments // eq.MAX_SEGMENTS)
+    if single["freeze_launches"] != want_launches:
+        raise AssertionError(f"phase 18: one process's freeze launched "
+                             f"{single['freeze_launches']}, want "
+                             f"{want_launches}")
+    scale = float(np.abs(single["tail_logits"]).max())
+    worst = 0.0
+    for rank, r in enumerate(res):
+        tag = f"phase 18: rank {rank}"
+        i = r["coords"]["model"]
+        if r["digests"] != single["block_digests"][i]:
+            bad = [n for n in r["digests"]
+                   if r["digests"][n] != single["block_digests"][i].get(n)]
+            raise AssertionError(f"{tag}: frozen blocks differ from one "
+                                 f"process's: {bad[:6]}")
+        if r["freeze_launches"] != want_launches:
+            raise AssertionError(f"{tag}: freeze launched ecl_quant "
+                                 f"{r['freeze_launches']} times, one "
+                                 f"process {want_launches}")
+        if not np.array_equal(r["tokens"], single["tokens"]):
+            raise AssertionError(f"{tag}: tokens {r['tokens'].tolist()} != "
+                                 f"{single['tokens'].tolist()}")
+        err = float(np.abs(r["tail_logits"] - single["tail_logits"]).max())
+        worst = max(worst, err)
+        if not err <= TP_LOGIT_REL * scale:
+            raise AssertionError(f"{tag}: logits {err} past "
+                                 f"{TP_LOGIT_REL} of {scale}")
+        if r["kv_cache_bytes"] * TP["serve_mesh"][1] != \
+                single["kv_cache_bytes"]:
+            raise AssertionError(f"{tag}: KV cache {r['kv_cache_bytes']} B, "
+                                 f"one process {single['kv_cache_bytes']}")
+    rank_ms = lambda k: [r[k] for r in res]
+    out = {"arch": TP["arch"], "mesh": list(TP["serve_mesh"]),
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "prompts": TP["prompts"], "prompt_len": TP["prompt_len"],
+           "max_new": TP["max_new"], "dtype": "fp32",
+           "codes_bitwise": True, "tokens_equal": True,
+           "logit_max_abs_err": worst, "logit_scale": scale,
+           "freeze_launches_per_rank": want_launches,
+           "ecl_quant_launches": sum(r["freeze_launches"] for r in res),
+           "kv_cache_bytes": {"rank": res[0]["kv_cache_bytes"],
+                              "one_process": single["kv_cache_bytes"]},
+           "freeze_ms": {"ranks": rank_ms("freeze_ms"),
+                         "one_process": single["freeze_ms"]},
+           "prefill_ms": {"ranks": rank_ms("prefill_ms"),
+                          "one_process": single["prefill_ms"]},
+           "decode_ms_per_step": {
+               "ranks": [float(np.median(r["decode_ms"])) for r in res],
+               "one_process": float(np.median(single["decode_ms"]))},
+           "peak_gb": {"ranks": [r["peak_bytes"] / 1e9 for r in res],
+                       "one_process": single["peak_bytes"] / 1e9},
+           "init_s": rank_ms("init_s"), "single_s": single_s,
+           "ranks_s": ranks_s}
+    print(f"phase 18: {TP['arch']} over {TP['serve_mesh']} ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}): frozen blocks bitwise one process's "
+          f"({want_launches} ecl_quant launches a rank), {TP['prompts']} x "
+          f"{TP['prompt_len']} + {TP['max_new']} tokens equal, logits "
+          f"{worst:.3e} of max {scale:.2f}; KV cache "
+          f"{res[0]['kv_cache_bytes']} B a rank, "
+          f"{single['kv_cache_bytes']} B one process; rank 0 freeze "
+          f"{res[0]['freeze_ms']:.1f} ms, prefill {res[0]['prefill_ms']:.1f}"
+          f" ms, decode {out['decode_ms_per_step']['ranks'][0]:.1f} ms a "
+          f"step, peak {out['peak_gb']['ranks'][0]:.2f} GB; one process "
+          f"{single['freeze_ms']:.1f} / {single['prefill_ms']:.1f} / "
+          f"{out['decode_ms_per_step']['one_process']:.1f} ms, peak "
+          f"{out['peak_gb']['one_process']:.2f} GB ({TP_LABEL}; {gpu})")
+    return out
+
+
+def _tp_train_single(dev, cfg, batches):
+    """(b)'s one-process reference on the card, freed after: the fp32
+    gradients at the initial state on batch 0, the losses of
+    ``TP["steps"]`` fp32 steps and the params after them (host numpy)."""
+    import torch
+    from repro_torch.convert import tree_to_numpy
+    from repro_torch.core import qat
+    from repro_torch.launch import steps as S
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim import adam, ec4t
+
+    params = T.lm_init(cfg, seed=TP["seed"], device=dev)
+    qstate = qat.build_qstate(params)
+    loss_fn = S._loss_fn(cfg, dtype=torch.float32)
+    on_card = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in batches]
+    _, grads = ec4t.local_grads(loss_fn, params, qstate, on_card[0],
+                                cfg.lam)
+    out = {"grads": tree_to_numpy(grads)}
+    del grads
+    step = ec4t.make_train_step(loss_fn, adam.AdamConfig(lr=TP["lr"]),
+                                lam=cfg.lam)
+    state, losses = ec4t.init_train_state(params), []
+    for b in on_card[:TP["steps"]]:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+    out.update(params=tree_to_numpy(state["params"]), losses=losses)
+    del state, params, qstate
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_train(dev, pool, gpu):
+    """(b): h2o-danube-1.8b's EC4T step at published widths, depth 4,
+    over (1, 4) and (2, 2) (ZeRO-1 on (2, 2)): phase 16's gates against
+    one process on the fp32 steps; the bf16 steps timed."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import ranks
+    from repro_torch.launch.train import lm_batch_fn
+
+    cfg = dataclasses.replace(get_config(TP["arch"]),
+                              n_layers=TP["train_layers"])
+    batch_fn = lm_batch_fn(cfg, batch=TP["batch"], seq=TP["seq"])
+    batches = [batch_fn(i) for i in range(TP["steps"])]
+    t0 = time.perf_counter()
+    single = _tp_train_single(dev, cfg, batches)
+    single_s = time.perf_counter() - t0
+    _empty_card(dev, "phase 18 (b)'s ranks")
+    per_step = ECL_PASSES_PER_STEP * -(-7 * cfg.n_layers
+                                       // eq.MAX_SEGMENTS)
+    out, launches = {}, 0
+    for mesh in TP["train_meshes"]:
+        key = f"mesh {mesh[0]}x{mesh[1]}"
+        zero1 = mesh[0] > 1
+        t0 = time.perf_counter()
+        dumps = tempfile.mkdtemp(prefix="tp_train_")
+        try:
+            res = pool.run(
+                ranks.dp_train, cfg, mesh, batches, seed=TP["seed"],
+                lr=TP["lr"], grads=True, out_dir=dumps,
+                runs=[{"zero1": zero1, "state": True, "probs_check": True},
+                      {"zero1": zero1, "dtype": torch.bfloat16}])
+            ranks_s = time.perf_counter() - t0
+            _, grad_rel = _leaf_errors(
+                ranks.load_dump(os.path.join(dumps, "grads")),
+                single["grads"])
+            param_err, _ = _leaf_errors(
+                ranks.load_dump(os.path.join(dumps, "run0")),
+                single["params"], MESH_TRAIN_PARAM_TOL)
+        finally:
+            shutil.rmtree(dumps)
+        if not grad_rel <= MESH_TRAIN_GRAD_REL:
+            raise AssertionError(f"phase 18: {key}: gradients {grad_rel} of "
+                                 "a leaf's max from one process's")
+        for rank, r in enumerate(res):
+            tag = f"phase 18: {key} rank {rank}"
+            if r["layout"] != "tensor parallel":
+                raise AssertionError(f"{tag}: layout {r['layout']}")
+            np.testing.assert_allclose(
+                [m["loss"] for m in r["runs"][0]["metrics"]],
+                single["losses"], rtol=MESH_TRAIN_LOSS_RTOL, err_msg=tag)
+            if not r["runs"][0]["probs_bitwise"]:
+                raise AssertionError(f"{tag}: probabilities differ from one "
+                                     "process's update of the same params")
+            if r["runs"][0]["digests"] != res[0]["runs"][0]["digests"]:
+                raise AssertionError(f"{tag}: the gathered tree differs from "
+                                     "rank 0's")
+            for run in r["runs"]:
+                if run["ecl_launches"] != [per_step] * len(run["ms"]):
+                    raise AssertionError(f"{tag}: ecl_quant "
+                                         f"{run['ecl_launches']}, one process"
+                                         f" {per_step} a step")
+                if not all(np.isfinite(m["loss"]) for m in run["metrics"]):
+                    raise AssertionError(f"{tag}: a loss is not finite")
+                launches += sum(run["ecl_launches"])
+        bf16 = [r["runs"][1] for r in res]
+        out[key] = {
+            "zero1": zero1, "losses": [m["loss"] for m in res[0]["runs"][0][
+                "metrics"]], "single_losses": single["losses"],
+            "grad_rel_err": grad_rel, "param_max_abs_err": param_err,
+            "probs_bitwise": True,
+            "ecl_quant_launches_per_step_per_rank": per_step,
+            "fp32_ms_per_step_per_rank": [r["runs"][0]["ms"] for r in res],
+            "bf16_ms_per_step_per_rank": [b["ms"] for b in bf16],
+            "bf16_losses": [m["loss"] for m in bf16[0]["metrics"]],
+            "model_allreduce_bytes_per_step": {
+                "fp32": res[0]["runs"][0]["model_bytes"],
+                "bf16": bf16[0]["model_bytes"]},
+            "reduced_bytes_per_step": res[0]["runs"][0]["reduced_bytes"],
+            "peak_gb_per_rank": {"fp32": [r["runs"][0]["peak_bytes"] / 1e9
+                                          for r in res],
+                                 "bf16": [b["peak_bytes"] / 1e9
+                                          for b in bf16]},
+            "ranks_s": ranks_s, "rank0_s": {
+                **res[0]["s"], "runs": [x["s"] for x in res[0]["runs"]]}}
+        o = out[key]
+        print(f"phase 18: {TP['arch']} depth {cfg.n_layers} {TP['batch']} x "
+              f"{TP['seq']} over {mesh}{' ZeRO-1' if zero1 else ''}: losses "
+              f"{[round(v, 6) for v in o['losses']]} (one process "
+              f"{[round(v, 6) for v in single['losses']]}), grads "
+              f"{grad_rel:.2e} of max, params {param_err:.2e}, probabilities"
+              f" bitwise, {per_step} ecl_quant a step a rank; bf16 ms a step"
+              f" (rank 0) {[round(v, 1) for v in bf16[0]['ms']]}, "
+              f"all-reduced over 'model' {bf16[0]['model_bytes']} B a step,"
+              f" peak {o['peak_gb_per_rank']['bf16'][0]:.2f} GB a rank; "
+              f"{ranks_s:.1f} s ({TP_LABEL}; {gpu})")
+    return {"arch": TP["arch"], "layers": cfg.n_layers,
+            "reduced": {"depth": f"{get_config(TP['arch']).n_layers} -> "
+                        f"{cfg.n_layers} (time)"},
+            "batch": TP["batch"], "seq": TP["seq"], "meshes": out,
+            "single_s": single_s}, launches
+
+
+def tensor_parallel_path(dev, gpu):
+    """Phase 18: tensor parallelism over 'model' for the dense family, 4
+    gloo ranks sharing the card (staged through host buffers)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    _empty_card(dev, "phase 18")
+    cfg = get_config(TP["arch"])
+    t0 = time.perf_counter()
+    with M.RankPool(TP["world"], backend="gloo", device="cuda",
+                    timeout=TP["timeout"]) as pool:
+        pool.run(M.describe_world)
+        spawn_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        serve = _tp_serve(dev, pool, cfg, gpu)
+        serve_s = time.perf_counter() - t1
+        _empty_card(dev, "phase 18 (b)")
+        t1 = time.perf_counter()
+        train, launches = _tp_train(dev, pool, gpu)
+        train_s = time.perf_counter() - t1
+    launches += serve["ecl_quant_launches"]
+    out = {"label": TP_LABEL, "gpu": gpu, "spawn_s": spawn_s,
+           "serve": {**serve, "s": serve_s},
+           "train": {**train, "s": train_s},
+           "ecl_quant_launches": launches}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 18: spawn {spawn_s:.1f} s, (a) {serve_s:.1f} s, (b) "
+          f"{train_s:.1f} s; done in {out['wall_s']:.1f} s ({gpu})")
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_report(r):
     """The ``kernels`` line: every kernel's launches by path, error, times
     and bound, from the results ``r`` of a run of every phase."""
@@ -7594,6 +7980,8 @@ def kernels_report(r):
                                  "ecl_quant_launches"],
                              "mesh_train": r["mesh_train"][
                                  "ecl_quant_launches"],
+                             "tensor_parallel": r["tensor_parallel"][
+                                 "ecl_quant_launches"],
                              "dryrun_step": r["autotune"]["dryrun"]["step"][
                                  "ecl_quant_launches"]},
         "max_abs_err": r["ecl_err"],
@@ -7630,7 +8018,7 @@ def kernels_report(r):
 
 
 PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10", "11",
-          "12", "13", "14", "15", "16", "17")
+          "12", "13", "14", "15", "16", "17", "18")
 
 
 def parse_phases(argv):
@@ -7717,7 +8105,8 @@ def main(argv=None) -> int:
               lambda: vlm_audio_train_path(dev, gpu)),
              ("15", "scale_out", lambda: scale_out_path(dev, gpu)),
              ("16", "mesh_train", lambda: mesh_train_path(dev, gpu)),
-             ("17", "autotune", lambda: autotune_path(dev, gpu)))
+             ("17", "autotune", lambda: autotune_path(dev, gpu)),
+             ("18", "tensor_parallel", lambda: tensor_parallel_path(dev, gpu)))
     for phase, key, run in steps:
         if phase in phases:
             r[key] = run()
@@ -7728,7 +8117,7 @@ def main(argv=None) -> int:
     for key in ("path", "train", "frontend", "lm", "lm_train", "moe",
                 "moe_train", "mla", "mla_train", "ssm", "ssm_train",
                 "vlm_audio", "vlm_audio_train", "scale_out", "mesh_train",
-                "autotune"):
+                "autotune", "tensor_parallel"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "

@@ -6,7 +6,10 @@ imports nothing of JAX) and return the port's tensors on ``device``;
 :func:`tree_to_numpy` is the way back.  A MoE tree comes across whole
 (router, (L, E, ...) banks, (L, E, 4) ω, (L, E, 16) probabilities, the
 Adam moments); :func:`take_experts` cuts it to one device's share of the
-experts.
+experts, and :func:`shard_from_numpy` any tree to one rank's blocks under
+a layout (``runtime.sharding``: the tensor-parallel layout of params, a
+frozen tree, Adam moments with or without ZeRO-1, or a replicated
+qstate).
 """
 from __future__ import annotations
 
@@ -83,6 +86,41 @@ def lm_train_state_from_numpy(state: dict, *, device=None) -> dict:
     port's tensors, each array keeping its dtype: a train step or a
     checkpoint of either package then starts from the same state."""
     return _to_torch(state, resolve_device(device))
+
+
+def shard_from_numpy(tree: Any, specs: Any, mesh, *, device=None) -> Any:
+    """This rank's block of every array of ``tree`` (the JAX package's
+    whole tree as numpy) under ``specs`` (a tree like it of
+    ``runtime.sharding`` spec tuples, e.g. ``layout_specs(tree, cfg,
+    mesh)``) over ``mesh``, as the port's tensors on ``device``: each named
+    dim cut into equal blocks in mesh order, as ``shard_slice`` cuts a
+    tensor; only the block is copied.  A frozen leaf's row-pair-packed
+    ``(K / 2, N)`` codes are cut on the axis their spec names: the packed
+    rows of a row block are that block's row pairs."""
+    dev = resolve_device(device)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, sp) for v, sp in zip(node, spec))
+        if not isinstance(node, (np.ndarray, np.generic)):
+            return node
+        index = []
+        for d, axes in enumerate(spec):
+            if axes is None:
+                index.append(slice(None))
+                continue
+            n = mesh.axis_size(axes)
+            if node.shape[d] % n:
+                raise ValueError(f"dim {d} of {node.shape} does not divide "
+                                 f"over {axes} ({n})")
+            blk = node.shape[d] // n
+            i = mesh.axis_index(axes)
+            index.append(slice(i * blk, (i + 1) * blk))
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(node)[tuple(index)])).to(dev)
+    return walk(tree, specs)
 
 
 def take_experts(tree: Any, first: int, count: int, *, axis: int = 1

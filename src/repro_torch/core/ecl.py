@@ -37,16 +37,47 @@ def entropy_bits(probs: torch.Tensor) -> torch.Tensor:
                                   torch.zeros_like(p)), dim=-1)
 
 
-def penalty(w: torch.Tensor, probs: torch.Tensor, lam) -> torch.Tensor:
+SUM_CHUNK = 1 << 24     # elements a step of square_sum's fp64 reduction
+
+
+def square_sum(w: torch.Tensor, batched: bool) -> torch.Tensor:
+    """Σ w² of each segment, the fp32 squares accumulated in fp64: (*lead,
+    1) over the last two dims for a batched leaf, else () over all of w.
+    fp64 makes the sum's fp32 mean the same number however the segment is
+    cut and its blocks' sums added (a tensor-parallel rank's block, summed
+    over the ranks).  A reduction into fp64 copies its operand to fp64
+    first, so it runs over chunks of SUM_CHUNK elements."""
+    wf = w.detach().to(torch.float32)
+    rows = wf.reshape(-1, w.shape[-2] * w.shape[-1]) if batched \
+        else wf.reshape(1, -1)
+    step = max(1, SUM_CHUNK // rows.shape[0])
+    total = torch.zeros(rows.shape[0], dtype=torch.float64, device=w.device)
+    for i in range(0, rows.shape[1], step):
+        total = total + torch.sum(torch.square(rows[:, i:i + step]), dim=1,
+                                  dtype=torch.float64)
+    if batched:
+        return total.view(*w.shape[:-2], 1)
+    return total.view(())
+
+
+def segment_size(w: torch.Tensor, batched: bool) -> int:
+    """The elements of one segment of ``w``."""
+    return w.shape[-2] * w.shape[-1] if batched else w.numel()
+
+
+def penalty(w: torch.Tensor, probs: torch.Tensor, lam,
+            scale: torch.Tensor = None) -> torch.Tensor:
     """The entropy term λ·mean(w²)·(-log2 clamp(P)) per code, in the
     reference's order of operations: (*lead, 16) for w (*lead, R, C) with
-    batched probs, else (16,).  ``lam`` is a number or a tensor; it stays
-    on the host as a scalar operand, so nothing is copied to the card."""
-    wf = w.detach().to(torch.float32)
-    if probs.ndim > 1:
-        scale = torch.mean(wf * wf, dim=(-2, -1))[..., None]
-    else:
-        scale = torch.mean(wf * wf)
+    batched probs, else (16,).  mean(w²) is :func:`square_sum` over the
+    segment size, rounded to fp32 once, or ``scale`` where the caller
+    summed it (over the ranks that hold a segment's blocks).  ``lam`` is
+    a number or a tensor; it stays on the host as a scalar operand, so
+    nothing is copied to the card."""
+    if scale is None:
+        batched = probs.ndim > 1
+        scale = (square_sum(w, batched) / segment_size(w, batched)).to(
+            torch.float32)
     lam_t = torch.as_tensor(lam, dtype=torch.float32)
     return lam_t * scale * -torch.log2(torch.clamp(probs, PROB_FLOOR, 1.0))
 
@@ -105,17 +136,24 @@ def histogram(codes: torch.Tensor, lead_ndim: int = 0) -> torch.Tensor:
     the reference's fp32 one-hot sums are exact (every count and the total
     below 2**24) the result equals its bit for bit; past 2**24 the
     reference's sums round and these counts do not."""
-    counts = code_counts(codes, lead_ndim)
+    return normalized(code_counts(codes, lead_ndim))
+
+
+def normalized(counts: torch.Tensor) -> torch.Tensor:
+    """Code counts (*lead, 16) as fp32 probabilities (:func:`histogram`)."""
     total = counts.sum(-1, keepdim=True)
     return counts.to(torch.float32) / torch.clamp(
         total.to(torch.float32), min=1.0)
 
 
 def update_probs(probs: torch.Tensor, codes: torch.Tensor,
-                 momentum: float = 0.9) -> torch.Tensor:
-    """EMA update of the cluster-probability state from fresh assignments."""
-    return momentum * probs + (1.0 - momentum) * histogram(
-        codes, lead_ndim=probs.ndim - 1)
+                 momentum: float = 0.9,
+                 counts: torch.Tensor = None) -> torch.Tensor:
+    """EMA update of the cluster-probability state from fresh assignments
+    (or from ``counts``, their :func:`code_counts` summed by the caller)."""
+    if counts is None:
+        counts = code_counts(codes, lead_ndim=probs.ndim - 1)
+    return momentum * probs + (1.0 - momentum) * normalized(counts)
 
 
 def ecl_fit(w: torch.Tensor, omega: torch.Tensor, lam: float,

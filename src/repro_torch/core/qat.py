@@ -24,13 +24,22 @@ from a fresh assignment of every tensor once per step, and :func:`stats`
 reports sparsity and entropy over every quantized tensor, each in one
 grouped call.  :func:`freeze_tree` turns a trained tree into its serving
 form, every leaf assigned in one grouped call.
+
+Over a mesh whose ranks each hold a block of a leaf (the dense family's
+tensor-parallel layout, ``runtime/sharding.py``) these functions take
+``shards`` (:class:`Shards`): a segment's mean(w²) is its blocks' fp64
+sums added over the ranks that hold them, and its 16 code counts are
+summed the same way before the EMA (the reference's "16-element psum per
+tensor"), one all-reduce for all leaves cut alike.  The counts are exact
+integers, so the probabilities are bitwise those of one process.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Sequence
+from typing import Any, Callable, Iterator, NamedTuple, Optional, Sequence
 
 import torch
 
+from ..runtime.sharding import spec_axes
 from . import bitplanes, ecl
 
 QUANT_KEYS = frozenset({"w", "omega"})
@@ -87,16 +96,58 @@ class FakeQuantGroup(torch.autograd.Function):
         return (None, *grad_w, *grad_omega, *(None for _ in gs))
 
 
+class Shards(NamedTuple):
+    """How a tree's quantized leaves lie over a mesh: ``specs`` the tree's
+    layout (``runtime.sharding.layout_specs``, a tree like it: a quantized
+    leaf's spec is a dict with ``"w"``), ``mesh`` its ranks."""
+    mesh: Any
+    specs: Any
+
+
+def _sum_over(ts: list, axes: list, mesh) -> list:
+    """Each tensor of ``ts`` summed over its ``axes``: one all-reduce of a
+    flat buffer a group of tensors with the same axes and dtype."""
+    out, groups = list(ts), {}
+    for i, a in enumerate(axes):
+        if a and mesh.axis_size(a) > 1:
+            groups.setdefault((a, ts[i].dtype), []).append(i)
+    for (a, _), idx in groups.items():
+        flat = mesh.all_reduce(torch.cat([ts[i].reshape(-1) for i in idx]), a)
+        for i, part in zip(idx, flat.split([ts[i].numel() for i in idx])):
+            out[i] = part.view(ts[i].shape)
+    return out
+
+
+@torch.no_grad()
+def penalties(ws: Sequence[torch.Tensor], probs: Sequence[torch.Tensor], lam,
+              axes: Optional[list] = None, mesh=None) -> list:
+    """:func:`ecl.penalty` of every tensor; a tensor cut over ``axes[i]``
+    of ``mesh`` takes mean(w²) of its whole segment (the blocks' fp64 sums
+    added over those axes)."""
+    if axes is None or not any(axes):
+        return [ecl.penalty(w, p, lam) for w, p in zip(ws, probs)]
+    batched = [p.ndim > 1 for p in probs]
+    sums = _sum_over([ecl.square_sum(w, b) for w, b in zip(ws, batched)],
+                     axes, mesh)
+    out = []
+    for w, p, total, b, a in zip(ws, probs, sums, batched, axes):
+        n = ecl.segment_size(w, b) * (mesh.axis_size(a) if a else 1)
+        out.append(ecl.penalty(w, p, lam, scale=(total / n).to(
+            torch.float32)))
+    return out
+
+
 def fake_quant_many(ws: Sequence[torch.Tensor],
                     omegas: Sequence[torch.Tensor],
                     probs: Sequence[torch.Tensor], lam,
-                    dtype=None) -> list:
+                    dtype=None, axes: Optional[list] = None,
+                    mesh=None) -> list:
     """STE fake-quantization of every tensor in one grouped launch, with
-    the differentiable centroid path; [ŵ] in the order given."""
+    the differentiable centroid path; [ŵ] in the order given (``axes``
+    and ``mesh`` as :func:`penalties` takes them)."""
     if not ws:
         return []
-    with torch.no_grad():
-        pens = [ecl.penalty(w, p, lam) for w, p in zip(ws, probs)]
+    pens = penalties(ws, probs, lam, axes, mesh)
     outs = FakeQuantGroup.apply(len(ws), *ws, *omegas, *pens)
     return [o if o.dtype == (dtype or w.dtype) else o.to(dtype or w.dtype)
             for o, w in zip(outs, ws)]
@@ -109,23 +160,39 @@ def fake_quant(w: torch.Tensor, omega: torch.Tensor, probs: torch.Tensor,
 
 
 def apply_quant_many(nodes: Sequence[dict], qstates: Sequence[dict], lam,
-                     dtype=None) -> list:
+                     dtype=None, axes: Optional[list] = None,
+                     mesh=None) -> list:
     return fake_quant_many([n["w"] for n in nodes],
                            [n["omega"] for n in nodes],
-                           [q["probs"] for q in qstates], lam, dtype)
+                           [q["probs"] for q in qstates], lam, dtype, axes,
+                           mesh)
 
 
 def apply_quant(node: dict, qstate: dict, lam, dtype=None) -> torch.Tensor:
     return apply_quant_many([node], [qstate], lam, dtype)[0]
 
 
-def fake_quant_tree(params: Any, qstate: Any, lam, dtype=None) -> Any:
+def fake_quant_tree(params: Any, qstate: Any, lam, dtype=None,
+                    shards: Optional[Shards] = None) -> Any:
     """``params`` with every quantized leaf replaced by its fake-quantized
     ŵ in ``dtype`` (differentiable as :func:`fake_quant`), every leaf in
     one :func:`apply_quant_many` call; other leaves are kept."""
+    axes, mesh = _shard_axes(params, shards)
     return _map_quant_many(
-        lambda nodes, qss: apply_quant_many(nodes, qss, lam, dtype),
+        lambda nodes, qss: apply_quant_many(nodes, qss, lam, dtype, axes,
+                                            mesh),
         params, qstate, keep_params=True)
+
+
+def _shard_axes(params: Any, shards: Optional[Shards]) -> tuple:
+    """(the axes each quantized leaf's w is cut over, in the order
+    :func:`_map_quant_many` visits them; the mesh), or (None, None)."""
+    if shards is None:
+        return None, None
+    axes = []
+    _map_quant(lambda node, spec: axes.append(spec_axes(spec["w"])),
+               params, shards.specs)
+    return axes, shards.mesh
 
 
 # --------------------------------------------------------------- tree utils
@@ -185,44 +252,68 @@ def build_qstate(params: Any) -> Any:
     return params
 
 
-def _assign_leaves(nodes: Sequence[dict], qss: Sequence[dict], lam) -> list:
-    return ecl.assign_many([n["w"] for n in nodes],
-                           [n["omega"] for n in nodes],
-                           [q["probs"] for q in qss], lam)
+def _assign_leaves(nodes: Sequence[dict], qss: Sequence[dict], lam,
+                   axes: Optional[list] = None, mesh=None) -> list:
+    ws = [n["w"] for n in nodes]
+    probs = [q["probs"] for q in qss]
+    pens = penalties(ws, probs, lam, axes, mesh)
+    with torch.no_grad():
+        return [c for c, _ in ecl.quantize_many(
+            ws, [n["omega"] for n in nodes], pens)]
 
 
 @torch.no_grad()
 def update_qstate(params: Any, qstate: Any, lam,
-                  momentum: float = 0.9) -> Any:
+                  momentum: float = 0.9,
+                  shards: Optional[Shards] = None) -> Any:
     """One EMA step of the per-tensor cluster probabilities (one ECL
-    iteration per training step), every tensor in one grouped call."""
+    iteration per training step), every tensor in one grouped call; with
+    ``shards`` each segment's code counts summed over the ranks that hold
+    its blocks first."""
+    axes, mesh = _shard_axes(params, shards)
+
     def f(nodes, qss):
-        return [{"probs": ecl.update_probs(q["probs"], c, momentum)}
-                for q, c in zip(qss, _assign_leaves(nodes, qss, lam))]
+        codes = _assign_leaves(nodes, qss, lam, axes, mesh)
+        counts = [ecl.code_counts(c, q["probs"].ndim - 1)
+                  for c, q in zip(codes, qss)]
+        if axes is not None:
+            counts = _sum_over(counts, axes, mesh)
+        return [{"probs": ecl.update_probs(q["probs"], None, momentum, n)}
+                for q, n in zip(qss, counts)]
     return _map_quant_many(f, params, qstate)
 
 
 @torch.no_grad()
-def quantize_tree(params: Any, qstate: Any, lam) -> Any:
+def quantize_tree(params: Any, qstate: Any, lam,
+                  shards: Optional[Shards] = None) -> Any:
     """Replace each quantized leaf with ``{"codes", "omega"}`` (every leaf
     assigned in one grouped call); other leaves are kept."""
+    axes, mesh = _shard_axes(params, shards)
+
     def f(nodes, qss):
         return [{"codes": c, "omega": n["omega"]}
-                for n, c in zip(nodes, _assign_leaves(nodes, qss, lam))]
+                for n, c in zip(nodes, _assign_leaves(nodes, qss, lam, axes,
+                                                      mesh))]
     return _map_quant_many(f, params, qstate, keep_params=True)
 
 
 @torch.no_grad()
-def freeze_tree(params: Any, qstate: Any, lam) -> Any:
+def freeze_tree(params: Any, qstate: Any, lam,
+                shards: Optional[Shards] = None) -> Any:
     """Serving form: every quantized leaf becomes ``{"packed", "omega"}``
     with row-pair-packed uint8 codes (4 bits a weight); other leaves are
     kept.  Every leaf is assigned in one grouped call: an L-stacked leaf
     with ω (L, 4) is L segments of it, so on the card the whole tree takes
-    ⌈segments / 32⌉ launches.  Contraction dims must be even."""
+    ⌈segments / 32⌉ launches.  Contraction dims must be even.  A rank's
+    blocks (``shards``) give the codes of those blocks of the whole
+    tree's freeze."""
+    axes, mesh = _shard_axes(params, shards)
+
     def f(nodes, qss):
         return [{"packed": bitplanes.pack_codes_rows(c),
                  "omega": n["omega"].to(torch.float32)}
-                for n, c in zip(nodes, _assign_leaves(nodes, qss, lam))]
+                for n, c in zip(nodes, _assign_leaves(nodes, qss, lam, axes,
+                                                      mesh))]
     return _map_quant_many(f, params, qstate, keep_params=True)
 
 

@@ -17,8 +17,12 @@ devices and reads XLA's analyses.  Here, per cell:
      traffic, no fusion), ``memory`` (``argument_bytes``,
      ``output_bytes``, ``temp_bytes``: the peak of the storages made
      inside the step, ``generated_code_bytes`` 0) and ``collectives`` (the
-     shape-only mesh's per-class operand bytes).  A failing cell is
-     recorded with its traceback, never skipped.
+     shape-only mesh's per-class operand bytes); beside them the port's
+     ``model_axis_collectives`` (those of the exchanges over 'model': the
+     tensor-parallel all-reduces and gathers, the counterpart of the
+     reference's ``roofline.collective_bytes``) and ``layout`` (the
+     bundle's, ``steps.layout_name``).  A failing cell is recorded with
+     its traceback, never skipped.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k
@@ -74,6 +78,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 "generated_code_bytes": 0,
             },
             "collectives": res["collectives"],
+            "model_axis_collectives": mesh.bytes_over("model"),
+            "layout": bundle.describe()["layout"],
             "ops": res["ops"],
             "kernels": res["kernels"],
             "step_kw": {k: str(v) for k, v in step_kw.items()},

@@ -124,6 +124,9 @@ class Mesh(MeshSpec):
         self.backend = dist.get_backend() if initialized else None
         self.stage_host = (self.backend == "gloo"
                            and self.device.type == "cuda")
+        # bytes this rank put into each (collective, axes), forward and
+        # backward alike
+        self.traffic: Dict[Tuple[str, Tuple[str, ...]], int] = {}
         # one group per (axis subset, slice): made on every rank in the
         # same order, kept where this rank belongs
         self._groups: Dict[Tuple[str, ...], Any] = {}
@@ -170,6 +173,10 @@ class Mesh(MeshSpec):
 
     def _staged(self, t: torch.Tensor) -> torch.Tensor:
         return t.cpu() if self.stage_host else t
+
+    def _count(self, kind: str, key, t: torch.Tensor) -> None:
+        k = (kind, tuple(key))
+        self.traffic[k] = self.traffic.get(k, 0) + t.numel() * t.element_size()
 
     def all_gather(self, t: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
         """Every slice's ``t`` along ``axes``, concatenated on ``dim`` in
@@ -231,17 +238,20 @@ class Mesh(MeshSpec):
                 ) -> torch.Tensor:
         if self.axis_size(key) == 1:
             return t.clone()
+        self._count("all-reduce", key, t)
         out = self._staged(t.contiguous()).clone()
         dist.all_reduce(out, op=op, group=self.group(key))
         return out.to(t.device)
 
     def _gather(self, t: torch.Tensor, key, dim: int) -> torch.Tensor:
+        self._count("all-gather", key, t)
         src = self._staged(t.contiguous())
         parts = [torch.empty_like(src) for _ in range(self.axis_size(key))]
         dist.all_gather(parts, src, group=self.group(key))
         return torch.cat(parts, dim=dim).to(t.device)
 
     def _exchange(self, t: torch.Tensor, key) -> torch.Tensor:
+        self._count("all-to-all", key, t)
         src = self._staged(t.contiguous())
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self.group(key))
@@ -376,6 +386,15 @@ class ShapeMesh(MeshSpec):
         self.collectives = {k: 0 for k in self.CLASSES}
         self.collectives["count"] = 0
         self.calls: list = []          # (class, axes, bytes) in order
+
+    def bytes_over(self, axis: str) -> dict:
+        """Per class, the bytes of the exchanges whose axes include
+        ``axis``."""
+        out = {k: 0 for k in self.CLASSES}
+        for kind, key, nbytes in self.calls:
+            if axis in key:
+                out[kind] += nbytes
+        return out
 
     _key = Mesh._key
     axis_size = Mesh.axis_size

@@ -14,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import json
 import os
 import time
 from typing import Optional, Sequence
@@ -332,12 +333,62 @@ def collective_grads(xs: Sequence[np.ndarray], rs: Sequence[np.ndarray],
 def digest(t: torch.Tensor) -> tuple:
     """Two int64 sums over ``t``'s bits (plain and position-weighted):
     equal for bitwise equal tensors, a cheap proxy across processes."""
+    return tuple(int(v) for v in _digest_parts(t))
+
+
+def _digest_parts(t: torch.Tensor, spec: tuple = (), mesh=None
+                  ) -> torch.Tensor:
+    """:func:`digest` as an int64 tensor (2,); of a block of a larger
+    tensor (this rank's under ``spec`` over ``mesh``) its share of the
+    whole tensor's digest: each element weighted by its position in the
+    whole, so that the shares' sums (mod 2**64) are the whole's digest."""
     views = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
-    flat = t.detach().reshape(-1)
-    flat = flat.view(views[flat.element_size()]).to(torch.int64)
-    pos = torch.arange(flat.numel(), dtype=torch.int64,
-                       device=flat.device) % 1_000_003 + 1
-    return int(flat.sum()), int((flat * pos).sum())
+    x = t.detach()
+    flat = x.reshape(-1).view(views[x.element_size()]).to(torch.int64)
+    if not any(a is not None for a in spec):
+        pos = torch.arange(flat.numel(), dtype=torch.int64, device=x.device)
+    else:
+        sizes = [n * (1 if a is None else mesh.axis_size(a))
+                 for n, a in zip(x.shape, spec)]
+        pos = torch.zeros((), dtype=torch.int64, device=x.device)
+        stride = 1
+        for d in reversed(range(x.ndim)):
+            a = spec[d]
+            first = 0 if a is None else mesh.axis_index(a) * x.shape[d]
+            idx = torch.arange(first, first + x.shape[d], dtype=torch.int64,
+                               device=x.device) * stride
+            pos = pos + idx.view((-1,) + (1,) * (x.ndim - 1 - d))
+            stride *= sizes[d]
+        pos = pos.reshape(-1)
+    pos = pos % 1_000_003 + 1
+    return torch.stack([flat.sum(), (flat * pos).sum()])
+
+
+def whole_digests(tree_, specs, mesh) -> dict:
+    """:func:`digest` by leaf name of the whole tree whose blocks under
+    ``specs`` (a tree like ``tree_``; None: every leaf whole) this rank
+    holds, from each block's share summed over the axes it is cut over
+    (one all-reduce of int64 a group of leaves cut alike): every rank
+    gets the whole tree's digests without gathering it.  Collective."""
+    from ..runtime.sharding import spec_axes
+    from ..tree import map_
+    if specs is None:
+        return {n: digest(t) for n, t in named_leaves(tree_)}
+    parts = named_leaves(map_(lambda t, sp: _digest_parts(t, sp, mesh),
+                              tree_, specs))
+    names, vals = [n for n, _ in parts], [v for _, v in parts]
+    axes = [a for _, a in named_leaves(map_(lambda t, sp: spec_axes(sp),
+                                            tree_, specs))]
+    groups = {}
+    for i, a in enumerate(axes):
+        if a:
+            groups.setdefault(tuple(x for x in mesh.axis_names if x in a),
+                              []).append(i)
+    for a, idx in groups.items():
+        summed = mesh.all_reduce(torch.stack([vals[i] for i in idx]), a)
+        for j, i in enumerate(idx):
+            vals[i] = summed[j]
+    return {n: tuple(int(x) for x in v) for n, v in zip(names, vals)}
 
 
 def named_leaves(tree_, prefix: str = "") -> list:
@@ -351,24 +402,33 @@ def named_leaves(tree_, prefix: str = "") -> list:
     return [(prefix, tree_)]
 
 
-def _train_state0(cfg, dev, params, qstate, seed):
+def _train_state0(cfg, dev, params, qstate, seed, mesh=None):
+    """(params, qstate, layout): this rank's initial state from ``params``
+    / ``qstate`` (numpy, whole) or ``lm_init(cfg, seed)``, cut to its
+    blocks under the tensor-parallel layout (``layout`` then
+    ``T.tp_specs``, else None)."""
     from ..core import qat as Q
+    from ..runtime.sharding import shard_tree
+    specs = T.tp_specs(cfg, mesh)
     if params is None:
-        p = T.lm_init(cfg, seed=seed, device=dev)
-        return p, Q.build_qstate(p)
-    return (lm_tree_from_numpy(params, device=dev),
-            lm_tree_from_numpy(qstate, device=dev))
+        p = T.lm_init(cfg, seed=seed, device=dev, mesh=mesh)
+        return p, Q.build_qstate(p), specs
+    p = lm_tree_from_numpy(params, device=dev)
+    if specs is not None:
+        p = shard_tree(p, specs, mesh)
+    return p, lm_tree_from_numpy(qstate, device=dev), specs
 
 
-def reduced_bytes(params, mesh, compress=None) -> int:
+def reduced_bytes(params, mesh, compress=None, specs=None) -> int:
     """Bytes one step all-reduces over ``mesh`` (each call's buffer once):
     fp32 sums, or with ``compress`` an eligible leaf's int32 codes (the
-    int8 wire is int32, as the reference's psum) and its scale's max."""
+    int8 wire is int32, as the reference's psum) and its scale's max.
+    ``params`` this rank's leaves, ``specs`` their layout."""
     from .. import tree
     from ..runtime.sharding import replica_axes
     total = 0
-    for g, a in zip(tree.leaves(params), tree.leaves(replica_axes(params,
-                                                                   mesh))):
+    for g, a in zip(tree.leaves(params), tree.leaves(replica_axes(
+            params, mesh, specs))):
         if not a or mesh.axis_size(a) == 1:
             continue
         total += 4 * g.numel()
@@ -376,6 +436,61 @@ def reduced_bytes(params, mesh, compress=None) -> int:
                 and g.numel() >= compress.min_size:
             total += 4
     return total
+
+
+def whole_tree(tree_, specs, mesh):
+    """``tree_`` (this rank's blocks of params-shaped leaves, under
+    ``specs``; any tree when ``specs`` is None) gathered over 'model' into
+    the whole tree (collective: every rank calls it)."""
+    from ..runtime.sharding import gather_tree
+    return tree_ if specs is None else gather_tree(tree_, specs, mesh)
+
+
+def _int8_local_step(loss_fn, adam_cfg, lam, gcfg, mesh, specs):
+    """The mesh's train step with its int8 gradients replaced by the
+    single-device round trip (``compress_grads(mesh=None)``) of its exact
+    gradient, each leaf whole: what the mesh's int8 path gives bit for bit
+    when every data rank holds the same rows (each eligible leaf's
+    ``n·h``, ``h`` summed over its other replica axes; an ineligible leaf
+    summed exactly)."""
+    from .. import tree
+    from ..optim import adam, ec4t
+    from ..optim.grad_compress import (compress_grads, mesh_data_axes,
+                                       split_axes)
+    from ..runtime.sharding import replica_axes, shard_tree
+    data = mesh_data_axes(mesh, gcfg)
+
+    def step(state, batch):
+        p, qs = state["params"], state["qstate"]
+        metrics, g = ec4t.local_grads(loss_fn, p, qs, batch, lam, mesh)
+        axes = replica_axes(p, mesh, specs)
+
+        @torch.no_grad()
+        def exact(gl, e, a):
+            d, o = split_axes(mesh, data, a)
+            h = mesh.all_reduce(gl, o) if o else gl
+            if e.ndim == 0:
+                return mesh.all_reduce(h, d) if d else h
+            return h * mesh.axis_size(d)
+        g = tree.map_(exact, g, state["err"], axes)
+        # the round trip of each whole leaf (its scale the whole tensor's),
+        # then this rank's blocks of it
+        cut = None if specs is None else tree.map_(
+            lambda t, sp: sp if t.ndim else (), state["err"], specs)
+        g, err = compress_grads(whole_tree(g, specs, mesh),
+                                whole_tree(state["err"], cut, mesh), gcfg)
+        if specs is not None:
+            g, err = shard_tree(g, specs, mesh), shard_tree(err, cut, mesh)
+        new_p, opt, om = adam.apply(p, g, state["opt"], adam_cfg,
+                                    gnorm=ec4t.global_norm(g, axes, mesh))
+        new_qs = qat.update_qstate(
+            new_p, qs, lam, shards=None if specs is None
+            else qat.Shards(mesh, specs))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(om)
+        return {"params": new_p, "opt": opt, "qstate": new_qs,
+                "err": err}, metrics
+    return step
 
 
 def dump(tree_, path: str) -> None:
@@ -388,20 +503,60 @@ def dump(tree_, path: str) -> None:
                              + ".npy"), t.detach().cpu().numpy())
 
 
+def dump_blocks(tree_, specs, mesh, path: str) -> None:
+    """The whole of ``tree_`` (this rank's blocks under ``specs`` over
+    ``mesh``, cut over 'model' only; None: whole leaves) for
+    :func:`load_dump`: the ranks of data index 0 each write their blocks
+    to ``path/part<model index>``, rank 0 the dim each leaf is cut on to
+    ``path/cuts.json``; nothing is gathered.  Collective in effect: every
+    rank calls it (the parent reads after all return)."""
+    if specs is None:
+        if mesh.rank == 0:
+            dump(tree_, path)
+        return
+    data = mesh.data_axes
+    if mesh.axis_size(data) > 1 and mesh.axis_index(data) != 0:
+        return
+    dump(tree_, os.path.join(path, f"part{mesh.axis_index('model')}"))
+    if mesh.axis_index("model") == 0:
+        from ..tree import map_
+        cuts = dict(named_leaves(map_(
+            lambda t, sp: next((d for d, a in enumerate(sp)
+                                if a is not None), -1), tree_, specs)))
+        with open(os.path.join(path, "cuts.json"), "w") as f:
+            json.dump({"parts": mesh.axis_size("model"), "cuts": cuts}, f)
+
+
 def load_dump(path: str) -> dict:
-    """:func:`dump`'s leaves by name (``/a/b``)."""
-    return {"/" + f[:-4].replace(".", "/"): np.load(os.path.join(path, f))
-            for f in sorted(os.listdir(path))}
+    """:func:`dump`'s leaves by name (``/a/b``); of a :func:`dump_blocks`
+    directory the whole leaves, each put together from its parts."""
+    def one(d):
+        return {"/" + f[:-4].replace(".", "/"): np.load(os.path.join(d, f))
+                for f in sorted(os.listdir(d)) if f.endswith(".npy")}
+    meta = os.path.join(path, "cuts.json")
+    if not os.path.exists(meta):
+        return one(path)
+    with open(meta) as f:
+        info = json.load(f)
+    parts = [one(os.path.join(path, f"part{i}"))
+             for i in range(info["parts"])]
+    out = {}
+    for name, whole in parts[0].items():
+        cut = info["cuts"][name]
+        out[name] = np.concatenate([p[name] for p in parts], axis=cut) \
+            if cut >= 0 else whole
+    return out
 
 
 def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
              runs: Sequence[dict] = ({},), params=None, qstate=None,
              seed: int = 0, lr: float = 1e-3, grads: bool = False,
              compress_check=None, out_dir: Optional[str] = None) -> dict:
-    """One rank of data-parallel EC4T training over the mesh: the state
-    from ``params`` / ``qstate`` (numpy) or ``lm_init(cfg, seed)`` on this
-    rank's device, this rank's rows of each global batch of ``batches``
-    through ``ShardedFeed(mesh=)``.
+    """One rank of EC4T training over the mesh: the state from ``params``
+    / ``qstate`` (numpy) or ``lm_init(cfg, seed)`` on this rank's device
+    (its blocks under the dense family's tensor-parallel layout), this
+    rank's rows of each global batch of ``batches`` through
+    ``ShardedFeed(mesh=)``.
 
     ``grads``: the gradients at the initial state on ``batches[0]`` (fp32,
     summed over each leaf's replicas; rank 0 dumps them to
@@ -411,26 +566,35 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
     leaf (``exact``: the mean of the data ranks' ``n·h + e``, ``e = 0``).
     ``runs``: each a dict of ``build_train_step`` keywords (``zero1``,
     ``compress``, ``remat``, ``use_ep``, ``dtype``) with ``steps`` (default
-    all batches), ``batches`` (its own, else ``batches``) and ``state``
-    (rank 0 dumps the final params to ``out_dir/run<i>``), each from the
-    initial state.  Per run: metrics a step, ecl_quant launches a
-    step, ms a step, peak memory, the bytes all-reduced a step, the
-    digests of the final params, probabilities, error feedback (this
-    rank's own) and moments (not with ZeRO-1), and ``block_digests``:
-    those of the moments of this rank's ZeRO-1 blocks, whole moments cut
-    or ZeRO-1's own."""
+    all batches), ``batches`` (its own, else ``batches``), ``state``
+    (rank 0 dumps the final params to ``out_dir/run<i>``) and
+    ``int8_local`` (with ``compress``: the step whose int8 gradients are
+    the single-device round trip of the exact ones,
+    :func:`_int8_local_step`) and ``probs_check`` (``probs_bitwise``: the
+    last step's probabilities equal one process's ``update_qstate`` of the
+    whole new params), each from the initial state.  Per run:
+    metrics a step, ecl_quant launches a step, ms a step, peak memory,
+    the bytes all-reduced a step (``reduced_bytes``, and ``model_bytes``:
+    over 'model', counted by the mesh), the digests of the final params,
+    probabilities, error feedback (this rank's own) and moments (not with
+    ZeRO-1), and ``block_digests``: those of the moments of this rank's
+    ZeRO-1 blocks, whole moments cut or ZeRO-1's own.  Every digest and
+    dump is of the whole tree (:func:`whole_digests`, :func:`dump_blocks`:
+    a rank's blocks are the whole tree's, nothing gathered)."""
     from .. import tree
     from ..data.pipeline import ShardedFeed
     from ..optim import adam, ec4t
-    from ..optim.grad_compress import (compress_grads, mesh_data_axes,
+    from ..optim.grad_compress import (compress_grads, cut_axes,
+                                       init_error_state, mesh_data_axes,
                                        split_axes)
     from ..runtime.sharding import replica_axes, shard_slice, zero1_specs
     from . import steps as S
     dev = default_device()
     mesh = make_mesh(mesh_shape, device=dev)
     t0 = time.perf_counter()
-    p0, q0 = _train_state0(cfg, dev, params, qstate, seed)
-    out = {"rank": mesh.rank, "runs": [], "s": {}}
+    p0, q0, lay = _train_state0(cfg, dev, params, qstate, seed, mesh)
+    out = {"rank": mesh.rank, "runs": [], "s": {},
+           "layout": S.layout_name(cfg, mesh)}
     out["s"]["init"] = time.perf_counter() - t0
     if grads or compress_check is not None:
         t0 = time.perf_counter()
@@ -439,20 +603,17 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
         feed.close()
         loss_fn = S._loss_fn(cfg, mesh, remat="none", dtype=torch.float32)
         metrics, g = ec4t.local_grads(loss_fn, p0, q0, batch, cfg.lam, mesh)
-        axes = replica_axes(p0, mesh)
+        axes = replica_axes(p0, mesh, lay)
         exact = ec4t.reduce_grads(g, axes, mesh)
         out["grad_metrics"] = {k: float(v.detach())
                                for k, v in metrics.items()}
-        out["grad_digests"] = {n: digest(t) for n, t in named_leaves(exact)}
-        if grads and mesh.rank == 0:
-            dump(exact, os.path.join(out_dir, "grads"))
+        out["grad_digests"] = whole_digests(exact, lay, mesh)
+        if grads:
+            dump_blocks(exact, lay, mesh, os.path.join(out_dir, "grads"))
         out["s"]["grads"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         if compress_check is not None:
-            err = tree.map_(lambda t: torch.zeros((), device=dev)
-                            if t.numel() < compress_check.min_size
-                            or not t.is_floating_point()
-                            else torch.zeros_like(t, dtype=torch.float32), g)
+            err = init_error_state(g, compress_check, mesh=mesh, specs=lay)
             deq, _ = compress_grads(g, err, compress_check, mesh=mesh,
                                     axes=axes)
             data = mesh_data_axes(mesh, compress_check)
@@ -467,13 +628,14 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
                 h = mesh.all_reduce(gl, o) if o else gl
                 with torch.no_grad():
                     amax = torch.max(torch.abs(h * mesh.axis_size(d)))
-                    if d:
-                        amax = mesh.all_reduce(amax, d, op="max")
+                    over = d + cut_axes(mesh, a)
+                    if over:
+                        amax = mesh.all_reduce(amax, over, op="max")
                 half = (amax / 127.0 + 1e-12) / 2
                 worst = max(worst, float(torch.max(torch.abs(dl - xl))
                                          / half))
             out["int8_err_over_half_scale"] = worst
-            out["int8_digests"] = {n: digest(t) for n, t in named_leaves(deq)}
+            out["int8_digests"] = whole_digests(deq, lay, mesh)
             del deq, err
         del g, exact, metrics
         out["s"]["int8_check"] = time.perf_counter() - t0
@@ -483,17 +645,25 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
         data = spec.pop("batches", batches)
         n_steps = spec.pop("steps", len(data))
         keep = spec.pop("state", False)
+        local_int8 = spec.pop("int8_local", False)
+        probs_check = spec.pop("probs_check", False)
         zero1 = spec.get("zero1", False)
         kw = dict(remat="none", use_ep=True, zero1=False,
                   dtype=torch.float32)
         kw.update(spec)
-        bundle = S.build_train_step(cfg, mesh,
-                                    adam_cfg=adam.AdamConfig(lr=lr), **kw)
+        acfg = adam.AdamConfig(lr=lr)
+        bundle = S.build_train_step(cfg, mesh, adam_cfg=acfg, **kw)
         step = bundle.fn
+        if local_int8:
+            step = _int8_local_step(
+                S._loss_fn(cfg, mesh, kw["use_ep"], kw["remat"],
+                           kw["dtype"]), acfg, cfg.lam, kw["compress"],
+                mesh, lay)
         state = bundle.init_state(p0)
         state["qstate"] = q0
         feed = ShardedFeed(lambda s: data[s], mesh=mesh)
-        rec = {"metrics": [], "ecl_launches": [], "ms": []}
+        rec = {"metrics": [], "ecl_launches": [], "ms": [],
+               "model_bytes": []}
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -502,31 +672,51 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
             _sync(dev)
             if dist.is_initialized():
                 dist.barrier()
+            qs_before = state["qstate"]
             eq.LAUNCHES = 0
+            traffic = dict(getattr(mesh, "traffic", {}))
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
             _sync(dev)
             rec["ms"].append((time.perf_counter() - t0) * 1e3)
             rec["ecl_launches"].append(eq.LAUNCHES)
+            rec["model_bytes"].append(model_bytes(mesh, traffic))
             rec["metrics"].append({k: float(v) for k, v in metrics.items()})
         feed.close()
         rec["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                              if dev.type == "cuda" else None)
-        rec["reduced_bytes"] = reduced_bytes(p0, mesh, kw.get("compress"))
+        if probs_check:
+            # the last step's probability update, run by one process on
+            # the whole new params: bitwise the ranks' (exact counts)
+            one = qat.update_qstate(whole_tree(state["params"], lay, mesh),
+                                    qs_before, cfg.lam)
+            rec["probs_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(one),
+                                                  tree.leaves(
+                                                      state["qstate"])))
+            del one
+        rec["reduced_bytes"] = reduced_bytes(p0, mesh, kw.get("compress"),
+                                             lay)
         final = {"params": state["params"], "qstate": state["qstate"]}
         if "err" in state:
             final["err"] = state["err"]
         if not zero1:
             final["opt"] = {k: state["opt"][k] for k in ("m", "v")}
-        rec["digests"] = {n: digest(t) for n, t in named_leaves(final)}
+        fspecs = None if lay is None else {   # the probabilities whole
+            k: tree.map_(lambda t: (None,) * t.ndim, v) if k == "qstate"
+            else {"m": lay, "v": lay} if k == "opt"
+            else tree.map_(lambda t, sp: sp if t.ndim else (), v, lay)
+            for k, v in final.items()}
+        rec["digests"] = whole_digests(final, fspecs, mesh)
         # the moments of this rank's ZeRO-1 blocks, either way
-        specs = zero1_specs(p0, mesh)
+        specs = zero1_specs(p0, mesh, lay)
         rec["block_digests"] = {n: digest(t) for n, t in named_leaves({
             k: state["opt"][k] if zero1 else tree.map_(
                 lambda t, spec: shard_slice(t, spec, mesh),
                 state["opt"][k], specs) for k in ("m", "v")})}
-        if keep and mesh.rank == 0:
-            dump(state["params"], os.path.join(out_dir, f"run{i}"))
+        if keep:
+            dump_blocks(final["params"], lay, mesh,
+                        os.path.join(out_dir, f"run{i}"))
         del state, final
         rec["s"] = time.perf_counter() - t_run
         out["runs"].append(rec)
@@ -534,6 +724,14 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
     if dev.type == "cuda":      # the next task's ranks get the card back
         torch.cuda.empty_cache()
     return out
+
+
+def model_bytes(mesh, before: dict) -> int:
+    """Bytes this rank's mesh sent into all-reduces over 'model' since
+    ``before`` (a copy of ``mesh.traffic``)."""
+    traffic = getattr(mesh, "traffic", {})
+    key = ("all-reduce", ("model",))
+    return traffic.get(key, 0) - before.get(key, 0)
 
 
 def int8_feedback(shape: tuple, steps: int, seed: int, mesh_shape: tuple,
@@ -742,4 +940,178 @@ def pp_apply(ws: np.ndarray, x: np.ndarray, r: np.ndarray, *,
         if iters:
             rec["ms"] = _ms(run, iters, dev)
         out.append(rec)
+    return out
+
+
+# ------------------------------------------------ tensor parallelism
+
+def _tp_mesh(cfg, mesh_shape: tuple):
+    from ..runtime.sharding import tensor_parallel
+    mesh = make_mesh(mesh_shape, device=default_device())
+    if not tensor_parallel(cfg, mesh):
+        raise ValueError(f"{cfg.name} over {mesh_shape} is not tensor "
+                         "parallel")
+    return mesh
+
+
+def tp_forward(cfg, params, tokens: np.ndarray, mesh_shape: tuple, *,
+               embeds: Optional[np.ndarray] = None) -> dict:
+    """``lm_apply`` in fp32 of this rank's part of ``params`` (a whole
+    numpy tree, cut to the rank's blocks by ``convert.shard_from_numpy``
+    under the port's layout) on every row of ``tokens`` (or ``embeds``):
+    the logits gathered over 'model' where they are a vocabulary block
+    (numpy), and whether the attention ran sequence-parallel."""
+    from ..convert import shard_from_numpy
+    from ..runtime.sharding import layout_specs
+    mesh = make_mesh(mesh_shape, device=default_device())
+    p = shard_from_numpy(params, layout_specs(params, cfg, mesh), mesh,
+                         device=mesh.device)
+    x = tokens if embeds is None else embeds
+    on = lambda a: None if a is None else torch.from_numpy(a).to(mesh.device)
+    with torch.no_grad():
+        logits, _, _ = T.lm_apply(p, 0, on(tokens), FP32_CTX, cfg,
+                                  embeds=on(embeds), mesh=mesh)
+        whole = logits if logits.shape[-1] == cfg.padded_vocab else \
+            mesh.all_gather(logits, "model", dim=-1)
+    return {"logits": whole.cpu().numpy(),
+            "local_vocab": int(logits.shape[-1]),
+            "reshard": T._attn_batch_reshard(cfg, mesh, x.shape[1])}
+
+
+def tp_serve(cfg, frozen, prompt: np.ndarray, max_new: int,
+             mesh_shape: tuple) -> dict:
+    """Greedy generation over the mesh from this rank's blocks of the
+    frozen tree ``frozen`` (whole, numpy) in fp32 (:func:`serve_timed` on
+    this rank's rows): every row's tokens (gathered over the data axes),
+    ``generate(mesh=)``'s, and this rank's final cache (numpy)."""
+    from ..convert import shard_from_numpy
+    from ..runtime.sharding import layout_specs
+    mesh = _tp_mesh(cfg, mesh_shape)
+    p = shard_from_numpy(frozen, layout_specs(frozen, cfg, mesh), mesh,
+                         device=mesh.device)
+    whole = torch.from_numpy(prompt).to(mesh.device)
+    rows = LM.batch_rows(mesh, whole.shape[0])
+    out, cache = serve_timed(p, whole if rows is None else whole[rows], cfg,
+                             FP32_CTX, max_new, 1, mesh)
+    toks = torch.from_numpy(out["tokens"]).to(mesh.device)
+    if rows is not None:
+        toks = mesh.all_gather(toks, mesh.data_axes, dim=0)
+    gen = LM.generate(p, 0, whole, FP32_CTX, cfg, max_new=max_new,
+                      mesh=mesh)
+    return {"tokens": toks.cpu().numpy(), "generate": gen.cpu().numpy(),
+            "cache": tree_to_numpy(cache), "coords": dict(mesh.coords)}
+
+
+def tp_blocks(cfg, seed: int, mesh_shape: tuple) -> dict:
+    """What this rank holds of ``lm_init(cfg, seed, mesh=)`` and of its
+    ZeRO-1 train state: each leaf's name, shape and values (numpy), its
+    Adam moments' shapes, and its blocks frozen (numpy)."""
+    from . import steps as S
+    mesh = _tp_mesh(cfg, mesh_shape)
+    p = T.lm_init(cfg, seed=seed, device=mesh.device, mesh=mesh)
+    state = S.build_train_step(cfg, mesh, remat="none").init_state(p)
+    frozen = qat.freeze_tree(p, state["qstate"], cfg.lam,
+                             shards=qat.Shards(mesh, T.tp_specs(cfg, mesh)))
+    return {"params": {n: t.cpu().numpy() for n, t in named_leaves(p)},
+            "m": {n: tuple(t.shape)
+                  for n, t in named_leaves(state["opt"]["m"])},
+            "frozen": tree_to_numpy(frozen), "coords": dict(mesh.coords)}
+
+
+def row_parallel_linear(x: np.ndarray, w: np.ndarray, b: np.ndarray,
+                        mesh_shape: tuple) -> dict:
+    """``nn.layers.linear_row_parallel`` of this rank's rows of ``w`` (its
+    block of ``x``'s columns) with the replicated bias ``b``: the summed
+    output (numpy)."""
+    from ..nn.layers import linear_row_parallel
+    mesh = make_mesh(mesh_shape, device=default_device())
+    n = w.shape[0] // mesh.axis_size("model")
+    i = mesh.axis_index("model")
+    p = {"kernel": torch.from_numpy(w[i * n:(i + 1) * n].copy()),
+         "bias": torch.from_numpy(b)}
+    y = linear_row_parallel(p, 0, torch.from_numpy(
+        x[..., i * n:(i + 1) * n].copy()), FP32_CTX, mesh)
+    return {"y": y.numpy()}
+
+
+def serve_timed(params, prompt: torch.Tensor, cfg, ctx, max_new: int,
+                tail: int, mesh=None) -> dict:
+    """Greedy generation as ``models.lm.generate`` runs it (this rank's
+    rows and, under the tensor-parallel layout, its blocks and KV heads),
+    timed on the host clock (synchronised): the tokens (B, max_new), the
+    prefill's last ``tail`` positions' logits (gathered over 'model';
+    numpy), prefill ms, each decode step's ms and the cache's bytes; and
+    the final cache."""
+    dev = prompt.device
+    b, s = prompt.shape
+    cache = T.init_cache(cfg, b, s + max_new, dtype=torch.float32,
+                         device=dev, mesh=mesh)
+    kv = sum(t.numel() * t.element_size()
+             for n, t in named_leaves(cache) if n.endswith(("/k", "/v")))
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    with torch.no_grad():
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache, _ = T.lm_apply(params, 0, prompt, ctx, cfg,
+                                      positions=pos, cache=cache, mesh=mesh)
+        nxt = LM.next_token(logits, cfg, mesh)
+        _sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        last = logits[:, -tail:]
+        if last.shape[-1] != cfg.padded_vocab:
+            last = mesh.all_gather(last, "model", dim=-1)
+        out, steps = [nxt], []
+        for t in range(max_new - 1):
+            p_t = torch.full((b, 1), s + t, dtype=torch.int32, device=dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            nxt, cache = LM.greedy_step(params, 0, nxt, ctx, cfg,
+                                        positions=p_t, cache=cache,
+                                        mesh=mesh)
+            _sync(dev)
+            steps.append((time.perf_counter() - t0) * 1e3)
+            out.append(nxt)
+    return {"tokens": torch.cat(out, dim=1).cpu().numpy(),
+            "tail_logits": last[..., :cfg.vocab].cpu().numpy(),
+            "prefill_ms": prefill_ms, "decode_ms": steps,
+            "kv_cache_bytes": kv}, cache
+
+
+def tp_serve_card(cfg, mesh_shape: tuple, seed: int, prompt: np.ndarray,
+                  max_new: int, tail: int) -> dict:
+    """One tensor-parallel rank's serving path: ``lm_init(cfg, seed,
+    mesh=)`` (its blocks, the whole tree never held), its blocks frozen
+    (the probabilities' and mean(w²)'s sums over 'model'), then
+    :func:`serve_timed` in fp32 on every prompt row.  Returns the frozen
+    blocks' digests by leaf name, the freeze's ms and ecl_quant launches
+    (zeroed just before, read just after), the serve's results and the
+    rank's peak memory."""
+    dev = default_device()
+    mesh = _tp_mesh(cfg, mesh_shape)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    p = T.lm_init(cfg, seed=seed, device=dev, mesh=mesh)
+    qs = qat.build_qstate(p)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    shards = qat.Shards(mesh, T.tp_specs(cfg, mesh))
+    eq.LAUNCHES = 0
+    t0 = time.perf_counter()
+    frozen = qat.freeze_tree(p, qs, cfg.lam, shards=shards)
+    _sync(dev)
+    freeze_ms = (time.perf_counter() - t0) * 1e3
+    launches = eq.LAUNCHES
+    del p, qs
+    out, _ = serve_timed(frozen, torch.from_numpy(prompt).to(dev), cfg,
+                         FP32_CTX, max_new, tail, mesh)
+    out.update(digests={n: digest(t) for n, t in named_leaves(frozen)},
+               freeze_ms=freeze_ms, freeze_launches=launches,
+               init_s=init_s, coords=dict(mesh.coords),
+               peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None))
+    del frozen
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return out

@@ -10,11 +10,17 @@ built on first read) and the arguments it consumes (``donate``).  The reference 
 ``launch/op_analysis.py`` (the dry run, ``launch/dryrun.py``) or on real
 tensors of the same shapes (the card, the tests).
 
-The port's layout (``runtime/sharding.py``): every non-expert weight
-whole on each rank, the batch split over the data axes (every row on each
-rank when it does not divide, the reference's rule), and with expert
-parallelism (``use_ep``, the experts dividing the 'model' axis) each
-rank's share of the experts (``experts_held``, :func:`rank_cfg`).
+The port's layout (``runtime/sharding.py``): a dense-family arch over a
+'model' axis of more than one rank takes the reference's
+(``Rules.param_specs``: QKV and gate / up column-sharded, O and down
+row-sharded, the embedding and the head over the vocabulary, the KV
+cache over heads where they divide), and the bundle's specs and
+arguments are a rank's blocks; every other arch keeps each non-expert
+weight whole on each rank, and with expert parallelism (``use_ep``, the
+experts dividing the 'model' axis) each rank's share of the experts
+(``experts_held``, :func:`rank_cfg`).  The batch is split over the data
+axes (every row on each rank when it does not divide, the reference's
+rule).  :func:`layout_name` names the layout a bundle took.
 Serving steps run on the frozen tree (row-pair-packed 4-bit codes and ω,
 decoded where they are used) or, with ``serve_dtype="bf16"``, on plain
 bf16 weights, the reference's comparison point.
@@ -47,7 +53,8 @@ from ..nn.module import QuantCtx
 from ..nn.transformer import check_remat, check_supported
 from ..optim import adam, ec4t
 from ..optim.grad_compress import GradCompressCfg
-from ..runtime.sharding import Rules, zero1_specs
+from ..runtime import sharding
+from ..runtime.sharding import Rules
 from ..tree import map_
 from . import specs as specs_mod
 
@@ -63,6 +70,11 @@ class StepBundle:
     layout: Callable = dataclasses.field(repr=False)
     donate: tuple = ()
     init_state: Optional[Callable] = None     # train: params -> state
+    kind: str = "replicated"                  # the layout, layout_name's
+
+    def describe(self) -> dict:
+        return {"step": self.name, "layout": self.kind,
+                "donate": list(self.donate)}
 
     @functools.cached_property
     def _layout(self) -> tuple:
@@ -137,22 +149,24 @@ def _rank_rows(tree: Any, mesh, dim: int = 0) -> Any:
     return _batched(tree, cut, dim)
 
 
-def _layout_specs(params: Any, cfg: ArchConfig) -> Any:
-    """The port's layout of a parameter tree: each leaf whole on every rank
-    (replicated), a share's expert banks (``cfg.experts_held``) split over
-    'model' on their expert dim (dim 1 of the (L, E, ...) stack)."""
-    def walk(node, banks):
-        if isinstance(node, dict):
-            return {k: walk(v, banks or k == "experts")
-                    for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v, banks) for v in node)
-        out = [None] * node.ndim
-        if banks and node.ndim >= 2:
-            out[1] = "model"
-        return tuple(out)
-    return walk(params, False) if cfg.experts_held is not None else map_(
-        lambda t: (None,) * t.ndim, params)
+def layout_name(cfg: ArchConfig, mesh, use_ep: bool = True) -> str:
+    """The layout a bundle of ``cfg`` over ``mesh`` takes: ``"tensor
+    parallel"`` (the reference's ``Rules``), ``"expert parallel"`` (a
+    share of the experts a rank, the rest whole) or ``"replicated"``."""
+    if sharding.tensor_parallel(cfg, mesh):
+        return "tensor parallel"
+    if rank_cfg(cfg, mesh, use_ep).experts_held is not None:
+        return "expert parallel"
+    return "replicated"
+
+
+def _blocks(tree: Any, specs: Any, cfg: ArchConfig, mesh) -> Any:
+    """This rank's blocks of a whole (abstract) tree under the
+    tensor-parallel layout; any other layout's tree is already the rank's
+    (a share's banks are cut by ``rank_cfg``)."""
+    if not sharding.tensor_parallel(cfg, mesh):
+        return tree
+    return sharding.shard_tree(tree, specs, mesh)
 
 
 def _loss_fn(cfg: ArchConfig, mesh=None, use_ep: bool = True,
@@ -186,27 +200,32 @@ def build_train_step(cfg: ArchConfig, mesh, *,
     ``fn(state, batch)`` takes this rank's rows of the batch
     (``data.pipeline.ShardedFeed(mesh=)`` places them);
     ``init_state(params)`` builds the state ``fn`` takes."""
+    kind = layout_name(cfg, mesh, use_ep)
     cfg = rank_cfg(cfg, mesh, use_ep)
+    tp = T.tp_specs(cfg, mesh)
     step = ec4t.make_train_step(
         _loss_fn(cfg, mesh, use_ep, remat, dtype),
         adam_cfg or adam.AdamConfig(), lam=cfg.lam, compress=compress,
-        mesh=mesh, zero1=zero1)
+        mesh=mesh, zero1=zero1, specs=tp)
 
     def init_state(params) -> dict:
+        """The state of this rank's params (its blocks under the
+        tensor-parallel layout: ``lm_init(mesh=)`` or
+        ``runtime.sharding.shard_tree``)."""
         return ec4t.init_train_state(params, compress, mesh=mesh,
-                                     zero1=zero1)
+                                     zero1=zero1, specs=tp)
 
     def layout() -> tuple:
         a_params = specs_mod.abstract_params(cfg)
-        a_state = init_state(a_params)
+        p_specs = sharding.layout_specs(a_params, cfg, mesh)
+        a_state = init_state(_blocks(a_params, p_specs, cfg, mesh))
         g_batch = specs_mod.input_specs(cfg, shape_name)
         rules = make_rules(cfg, mesh)
-        p_specs = _layout_specs(a_params, cfg)
+        m_specs = sharding.opt_specs(a_params, mesh, p_specs) if zero1 \
+            else p_specs
         state_specs = {
             "params": p_specs,
-            "opt": {"m": zero1_specs(a_params, mesh) if zero1 else p_specs,
-                    "v": zero1_specs(a_params, mesh) if zero1 else p_specs,
-                    "step": ()},
+            "opt": {"m": m_specs, "v": m_specs, "step": ()},
             "qstate": rules.qstate_specs(a_state["qstate"]),
         }
         if "err" in a_state:
@@ -214,7 +233,7 @@ def build_train_step(cfg: ArchConfig, mesh, *,
         return ((state_specs, rules.batch_specs(g_batch)),
                 (state_specs, None), (a_state, _rank_rows(g_batch, mesh)))
     return StepBundle("train", step, layout, donate=(0,),
-                      init_state=init_state)
+                      init_state=init_state, kind=kind)
 
 
 # -------------------------------------------------------------- serving
@@ -237,17 +256,34 @@ def _frozen_params(cfg: ArchConfig, serve_dtype: str = "packed4") -> Any:
     return qat.freeze_tree(a_params, qat.build_qstate(a_params), cfg.lam)
 
 
-def _cache_specs(rules: Rules, cache: Any) -> Any:
-    """A cache's layout: its batch dim (1) over the data axes, every other
-    dim whole (the port keeps attention heads whole on each rank)."""
+def _cache_specs(rules: Rules, cache: Any, cfg: ArchConfig = None,
+                 mesh=None) -> Any:
+    """A cache's layout: its batch dim (1) over the data axes; under the
+    tensor-parallel layout the reference's ``Rules.cache_specs`` (the KV
+    heads over 'model' where they divide), else every other dim whole."""
+    if sharding.tensor_parallel(cfg, mesh):
+        return rules.cache_specs(cache)
+
     def spec(t):
         return (None, rules.batch_spec(1, t.shape[1])[0]) + \
             (None,) * (t.ndim - 2)
     return _batched(cache, spec, 1, lambda t: (None,) * t.ndim)
 
 
-def _next_token(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(torch.int32)
+def _next_token(logits: torch.Tensor, cfg: ArchConfig,
+                mesh=None) -> torch.Tensor:
+    return lm_model.next_token(logits, cfg, mesh)
+
+
+def _rank_cache(cache: Any, cfg: ArchConfig, mesh, rules: Rules) -> Any:
+    """This rank's rows of a cache, and its KV heads under the
+    tensor-parallel layout."""
+    cache = _rank_rows(cache, mesh, dim=1)
+    if not sharding.tensor_parallel(cfg, mesh):
+        return cache
+    heads = map_(lambda _, s: tuple(a if a == "model" else None for a in s),
+                 cache, rules.cache_specs(cache))
+    return _blocks(cache, heads, cfg, mesh)
 
 
 def build_prefill_step(cfg: ArchConfig, mesh, *,
@@ -256,6 +292,7 @@ def build_prefill_step(cfg: ArchConfig, mesh, *,
                        serve_dtype: str = "packed4") -> StepBundle:
     """``fn(params, batch) -> (next token, cache[, cross K/V])`` of this
     rank's rows: the cache holds the cell's ``seq`` slots."""
+    kind = layout_name(cfg, mesh, use_ep)
     cfg = rank_cfg(cfg, mesh, use_ep)
     info = specs_mod.SHAPES[shape_name]
     b, s = info["batch"], info["seq"]
@@ -285,24 +322,28 @@ def build_prefill_step(cfg: ArchConfig, mesh, *,
         @torch.no_grad()
         def fn(params, batch):
             x = batch.get("tokens", batch.get("embeds"))
-            cache = T.init_cache(cfg, x.shape[0], s, device=x.device)
+            cache = T.init_cache(cfg, x.shape[0], s, device=x.device,
+                                 mesh=mesh)
             logits, cache, _ = T.lm_apply(
                 params, 0, batch.get("tokens"), ctx, cfg,
                 embeds=batch.get("embeds"), cache=cache, mesh=mesh,
                 use_ep=use_ep)
-            return _next_token(logits, cfg), cache
+            return _next_token(logits, cfg, mesh), cache
 
         def out_specs(rules):
             g_cache = T.init_cache(cfg, b, s, device=specs_mod.META)
-            return (rules.batch_spec(2, b), _cache_specs(rules, g_cache))
+            return (rules.batch_spec(2, b),
+                    _cache_specs(rules, g_cache, cfg, mesh))
 
     def layout() -> tuple:
         rules = make_rules(cfg, mesh)
         a_params = _frozen_params(cfg, serve_dtype)
         g_batch = specs_mod.input_specs(cfg, shape_name)
-        return ((_layout_specs(a_params, cfg), rules.batch_specs(g_batch)),
-                out_specs(rules), (a_params, _rank_rows(g_batch, mesh)))
-    return StepBundle("prefill", fn, layout)
+        p_specs = sharding.layout_specs(a_params, cfg, mesh)
+        return ((p_specs, rules.batch_specs(g_batch)),
+                out_specs(rules), (_blocks(a_params, p_specs, cfg, mesh),
+                                   _rank_rows(g_batch, mesh)))
+    return StepBundle("prefill", fn, layout, kind=kind)
 
 
 def build_decode_step(cfg: ArchConfig, mesh, *,
@@ -311,6 +352,7 @@ def build_decode_step(cfg: ArchConfig, mesh, *,
                       serve_dtype: str = "packed4") -> StepBundle:
     """``fn(params, batch) -> (next token, cache)``: one new token a row of
     this rank's rows against its cache (``batch["cache"]``, consumed)."""
+    kind = layout_name(cfg, mesh, use_ep)
     cfg = rank_cfg(cfg, mesh, use_ep)
     ctx = _ctx(cfg, quant=False)
 
@@ -328,25 +370,29 @@ def build_decode_step(cfg: ArchConfig, mesh, *,
                 params, 0, batch.get("tokens"), ctx, cfg,
                 embeds=batch.get("embeds"), positions=batch["positions"],
                 cache=batch["cache"], mesh=mesh, use_ep=use_ep)
-            return _next_token(logits, cfg), cache
+            return _next_token(logits, cfg, mesh), cache
 
     def layout() -> tuple:
         rules = make_rules(cfg, mesh)
         a_params = _frozen_params(cfg, serve_dtype)
         g_batch = specs_mod.input_specs(cfg, shape_name)
-        a_batch = {k: _rank_rows(v, mesh, dim=1 if k in ("cache", "cross_kv")
-                                 else 0) for k, v in g_batch.items()}
+        a_batch = {k: _rank_rows(v, mesh) for k, v in g_batch.items()
+                   if k not in ("cache", "cross_kv")}
+        for k in ("cache", "cross_kv"):
+            if k in g_batch:
+                a_batch[k] = _rank_cache(g_batch[k], cfg, mesh, rules)
         batch_specs = dict(rules.batch_specs(
             {k: v for k, v in g_batch.items()
              if k not in ("cache", "cross_kv")}))
         for k in ("cache", "cross_kv"):
             if k in g_batch:
-                batch_specs[k] = _cache_specs(rules, g_batch[k])
+                batch_specs[k] = _cache_specs(rules, g_batch[k], cfg, mesh)
         info = specs_mod.SHAPES[shape_name]
         out_specs = (rules.batch_spec(2, info["batch"]), batch_specs["cache"])
-        return ((_layout_specs(a_params, cfg), batch_specs), out_specs,
-                (a_params, a_batch))
-    return StepBundle("decode", fn, layout, donate=(1,))
+        p_specs = sharding.layout_specs(a_params, cfg, mesh)
+        return ((p_specs, batch_specs), out_specs,
+                (_blocks(a_params, p_specs, cfg, mesh), a_batch))
+    return StepBundle("decode", fn, layout, donate=(1,), kind=kind)
 
 
 BUILDERS = {"train": build_train_step, "prefill": build_prefill_step,

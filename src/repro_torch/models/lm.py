@@ -19,15 +19,20 @@ from ..nn.module import QuantCtx
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
             mask: Optional[torch.Tensor] = None, *,
-            mesh=None) -> torch.Tensor:
+            mesh=None, vocab_parallel: bool = False) -> torch.Tensor:
     """Token-mean cross entropy.  logits (B, S, Vp); labels (B, S) with
     ids < vocab; the padded-vocab columns were already masked to -1e30.
     Over a ``mesh`` whose data axes hold several ranks, the mean of the
     whole batch on every rank: ``Σ nll·mask`` and ``Σ mask`` summed over
     the data axes (the sum differentiably), not a mean of the ranks'
-    means."""
-    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(lp, -1, labels.to(torch.int64)[..., None])[..., 0]
+    means.  With ``vocab_parallel`` the logits are this rank's block of
+    the vocabulary and the loss the same, through
+    :func:`vocab_parallel_nll`."""
+    if vocab_parallel:
+        nll = vocab_parallel_nll(logits, labels, mesh)
+    else:
+        lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(lp, -1, labels.to(torch.int64)[..., None])[..., 0]
     if mesh is None or mesh.axis_size(mesh.data_axes) == 1:
         if mask is None:
             return nll.mean()
@@ -44,6 +49,26 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
     return num / torch.clamp(den, min=1.0)
 
 
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       mesh, axis: str = "model") -> torch.Tensor:
+    """−log softmax at each label from this rank's block of the
+    vocabulary (logits (B, S, Vp / tp), columns ``index · Vp / tp`` on):
+    the max over 'model' (detached: the softmax does not depend on it), the
+    sum of exp over 'model', and the label's logit from the rank that
+    holds it (zeros elsewhere, summed over 'model'); every rank gets every
+    token's value."""
+    lf = logits.to(torch.float32)
+    n = lf.shape[-1]
+    with torch.no_grad():
+        m = mesh.all_reduce(lf.detach().amax(-1), axis, op="max")
+    se = mesh.all_reduce(torch.exp(lf - m[..., None]).sum(-1), axis)
+    local = labels.to(torch.int64) - mesh.axis_index(axis) * n
+    held = (local >= 0) & (local < n)
+    tgt = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    tgt = mesh.all_reduce(tgt.masked_fill(~held, 0.0), axis)
+    return m + torch.log(se) - tgt
+
+
 def lm_forward_loss(params, qstate, batch: dict, ctx: QuantCtx,
                     cfg: ArchConfig, *, mesh=None, use_ep: bool = True,
                     remat: str = "none") -> tuple:
@@ -52,12 +77,15 @@ def lm_forward_loss(params, qstate, batch: dict, ctx: QuantCtx,
     holds embeds and labels, no tokens); ``remat``, ``mesh`` and
     ``use_ep`` as :func:`~repro_torch.nn.transformer.lm_apply` takes
     them.  Over a mesh the batch is this rank's rows, and ``loss``, ``ce``
-    and ``aux`` are the whole batch's on every rank."""
+    and ``aux`` are the whole batch's on every rank (a tensor-parallel
+    rank's logits its block of the vocabulary: the vocabulary-parallel
+    cross-entropy)."""
     logits, _, aux = T.lm_apply(params, qstate, batch.get("tokens"), ctx,
                                 cfg, embeds=batch.get("embeds"),
                                 remat=remat, mesh=mesh, use_ep=use_ep)
     ce = lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"),
-                 mesh=mesh)
+                 mesh=mesh,
+                 vocab_parallel=logits.shape[-1] != cfg.padded_vocab)
     loss = ce + cfg.aux_loss_coef * aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}
 
@@ -69,8 +97,18 @@ def greedy_step(params, qstate, tokens: torch.Tensor, ctx: QuantCtx,
     logits, cache, _ = T.lm_apply(params, qstate, tokens, ctx, cfg,
                                   positions=positions, cache=cache,
                                   mesh=mesh, use_ep=use_ep)
-    nxt = torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(torch.int32)
-    return nxt, cache
+    return next_token(logits, cfg, mesh), cache
+
+
+def next_token(logits: torch.Tensor, cfg: ArchConfig,
+               mesh=None) -> torch.Tensor:
+    """The greedy token (B, 1) int32 of the last position's logits; a
+    rank's block of the vocabulary is gathered over 'model' first, so that
+    a tie goes to the first index, as in one process."""
+    last = logits[:, -1:]
+    if last.shape[-1] != cfg.padded_vocab:
+        last = mesh.all_gather(last, "model", dim=-1)
+    return torch.argmax(last[..., :cfg.vocab], dim=-1).to(torch.int32)
 
 
 def batch_rows(mesh, b: int) -> Optional[slice]:
@@ -94,14 +132,17 @@ def generate(params, qstate, prompt: torch.Tensor, ctx: QuantCtx,
     more tokens; (B, max_new) int32 on the prompt's device.  Over a
     ``mesh`` every rank takes the whole prompt, runs its rows (split over
     the data axes) with its own cache through the MoE exchanges, and the
-    tokens are gathered back, so every rank returns every row."""
+    tokens are gathered back, so every rank returns every row.  A dense
+    arch's tensor-parallel ranks (``runtime.sharding.dense_tp``) each run
+    their heads' cache and gather the last logits over 'model'
+    (:func:`next_token`)."""
     rows = batch_rows(mesh, prompt.shape[0])
     if rows is not None:
         prompt = prompt[rows]
     b, s = prompt.shape
     dev = prompt.device
     cache = T.init_cache(cfg, b, s + max_new, dtype=torch.float32,
-                         device=dev)
+                         device=dev, mesh=mesh)
     pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     kw = dict(mesh=mesh, use_ep=use_ep)
     nxt, cache = greedy_step(params, qstate, prompt, ctx, cfg,

@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import apply_rotary, linear, linear_init, subtree
+from .layers import (apply_rotary, linear, linear_init, linear_row_parallel,
+                     subtree)
 from .module import QuantCtx, materialize
 
 NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
@@ -226,6 +227,40 @@ def gqa_project(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
     return q, k, v
 
 
+@dataclasses.dataclass(frozen=True)
+class AttnTP:
+    """How one rank runs a GQA block over the 'model' axis of ``mesh``:
+    ``heads`` its q / k / v (and biases) are its ``n_heads / tp`` and
+    ``n_kv / tp`` heads' columns (its cache holds those KV heads);
+    ``o_rows`` its o holds the rows of ``n_heads / tp`` heads (a row-sharded
+    product, summed over 'model'); ``seq`` sequence-parallel: its x is its
+    ``S / tp`` rows of the sequence, whose keys and values are gathered
+    over 'model' so that its queries attend to every key, and whose output
+    is gathered back along S."""
+    mesh: Any
+    heads: bool = False
+    o_rows: bool = False
+    seq: bool = False
+
+
+def _o_parallel(p: dict, q: Any, out: torch.Tensor, ctx: QuantCtx,
+                tp: AttnTP) -> torch.Tensor:
+    """The output projection of ``out`` (B, S, heads·D) under ``tp``: the
+    whole sequence's (B, S, d) on every rank."""
+    mesh = tp.mesh
+    if not tp.o_rows:             # o whole (and so every head here)
+        y = linear(p, q, out, ctx)
+        return mesh.all_gather(y, "model", dim=1) if tp.seq else y
+    if not tp.heads:
+        # every head's output here: the whole sequence's, then the columns
+        # of the heads whose rows of o this rank holds
+        if tp.seq:
+            out = mesh.all_gather(out, "model", dim=1)
+        w = out.shape[-1] // mesh.axis_size("model")
+        out = out.narrow(-1, mesh.axis_index("model") * w, w)
+    return linear_row_parallel(p, q, out, ctx, mesh)
+
+
 def gqa_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
               n_heads: int, n_kv: int, head_dim: int,
               cos_sin: Optional[tuple] = None,
@@ -233,16 +268,20 @@ def gqa_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
               causal: bool = True, window=None,
               cache: Optional[dict] = None,
               kv_override: Optional[tuple] = None,
-              chunk: int = 1024) -> tuple:
+              chunk: int = 1024, tp: Optional[AttnTP] = None) -> tuple:
     """Self-attention, or cross-attention when ``kv_override`` = (k, v)
     (B, Skv, n_kv, D) is given: those keys and values as they are (no
     rotary, no cache update, no causal mask), at positions 0 .. Skv - 1.
     Returns (y, new_cache).  ``positions``: (B, Sq) absolute positions of
-    x."""
+    x.  ``tp``: this rank's part over a mesh (:class:`AttnTP`; the head
+    counts stay the whole model's); y is then the whole sequence's."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+    if tp is not None and tp.heads:
+        n_heads //= tp.mesh.axis_size("model")
+        n_kv //= tp.mesh.axis_size("model")
     if kv_override is None:
         q, k, v = gqa_project(p, q_state, x, ctx, n_heads=n_heads,
                               n_kv=n_kv, head_dim=head_dim, cos_sin=cos_sin)
@@ -257,6 +296,9 @@ def gqa_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
         new_cache = _cache_update(cache, {"k": k, "v": v}, positions)
         k, v = new_cache["k"], new_cache["v"]
         kv_pos = new_cache["pos"].expand(b, k.shape[1])
+    elif tp is not None and tp.seq:
+        k, v, kv_pos = (tp.mesh.all_gather(t, "model", dim=1)
+                        for t in (k, v, positions))
     else:
         kv_pos = torch.arange(k.shape[1], dtype=torch.int32,
                               device=x.device).expand(b, k.shape[1])
@@ -264,6 +306,9 @@ def gqa_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
     out = softmax_attention(q, k, v, positions, kv_pos, causal=causal,
                             window=window, chunk=chunk)
     out = out.reshape(b, s, n_heads * head_dim).to(ctx.dtype)
+    if tp is not None:
+        return _o_parallel(p["o"], subtree(q_state, "o"), out, ctx,
+                           tp), new_cache
     y = linear(p["o"], subtree(q_state, "o"), out, ctx)
     return y, new_cache
 

@@ -94,6 +94,22 @@ def linear(p: dict, q: Any, x: torch.Tensor, ctx: QuantCtx) -> torch.Tensor:
     return y
 
 
+def linear_row_parallel(p: dict, q: Any, x: torch.Tensor, ctx: QuantCtx,
+                        mesh, axis: str = "model") -> torch.Tensor:
+    """:func:`linear` of a row-sharded kernel: ``x`` this rank's block of
+    the contraction, ``p["kernel"]`` the same rows.  The ranks' partial
+    products are summed over ``axis`` in fp32 (one all-reduce) and rounded
+    to x's dtype once, as one product's fp32 accumulation is; the bias,
+    replicated, is added once, after the sum."""
+    qk = q["kernel"] if isinstance(q, dict) else 0
+    w = materialize(p["kernel"], qk, ctx)
+    y = mesh.all_reduce(x.to(torch.float32) @ w.to(torch.float32), axis)
+    y = y.to(x.dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
 # -------------------------------------------------------------- embedding
 
 def embedding_init(generator: torch.Generator, vocab: int, d: int,
@@ -103,6 +119,19 @@ def embedding_init(generator: torch.Generator, vocab: int, d: int,
 
 def embed(p: dict, ids: torch.Tensor, ctx: QuantCtx) -> torch.Tensor:
     return p["table"].to(ctx.dtype)[ids]
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor, dtype, mesh,
+               axis: str = "model") -> torch.Tensor:
+    """The vocabulary-parallel lookup: ``table`` this rank's rows of the
+    embedding (rows ``index · n`` on), an id outside them read as zeros,
+    the ranks' rows summed over ``axis`` (each id's row comes from the one
+    rank that holds it, so the sum is that row exactly)."""
+    n = table.shape[0]
+    local = ids.to(torch.int64) - mesh.axis_index(axis) * n
+    held = (local >= 0) & (local < n)
+    x = table.to(dtype)[local.clamp(0, n - 1)]
+    return mesh.all_reduce(x.masked_fill(~held[..., None], 0), axis)
 
 
 def unembed(p: dict, x: torch.Tensor, ctx: QuantCtx) -> torch.Tensor:
@@ -216,10 +245,16 @@ def swiglu_init(generator: torch.Generator, d: int, d_ff: int,
             "down": linear_init(generator, d_ff, d, quantize)}
 
 
-def swiglu(p: dict, q: Any, x: torch.Tensor, ctx: QuantCtx) -> torch.Tensor:
+def swiglu(p: dict, q: Any, x: torch.Tensor, ctx: QuantCtx,
+           mesh=None) -> torch.Tensor:
+    """With ``mesh``: gate and up this rank's columns of the hidden width,
+    down its rows (:func:`linear_row_parallel` over 'model')."""
     g = linear(p["gate"], subtree(q, "gate"), x, ctx)
     u = linear(p["up"], subtree(q, "up"), x, ctx)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    if mesh is not None:
+        return linear_row_parallel(p["down"], subtree(q, "down"), h, ctx,
+                                   mesh)
     return linear(p["down"], subtree(q, "down"), h, ctx)
 
 
@@ -229,10 +264,15 @@ def gelu_mlp_init(generator: torch.Generator, d: int, d_ff: int,
             "fc2": linear_init(generator, d_ff, d, quantize, bias=bias)}
 
 
-def gelu_mlp(p: dict, q: Any, x: torch.Tensor, ctx: QuantCtx) -> torch.Tensor:
-    """gelu is the tanh approximation, ``jax.nn.gelu``'s default."""
+def gelu_mlp(p: dict, q: Any, x: torch.Tensor, ctx: QuantCtx,
+             mesh=None) -> torch.Tensor:
+    """gelu is the tanh approximation, ``jax.nn.gelu``'s default.  With
+    ``mesh`` fc1 (and its bias) this rank's columns, fc2 its rows, fc2's
+    bias added once after the sum (:func:`linear_row_parallel`)."""
     h = linear(p["fc1"], subtree(q, "fc1"), x, ctx)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    if mesh is not None:
+        return linear_row_parallel(p["fc2"], subtree(q, "fc2"), h, ctx, mesh)
     return linear(p["fc2"], subtree(q, "fc2"), h, ctx)
 
 

@@ -43,12 +43,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..core import qat
+from ..runtime import sharding
 from ..tree import leaves, map_, unflatten
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
-from .layers import (embedding_init, gelu_mlp, gelu_mlp_init, layer_norm,
-                     layer_norm_init, linear_init, make_generator,
+from .layers import (embed_rows, embedding_init, gelu_mlp, gelu_mlp_init,
+                     layer_norm, layer_norm_init, linear_init, make_generator,
                      mrope_cos_sin, rms_norm,
                      rms_norm_init, rope_cos_sin, subtree, swiglu,
                      swiglu_init)
@@ -108,10 +109,12 @@ def _mlp_init(generator: torch.Generator, cfg: ArchConfig, d_ff: int) -> dict:
 
 
 def _mlp(cfg: ArchConfig, p: dict, q: Any, x: torch.Tensor,
-         ctx: QuantCtx) -> torch.Tensor:
+         ctx: QuantCtx, mesh=None) -> torch.Tensor:
+    """The FFN; with ``mesh`` its hidden width split over 'model' (column-
+    then row-sharded, one all-reduce)."""
     if cfg.act == "gelu":
-        return gelu_mlp(p, q, x, ctx)
-    return swiglu(p, q, x, ctx)
+        return gelu_mlp(p, q, x, ctx, mesh)
+    return swiglu(p, q, x, ctx, mesh)
 
 
 # ------------------------------------------------------------- layer init
@@ -180,33 +183,71 @@ def _kind_layers(cfg: ArchConfig) -> dict:
 
 def lm_init(cfg: ArchConfig, *, seed: int = 0,
             generator: Optional[torch.Generator] = None,
-            device=None) -> dict:
+            device=None, mesh=None) -> dict:
     """Random parameters for ``cfg``, every draw from one
     ``torch.Generator`` on the target device (seeded with ``seed`` when
     none is given).  The values need not equal the JAX package's: a
-    comparison carries JAX's tree across (``convert.lm_tree_from_numpy``)."""
+    comparison carries JAX's tree across (``convert.lm_tree_from_numpy``).
+    Over a ``mesh`` with the tensor-parallel layout
+    (``runtime.sharding.tensor_parallel``) this rank's blocks of that
+    tree: each layer, the embedding and the head are drawn whole (ω from
+    the whole weights), cut, and the whole one freed before the next
+    draw."""
     if generator is None:
         generator = make_generator(resolve_device(device), seed)
+    specs = tp_specs(cfg, mesh)
+    keep = (lambda tree, spec: tree) if specs is None else \
+        (lambda tree, spec: sharding.shard_tree(tree, spec, mesh))
+    per_layer = {}
+    if specs is not None:      # a layer's spec: its stack's, without L
+        per_layer = {kind: map_(lambda t, sp: sp[1:], tree, specs["stacks"]
+                                [kind]) for kind, tree in
+                     _abstract(cfg)["stacks"].items()}
     kinds = _layer_kinds(cfg)
-    layers = [_layer_init(generator, cfg, kind) for kind in kinds]
+    layers = [keep(_layer_init(generator, cfg, kind), per_layer.get(kind))
+              for kind in kinds]
     p = {
-        "embed": embedding_init(generator, cfg.padded_vocab, cfg.d_model),
+        "embed": keep(embedding_init(generator, cfg.padded_vocab,
+                                     cfg.d_model),
+                      specs and specs["embed"]),
         "final_norm": _norm_init(cfg, cfg.d_model, generator.device),
         "stacks": {kind: _stack([layers[i] for i in idx])
                    for kind, idx in _kind_layers(cfg).items()},
     }
     del layers
     if not cfg.tie_embeddings:
-        p["lm_head"] = linear_init(generator, cfg.d_model, cfg.padded_vocab,
-                                   quantize=False)
+        p["lm_head"] = keep(linear_init(generator, cfg.d_model,
+                                        cfg.padded_vocab, quantize=False),
+                            specs and specs["lm_head"])
     return p
+
+
+@functools.lru_cache(maxsize=None)
+def _abstract(cfg: ArchConfig) -> dict:
+    return lm_init(cfg, device="meta")
+
+
+@functools.lru_cache(maxsize=None)
+def _tp_specs(cfg: ArchConfig, axes: tuple, sizes: tuple) -> dict:
+    from ..launch.mesh import MeshSpec
+    return sharding.layout_specs(_abstract(cfg), cfg, MeshSpec(sizes, axes))
+
+
+def tp_specs(cfg: ArchConfig, mesh) -> Optional[dict]:
+    """The tensor-parallel layout of ``cfg``'s training tree over ``mesh``
+    (``runtime.sharding.layout_specs`` of its whole abstract tree, built
+    once), or None where the layout keeps weights whole."""
+    if not sharding.tensor_parallel(cfg, mesh):
+        return None
+    return _tp_specs(cfg, tuple(mesh.axis_names),
+                     tuple(mesh.shape[a] for a in mesh.axis_names))
 
 
 # ------------------------------------------------------------------ cache
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, cap_window: bool = False,
-               device=None) -> dict:
+               device=None, mesh=None) -> dict:
     """Stacked per-layer decode state.  An attention layer gets ``max_len``
     slots (callers that prefill keep the full length, so multi-token
     writes never wrap); with ``cap_window`` (decode-only use) an SWA arch
@@ -215,8 +256,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     An MLA arch caches the latent and the rope key
     (:func:`attention.init_mla_cache`).  An ssm or hybrid layer also keeps
     its recurrent state (``"ssm"``: fp32 whatever ``dtype``, as the
-    reference's), the same size at any context length."""
+    reference's), the same size at any context length.  Over a ``mesh``
+    whose tensor-parallel layout shards the heads (``runtime.sharding.
+    dense_tp``) a rank caches its ``n_kv / tp`` KV heads."""
     dev = resolve_device(device)
+    tp = sharding.dense_tp(cfg, mesh)
+    n_kv = cfg.n_kv // tp.tp if tp is not None and tp.heads else cfg.n_kv
 
     def attn_cache():
         if cfg.mla is not None:
@@ -225,7 +270,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         kv_len = max_len
         if cap_window and cfg.window and not cfg.global_attn_layers:
             kv_len = min(max_len, cfg.window)
-        return attn.init_kv_cache(batch, kv_len, cfg.n_kv,
+        return attn.init_kv_cache(batch, kv_len, n_kv,
                                   cfg.resolved_head_dim, dtype, device=dev)
 
     def per(kind):
@@ -264,10 +309,41 @@ def _ssm_branch(cfg: ArchConfig, lp: dict, lq: Any, h: torch.Tensor,
                              _ssm_cfg(cfg), state=st)
 
 
+def _attn_batch_reshard(cfg: ArchConfig, mesh, seq: int) -> bool:
+    """True when attention should run sequence-parallel over the *model*
+    axis (the reference's predicate, word for word).
+
+    Archs whose head counts don't divide the model axis (smollm 15H/5kv,
+    hymba 25H/5kv, qwen2-vl 12H/2kv, glm4 2kv...) keep their attention
+    weights replicated; without this every model rank would run the
+    *same* attention.  A rank instead takes ``seq / tp`` query rows, and
+    the keys and values are gathered over 'model'.
+    """
+    if mesh is None or "model" not in mesh.axis_names:
+        return False
+    tp = mesh.shape["model"]
+    if tp == 1 or cfg.mla is not None:
+        return False
+    heads_sharded = cfg.n_heads % tp == 0 and cfg.n_kv % tp == 0
+    return (not heads_sharded) and seq % tp == 0
+
+
+def _seq_block(t, mesh):
+    """This rank's S / tp rows (dim 1) of ``t`` (a tensor or a tuple of
+    them, as cos / sin)."""
+    if isinstance(t, tuple):
+        return tuple(_seq_block(a, mesh) for a in t)
+    n = t.shape[1] // mesh.axis_size("model")
+    return t.narrow(1, mesh.axis_index("model") * n, n)
+
+
 def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
            ctx: QuantCtx, *, cos_sin, positions, lcache, window, mesh=None,
-           use_ep: bool = True) -> tuple:
-    """One transformer block; returns (x, new_lcache, aux)."""
+           use_ep: bool = True, attn_reshard: bool = False) -> tuple:
+    """One transformer block; returns (x, new_lcache, aux).  Over a mesh
+    with the tensor-parallel layout (``runtime.sharding.dense_tp``) a rank
+    runs its heads and its columns of the FFN; with ``attn_reshard`` its
+    attention is sequence-parallel (:func:`_attn_batch_reshard`)."""
     h = _norm(cfg, lp["ln1"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {}
@@ -277,6 +353,7 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
             new_cache["ssm"] = new_st
         return x + y, new_cache, aux
 
+    tp = sharding.dense_tp(cfg, mesh)
     acache = lcache["attn"] if lcache is not None else None
     if cfg.mla is not None:
         ay, new_ac = attn.mla_apply(lp["attn"], subtree(lq, "attn"), h, ctx,
@@ -284,12 +361,21 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
                                     positions=positions, cache=acache,
                                     chunk=cfg.attn_chunk)
     else:
-        ay, new_ac = attn.gqa_apply(lp["attn"], subtree(lq, "attn"), h, ctx,
+        h_a, cs_a, pos_a, atp = h, cos_sin, positions, None
+        if tp is not None or attn_reshard:
+            atp = attn.AttnTP(mesh, heads=tp is not None and tp.heads,
+                              o_rows=tp is not None and tp.o_rows,
+                              seq=attn_reshard)
+        if attn_reshard:
+            h_a, pos_a = _seq_block(h, mesh), _seq_block(positions, mesh)
+            cs_a = _seq_block(cos_sin, mesh) if cos_sin is not None \
+                else None
+        ay, new_ac = attn.gqa_apply(lp["attn"], subtree(lq, "attn"), h_a, ctx,
                                     n_heads=cfg.n_heads, n_kv=cfg.n_kv,
                                     head_dim=cfg.resolved_head_dim,
-                                    cos_sin=cos_sin, positions=positions,
+                                    cos_sin=cs_a, positions=pos_a,
                                     causal=True, window=window, cache=acache,
-                                    chunk=cfg.attn_chunk)
+                                    chunk=cfg.attn_chunk, tp=atp)
     if new_ac is not None:
         new_cache["attn"] = new_ac
     if kind == "hybrid":
@@ -310,7 +396,8 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
                                   experts_held=cfg.experts_held)
         x = x + y2
     else:
-        x = x + _mlp(cfg, lp["mlp"], subtree(lq, "mlp"), h2, ctx)
+        x = x + _mlp(cfg, lp["mlp"], subtree(lq, "mlp"), h2, ctx,
+                     mesh if tp is not None and tp.mlp else None)
     return x, new_cache, aux
 
 
@@ -349,7 +436,8 @@ def _layer(tree: Any, l: int) -> Any:
     return tree
 
 
-def quantize_stack(stack_p: Any, stack_q: Any, ctx: QuantCtx) -> Any:
+def quantize_stack(stack_p: Any, stack_q: Any, ctx: QuantCtx,
+                   shards: Optional[qat.Shards] = None) -> Any:
     """The stacked parameters a train forward reads: every quantized leaf
     (L, R, C) replaced by its fake-quantized ŵ in ``ctx.dtype``, all of
     them in one grouped quantization (on the card ⌈segments / 32⌉
@@ -357,8 +445,9 @@ def quantize_stack(stack_p: Any, stack_q: Any, ctx: QuantCtx) -> Any:
     is a segment with its own ω, probabilities and mean(w²), as the
     reference quantizes one layer at a time inside its scan.
     :func:`lm_apply` hands it every stack at once (``params["stacks"]``),
-    so a dense and a MoE stack share the launches."""
-    return qat.fake_quant_tree(stack_p, stack_q, ctx.lam, ctx.dtype)
+    so a dense and a MoE stack share the launches; over a tensor-parallel
+    mesh with their layout (``shards``), a rank quantizes its blocks."""
+    return qat.fake_quant_tree(stack_p, stack_q, ctx.lam, ctx.dtype, shards)
 
 
 def _unstack(tree: Any, n: int) -> list:
@@ -369,18 +458,24 @@ def _unstack(tree: Any, n: int) -> list:
     return [unflatten(tree, [p[l] for p in per]) for l in range(n)]
 
 
-def readout(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def readout(cfg: ArchConfig, params: dict, x: torch.Tensor,
+            mesh=None) -> torch.Tensor:
     """The final norm and the head (tied to the embedding or not): fp32
     logits (..., padded_vocab) of ``x`` (..., d), the padded vocab rows
-    masked to -1e30."""
+    masked to -1e30.  Over a ``mesh`` whose tensor-parallel layout splits
+    the vocabulary, this rank's block of them (its rows of the table or
+    columns of the head), the padded rows found by their global index."""
     x = _norm(cfg, params["final_norm"], x).to(torch.float32)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["table"].to(torch.float32).T
     else:
         logits = x @ params["lm_head"]["kernel"].to(torch.float32)
     if cfg.padded_vocab != cfg.vocab:
+        n = logits.shape[-1]
+        first = 0 if n == cfg.padded_vocab else \
+            mesh.axis_index("model") * n
         logits = logits.masked_fill(
-            torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab,
+            torch.arange(first, first + n, device=logits.device) >= cfg.vocab,
             -1e30)
     return logits
 
@@ -390,7 +485,8 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
              embeds: Optional[torch.Tensor] = None,
              positions: Optional[torch.Tensor] = None,
              cache: Optional[dict] = None, remat: str = "none",
-             mesh=None, use_ep: bool = True) -> tuple:
+             mesh=None, use_ep: bool = True,
+             attn_reshard: Optional[bool] = None) -> tuple:
     """Forward pass.  Returns (logits, new_cache, aux_loss).
 
     ``tokens`` (B, S) int, or ``embeds`` (B, S, d): the stubbed vlm / audio
@@ -401,12 +497,21 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
     the reference feeds it.  ``remat``: one of :data:`REMAT`, each
     block's rematerialisation under autograd (the grouped ŵ is made once
     before the loop either way, so it adds no ECL pass).  Over a ``mesh``
-    (``launch.mesh``) each rank runs its own rows with its whole non-expert
-    weights and its own cache, and the MoE layers exchange tokens
-    (``nn.moe.moe_ffn``, ``use_ep`` as the reference takes it).
+    (``launch.mesh``) each rank runs its own rows with its own cache, and
+    the MoE layers exchange tokens (``nn.moe.moe_ffn``, ``use_ep`` as the
+    reference takes it).  A dense arch over a 'model' axis of more than
+    one rank holds its blocks of the weights (``runtime.sharding.
+    dense_tp``): the lookup, each block's heads and FFN columns and the
+    head are split over 'model', and the logits are this rank's block of
+    the vocabulary.  ``attn_reshard`` (default: no cache and
+    :func:`_attn_batch_reshard`) runs attention sequence-parallel.
     """
+    tp = sharding.dense_tp(cfg, mesh)
     if embeds is None:
-        x = params["embed"]["table"].to(ctx.dtype)[tokens]
+        if tp is not None and tp.vocab:
+            x = embed_rows(params["embed"]["table"], tokens, ctx.dtype, mesh)
+        else:
+            x = params["embed"]["table"].to(ctx.dtype)[tokens]
         b, s = tokens.shape
     else:
         x = embeds.to(ctx.dtype)
@@ -414,6 +519,8 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+    if attn_reshard is None:
+        attn_reshard = cache is None and _attn_batch_reshard(cfg, mesh, s)
 
     cos_sin = None         # attention-free: no rotary (and no head_dim)
     if cfg.family != "ssm":
@@ -428,11 +535,15 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
                                    dtype=torch.float32)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {} if cache is not None else None
-    w_hat = quantize_stack(params["stacks"], subtree(qstate, "stacks"),
-                           ctx) if ctx.quant else None
+    w_hat = None
+    if ctx.quant:
+        args = (params["stacks"], subtree(qstate, "stacks"), ctx)
+        w_hat = quantize_stack(*args) if tp is None else quantize_stack(
+            *args, qat.Shards(mesh, tp_specs(cfg, mesh)["stacks"]))
     for kind, idx in _kind_layers(cfg).items():
         block = _remat(functools.partial(_block, cfg, kind, mesh=mesh,
-                                         use_ep=use_ep), remat)
+                                         use_ep=use_ep,
+                                         attn_reshard=attn_reshard), remat)
         windows = _windows_for(cfg, idx)
         stack_p = params["stacks"][kind]
         stack_q = subtree(subtree(qstate, "stacks"), kind)
@@ -457,5 +568,5 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
         if stack_c is not None:
             new_cache[kind] = _stack(new_layers)
 
-    logits = readout(cfg, params, x)
+    logits = readout(cfg, params, x, mesh)
     return logits, new_cache, aux_total

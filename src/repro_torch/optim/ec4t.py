@@ -32,7 +32,15 @@ once, a share's banks summed over the expert axis.  Every rank then takes
 the same Adam step and probability update, so each replicated leaf
 (params, m, v, probs) stays equal bit for bit across its group.  With
 ``zero1`` each rank keeps m and v for its block of each leaf
-(``runtime.sharding.zero1_specs``).
+(``runtime.sharding.zero1_specs``).  Under the dense family's
+tensor-parallel layout a rank's leaf may be its block of the whole
+(``specs``): its gradient is summed over the data axes only, ω's
+(replicated, its gradient from a block partial) over every axis, and the
+probability update sums each segment's mean(w²) and code counts over the
+'model' ranks (``qat.Shards``).  No exchange needs a Megatron
+identity-backward operator: every rank's loss is the whole loss, its
+backward seeded with 1 / world, and each exchange carries its exact
+adjoint.
 """
 from __future__ import annotations
 
@@ -58,7 +66,8 @@ def make_train_step(loss_fn: Callable, adam_cfg: adam.AdamConfig, *,
                     lam=0.02, probs_momentum: float = 0.9,
                     lr_schedule: Optional[Callable] = None,
                     compress: Optional[GradCompressCfg] = None,
-                    mesh=None, zero1: bool = False) -> Callable:
+                    mesh=None, zero1: bool = False,
+                    specs: Any = None) -> Callable:
     """Build the EC4T train step.
 
     ``loss_fn(params, qstate, batch, lam) -> (loss, metrics)``; ``lam`` a
@@ -68,7 +77,11 @@ def make_train_step(loss_fn: Callable, adam_cfg: adam.AdamConfig, *,
     every metric a 0-d tensor on the parameters' device.  Over ``mesh``
     (the loss built for the same mesh) ``batch`` holds this rank's rows;
     ``zero1`` takes a state from :func:`init_train_state` with the same
-    mesh."""
+    mesh.  ``specs``: the layout of the whole tree whose blocks this
+    rank's params are (``runtime.sharding.layout_specs``; None: every
+    leaf whole, or a share's banks): each leaf's replica axes, its ZeRO-1
+    cut, and the axes its mean(w²) and code counts are summed over in the
+    probability update (``qat.Shards``)."""
     if zero1 and mesh is None:
         raise ValueError("zero1 shards the moments over a mesh; pass mesh")
     if compress is not None and mesh is not None:
@@ -81,7 +94,7 @@ def make_train_step(loss_fn: Callable, adam_cfg: adam.AdamConfig, *,
         metrics, grads = local_grads(loss_fn, p, qs, batch, lam_t, mesh)
 
         err = state.get("err")
-        axes = replica_axes(p, mesh) if mesh is not None else None
+        axes = replica_axes(p, mesh, specs) if mesh is not None else None
         if compress is not None and err is not None:
             grads, err = compress_grads(grads, err, compress, mesh=mesh,
                                         axes=axes)
@@ -91,10 +104,12 @@ def make_train_step(loss_fn: Callable, adam_cfg: adam.AdamConfig, *,
 
         new_p, new_opt, opt_metrics = adam.apply(
             p, grads, opt, adam_cfg, lr_scale=lr_scale, gnorm=gnorm,
-            zero1=(mesh, zero1_specs(p, mesh)) if zero1 else None)
+            zero1=(mesh, zero1_specs(p, mesh, specs)) if zero1 else None)
         del grads      # not needed by the probability update (1.6 GB for a
         # full-width expert bank)
-        new_qs = qat.update_qstate(new_p, qs, lam_t, probs_momentum)
+        new_qs = qat.update_qstate(
+            new_p, qs, lam_t, probs_momentum,
+            None if specs is None else qat.Shards(mesh, specs))
 
         dev = opt["step"].device
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -169,18 +184,20 @@ def global_norm(grads: Any, axes: Any, mesh) -> torch.Tensor:
 
 def init_train_state(params: Any,
                      compress: Optional[GradCompressCfg] = None, *,
-                     mesh=None, zero1: bool = False) -> dict:
+                     mesh=None, zero1: bool = False,
+                     specs: Any = None) -> dict:
     """``{params, opt, qstate}`` (+ ``err`` with ``compress``), on the
     parameters' device; with ``zero1`` the moments of this rank's blocks
-    over ``mesh``."""
+    over ``mesh`` (``specs`` as :func:`make_train_step` takes it)."""
     if zero1 and mesh is None:
         raise ValueError("zero1 shards the moments over a mesh; pass mesh")
     state = {"params": params,
-             "opt": adam.init(params, (mesh, zero1_specs(params, mesh))
+             "opt": adam.init(params, (mesh, zero1_specs(params, mesh, specs))
                               if zero1 else None),
              "qstate": qat.build_qstate(params)}
     if compress is not None:
-        state["err"] = init_error_state(params, compress)
+        state["err"] = init_error_state(params, compress, mesh=mesh,
+                                        specs=specs)
     return state
 
 

@@ -18,7 +18,10 @@ reduced, each device on its own scale (``src/repro/optim/grad_compress.py:
 2. is taken as this data rank's mean-style gradient ``gf = n·h + e``
    (``n`` the data axes' size: the step's gradients are sums, each rank
    seeded with 1 / world);
-3. shares ``s = max|gf| / 127 + 1e-12``, the max over the data axes;
+3. shares ``s = max|gf| / 127 + 1e-12``, the max over the data axes and
+   over the axes the leaf is cut over (a tensor-parallel block's or an
+   expert share's: the whole tensor's scale, as the reference's max over
+   its logical array);
 4. is quantized to int8 here, its int32 sum all-reduced exactly (the wire
    is int32, as the reference's psum of ``q.astype(int32)``), and
    dequantized as ``Σq · s / n``; each rank keeps ``gf − q·s`` as its
@@ -49,12 +52,33 @@ def _eligible(leaf: torch.Tensor, cfg: GradCompressCfg) -> bool:
     return leaf.numel() >= cfg.min_size and leaf.is_floating_point()
 
 
-def init_error_state(params: Any, cfg: GradCompressCfg) -> Any:
-    """fp32 zeros like each eligible leaf, a 0-d zero for the others."""
-    return tree.map_(
-        lambda p: torch.zeros_like(p, dtype=torch.float32)
-        if _eligible(p, cfg)
-        else torch.zeros((), dtype=torch.float32, device=p.device), params)
+def init_error_state(params: Any, cfg: GradCompressCfg, *, mesh=None,
+                     specs: Any = None) -> Any:
+    """fp32 zeros like each eligible leaf, a 0-d zero for the others.  A
+    rank's block of a leaf (``specs``, the layout over ``mesh``) is
+    eligible when the whole leaf is."""
+    if specs is None:
+        return tree.map_(lambda p: _error_leaf(p, _eligible(p, cfg)), params)
+    return tree.map_(lambda p, spec: _error_leaf(p, p.is_floating_point()
+                                                 and whole_numel(p, spec, mesh)
+                                                 >= cfg.min_size),
+                     params, specs)
+
+
+def _error_leaf(p: torch.Tensor, eligible: bool) -> torch.Tensor:
+    if eligible:
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros((), dtype=torch.float32, device=p.device)
+
+
+def whole_numel(t: torch.Tensor, spec: tuple, mesh) -> int:
+    """The elements of the whole leaf whose block ``t`` is under
+    ``spec``."""
+    n = t.numel()
+    for axes in spec:
+        if axes is not None:
+            n *= mesh.axis_size(axes)
+    return n
 
 
 def _quantize(g: torch.Tensor) -> tuple:
@@ -90,8 +114,9 @@ def compress_grads(grads: Any, err: Any, cfg: GradCompressCfg, *,
             n = mesh.axis_size(d)
             gf = h.to(torch.float32) * n + e
             amax = torch.max(torch.abs(gf))
-            if d:
-                amax = mesh.all_reduce(amax, d, op="max")
+            over = d + cut_axes(mesh, leaf_axes)
+            if over:
+                amax = mesh.all_reduce(amax, over, op="max")
             s = amax / 127.0 + 1e-12
             q = torch.clamp(torch.round(gf / s), -127, 127).to(torch.int8)
             qsum = mesh.all_reduce(q.to(torch.int32), d) if d \
@@ -105,6 +130,12 @@ def compress_grads(grads: Any, err: Any, cfg: GradCompressCfg, *,
     out = tree.map_(one, grads, err, axes)
     return (tree.map_(lambda _, o: o[0], grads, out),
             tree.map_(lambda _, o: o[1], grads, out))
+
+
+def cut_axes(mesh, leaf_axes) -> tuple:
+    """The mesh axes a leaf is cut over (those it is not replicated over):
+    the ranks that hold the other blocks of its whole tensor."""
+    return tuple(a for a in mesh.axis_names if a not in leaf_axes)
 
 
 def split_axes(mesh, data: tuple, leaf_axes) -> tuple:

@@ -21,11 +21,15 @@ an axis name, a tuple of axis names, or None (replicated);
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 import re
 from typing import Any, Optional, Tuple
 
 import torch
+
+from ..tree import map_
 
 # path-regex -> role; order matters (first match wins)
 _RULES: Tuple[Tuple[str, str], ...] = (
@@ -258,12 +262,121 @@ def serving_pack_specs(layers, rules: Rules) -> list:
 
 # ------------------------------------------------- the port's own layout
 #
-# The port trains with every non-expert weight whole on each rank (the
-# reference's Megatron specs above describe its TPU layout; the port keeps
-# them for the serving pack and for the specs' tests).  A leaf is then
-# replicated over the whole mesh, except an expert-parallel share's banks
-# (``experts_held``: fewer experts than its router scores), which the ranks
-# of one 'model' index hold alike: replicated over the data axes.
+# The dense family over a mesh whose 'model' axis holds more than one rank
+# takes the reference's layout: each leaf as ``Rules.param_specs`` gives
+# it (QKV and gate / up column-sharded, O and down row-sharded, the
+# embedding and the head over the vocabulary, every other leaf
+# replicated), each rank holding its block of a sharded leaf and no whole
+# copy.  Every other family, and any family over model = 1, keeps each
+# non-expert weight whole on each rank: a leaf is replicated over the whole
+# mesh, except an expert-parallel share's banks (``experts_held``: fewer
+# experts than its router scores), which the ranks of one 'model' index
+# hold alike, replicated over the data axes.
+
+TP_FAMILIES = ("dense",)
+
+
+def tensor_parallel(cfg, mesh) -> bool:
+    """True when ``cfg`` takes the reference's tensor-parallel layout over
+    ``mesh``: a dense-family arch and a 'model' axis of more than one
+    rank."""
+    return (cfg is not None and mesh is not None
+            and getattr(cfg, "family", None) in TP_FAMILIES
+            and mesh.shape.get("model", 1) > 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseTP:
+    """What each rank of a dense stack holds under the tensor-parallel
+    layout, role by role (``Rules.spec_for`` of the logical shapes):
+    ``heads`` q / k / v and their biases column-sharded (``n_heads / tp``
+    and ``n_kv / tp`` heads a rank), ``o_rows`` o row-sharded (the rows of
+    ``n_heads / tp`` heads), ``mlp`` gate / up (fc1) column- and down
+    (fc2) row-sharded, ``vocab`` the embedding's rows and the head's
+    columns split over the vocabulary."""
+    mesh: Any
+    tp: int
+    heads: bool
+    o_rows: bool
+    mlp: bool
+    vocab: bool
+
+
+def dense_tp(cfg, mesh) -> Optional[DenseTP]:
+    """:class:`DenseTP` of ``cfg`` over ``mesh``, or None when the layout
+    is not tensor-parallel (:func:`tensor_parallel`)."""
+    if not tensor_parallel(cfg, mesh):
+        return None
+    tp = mesh.shape["model"]
+    return DenseTP(mesh, tp, *_dense_cuts(cfg, tuple(mesh.axis_names),
+                                          tuple(mesh.shape.values())))
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_cuts(cfg, axes: tuple, sizes: tuple) -> tuple:
+    """(heads, o_rows, mlp, vocab) of :class:`DenseTP`, by the rules."""
+    rules = Rules(axes, dict(zip(axes, sizes)), cfg)
+    hd, d = cfg.resolved_head_dim, cfg.d_model
+    ff = cfg.dense_ff or cfg.d_ff
+
+    def cut(name, shape, dim):
+        return rules.spec_for(f"stacks//dense//{name}", (1,) + shape
+                              )[1 + dim] is not None
+    return (cut("attn//q//kernel//w", (d, cfg.n_heads * hd), 1),
+            cut("attn//o//kernel//w", (cfg.n_heads * hd, d), 0),
+            cut("mlp//up//kernel//w", (d, ff), 1),
+            rules.spec_for("embed//table", (cfg.padded_vocab, d))[0]
+            is not None)
+
+
+def layout_specs(params: Any, cfg, mesh) -> Any:
+    """The port's layout of a whole parameter tree (real, abstract or
+    frozen) over ``mesh``: ``Rules.param_specs`` under
+    :func:`tensor_parallel`, else each leaf replicated but a share's expert
+    banks (``cfg.experts_held``), split over 'model' on their expert dim
+    (dim 1 of the (L, E, ...) stack).  A frozen leaf's row-pair-packed
+    codes must split as its weights would (raises where K / 2 and K divide
+    the axis differently)."""
+    if tensor_parallel(cfg, mesh):
+        rules = Rules.for_mesh(mesh, cfg)
+        for path, leaf in tree_paths(params):
+            name = path_name(path)
+            if name.endswith("//packed"):
+                shape = _shape(leaf)
+                logical = shape[:-2] + (2 * shape[-2], shape[-1])
+                if rules.spec_for(name[:-6] + "w", logical) != \
+                        rules.spec_for(name, shape):
+                    raise ValueError(f"{name}: the packed codes {shape} "
+                                     "split unlike their weights")
+        return rules.param_specs(params)
+
+    def walk(node, banks):
+        if isinstance(node, dict):
+            return {k: walk(v, banks or k == "experts")
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, banks) for v in node)
+        out = [None] * len(_shape(node))
+        if banks and len(out) >= 2:
+            out[1] = "model"
+        return tuple(out)
+    if getattr(cfg, "experts_held", None) is not None:
+        return walk(params, False)
+    return _whole(params)
+
+
+def _whole(params: Any) -> Any:
+    return _map_with_path(lambda _, t: _rep(len(_shape(t))), params)
+
+
+def spec_axes(spec: tuple) -> frozenset:
+    """The mesh axes a spec cuts over."""
+    out = set()
+    for a in spec:
+        if a is not None:
+            out.update((a,) if isinstance(a, str) else a)
+    return frozenset(out)
+
 
 def _share_banks(node: dict) -> bool:
     """A MoE layer's dict whose banks hold fewer experts than its router
@@ -273,13 +386,16 @@ def _share_banks(node: dict) -> bool:
     return w.shape[-3] < node["router"]["w"].shape[-1]
 
 
-def replica_axes(params: Any, mesh) -> Any:
-    """The mesh axes each leaf of ``params`` is replicated over under the
-    port's layout: the ranks whose gradients of that leaf add up to its
-    gradient (a tree like ``params`` of frozensets of axis names, which the
-    tree functions take as leaves; empty for a leaf no other rank
-    holds)."""
+def replica_axes(params: Any, mesh, specs: Any = None) -> Any:
+    """The mesh axes each leaf of ``params`` is replicated over: the ranks
+    whose gradients of that leaf add up to its gradient (a tree like
+    ``params`` of frozensets of axis names, which the tree functions take
+    as leaves; empty for a leaf no other rank holds).  With ``specs`` (the
+    layout, :func:`layout_specs`) every axis a leaf is not cut over; else
+    the layout read off the tree (whole leaves, a share's banks)."""
     every, data = frozenset(mesh.axis_names), frozenset(mesh.data_axes)
+    if specs is not None:
+        return map_(lambda _, s: every - spec_axes(s), params, specs)
 
     def walk(node, axes):
         if isinstance(node, dict):
@@ -292,15 +408,26 @@ def replica_axes(params: Any, mesh) -> Any:
     return walk(params, every)
 
 
-def zero1_specs(params: Any, mesh) -> Any:
-    """ZeRO-1's spec of each leaf's Adam moments: :meth:`Rules.zero1_spec`
-    of the port's layout spec (every dim whole on the rank), so the first
-    dim that divides over the data axes is cut over them; a leaf with no
-    such dim keeps whole moments."""
+def opt_specs(params: Any, mesh, specs: Any = None) -> Any:
+    """ZeRO-1's spec of each leaf's Adam moments over the whole mesh: the
+    layout spec (``specs``; every dim whole without) with the first dim it
+    leaves whole that divides over the data axes cut over them, the
+    reference's :meth:`Rules.zero1_spec`.  A row-sharded (K, N) leaf is
+    then cut on N."""
     rules = Rules.for_mesh(mesh)
-    return _map_with_path(
-        lambda _, leaf: rules.zero1_spec(_rep(leaf.ndim), tuple(leaf.shape)),
-        params)
+    return map_(lambda t, s: rules.zero1_spec(s, _shape(t)), params,
+                _whole(params) if specs is None else specs)
+
+
+def zero1_specs(params: Any, mesh, specs: Any = None) -> Any:
+    """The cut of this rank's parameter leaves that gives its ZeRO-1
+    moment blocks: :func:`opt_specs` over the data axes only (the 'model'
+    cut is the leaf's own), for :func:`shard_slice` of the rank's leaf; a
+    leaf with no such dim keeps whole moments."""
+    specs = _whole(params) if specs is None else specs
+    return map_(lambda _, spec, z: tuple(a if s is None else None
+                                         for s, a in zip(spec, z)),
+                params, specs, opt_specs(params, mesh, specs))
 
 
 def shard_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
@@ -318,3 +445,27 @@ def shard_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
         blk = t.shape[d] // n
         t = t.narrow(d, mesh.axis_index(axes) * blk, blk)
     return t
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's block of every leaf of ``tree`` under ``specs`` (a tree
+    like it), each cut leaf a tensor of its own (a copy, so that the whole
+    one can be freed)."""
+    def cut(t, spec):
+        if not isinstance(t, torch.Tensor) or not spec_axes(spec):
+            return t
+        return shard_slice(t, spec, mesh).clone()
+    return map_(cut, tree, specs)
+
+
+@torch.no_grad()
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """The whole of every leaf of ``tree`` (this rank's blocks under
+    ``specs``): each cut dim all-gathered over its axes in mesh order, the
+    inverse of :func:`shard_tree`."""
+    def whole(t, spec):
+        for d, axes in enumerate(spec):
+            if axes is not None:
+                t = mesh.all_gather(t, axes, dim=d)
+        return t
+    return map_(whole, tree, specs)

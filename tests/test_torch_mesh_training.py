@@ -238,18 +238,27 @@ def test_int8_on_replicated_rows_is_the_single_device_round_trip(
     local = {k: v[:8 // dp] for k, v in smollm["batches"][0].items()}
     tiled = {k: np.concatenate([v] * dp) for k, v in local.items()}
     gcfg = tgc.GradCompressCfg(min_size=MIN_SIZE)
-    single = _port_single(cfg, np_state, local, compress=gcfg)
     res = world.run(ranks.dp_train, cfg, mesh, [tiled],
                     params=np_state["params"], qstate=np_state["qstate"],
-                    lr=LR, runs=[{"compress": gcfg, "state": True}],
+                    lr=LR, runs=[{"compress": gcfg, "state": True},
+                                 {"compress": gcfg, "int8_local": True}],
                     out_dir=str(tmp_path))
-    want = single["state"]
-    want = {"params": want["params"], "qstate": want["qstate"],
-            "opt": {"m": want["opt"]["m"], "v": want["opt"]["v"]},
-            "err": want["err"]}
-    want_digests = {n: ranks.digest(t) for n, t in ranks.named_leaves(want)}
+    if mesh[1] == 1:
+        single = _port_single(cfg, np_state, local, compress=gcfg)
+        want = single["state"]
+        want = {"params": want["params"], "qstate": want["qstate"],
+                "opt": {"m": want["opt"]["m"], "v": want["opt"]["v"]},
+                "err": want["err"]}
+        want_digests = {n: ranks.digest(t)
+                        for n, t in ranks.named_leaves(want)}
+    else:
+        # tensor-parallel ranks compute the single device's gradient in
+        # another order: the round trip is of the mesh's exact gradient
+        assert res[0]["layout"] == "tensor parallel"
+        want_digests = res[0]["runs"][1]["digests"]
     for rank, r in enumerate(res):
         assert r["runs"][0]["digests"] == want_digests, rank
+        assert r["runs"][1]["digests"] == want_digests, rank
     # and the reference's int8 step on those rows
     jstate = jec4t.init_train_state(smollm["jstate"]["params"],
                                     compress=jgc.GradCompressCfg(
@@ -306,7 +315,8 @@ def test_indivisible_batch_and_unknown_axes_raise(world, smollm):
 def test_replica_axes_and_zero1_specs_follow_the_ports_layout():
     """Non-expert leaves and whole banks are replicated over the mesh, a
     share's banks over the data axes; ZeRO-1 cuts the first dim that
-    divides over the data axes."""
+    divides over the data axes.  A dense arch's tensor-parallel blocks are
+    replicated over the data axes, their ω over the mesh."""
     from repro_torch.runtime.sharding import replica_axes, zero1_specs
     cfg = get_config("grok-1-314b").smoke()
     spec = tmesh.MeshSpec((2, 2), tmesh.AXES)
@@ -325,6 +335,25 @@ def test_replica_axes_and_zero1_specs_follow_the_ports_layout():
         ("data", None)
     odd = {"w": torch.zeros(3, 5), "v": torch.zeros(3, 4)}
     assert zero1_specs(odd, spec) == {"w": (None, None), "v": (None, "data")}
+    # the dense family over model > 1: the reference's layout, a rank's
+    # block of a sharded leaf summed over the data axes only, ZeRO-1 of a
+    # row-sharded (K, N) leaf cut on N
+    from repro_torch.runtime.sharding import layout_specs, opt_specs
+    dense = get_config("smollm-360m").smoke()
+    tree = T.lm_init(dense, device="meta")
+    lay = layout_specs(tree, dense, spec)
+    axes = replica_axes(tree, spec, lay)
+    mlp = lay["stacks"]["dense"]["mlp"]
+    assert mlp["down"]["kernel"]["w"] == (None, "model", None)
+    assert mlp["gate"]["kernel"]["w"] == (None, None, "model")
+    assert axes["stacks"]["dense"]["mlp"]["down"]["kernel"]["w"] == data
+    assert axes["stacks"]["dense"]["mlp"]["down"]["kernel"]["omega"] == every
+    assert axes["embed"]["table"] == data
+    assert axes["final_norm"]["scale"] == every
+    assert opt_specs(tree, spec, lay)["stacks"]["dense"]["mlp"]["down"][
+        "kernel"]["w"] == ("data", "model", None)
+    assert zero1_specs(tree, spec, lay)["stacks"]["dense"]["mlp"]["down"][
+        "kernel"]["w"] == ("data", None, None)
     with pytest.raises(ValueError, match="pass mesh"):
         tec4t.make_train_step(lambda *a: None, tadam.AdamConfig(),
                               zero1=True)
