@@ -63,7 +63,8 @@ Phases (any failure raises and the script exits non-zero):
    to the request served alone, rejections typed, every serving kernel
    launched (counters zeroed just before, read just after); a fault
    session (seeded launch failures, bit flips in the pack, in place in
-   the copies the kernels read, and in the cold tier) returns no result
+   the copies the kernels read, and in the cold tier; 60 waves, more up
+   to 240 until the cold flip has fired) returns no result
    that differs from the clean pack's; each hot flip its own launch ran
    on is detected by that launch, no launch returns a result from a
    corrupted pack or copy, recovered = detected - refused, and the cold
@@ -302,8 +303,8 @@ Phases (any failure raises and the script exits non-zero):
    limit, and one ``mla_train`` JSON line.
 
 11. The ssm and hybrid families served at published widths, depths cut
-   for the time limit (``SSM_SERVE["layers"]``: mamba2 48 -> 8, hymba
-   32 -> 8), run after phase 10 (at most 1 GiB allocated at the start of
+   for the time limit (``SSM_SERVE["layers"]``: mamba2 48 -> 4, hymba
+   32 -> 4), run after phase 10 (at most 1 GiB allocated at the start of
    each arch): mamba2-1.3b (48 SSD blocks of d_model 2048, d_inner 4096, 64
    heads of 64, state 128, chunk 256, tied vocabulary 50,280) and
    hymba-1.5b (32 hybrid layers of d_model 1600: GQA 25 heads, 5 KV, SWA
@@ -314,8 +315,9 @@ Phases (any failure raises and the script exits non-zero):
    ``freeze_tree``, prefill and greedy decode through ``lm_apply`` with
    an fp32 cache), the ecl_quant counter zeroed just before and read just
    after; then the same init, freeze and prompts again for the gates,
-   whose tokens must equal the launcher's.  Gates: exactly 3 (mamba2: 96
-   segments) and 9 (hymba: 288) ecl_quant launches in the freeze; codes
+   whose tokens must equal the launcher's.  Gates: exactly ⌈segments / 32⌉
+   ecl_quant launches in the freeze (at full depth 3 for mamba2's 96
+   segments, 9 for hymba's 288); codes
    of layer 0's in_proj and the last layer's out_proj bitwise equal to
    ``ecl_quant_plain``; layer 0's ``ssd_chunked`` on the card, on its
    recorded prefill inputs, within 1e-4 relative of the sequential
@@ -334,8 +336,8 @@ Phases (any failure raises and the script exits non-zero):
    prompts, the state and KV bytes a sequence, each beside the card's
    name and power limit, and one ``ssm`` JSON line.
 12. The ssm and hybrid families EC4T-trained at published widths, depths
-   cut for the time limit (``TRAIN_RUNS``' ``layers``: mamba2 48 -> 8,
-   hymba 32 -> 8), run after phase 11: mamba2-1.3b at 2 x 2,048 tokens for 4
+   cut for the time limit (``TRAIN_RUNS``' ``layers``: mamba2 48 -> 4,
+   hymba 32 -> 4), run after phase 11: mamba2-1.3b at 2 x 2,048 tokens for 4
    steps and hymba-1.5b at 1 x 2,048 for 3, from ``lm_init(seed=0)``, in
    bf16 under ``remat="full"`` through the launcher's functions
    (``lm_step_fn``, ``lm_batch_fn``, ``ShardedFeed``,
@@ -348,8 +350,8 @@ Phases (any failure raises and the script exits non-zero):
    (``--remat full``, 6 steps, checkpoints at 3 and 6, an export) resumed
    from its step-3 checkpoint gives the same losses, checkpoint and
    export bit for bit; for mamba2, a whole step at full width cut to depth
-   4 under ``full`` bitwise ``none``'s; exactly 3 (mamba2) and 9 (hymba)
-   ecl_quant launches a pass, 2 passes a step and 1 in the export; the
+   4 under ``full`` bitwise ``none``'s; exactly ⌈segments / 32⌉ ecl_quant
+   launches a pass (3 and 9 at full depth), 2 passes a step and 1 in the export; the
    first and the last step's fake-quant codes and ŵ of layer 0's in_proj
    and the last layer's out_proj bitwise equal to ``ecl_quant_plain``;
    finite losses; from the last step's input, the loss and every
@@ -365,7 +367,7 @@ Phases (any failure raises and the script exits non-zero):
    ms, each beside the card's name and power limit, and one ``ssm_train``
    JSON line.
 13. The vlm and audio families served at published widths and depths
-   (qwen2-vl's cut for the time limit, ``VLM_SERVE["layers"]``: 28 -> 8),
+   (qwen2-vl's cut for the time limit, ``VLM_SERVE["layers"]``: 28 -> 4),
    run after phase 12 (at most 1 GiB allocated at the start of each
    arch), fp32 compute and cache.  qwen2-vl-2b (28 layers of d_model
    1536, 12 heads with 2 KV heads of 128, QKV bias, d_ff 8,960, M-RoPE
@@ -374,9 +376,9 @@ Phases (any failure raises and the script exits non-zero):
    --max-new 16``, token prompts), the ecl_quant counter zeroed just
    before and read just after; then the gated freeze, and a prefill of 2
    x 8,192 patch embeddings drawn from seed 0 through ``lm_apply(embeds=)``
-   and 16 greedy tokens by id.  Gates: exactly 7 ecl_quant launches (196
-   segments) in the launcher's and in the gated freeze, codes of layer
-   0's q and layer 27's down bitwise equal to ``ecl_quant_plain``;
+   and 16 greedy tokens by id.  Gates: exactly ⌈segments / 32⌉ ecl_quant
+   launches (7 for 196 at full depth) in the launcher's and in the gated
+   freeze, codes of layer 0's q and the last layer's down bitwise equal to ``ecl_quant_plain``;
    ``mrope_cos_sin`` at head dim 128 on three identical streams bitwise
    ``rope_cos_sin``, and on three distinct streams to position 8,207
    each stream's section bitwise ``rope_cos_sin`` of that stream; layer
@@ -405,7 +407,7 @@ Phases (any failure raises and the script exits non-zero):
    beside the card's name and power limit, and one ``vlm_audio`` JSON
    line.
 14. The vlm and audio families EC4T-trained at published widths and
-   depths (qwen2-vl's cut for the time limit: 28 -> 8) in bf16, run
+   depths (qwen2-vl's cut for the time limit: 28 -> 4) in bf16, run
    after phase 13: qwen2-vl-2b at 1 x 2,048 (patch
    embeddings and labels, no tokens) for 3 steps under ``remat="full"``,
    whisper-base at 8 x (1,500 frames, 448 tokens) for 10 steps, from
@@ -451,13 +453,13 @@ Phases (any failure raises and the script exits non-zero):
    layer's gather brings, the ms a served batch (CUDA events; labelled
    "4 ranks sharing one H100 over gloo", not a claim).  (b)
    grok-1-314b at published widths (d 6,144, d_ff 32,768, 8 experts,
-   top-2), depth 1, vocabulary cut to 32,768 so that four ranks' whole
-   non-expert weights fit, capacity factor E / k: first the single
-   process serves the whole layer (every expert drawn from a generator
-   of its own, as each rank draws its share), then each rank inits and
-   freezes its 2 experts in turn (ecl_quant counted) and runs
-   ``generate(mesh=)`` over 4 prompts of 16 ids and 4 tokens through
-   ``moe_apply_ep`` (two all-to-alls a layer) on mesh (1, 4).  Gates:
+   top-2), depth 1, vocabulary cut to 32,768 (time), capacity factor E /
+   k: first the single process serves the whole layer (every expert drawn
+   from a generator of its own, as each rank draws its own), then each
+   rank inits and freezes its blocks under the reference's layout (its 2
+   experts, 12 heads and a quarter of the vocabulary; ecl_quant counted)
+   and runs ``generate(mesh=)`` over 4 prompts of 16 ids and 4 tokens
+   through ``moe_apply_ep`` (two all-to-alls a layer) on mesh (1, 4).  Gates:
    tokens equal to the single process's, a no-cache forward's logits
    within 1e-4 relative, at least one ecl_quant launch a rank.  Peak
    memory per rank recorded.  (c) ``moe_apply_tp`` at the smoke widths,
@@ -469,7 +471,8 @@ Phases (any failure raises and the script exits non-zero):
 16. EC4T training over a mesh on ``torch.distributed``: 4
    gloo ranks share the card as in phase 15; the single-process
    references run first and are freed.  (a) SmolLM-360M at its published
-   widths and depth from ``lm_init(seed=0)``, a global batch of 8 x 64
+   widths, depth 32 -> 8 (time), from ``lm_init(seed=0)``, a global
+   batch of 8 x 64
    through ``build_train_step`` and ``ShardedFeed(mesh=)`` on meshes (4,
    1) and (2, 2) (on (2, 2) the dense family's tensor-parallel layout:
    each rank holds its blocks of the MLP and the tied vocabulary, its 15
@@ -489,11 +492,12 @@ Phases (any failure raises and the script exits non-zero):
    mesh's own exact gradient, each leaf whole), each by digest (two int64
    sums of the bits, of the whole tree: a rank's blocks' shares summed
    over 'model'); the int8 gradients on distinct rows within half the shared
-   scale of the exact mean; exactly 2 passes of ⌈224 / 32⌉ = 7 ecl_quant
+   scale of the exact mean; exactly 2 passes of ⌈56 / 32⌉ = 2 ecl_quant
    launches a step a rank.  Recorded: ms a bf16 step a rank (host clock,
    synchronised), bytes all-reduced a step (fp32 and int8), peak memory a
-   rank with ZeRO-1 off and on.  (b) grok-1-314b's smoke layer (banks
-   from ``seeded_banks``) through ``moe_ffn`` under grad at capacity
+   rank with ZeRO-1 off and on.  (b) grok-1-314b's smoke layer (each
+   expert from a generator of its own) through ``moe_ffn`` under grad at
+   capacity
    factor E / k: EP on (1, 4) and (2, 2), whole banks and each rank's
    share, and expert TP on (1, 4) with 2 experts, where the reference's
    dispatcher picks it.  Gates: the objective ``Σ y·r + 0.01·aux`` and
@@ -545,17 +549,17 @@ Phases (any failure raises and the script exits non-zero):
 
 18. Tensor parallelism over 'model' for the dense family, 4 gloo ranks
    sharing the card as in phase 16, each single-process reference run
-   first and freed.  (a) h2o-danube-1.8b at its published widths and
-   depth (24 layers, d 2,560, 32 heads / 8 KV, d_ff 6,912, vocabulary
-   32,000) over (1, 4), the head-sharded path: each rank draws its blocks
+   first and freed.  (a) h2o-danube-1.8b at its published widths (d
+   2,560, 32 heads / 8 KV, d_ff 6,912, vocabulary 32,000), depth 24 -> 12
+   (time), over (1, 4), the head-sharded path: each rank draws its blocks
    (``lm_init(mesh=)``, one layer whole at a time), freezes them (the
    probabilities' and mean(w²)'s sums over 'model'), then serves 2 x 512
    prompt tokens and 16 greedy tokens in fp32.  Gates: each rank's frozen
-   tree bitwise its blocks of one process's freeze (by digest) and 6
+   tree bitwise its blocks of one process's freeze (by digest) and 3
    ecl_quant launches in each freeze, as one process's; tokens equal to
    one process's; the prefill's last 8 positions' logits within 1e-3 of
    their largest; a rank's KV cache a quarter of one process's.  (b)
-   h2o-danube-1.8b at published widths, depth 24 -> 4, 8 x 64 over (1, 4)
+   h2o-danube-1.8b at published widths, depth 24 -> 2, 8 x 64 over (1, 4)
    and (2, 2) (ZeRO-1): 2 fp32 steps held to one process (phase 16's
    gates: loss ``rtol=1e-4``, gradients 1e-4 of each leaf's largest,
    params ``atol=rtol=5e-3``), the probabilities after them bitwise one
@@ -564,6 +568,42 @@ Phases (any failure raises and the script exits non-zero):
    and peak memory a rank beside one process's, ms a step a rank, bytes
    all-reduced over 'model' a step, and one ``tensor_parallel`` JSON line.
 
+19. Tensor parallelism over 'model' for the MoE family (the reference's
+   ``Rules`` layout), 4 gloo ranks sharing the card as in phase 18, each
+   single-process reference run first, kept on the host and freed.  (a)
+   grok-1-314b at published widths (d 6,144, 48 heads / 8 KV, expert
+   d_ff 32,768, 8 experts top-2, vocabulary 131,072), depth 1, capacity
+   factor E / k, over (1, 4): head-sharded GQA, expert parallelism with 2
+   experts a rank (each expert drawn from a generator of its own, so a
+   rank draws its experts alone), the vocabulary cut; (b)
+   deepseek-v3-671b at published widths (d 7,168, 128 heads, MLA q_lora
+   1,536 / kv_lora 512, dense d_ff 18,432, expert d_ff 2,048, vocabulary
+   129,280), depth 2 (one dense layer, one MoE layer), routed experts 256
+   -> 32 (top-8, routed scaling 2.5, the shared expert), over (1, 4):
+   MLA by heads with q_down / kv_down column-cut and gathered, the dense
+   FFN and the shared expert cut, 8 experts a rank.  Each serves 2 x 512
+   prompt tokens and 16 greedy tokens in fp32 (``ranks.tp_serve_card``).
+   Gates: each rank's frozen tree bitwise its blocks of one process's
+   freeze (by digest) in exactly ⌈a rank's segments / 32⌉ ecl_quant
+   launches (grok 10 segments: 1; deepseek 40: 2); tokens equal to one
+   process's; the prefill's last 8 positions' logits within 1e-3 of their
+   largest; grok's KV cache a rank a quarter of one process's, deepseek's
+   latent cache a rank equal to one process's; deepseek's absorbed decode
+   within 1e-4 of the naive form on each rank.  (c) deepseek-v3 as in
+   (b) with routed experts 256 -> 8 and the vocabulary cut to 32,768 (as
+   phase 10), its MoE layer alone (depth 2 on (2, 2) ran out of the
+   card), 8 x 64 over (1, 4) and (2, 2) (ZeRO-1): phase 18's gates
+   against one process, whose load-balance aux is the mean of the 4
+   token blocks' the expert-parallel ranks route (the reference's
+   ``local_moe`` pmean), the probabilities of the expert banks included,
+   and exactly ⌈a rank's segments / 32⌉ ecl_quant launches a pass; a
+   bf16 step timed.  (d) The dry run of grok-1-314b's ``train_4k`` cell on
+   pod16x16 (meta tensors): 8 experts do not divide 16, so each rank
+   holds d_ff 2,048 of every expert (expert TP); gated OK, tensor
+   parallel, expert TP, with all-reduces over 'model'; its FLOPs, bytes
+   and ``model_axis_collectives`` recorded.  Prints one
+   ``moe_tensor_parallel`` JSON line.
+
 The script ends with a line that counts the profiler traces taken and
 retaken, the device times taken from queued CUDA events and the queued
 timings taken again behind a longer spin after a host stall, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -571,6 +611,7 @@ timings taken again behind a longer spin after a host stall, the ``nvidia-smi`` 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -1381,8 +1422,12 @@ TIERS = {"mlp-gsc": "latency", "mlp-hr": "standard",
 # into the pack at launches 5, 11 and 21 and into the copies the kernels
 # read at 10 and 14, injected failures at 7 and 12, and the first cold
 # flip at launch 28 (the draws depend on the launch count only)
+# waves: the session's length; past it, up to max_waves while the
+# injector's schedule has not reached its cold flip (launch 28): how many
+# of the faulty model's requests admission sheds, and so how many
+# launches 60 waves make (29-44 seen), moves with the host
 FAULT = dict(model="mlp-hr", seed=939, rate=0.05, flip_rate=0.1,
-             waves=60, per_wave=4, max_rows=16, scrub_s=0.02)
+             waves=60, max_waves=240, per_wave=4, max_rows=16, scrub_s=0.02)
 COOP_ROWS, COOP_LAUNCHES = (8, 256), 40
 VERIFY_REPS = 20
 
@@ -1954,9 +1999,13 @@ def fault_session(dev, packs, kw):
     fb.plan = audit = LaunchAudit(fb.plan, inj)
     cold_ref = fe.registry.cache.cold(fm_name)
     rng = np.random.default_rng(44)
-    done, rejected = [], []
+    done, rejected, waves = [], [], 0
     with fe:
-        for _ in range(FAULT["waves"]):
+        for wave in range(FAULT["max_waves"]):
+            if wave >= FAULT["waves"] and any(f[1] == "cold"
+                                              for f in inj.flips):
+                break
+            waves += 1
             futs = []
             for m in (fm_name, clean):
                 for _ in range(FAULT["per_wave"]):
@@ -2009,7 +2058,8 @@ def fault_session(dev, packs, kw):
         raise AssertionError("a fault demoted a bucket in the fault session")
     _served_checks(dev, packs, kw, done)
     n_fault = sum(1 for m, _, _ in done if m == fm_name)
-    print(f"phase 3c: faults {len(hot)} hot and {len(cold)} cold flips, "
+    print(f"phase 3c: {waves} waves; faults {len(hot)} hot and "
+          f"{len(cold)} cold flips, "
           f"{inj.injected} launch failures; {own} hot flips ran on by "
           f"their own launch, {own_detected} detected there (expected "
           f"{own}); {later} later launches ran on a flip, 0 returned; "
@@ -2020,7 +2070,8 @@ def fault_session(dev, packs, kw):
           f"cold tier); {n_fault} faulty-model results all equal to the "
           f"clean pack's")
     return {"model": fm_name, "seed": FAULT["seed"], "rate": FAULT["rate"],
-            "flip_rate": FAULT["flip_rate"], "launches": inj.launches,
+            "flip_rate": FAULT["flip_rate"], "waves": waves,
+            "launches": inj.launches,
             "injected_failures": inj.injected,
             "hot_flips": len(hot), "cold_flips": len(cold),
             "flips": [list(f) for f in inj.flips],
@@ -4985,7 +5036,7 @@ SSM_LEAVES = {"ssm": 2, "hybrid": 9}      # quantized leaves a layer
 SSM_SERVE = dict(seed=0, prompts=2, prompt_len=8192, max_new=16,
                  short_prompt_len=1024,
                  # depth cut for the script's time limit (widths kept)
-                 layers={"mamba2-1.3b": 8, "hymba-1.5b": 8})
+                 layers={"mamba2-1.3b": 4, "hymba-1.5b": 4})
 SSM_REL = 1e-4            # the SSD vs fp64 recurrence; steps vs sequence
 SSM_STACK_REL = 1e-3      # cached decode logits vs a no-cache forward
 SSM_SPLIT = 4096          # where the carried-state SSD check starts
@@ -5421,7 +5472,7 @@ VLM_LEAVES = 7            # q, k, v, o, gate, up, down a layer
 AUDIO_LEAVES = (6, 10)    # an encoder layer's, a decoder layer's (+ cross)
 VLM_SERVE = dict(seed=0, prompts=2, prompt_len=8192, max_new=16,
                  short_prompt_len=1024, launcher_prompt_len=1024,
-                 layers=8)     # depth cut for the time limit (widths kept)
+                 layers=4)     # depth cut for the time limit (widths kept)
 VLM_STEPS_REL = 1e-4      # layer 0's decode steps vs its sequence
 VLM_STACK_REL = 1e-3      # cached decode logits vs a no-cache forward
 # whisper's start of transcript: <|startoftranscript|> <|en|> <|transcribe|>
@@ -5919,11 +5970,11 @@ def vlm_audio_serve_path(dev, gpu):
 
 TRAIN_RUNS = {   # each arch's run at published widths, and its smoke run
     "mamba2-1.3b": dict(phase="12", batch=2, seq=2048, steps=4,
-                        smoke_seq=20, remat_depth=4, layers=8),
+                        smoke_seq=20, remat_depth=4, layers=4),
     "hymba-1.5b": dict(phase="12", batch=1, seq=2048, steps=3, smoke_seq=20,
-                       layers=8),
+                       layers=4),
     VLM_ARCH: dict(phase="14", batch=1, seq=2048, steps=3, smoke_seq=12,
-                   remat_depth=2, layers=8),
+                   remat_depth=2, layers=4),
     AUDIO_ARCH: dict(phase="14", batch=8, seq=448, steps=10, smoke_seq=8)}
 # remat_depth: the arch cut to it (widths kept) for a whole step under
 # full held to none's; an SSD smoke seq of 20 leaves a ragged chunk;
@@ -6374,10 +6425,9 @@ SCALE_OUT = dict(world=4, meshes=((1, 4), (2, 2)), rows=(1, 3, 8, 64, 256),
 SCALE_OUT_LABEL = "4 ranks sharing one H100 over gloo"
 SCALE_OUT_MLPS = ("mlp-gsc", "mlp-hr", "lenet-300-100")
 # grok-1-314b at published widths, depth 1; the vocabulary cut as phase 8
-# cuts it, so that four ranks' whole non-expert weights fit one card
+# cuts it (time: phase 19 serves the whole vocabulary)
 SCALE_OUT_MOE = dict(arch="grok-1-314b", layers=1, vocab=32768, prompts=4,
-                     prompt_len=16, max_new=4, seed=0, bank_seed=15,
-                     mesh=(1, 4))
+                     prompt_len=16, max_new=4, seed=0, mesh=(1, 4))
 SCALE_OUT_MOE_REL = 1e-4   # logits, EP ranks vs the single process
 SCALE_OUT_TP = dict(experts=2, tokens=24, seed=151, mesh=(1, 4))
 SCALE_OUT_TP_TOL = 1e-5    # moe_apply_tp vs moe_apply, fp32
@@ -6470,22 +6520,18 @@ def _scale_out_moe_cfg():
 
 def _scale_out_single(dev, cfg, prompt):
     """(b)'s single-process path, run before any rank: the whole layer
-    (every expert, drawn as the ranks draw theirs) frozen on the card, its
-    greedy tokens and a no-cache forward's logits over prompt + tokens."""
+    (every expert, each drawn from a generator of its own as the ranks
+    draw theirs) frozen on the card, its greedy tokens and a no-cache
+    forward's logits over prompt + tokens."""
     import torch
     from repro_torch.core import qat
-    from repro_torch.launch import ranks
     from repro_torch.models import lm as LM
     from repro_torch.nn import transformer as T
     from repro_torch.nn.module import FP32_CTX
 
-    share = ranks.expert_share_cfg(cfg, SCALE_OUT_MOE["mesh"], 0)
     torch.zeros((), device=dev)     # the allocator is live before its reset
     torch.cuda.reset_peak_memory_stats(dev)
-    # the share's init: the non-expert draws of every rank's share
-    params = T.lm_init(share, seed=SCALE_OUT_MOE["seed"], device=dev)
-    ranks.seeded_banks(params, share, range(cfg.n_experts),
-                       SCALE_OUT_MOE["bank_seed"], dev)
+    params = T.lm_init(cfg, seed=SCALE_OUT_MOE["seed"], device=dev)
     frozen = qat.freeze_tree(params, qat.build_qstate(params), cfg.lam)
     del params
     torch.cuda.empty_cache()
@@ -6507,8 +6553,7 @@ def _scale_out_moe(dev, pool, single, cfg, prompt):
     from repro_torch.launch import ranks
     gen, logits, single_peak = single
     res = pool.run(ranks.ep_serve, cfg, prompt, SCALE_OUT_MOE["max_new"],
-                   SCALE_OUT_MOE["mesh"], seed=SCALE_OUT_MOE["seed"],
-                   bank_seed=SCALE_OUT_MOE["bank_seed"])
+                   SCALE_OUT_MOE["mesh"], seed=SCALE_OUT_MOE["seed"])
     per_rank = []
     for rank, r in enumerate(res):
         if not np.array_equal(r["tokens"], gen):
@@ -6519,8 +6564,8 @@ def _scale_out_moe(dev, pool, single, cfg, prompt):
         if not rel < SCALE_OUT_MOE_REL:
             raise AssertionError(f"EP rank {rank}: logits {rel} relative "
                                  "from the single process's")
-        # q, k, v, o and 3 banks of the rank's experts a layer, in one
-        # grouped pass: MAX_SEGMENTS segments a launch
+        # q, k, v, o (its heads) and 3 banks of the rank's experts a
+        # layer, in one grouped pass: MAX_SEGMENTS segments a launch
         segments = cfg.n_layers * (4 + 3 * r["experts_held"][1])
         if not (r["ecl_segments"] == segments and r["ecl_quant_launches"]
                 == -(-segments // eq.MAX_SEGMENTS)):
@@ -6623,8 +6668,8 @@ def scale_out_path(dev, gpu):
                    "n_experts": cfg.n_experts, "top_k": cfg.top_k,
                    "mesh": list(SCALE_OUT_MOE["mesh"]),
                    "reduced": {"n_layers": "64 -> 1",
-                               "vocab": "131072 -> 32768 (four ranks' "
-                               "whole non-expert weights on one card)"},
+                               "vocab": "131072 -> 32768 (time; phase 19 "
+                               "serves the whole vocabulary)"},
                    "capacity_factor": cfg.capacity_factor,
                    "single_s": single_s, **moe_ep},
         "moe_tp": tp}
@@ -6647,14 +6692,14 @@ def scale_out_path(dev, gpu):
 
 # ------------------------------------------------------------ phase 16
 
-MESH_TRAIN = dict(arch="smollm-360m", world=4, meshes=((4, 1), (2, 2)),
-                  batch=8, seq=64, seed=0, lr=1e-3, timed_steps=1,
-                  timed_mesh=(4, 1), timeout=900)
+MESH_TRAIN = dict(arch="smollm-360m", layers=8, world=4,
+                  meshes=((4, 1), (2, 2)), batch=8, seq=64, seed=0, lr=1e-3,
+                  timed_steps=1, timed_mesh=(4, 1), timeout=900)
 MESH_TRAIN_GRAD_REL = 1e-4   # mesh grads vs one process: of each leaf's max
 MESH_TRAIN_PARAM_TOL = 5e-3  # tests/test_distributed_equivalence.py:70-74
 MESH_TRAIN_LOSS_RTOL = 1e-4  # the same test's loss gate
 MESH_TRAIN_MOE = dict(arch="grok-1-314b", tokens=24, seed=161, coef=0.01,
-                      bank_seed=16, ep_meshes=((1, 4), (2, 2)),
+                      ep_meshes=((1, 4), (2, 2)),
                       tp_mesh=(1, 4), tp_experts=2)
 MESH_TRAIN_MOE_TOL = 1e-5    # EP / TP objective and gradients vs one process
 MESH_TRAIN_PP = dict(d=960, layers=32, batch=64, n_micro=(4, 8), seed=162,
@@ -6893,17 +6938,14 @@ MESH_TRAIN_LABEL = "4 ranks sharing one H100 over gloo"
 
 
 def _mesh_train_moe_layer(dev, cfg, experts):
-    """grok's smoke layer (``experts`` of them) from ``lm_init`` with every
-    bank drawn by ``seeded_banks``, as numpy."""
+    """grok's smoke layer (``experts`` of them) from ``lm_init`` (each
+    expert from a generator of its own), as numpy."""
     import dataclasses
     from repro_torch.convert import tree_to_numpy
-    from repro_torch.launch import ranks
     from repro_torch.nn import transformer as T
     cfg = dataclasses.replace(cfg, n_experts=experts, n_layers=1,
                               capacity_factor=experts / cfg.top_k)
     params = T.lm_init(cfg, seed=MESH_TRAIN_MOE["seed"], device=dev)
-    ranks.seeded_banks(params, cfg, range(experts),
-                       MESH_TRAIN_MOE["bank_seed"], dev)
     layer = tree_to_numpy(params["stacks"]["moe"]["moe"])
     return cfg, {k: {kk: (vv[0] if not isinstance(vv, dict) else
                           {kkk: vvv[0] for kkk, vvv in vv.items()})
@@ -7030,7 +7072,7 @@ def mesh_train_path(dev, gpu):
 
     t_phase = time.perf_counter()
     _empty_card(dev, "phase 16")
-    cfg = get_config(MESH_TRAIN["arch"])
+    cfg = _cut_depth(get_config(MESH_TRAIN["arch"]), MESH_TRAIN["layers"])
     batch_fn = lm_batch_fn(cfg, batch=MESH_TRAIN["batch"],
                            seq=MESH_TRAIN["seq"])
     batches = [batch_fn(i) for i in range(MESH_TRAIN["timed_steps"])]
@@ -7065,7 +7107,9 @@ def mesh_train_path(dev, gpu):
            "ecl_quant_launches": launches,
            "dp": {"arch": MESH_TRAIN["arch"], "layers": cfg.n_layers,
                   "d_model": cfg.d_model, "batch": MESH_TRAIN["batch"],
-                  "seq": MESH_TRAIN["seq"], "reduced": {},
+                  "seq": MESH_TRAIN["seq"],
+                  "reduced": {"n_layers": f"32 -> {cfg.n_layers} (the "
+                              "script's time limit, phase 19 added)"},
                   "meshes": dp, "s": dp_s},
            "moe": {"arch": MESH_TRAIN_MOE["arch"], "widths": "smoke",
                    "reduced": {"widths": "smoke (d 64, d_ff 128): four "
@@ -7593,7 +7637,8 @@ def autotune_path(dev, gpu):
 # ------------------------------------------------------------ phase 18
 
 TP = dict(arch="h2o-danube-1.8b", world=4, seed=0, serve_mesh=(1, 4),
-          prompts=2, prompt_len=512, max_new=16, tail=8, train_layers=4,
+          prompts=2, prompt_len=512, max_new=16, tail=8, serve_layers=12,
+          train_layers=2,
           batch=8, seq=64, steps=2, lr=1e-3,
           train_meshes=((1, 4), (2, 2)), timeout=900)
 TP_LOGIT_REL = LM_LOGIT_REL     # phase 5's gate, of the max |logit|
@@ -7609,11 +7654,12 @@ def _tp_block(t, spec, r, tp):
     return t
 
 
-def _tp_serve_single(dev, cfg, prompt):
+def _tp_serve_single(dev, cfg, prompt, run=TP):
     """(a)'s one-process reference, run before any rank and freed after:
     ``lm_init`` whole, frozen (its ecl_quant launches counted), the
     digests of each rank's blocks of the frozen tree, and the same
-    greedy serve the ranks run (``ranks.serve_timed``, fp32)."""
+    greedy serve the ranks run (``ranks.serve_timed``, fp32); ``run``
+    names the seed, the mesh and the serve's sizes."""
     import torch
     from repro_torch.core import qat
     from repro_torch.kernels import ecl_quant as eq
@@ -7624,8 +7670,9 @@ def _tp_serve_single(dev, cfg, prompt):
     from repro_torch.runtime.sharding import layout_specs
     from repro_torch.tree import map_
 
+    torch.zeros((), device=dev)     # the allocator is live before its reset
     torch.cuda.reset_peak_memory_stats(dev)
-    params = T.lm_init(cfg, seed=TP["seed"], device=dev)
+    params = T.lm_init(cfg, seed=run["seed"], device=dev)
     qstate = qat.build_qstate(params)
     torch.cuda.synchronize(dev)
     eq.LAUNCHES = 0
@@ -7635,48 +7682,61 @@ def _tp_serve_single(dev, cfg, prompt):
     out = {"freeze_ms": (time.perf_counter() - t0) * 1e3,
            "freeze_launches": eq.LAUNCHES}
     del params, qstate
-    tp = TP["serve_mesh"][1]
-    specs = layout_specs(frozen, cfg, MeshSpec(TP["serve_mesh"],
+    tp = run["serve_mesh"][1]
+    specs = layout_specs(frozen, cfg, MeshSpec(run["serve_mesh"],
                                                ("data", "model")))
     out["block_digests"] = [{n: ranks.digest(t) for n, t in ranks.named_leaves(
         map_(lambda t, sp: _tp_block(t, sp, r, tp), frozen, specs))}
         for r in range(tp)]
-    out.update(ranks.serve_timed(frozen, torch.from_numpy(prompt).to(dev),
-                                 cfg, FP32_CTX, TP["max_new"], TP["tail"])[0])
+    served, cache = ranks.serve_timed(frozen, torch.from_numpy(prompt).to(
+        dev), cfg, FP32_CTX, run["max_new"], run["tail"])
+    out.update(served)
+    del cache
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     del frozen
     torch.cuda.empty_cache()
     return out
 
 
-def _tp_serve(dev, pool, cfg, gpu):
-    """(a): h2o-danube-1.8b at published widths and depth served over
-    (1, 4): each rank's freeze bitwise the one process's blocks, tokens
-    equal, logits within 1e-3, a quarter of the KV cache."""
+def _tp_serve(dev, pool, cfg, gpu, run=TP, phase="18", segments=None):
+    """(a): ``cfg`` served over ``run["serve_mesh"]`` (phase 18:
+    h2o-danube-1.8b at published widths and depth): each rank's freeze
+    bitwise the one process's blocks in the launches its segments take
+    (``segments``: a rank's and one process's, default 7 a layer both),
+    tokens equal, logits within 1e-3, the KV cache a rank its share of
+    one process's (a quarter with its KV heads cut, the whole of an MLA
+    latent), and for MLA the absorbed decode within 1e-4 of the naive
+    form on each rank."""
     import numpy as np
     from repro_torch.kernels import ecl_quant as eq
     from repro_torch.launch import ranks
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.runtime.sharding import model_tp
 
-    prompt = np.random.default_rng(TP["seed"] + 180).integers(
-        0, cfg.vocab, (TP["prompts"], TP["prompt_len"])).astype(np.int32)
+    prompt = np.random.default_rng(run["seed"] + 180).integers(
+        0, cfg.vocab, (run["prompts"], run["prompt_len"])).astype(np.int32)
     t0 = time.perf_counter()
-    single = _tp_serve_single(dev, cfg, prompt)
+    single = _tp_serve_single(dev, cfg, prompt, run)
     single_s = time.perf_counter() - t0
-    _empty_card(dev, "phase 18 (a)'s ranks")
+    _empty_card(dev, f"phase {phase} {cfg.name}'s ranks")
     t0 = time.perf_counter()
-    res = pool.run(ranks.tp_serve_card, cfg, TP["serve_mesh"], TP["seed"],
-                   prompt, TP["max_new"], TP["tail"])
+    res = pool.run(ranks.tp_serve_card, cfg, run["serve_mesh"], run["seed"],
+                   prompt, run["max_new"], run["tail"])
     ranks_s = time.perf_counter() - t0
-    segments = 7 * cfg.n_layers
-    want_launches = -(-segments // eq.MAX_SEGMENTS)
-    if single["freeze_launches"] != want_launches:
-        raise AssertionError(f"phase 18: one process's freeze launched "
+    rank_seg, one_seg = segments or (7 * cfg.n_layers,) * 2
+    want_launches = -(-rank_seg // eq.MAX_SEGMENTS)
+    one_launches = -(-one_seg // eq.MAX_SEGMENTS)
+    if single["freeze_launches"] != one_launches:
+        raise AssertionError(f"phase {phase}: one process's freeze launched "
                              f"{single['freeze_launches']}, want "
-                             f"{want_launches}")
+                             f"{one_launches}")
+    tp = run["serve_mesh"][1]
+    heads = model_tp(cfg, MeshSpec(run["serve_mesh"], ("data", "model")))
+    kv_split = tp if cfg.mla is None and heads.heads else 1
     scale = float(np.abs(single["tail_logits"]).max())
-    worst = 0.0
+    worst = forms = 0.0
     for rank, r in enumerate(res):
-        tag = f"phase 18: rank {rank}"
+        tag = f"phase {phase}: {cfg.name} rank {rank}"
         i = r["coords"]["model"]
         if r["digests"] != single["block_digests"][i]:
             bad = [n for n in r["digests"]
@@ -7685,8 +7745,8 @@ def _tp_serve(dev, pool, cfg, gpu):
                                  f"process's: {bad[:6]}")
         if r["freeze_launches"] != want_launches:
             raise AssertionError(f"{tag}: freeze launched ecl_quant "
-                                 f"{r['freeze_launches']} times, one "
-                                 f"process {want_launches}")
+                                 f"{r['freeze_launches']} times, want "
+                                 f"{want_launches} for {rank_seg} segments")
         if not np.array_equal(r["tokens"], single["tokens"]):
             raise AssertionError(f"{tag}: tokens {r['tokens'].tolist()} != "
                                  f"{single['tokens'].tolist()}")
@@ -7695,18 +7755,25 @@ def _tp_serve(dev, pool, cfg, gpu):
         if not err <= TP_LOGIT_REL * scale:
             raise AssertionError(f"{tag}: logits {err} past "
                                  f"{TP_LOGIT_REL} of {scale}")
-        if r["kv_cache_bytes"] * TP["serve_mesh"][1] != \
-                single["kv_cache_bytes"]:
+        if r["kv_cache_bytes"] * kv_split != single["kv_cache_bytes"]:
             raise AssertionError(f"{tag}: KV cache {r['kv_cache_bytes']} B, "
                                  f"one process {single['kv_cache_bytes']}")
+        if cfg.mla is not None:
+            forms = max(forms, r["mla_forms_rel"])
+            if not r["mla_forms_rel"] <= MLA_REL:
+                raise AssertionError(f"{tag}: absorbed decode "
+                                     f"{r['mla_forms_rel']} from the naive "
+                                     "form")
     rank_ms = lambda k: [r[k] for r in res]
-    out = {"arch": TP["arch"], "mesh": list(TP["serve_mesh"]),
+    out = {"arch": run["arch"], "mesh": list(run["serve_mesh"]),
            "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "prompts": TP["prompts"], "prompt_len": TP["prompt_len"],
-           "max_new": TP["max_new"], "dtype": "fp32",
+           "prompts": run["prompts"], "prompt_len": run["prompt_len"],
+           "max_new": run["max_new"], "dtype": "fp32",
            "codes_bitwise": True, "tokens_equal": True,
            "logit_max_abs_err": worst, "logit_scale": scale,
            "freeze_launches_per_rank": want_launches,
+           "freeze_segments_per_rank": rank_seg,
+           "freeze_launches_one_process": one_launches,
            "ecl_quant_launches": sum(r["freeze_launches"] for r in res),
            "kv_cache_bytes": {"rank": res[0]["kv_cache_bytes"],
                               "one_process": single["kv_cache_bytes"]},
@@ -7721,104 +7788,153 @@ def _tp_serve(dev, pool, cfg, gpu):
                        "one_process": single["peak_bytes"] / 1e9},
            "init_s": rank_ms("init_s"), "single_s": single_s,
            "ranks_s": ranks_s}
-    print(f"phase 18: {TP['arch']} over {TP['serve_mesh']} ({cfg.n_layers} "
-          f"layers, d {cfg.d_model}): frozen blocks bitwise one process's "
-          f"({want_launches} ecl_quant launches a rank), {TP['prompts']} x "
-          f"{TP['prompt_len']} + {TP['max_new']} tokens equal, logits "
-          f"{worst:.3e} of max {scale:.2f}; KV cache "
-          f"{res[0]['kv_cache_bytes']} B a rank, "
+    if cfg.mla is not None:
+        out["mla_absorbed_vs_naive_rel"] = forms
+    print(f"phase {phase}: {run['arch']} over {run['serve_mesh']} "
+          f"({cfg.n_layers} layers, d {cfg.d_model}): frozen blocks bitwise "
+          f"one process's ({want_launches} ecl_quant launches a rank for "
+          f"{rank_seg} segments), {run['prompts']} x {run['prompt_len']} + "
+          f"{run['max_new']} tokens equal, logits {worst:.3e} of max "
+          f"{scale:.2f}; KV cache {res[0]['kv_cache_bytes']} B a rank, "
           f"{single['kv_cache_bytes']} B one process; rank 0 freeze "
           f"{res[0]['freeze_ms']:.1f} ms, prefill {res[0]['prefill_ms']:.1f}"
           f" ms, decode {out['decode_ms_per_step']['ranks'][0]:.1f} ms a "
           f"step, peak {out['peak_gb']['ranks'][0]:.2f} GB; one process "
           f"{single['freeze_ms']:.1f} / {single['prefill_ms']:.1f} / "
           f"{out['decode_ms_per_step']['one_process']:.1f} ms, peak "
-          f"{out['peak_gb']['one_process']:.2f} GB ({TP_LABEL}; {gpu})")
+          f"{out['peak_gb']['one_process']:.2f} GB"
+          + (f"; absorbed vs naive {forms:.2e}" if cfg.mla is not None
+             else "") + f" ({TP_LABEL}; {gpu})")
     return out
 
 
-def _tp_train_single(dev, cfg, batches):
+def _tp_train_single(dev, cfg, batches, ref, run=TP):
     """(b)'s one-process reference on the card, freed after: the fp32
-    gradients at the initial state on batch 0, the losses of
-    ``TP["steps"]`` fp32 steps and the params after them (host numpy)."""
+    gradients at the initial state on batch 0 and the params after
+    ``run["steps"]`` fp32 steps dumped under ``ref`` (``grads/``,
+    ``params/``: ``ranks.dump``, for the ranks' ``block_errors``); returns
+    the steps' losses and the peak memory."""
     import torch
-    from repro_torch.convert import tree_to_numpy
     from repro_torch.core import qat
+    from repro_torch.launch import ranks
     from repro_torch.launch import steps as S
     from repro_torch.nn import transformer as T
     from repro_torch.optim import adam, ec4t
 
-    params = T.lm_init(cfg, seed=TP["seed"], device=dev)
+    torch.zeros((), device=dev)     # the allocator is live before its reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = T.lm_init(cfg, seed=run["seed"], device=dev)
     qstate = qat.build_qstate(params)
     loss_fn = S._loss_fn(cfg, dtype=torch.float32)
     on_card = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
                for b in batches]
     _, grads = ec4t.local_grads(loss_fn, params, qstate, on_card[0],
                                 cfg.lam)
-    out = {"grads": tree_to_numpy(grads)}
+    ranks.dump(grads, os.path.join(ref, "grads"))
     del grads
-    step = ec4t.make_train_step(loss_fn, adam.AdamConfig(lr=TP["lr"]),
+    step = ec4t.make_train_step(loss_fn, adam.AdamConfig(lr=run["lr"]),
                                 lam=cfg.lam)
     state, losses = ec4t.init_train_state(params), []
-    for b in on_card[:TP["steps"]]:
+    del params, qstate
+    for b in on_card[:run["steps"]]:
         state, metrics = step(state, b)
         losses.append(float(metrics["loss"]))
-    out.update(params=tree_to_numpy(state["params"]), losses=losses)
-    del state, params, qstate
+    out = {"losses": losses,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    ranks.dump(state["params"], os.path.join(ref, "params"))
+    del state
     torch.cuda.empty_cache()
     return out
 
 
-def _tp_train(dev, pool, gpu):
-    """(b): h2o-danube-1.8b's EC4T step at published widths, depth 4,
-    over (1, 4) and (2, 2) (ZeRO-1 on (2, 2)): phase 16's gates against
-    one process on the fp32 steps; the bf16 steps timed."""
+def _tp_train(dev, pool, gpu, cfg=None, run=TP, phase="18",
+              segments=None, single_ctx=contextlib.nullcontext):
+    """(b): ``cfg``'s EC4T step (phase 18: h2o-danube-1.8b at published
+    widths, depth 2) over ``run["train_meshes"]`` (ZeRO-1 where the data
+    axis is wider than 1): phase 16's gates against one process on the
+    fp32 steps (its step run under ``single_ctx()``), exactly
+    ``segments(mesh)`` segments' ecl_quant launches a pass a rank
+    (default 7 a layer); the bf16 steps timed."""
     import dataclasses
     import shutil
     import tempfile
-    import numpy as np
-    import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ecl_quant as eq
-    from repro_torch.launch import ranks
     from repro_torch.launch.train import lm_batch_fn
 
-    cfg = dataclasses.replace(get_config(TP["arch"]),
-                              n_layers=TP["train_layers"])
-    batch_fn = lm_batch_fn(cfg, batch=TP["batch"], seq=TP["seq"])
-    batches = [batch_fn(i) for i in range(TP["steps"])]
-    t0 = time.perf_counter()
-    single = _tp_train_single(dev, cfg, batches)
-    single_s = time.perf_counter() - t0
-    _empty_card(dev, "phase 18 (b)'s ranks")
-    per_step = ECL_PASSES_PER_STEP * -(-7 * cfg.n_layers
-                                       // eq.MAX_SEGMENTS)
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(run["arch"]),
+                                  n_layers=run["train_layers"])
+    batch_fn = lm_batch_fn(cfg, batch=run["batch"], seq=run["seq"])
+    batches = [batch_fn(i) for i in range(run["steps"])]
+    ref = tempfile.mkdtemp(prefix="tp_train_ref_")
+    try:
+        t0 = time.perf_counter()
+        with single_ctx():
+            single = _tp_train_single(dev, cfg, batches, ref, run)
+        single_s = time.perf_counter() - t0
+        _empty_card(dev, f"phase {phase} (b)'s ranks")
+        out, launches = _tp_train_meshes(pool, gpu, cfg, run, phase,
+                                         segments, batches, single, ref)
+    finally:
+        shutil.rmtree(ref)
+    return {"arch": run["arch"], "layers": cfg.n_layers,
+            "reduced": {"depth": f"{get_config(run['arch']).n_layers} -> "
+                        f"{cfg.n_layers} (time)"},
+            "batch": run["batch"], "seq": run["seq"], "meshes": out,
+            "single_s": single_s}, launches
+
+
+def _rank_errors(res, key, runs=False):
+    """Each leaf's ``ranks.block_errors`` ``key`` (``grad_errors``, or with
+    ``runs`` run 0's ``param_errors``) over every rank: (the largest
+    |got - want|, the largest of it over its leaf's max |want|, the
+    largest |got - want| / (1 + |want|))."""
+    merged = {}
+    for r in res:
+        errs = r["runs"][0][key] if runs else r[key]
+        for name, e in errs.items():
+            merged[name] = tuple(max(a, b) for a, b in
+                                 zip(merged.get(name, e), e))
+    return (max(e[0] for e in merged.values()),
+            max(e[0] / max(e[1], 1e-30) for e in merged.values()),
+            max(e[2] for e in merged.values()))
+
+
+def _tp_train_meshes(pool, gpu, cfg, run, phase, segments, batches, single,
+                     ref):
+    """:func:`_tp_train`'s meshes, each rank holding its blocks to the one
+    process's reference under ``ref``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import ranks
+
+    segments = segments or (lambda mesh: 7 * cfg.n_layers)
     out, launches = {}, 0
-    for mesh in TP["train_meshes"]:
+    for mesh in run["train_meshes"]:
+        per_step = ECL_PASSES_PER_STEP * -(-segments(mesh)
+                                           // eq.MAX_SEGMENTS)
         key = f"mesh {mesh[0]}x{mesh[1]}"
         zero1 = mesh[0] > 1
         t0 = time.perf_counter()
-        dumps = tempfile.mkdtemp(prefix="tp_train_")
-        try:
-            res = pool.run(
-                ranks.dp_train, cfg, mesh, batches, seed=TP["seed"],
-                lr=TP["lr"], grads=True, out_dir=dumps,
-                runs=[{"zero1": zero1, "state": True, "probs_check": True},
-                      {"zero1": zero1, "dtype": torch.bfloat16}])
-            ranks_s = time.perf_counter() - t0
-            _, grad_rel = _leaf_errors(
-                ranks.load_dump(os.path.join(dumps, "grads")),
-                single["grads"])
-            param_err, _ = _leaf_errors(
-                ranks.load_dump(os.path.join(dumps, "run0")),
-                single["params"], MESH_TRAIN_PARAM_TOL)
-        finally:
-            shutil.rmtree(dumps)
+        res = pool.run(
+            ranks.dp_train, cfg, mesh, batches, seed=run["seed"],
+            lr=run["lr"], grads=True, ref=ref,
+            runs=[{"zero1": zero1, "state": True, "probs_check": True},
+                  {"zero1": zero1, "dtype": torch.bfloat16,
+                   "steps": run.get("bf16_steps", run["steps"])}])
+        ranks_s = time.perf_counter() - t0
+        _, grad_rel, _ = _rank_errors(res, "grad_errors")
+        param_err, _, param_tol = _rank_errors(res, "param_errors", True)
+        if not param_tol <= MESH_TRAIN_PARAM_TOL:
+            raise AssertionError(f"phase {phase}: {key}: params past "
+                                 f"atol=rtol={MESH_TRAIN_PARAM_TOL} "
+                                 f"({param_tol} of 1 + |want|)")
         if not grad_rel <= MESH_TRAIN_GRAD_REL:
-            raise AssertionError(f"phase 18: {key}: gradients {grad_rel} of "
+            raise AssertionError(f"phase {phase}: {key}: gradients {grad_rel} of "
                                  "a leaf's max from one process's")
         for rank, r in enumerate(res):
-            tag = f"phase 18: {key} rank {rank}"
+            tag = f"phase {phase}: {key} rank {rank}"
             if r["layout"] != "tensor parallel":
                 raise AssertionError(f"{tag}: layout {r['layout']}")
             np.testing.assert_allclose(
@@ -7830,14 +7946,14 @@ def _tp_train(dev, pool, gpu):
             if r["runs"][0]["digests"] != res[0]["runs"][0]["digests"]:
                 raise AssertionError(f"{tag}: the gathered tree differs from "
                                      "rank 0's")
-            for run in r["runs"]:
-                if run["ecl_launches"] != [per_step] * len(run["ms"]):
+            for rr in r["runs"]:
+                if rr["ecl_launches"] != [per_step] * len(rr["ms"]):
                     raise AssertionError(f"{tag}: ecl_quant "
-                                         f"{run['ecl_launches']}, one process"
-                                         f" {per_step} a step")
-                if not all(np.isfinite(m["loss"]) for m in run["metrics"]):
+                                         f"{rr['ecl_launches']}, want "
+                                         f"{per_step} a step")
+                if not all(np.isfinite(m["loss"]) for m in rr["metrics"]):
                     raise AssertionError(f"{tag}: a loss is not finite")
-                launches += sum(run["ecl_launches"])
+                launches += sum(rr["ecl_launches"])
         bf16 = [r["runs"][1] for r in res]
         out[key] = {
             "zero1": zero1, "losses": [m["loss"] for m in res[0]["runs"][0][
@@ -7852,6 +7968,7 @@ def _tp_train(dev, pool, gpu):
                 "fp32": res[0]["runs"][0]["model_bytes"],
                 "bf16": bf16[0]["model_bytes"]},
             "reduced_bytes_per_step": res[0]["runs"][0]["reduced_bytes"],
+            "single_peak_gb": single["peak_bytes"] / 1e9,
             "peak_gb_per_rank": {"fp32": [r["runs"][0]["peak_bytes"] / 1e9
                                           for r in res],
                                  "bf16": [b["peak_bytes"] / 1e9
@@ -7859,8 +7976,8 @@ def _tp_train(dev, pool, gpu):
             "ranks_s": ranks_s, "rank0_s": {
                 **res[0]["s"], "runs": [x["s"] for x in res[0]["runs"]]}}
         o = out[key]
-        print(f"phase 18: {TP['arch']} depth {cfg.n_layers} {TP['batch']} x "
-              f"{TP['seq']} over {mesh}{' ZeRO-1' if zero1 else ''}: losses "
+        print(f"phase {phase}: {run['arch']} depth {cfg.n_layers} "
+              f"{run['batch']} x {run['seq']} over {mesh}{' ZeRO-1' if zero1 else ''}: losses "
               f"{[round(v, 6) for v in o['losses']]} (one process "
               f"{[round(v, 6) for v in single['losses']]}), grads "
               f"{grad_rel:.2e} of max, params {param_err:.2e}, probabilities"
@@ -7869,11 +7986,7 @@ def _tp_train(dev, pool, gpu):
               f"all-reduced over 'model' {bf16[0]['model_bytes']} B a step,"
               f" peak {o['peak_gb_per_rank']['bf16'][0]:.2f} GB a rank; "
               f"{ranks_s:.1f} s ({TP_LABEL}; {gpu})")
-    return {"arch": TP["arch"], "layers": cfg.n_layers,
-            "reduced": {"depth": f"{get_config(TP['arch']).n_layers} -> "
-                        f"{cfg.n_layers} (time)"},
-            "batch": TP["batch"], "seq": TP["seq"], "meshes": out,
-            "single_s": single_s}, launches
+    return out, launches
 
 
 def tensor_parallel_path(dev, gpu):
@@ -7885,7 +7998,7 @@ def tensor_parallel_path(dev, gpu):
 
     t_phase = time.perf_counter()
     _empty_card(dev, "phase 18")
-    cfg = get_config(TP["arch"])
+    cfg = _cut_depth(get_config(TP["arch"]), TP["serve_layers"])
     t0 = time.perf_counter()
     with M.RankPool(TP["world"], backend="gloo", device="cuda",
                     timeout=TP["timeout"]) as pool:
@@ -7900,12 +8013,178 @@ def tensor_parallel_path(dev, gpu):
         train_s = time.perf_counter() - t1
     launches += serve["ecl_quant_launches"]
     out = {"label": TP_LABEL, "gpu": gpu, "spawn_s": spawn_s,
-           "serve": {**serve, "s": serve_s},
+           "serve": {**serve, "s": serve_s, "reduced": {
+               "depth": f"{get_config(TP['arch']).n_layers} -> "
+                        f"{cfg.n_layers} (time, phase 19 added)"}},
            "train": {**train, "s": train_s},
            "ecl_quant_launches": launches}
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 18: spawn {spawn_s:.1f} s, (a) {serve_s:.1f} s, (b) "
           f"{train_s:.1f} s; done in {out['wall_s']:.1f} s ({gpu})")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 19
+
+MOE_TP = dict(world=4, timeout=900, ep_blocks=4)
+MOE_TP_SERVE = (
+    dict(arch="grok-1-314b", layers=1, seed=0, serve_mesh=(1, 4), prompts=2,
+         prompt_len=512, max_new=16, tail=8,
+         reduced={"n_layers": "64 -> 1 (one process's layer is 26 GB in "
+                  "fp32, and its freeze twice that)"}),
+    dict(arch="deepseek-v3-671b", layers=2, dense_layers=1, experts=32,
+         seed=0, serve_mesh=(1, 4), prompts=2, prompt_len=512, max_new=16,
+         tail=8,
+         reduced={"n_layers": "61 -> 2 (one dense layer, one MoE layer, "
+                  "as phase 10)", "n_experts": "256 -> 32 (one process "
+                  "holds and freezes every expert)"}))
+MOE_TP_TRAIN = (
+    dict(arch="deepseek-v3-671b", layers=1, dense_layers=0, experts=8,
+         vocab=32768, seed=0, batch=8, seq=64, steps=2, bf16_steps=1,
+         lr=1e-3, train_meshes=((1, 4), (2, 2)),
+         reduced={"n_layers": "61 -> 1 (the MoE layer: four (2, 2) ranks' "
+                  "fp32 ZeRO-1 steps at depth 2 ran out of the card's 80 GB "
+                  "at ~19.5 GB a rank, and depth 2 took 169 s; the dense "
+                  "layer's cut is phase 18's)",
+                  "n_experts": "256 -> 8 (one process's fp32 step with Adam "
+                  "holds ~28 B a parameter; top-8 needs 8)",
+                  "vocab": "129280 -> 32768 (as phase 10)"}),)
+MOE_TP_DRYRUN = dict(arch="grok-1-314b", shape="train_4k")
+
+
+def _moe_tp_cfg(run):
+    """``run``'s arch at its published widths, cut as ``run`` says, at
+    capacity factor E / k (nothing drops, so the expert-parallel ranks'
+    per-rank capacity is moot)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    kw = {"n_layers": run["layers"]}
+    for key, field in (("dense_layers", "n_dense_layers"),
+                       ("experts", "n_experts"), ("vocab", "vocab")):
+        if key in run:
+            kw[field] = run[key]
+    cfg = dataclasses.replace(get_config(run["arch"]), **kw)
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.top_k)
+
+
+def _moe_segments(cfg, mesh_shape=None):
+    """The ECL segments of ``cfg``'s quantized leaves: one process's, or
+    with ``mesh_shape`` a rank's under the layout (its E/tp experts of
+    each bank when they are cut on the experts, else every expert's
+    block)."""
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.runtime.sharding import model_tp
+    experts = cfg.n_experts
+    if mesh_shape is not None:
+        tp = model_tp(cfg, MeshSpec(mesh_shape, ("data", "model")))
+        if tp.experts == "ep":
+            experts //= tp.tp
+    attn = 5 if cfg.mla is not None else 4
+    moe = attn + 3 * experts + (3 if cfg.n_shared_experts else 0)
+    dense = cfg.n_dense_layers
+    return dense * (attn + 3) + (cfg.n_layers - dense) * moe
+
+
+@contextlib.contextmanager
+def _ep_aux(blocks):
+    """One process's MoE load-balance aux as the expert-parallel ranks
+    take it: the mean of ``route``'s over ``blocks`` equal token blocks
+    (the reference's ``local_moe`` pmean), the ids and weights the whole
+    batch's."""
+    from repro_torch.nn import moe
+    real = moe.route
+
+    def blocked(logits, bias_correction, **kw):
+        ids, w, _ = real(logits, bias_correction, **kw)
+        aux = sum(real(b, bias_correction, **kw)[2]
+                  for b in logits.chunk(blocks)) / blocks
+        return ids, w, aux
+    moe.route = blocked
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def _moe_tp_dryrun(gpu):
+    """(d): grok-1-314b's train_4k cell on pod16x16, on meta tensors."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    c = MOE_TP_DRYRUN
+    with tempfile.TemporaryDirectory() as d:
+        rec = dryrun.run_cell(c["arch"], c["shape"], False, out_dir=d)
+    rec.pop("ops", None)
+    if rec["status"] != "OK":
+        raise AssertionError(f"phase 19: run_cell {c}: {rec}")
+    over = rec["model_axis_collectives"]
+    if (rec["layout"] != "tensor parallel" or rec["experts"] != "tp"
+            or not over.get("all-reduce")):
+        raise AssertionError(f"phase 19: {c['arch']} {c['shape']} took "
+                             f"{rec['layout']} / {rec['experts']}, over "
+                             f"'model' {over}")
+    print(f"phase 19: dry run {rec['cell']}: {rec['layout']}, experts "
+          f"{rec['experts']}: {rec['flops_per_device']:.6g} FLOPs, "
+          f"{rec['bytes_per_device']:.6g} B a device, over 'model' {over}, "
+          f"ecl_quant {rec['kernels']}, traced in {rec['trace_s']} s "
+          f"(meta tensors; {gpu})")
+    return rec
+
+
+def moe_tensor_parallel_path(dev, gpu):
+    """Phase 19: tensor parallelism over 'model' for the MoE family, 4
+    gloo ranks sharing the card (staged through host buffers)."""
+    import torch
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    _empty_card(dev, "phase 19")
+    out = {"label": TP_LABEL, "gpu": gpu, "serve": {}}
+    launches = 0
+    t0 = time.perf_counter()
+    with M.RankPool(MOE_TP["world"], backend="gloo", device="cuda",
+                    timeout=MOE_TP["timeout"]) as pool:
+        pool.run(M.describe_world)
+        out["spawn_s"] = time.perf_counter() - t0
+        for run in MOE_TP_SERVE:
+            t1 = time.perf_counter()
+            cfg = _moe_tp_cfg(run)
+            rec = _tp_serve(dev, pool, cfg, gpu, run, "19", (
+                _moe_segments(cfg, run["serve_mesh"]), _moe_segments(cfg)))
+            rec.update(reduced=run["reduced"],
+                       capacity_factor=cfg.capacity_factor,
+                       n_experts=cfg.n_experts,
+                       s=time.perf_counter() - t1)
+            out["serve"][run["arch"]] = rec
+            launches += rec["ecl_quant_launches"]
+            _empty_card(dev, f"phase 19 after {run['arch']}")
+        out["train"] = {}
+        for run in MOE_TP_TRAIN:
+            t1 = time.perf_counter()
+            cfg = _moe_tp_cfg(run)
+            train, n = _tp_train(
+                dev, pool, gpu, cfg, run, "19",
+                functools.partial(_moe_segments, cfg),
+                lambda: _ep_aux(MOE_TP["ep_blocks"]))
+            train.update(reduced=run["reduced"], n_experts=cfg.n_experts,
+                         vocab=cfg.vocab, s=time.perf_counter() - t1)
+            out["train"].update(train.pop("meshes"))
+            out["train"][f"depth {cfg.n_layers}"] = train
+            launches += n
+            _empty_card(dev, "phase 19 after a step")
+    _empty_card(dev, "phase 19 (d)")
+    t1 = time.perf_counter()
+    out["dryrun"] = _moe_tp_dryrun(gpu)
+    out["dryrun"]["s"] = time.perf_counter() - t1
+    out["ecl_quant_launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 19: spawn {out['spawn_s']:.1f} s, (a) "
+          f"{out['serve']['grok-1-314b']['s']:.1f} s, (b) "
+          f"{out['serve']['deepseek-v3-671b']['s']:.1f} s, (c) "
+          f"{sum(v['s'] for k, v in out['train'].items() if k.startswith('depth')):.1f}"
+          f" s, (d) {out['dryrun']['s']:.1f} s; done in "
+          f"{out['wall_s']:.1f} s ({gpu})")
     torch.cuda.empty_cache()
     return out
 
@@ -7982,6 +8261,8 @@ def kernels_report(r):
                                  "ecl_quant_launches"],
                              "tensor_parallel": r["tensor_parallel"][
                                  "ecl_quant_launches"],
+                             "moe_tensor_parallel": r["moe_tp"][
+                                 "ecl_quant_launches"],
                              "dryrun_step": r["autotune"]["dryrun"]["step"][
                                  "ecl_quant_launches"]},
         "max_abs_err": r["ecl_err"],
@@ -8018,7 +8299,7 @@ def kernels_report(r):
 
 
 PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10", "11",
-          "12", "13", "14", "15", "16", "17", "18")
+          "12", "13", "14", "15", "16", "17", "18", "19")
 
 
 def parse_phases(argv):
@@ -8106,7 +8387,8 @@ def main(argv=None) -> int:
              ("15", "scale_out", lambda: scale_out_path(dev, gpu)),
              ("16", "mesh_train", lambda: mesh_train_path(dev, gpu)),
              ("17", "autotune", lambda: autotune_path(dev, gpu)),
-             ("18", "tensor_parallel", lambda: tensor_parallel_path(dev, gpu)))
+             ("18", "tensor_parallel", lambda: tensor_parallel_path(dev, gpu)),
+             ("19", "moe_tp", lambda: moe_tensor_parallel_path(dev, gpu)))
     for phase, key, run in steps:
         if phase in phases:
             r[key] = run()
@@ -8117,7 +8399,7 @@ def main(argv=None) -> int:
     for key in ("path", "train", "frontend", "lm", "lm_train", "moe",
                 "moe_train", "mla", "mla_train", "ssm", "ssm_train",
                 "vlm_audio", "vlm_audio_train", "scale_out", "mesh_train",
-                "autotune", "tensor_parallel"):
+                "autotune", "tensor_parallel", "moe_tp"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "

@@ -107,6 +107,11 @@ def unpack_codes_rows(packed: torch.Tensor) -> torch.Tensor:
 def init_omega_from_weights(w: torch.Tensor) -> torch.Tensor:
     """Symmetric int4-like basis {s, 2s, 4s, -8s} with s = max|w| / 8 over
     the trailing two (matrix) dims: w (*lead, R, C) -> omega (*lead, 4)."""
-    amax = torch.clamp(w.abs().amax(dim=(-2, -1)), min=1e-8)
-    s = amax / 8.0
-    return torch.stack([s, 2 * s, 4 * s, -8 * s], dim=-1).to(w.dtype)
+    return omega_from_amax(w.abs().amax(dim=(-2, -1)), w.dtype)
+
+
+def omega_from_amax(amax: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """:func:`init_omega_from_weights` from max|w| (*lead,) of each matrix
+    (a sharded matrix's: its blocks' maxima reduced)."""
+    s = torch.clamp(amax, min=1e-8) / 8.0
+    return torch.stack([s, 2 * s, 4 * s, -8 * s], dim=-1).to(dtype)

@@ -25,13 +25,19 @@ reports sparsity and entropy over every quantized tensor, each in one
 grouped call.  :func:`freeze_tree` turns a trained tree into its serving
 form, every leaf assigned in one grouped call.
 
-Over a mesh whose ranks each hold a block of a leaf (the dense family's
-tensor-parallel layout, ``runtime/sharding.py``) these functions take
-``shards`` (:class:`Shards`): a segment's mean(w²) is its blocks' fp64
-sums added over the ranks that hold them, and its 16 code counts are
-summed the same way before the EMA (the reference's "16-element psum per
-tensor"), one all-reduce for all leaves cut alike.  The counts are exact
-integers, so the probabilities are bitwise those of one process.
+Over a mesh whose ranks each hold a block of a leaf (the dense and moe
+families' tensor-parallel layout, ``runtime/sharding.py``) these
+functions take ``shards`` (:class:`Shards`).  A leaf cut within its
+segments (a matrix's columns or rows, or each expert's FFN width) has
+each segment's mean(w²) from its blocks' fp64 sums added over the ranks
+that hold them, and its 16 code counts summed the same way before the
+EMA (the reference's "16-element psum per tensor"), one all-reduce for
+all leaves cut alike.  A leaf cut on a leading dim (an expert bank cut
+on its experts) holds whole segments: the rank's pass reads ω and the
+probabilities of its segments only (the layout replicates the whole
+layer's), and its counts enter the whole layer's, zeros elsewhere,
+summed over the ranks.  The counts are exact integers, so the
+probabilities are bitwise those of one process.
 """
 from __future__ import annotations
 
@@ -175,24 +181,78 @@ def apply_quant(node: dict, qstate: dict, lam, dtype=None) -> torch.Tensor:
 def fake_quant_tree(params: Any, qstate: Any, lam, dtype=None,
                     shards: Optional[Shards] = None) -> Any:
     """``params`` with every quantized leaf replaced by its fake-quantized
-    ŵ in ``dtype`` (differentiable as :func:`fake_quant`), every leaf in
-    one :func:`apply_quant_many` call; other leaves are kept."""
-    axes, mesh = _shard_axes(params, shards)
-    return _map_quant_many(
-        lambda nodes, qss: apply_quant_many(nodes, qss, lam, dtype, axes,
-                                            mesh),
-        params, qstate, keep_params=True)
+    ŵ in ``dtype`` (differentiable as :func:`fake_quant`; the gradient of
+    an ω this rank does not read is zero here), every leaf in one
+    :func:`apply_quant_many` call; other leaves are kept."""
+    cut = _Cut.of(params, shards)
+
+    def f(nodes, qss):
+        nodes, qss = cut.held(nodes, qss)
+        return apply_quant_many(nodes, qss, lam, dtype, cut.within, cut.mesh)
+    return _map_quant_many(f, params, qstate, keep_params=True)
 
 
-def _shard_axes(params: Any, shards: Optional[Shards]) -> tuple:
-    """(the axes each quantized leaf's w is cut over, in the order
-    :func:`_map_quant_many` visits them; the mesh), or (None, None)."""
-    if shards is None:
-        return None, None
-    axes = []
-    _map_quant(lambda node, spec: axes.append(spec_axes(spec["w"])),
-               params, shards.specs)
-    return axes, shards.mesh
+class _Cut(NamedTuple):
+    """How each quantized leaf of a tree is cut (in the order
+    :func:`_map_quant_many` visits them): ``within`` the axes its segments
+    are cut over (their blocks' sums added over them), ``lead`` the
+    ``(dim, axes)`` of its leading dims cut (this rank holds those
+    segments whole), ``every`` both; all None without shards."""
+    mesh: Any = None
+    within: Optional[list] = None
+    lead: Optional[list] = None
+    every: Optional[list] = None
+
+    @classmethod
+    def of(cls, params: Any, shards: Optional[Shards]) -> "_Cut":
+        if shards is None:
+            return cls()
+        within, lead, every = [], [], []
+
+        def note(node, spec):
+            w = spec["w"]
+            n = len(w) - 2
+            within.append(spec_axes(w[n:]))
+            lead.append(tuple((d, a) for d, a in enumerate(w[:n])
+                              if a is not None))
+            every.append(spec_axes(w))
+        _map_quant(note, params, shards.specs)
+        return cls(shards.mesh, within, lead, every)
+
+    def _mine(self, t: torch.Tensor, w: torch.Tensor, i: int):
+        """This rank's segments of ``t`` (ω or the probabilities of leaf
+        ``i``, whose w is ``w``): cut where ``t`` is the whole layer's."""
+        for d, a in self.lead[i]:
+            n = w.shape[d]
+            if t.shape[d] == n * self.mesh.axis_size(a):
+                t = t.narrow(d, self.mesh.axis_index(a) * n, n)
+            elif t.shape[d] != n:
+                raise ValueError(f"dim {d} of {tuple(t.shape)}: neither "
+                                 f"{n} segments nor all of them")
+        return t
+
+    def held(self, nodes: Sequence[dict], qss: Sequence[dict]) -> tuple:
+        """The leaves as this rank's pass reads them: ω and the
+        probabilities of its segments."""
+        if self.mesh is None or not any(self.lead):
+            return nodes, qss
+        return ([{**n, "omega": self._mine(n["omega"], n["w"], i)}
+                 for i, n in enumerate(nodes)],
+                [{"probs": self._mine(q["probs"], n["w"], i)}
+                 for i, (n, q) in enumerate(zip(nodes, qss))])
+
+    def placed(self, counts: list, nodes: Sequence[dict],
+               qss: Sequence[dict]) -> list:
+        """Each leaf's counts of this rank's segments in a zero tensor of
+        the whole layer's probabilities' shape."""
+        out = []
+        for i, (c, n, q) in enumerate(zip(counts, nodes, qss)):
+            if self.lead[i] and q["probs"].shape != c.shape:
+                whole = c.new_zeros(q["probs"].shape)
+                self._mine(whole, n["w"], i).copy_(c)
+                c = whole
+            out.append(c)
+        return out
 
 
 # --------------------------------------------------------------- tree utils
@@ -236,12 +296,15 @@ def _quant_leaves(tree: Any, qtree: Any) -> Iterator[tuple]:
 
 
 def build_qstate(params: Any) -> Any:
-    """Mirror tree with a probs state per quantized leaf; other tensor
-    leaves mirror to a uint8 placeholder sharing their leading dim, as the
-    JAX package's ``build_qstate`` does."""
+    """Mirror tree with a probs state per quantized leaf (one per leading
+    index of its ω); other tensor leaves mirror to a uint8 placeholder
+    sharing their leading dim, as the JAX package's ``build_qstate``
+    does."""
     if is_quant_leaf(params):
-        w = params["w"]
-        return init_qstate_leaf(tuple(w.shape[:-2]), device=w.device)
+        # ω's lead: a rank's expert-bank block beside the layer's whole ω
+        # gets the layer's whole probabilities, as the layout holds them
+        om = params["omega"]
+        return init_qstate_leaf(tuple(om.shape[:-1]), device=om.device)
     if isinstance(params, dict):
         return {k: build_qstate(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
@@ -254,6 +317,8 @@ def build_qstate(params: Any) -> Any:
 
 def _assign_leaves(nodes: Sequence[dict], qss: Sequence[dict], lam,
                    axes: Optional[list] = None, mesh=None) -> list:
+    """The codes of every leaf, one grouped pass (``axes`` and ``mesh`` as
+    :func:`penalties` takes them)."""
     ws = [n["w"] for n in nodes]
     probs = [q["probs"] for q in qss]
     pens = penalties(ws, probs, lam, axes, mesh)
@@ -269,15 +334,18 @@ def update_qstate(params: Any, qstate: Any, lam,
     """One EMA step of the per-tensor cluster probabilities (one ECL
     iteration per training step), every tensor in one grouped call; with
     ``shards`` each segment's code counts summed over the ranks that hold
-    its blocks first."""
-    axes, mesh = _shard_axes(params, shards)
+    its blocks first (a rank's whole segments' entering the layer's with
+    zeros elsewhere)."""
+    cut = _Cut.of(params, shards)
 
     def f(nodes, qss):
-        codes = _assign_leaves(nodes, qss, lam, axes, mesh)
+        mine, mine_qs = cut.held(nodes, qss)
+        codes = _assign_leaves(mine, mine_qs, lam, cut.within, cut.mesh)
         counts = [ecl.code_counts(c, q["probs"].ndim - 1)
-                  for c, q in zip(codes, qss)]
-        if axes is not None:
-            counts = _sum_over(counts, axes, mesh)
+                  for c, q in zip(codes, mine_qs)]
+        if cut.mesh is not None:
+            counts = _sum_over(cut.placed(counts, nodes, qss), cut.every,
+                               cut.mesh)
         return [{"probs": ecl.update_probs(q["probs"], None, momentum, n)}
                 for q, n in zip(qss, counts)]
     return _map_quant_many(f, params, qstate)
@@ -288,12 +356,13 @@ def quantize_tree(params: Any, qstate: Any, lam,
                   shards: Optional[Shards] = None) -> Any:
     """Replace each quantized leaf with ``{"codes", "omega"}`` (every leaf
     assigned in one grouped call); other leaves are kept."""
-    axes, mesh = _shard_axes(params, shards)
+    cut = _Cut.of(params, shards)
 
     def f(nodes, qss):
+        codes = _assign_leaves(*cut.held(nodes, qss), lam, cut.within,
+                               cut.mesh)
         return [{"codes": c, "omega": n["omega"]}
-                for n, c in zip(nodes, _assign_leaves(nodes, qss, lam, axes,
-                                                      mesh))]
+                for n, c in zip(nodes, codes)]
     return _map_quant_many(f, params, qstate, keep_params=True)
 
 
@@ -306,14 +375,16 @@ def freeze_tree(params: Any, qstate: Any, lam,
     with ω (L, 4) is L segments of it, so on the card the whole tree takes
     ⌈segments / 32⌉ launches.  Contraction dims must be even.  A rank's
     blocks (``shards``) give the codes of those blocks of the whole
-    tree's freeze."""
-    axes, mesh = _shard_axes(params, shards)
+    tree's freeze (ω as the tree holds it: a rank's bank block keeps the
+    whole layer's)."""
+    cut = _Cut.of(params, shards)
 
     def f(nodes, qss):
+        codes = _assign_leaves(*cut.held(nodes, qss), lam, cut.within,
+                               cut.mesh)
         return [{"packed": bitplanes.pack_codes_rows(c),
                  "omega": n["omega"].to(torch.float32)}
-                for n, c in zip(nodes, _assign_leaves(nodes, qss, lam, axes,
-                                                      mesh))]
+                for n, c in zip(nodes, codes)]
     return _map_quant_many(f, params, qstate, keep_params=True)
 
 

@@ -20,8 +20,9 @@ devices and reads XLA's analyses.  Here, per cell:
      shape-only mesh's per-class operand bytes); beside them the port's
      ``model_axis_collectives`` (those of the exchanges over 'model': the
      tensor-parallel all-reduces and gathers, the counterpart of the
-     reference's ``roofline.collective_bytes``) and ``layout`` (the
-     bundle's, ``steps.layout_name``).  A failing cell is recorded with
+     reference's ``roofline.collective_bytes``), ``layout`` (the
+     bundle's, ``steps.layout_name``) and ``experts`` (how that layout
+     cuts the expert banks: ``ep``, ``tp`` or None).  A failing cell is recorded with
      its traceback, never skipped.
 
 Usage:
@@ -80,6 +81,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             "collectives": res["collectives"],
             "model_axis_collectives": mesh.bytes_over("model"),
             "layout": bundle.describe()["layout"],
+            "experts": bundle.describe().get("experts"),
             "ops": res["ops"],
             "kernels": res["kernels"],
             "step_kw": {k: str(v) for k, v in step_kw.items()},

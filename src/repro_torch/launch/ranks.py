@@ -15,6 +15,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import time
 from typing import Optional, Sequence
@@ -194,11 +195,15 @@ def moe_layer(p: dict, x: np.ndarray, mesh_shape: tuple, *, path: str,
 
 def lm_generate(cfg, frozen: dict, prompt: np.ndarray, max_new: int,
                 mesh_shape: tuple, *, use_ep: bool = True) -> dict:
-    """``generate(mesh=)`` on a frozen LM tree (numpy) and ``cfg``: every
+    """``generate(mesh=)`` on a frozen LM tree (numpy, whole; this rank's
+    blocks of it under the tensor-parallel layout) and ``cfg``: every
     rank's tokens (each rank returns every row)."""
+    from ..convert import shard_from_numpy
+    from ..runtime.sharding import layout_specs
     dev = default_device()
     mesh = make_mesh(mesh_shape, device=dev)
-    tree = lm_tree_from_numpy(frozen, device=dev)
+    tree = shard_from_numpy(frozen, layout_specs(frozen, cfg, mesh), mesh,
+                            device=dev)
     toks = LM.generate(tree, 0, torch.from_numpy(prompt).to(dev), FP32_CTX,
                        cfg, max_new=max_new, mesh=mesh, use_ep=use_ep)
     return {"tokens": toks.cpu().numpy()}
@@ -206,51 +211,14 @@ def lm_generate(cfg, frozen: dict, prompt: np.ndarray, max_new: int,
 
 # ------------------------------------------------ expert-parallel shares
 
-def seeded_banks(params: dict, cfg, experts: Sequence[int], seed: int,
-                 device) -> dict:
-    """``params`` (an ``lm_init`` tree) with every MoE layer's banks
-    replaced by experts ``experts`` drawn one at a time, each from a
-    generator of its own (seeded by ``seed``, the layer and the expert),
-    uniform in ±1/√d as ``moe_init`` draws them: a whole model and each
-    rank's share then hold the same experts bit for bit, which one
-    generator drawing all banks in turn cannot give."""
-    stack = params["stacks"].get("moe")
-    if stack is None:
-        return params
-    n_layers = stack["moe"]["router"]["w"].shape[0]
-    scale = cfg.d_model ** -0.5
-    banks = {}
-    for b, name in enumerate(("gate", "up", "down")):
-        d_in, d_out = ((cfg.d_ff, cfg.d_model) if name == "down"
-                       else (cfg.d_model, cfg.d_ff))
-        w = torch.empty((n_layers, len(experts), d_in, d_out),
-                        dtype=torch.float32, device=device)
-        for l in range(n_layers):
-            for j, e in enumerate(experts):
-                g = torch.Generator(device=device).manual_seed(
-                    seed + 1_000_003 * (1 + l) + 1_009 * e + b)
-                torch.rand((d_in, d_out), generator=g, out=w[l, j])
-                w[l, j].mul_(2 * scale).sub_(scale)
-        banks[name] = qat.make_quant_param(w)
-    stack["moe"]["experts"] = banks
-    return params
-
-
-def expert_share_cfg(cfg, mesh_shape: tuple, rank: int):
-    """``cfg`` cut to rank ``rank``'s experts on a ('data', 'model') mesh
-    of ``mesh_shape`` (experts over 'model')."""
-    ep = mesh_shape[1]
-    per = cfg.n_experts // ep
-    return dataclasses.replace(cfg, experts_held=(rank % ep * per, per))
-
-
 def frozen_segments(tree) -> int:
-    """The ECL segments a freeze of ``tree`` assigns: one a frozen leaf,
-    or one a leading index of an L-stacked or expert-banked leaf (its ω
-    ``(*lead, 4)``)."""
+    """The ECL segments a freeze of ``tree`` assigned: one a frozen leaf,
+    or one a leading index of an L-stacked or expert-banked leaf's codes
+    (a rank's bank block: its experts only, beside the layer's whole
+    ω)."""
     if isinstance(tree, dict):
         if "packed" in tree and "omega" in tree:
-            return tree["omega"].numel() // 4
+            return math.prod(tree["packed"].shape[:-2])
         return sum(frozen_segments(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
         return sum(frozen_segments(v) for v in tree)
@@ -258,52 +226,48 @@ def frozen_segments(tree) -> int:
 
 
 def ep_serve(cfg, prompt: np.ndarray, max_new: int, mesh_shape: tuple, *,
-             seed: int = 0, bank_seed: int = 0) -> dict:
-    """One rank of a frozen 4-bit MoE LM served expert-parallel: init this
-    rank's share (``experts_held``; the non-expert weights whole, the
-    banks from :func:`seeded_banks`), freeze it (the ranks in turn, so
-    one freeze's temporaries are on the card at a time; ecl_quant's
-    launches and the segments they assigned counted), then
-    ``generate(mesh=)`` over the prompt and one forward of prompt + tokens
-    without a cache (logits).  Returns the tokens, the logits, the launch
-    and segment counts, times and peak memory."""
+             seed: int = 0) -> dict:
+    """One rank of a frozen 4-bit MoE LM served over a tensor-parallel
+    mesh whose 'model' axis the experts divide: ``lm_init(cfg, seed,
+    mesh=)`` (this rank's blocks: its E/tp experts, its heads, its block of
+    the vocabulary), frozen (ecl_quant's launches and the segments they
+    assigned counted), then ``generate(mesh=)`` over the prompt and one
+    forward of prompt + tokens without a cache (logits gathered over
+    'model').  Returns the tokens, the logits, the experts held, the
+    launch and segment counts, times and peak memory."""
     dev = default_device()
-    mesh = make_mesh(mesh_shape, device=dev)
-    share = expert_share_cfg(cfg, mesh_shape, mesh.rank)
-    first, count = share.experts_held
-    launches, ms = 0, {}
-    frozen = None
-    for turn in range(mesh.size):
-        if turn == mesh.rank:
-            params = T.lm_init(share, seed=seed, device=dev)
-            seeded_banks(params, share, range(first, first + count),
-                         bank_seed, dev)
-            qs = qat.build_qstate(params)
-            _sync(dev)
-            t0 = time.perf_counter()
-            eq.LAUNCHES = 0
-            frozen = qat.freeze_tree(params, qs, share.lam)
-            _sync(dev)
-            launches = eq.LAUNCHES
-            ms["freeze"] = (time.perf_counter() - t0) * 1e3
-            del params, qs
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-        if dist.is_initialized():
-            dist.barrier()
+    mesh = _tp_mesh(cfg, mesh_shape)
+    per = cfg.n_experts // mesh.axis_size("model")
+    first = mesh.axis_index("model") * per
+    ms = {}
+    params = T.lm_init(cfg, seed=seed, device=dev, mesh=mesh)
+    qs = qat.build_qstate(params)
+    _sync(dev)
+    t0 = time.perf_counter()
+    eq.LAUNCHES = 0
+    frozen = qat.freeze_tree(params, qs, cfg.lam,
+                             shards=qat.Shards(mesh, T.tp_specs(cfg, mesh)))
+    _sync(dev)
+    launches = eq.LAUNCHES
+    ms["freeze"] = (time.perf_counter() - t0) * 1e3
+    del params, qs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     tokens = torch.from_numpy(prompt).to(dev)
     t0 = time.perf_counter()
-    gen = LM.generate(frozen, 0, tokens, FP32_CTX, share, max_new=max_new,
+    gen = LM.generate(frozen, 0, tokens, FP32_CTX, cfg, max_new=max_new,
                       mesh=mesh)
     _sync(dev)
     ms["generate"] = (time.perf_counter() - t0) * 1e3
     full = torch.cat([tokens.to(torch.int32), gen], dim=1)
     logits, _, aux = T.lm_apply(frozen, 0, _rows(full, mesh), FP32_CTX,
-                                share, mesh=mesh)
+                                cfg, mesh=mesh)
+    if logits.shape[-1] != cfg.padded_vocab:
+        logits = mesh.all_gather(logits, "model", dim=-1)
     logits = _gather_rows(logits, mesh, full.shape[0])
     out = {"tokens": gen.cpu().numpy(),
            "logits": logits[..., :cfg.vocab].cpu().numpy(),
-           "aux": float(aux), "experts_held": (first, count),
+           "aux": float(aux), "experts_held": (first, per),
            "ecl_quant_launches": launches,
            "ecl_segments": frozen_segments(frozen), "ms": ms}
     out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
@@ -493,6 +457,28 @@ def _int8_local_step(loss_fn, adam_cfg, lam, gcfg, mesh, specs):
     return step
 
 
+def probs_bitwise(params, before, after, specs, mesh, lam) -> bool:
+    """Whether ``after``, this rank's probabilities after a step, is
+    bitwise one process's ``update_qstate`` of the whole new ``params``
+    (this rank's blocks under ``specs``) from ``before``: one quantized
+    leaf gathered at a time (collective), so that a rank never holds the
+    whole tree; a segment's update does not depend on the leaves assigned
+    beside it."""
+    ok = True
+
+    def walk(node, qb, qa, spec):
+        nonlocal ok
+        if qat.is_quant_leaf(node):
+            one = qat.update_qstate(whole_tree(node, spec, mesh), qb, lam)
+            ok = ok and torch.equal(one["probs"], qa["probs"])
+        elif isinstance(node, dict):
+            for k in node:
+                walk(node[k], qb[k], qa[k], None if spec is None
+                     else spec[k])
+    walk(params, before, after, specs)
+    return ok
+
+
 def dump(tree_, path: str) -> None:
     """Every leaf of ``tree_`` as ``path/<leaf name>.npy`` (a rank hands a
     full-width tree to its parent through files: a pipe is the slower
@@ -527,6 +513,35 @@ def dump_blocks(tree_, specs, mesh, path: str) -> None:
             json.dump({"parts": mesh.axis_size("model"), "cuts": cuts}, f)
 
 
+def block_errors(tree_, specs, mesh, path: str) -> dict:
+    """This rank's blocks of ``tree_`` (a tree of dicts, under ``specs``;
+    None: whole) against the same blocks of the whole reference that
+    :func:`dump` wrote to ``path`` (each file read through a memory map,
+    only the block): by leaf name, (max |got - want|, max |want|, max
+    |got - want| / (1 + |want|)), the last ``assert_allclose``'s test at
+    atol = rtol; the caller takes each one's max over the ranks."""
+    from ..convert import shard_from_numpy
+    out = {}
+
+    @torch.no_grad()
+    def walk(node, spec, name):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], None if spec is None else spec[k],
+                     f"{name}/{k}")
+            return
+        want = np.load(os.path.join(path, name.strip("/").replace(
+            "/", ".") + ".npy"), mmap_mode="r")
+        w = shard_from_numpy(want, (None,) * node.ndim if spec is None
+                             else spec, mesh, device=node.device)
+        got, w = node.detach().to(torch.float32), w.to(torch.float32)
+        diff = (got - w).abs()
+        out[name] = (float(diff.max()), float(w.abs().max()),
+                     float((diff / (1 + w.abs())).max()))
+    walk(tree_, specs, "")
+    return out
+
+
 def load_dump(path: str) -> dict:
     """:func:`dump`'s leaves by name (``/a/b``); of a :func:`dump_blocks`
     directory the whole leaves, each put together from its parts."""
@@ -551,23 +566,26 @@ def load_dump(path: str) -> dict:
 def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
              runs: Sequence[dict] = ({},), params=None, qstate=None,
              seed: int = 0, lr: float = 1e-3, grads: bool = False,
-             compress_check=None, out_dir: Optional[str] = None) -> dict:
+             compress_check=None, out_dir: Optional[str] = None,
+             ref: Optional[str] = None) -> dict:
     """One rank of EC4T training over the mesh: the state from ``params``
     / ``qstate`` (numpy) or ``lm_init(cfg, seed)`` on this rank's device
-    (its blocks under the dense family's tensor-parallel layout), this
+    (its blocks under the tensor-parallel layout), this
     rank's rows of each global batch of ``batches`` through
     ``ShardedFeed(mesh=)``.
 
     ``grads``: the gradients at the initial state on ``batches[0]`` (fp32,
     summed over each leaf's replicas; rank 0 dumps them to
-    ``out_dir/grads``).  ``compress_check``
+    ``out_dir/grads``, or with ``ref`` each rank holds its blocks to those
+    of ``ref/grads``: ``grad_errors``, :func:`block_errors`).  ``compress_check``
     (``GradCompressCfg``): there also the int8 round trip of the same
     gradients, and the largest ``|deq - exact| / (s / 2)`` of any eligible
     leaf (``exact``: the mean of the data ranks' ``n·h + e``, ``e = 0``).
     ``runs``: each a dict of ``build_train_step`` keywords (``zero1``,
     ``compress``, ``remat``, ``use_ep``, ``dtype``) with ``steps`` (default
     all batches), ``batches`` (its own, else ``batches``), ``state``
-    (rank 0 dumps the final params to ``out_dir/run<i>``) and
+    (rank 0 dumps the final params to ``out_dir/run<i>``; with ``ref``
+    each rank holds its blocks to ``ref/params``: ``param_errors``) and
     ``int8_local`` (with ``compress``: the step whose int8 gradients are
     the single-device round trip of the exact ones,
     :func:`_int8_local_step`) and ``probs_check`` (``probs_bitwise``: the
@@ -608,7 +626,10 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
         out["grad_metrics"] = {k: float(v.detach())
                                for k, v in metrics.items()}
         out["grad_digests"] = whole_digests(exact, lay, mesh)
-        if grads:
+        if grads and ref is not None:
+            out["grad_errors"] = block_errors(exact, lay, mesh,
+                                              os.path.join(ref, "grads"))
+        elif grads:
             dump_blocks(exact, lay, mesh, os.path.join(out_dir, "grads"))
         out["s"]["grads"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -686,15 +707,9 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
         rec["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                              if dev.type == "cuda" else None)
         if probs_check:
-            # the last step's probability update, run by one process on
-            # the whole new params: bitwise the ranks' (exact counts)
-            one = qat.update_qstate(whole_tree(state["params"], lay, mesh),
-                                    qs_before, cfg.lam)
-            rec["probs_bitwise"] = all(
-                torch.equal(a, b) for a, b in zip(tree.leaves(one),
-                                                  tree.leaves(
-                                                      state["qstate"])))
-            del one
+            rec["probs_bitwise"] = probs_bitwise(
+                state["params"], qs_before, state["qstate"], lay, mesh,
+                cfg.lam)
         rec["reduced_bytes"] = reduced_bytes(p0, mesh, kw.get("compress"),
                                              lay)
         final = {"params": state["params"], "qstate": state["qstate"]}
@@ -714,7 +729,10 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
             k: state["opt"][k] if zero1 else tree.map_(
                 lambda t, spec: shard_slice(t, spec, mesh),
                 state["opt"][k], specs) for k in ("m", "v")})}
-        if keep:
+        if keep and ref is not None:
+            rec["param_errors"] = block_errors(
+                final["params"], lay, mesh, os.path.join(ref, "params"))
+        elif keep:
             dump_blocks(final["params"], lay, mesh,
                         os.path.join(out_dir, f"run{i}"))
         del state, final
@@ -960,9 +978,10 @@ def tp_forward(cfg, params, tokens: np.ndarray, mesh_shape: tuple, *,
     numpy tree, cut to the rank's blocks by ``convert.shard_from_numpy``
     under the port's layout) on every row of ``tokens`` (or ``embeds``):
     the logits gathered over 'model' where they are a vocabulary block
-    (numpy), and whether the attention ran sequence-parallel."""
+    (numpy), whether the attention ran sequence-parallel, and how the
+    layout cut the expert banks (``ModelTP.experts``)."""
     from ..convert import shard_from_numpy
-    from ..runtime.sharding import layout_specs
+    from ..runtime.sharding import layout_specs, model_tp
     mesh = make_mesh(mesh_shape, device=default_device())
     p = shard_from_numpy(params, layout_specs(params, cfg, mesh), mesh,
                          device=mesh.device)
@@ -973,9 +992,11 @@ def tp_forward(cfg, params, tokens: np.ndarray, mesh_shape: tuple, *,
                                   embeds=on(embeds), mesh=mesh)
         whole = logits if logits.shape[-1] == cfg.padded_vocab else \
             mesh.all_gather(logits, "model", dim=-1)
+    tp = model_tp(cfg, mesh)
     return {"logits": whole.cpu().numpy(),
             "local_vocab": int(logits.shape[-1]),
-            "reshard": T._attn_batch_reshard(cfg, mesh, x.shape[1])}
+            "reshard": T._attn_batch_reshard(cfg, mesh, x.shape[1]),
+            "experts": tp.experts if tp is not None else None}
 
 
 def tp_serve(cfg, frozen, prompt: np.ndarray, max_new: int,
@@ -1040,14 +1061,14 @@ def serve_timed(params, prompt: torch.Tensor, cfg, ctx, max_new: int,
     rows and, under the tensor-parallel layout, its blocks and KV heads),
     timed on the host clock (synchronised): the tokens (B, max_new), the
     prefill's last ``tail`` positions' logits (gathered over 'model';
-    numpy), prefill ms, each decode step's ms and the cache's bytes; and
-    the final cache."""
+    numpy), prefill ms, each decode step's ms and the cache's bytes (K and
+    V, or MLA's latent and rope key); and the final cache."""
     dev = prompt.device
     b, s = prompt.shape
     cache = T.init_cache(cfg, b, s + max_new, dtype=torch.float32,
                          device=dev, mesh=mesh)
-    kv = sum(t.numel() * t.element_size()
-             for n, t in named_leaves(cache) if n.endswith(("/k", "/v")))
+    kv = sum(t.numel() * t.element_size() for n, t in named_leaves(cache)
+             if n.endswith(("/k", "/v", "/ckv", "/krope")))
     pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     with torch.no_grad():
         _sync(dev)
@@ -1084,8 +1105,9 @@ def tp_serve_card(cfg, mesh_shape: tuple, seed: int, prompt: np.ndarray,
     (the probabilities' and mean(w²)'s sums over 'model'), then
     :func:`serve_timed` in fp32 on every prompt row.  Returns the frozen
     blocks' digests by leaf name, the freeze's ms and ecl_quant launches
-    (zeroed just before, read just after), the serve's results and the
-    rank's peak memory."""
+    (zeroed just before, read just after), the serve's results, for MLA
+    the absorbed decode's distance from the naive form on this rank
+    (:func:`mla_forms`), and the rank's peak memory."""
     dev = default_device()
     mesh = _tp_mesh(cfg, mesh_shape)
     if dev.type == "cuda":
@@ -1104,8 +1126,11 @@ def tp_serve_card(cfg, mesh_shape: tuple, seed: int, prompt: np.ndarray,
     freeze_ms = (time.perf_counter() - t0) * 1e3
     launches = eq.LAUNCHES
     del p, qs
-    out, _ = serve_timed(frozen, torch.from_numpy(prompt).to(dev), cfg,
-                         FP32_CTX, max_new, tail, mesh)
+    out, cache = serve_timed(frozen, torch.from_numpy(prompt).to(dev), cfg,
+                             FP32_CTX, max_new, tail, mesh)
+    if cfg.mla is not None:
+        out["mla_forms_rel"] = mla_forms(cfg, frozen, cache, mesh, seed)
+    del cache
     out.update(digests={n: digest(t) for n, t in named_leaves(frozen)},
                freeze_ms=freeze_ms, freeze_launches=launches,
                init_s=init_s, coords=dict(mesh.coords),
@@ -1115,3 +1140,33 @@ def tp_serve_card(cfg, mesh_shape: tuple, seed: int, prompt: np.ndarray,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+@torch.no_grad()
+def mla_forms(cfg, params, cache, mesh=None, seed: int = 0) -> float:
+    """Layer 0's MLA block on one new token (normal, from ``seed``) at the
+    next position of its served ``cache``, this rank's part (its heads,
+    the latent whole) in the absorbed and in the naive form: the largest
+    difference of the outputs over the naive output's largest value."""
+    from ..nn import attention as A
+    from ..nn.layers import rope_cos_sin
+    from ..runtime.sharding import model_tp
+    kind = next(iter(cache))
+    lp = T._layer(params["stacks"][kind], 0)["attn"]
+    lc = T._layer(cache[kind], 0)["attn"]
+    dev = lc["ckv"].device
+    b = lc["ckv"].shape[0]
+    tp = model_tp(cfg, mesh)
+    atp = None if tp is None else A.AttnTP(
+        mesh, heads=tp.heads, o_rows=tp.o_rows, q_down=tp.q_down,
+        kv_down=tp.kv_down)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((b, 1, cfg.d_model), generator=g, device=dev)
+    pos = lc["len"].to(torch.int32).expand(b, 1).contiguous()
+    cos_sin = rope_cos_sin(pos, cfg.mla.qk_rope_dim, cfg.rope_theta)
+    ys = [A.mla_apply(lp, 0, h, FP32_CTX, T._mla_cfg(cfg), cos_sin=cos_sin,
+                      positions=pos, cache=lc, chunk=cfg.attn_chunk,
+                      force_absorbed=form, tp=atp)[0]
+          for form in (True, False)]
+    return float(torch.max(torch.abs(ys[0] - ys[1]))
+                 / torch.max(torch.abs(ys[1])))

@@ -10,17 +10,18 @@ built on first read) and the arguments it consumes (``donate``).  The reference 
 ``launch/op_analysis.py`` (the dry run, ``launch/dryrun.py``) or on real
 tensors of the same shapes (the card, the tests).
 
-The port's layout (``runtime/sharding.py``): a dense-family arch over a
-'model' axis of more than one rank takes the reference's
-(``Rules.param_specs``: QKV and gate / up column-sharded, O and down
-row-sharded, the embedding and the head over the vocabulary, the KV
-cache over heads where they divide), and the bundle's specs and
-arguments are a rank's blocks; every other arch keeps each non-expert
-weight whole on each rank, and with expert parallelism (``use_ep``, the
-experts dividing the 'model' axis) each rank's share of the experts
-(``experts_held``, :func:`rank_cfg`).  The batch is split over the data
-axes (every row on each rank when it does not divide, the reference's
-rule).  :func:`layout_name` names the layout a bundle took.
+The port's layout (``runtime/sharding.py``): a dense- or moe-family arch
+over a 'model' axis of more than one rank takes the reference's
+(``Rules.param_specs``: QKV, MLA's down-projections, gate / up and the
+shared expert's column-sharded, MLA's up-projections by heads, O and
+down row-sharded, the expert banks on their experts or each expert's
+FFN width, the embedding and the head over the vocabulary, the KV cache
+over heads where they divide), and the bundle's specs and arguments are
+a rank's blocks (``describe()`` names how the banks are cut); every
+other arch keeps each weight whole on each rank, and a config that names
+its share of the experts (``experts_held``) holds those banks.  The
+batch is split over the data axes (every row on each rank when it does
+not divide, the reference's rule).  :func:`layout_name` names the layout a bundle took.
 Serving steps run on the frozen tree (row-pair-packed 4-bit codes and ω,
 decoded where they are used) or, with ``serve_dtype="bf16"``, on plain
 bf16 weights, the reference's comparison point.
@@ -71,10 +72,14 @@ class StepBundle:
     donate: tuple = ()
     init_state: Optional[Callable] = None     # train: params -> state
     kind: str = "replicated"                  # the layout, layout_name's
+    experts: Optional[str] = None             # the banks' cut: ep, tp
 
     def describe(self) -> dict:
-        return {"step": self.name, "layout": self.kind,
-                "donate": list(self.donate)}
+        out = {"step": self.name, "layout": self.kind,
+               "donate": list(self.donate)}
+        if self.experts is not None:
+            out["experts"] = self.experts
+        return out
 
     @functools.cached_property
     def _layout(self) -> tuple:
@@ -100,19 +105,6 @@ def make_rules(cfg: ArchConfig, mesh) -> Rules:
 
 def _ctx(cfg: ArchConfig, *, quant: bool, dtype=torch.bfloat16) -> QuantCtx:
     return QuantCtx(quant=quant, lam=cfg.lam, compute_dtype=dtype)
-
-
-def rank_cfg(cfg: ArchConfig, mesh, use_ep: bool = True) -> ArchConfig:
-    """``cfg`` cut to this rank's expert share when the MoE layers run
-    expert-parallel over ``mesh`` (the experts divide its 'model' axis);
-    otherwise, or when ``cfg`` already names a share, ``cfg``."""
-    tp = mesh.shape.get("model", 1)
-    if (not cfg.n_experts or cfg.experts_held is not None or not use_ep
-            or mesh.size == 1 or cfg.n_experts % tp):
-        return cfg
-    per = cfg.n_experts // tp
-    return dataclasses.replace(
-        cfg, experts_held=(mesh.axis_index("model") * per, per))
 
 
 # cache leaves with no batch dim: the slots' positions and the length
@@ -149,13 +141,21 @@ def _rank_rows(tree: Any, mesh, dim: int = 0) -> Any:
     return _batched(tree, cut, dim)
 
 
-def layout_name(cfg: ArchConfig, mesh, use_ep: bool = True) -> str:
+def _bank_cut(cfg: ArchConfig, mesh) -> Optional[str]:
+    """How the tensor-parallel layout cuts ``cfg``'s expert banks over
+    ``mesh`` (``"ep"``, ``"tp"``), else None."""
+    tp = sharding.model_tp(cfg, mesh)
+    return tp.experts if tp is not None else None
+
+
+def layout_name(cfg: ArchConfig, mesh) -> str:
     """The layout a bundle of ``cfg`` over ``mesh`` takes: ``"tensor
     parallel"`` (the reference's ``Rules``), ``"expert parallel"`` (a
-    share of the experts a rank, the rest whole) or ``"replicated"``."""
+    config naming its share of the experts, ``experts_held``, the rest
+    whole) or ``"replicated"``."""
     if sharding.tensor_parallel(cfg, mesh):
         return "tensor parallel"
-    if rank_cfg(cfg, mesh, use_ep).experts_held is not None:
+    if cfg.experts_held is not None:
         return "expert parallel"
     return "replicated"
 
@@ -163,7 +163,7 @@ def layout_name(cfg: ArchConfig, mesh, use_ep: bool = True) -> str:
 def _blocks(tree: Any, specs: Any, cfg: ArchConfig, mesh) -> Any:
     """This rank's blocks of a whole (abstract) tree under the
     tensor-parallel layout; any other layout's tree is already the rank's
-    (a share's banks are cut by ``rank_cfg``)."""
+    (a share's banks are its config's, ``experts_held``)."""
     if not sharding.tensor_parallel(cfg, mesh):
         return tree
     return sharding.shard_tree(tree, specs, mesh)
@@ -200,8 +200,7 @@ def build_train_step(cfg: ArchConfig, mesh, *,
     ``fn(state, batch)`` takes this rank's rows of the batch
     (``data.pipeline.ShardedFeed(mesh=)`` places them);
     ``init_state(params)`` builds the state ``fn`` takes."""
-    kind = layout_name(cfg, mesh, use_ep)
-    cfg = rank_cfg(cfg, mesh, use_ep)
+    kind = layout_name(cfg, mesh)
     tp = T.tp_specs(cfg, mesh)
     step = ec4t.make_train_step(
         _loss_fn(cfg, mesh, use_ep, remat, dtype),
@@ -233,7 +232,8 @@ def build_train_step(cfg: ArchConfig, mesh, *,
         return ((state_specs, rules.batch_specs(g_batch)),
                 (state_specs, None), (a_state, _rank_rows(g_batch, mesh)))
     return StepBundle("train", step, layout, donate=(0,),
-                      init_state=init_state, kind=kind)
+                      init_state=init_state, kind=kind,
+                      experts=_bank_cut(cfg, mesh))
 
 
 # -------------------------------------------------------------- serving
@@ -292,8 +292,7 @@ def build_prefill_step(cfg: ArchConfig, mesh, *,
                        serve_dtype: str = "packed4") -> StepBundle:
     """``fn(params, batch) -> (next token, cache[, cross K/V])`` of this
     rank's rows: the cache holds the cell's ``seq`` slots."""
-    kind = layout_name(cfg, mesh, use_ep)
-    cfg = rank_cfg(cfg, mesh, use_ep)
+    kind = layout_name(cfg, mesh)
     info = specs_mod.SHAPES[shape_name]
     b, s = info["batch"], info["seq"]
     ctx = _ctx(cfg, quant=False)
@@ -343,7 +342,8 @@ def build_prefill_step(cfg: ArchConfig, mesh, *,
         return ((p_specs, rules.batch_specs(g_batch)),
                 out_specs(rules), (_blocks(a_params, p_specs, cfg, mesh),
                                    _rank_rows(g_batch, mesh)))
-    return StepBundle("prefill", fn, layout, kind=kind)
+    return StepBundle("prefill", fn, layout, kind=kind,
+                      experts=_bank_cut(cfg, mesh))
 
 
 def build_decode_step(cfg: ArchConfig, mesh, *,
@@ -352,8 +352,7 @@ def build_decode_step(cfg: ArchConfig, mesh, *,
                       serve_dtype: str = "packed4") -> StepBundle:
     """``fn(params, batch) -> (next token, cache)``: one new token a row of
     this rank's rows against its cache (``batch["cache"]``, consumed)."""
-    kind = layout_name(cfg, mesh, use_ep)
-    cfg = rank_cfg(cfg, mesh, use_ep)
+    kind = layout_name(cfg, mesh)
     ctx = _ctx(cfg, quant=False)
 
     if cfg.family == "audio":
@@ -392,7 +391,8 @@ def build_decode_step(cfg: ArchConfig, mesh, *,
         p_specs = sharding.layout_specs(a_params, cfg, mesh)
         return ((p_specs, batch_specs), out_specs,
                 (_blocks(a_params, p_specs, cfg, mesh), a_batch))
-    return StepBundle("decode", fn, layout, donate=(1,), kind=kind)
+    return StepBundle("decode", fn, layout, donate=(1,), kind=kind,
+                      experts=_bank_cut(cfg, mesh))
 
 
 BUILDERS = {"train": build_train_step, "prefill": build_prefill_step,

@@ -133,8 +133,8 @@ def generate(params, qstate, prompt: torch.Tensor, ctx: QuantCtx,
     ``mesh`` every rank takes the whole prompt, runs its rows (split over
     the data axes) with its own cache through the MoE exchanges, and the
     tokens are gathered back, so every rank returns every row.  A dense
-    arch's tensor-parallel ranks (``runtime.sharding.dense_tp``) each run
-    their heads' cache and gather the last logits over 'model'
+    or MoE arch's tensor-parallel ranks (``runtime.sharding.model_tp``)
+    each run their heads' cache and gather the last logits over 'model'
     (:func:`next_token`)."""
     rows = batch_rows(mesh, prompt.shape[0])
     if rows is not None:

@@ -229,18 +229,23 @@ def gqa_project(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
 
 @dataclasses.dataclass(frozen=True)
 class AttnTP:
-    """How one rank runs a GQA block over the 'model' axis of ``mesh``:
-    ``heads`` its q / k / v (and biases) are its ``n_heads / tp`` and
-    ``n_kv / tp`` heads' columns (its cache holds those KV heads);
-    ``o_rows`` its o holds the rows of ``n_heads / tp`` heads (a row-sharded
-    product, summed over 'model'); ``seq`` sequence-parallel: its x is its
-    ``S / tp`` rows of the sequence, whose keys and values are gathered
-    over 'model' so that its queries attend to every key, and whose output
-    is gathered back along S."""
+    """How one rank runs an attention block over the 'model' axis of
+    ``mesh``: ``heads`` its q / k / v (and biases) are its ``n_heads / tp``
+    and ``n_kv / tp`` heads' columns (its cache holds those KV heads), or
+    MLA's q_up / kv_up its ``n_heads / tp`` heads' columns; ``o_rows`` its
+    o holds the rows of ``n_heads / tp`` heads (a row-sharded product,
+    summed over 'model'); ``seq`` sequence-parallel: its x is its ``S /
+    tp`` rows of the sequence, whose keys and values are gathered over
+    'model' so that its queries attend to every key, and whose output is
+    gathered back along S; ``q_down`` / ``kv_down`` MLA's down-projections
+    hold its columns, their outputs gathered along the features over
+    'model' before anything reads them."""
     mesh: Any
     heads: bool = False
     o_rows: bool = False
     seq: bool = False
+    q_down: bool = False
+    kv_down: bool = False
 
 
 def _o_parallel(p: dict, q: Any, out: torch.Tensor, ctx: QuantCtx,
@@ -365,25 +370,41 @@ def mla_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx,
               cfg: MLACfg, *, cos_sin: tuple,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[dict] = None, chunk: int = 1024,
-              force_absorbed: Optional[bool] = None) -> tuple:
+              force_absorbed: Optional[bool] = None,
+              tp: Optional[AttnTP] = None) -> tuple:
     """MLA block; returns (y, new_cache).  The form follows the
     reference: Sq > 1 (prefill) takes the *naive* form, decompressing each
     KV chunk of the latent inside the softmax loop; Sq == 1 (decode) the
     *absorbed* form, attending over the latent with ``n_kv = 1`` and
     ``dv = kv_lora_rank``; ``force_absorbed`` picks one.  The up-projection
-    is materialised once a call (a frozen leaf decoded from its codes)."""
+    is materialised once a call (a frozen leaf decoded from its codes).
+    ``tp``: this rank's part over a mesh (:class:`AttnTP`, never
+    sequence-parallel, as the reference's): a column-cut down-projection's
+    output gathered whole (the latent is split into c_kv and the rope key
+    only then), the rank's heads from its up-projections' columns (the
+    absorbed form's W_uk and W_uv too), o row-cut and summed; the latent
+    cache is whole on every rank."""
     b, s, _ = x.shape
     c = cfg
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+    if tp is not None and tp.seq:
+        raise ValueError("MLA does not run sequence-parallel")
+    n_heads = c.n_heads
+    if tp is not None and tp.heads:
+        n_heads //= tp.mesh.axis_size("model")
+
+    def down(name, cut):
+        y = linear(p[name], subtree(q_state, name), x, ctx)
+        return tp.mesh.all_gather(y, "model", dim=-1) if cut else y
 
     q = linear(p["q_up"], subtree(q_state, "q_up"),
-               linear(p["q_down"], subtree(q_state, "q_down"), x, ctx), ctx)
-    q = q.reshape(b, s, c.n_heads, c.qk_dim)
+               down("q_down", tp is not None and tp.q_down), ctx)
+    q = q.reshape(b, s, n_heads, c.qk_dim)
     q_nope, q_rope = q[..., :c.qk_nope_dim], q[..., c.qk_nope_dim:]
 
-    kv = linear(p["kv_down"], subtree(q_state, "kv_down"), x, ctx)
+    kv = down("kv_down", tp is not None and tp.kv_down)
     ckv, k_rope = kv[..., :c.kv_lora_rank], kv[..., c.kv_lora_rank:]
 
     cos, sin = cos_sin
@@ -403,7 +424,7 @@ def mla_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx,
     scale = c.qk_dim ** -0.5
     w_up = materialize(p["kv_up"]["kernel"],
                        subtree(subtree(q_state, "kv_up"), "kernel"), ctx)
-    w_up = w_up.reshape(c.kv_lora_rank, c.n_heads,
+    w_up = w_up.reshape(c.kv_lora_rank, n_heads,
                         c.qk_nope_dim + c.v_head_dim)
     w_uk = w_up[..., :c.qk_nope_dim]                  # (r, H, nope)
     w_uv = w_up[..., c.qk_nope_dim:]                  # (r, H, v)
@@ -429,15 +450,18 @@ def mla_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx,
             kvu = torch.einsum("bkr,rhd->bkhd", ckv_c.to(torch.float32),
                                w_up32)
             kr = kr_c[:, :, None, :].to(torch.float32).expand(
-                *kr_c.shape[:2], c.n_heads, c.qk_rope_dim)
+                *kr_c.shape[:2], n_heads, c.qk_rope_dim)
             k_c = torch.cat([kvu[..., :c.qk_nope_dim], kr], dim=-1)
             return k_c, kvu[..., c.qk_nope_dim:]
 
         out = chunked_attention(
             q_full, (ckv, k_rope), q_pos=positions, kv_pos=kv_pos,
-            causal=True, chunk=chunk, scale=scale, n_kv=c.n_heads,
+            causal=True, chunk=chunk, scale=scale, n_kv=n_heads,
             dv=c.v_head_dim, kv_chunk_fn=decompress)
 
-    out = out.reshape(b, s, c.n_heads * c.v_head_dim).to(ctx.dtype)
+    out = out.reshape(b, s, n_heads * c.v_head_dim).to(ctx.dtype)
+    if tp is not None:
+        return _o_parallel(p["o"], subtree(q_state, "o"), out, ctx,
+                           tp), new_cache
     y = linear(p["o"], subtree(q_state, "o"), out, ctx)
     return y, new_cache

@@ -57,7 +57,7 @@ into every expert slot at most once.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -83,12 +83,15 @@ def held_experts(experts_held: Optional[tuple], n_experts: int) -> tuple:
 def moe_init(generator: torch.Generator, d: int, d_ff: int, n_experts: int,
              quantize: bool, n_shared: int = 0,
              shared_ff: Optional[int] = None,
-             experts_held: Optional[tuple] = None) -> dict:
+             experts_held: Optional[tuple] = None,
+             banks: Optional[Callable[[], dict]] = None) -> dict:
     """Stacked expert SwiGLU banks (E, ...) + fp32 router (+ shared
     expert), every draw from ``generator`` on its device.  The banks are
     uniform in ±1/√d, as the reference draws all three.  With
     ``experts_held=(first, count)`` the router stays n_experts wide and
-    the banks hold ``count`` experts."""
+    the banks hold ``count`` experts.  ``banks()``, when given, makes the
+    ``{"gate", "up", "down"}`` banks instead (``nn.transformer`` draws
+    each expert from a generator of its own)."""
     dev = generator.device
     scale = d ** -0.5
     _, count = held_experts(experts_held, n_experts)
@@ -104,7 +107,7 @@ def moe_init(generator: torch.Generator, d: int, d_ff: int, n_experts: int,
             "bias_correction": torch.zeros((n_experts,), dtype=torch.float32,
                                            device=dev),
         },
-        "experts": {
+        "experts": banks() if banks is not None else {
             "gate": expert_bank(d, d_ff),
             "up": expert_bank(d, d_ff),
             "down": expert_bank(d_ff, d),
@@ -257,9 +260,11 @@ def moe_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
               top_k: int, gate: str = "softmax",
               capacity_factor: float = 1.25,
               routed_scaling: float = 1.0,
-              experts_held: Optional[tuple] = None) -> tuple:
+              experts_held: Optional[tuple] = None,
+              shared_mesh=None) -> tuple:
     """MoE forward on (..., d) tokens; returns (y, aux_loss).  With
-    ``experts_held=(first, count)``, this shard's part of the layer."""
+    ``experts_held=(first, count)``, this shard's part of the layer;
+    ``shared_mesh`` as :func:`moe_apply_ep` takes it."""
     shape = x.shape
     d = shape[-1]
     xt = x.reshape(-1, d)
@@ -276,9 +281,18 @@ def moe_apply(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
         routed_scaling=routed_scaling, dtype=ctx.dtype, held=held)
     out = _expert_ffn(p["experts"], subtree(q_state, "experts"), buf, ctx)
     y = _combine(out, slot, keep, w, n, top_k, ctx.dtype)
-    if "shared" in p:
-        y = y + swiglu(p["shared"], subtree(q_state, "shared"), xt, ctx)
-    return y.reshape(shape), aux
+    return _add_shared(y, p, q_state, xt, ctx, shared_mesh).reshape(
+        shape), aux
+
+
+def _add_shared(y: torch.Tensor, p: dict, q_state: Any, xt: torch.Tensor,
+                ctx: QuantCtx, mesh=None) -> torch.Tensor:
+    """``y`` plus the shared expert's output on ``xt``, once; with
+    ``mesh`` its gate / up this rank's columns and its down its rows,
+    summed over 'model' (``swiglu(mesh=)``)."""
+    if "shared" not in p:
+        return y
+    return y + swiglu(p["shared"], subtree(q_state, "shared"), xt, ctx, mesh)
 
 
 # ------------------------------------------------------------ over a mesh
@@ -313,17 +327,28 @@ def _rank_tokens(xt: torch.Tensor, mesh, axes) -> torch.Tensor:
 def _rank_experts(p: dict, q_state: Any, e: int, ep: int,
                   index: int) -> tuple:
     """(banks, their q-state) of this rank's E/ep experts: whole banks are
-    cut; banks built for the rank's share (``experts_held``) are kept."""
+    cut; banks that hold the rank's experts (a share, ``experts_held``,
+    or the tensor-parallel layout's block) are kept, and an ω or a
+    probability state of the whole layer's E experts beside them (the
+    layout replicates those) is cut to the rank's."""
     held = _bank_experts(p["experts"])
-    eq = subtree(q_state, "experts")
-    if held == e // ep:
-        return p["experts"], eq
-    if held != e:
+    if held not in (e, e // ep):
         raise ValueError(f"the banks hold {held} experts; expert parallelism "
                          f"over {ep} ranks needs {e} or {e // ep}")
-    banks = {k: _axis_slice(v, 0, index, ep) for k, v in p["experts"].items()}
+
+    def mine(t):
+        return t.narrow(0, index * (e // ep), e // ep) if t.shape[0] == e \
+            else t
+    if held == e:
+        banks = {k: _axis_slice(v, 0, index, ep)
+                 for k, v in p["experts"].items()}
+    else:
+        banks = {k: {**v, "omega": mine(v["omega"])}
+                 if isinstance(v, dict) else v
+                 for k, v in p["experts"].items()}
+    eq = subtree(q_state, "experts")
     if isinstance(eq, dict):
-        eq = {k: {kk: _axis_slice(vv, 0, index, ep) for kk, vv in v.items()}
+        eq = {k: {kk: mine(vv) for kk, vv in v.items()}
               if isinstance(v, dict) else v for k, v in eq.items()}
     return banks, eq
 
@@ -332,7 +357,8 @@ def moe_apply_ep(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
                  mesh, top_k: int, gate: str = "softmax",
                  capacity_factor: float = 1.25, routed_scaling: float = 1.0,
                  expert_axis: str = "model",
-                 experts_held: Optional[tuple] = None) -> tuple:
+                 experts_held: Optional[tuple] = None,
+                 shared_mesh=None) -> tuple:
     """Expert-parallel MoE over ``mesh`` (the reference's
     ``moe_apply_ep``): experts over ``expert_axis``, tokens over every
     axis, two all-to-alls a layer.
@@ -346,7 +372,10 @@ def moe_apply_ep(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
     outputs in assignment order.  The blocks are gathered over the slice,
     the shared expert is added after the exchange, and the aux is the mean
     over all ranks.  ``p``'s banks hold every expert, or this rank's E/ep
-    (``experts_held``)."""
+    (``experts_held``, or the tensor-parallel layout's block beside the
+    whole layer's ω).  ``shared_mesh``: the shared expert's gate / up are
+    this rank's columns and its down its rows, summed over that mesh's
+    'model' axis (the layout's cut); else whole."""
     shape = x.shape
     d = shape[-1]
     xt = x.reshape(-1, d)
@@ -377,22 +406,25 @@ def moe_apply_ep(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
     y = _combine(out, slot, keep, w, n_l, top_k, ctx.dtype)
     y = mesh.all_gather(y, expert_axis, dim=0)[:xt.shape[0]]
     aux = mesh.all_reduce(aux, mesh.axis_names, op="mean")
-    if "shared" in p:
-        y = y + swiglu(p["shared"], subtree(q_state, "shared"), xt, ctx)
-    return y.reshape(shape), aux
+    return _add_shared(y, p, q_state, xt, ctx, shared_mesh).reshape(
+        shape), aux
 
 
 def moe_apply_tp(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
                  mesh, top_k: int, gate: str = "softmax",
                  capacity_factor: float = 1.25, routed_scaling: float = 1.0,
-                 expert_axis: str = "model") -> tuple:
+                 expert_axis: str = "model", d_ff: Optional[int] = None,
+                 shared_mesh=None) -> tuple:
     """Per-expert tensor parallelism over ``mesh`` (the reference's
     ``moe_apply_tp``, for few experts on a wide axis): each rank of the
     ``expert_axis`` slice holds a 1/tp slice of every expert's FFN width.
     ``x`` holds this rank's rows, the same on every rank of the slice;
     the dispatch is local, each rank contracts its ff slice, and one
     all-reduce over the slice sums the row-split down-projection.  The
-    aux is the mean over the data axes.  ``p``'s banks are whole."""
+    aux is the mean over the data axes.  ``p``'s banks are whole, or (an
+    expert's width ``d_ff`` given, and the banks ``d_ff / tp`` wide) this
+    rank's FFN columns of every expert, as the tensor-parallel layout
+    holds them; ``shared_mesh`` as :func:`moe_apply_ep` takes it."""
     shape = x.shape
     d = shape[-1]
     xt = x.reshape(-1, d)
@@ -401,7 +433,12 @@ def moe_apply_tp(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
     tp = mesh.axis_size(expert_axis)
     index = mesh.axis_index(expert_axis)
     if _bank_experts(p["experts"]) != e:
-        raise ValueError("expert TP takes whole banks")
+        raise ValueError("expert TP holds every expert")
+    ff = _gate_bank(p["experts"]).shape[-1]
+    if d_ff is not None and ff not in (d_ff, d_ff // tp):
+        raise ValueError(f"banks {ff} wide: expert TP over {tp} ranks of "
+                         f"a {d_ff}-wide FFN needs {d_ff} or {d_ff // tp}")
+    whole = d_ff is None or ff == d_ff
     cap = _capacity(n * top_k, e, capacity_factor)
     buf, slot, keep, w, aux = _dispatch(
         xt, p["router"], e, cap, top_k=top_k, gate=gate,
@@ -409,8 +446,9 @@ def moe_apply_tp(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
     eq = subtree(q_state, "experts")
 
     def mat(name, dim):
-        return materialize(_axis_slice(p["experts"][name], dim, index, tp),
-                           subtree(eq, name), ctx)
+        bank = p["experts"][name]
+        return materialize(_axis_slice(bank, dim, index, tp) if whole
+                           else bank, subtree(eq, name), ctx)
     g = torch.bmm(buf, mat("gate", 2))                  # the ff/tp slice
     u = torch.bmm(buf, mat("up", 2))
     h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(buf.dtype)
@@ -418,21 +456,23 @@ def moe_apply_tp(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
     y = _combine(out, slot, keep, w, n, top_k, ctx.dtype)
     data_axes = tuple(a for a in mesh.axis_names if a != expert_axis)
     aux = mesh.all_reduce(aux, data_axes, op="mean")
-    if "shared" in p:
-        y = y + swiglu(p["shared"], subtree(q_state, "shared"), xt, ctx)
-    return y.reshape(shape), aux
+    return _add_shared(y, p, q_state, xt, ctx, shared_mesh).reshape(
+        shape), aux
 
 
-def moe_path(p: dict, mesh, use_ep: bool = True) -> str:
+def moe_path(p: dict, mesh, use_ep: bool = True,
+             d_ff: Optional[int] = None) -> str:
     """The reference's choice: ``"ep"`` when the experts divide the mesh's
-    'model' axis, ``"tp"`` when the FFN width does, else ``"local"``
-    (:func:`moe_apply` on this rank's rows)."""
+    'model' axis, ``"tp"`` when the FFN width does (an expert's whole
+    width ``d_ff``, else the banks'), else ``"local"`` (:func:`moe_apply`
+    on this rank's rows)."""
     e = p["router"]["w"].shape[1]
+    ff = d_ff or _gate_bank(p["experts"]).shape[-1]
     tp = mesh.shape.get("model", 1) if mesh is not None else 1
     multi = mesh is not None and mesh.size > 1
     if use_ep and multi and e % tp == 0:
         return "ep"
-    if use_ep and multi and _gate_bank(p["experts"]).shape[-1] % tp == 0:
+    if use_ep and multi and ff % tp == 0:
         return "tp"
     return "local"
 
@@ -441,20 +481,28 @@ def moe_ffn(p: dict, q_state: Any, x: torch.Tensor, ctx: QuantCtx, *,
             mesh=None, top_k: int, gate: str = "softmax",
             capacity_factor: float = 1.25,
             routed_scaling: float = 1.0, use_ep: bool = True,
-            experts_held: Optional[tuple] = None) -> tuple:
+            experts_held: Optional[tuple] = None,
+            d_ff: Optional[int] = None, shared_mesh=None) -> tuple:
     """The reference's dispatcher (:func:`moe_path`): :func:`moe_apply_ep`,
     :func:`moe_apply_tp`, or the sort dispatch of :func:`moe_apply` (on
     one device a shard of it with ``experts_held``).  Over a mesh,
     ``experts_held`` names this rank's expert-parallel share, and the
-    local path's aux is the mean over the data axes."""
+    local path's aux is the mean over the data axes.  ``d_ff`` (an
+    expert's whole FFN width) lets expert TP take banks cut on it;
+    ``shared_mesh`` cuts the shared expert (:func:`moe_apply_ep`).  Banks
+    that the tensor-parallel layout cut need their exchange: without
+    ``use_ep`` they raise."""
     kw = dict(top_k=top_k, gate=gate, capacity_factor=capacity_factor,
-              routed_scaling=routed_scaling)
-    path = moe_path(p, mesh, use_ep)
+              routed_scaling=routed_scaling, shared_mesh=shared_mesh)
+    path = moe_path(p, mesh, use_ep, d_ff)
     if path == "ep":
         return moe_apply_ep(p, q_state, x, ctx, mesh=mesh,
                             experts_held=experts_held, **kw)
     if path == "tp":
-        return moe_apply_tp(p, q_state, x, ctx, mesh=mesh, **kw)
+        return moe_apply_tp(p, q_state, x, ctx, mesh=mesh, d_ff=d_ff, **kw)
+    if d_ff is not None and _gate_bank(p["experts"]).shape[-1] != d_ff:
+        raise ValueError(f"banks cut on the FFN width ({d_ff} whole) run "
+                         "expert TP (use_ep)")
     y, aux = moe_apply(p, q_state, x, ctx, experts_held=experts_held, **kw)
     if mesh is not None and mesh.size > 1:
         # each rank routed its own rows: the aux of the mesh is the mean

@@ -42,7 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..core import qat
+from ..core import bitplanes, qat
 from ..runtime import sharding
 from ..tree import leaves, map_, unflatten
 from . import attention as attn
@@ -120,8 +120,9 @@ def _mlp(cfg: ArchConfig, p: dict, q: Any, x: torch.Tensor,
 # ------------------------------------------------------------- layer init
 
 def _layer_init(generator: torch.Generator, cfg: ArchConfig,
-                kind: str = "dense") -> dict:
-    """kind: dense | moe | ssm | hybrid (from the family, per depth)."""
+                kind: str = "dense", banks=None) -> dict:
+    """kind: dense | moe | ssm | hybrid (from the family, per depth);
+    ``banks`` draws a MoE layer's expert banks (``moe_init``'s)."""
     if kind not in KINDS:
         raise ValueError(f"layer kind {kind!r}: one of {', '.join(KINDS)}")
     d, dev = cfg.d_model, generator.device
@@ -146,12 +147,77 @@ def _layer_init(generator: torch.Generator, cfg: ArchConfig,
         p["moe"] = moe_lib.moe_init(generator, d, cfg.d_ff, cfg.n_experts,
                                     cfg.quantize,
                                     n_shared=cfg.n_shared_experts,
-                                    experts_held=cfg.experts_held)
+                                    experts_held=cfg.experts_held,
+                                    banks=banks)
     elif kind == "hybrid":
         p["mlp"] = _mlp_init(generator, cfg, cfg.d_ff)
     else:
         p["mlp"] = _mlp_init(generator, cfg, cfg.dense_ff or cfg.d_ff)
     return p
+
+
+BANKS = ("gate", "up", "down")
+
+
+def bank_seed(seed: int, layer: int, expert: int, bank: int) -> int:
+    """The seed of one expert's bank ``BANKS[bank]`` in layer ``layer`` of
+    the MoE stack."""
+    return seed + 1_000_003 * (1 + layer) + 1_009 * expert + bank
+
+
+@torch.no_grad()
+def _expert_banks(cfg: ArchConfig, seed: int, layer: int, device,
+                  tp: Optional[sharding.ModelTP] = None) -> dict:
+    """Layer ``layer``'s expert banks, each expert drawn from a generator
+    of its own (:func:`bank_seed`), uniform in ±1/√d as ``moe_init`` draws
+    them: the experts of ``cfg.experts_held`` (every one without), or
+    under the tensor-parallel layout ``tp`` this rank's block (its E/tp
+    experts, or each expert drawn whole in turn and its FFN columns
+    kept).  A bank's ω is the whole bank's: its blocks' are gathered (the
+    experts) or their max|w| reduced (the FFN width) over 'model'."""
+    first, count = moe_lib.held_experts(cfg.experts_held, cfg.n_experts)
+    cut = tp.experts if tp is not None else None
+    if cut is not None:
+        index = tp.mesh.axis_index("model")
+        if cut == "ep":
+            count = cfg.n_experts // tp.tp
+            first = index * count
+    scale = cfg.d_model ** -0.5
+    out = {}
+    for b, name in enumerate(BANKS):
+        d_in, d_out = ((cfg.d_ff, cfg.d_model) if name == "down"
+                       else (cfg.d_model, cfg.d_ff))
+        ff_dim = 0 if name == "down" else 1     # in one expert's matrix
+        shape = [count, d_in, d_out]
+        if cut == "tp":
+            shape[1 + ff_dim] //= tp.tp
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        if w.device.type != "meta":
+            for j in range(count):
+                g = torch.Generator(device=w.device).manual_seed(
+                    bank_seed(seed, layer, first + j, b))
+                if cut == "tp":
+                    whole = torch.rand((d_in, d_out), generator=g,
+                                       device=w.device)
+                    blk = shape[1 + ff_dim]
+                    w[j].copy_(whole.narrow(ff_dim, index * blk, blk))
+                    del whole
+                else:
+                    torch.rand((d_in, d_out), generator=g, out=w[j])
+            w.mul_(2 * scale).sub_(scale)
+        if not cfg.quantize:
+            out[name] = w
+            continue
+        if cut == "tp":
+            amax = tp.mesh.all_reduce(w.abs().amax(dim=(-2, -1)), "model",
+                                      op="max")
+            omega = bitplanes.omega_from_amax(amax, w.dtype)
+        else:
+            omega = bitplanes.init_omega_from_weights(w)
+            if cut == "ep":
+                omega = tp.mesh.all_gather(omega, "model", dim=0)
+        out[name] = {"w": w, "omega": omega}
+    return out
 
 
 def _stack(trees: list) -> Any:
@@ -184,28 +250,45 @@ def _kind_layers(cfg: ArchConfig) -> dict:
 def lm_init(cfg: ArchConfig, *, seed: int = 0,
             generator: Optional[torch.Generator] = None,
             device=None, mesh=None) -> dict:
-    """Random parameters for ``cfg``, every draw from one
+    """Random parameters for ``cfg``: every draw from one
     ``torch.Generator`` on the target device (seeded with ``seed`` when
-    none is given).  The values need not equal the JAX package's: a
+    none is given) but the expert banks, each expert of which is drawn
+    from a generator of its own seeded from ``seed`` and its layer, expert
+    and bank, so that an expert's weights do not depend on which experts
+    are drawn beside it (a share's banks, ``experts_held``, are the slice
+    of the whole's).  The values need not equal the JAX package's: a
     comparison carries JAX's tree across (``convert.lm_tree_from_numpy``).
     Over a ``mesh`` with the tensor-parallel layout
     (``runtime.sharding.tensor_parallel``) this rank's blocks of that
-    tree: each layer, the embedding and the head are drawn whole (ω from
-    the whole weights), cut, and the whole one freed before the next
-    draw."""
+    tree: each layer but its expert banks, the embedding and the head are
+    drawn whole (ω from the whole weights), cut, and the whole one freed
+    before the next draw; the banks are drawn as the rank's blocks
+    (:func:`_expert_banks`, collective over 'model')."""
     if generator is None:
         generator = make_generator(resolve_device(device), seed)
     specs = tp_specs(cfg, mesh)
+    tp = sharding.model_tp(cfg, mesh)
     keep = (lambda tree, spec: tree) if specs is None else \
         (lambda tree, spec: sharding.shard_tree(tree, spec, mesh))
     per_layer = {}
-    if specs is not None:      # a layer's spec: its stack's, without L
+    if specs is not None:      # a layer's spec: its stack's, without L;
+        # the banks are drawn as this rank's blocks
         per_layer = {kind: map_(lambda t, sp: sp[1:], tree, specs["stacks"]
                                 [kind]) for kind, tree in
                      _abstract(cfg)["stacks"].items()}
-    kinds = _layer_kinds(cfg)
-    layers = [keep(_layer_init(generator, cfg, kind), per_layer.get(kind))
-              for kind in kinds]
+        if "moe" in per_layer:
+            per_layer["moe"]["moe"]["experts"] = map_(
+                lambda t: (None,) * (t.ndim - 1),
+                _abstract(cfg)["stacks"]["moe"]["moe"]["experts"])
+    layers, n_moe = [], 0
+    for kind in _layer_kinds(cfg):
+        banks = None
+        if kind == "moe":
+            banks = functools.partial(_expert_banks, cfg, seed, n_moe,
+                                      generator.device, tp)
+            n_moe += 1
+        layers.append(keep(_layer_init(generator, cfg, kind, banks),
+                           per_layer.get(kind)))
     p = {
         "embed": keep(embedding_init(generator, cfg.padded_vocab,
                                      cfg.d_model),
@@ -258,9 +341,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     its recurrent state (``"ssm"``: fp32 whatever ``dtype``, as the
     reference's), the same size at any context length.  Over a ``mesh``
     whose tensor-parallel layout shards the heads (``runtime.sharding.
-    dense_tp``) a rank caches its ``n_kv / tp`` KV heads."""
+    model_tp``) a rank caches its ``n_kv / tp`` KV heads; an MLA rank
+    caches the whole latent (only its heads are cut)."""
     dev = resolve_device(device)
-    tp = sharding.dense_tp(cfg, mesh)
+    tp = sharding.model_tp(cfg, mesh)
     n_kv = cfg.n_kv // tp.tp if tp is not None and tp.heads else cfg.n_kv
 
     def attn_cache():
@@ -341,9 +425,11 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
            ctx: QuantCtx, *, cos_sin, positions, lcache, window, mesh=None,
            use_ep: bool = True, attn_reshard: bool = False) -> tuple:
     """One transformer block; returns (x, new_lcache, aux).  Over a mesh
-    with the tensor-parallel layout (``runtime.sharding.dense_tp``) a rank
-    runs its heads and its columns of the FFN; with ``attn_reshard`` its
-    attention is sequence-parallel (:func:`_attn_batch_reshard`)."""
+    with the tensor-parallel layout (``runtime.sharding.model_tp``) a rank
+    runs its heads (MLA's from its gathered latents), its columns of the
+    FFN or of the shared expert, and its block of the expert banks through
+    their exchange; with ``attn_reshard`` its GQA attention is
+    sequence-parallel (:func:`_attn_batch_reshard`)."""
     h = _norm(cfg, lp["ln1"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {}
@@ -353,13 +439,16 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
             new_cache["ssm"] = new_st
         return x + y, new_cache, aux
 
-    tp = sharding.dense_tp(cfg, mesh)
+    tp = sharding.model_tp(cfg, mesh)
     acache = lcache["attn"] if lcache is not None else None
     if cfg.mla is not None:
+        atp = None if tp is None else attn.AttnTP(
+            mesh, heads=tp.heads, o_rows=tp.o_rows, q_down=tp.q_down,
+            kv_down=tp.kv_down)
         ay, new_ac = attn.mla_apply(lp["attn"], subtree(lq, "attn"), h, ctx,
                                     _mla_cfg(cfg), cos_sin=cos_sin,
                                     positions=positions, cache=acache,
-                                    chunk=cfg.attn_chunk)
+                                    chunk=cfg.attn_chunk, tp=atp)
     else:
         h_a, cs_a, pos_a, atp = h, cos_sin, positions, None
         if tp is not None or attn_reshard:
@@ -393,7 +482,10 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
                                   capacity_factor=cfg.capacity_factor,
                                   routed_scaling=cfg.routed_scaling,
                                   mesh=mesh, use_ep=use_ep,
-                                  experts_held=cfg.experts_held)
+                                  experts_held=cfg.experts_held,
+                                  d_ff=cfg.d_ff,
+                                  shared_mesh=mesh if tp is not None
+                                  and tp.shared else None)
         x = x + y2
     else:
         x = x + _mlp(cfg, lp["mlp"], subtree(lq, "mlp"), h2, ctx,
@@ -499,14 +591,15 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
     before the loop either way, so it adds no ECL pass).  Over a ``mesh``
     (``launch.mesh``) each rank runs its own rows with its own cache, and
     the MoE layers exchange tokens (``nn.moe.moe_ffn``, ``use_ep`` as the
-    reference takes it).  A dense arch over a 'model' axis of more than
-    one rank holds its blocks of the weights (``runtime.sharding.
-    dense_tp``): the lookup, each block's heads and FFN columns and the
-    head are split over 'model', and the logits are this rank's block of
-    the vocabulary.  ``attn_reshard`` (default: no cache and
-    :func:`_attn_batch_reshard`) runs attention sequence-parallel.
+    reference takes it).  A dense or MoE arch over a 'model' axis of more
+    than one rank holds its blocks of the weights (``runtime.sharding.
+    model_tp``): the lookup, each block's heads, FFN and shared-expert
+    columns, expert banks and the head are split over 'model', and the
+    logits are this rank's block of the vocabulary.  ``attn_reshard``
+    (default: no cache and :func:`_attn_batch_reshard`) runs attention
+    sequence-parallel.
     """
-    tp = sharding.dense_tp(cfg, mesh)
+    tp = sharding.model_tp(cfg, mesh)
     if embeds is None:
         if tp is not None and tp.vocab:
             x = embed_rows(params["embed"]["table"], tokens, ctx.dtype, mesh)

@@ -32,12 +32,13 @@ once, a share's banks summed over the expert axis.  Every rank then takes
 the same Adam step and probability update, so each replicated leaf
 (params, m, v, probs) stays equal bit for bit across its group.  With
 ``zero1`` each rank keeps m and v for its block of each leaf
-(``runtime.sharding.zero1_specs``).  Under the dense family's
+(``runtime.sharding.zero1_specs``).  Under the dense and moe families'
 tensor-parallel layout a rank's leaf may be its block of the whole
 (``specs``): its gradient is summed over the data axes only, ω's
-(replicated, its gradient from a block partial) over every axis, and the
-probability update sums each segment's mean(w²) and code counts over the
-'model' ranks (``qat.Shards``).  No exchange needs a Megatron
+(replicated, its gradient from a block partial, or zero for an expert
+whose bank the rank does not hold) over every axis, and the probability
+update sums each segment's mean(w²) and code counts over the 'model'
+ranks (``qat.Shards``).  No exchange needs a Megatron
 identity-backward operator: every rank's loss is the whole loss, its
 backward seeded with 1 / world, and each exchange carries its exact
 adjoint.

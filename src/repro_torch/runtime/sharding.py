@@ -262,71 +262,107 @@ def serving_pack_specs(layers, rules: Rules) -> list:
 
 # ------------------------------------------------- the port's own layout
 #
-# The dense family over a mesh whose 'model' axis holds more than one rank
-# takes the reference's layout: each leaf as ``Rules.param_specs`` gives
-# it (QKV and gate / up column-sharded, O and down row-sharded, the
-# embedding and the head over the vocabulary, every other leaf
-# replicated), each rank holding its block of a sharded leaf and no whole
-# copy.  Every other family, and any family over model = 1, keeps each
-# non-expert weight whole on each rank: a leaf is replicated over the whole
-# mesh, except an expert-parallel share's banks (``experts_held``: fewer
-# experts than its router scores), which the ranks of one 'model' index
-# hold alike, replicated over the data axes.
+# The dense and moe families over a mesh whose 'model' axis holds more
+# than one rank take the reference's layout: each leaf as
+# ``Rules.param_specs`` gives it (QKV, MLA's down-projections, gate / up
+# and the shared expert's column-sharded, MLA's up-projections by heads, O
+# and down row-sharded, the expert banks on their expert dim or each
+# expert's FFN width, the embedding and the head over the vocabulary,
+# every other leaf replicated), each rank holding its block of a sharded
+# leaf and no whole copy.  Every other family, and any family over
+# model = 1, keeps each non-expert weight whole on each rank: a leaf is
+# replicated over the whole mesh, except an expert-parallel share's banks
+# (``experts_held``: fewer experts than its router scores), which the
+# ranks of one 'model' index hold alike, replicated over the data axes.
 
-TP_FAMILIES = ("dense",)
+TP_FAMILIES = ("dense", "moe")
 
 
 def tensor_parallel(cfg, mesh) -> bool:
     """True when ``cfg`` takes the reference's tensor-parallel layout over
-    ``mesh``: a dense-family arch and a 'model' axis of more than one
-    rank."""
-    return (cfg is not None and mesh is not None
-            and getattr(cfg, "family", None) in TP_FAMILIES
-            and mesh.shape.get("model", 1) > 1)
+    ``mesh``: a dense- or moe-family arch and a 'model' axis of more than
+    one rank.  A config that names its own expert share (``experts_held``)
+    raises there: the layout decides which experts a rank holds."""
+    on = (cfg is not None and mesh is not None
+          and getattr(cfg, "family", None) in TP_FAMILIES
+          and mesh.shape.get("model", 1) > 1)
+    if on and getattr(cfg, "experts_held", None) is not None:
+        raise ValueError(f"{cfg.name}: experts_held={cfg.experts_held} over "
+                         f"a tensor-parallel mesh {dict(mesh.shape)}: the "
+                         "layout decides which experts a rank holds")
+    return on
 
 
 @dataclasses.dataclass(frozen=True)
-class DenseTP:
-    """What each rank of a dense stack holds under the tensor-parallel
-    layout, role by role (``Rules.spec_for`` of the logical shapes):
-    ``heads`` q / k / v and their biases column-sharded (``n_heads / tp``
-    and ``n_kv / tp`` heads a rank), ``o_rows`` o row-sharded (the rows of
-    ``n_heads / tp`` heads), ``mlp`` gate / up (fc1) column- and down
-    (fc2) row-sharded, ``vocab`` the embedding's rows and the head's
-    columns split over the vocabulary."""
+class ModelTP:
+    """What each rank of a stack holds under the tensor-parallel layout,
+    role by role (``Rules.spec_for`` of the logical shapes): ``heads`` its
+    ``n_heads / tp`` heads (GQA's q / k / v and their biases column-
+    sharded, ``n_kv / tp`` KV heads; MLA's q_up / kv_up by heads),
+    ``o_rows`` o row-sharded (the rows of ``n_heads / tp`` heads),
+    ``q_down`` / ``kv_down`` MLA's down-projections column-sharded,
+    ``mlp`` a dense layer's gate / up (fc1) column- and down (fc2)
+    row-sharded, ``shared`` the shared expert's the same way, ``experts``
+    the routed banks cut on their expert dim (``"ep"``), on each expert's
+    FFN width (``"tp"``) or whole (None), ``vocab`` the embedding's rows
+    and the head's columns split over the vocabulary."""
     mesh: Any
     tp: int
     heads: bool
     o_rows: bool
     mlp: bool
     vocab: bool
+    shared: bool = False
+    q_down: bool = False
+    kv_down: bool = False
+    experts: Optional[str] = None
 
 
-def dense_tp(cfg, mesh) -> Optional[DenseTP]:
-    """:class:`DenseTP` of ``cfg`` over ``mesh``, or None when the layout
+def model_tp(cfg, mesh) -> Optional[ModelTP]:
+    """:class:`ModelTP` of ``cfg`` over ``mesh``, or None when the layout
     is not tensor-parallel (:func:`tensor_parallel`)."""
     if not tensor_parallel(cfg, mesh):
         return None
     tp = mesh.shape["model"]
-    return DenseTP(mesh, tp, *_dense_cuts(cfg, tuple(mesh.axis_names),
-                                          tuple(mesh.shape.values())))
+    return ModelTP(mesh, tp, **_cuts(cfg, tuple(mesh.axis_names),
+                                     tuple(mesh.shape.values())))
 
 
 @functools.lru_cache(maxsize=None)
-def _dense_cuts(cfg, axes: tuple, sizes: tuple) -> tuple:
-    """(heads, o_rows, mlp, vocab) of :class:`DenseTP`, by the rules."""
+def _cuts(cfg, axes: tuple, sizes: tuple) -> dict:
+    """The fields of :class:`ModelTP` but the mesh, by the rules."""
     rules = Rules(axes, dict(zip(axes, sizes)), cfg)
-    hd, d = cfg.resolved_head_dim, cfg.d_model
+    d, h = cfg.d_model, cfg.n_heads
     ff = cfg.dense_ff or cfg.d_ff
 
     def cut(name, shape, dim):
-        return rules.spec_for(f"stacks//dense//{name}", (1,) + shape
+        return rules.spec_for(f"stacks//x//{name}//kernel//w", (1,) + shape
                               )[1 + dim] is not None
-    return (cut("attn//q//kernel//w", (d, cfg.n_heads * hd), 1),
-            cut("attn//o//kernel//w", (cfg.n_heads * hd, d), 0),
-            cut("mlp//up//kernel//w", (d, ff), 1),
-            rules.spec_for("embed//table", (cfg.padded_vocab, d))[0]
-            is not None)
+    out = {"mlp": cut("mlp//up", (d, ff), 1),
+           "vocab": rules.spec_for("embed//table", (cfg.padded_vocab, d))[0]
+           is not None}
+    if cfg.mla is not None:
+        m = cfg.mla
+        out.update(heads=cut("attn//q_up", (m.q_lora_rank, h * (
+            m.qk_nope_dim + m.qk_rope_dim)), 1),
+            o_rows=cut("attn//o", (h * m.v_head_dim, d), 0),
+            q_down=cut("attn//q_down", (d, m.q_lora_rank), 1),
+            kv_down=cut("attn//kv_down", (d, m.kv_lora_rank
+                                          + m.qk_rope_dim), 1))
+        if cut("attn//kv_up", (m.kv_lora_rank, h * (
+                m.qk_nope_dim + m.v_head_dim)), 1) != out["heads"]:
+            raise ValueError(f"{cfg.name}: q_up and kv_up split unlike")
+    else:
+        hd = cfg.resolved_head_dim
+        out.update(heads=cut("attn//q", (d, h * hd), 1),
+                   o_rows=cut("attn//o", (h * hd, d), 0))
+    if cfg.n_experts:
+        out["shared"] = bool(cfg.n_shared_experts) and cut(
+            "moe//shared//up", (d, cfg.d_ff * cfg.n_shared_experts), 1)
+        bank = rules.spec_for("stacks//moe//moe//experts//gate//w",
+                              (1, cfg.n_experts, d, cfg.d_ff))
+        out["experts"] = "ep" if bank[1] else "tp" if bank[3] else None
+    return out
 
 
 def layout_specs(params: Any, cfg, mesh) -> Any:

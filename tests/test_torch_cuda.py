@@ -13,8 +13,9 @@ coalesced bucket bitwise equal to the same rows served alone.  The ECL
 kernel's codes and ŵ bitwise equal to its plain version on the card, for
 one tensor a launch and for groups (MLP-GSC's seven tensors in one
 launch, unaligned lead slices and views, more segments than one launch
-takes); the card's ``fake_quant`` ω gradient within ``rtol=1e-5`` of the
-CPU's; grouped training losses bitwise equal to the per-leaf path's.
+takes, a tensor-parallel rank's MoE bank blocks: its experts with their
+slice of ω and the penalties, or each expert's FFN columns); the card's
+``fake_quant`` ω gradient within ``rtol=1e-5`` of the CPU's; grouped training losses bitwise equal to the per-leaf path's.
 Several CUDA streams on the one card: launch counters exact under four
 threads; operands memoized on one stream ready for a launch on another;
 memory a queued launch reads not reused after its pack is dropped;
@@ -502,6 +503,32 @@ def test_ecl_group_splits_past_the_cap(cuda_device):
     assert eq.LAUNCHES == before + 4
     _assert_group_bitwise(ws, oms, pens, outs)
     _assert_group_bitwise([wb], [ob], [pb], outs_b)
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_ecl_group_moe_rank_blocks(cuda_device, rank):
+    """A tensor-parallel rank's MoE bank blocks in one grouped launch: an
+    expert-parallel block (its 2 experts of an (L, 8, d, ff) stack, with
+    their slice of ω and of the penalties) and an expert-TP block (each
+    expert's ff / 4 columns, a strided view, with the whole ω and the
+    whole segments' penalties) give codes and ŵ bitwise the slice of the
+    whole stack's."""
+    shape, tp = (2, 8, 32, 48), 4
+    w, om, pen = _batched_inputs(shape, 0.3, 41, cuda_device)
+    whole_c, whole_w = eq.ecl_quant_many([w], [om], [pen])[0]
+    e = slice(rank * 2, rank * 2 + 2)
+    f = slice(rank * 12, rank * 12 + 12)
+    col = w[..., f]
+    assert not col.is_contiguous()
+    before = eq.LAUNCHES
+    (ep_c, ep_w), (tp_c, tp_w) = eq.ecl_quant_many(
+        [w[:, e], col], [om[:, e], om], [pen[:, e], pen])
+    torch.cuda.synchronize(cuda_device)
+    assert eq.LAUNCHES == before + 1
+    assert torch.equal(ep_c, whole_c[:, e]) and torch.equal(ep_w,
+                                                            whole_w[:, e])
+    assert torch.equal(tp_c, whole_c[..., f]) and torch.equal(
+        tp_w, whole_w[..., f])
 
 
 def test_grouped_train_steps_equal_per_leaf(cuda_device, monkeypatch):

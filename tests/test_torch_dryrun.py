@@ -236,7 +236,9 @@ def test_train_bundle_layout_and_share(cut_shapes):
     cfg = get_config("grok-1-314b").smoke()
     mesh = ShapeMesh((2, 2))
     b = S.build_train_step(cfg, mesh)
-    assert S.rank_cfg(cfg, mesh).experts_held == (0, cfg.n_experts // 2)
+    # the reference's layout: the banks cut on their experts over 'model'
+    assert b.describe()["layout"] == "tensor parallel"
+    assert b.describe()["experts"] == "ep"
     state, batch = b.args
     assert tuple(batch["tokens"].shape) == (4, 64)      # 8 rows over 2
     gate = state["params"]["stacks"]["moe"]["moe"]["experts"]["gate"]
