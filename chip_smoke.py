@@ -440,7 +440,9 @@ Phases (any failure raises and the script exits non-zero):
 15. Scale-out serving over ``torch.distributed``, run after phase 14: 4 ranks
    spawned by ``launch.mesh.RankPool`` (after the kernels are built
    here) share the card over gloo, every collective staged through host
-   buffers; a rank that fails fails the phase.  (a) MLP-GSC, MLP-HR and
+   buffers; a rank that fails fails the phase.  Phases 16 and 18-20 run on
+   the same ranks (one spawn: ``_rank_pool``), stopped at the script's
+   end.  (a) MLP-GSC, MLP-HR and
    LeNet-300-100 frozen from seeds 150-152 at the paper's widths, served
    column-sharded (``ShardedStack``, kernel 1 at (K, N/tp) on each rank,
    one all-gather after each split layer) on meshes (1, 4) and (2, 2),
@@ -603,6 +605,36 @@ Phases (any failure raises and the script exits non-zero):
    parallel, expert TP, with all-reduces over 'model'; its FLOPs, bytes
    and ``model_axis_collectives`` recorded.  Prints one
    ``moe_tensor_parallel`` JSON line.
+
+20. Tensor parallelism over 'model' for the ssm, hybrid and vlm families
+   (the reference's ``Rules``: in_proj cut on its contracted d_model
+   rows, out_proj on its d_inner rows, the SSM dynamics whole, the state
+   cut on its heads where they divide), 4 gloo ranks sharing the card
+   through phase 18's ``_tp_serve`` / ``_tp_train``.  (a) mamba2-1.3b at
+   published widths (d 2,048, d_inner 4,096, 64 heads of 64, state 128,
+   vocabulary 50,280), depth 48 -> 8, over (1, 4): 16 heads a rank
+   ("heads": its slice of x, z, dt and the dynamics, the gated norm's
+   sum all-reduced).  (b) hymba-1.5b at published widths (d 1,600, 25
+   heads / 5 KV, d_ff 5,504, 50 SSM heads of 64, state 16), depth 32 ->
+   3 with layer 0 global, over (1, 4) ("rows": 50 heads do not divide 4,
+   so the scan runs whole and a rank takes its 800 of out_proj's rows;
+   the attention weights whole, sequence-parallel on the prefill) and
+   over (2, 2) ("heads": 25 a rank).  (c) qwen2-vl-2b at published widths
+   (12 heads / 2 KV: q / k / v whole, o cut), depth 28 -> 2, over (1, 4),
+   prefilled with the stubbed frontend's patch embeddings
+   (``launch.train.lm_batch_fn``).  Each serves 2 x 512 prompt positions
+   and 8 greedy tokens in fp32.  Gates as phase 18's: frozen blocks
+   bitwise one process's in ⌈a rank's segments / 32⌉ ecl_quant launches
+   (2 / 9 / 7 a layer), tokens equal, the last 8 positions' logits within
+   1e-3 of their largest, the KV cache and the SSM state a rank its
+   heads' share of one process's (mamba2's state a quarter), the conv
+   tail whole.  (d) hymba-1.5b at published widths, depth 2, 8 x 64 over
+   (1, 4): phase 18's step gates against one process, exactly 2 ecl_quant
+   launches a step a rank.  (e) The dry run of hymba-1.5b's ``long_500k``
+   decode on pod16x16 on meta tensors at depth 2 (512 KV chunks a layer,
+   ~5 s a layer on the host): gated OK, tensor parallel, "rows",
+   all-reduces over 'model'.
+   Prints each part's seconds and one ``ssm_tp`` JSON line.
 
 The script ends with a line that counts the profiler traces taken and
 retaken, the device times taken from queued CUDA events and the queued
@@ -4094,6 +4126,38 @@ def _cut_depth(cfg, layers):
     return dataclasses.replace(cfg, n_layers=layers)
 
 
+_POOL = {}      # the ranks phases 15, 16 and 18-20 share (``_rank_pool``)
+
+
+@contextlib.contextmanager
+def _rank_pool(world, timeout):
+    """``world`` gloo ranks sharing the card (every collective staged
+    through host buffers) for phases 15, 16 and 18-20: spawned by the
+    first of them that runs and kept for the others (a spawn is 10-17 s
+    of the script's time limit); a phase that fails closes them, and
+    ``main`` closes them at its end (:func:`_close_pool`)."""
+    from repro_torch.launch import mesh as M
+    pool = _POOL.get("pool")
+    if pool is None:
+        pool = _POOL["pool"] = M.RankPool(world, backend="gloo",
+                                          device="cuda", timeout=timeout)
+    if pool.world != world:
+        raise ValueError(f"a pool of {pool.world} ranks, {world} asked")
+    pool.timeout = timeout
+    try:
+        yield pool
+    except BaseException:
+        _close_pool()
+        raise
+
+
+def _close_pool():
+    """Stop the shared ranks, if any run."""
+    pool = _POOL.pop("pool", None)
+    if pool is not None:
+        pool.close()
+
+
 def _empty_card(dev, what):
     """Free what the last phase left and gate that at most
     EMPTY_CARD_BYTES stay allocated; returns the bytes allocated."""
@@ -5086,10 +5150,10 @@ class _SsmRecorder:
                 self.ssd = tuple(t.detach().clone() for t in (x, a, B, C))
             return self._orig[0](x, a, B, C, chunk, init_state=init_state)
 
-        def apply(p, q, u, ctx, cfg, *, state=None):
+        def apply(p, q, u, ctx, cfg, **kw):
             if self.u is None:
                 self.u = u.detach().clone()
-            return self._orig[1](p, q, u, ctx, cfg, state=state)
+            return self._orig[1](p, q, u, ctx, cfg, **kw)
         ssm.ssd_chunked, ssm.ssm_apply = ssd, apply
         return self
 
@@ -6646,8 +6710,7 @@ def scale_out_path(dev, gpu):
     print(f"phase 15: grok-1-314b EP reference (one process, 8 experts) in "
           f"{single_s:.1f} s, peak {single[2] / 1e9:.2f} GB ({gpu})")
     t0 = time.perf_counter()
-    with M.RankPool(SCALE_OUT["world"], backend="gloo", device="cuda",
-                    timeout=SCALE_OUT["timeout"]) as pool:
+    with _rank_pool(SCALE_OUT["world"], SCALE_OUT["timeout"]) as pool:
         world = pool.run(M.describe_world)
         spawn_s = time.perf_counter() - t0
         mlps, launches = _scale_out_mlps(dev, pool)
@@ -7084,8 +7147,7 @@ def mesh_train_path(dev, gpu):
     print(f"phase 16: smollm-360m single-process references in "
           f"{single_s:.1f} s ({gpu})")
     t0 = time.perf_counter()
-    with M.RankPool(MESH_TRAIN["world"], backend="gloo", device="cuda",
-                    timeout=MESH_TRAIN["timeout"]) as pool:
+    with _rank_pool(MESH_TRAIN["world"], MESH_TRAIN["timeout"]) as pool:
         world = pool.run(M.describe_world)
         spawn_s = time.perf_counter() - t0
         t1 = time.perf_counter()
@@ -7654,12 +7716,13 @@ def _tp_block(t, spec, r, tp):
     return t
 
 
-def _tp_serve_single(dev, cfg, prompt, run=TP):
+def _tp_serve_single(dev, cfg, prompt, run=TP, embeds=None):
     """(a)'s one-process reference, run before any rank and freed after:
     ``lm_init`` whole, frozen (its ecl_quant launches counted), the
     digests of each rank's blocks of the frozen tree, and the same
-    greedy serve the ranks run (``ranks.serve_timed``, fp32); ``run``
-    names the seed, the mesh and the serve's sizes."""
+    greedy serve the ranks run (``ranks.serve_timed``, fp32, from the
+    ``prompt`` tokens or a vlm's ``embeds``); ``run`` names the seed, the
+    mesh and the serve's sizes."""
     import torch
     from repro_torch.core import qat
     from repro_torch.kernels import ecl_quant as eq
@@ -7688,8 +7751,10 @@ def _tp_serve_single(dev, cfg, prompt, run=TP):
     out["block_digests"] = [{n: ranks.digest(t) for n, t in ranks.named_leaves(
         map_(lambda t, sp: _tp_block(t, sp, r, tp), frozen, specs))}
         for r in range(tp)]
-    served, cache = ranks.serve_timed(frozen, torch.from_numpy(prompt).to(
-        dev), cfg, FP32_CTX, run["max_new"], run["tail"])
+    on = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    served, cache = ranks.serve_timed(frozen, on(prompt), cfg, FP32_CTX,
+                                      run["max_new"], run["tail"],
+                                      embeds=on(embeds))
     out.update(served)
     del cache
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -7705,23 +7770,32 @@ def _tp_serve(dev, pool, cfg, gpu, run=TP, phase="18", segments=None):
     (``segments``: a rank's and one process's, default 7 a layer both),
     tokens equal, logits within 1e-3, the KV cache a rank its share of
     one process's (a quarter with its KV heads cut, the whole of an MLA
-    latent), and for MLA the absorbed decode within 1e-4 of the naive
-    form on each rank."""
+    latent), the SSM state its heads' share (the conv tail whole), and
+    for MLA the absorbed decode within 1e-4 of the naive form on each
+    rank.  With ``run["embeds"]`` a vlm's prefill takes the stubbed
+    frontend's patch embeddings (``launch.train.lm_batch_fn``)."""
     import numpy as np
     from repro_torch.kernels import ecl_quant as eq
     from repro_torch.launch import ranks
     from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.train import lm_batch_fn
     from repro_torch.runtime.sharding import model_tp
 
-    prompt = np.random.default_rng(run["seed"] + 180).integers(
-        0, cfg.vocab, (run["prompts"], run["prompt_len"])).astype(np.int32)
+    prompt = embeds = None
+    if run.get("embeds"):
+        embeds = lm_batch_fn(cfg, batch=run["prompts"], seq=run[
+            "prompt_len"])(run["seed"])["embeds"]
+    else:
+        prompt = np.random.default_rng(run["seed"] + 180).integers(
+            0, cfg.vocab, (run["prompts"], run["prompt_len"])).astype(
+            np.int32)
     t0 = time.perf_counter()
-    single = _tp_serve_single(dev, cfg, prompt, run)
+    single = _tp_serve_single(dev, cfg, prompt, run, embeds)
     single_s = time.perf_counter() - t0
     _empty_card(dev, f"phase {phase} {cfg.name}'s ranks")
     t0 = time.perf_counter()
     res = pool.run(ranks.tp_serve_card, cfg, run["serve_mesh"], run["seed"],
-                   prompt, run["max_new"], run["tail"])
+                   prompt, run["max_new"], run["tail"], embeds=embeds)
     ranks_s = time.perf_counter() - t0
     rank_seg, one_seg = segments or (7 * cfg.n_layers,) * 2
     want_launches = -(-rank_seg // eq.MAX_SEGMENTS)
@@ -7733,6 +7807,7 @@ def _tp_serve(dev, pool, cfg, gpu, run=TP, phase="18", segments=None):
     tp = run["serve_mesh"][1]
     heads = model_tp(cfg, MeshSpec(run["serve_mesh"], ("data", "model")))
     kv_split = tp if cfg.mla is None and heads.heads else 1
+    ssm_split = tp if heads.ssm_heads else 1
     scale = float(np.abs(single["tail_logits"]).max())
     worst = forms = 0.0
     for rank, r in enumerate(res):
@@ -7758,6 +7833,13 @@ def _tp_serve(dev, pool, cfg, gpu, run=TP, phase="18", segments=None):
         if r["kv_cache_bytes"] * kv_split != single["kv_cache_bytes"]:
             raise AssertionError(f"{tag}: KV cache {r['kv_cache_bytes']} B, "
                                  f"one process {single['kv_cache_bytes']}")
+        if (r["ssm_state_bytes"] * ssm_split != single["ssm_state_bytes"]
+                or r["conv_tail_bytes"] != single["conv_tail_bytes"]):
+            raise AssertionError(
+                f"{tag}: SSM state {r['ssm_state_bytes']} B and conv tail "
+                f"{r['conv_tail_bytes']} B, one process "
+                f"{single['ssm_state_bytes']} and "
+                f"{single['conv_tail_bytes']}")
         if cfg.mla is not None:
             forms = max(forms, r["mla_forms_rel"])
             if not r["mla_forms_rel"] <= MLA_REL:
@@ -7777,6 +7859,13 @@ def _tp_serve(dev, pool, cfg, gpu, run=TP, phase="18", segments=None):
            "ecl_quant_launches": sum(r["freeze_launches"] for r in res),
            "kv_cache_bytes": {"rank": res[0]["kv_cache_bytes"],
                               "one_process": single["kv_cache_bytes"]},
+           **({"ssm_mode": ranks.ssm_mode(heads), **{
+               k: {"rank": res[0][k], "one_process": single[k],
+                   "rank_per_layer_seq": res[0][k] // (
+                       cfg.n_layers * run["prompts"])}
+               for k in ("ssm_state_bytes", "conv_tail_bytes")}}
+              if single["ssm_state_bytes"] else {}),
+           "input": "embeds" if embeds is not None else "tokens",
            "freeze_ms": {"ranks": rank_ms("freeze_ms"),
                          "one_process": single["freeze_ms"]},
            "prefill_ms": {"ranks": rank_ms("prefill_ms"),
@@ -7796,7 +7885,12 @@ def _tp_serve(dev, pool, cfg, gpu, run=TP, phase="18", segments=None):
           f"{rank_seg} segments), {run['prompts']} x {run['prompt_len']} + "
           f"{run['max_new']} tokens equal, logits {worst:.3e} of max "
           f"{scale:.2f}; KV cache {res[0]['kv_cache_bytes']} B a rank, "
-          f"{single['kv_cache_bytes']} B one process; rank 0 freeze "
+          f"{single['kv_cache_bytes']} B one process; "
+          + (f"SSM ({out['ssm_mode']}) state {res[0]['ssm_state_bytes']} B"
+             f" a rank, {single['ssm_state_bytes']} B one process, conv tail"
+             f" {res[0]['conv_tail_bytes']} B both; "
+             if single["ssm_state_bytes"] else "")
+          + f"rank 0 freeze "
           f"{res[0]['freeze_ms']:.1f} ms, prefill {res[0]['prefill_ms']:.1f}"
           f" ms, decode {out['decode_ms_per_step']['ranks'][0]:.1f} ms a "
           f"step, peak {out['peak_gb']['ranks'][0]:.2f} GB; one process "
@@ -7888,16 +7982,20 @@ def _rank_errors(res, key, runs=False):
     """Each leaf's ``ranks.block_errors`` ``key`` (``grad_errors``, or with
     ``runs`` run 0's ``param_errors``) over every rank: (the largest
     |got - want|, the largest of it over its leaf's max |want|, the
-    largest |got - want| / (1 + |want|))."""
+    largest |got - want| / (1 + |want|), and the leaf of the second with
+    its |got - want| and max |want|)."""
     merged = {}
     for r in res:
         errs = r["runs"][0][key] if runs else r[key]
         for name, e in errs.items():
             merged[name] = tuple(max(a, b) for a, b in
                                  zip(merged.get(name, e), e))
-    return (max(e[0] for e in merged.values()),
-            max(e[0] / max(e[1], 1e-30) for e in merged.values()),
-            max(e[2] for e in merged.values()))
+    rel = {n: e[0] / max(e[1], 1e-30) for n, e in merged.items()}
+    worst = max(rel, key=rel.get)
+    return (max(e[0] for e in merged.values()), rel[worst],
+            max(e[2] for e in merged.values()),
+            {"leaf": worst, "max_abs_err": merged[worst][0],
+             "max_abs_want": merged[worst][1]})
 
 
 def _tp_train_meshes(pool, gpu, cfg, run, phase, segments, batches, single,
@@ -7924,8 +8022,9 @@ def _tp_train_meshes(pool, gpu, cfg, run, phase, segments, batches, single,
                   {"zero1": zero1, "dtype": torch.bfloat16,
                    "steps": run.get("bf16_steps", run["steps"])}])
         ranks_s = time.perf_counter() - t0
-        _, grad_rel, _ = _rank_errors(res, "grad_errors")
-        param_err, _, param_tol = _rank_errors(res, "param_errors", True)
+        _, grad_rel, _, grad_worst = _rank_errors(res, "grad_errors")
+        param_err, _, param_tol, _ = _rank_errors(res, "param_errors",
+                                                  True)
         if not param_tol <= MESH_TRAIN_PARAM_TOL:
             raise AssertionError(f"phase {phase}: {key}: params past "
                                  f"atol=rtol={MESH_TRAIN_PARAM_TOL} "
@@ -7958,7 +8057,8 @@ def _tp_train_meshes(pool, gpu, cfg, run, phase, segments, batches, single,
         out[key] = {
             "zero1": zero1, "losses": [m["loss"] for m in res[0]["runs"][0][
                 "metrics"]], "single_losses": single["losses"],
-            "grad_rel_err": grad_rel, "param_max_abs_err": param_err,
+            "grad_rel_err": grad_rel, "grad_worst": grad_worst,
+            "param_max_abs_err": param_err,
             "probs_bitwise": True,
             "ecl_quant_launches_per_step_per_rank": per_step,
             "fp32_ms_per_step_per_rank": [r["runs"][0]["ms"] for r in res],
@@ -7980,7 +8080,10 @@ def _tp_train_meshes(pool, gpu, cfg, run, phase, segments, batches, single,
               f"{run['batch']} x {run['seq']} over {mesh}{' ZeRO-1' if zero1 else ''}: losses "
               f"{[round(v, 6) for v in o['losses']]} (one process "
               f"{[round(v, 6) for v in single['losses']]}), grads "
-              f"{grad_rel:.2e} of max, params {param_err:.2e}, probabilities"
+              f"{grad_rel:.2e} of max ({grad_worst['leaf']}: "
+              f"{grad_worst['max_abs_err']:.3e} of "
+              f"{grad_worst['max_abs_want']:.3e}), params {param_err:.2e}, "
+              "probabilities"
               f" bitwise, {per_step} ecl_quant a step a rank; bf16 ms a step"
               f" (rank 0) {[round(v, 1) for v in bf16[0]['ms']]}, "
               f"all-reduced over 'model' {bf16[0]['model_bytes']} B a step,"
@@ -8000,8 +8103,7 @@ def tensor_parallel_path(dev, gpu):
     _empty_card(dev, "phase 18")
     cfg = _cut_depth(get_config(TP["arch"]), TP["serve_layers"])
     t0 = time.perf_counter()
-    with M.RankPool(TP["world"], backend="gloo", device="cuda",
-                    timeout=TP["timeout"]) as pool:
+    with _rank_pool(TP["world"], TP["timeout"]) as pool:
         pool.run(M.describe_world)
         spawn_s = time.perf_counter() - t0
         t1 = time.perf_counter()
@@ -8143,8 +8245,7 @@ def moe_tensor_parallel_path(dev, gpu):
     out = {"label": TP_LABEL, "gpu": gpu, "serve": {}}
     launches = 0
     t0 = time.perf_counter()
-    with M.RankPool(MOE_TP["world"], backend="gloo", device="cuda",
-                    timeout=MOE_TP["timeout"]) as pool:
+    with _rank_pool(MOE_TP["world"], MOE_TP["timeout"]) as pool:
         pool.run(M.describe_world)
         out["spawn_s"] = time.perf_counter() - t0
         for run in MOE_TP_SERVE:
@@ -8185,6 +8286,132 @@ def moe_tensor_parallel_path(dev, gpu):
           f"{sum(v['s'] for k, v in out['train'].items() if k.startswith('depth')):.1f}"
           f" s, (d) {out['dryrun']['s']:.1f} s; done in "
           f"{out['wall_s']:.1f} s ({gpu})")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 20
+
+SSM_TP = dict(world=4, timeout=900)
+SSM_TP_SERVE = (
+    dict(part="a", arch="mamba2-1.3b", layers=8, seed=0, serve_mesh=(1, 4),
+         prompts=2, prompt_len=512, max_new=8, tail=8, mode="heads",
+         reduced={"n_layers": "48 -> 8 (time)"}),
+    dict(part="b", arch="hymba-1.5b", layers=3, global_layers=(0,), seed=0,
+         serve_mesh=(1, 4), prompts=2, prompt_len=512, max_new=8, tail=8,
+         mode="rows", reduced={"n_layers": "32 -> 3, layer 0 global (time)"}),
+    dict(part="b", arch="hymba-1.5b", layers=3, global_layers=(0,), seed=0,
+         serve_mesh=(2, 2), prompts=2, prompt_len=512, max_new=8, tail=8,
+         mode="heads", reduced={"n_layers": "32 -> 3, layer 0 global "
+                                "(time)"}),
+    dict(part="c", arch="qwen2-vl-2b", layers=2, seed=0, serve_mesh=(1, 4),
+         prompts=2, prompt_len=512, max_new=8, tail=8, mode=None,
+         embeds=True, reduced={"n_layers": "28 -> 2 (time)"}))
+SSM_TP_TRAIN = dict(part="d", arch="hymba-1.5b", layers=2,
+                    global_layers=(0,), seed=0, batch=8, seq=64, steps=2,
+                    bf16_steps=1, lr=1e-3, train_meshes=((1, 4),),
+                    reduced={"n_layers": "32 -> 2, layer 0 global (time)"})
+SSM_TP_DRYRUN = dict(part="e", arch="hymba-1.5b", shape="long_500k",
+                     layers=2, mode="rows")
+# a layer's quantized leaves: in_proj and out_proj; hymba's q, k, v, o
+# beside them and gate, up, down; qwen2-vl's q, k, v, o, gate, up, down
+SSM_TP_LEAVES = {"ssm": 2, "hybrid": 9, "vlm": 7}
+
+
+def _ssm_tp_cfg(run):
+    """``run``'s arch at its published widths, cut as ``run`` says."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    kw = {"n_layers": run["layers"]}
+    if "global_layers" in run:
+        kw["global_attn_layers"] = run["global_layers"]
+    return dataclasses.replace(get_config(run["arch"]), **kw)
+
+
+def _ssm_tp_dryrun(gpu):
+    """(e): hymba-1.5b's long_500k decode on pod16x16, on meta tensors
+    (depth cut for time: 512 KV chunks a layer): tensor parallel, its 50
+    SSM heads whole on each rank ("rows"), all-reduces over 'model'."""
+    import tempfile
+    from repro_torch.launch import dryrun, ranks
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.runtime.sharding import model_tp
+    c = SSM_TP_DRYRUN
+    cfg = _ssm_tp_cfg(dict(c, global_layers=(0,)))
+    mode = ranks.ssm_mode(model_tp(cfg, make_production_mesh()))
+    with tempfile.TemporaryDirectory() as d:
+        rec = dryrun.run_cell(c["arch"], c["shape"], False, out_dir=d,
+                              cfg=cfg)
+    rec.pop("ops", None)
+    if rec["status"] != "OK":
+        raise AssertionError(f"phase 20: run_cell {c}: {rec}")
+    over = rec["model_axis_collectives"]
+    if (rec["layout"] != "tensor parallel" or mode != c["mode"]
+            or not over.get("all-reduce")):
+        raise AssertionError(f"phase 20: {c['arch']} {c['shape']} took "
+                             f"{rec['layout']}, SSM {mode}, over 'model' "
+                             f"{over}")
+    rec.update(ssm_mode=mode, reduced={
+        "n_layers": f"32 -> {cfg.n_layers}, layer 0 global (time: 512 KV "
+                    "chunks a layer on meta)"})
+    print(f"phase 20: (e) dry run {rec['cell']} at depth {cfg.n_layers}: "
+          f"{rec['layout']}, SSM {mode}: {rec['flops_per_device']:.6g} "
+          f"FLOPs, {rec['bytes_per_device']:.6g} B a device, over 'model' "
+          f"{over}, traced in {rec['trace_s']} s (meta tensors; {gpu})")
+    return rec
+
+
+def ssm_tensor_parallel_path(dev, gpu):
+    """Phase 20: tensor parallelism over 'model' for the ssm, hybrid and
+    vlm families, 4 gloo ranks sharing the card (staged through host
+    buffers), through phase 18's ``_tp_serve`` and ``_tp_train``."""
+    import torch
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    _empty_card(dev, "phase 20")
+    out = {"label": TP_LABEL, "gpu": gpu, "serve": {}, "s": {}}
+    launches = 0
+    t0 = time.perf_counter()
+    with _rank_pool(SSM_TP["world"], SSM_TP["timeout"]) as pool:
+        pool.run(M.describe_world)
+        out["spawn_s"] = time.perf_counter() - t0
+        for run in SSM_TP_SERVE:
+            t1 = time.perf_counter()
+            cfg = _ssm_tp_cfg(run)
+            seg = SSM_TP_LEAVES[cfg.family] * cfg.n_layers
+            rec = _tp_serve(dev, pool, cfg, gpu, run, "20", (seg, seg))
+            if rec.get("ssm_mode") != run["mode"]:
+                raise AssertionError(f"phase 20: {run['arch']} over "
+                                     f"{run['serve_mesh']}: SSM "
+                                     f"{rec.get('ssm_mode')}, want "
+                                     f"{run['mode']}")
+            rec.update(reduced=run["reduced"], s=time.perf_counter() - t1)
+            key = f"{run['arch']} {run['serve_mesh'][0]}x" \
+                f"{run['serve_mesh'][1]}"
+            out["serve"][key] = rec
+            out["s"][run["part"]] = out["s"].get(run["part"], 0) + rec["s"]
+            launches += rec["ecl_quant_launches"]
+            _empty_card(dev, f"phase 20 after {key}")
+        t1 = time.perf_counter()
+        run = SSM_TP_TRAIN
+        cfg = _ssm_tp_cfg(run)
+        train, n = _tp_train(dev, pool, gpu, cfg, run, "20",
+                             lambda mesh: SSM_TP_LEAVES[cfg.family]
+                             * cfg.n_layers)
+        train.update(reduced=run["reduced"])
+        out["train"] = train
+        out["s"]["d"] = time.perf_counter() - t1
+        launches += n
+    _empty_card(dev, "phase 20 (e)")
+    t1 = time.perf_counter()
+    out["dryrun"] = _ssm_tp_dryrun(gpu)
+    out["s"]["e"] = time.perf_counter() - t1
+    out["ecl_quant_launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 20: spawn {out['spawn_s']:.1f} s, "
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in out["s"].items())
+          + f"; done in {out['wall_s']:.1f} s ({gpu})")
     torch.cuda.empty_cache()
     return out
 
@@ -8263,6 +8490,8 @@ def kernels_report(r):
                                  "ecl_quant_launches"],
                              "moe_tensor_parallel": r["moe_tp"][
                                  "ecl_quant_launches"],
+                             "ssm_tensor_parallel": r["ssm_tp"][
+                                 "ecl_quant_launches"],
                              "dryrun_step": r["autotune"]["dryrun"]["step"][
                                  "ecl_quant_launches"]},
         "max_abs_err": r["ecl_err"],
@@ -8299,7 +8528,7 @@ def kernels_report(r):
 
 
 PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10", "11",
-          "12", "13", "14", "15", "16", "17", "18", "19")
+          "12", "13", "14", "15", "16", "17", "18", "19", "20")
 
 
 def parse_phases(argv):
@@ -8388,10 +8617,14 @@ def main(argv=None) -> int:
              ("16", "mesh_train", lambda: mesh_train_path(dev, gpu)),
              ("17", "autotune", lambda: autotune_path(dev, gpu)),
              ("18", "tensor_parallel", lambda: tensor_parallel_path(dev, gpu)),
-             ("19", "moe_tp", lambda: moe_tensor_parallel_path(dev, gpu)))
-    for phase, key, run in steps:
-        if phase in phases:
-            r[key] = run()
+             ("19", "moe_tp", lambda: moe_tensor_parallel_path(dev, gpu)),
+             ("20", "ssm_tp", lambda: ssm_tensor_parallel_path(dev, gpu)))
+    try:
+        for phase, key, run in steps:
+            if phase in phases:
+                r[key] = run()
+    finally:
+        _close_pool()
 
     if phases == set(PHASES):
         print(json.dumps({"grid": r["grid"], "contract_floor": r["floor"]}))
@@ -8399,7 +8632,7 @@ def main(argv=None) -> int:
     for key in ("path", "train", "frontend", "lm", "lm_train", "moe",
                 "moe_train", "mla", "mla_train", "ssm", "ssm_train",
                 "vlm_audio", "vlm_audio_train", "scale_out", "mesh_train",
-                "autotune", "tensor_parallel", "moe_tp"):
+                "autotune", "tensor_parallel", "moe_tp", "ssm_tp"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "

@@ -41,13 +41,16 @@ OUT_DIR = "results/dryrun_torch"
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             out_dir: str = OUT_DIR, **step_kw) -> dict:
+             out_dir: str = OUT_DIR, cfg=None, **step_kw) -> dict:
+    """One cell's record (also written under ``out_dir``); ``cfg`` runs
+    another config under the arch's name (the arch's own by default: a
+    caller that cuts its depth says so beside the record)."""
     from ..configs import get_config
     from . import op_analysis, steps
     from .mesh import ShapeMesh, make_production_mesh
     from .specs import SHAPES, shape_applicable
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     cell = f"{arch}_{shape_name}_{mesh_name}"
     ok, reason = shape_applicable(cfg, shape_name)

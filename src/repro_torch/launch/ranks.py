@@ -978,8 +978,9 @@ def tp_forward(cfg, params, tokens: np.ndarray, mesh_shape: tuple, *,
     numpy tree, cut to the rank's blocks by ``convert.shard_from_numpy``
     under the port's layout) on every row of ``tokens`` (or ``embeds``):
     the logits gathered over 'model' where they are a vocabulary block
-    (numpy), whether the attention ran sequence-parallel, and how the
-    layout cut the expert banks (``ModelTP.experts``)."""
+    (numpy), whether the attention ran sequence-parallel, how the layout
+    cut the expert banks (``ModelTP.experts``) and the SSD blocks
+    (:func:`ssm_mode`)."""
     from ..convert import shard_from_numpy
     from ..runtime.sharding import layout_specs, model_tp
     mesh = make_mesh(mesh_shape, device=default_device())
@@ -996,7 +997,18 @@ def tp_forward(cfg, params, tokens: np.ndarray, mesh_shape: tuple, *,
     return {"logits": whole.cpu().numpy(),
             "local_vocab": int(logits.shape[-1]),
             "reshard": T._attn_batch_reshard(cfg, mesh, x.shape[1]),
-            "experts": tp.experts if tp is not None else None}
+            "experts": tp.experts if tp is not None else None,
+            "ssm": ssm_mode(tp)}
+
+
+def ssm_mode(tp) -> Optional[str]:
+    """How the layout ``tp`` (``runtime.sharding.ModelTP``, or None) cuts
+    an SSD block: ``"heads"`` (the state and the scan by heads),
+    ``"rows"`` (only the projections' rows: the scan whole on each rank)
+    or None (whole)."""
+    if tp is None or not (tp.ssm_in or tp.ssm_out):
+        return None
+    return "heads" if tp.ssm_heads else "rows"
 
 
 def tp_serve(cfg, frozen, prompt: np.ndarray, max_new: int,
@@ -1055,26 +1067,37 @@ def row_parallel_linear(x: np.ndarray, w: np.ndarray, b: np.ndarray,
     return {"y": y.numpy()}
 
 
-def serve_timed(params, prompt: torch.Tensor, cfg, ctx, max_new: int,
-                tail: int, mesh=None) -> dict:
+def serve_timed(params, prompt: Optional[torch.Tensor], cfg, ctx,
+                max_new: int, tail: int, mesh=None,
+                embeds: Optional[torch.Tensor] = None) -> dict:
     """Greedy generation as ``models.lm.generate`` runs it (this rank's
     rows and, under the tensor-parallel layout, its blocks and KV heads),
-    timed on the host clock (synchronised): the tokens (B, max_new), the
-    prefill's last ``tail`` positions' logits (gathered over 'model';
-    numpy), prefill ms, each decode step's ms and the cache's bytes (K and
-    V, or MLA's latent and rope key); and the final cache."""
-    dev = prompt.device
-    b, s = prompt.shape
+    from the ``prompt`` tokens or the stubbed frontend's ``embeds`` (B, S,
+    d; the prefill's input, the greedy tokens then looked up as a vlm's
+    text), timed on the host clock (synchronised): the tokens (B,
+    max_new), the prefill's last ``tail`` positions' logits (gathered over
+    'model'; numpy), prefill ms, each decode step's ms and the cache's
+    bytes (K and V, or MLA's latent and rope key; the SSM states and conv
+    tails apart); and the final cache."""
+    first = prompt if embeds is None else embeds
+    dev = first.device
+    b, s = first.shape[:2]
     cache = T.init_cache(cfg, b, s + max_new, dtype=torch.float32,
                          device=dev, mesh=mesh)
-    kv = sum(t.numel() * t.element_size() for n, t in named_leaves(cache)
-             if n.endswith(("/k", "/v", "/ckv", "/krope")))
+
+    def nbytes(*ends):
+        return sum(t.numel() * t.element_size()
+                   for n, t in named_leaves(cache) if n.endswith(ends))
+    kv = nbytes("/k", "/v", "/ckv", "/krope")
+    ssm = {"ssm_state_bytes": nbytes("/ssm/ssm"),
+           "conv_tail_bytes": nbytes("/ssm/conv")}
     pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
         logits, cache, _ = T.lm_apply(params, 0, prompt, ctx, cfg,
-                                      positions=pos, cache=cache, mesh=mesh)
+                                      embeds=embeds, positions=pos,
+                                      cache=cache, mesh=mesh)
         nxt = LM.next_token(logits, cfg, mesh)
         _sync(dev)
         prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -1095,15 +1118,17 @@ def serve_timed(params, prompt: torch.Tensor, cfg, ctx, max_new: int,
     return {"tokens": torch.cat(out, dim=1).cpu().numpy(),
             "tail_logits": last[..., :cfg.vocab].cpu().numpy(),
             "prefill_ms": prefill_ms, "decode_ms": steps,
-            "kv_cache_bytes": kv}, cache
+            "kv_cache_bytes": kv, **ssm}, cache
 
 
-def tp_serve_card(cfg, mesh_shape: tuple, seed: int, prompt: np.ndarray,
-                  max_new: int, tail: int) -> dict:
+def tp_serve_card(cfg, mesh_shape: tuple, seed: int,
+                  prompt: Optional[np.ndarray], max_new: int, tail: int,
+                  embeds: Optional[np.ndarray] = None) -> dict:
     """One tensor-parallel rank's serving path: ``lm_init(cfg, seed,
     mesh=)`` (its blocks, the whole tree never held), its blocks frozen
     (the probabilities' and mean(w²)'s sums over 'model'), then
-    :func:`serve_timed` in fp32 on every prompt row.  Returns the frozen
+    :func:`serve_timed` in fp32 on every prompt row (or every row of the
+    stubbed frontend's ``embeds``, whole on each rank).  Returns the frozen
     blocks' digests by leaf name, the freeze's ms and ecl_quant launches
     (zeroed just before, read just after), the serve's results, for MLA
     the absorbed decode's distance from the naive form on this rank
@@ -1126,8 +1151,9 @@ def tp_serve_card(cfg, mesh_shape: tuple, seed: int, prompt: np.ndarray,
     freeze_ms = (time.perf_counter() - t0) * 1e3
     launches = eq.LAUNCHES
     del p, qs
-    out, cache = serve_timed(frozen, torch.from_numpy(prompt).to(dev), cfg,
-                             FP32_CTX, max_new, tail, mesh)
+    on = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    out, cache = serve_timed(frozen, on(prompt), cfg, FP32_CTX, max_new,
+                             tail, mesh, embeds=on(embeds))
     if cfg.mla is not None:
         out["mla_forms_rel"] = mla_forms(cfg, frozen, cache, mesh, seed)
     del cache

@@ -10,13 +10,14 @@ built on first read) and the arguments it consumes (``donate``).  The reference 
 ``launch/op_analysis.py`` (the dry run, ``launch/dryrun.py``) or on real
 tensors of the same shapes (the card, the tests).
 
-The port's layout (``runtime/sharding.py``): a dense- or moe-family arch
-over a 'model' axis of more than one rank takes the reference's
+The port's layout (``runtime/sharding.py``): an arch of any family but
+audio over a 'model' axis of more than one rank takes the reference's
 (``Rules.param_specs``: QKV, MLA's down-projections, gate / up and the
-shared expert's column-sharded, MLA's up-projections by heads, O and
-down row-sharded, the expert banks on their experts or each expert's
-FFN width, the embedding and the head over the vocabulary, the KV cache
-over heads where they divide), and the bundle's specs and arguments are
+shared expert's column-sharded, MLA's up-projections by heads, O, down
+and the SSM's out_proj row-sharded, its in_proj on the contracted rows,
+the expert banks on their experts or each expert's FFN width, the
+embedding and the head over the vocabulary, the KV cache and the SSM
+state over heads where they divide), and the bundle's specs and arguments are
 a rank's blocks (``describe()`` names how the banks are cut); every
 other arch keeps each weight whole on each rank, and a config that names
 its share of the experts (``experts_held``) holds those banks.  The
@@ -260,7 +261,8 @@ def _cache_specs(rules: Rules, cache: Any, cfg: ArchConfig = None,
                  mesh=None) -> Any:
     """A cache's layout: its batch dim (1) over the data axes; under the
     tensor-parallel layout the reference's ``Rules.cache_specs`` (the KV
-    heads over 'model' where they divide), else every other dim whole."""
+    heads and the SSM state's heads over 'model' where they divide), else
+    every other dim whole."""
     if sharding.tensor_parallel(cfg, mesh):
         return rules.cache_specs(cache)
 
@@ -276,7 +278,7 @@ def _next_token(logits: torch.Tensor, cfg: ArchConfig,
 
 
 def _rank_cache(cache: Any, cfg: ArchConfig, mesh, rules: Rules) -> Any:
-    """This rank's rows of a cache, and its KV heads under the
+    """This rank's rows of a cache, and its KV and SSM heads under the
     tensor-parallel layout."""
     cache = _rank_rows(cache, mesh, dim=1)
     if not sharding.tensor_parallel(cfg, mesh):

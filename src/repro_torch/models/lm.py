@@ -132,10 +132,10 @@ def generate(params, qstate, prompt: torch.Tensor, ctx: QuantCtx,
     more tokens; (B, max_new) int32 on the prompt's device.  Over a
     ``mesh`` every rank takes the whole prompt, runs its rows (split over
     the data axes) with its own cache through the MoE exchanges, and the
-    tokens are gathered back, so every rank returns every row.  A dense
-    or MoE arch's tensor-parallel ranks (``runtime.sharding.model_tp``)
-    each run their heads' cache and gather the last logits over 'model'
-    (:func:`next_token`)."""
+    tokens are gathered back, so every rank returns every row.  An arch's
+    tensor-parallel ranks (``runtime.sharding.model_tp``) each run their
+    heads' cache (KV and SSM state) and gather the last logits over
+    'model' (:func:`next_token`)."""
     rows = batch_rows(mesh, prompt.shape[0])
     if rows is not None:
         prompt = prompt[rows]

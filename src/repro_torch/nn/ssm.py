@@ -19,6 +19,22 @@ The in and out projections are EC4T-quantized (the bulk of the
 parameters); ``A_log``, ``dt_bias``, ``D``, the convolution and the norm
 scale stay fp32, as in the reference.
 
+Over the 'model' axis of a mesh (:class:`SSMTP`, the reference's
+``Rules``: in_proj ``row_contract``, out_proj ``row``, the dynamics
+replicated, the state cut on its heads where they divide) a rank
+contracts its d_model slice of the input with its rows of in_proj and the
+fp32 partial projections are all-reduced; the convolution runs on the
+whole ``xBC`` (its tail stays whole, as the reference's cache).  With the
+heads cut it scans its ``H / tp`` heads (its slices of x, z, dt, A_log,
+dt_bias, D and the norm scale; B and C whole, or its groups), the gated
+norm's mean over d_inner a sum over its columns all-reduced, and its
+out_proj rows are those heads' columns; else the scan and the norm run
+whole and it takes its ``d_inner / tp`` columns for its out_proj rows.
+out_proj's partial sums take one more all-reduce.  Every exchange is
+``Mesh.all_reduce``, whose backward sums the gradients over the slice,
+so a replicated leaf a rank reads in part gets its part of the gradient
+there and ``runtime.sharding.replica_axes`` sums the parts.
+
 The product of the four operands ``bcqhn,bckhn,bchqk,bckhp->bcqhp`` is
 taken as (C·Bᵀ per group) ⊙ L, then times x: its largest intermediate is
 (b, nc, h, Q, Q), and no intermediate holds n or p beside both Q axes.
@@ -35,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from .attention import _pad_seq
-from .layers import draw, linear, linear_init, subtree
+from .layers import draw, linear, linear_init, linear_row_parallel, subtree
 from .module import QuantCtx
 
 _MASKED = -1e30     # a finite -inf inside the exp: exp gives 0, no NaN grads
@@ -77,21 +93,43 @@ def ssm_init(generator: torch.Generator, cfg: SSMCfg, quantize: bool) -> dict:
     }
 
 
+@dataclasses.dataclass(frozen=True)
+class SSMTP:
+    """How one rank runs the SSD block over the 'model' axis of ``mesh``
+    (``runtime.sharding.ModelTP``'s SSM cuts): ``in_rows`` in_proj holds
+    its d_model / tp rows; ``out_rows`` out_proj its d_inner / tp rows;
+    ``heads`` the state and the scan hold its H / tp heads (whose d_inner
+    columns are its out_proj rows), else the scan runs whole."""
+    mesh: Any
+    in_rows: bool = False
+    out_rows: bool = False
+    heads: bool = False
+
+
 def init_ssm_state(batch: int, cfg: SSMCfg, dtype=torch.float32,
-                   device=None) -> dict:
+                   device=None, n_heads: Optional[int] = None) -> dict:
+    """Zeros: the (batch, H, P, N) state (``n_heads`` of them: a rank's
+    under :class:`SSMTP` ``heads``) and the whole conv tail."""
     return {
-        "ssm": torch.zeros((batch, cfg.n_heads, cfg.headdim, cfg.d_state),
-                           dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, n_heads or cfg.n_heads, cfg.headdim,
+                            cfg.d_state), dtype=dtype, device=device),
         "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.conv_dim),
                             dtype=dtype, device=device),
     }
 
 
 def _gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                    eps: float = 1e-6) -> torch.Tensor:
-    """Mamba2's RMSNorm(y * silu(z)) gate."""
+                    eps: float = 1e-6, mesh=None) -> torch.Tensor:
+    """Mamba2's RMSNorm(y * silu(z)) gate; with ``mesh`` y, z and scale
+    are this rank's equal blocks of d_inner, the mean over it the sum of
+    every block's, all-reduced over 'model'."""
     yf = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    if mesh is None:
+        var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    else:
+        var = mesh.all_reduce(torch.sum(yf * yf, dim=-1, keepdim=True),
+                              "model") / (yf.shape[-1]
+                                          * mesh.axis_size("model"))
     return (yf * torch.rsqrt(var + eps) * scale).to(y.dtype)
 
 
@@ -182,18 +220,71 @@ def _xbc(xBC: torch.Tensor, c: SSMCfg) -> tuple:
             xBC[..., c.d_inner + gn:])
 
 
+def _model_block(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's equal block of the last dim of ``t`` over 'model'."""
+    n = t.shape[-1] // mesh.axis_size("model")
+    return t.narrow(-1, mesh.axis_index("model") * n, n)
+
+
+def _in_proj(p: dict, q: Any, u: torch.Tensor, ctx: QuantCtx,
+             tp: Optional[SSMTP]) -> torch.Tensor:
+    """zxbcdt of ``u``: whole, or under ``tp.in_rows`` the sum over 'model'
+    of each rank's d_model slice times its rows (fp32)."""
+    if tp is None or not tp.in_rows:
+        return linear(p["in_proj"], subtree(q, "in_proj"), u, ctx)
+    return linear_row_parallel(p["in_proj"], subtree(q, "in_proj"),
+                               _model_block(u, tp.mesh), ctx, tp.mesh)
+
+
+def _rank_heads(c: SSMCfg, tp: Optional[SSMTP], z, x, B, C, dt_raw,
+                p: dict) -> tuple:
+    """Under ``tp.heads`` the config of this rank's H / tp heads and its
+    slices of z, x, dt_raw (its heads' columns), B and C (its groups; whole
+    with one group) and of ``p``'s per-head and per-column dynamics
+    (A_log, dt_bias, D, norm_scale); else ``c`` and the rest as they
+    are."""
+    if tp is None or not tp.heads:
+        return c, z, x, B, C, dt_raw, p
+    n, i = tp.mesh.axis_size("model"), tp.mesh.axis_index("model")
+    h = c.n_heads // n
+    g = c.n_groups // n if c.n_groups > 1 else 1
+    lc = dataclasses.replace(c, d_inner=h * c.headdim, n_heads=h, n_groups=g)
+    h0, g0 = i * h, (i * g if c.n_groups > 1 else 0)
+    hp, gn = c.headdim, c.d_state
+    cols = lambda t, first, width: t.narrow(-1, first, width)
+    p = {**p, **{k: p[k].narrow(0, h0, h) for k in ("A_log", "dt_bias", "D")},
+         "norm_scale": p["norm_scale"].narrow(0, h0 * hp, lc.d_inner)}
+    return (lc, cols(z, h0 * hp, lc.d_inner), cols(x, h0 * hp, lc.d_inner),
+            cols(B, g0 * gn, g * gn), cols(C, g0 * gn, g * gn),
+            cols(dt_raw, h0, h), p)
+
+
+def _out_proj(p: dict, q: Any, y: torch.Tensor, ctx: QuantCtx,
+              tp: Optional[SSMTP]) -> torch.Tensor:
+    """out_proj of the normed ``y``: whole; or under ``tp.out_rows`` this
+    rank's rows against its columns of y (its heads' y, or its block of
+    the whole y), summed over 'model'."""
+    if tp is None or not tp.out_rows:
+        return linear(p["out_proj"], subtree(q, "out_proj"), y, ctx)
+    if not tp.heads:
+        y = _model_block(y, tp.mesh)
+    return linear_row_parallel(p["out_proj"], subtree(q, "out_proj"), y,
+                               ctx, tp.mesh)
+
+
 def ssm_apply(p: dict, q_state: Any, u: torch.Tensor, ctx: QuantCtx,
-              cfg: SSMCfg, *, state: Optional[dict] = None) -> tuple:
+              cfg: SSMCfg, *, state: Optional[dict] = None,
+              tp: Optional[SSMTP] = None) -> tuple:
     """Sequence-mode mamba2 block: u (b, s, d_model) -> (y, new_state).
 
     With ``state`` its ssm state and conv tail seed the computation
     (prefill continuation).  The convolution runs in ``ctx.dtype``, the
     scan in fp32, and its output is cast to ``ctx.dtype`` before the gated
-    norm, as the reference's."""
+    norm, as the reference's.  ``tp``: this rank's part over 'model'
+    (:class:`SSMTP`; ``state["ssm"]`` then its heads' under ``heads``)."""
     c = cfg
     b, s, _ = u.shape
-    z, xBC, dt_raw = _split(linear(p["in_proj"], subtree(q_state, "in_proj"),
-                                   u, ctx), c)
+    z, xBC, dt_raw = _split(_in_proj(p, q_state, u, ctx, tp), c)
 
     # causal depthwise conv (width W): the left pad is the conv tail or 0
     w = c.conv_width
@@ -207,33 +298,34 @@ def ssm_apply(p: dict, q_state: Any, u: torch.Tensor, ctx: QuantCtx,
         conv = conv + xBC_pad[:, i:i + s] * p["conv_w"][i].to(xBC.dtype)
     xBC = F.silu(conv.to(torch.float32) + p["conv_b"]).to(ctx.dtype)
 
-    x, B, C = _xbc(xBC, c)
-    x = x.reshape(b, s, c.n_heads, c.headdim)
-    B = B.reshape(b, s, c.n_groups, c.d_state)
-    C = C.reshape(b, s, c.n_groups, c.d_state)
+    lc, z, x, B, C, dt_raw, p = _rank_heads(c, tp, z, *_xbc(xBC, c),
+                                            dt_raw, p)
+    x = x.reshape(b, s, lc.n_heads, lc.headdim)
+    B = B.reshape(b, s, lc.n_groups, lc.d_state)
+    C = C.reshape(b, s, lc.n_groups, lc.d_state)
 
     dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])   # (b,s,h)
     a = dt * -torch.exp(p["A_log"])                              # log-decay
     x_dt = x.to(torch.float32) * dt[..., None]
 
     init = state["ssm"] if state is not None else None
-    y, fin = ssd_chunked(x_dt, a, B, C, c.chunk, init_state=init)
+    y, fin = ssd_chunked(x_dt, a, B, C, lc.chunk, init_state=init)
     y = y + x.to(torch.float32) * p["D"][:, None]
-    y = y.reshape(b, s, c.d_inner).to(ctx.dtype)
+    y = y.reshape(b, s, lc.d_inner).to(ctx.dtype)
 
-    y = _gated_rms_norm(y, z, p["norm_scale"])
-    out = linear(p["out_proj"], subtree(q_state, "out_proj"), y, ctx)
+    y = _gated_rms_norm(y, z, p["norm_scale"],
+                        mesh=tp.mesh if lc is not c else None)
+    out = _out_proj(p, q_state, y, ctx, tp)
     return out, {"ssm": fin, "conv": new_conv_tail.to(torch.float32)}
 
 
 def ssm_step(p: dict, q_state: Any, u: torch.Tensor, ctx: QuantCtx,
-             cfg: SSMCfg, state: dict) -> tuple:
+             cfg: SSMCfg, state: dict, tp: Optional[SSMTP] = None) -> tuple:
     """Decode mode: u (b, 1, d_model), O(H·P·N) a token; the convolution
-    runs in fp32 here."""
+    runs in fp32 here.  ``tp`` as :func:`ssm_apply`'s."""
     c = cfg
     b = u.shape[0]
-    z, xBC_new, dt_raw = _split(
-        linear(p["in_proj"], subtree(q_state, "in_proj"), u, ctx)[:, 0], c)
+    z, xBC_new, dt_raw = _split(_in_proj(p, q_state, u, ctx, tp)[:, 0], c)
 
     conv_in = torch.cat([state["conv"].to(xBC_new.dtype), xBC_new[:, None]],
                         dim=1)
@@ -241,7 +333,8 @@ def ssm_step(p: dict, q_state: Any, u: torch.Tensor, ctx: QuantCtx,
     xBC = F.silu(conv + p["conv_b"]).to(ctx.dtype)
     new_conv_tail = conv_in[:, 1:].to(torch.float32)
 
-    x, B, C = _xbc(xBC, c)
+    c, z, x, B, C, dt_raw, p = _rank_heads(c, tp, z, *_xbc(xBC, c), dt_raw,
+                                           p)
     x = x.reshape(b, c.n_groups, c.n_heads // c.n_groups, c.headdim)
     B = B.reshape(b, c.n_groups, 1, c.d_state).to(torch.float32)
     C = C.reshape(b, c.n_groups, c.d_state).to(torch.float32)
@@ -260,6 +353,7 @@ def ssm_step(p: dict, q_state: Any, u: torch.Tensor, ctx: QuantCtx,
         * p["D"][:, None]
     y = y.reshape(b, c.d_inner).to(ctx.dtype)
 
-    y = _gated_rms_norm(y, z, p["norm_scale"])
-    out = linear(p["out_proj"], subtree(q_state, "out_proj"), y[:, None], ctx)
+    y = _gated_rms_norm(y, z, p["norm_scale"],
+                        mesh=tp.mesh if c is not cfg else None)
+    out = _out_proj(p, q_state, y[:, None], ctx, tp)
     return out, {"ssm": s_new, "conv": new_conv_tail}

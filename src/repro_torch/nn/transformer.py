@@ -342,10 +342,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     reference's), the same size at any context length.  Over a ``mesh``
     whose tensor-parallel layout shards the heads (``runtime.sharding.
     model_tp``) a rank caches its ``n_kv / tp`` KV heads; an MLA rank
-    caches the whole latent (only its heads are cut)."""
+    caches the whole latent (only its heads are cut); an SSM rank its
+    ``H / tp`` heads of the state where they are cut (``ssm_heads``) and
+    the whole conv tail, the blocks of ``Rules.cache_specs``."""
     dev = resolve_device(device)
     tp = sharding.model_tp(cfg, mesh)
     n_kv = cfg.n_kv // tp.tp if tp is not None and tp.heads else cfg.n_kv
+    ssm_heads = cfg.ssm_heads // tp.tp if tp is not None and tp.ssm_heads \
+        else None
 
     def attn_cache():
         if cfg.mla is not None:
@@ -363,7 +367,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             out["attn"] = attn_cache()
         if kind in ("ssm", "hybrid"):
             out["ssm"] = ssm_lib.init_ssm_state(batch, _ssm_cfg(cfg),
-                                                device=dev)
+                                                device=dev,
+                                                n_heads=ssm_heads)
         return out
     return {kind: _stack([per(kind)] * len(idx))
             for kind, idx in _kind_layers(cfg).items()}
@@ -380,17 +385,27 @@ def _windows_for(cfg: ArchConfig, idx: list) -> Optional[list]:
             for i in idx]
 
 
+def _ssm_tp(tp: Optional[sharding.ModelTP]) -> Optional[ssm_lib.SSMTP]:
+    """The SSD block's cuts of the layout ``tp`` (None: whole)."""
+    if tp is None:
+        return None
+    return ssm_lib.SSMTP(tp.mesh, in_rows=tp.ssm_in, out_rows=tp.ssm_out,
+                         heads=tp.ssm_heads)
+
+
 def _ssm_branch(cfg: ArchConfig, lp: dict, lq: Any, h: torch.Tensor,
-                ctx: QuantCtx, lcache) -> tuple:
+                ctx: QuantCtx, lcache, tp=None) -> tuple:
     """The SSD block on ``h``: one decode step from the cached state when
     one token comes with a cache, else sequence mode seeded by the cached
-    state (a prefill from zeros, or its continuation)."""
+    state (a prefill from zeros, or its continuation); over 'model' this
+    rank's part under the layout ``tp`` (``runtime.sharding.ModelTP``)."""
     st = lcache["ssm"] if lcache is not None else None
+    stp = _ssm_tp(tp)
     if h.shape[1] == 1 and st is not None:
         return ssm_lib.ssm_step(lp["ssm"], subtree(lq, "ssm"), h, ctx,
-                                _ssm_cfg(cfg), st)
+                                _ssm_cfg(cfg), st, tp=stp)
     return ssm_lib.ssm_apply(lp["ssm"], subtree(lq, "ssm"), h, ctx,
-                             _ssm_cfg(cfg), state=st)
+                             _ssm_cfg(cfg), state=st, tp=stp)
 
 
 def _attn_batch_reshard(cfg: ArchConfig, mesh, seq: int) -> bool:
@@ -427,19 +442,22 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
     """One transformer block; returns (x, new_lcache, aux).  Over a mesh
     with the tensor-parallel layout (``runtime.sharding.model_tp``) a rank
     runs its heads (MLA's from its gathered latents), its columns of the
-    FFN or of the shared expert, and its block of the expert banks through
-    their exchange; with ``attn_reshard`` its GQA attention is
-    sequence-parallel (:func:`_attn_batch_reshard`)."""
+    FFN or of the shared expert, its block of the expert banks through
+    their exchange, and its part of an SSD block (its rows of the
+    projections, its heads of the scan where they are cut); with
+    ``attn_reshard`` its GQA attention is sequence-parallel
+    (:func:`_attn_batch_reshard`) and a hybrid's SSD block runs on the
+    whole sequence, as the reference's ``_block``."""
     h = _norm(cfg, lp["ln1"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {}
+    tp = sharding.model_tp(cfg, mesh)
     if kind == "ssm":
-        y, new_st = _ssm_branch(cfg, lp, lq, h, ctx, lcache)
+        y, new_st = _ssm_branch(cfg, lp, lq, h, ctx, lcache, tp)
         if lcache is not None:
             new_cache["ssm"] = new_st
         return x + y, new_cache, aux
 
-    tp = sharding.model_tp(cfg, mesh)
     acache = lcache["attn"] if lcache is not None else None
     if cfg.mla is not None:
         atp = None if tp is None else attn.AttnTP(
@@ -469,7 +487,7 @@ def _block(cfg: ArchConfig, kind: str, lp: dict, lq: Any, x: torch.Tensor,
         new_cache["attn"] = new_ac
     if kind == "hybrid":
         # hymba: the mean of the two branches' normed outputs, both on h
-        sy, new_st = _ssm_branch(cfg, lp, lq, h, ctx, lcache)
+        sy, new_st = _ssm_branch(cfg, lp, lq, h, ctx, lcache, tp)
         if lcache is not None:
             new_cache["ssm"] = new_st
         ay = 0.5 * (rms_norm(lp["attn_norm"], ay)
@@ -591,13 +609,14 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
     before the loop either way, so it adds no ECL pass).  Over a ``mesh``
     (``launch.mesh``) each rank runs its own rows with its own cache, and
     the MoE layers exchange tokens (``nn.moe.moe_ffn``, ``use_ep`` as the
-    reference takes it).  A dense or MoE arch over a 'model' axis of more
-    than one rank holds its blocks of the weights (``runtime.sharding.
-    model_tp``): the lookup, each block's heads, FFN and shared-expert
-    columns, expert banks and the head are split over 'model', and the
-    logits are this rank's block of the vocabulary.  ``attn_reshard``
-    (default: no cache and :func:`_attn_batch_reshard`) runs attention
-    sequence-parallel.
+    reference takes it).  An arch of any family but audio over a 'model'
+    axis of more than one rank holds its blocks of the weights
+    (``runtime.sharding.model_tp``): the lookup, each block's heads, FFN
+    and shared-expert columns, expert banks, SSD projections (and heads)
+    and the head are split over 'model', and the logits are this rank's
+    block of the vocabulary; ``embeds`` then come whole to every rank.
+    ``attn_reshard`` (default: no cache and :func:`_attn_batch_reshard`)
+    runs attention sequence-parallel.
     """
     tp = sharding.model_tp(cfg, mesh)
     if embeds is None:

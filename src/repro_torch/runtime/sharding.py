@@ -5,7 +5,8 @@ Mesh axes (``launch/mesh.py``): ``('data', 'model')`` single-pod,
 (pod included), weights Megatron-style over ``model``:
 
 * QKV / gate / up / q_up / kv_up: column-sharded (output features);
-* O / down / out_proj: row-sharded (contraction dim);
+* O / down / out_proj: row-sharded (contraction dim); the SSM's in_proj
+  on its contracted d_model rows (its partial sums all-reduced);
 * embedding + LM head: vocab-sharded;
 * MoE expert banks: expert-sharded over 'model' when E % tp == 0, else
   per-expert TP on the FFN width;
@@ -262,27 +263,30 @@ def serving_pack_specs(layers, rules: Rules) -> list:
 
 # ------------------------------------------------- the port's own layout
 #
-# The dense and moe families over a mesh whose 'model' axis holds more
-# than one rank take the reference's layout: each leaf as
+# The dense, moe, ssm, hybrid and vlm families over a mesh whose 'model'
+# axis holds more than one rank take the reference's layout: each leaf as
 # ``Rules.param_specs`` gives it (QKV, MLA's down-projections, gate / up
-# and the shared expert's column-sharded, MLA's up-projections by heads, O
-# and down row-sharded, the expert banks on their expert dim or each
+# and the shared expert's column-sharded, MLA's up-projections by heads, O,
+# down and the SSM's out_proj row-sharded, the SSM's in_proj on its
+# contracted d_model rows, the expert banks on their expert dim or each
 # expert's FFN width, the embedding and the head over the vocabulary,
-# every other leaf replicated), each rank holding its block of a sharded
-# leaf and no whole copy.  Every other family, and any family over
-# model = 1, keeps each non-expert weight whole on each rank: a leaf is
-# replicated over the whole mesh, except an expert-parallel share's banks
-# (``experts_held``: fewer experts than its router scores), which the
-# ranks of one 'model' index hold alike, replicated over the data axes.
+# every other leaf replicated, the SSM dynamics among them), each rank
+# holding its block of a sharded leaf and no whole copy.  The audio
+# family, and any family over model = 1, keeps each non-expert weight
+# whole on each rank: a leaf is replicated over the whole mesh, except an
+# expert-parallel share's banks (``experts_held``: fewer experts than its
+# router scores), which the ranks of one 'model' index hold alike,
+# replicated over the data axes.
 
-TP_FAMILIES = ("dense", "moe")
+TP_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def tensor_parallel(cfg, mesh) -> bool:
     """True when ``cfg`` takes the reference's tensor-parallel layout over
-    ``mesh``: a dense- or moe-family arch and a 'model' axis of more than
-    one rank.  A config that names its own expert share (``experts_held``)
-    raises there: the layout decides which experts a rank holds."""
+    ``mesh``: an arch of a family in :data:`TP_FAMILIES` (every family but
+    audio) and a 'model' axis of more than one rank.  A config that names
+    its own expert share (``experts_held``) raises there: the layout
+    decides which experts a rank holds."""
     on = (cfg is not None and mesh is not None
           and getattr(cfg, "family", None) in TP_FAMILIES
           and mesh.shape.get("model", 1) > 1)
@@ -305,7 +309,12 @@ class ModelTP:
     row-sharded, ``shared`` the shared expert's the same way, ``experts``
     the routed banks cut on their expert dim (``"ep"``), on each expert's
     FFN width (``"tp"``) or whole (None), ``vocab`` the embedding's rows
-    and the head's columns split over the vocabulary."""
+    and the head's columns split over the vocabulary; an SSM block's
+    ``ssm_in`` in_proj's d_model rows and ``ssm_out`` out_proj's d_inner
+    rows cut, ``ssm_heads`` its recurrent state cut on its heads
+    (``Rules.cache_specs``' test: the heads divide 'model'), so that the
+    rank scans its ``H / tp`` heads, whose d_inner columns are its rows of
+    out_proj.  An attention-free arch has no attention or FFN cut."""
     mesh: Any
     tp: int
     heads: bool
@@ -316,6 +325,9 @@ class ModelTP:
     q_down: bool = False
     kv_down: bool = False
     experts: Optional[str] = None
+    ssm_in: bool = False
+    ssm_out: bool = False
+    ssm_heads: bool = False
 
 
 def model_tp(cfg, mesh) -> Optional[ModelTP]:
@@ -338,9 +350,13 @@ def _cuts(cfg, axes: tuple, sizes: tuple) -> dict:
     def cut(name, shape, dim):
         return rules.spec_for(f"stacks//x//{name}//kernel//w", (1,) + shape
                               )[1 + dim] is not None
-    out = {"mlp": cut("mlp//up", (d, ff), 1),
-           "vocab": rules.spec_for("embed//table", (cfg.padded_vocab, d))[0]
+    out = {"vocab": rules.spec_for("embed//table", (cfg.padded_vocab, d))[0]
            is not None}
+    if cfg.family in ("ssm", "hybrid"):
+        out.update(_ssm_cuts(cfg, rules, cut))
+    if cfg.attention_free:
+        return {**out, "heads": False, "o_rows": False, "mlp": False}
+    out["mlp"] = cut("mlp//up", (d, ff), 1)
     if cfg.mla is not None:
         m = cfg.mla
         out.update(heads=cut("attn//q_up", (m.q_lora_rank, h * (
@@ -362,6 +378,28 @@ def _cuts(cfg, axes: tuple, sizes: tuple) -> dict:
         bank = rules.spec_for("stacks//moe//moe//experts//gate//w",
                               (1, cfg.n_experts, d, cfg.d_ff))
         out["experts"] = "ep" if bank[1] else "tp" if bank[3] else None
+    return out
+
+
+def _ssm_cuts(cfg, rules: Rules, cut) -> dict:
+    """An SSM block's cuts: in_proj's and out_proj's rows by their rules,
+    the state's heads by ``Rules.cache_specs``.  Raises where the heads are
+    cut but out_proj's rows are not, or its groups do not split with the
+    heads (no published arch does either)."""
+    h, di = cfg.ssm_heads, cfg.d_inner
+    width = 2 * di + 2 * cfg.ssm_groups * cfg.ssm_state + h
+    state = torch.empty((1, 1, h, di // h, cfg.ssm_state), device="meta")
+    out = {"ssm_in": cut("ssm//in_proj", (cfg.d_model, width), 0),
+           "ssm_out": cut("ssm//out_proj", (di, cfg.d_model), 0),
+           "ssm_heads": rules.cache_specs({"x": {"ssm": state}})["x"]["ssm"][2]
+           is not None}
+    if out["ssm_heads"] and not out["ssm_out"]:
+        raise ValueError(f"{cfg.name}: the SSM state is cut on its {h} heads "
+                         "but out_proj's rows are not")
+    g = cfg.ssm_groups
+    if out["ssm_heads"] and g > 1 and g % rules.tp:
+        raise ValueError(f"{cfg.name}: {g} SSM groups do not split with "
+                         f"the heads over 'model' ({rules.tp})")
     return out
 
 

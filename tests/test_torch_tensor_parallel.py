@@ -176,10 +176,12 @@ def test_forward_matches_the_single_device_lm_apply(world, arch, mesh,
 
 
 def test_sequence_parallel_attention_with_whole_weights(world):
-    """Another family keeps its weights whole over 'model', and the
-    reference's predicate still runs its attention sequence-parallel:
-    qwen2-vl's smoke config (vlm: patch embeddings, M-RoPE cos / sin cut
-    with the rows) over (1, 4) at seq 16, against one process."""
+    """Weights a layout keeps whole (q / k / v: 2 KV heads do not divide
+    4), and the reference's predicate runs their attention
+    sequence-parallel: qwen2-vl's smoke config (vlm: patch embeddings,
+    M-RoPE cos / sin cut with the rows; o, the FFN and the vocabulary cut
+    since the vlm family takes the layout) over (1, 4) at seq 16, against
+    one process."""
     cfg = get_config("qwen2-vl-2b").smoke()
     params = T.lm_init(cfg, seed=8, device="cpu")
     embeds = np.random.default_rng(9).normal(
@@ -190,7 +192,7 @@ def test_sequence_parallel_attention_with_whole_weights(world):
     res = world.run(ranks.tp_forward, cfg, convert.tree_to_numpy(params),
                     None, (1, 4), embeds=embeds)
     for r in res:
-        assert r["reshard"] and r["local_vocab"] == cfg.padded_vocab
+        assert r["reshard"] and r["local_vocab"] == cfg.padded_vocab // 4
         np.testing.assert_allclose(r["logits"], want.numpy(), atol=1e-5,
                                    rtol=0)
 
