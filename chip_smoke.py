@@ -636,6 +636,30 @@ Phases (any failure raises and the script exits non-zero):
    all-reduces over 'model'.
    Prints each part's seconds and one ``ssm_tp`` JSON line.
 
+21. whisper-base over 'model' and the elastic restore of a mesh's train
+   state, 4 gloo ranks sharing the card.  (a) whisper-base uncut at
+   published widths (6 + 6 layers, d 512, 8 heads, d_ff 2,048,
+   vocabulary 51,865 padded to 51,968) over (1, 4): each rank's heads
+   (self and cross), fc1 columns, fc2 rows and vocabulary rows
+   (``whisper_init(mesh=)``), frozen in 3 ecl_quant launches a rank (96
+   segments), then the reference's serving bodies
+   (``ranks.whisper_serve_timed``) on 8 utterances of 1,500 stubbed
+   frames with the 4-token prompt and 16 greedy tokens in fp32: frozen
+   blocks bitwise one process's, tokens equal, each step's logits within
+   1e-3 of their largest, a rank's cross K/V and KV cache a quarter of
+   one process's.  (b) Its EC4T step, 8 x (1,500 + 64), over (1, 4) and
+   (2, 2) with ZeRO-1: phase 18's step gates against one process, 6
+   ecl_quant launches a step a rank.  (c) The (2, 2) state after one fp32
+   step saved (``CheckpointManager.save(specs=, mesh=)``) and restored
+   (``resume_or(sharding_fn=)``) onto (2, 2), (1, 4) and one process: the
+   restored tree bitwise the saved one, the next step on (2, 2) bitwise
+   the uninterrupted run's, on (1, 4) and in one process the loss within
+   ``rtol=1e-4`` and the params within ``atol=rtol=5e-3`` of one
+   process's uninterrupted run, probabilities bitwise.  (d) The dry run
+   of whisper-base's ``train_4k`` on pod16x16 on meta tensors: OK, tensor
+   parallel, attention whole (8 heads over 16), all-reduces over 'model'.
+   Prints each part's seconds and one ``audio_tp`` JSON line.
+
 The script ends with a line that counts the profiler traces taken and
 retaken, the device times taken from queued CUDA events and the queued
 timings taken again behind a longer spin after a host stall, the ``nvidia-smi`` line and the ``{"ok": true, ...}`` line.
@@ -4126,13 +4150,13 @@ def _cut_depth(cfg, layers):
     return dataclasses.replace(cfg, n_layers=layers)
 
 
-_POOL = {}      # the ranks phases 15, 16 and 18-20 share (``_rank_pool``)
+_POOL = {}      # the ranks phases 15, 16 and 18-21 share (``_rank_pool``)
 
 
 @contextlib.contextmanager
 def _rank_pool(world, timeout):
     """``world`` gloo ranks sharing the card (every collective staged
-    through host buffers) for phases 15, 16 and 18-20: spawned by the
+    through host buffers) for phases 15, 16 and 18-21: spawned by the
     first of them that runs and kept for the others (a spawn is 10-17 s
     of the script's time limit); a phase that fails closes them, and
     ``main`` closes them at its end (:func:`_close_pool`)."""
@@ -7716,26 +7740,23 @@ def _tp_block(t, spec, r, tp):
     return t
 
 
-def _tp_serve_single(dev, cfg, prompt, run=TP, embeds=None):
-    """(a)'s one-process reference, run before any rank and freed after:
-    ``lm_init`` whole, frozen (its ecl_quant launches counted), the
-    digests of each rank's blocks of the frozen tree, and the same
-    greedy serve the ranks run (``ranks.serve_timed``, fp32, from the
-    ``prompt`` tokens or a vlm's ``embeds``); ``run`` names the seed, the
-    mesh and the serve's sizes."""
+def _tp_single_frozen(dev, cfg, run):
+    """The one-process reference's frozen tree: ``cfg``'s init with
+    ``run["seed"]`` whole on the card (the peak counted from before it),
+    frozen with its ecl_quant launches counted (zeroed just before, read
+    just after), and the digests of each rank's blocks of it over
+    ``run["serve_mesh"]``.  Returns (frozen, a record of those)."""
     import torch
     from repro_torch.core import qat
     from repro_torch.kernels import ecl_quant as eq
     from repro_torch.launch import ranks
     from repro_torch.launch.mesh import MeshSpec
-    from repro_torch.nn import transformer as T
-    from repro_torch.nn.module import FP32_CTX
     from repro_torch.runtime.sharding import layout_specs
     from repro_torch.tree import map_
 
     torch.zeros((), device=dev)     # the allocator is live before its reset
     torch.cuda.reset_peak_memory_stats(dev)
-    params = T.lm_init(cfg, seed=run["seed"], device=dev)
+    params = ranks.model_init(cfg)(cfg, seed=run["seed"], device=dev)
     qstate = qat.build_qstate(params)
     torch.cuda.synchronize(dev)
     eq.LAUNCHES = 0
@@ -7751,6 +7772,53 @@ def _tp_serve_single(dev, cfg, prompt, run=TP, embeds=None):
     out["block_digests"] = [{n: ranks.digest(t) for n, t in ranks.named_leaves(
         map_(lambda t, sp: _tp_block(t, sp, r, tp), frozen, specs))}
         for r in range(tp)]
+    return frozen, out
+
+
+def _tp_rank_gates(phase, cfg, res, single, want_launches, logits_key):
+    """The gates every tensor-parallel serve holds each rank to against one
+    process: its frozen blocks bitwise the one process's blocks, its
+    freeze's ecl_quant launches, its tokens equal, its ``logits_key``
+    logits within TP_LOGIT_REL of the largest; returns (the largest
+    logit error, that largest logit)."""
+    import numpy as np
+    scale = float(np.abs(single[logits_key]).max())
+    worst = 0.0
+    for rank, r in enumerate(res):
+        tag = f"phase {phase}: {cfg.name} rank {rank}"
+        i = r["coords"]["model"]
+        if r["digests"] != single["block_digests"][i]:
+            bad = [n for n in r["digests"]
+                   if r["digests"][n] != single["block_digests"][i].get(n)]
+            raise AssertionError(f"{tag}: frozen blocks differ from one "
+                                 f"process's: {bad[:6]}")
+        if r["freeze_launches"] != want_launches:
+            raise AssertionError(f"{tag}: freeze launched ecl_quant "
+                                 f"{r['freeze_launches']} times, want "
+                                 f"{want_launches}")
+        if not np.array_equal(r["tokens"], single["tokens"]):
+            raise AssertionError(f"{tag}: tokens {r['tokens'].tolist()} != "
+                                 f"{single['tokens'].tolist()}")
+        err = float(np.abs(r[logits_key] - single[logits_key]).max())
+        worst = max(worst, err)
+        if not err <= TP_LOGIT_REL * scale:
+            raise AssertionError(f"{tag}: logits {err} past "
+                                 f"{TP_LOGIT_REL} of {scale}")
+    return worst, scale
+
+
+def _tp_serve_single(dev, cfg, prompt, run=TP, embeds=None):
+    """(a)'s one-process reference, run before any rank and freed after:
+    ``lm_init`` whole, frozen (its ecl_quant launches counted), the
+    digests of each rank's blocks of the frozen tree, and the same
+    greedy serve the ranks run (``ranks.serve_timed``, fp32, from the
+    ``prompt`` tokens or a vlm's ``embeds``); ``run`` names the seed, the
+    mesh and the serve's sizes."""
+    import torch
+    from repro_torch.launch import ranks
+    from repro_torch.nn.module import FP32_CTX
+
+    frozen, out = _tp_single_frozen(dev, cfg, run)
     on = lambda a: None if a is None else torch.from_numpy(a).to(dev)
     served, cache = ranks.serve_timed(frozen, on(prompt), cfg, FP32_CTX,
                                       run["max_new"], run["tail"],
@@ -7808,28 +7876,11 @@ def _tp_serve(dev, pool, cfg, gpu, run=TP, phase="18", segments=None):
     heads = model_tp(cfg, MeshSpec(run["serve_mesh"], ("data", "model")))
     kv_split = tp if cfg.mla is None and heads.heads else 1
     ssm_split = tp if heads.ssm_heads else 1
-    scale = float(np.abs(single["tail_logits"]).max())
-    worst = forms = 0.0
+    worst, scale = _tp_rank_gates(phase, cfg, res, single, want_launches,
+                                  "tail_logits")
+    forms = 0.0
     for rank, r in enumerate(res):
         tag = f"phase {phase}: {cfg.name} rank {rank}"
-        i = r["coords"]["model"]
-        if r["digests"] != single["block_digests"][i]:
-            bad = [n for n in r["digests"]
-                   if r["digests"][n] != single["block_digests"][i].get(n)]
-            raise AssertionError(f"{tag}: frozen blocks differ from one "
-                                 f"process's: {bad[:6]}")
-        if r["freeze_launches"] != want_launches:
-            raise AssertionError(f"{tag}: freeze launched ecl_quant "
-                                 f"{r['freeze_launches']} times, want "
-                                 f"{want_launches} for {rank_seg} segments")
-        if not np.array_equal(r["tokens"], single["tokens"]):
-            raise AssertionError(f"{tag}: tokens {r['tokens'].tolist()} != "
-                                 f"{single['tokens'].tolist()}")
-        err = float(np.abs(r["tail_logits"] - single["tail_logits"]).max())
-        worst = max(worst, err)
-        if not err <= TP_LOGIT_REL * scale:
-            raise AssertionError(f"{tag}: logits {err} past "
-                                 f"{TP_LOGIT_REL} of {scale}")
         if r["kv_cache_bytes"] * kv_split != single["kv_cache_bytes"]:
             raise AssertionError(f"{tag}: KV cache {r['kv_cache_bytes']} B, "
                                  f"one process {single['kv_cache_bytes']}")
@@ -7912,12 +7963,11 @@ def _tp_train_single(dev, cfg, batches, ref, run=TP):
     from repro_torch.core import qat
     from repro_torch.launch import ranks
     from repro_torch.launch import steps as S
-    from repro_torch.nn import transformer as T
     from repro_torch.optim import adam, ec4t
 
     torch.zeros((), device=dev)     # the allocator is live before its reset
     torch.cuda.reset_peak_memory_stats(dev)
-    params = T.lm_init(cfg, seed=run["seed"], device=dev)
+    params = ranks.model_init(cfg)(cfg, seed=run["seed"], device=dev)
     qstate = qat.build_qstate(params)
     loss_fn = S._loss_fn(cfg, dtype=torch.float32)
     on_card = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
@@ -8416,6 +8466,317 @@ def ssm_tensor_parallel_path(dev, gpu):
     return out
 
 
+# ------------------------------------------------------------ phase 21
+
+AUDIO_TP = dict(world=4, timeout=900, arch="whisper-base", seed=0,
+                serve_mesh=(1, 4), utterances=8, max_new=16,
+                train_meshes=((1, 4), (2, 2)), batch=8, seq=64, steps=2,
+                bf16_steps=1, lr=1e-3, restore_meshes=((2, 2), (1, 4)),
+                reduced={"max_new": "124 -> 16 decode tokens (time)"})
+AUDIO_TP_DRYRUN = dict(arch="whisper-base", shape="train_4k")
+AUDIO_TP_SEGMENTS = 96    # 6 x 6 encoder and 6 x 10 decoder leaves
+AUDIO_TP_LABEL = "4 ranks sharing one H100 over gloo"
+
+
+def _audio_tp_single(dev, cfg, frames, prompt, run=AUDIO_TP):
+    """(a)'s one-process reference, run before any rank and freed after:
+    ``whisper_init`` whole, frozen (its ecl_quant launches counted), the
+    digests of each rank's blocks of the frozen tree, and the same serve
+    the ranks run (``ranks.whisper_serve_timed``, fp32)."""
+    import torch
+    from repro_torch.launch import ranks
+    from repro_torch.nn.module import FP32_CTX
+
+    frozen, out = _tp_single_frozen(dev, cfg, run)
+    served, cache, cross = ranks.whisper_serve_timed(
+        frozen, torch.from_numpy(frames).to(dev),
+        torch.from_numpy(prompt).to(dev), cfg, FP32_CTX, run["max_new"])
+    out.update(served, cross_shape=list(cross[0].shape),
+               cache_shape=list(cache["attn"]["k"].shape))
+    del cache, cross
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del frozen
+    torch.cuda.empty_cache()
+    return out
+
+
+def _audio_tp_serve(dev, pool, cfg, gpu, run=AUDIO_TP):
+    """(a): whisper-base at published widths over ``run["serve_mesh"]``:
+    each rank's freeze bitwise the one process's blocks in 3 launches (96
+    segments), tokens equal, logits within 1e-3 of the max, a rank's cross
+    K/V and self-attention KV cache its heads' share of one process's."""
+    import numpy as np
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import ranks
+
+    rng = np.random.default_rng(run["seed"] + 210)
+    frames = rng.standard_normal((run["utterances"], cfg.enc_len,
+                                  cfg.d_model), dtype=np.float32)
+    prompt = np.array([AUDIO_PROMPT] * run["utterances"], dtype=np.int64)
+    t0 = time.perf_counter()
+    single = _audio_tp_single(dev, cfg, frames, prompt, run)
+    single_s = time.perf_counter() - t0
+    _empty_card(dev, "phase 21 (a)'s ranks")
+    t0 = time.perf_counter()
+    res = pool.run(ranks.whisper_serve_card, cfg, run["serve_mesh"],
+                   run["seed"], frames, prompt, run["max_new"])
+    ranks_s = time.perf_counter() - t0
+    want = -(-AUDIO_TP_SEGMENTS // eq.MAX_SEGMENTS)
+    if single["freeze_launches"] != want:
+        raise AssertionError(f"phase 21: one process's freeze launched "
+                             f"{single['freeze_launches']}, want {want}")
+    tp = run["serve_mesh"][1]
+    worst, scale = _tp_rank_gates("21", cfg, res, single, want, "logits")
+    heads = lambda shape: shape[:3] + [shape[3] // tp] + shape[4:]
+    for rank, r in enumerate(res):
+        tag = f"phase 21: {cfg.name} rank {rank}"
+        if (r["cross_bytes"] * tp != single["cross_bytes"]
+                or r["kv_cache_bytes"] * tp != single["kv_cache_bytes"]):
+            raise AssertionError(
+                f"{tag}: cross K/V {r['cross_bytes']} B and KV "
+                f"{r['kv_cache_bytes']} B, one process "
+                f"{single['cross_bytes']} and {single['kv_cache_bytes']}")
+    b = run["utterances"]
+    rank_ms = lambda k: [r[k] for r in res]
+    med = lambda xs: float(np.median(xs))
+    out = {"arch": run["arch"], "mesh": list(run["serve_mesh"]),
+           "enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "utterances": b, "frames": cfg.enc_len,
+           "prompt": list(AUDIO_PROMPT), "max_new": run["max_new"],
+           "dtype": "fp32", "codes_bitwise": True, "tokens_equal": True,
+           "logit_max_abs_err": worst, "logit_scale": scale,
+           "freeze_launches_per_rank": want,
+           "freeze_segments_per_rank": AUDIO_TP_SEGMENTS,
+           "ecl_quant_launches": sum(rank_ms("freeze_launches")),
+           "cross_bytes_per_sequence": {
+               "rank": res[0]["cross_bytes"] // b,
+               "one_process": single["cross_bytes"] // b},
+           "kv_cache_bytes_per_sequence": {
+               "rank": res[0]["kv_cache_bytes"] // b,
+               "one_process": single["kv_cache_bytes"] // b},
+           "cross_shape": {"rank": heads(single["cross_shape"]),
+                           "one_process": single["cross_shape"]},
+           "freeze_ms": {"ranks": rank_ms("freeze_ms"),
+                         "one_process": single["freeze_ms"]},
+           "encode_cross_ms": {
+               "ranks": [r["encode_ms"] + r["cross_ms"] for r in res],
+               "one_process": single["encode_ms"] + single["cross_ms"]},
+           "prefill_ms": {"ranks": rank_ms("prompt_ms"),
+                          "one_process": single["prompt_ms"]},
+           "decode_ms_per_step": {
+               "ranks": [med(r["decode_ms"]) for r in res],
+               "one_process": med(single["decode_ms"])},
+           "peak_gb": {"ranks": [r["peak_bytes"] / 1e9 for r in res],
+                       "one_process": single["peak_bytes"] / 1e9},
+           "init_s": rank_ms("init_s"), "single_s": single_s,
+           "ranks_s": ranks_s, "reduced": run["reduced"]}
+    print(f"phase 21: (a) {run['arch']} over {run['serve_mesh']} (6 + 6 "
+          f"layers, d {cfg.d_model}): frozen blocks bitwise one process's "
+          f"({want} ecl_quant launches a rank, {AUDIO_TP_SEGMENTS} segments),"
+          f" {b} x {cfg.enc_len} frames + {len(AUDIO_PROMPT)} + "
+          f"{run['max_new']} tokens equal, logits {worst:.3e} of max "
+          f"{scale:.2f}; cross K/V {out['cross_bytes_per_sequence']['rank']}"
+          f" B a sequence a rank ({out['cross_bytes_per_sequence']['one_process']}"
+          f" one process), KV {out['kv_cache_bytes_per_sequence']['rank']} B "
+          f"({out['kv_cache_bytes_per_sequence']['one_process']}); rank 0 "
+          f"freeze {res[0]['freeze_ms']:.1f} ms, encode + cross "
+          f"{out['encode_cross_ms']['ranks'][0]:.1f} ms, prefill "
+          f"{res[0]['prompt_ms']:.1f} ms, decode "
+          f"{out['decode_ms_per_step']['ranks'][0]:.1f} ms a step, peak "
+          f"{out['peak_gb']['ranks'][0]:.2f} GB; one process "
+          f"{single['freeze_ms']:.1f} / "
+          f"{out['encode_cross_ms']['one_process']:.1f} / "
+          f"{single['prompt_ms']:.1f} / "
+          f"{out['decode_ms_per_step']['one_process']:.1f} ms, peak "
+          f"{out['peak_gb']['one_process']:.2f} GB ({AUDIO_TP_LABEL}; {gpu})")
+    return out
+
+
+def _audio_tp_restore(dev, pool, cfg, gpu, run=AUDIO_TP):
+    """(c): (b)'s state (ZeRO-1) saved after one fp32 step on (2, 2)
+    (``CheckpointManager.save(specs=, mesh=)``), restored onto (2, 2),
+    (1, 4) and one process (``resume_or(sharding_fn=)``): the restored
+    tree bitwise the saved one (whole digests), the next step on (2, 2)
+    bitwise the uninterrupted run's, on (1, 4) and in one process the
+    loss within ``rtol=1e-4`` and the params within ``atol=rtol=5e-3`` of
+    one process's uninterrupted run, probabilities bitwise, 6 ecl_quant
+    launches a step a rank."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.kernels import ecl_quant as eq
+    from repro_torch.launch import ranks
+    from repro_torch.launch.train import lm_batch_fn
+
+    batch_fn = lm_batch_fn(cfg, batch=run["batch"], seq=run["seq"])
+    batches = [batch_fn(100 + i) for i in range(2)]
+    per_step = ECL_PASSES_PER_STEP * -(-AUDIO_TP_SEGMENTS // eq.MAX_SEGMENTS)
+    root = tempfile.mkdtemp(prefix="audio_tp_ckpt_")
+    ref, ckpt = os.path.join(root, "ref"), os.path.join(root, "ckpt")
+    launches = 0
+    try:
+        t0 = time.perf_counter()
+        one = ranks.elastic_train(cfg, None, batches, os.path.join(root, "one"),
+                                  save=True, seed=run["seed"], lr=run["lr"],
+                                  out_dir=ref, device=dev)
+        _empty_card(dev, "phase 21 (c)'s ranks")
+        saved = pool.run(ranks.elastic_train, cfg, (2, 2), batches, ckpt,
+                         save=True, seed=run["seed"], lr=run["lr"])
+        single_s = time.perf_counter() - t0
+        s0 = saved[0]
+        if any(r["saved"] != s0["saved"] for r in saved):
+            raise AssertionError("phase 21: (c) the ranks' saved digests "
+                                 "differ")
+        targets = {}
+        for mesh in run["restore_meshes"] + (None,):
+            key = "one process" if mesh is None else f"mesh {mesh[0]}x{mesh[1]}"
+            t0 = time.perf_counter()
+            if mesh is None:
+                _empty_card(dev, "phase 21 (c) one process")
+                res = [ranks.elastic_train(cfg, None, batches, ckpt,
+                                           lr=run["lr"], ref=ref, device=dev)]
+            else:
+                res = pool.run(ranks.elastic_train, cfg, mesh, batches, ckpt,
+                               lr=run["lr"], ref=ref)
+            wall = time.perf_counter() - t0
+            worst = 0.0
+            for r in res:
+                tag = f"phase 21: (c) {key} rank {r['rank']}"
+                if r["restored"] != s0["saved"]:
+                    bad = [n for n in r["restored"]
+                           if r["restored"][n] != s0["saved"].get(n)]
+                    raise AssertionError(f"{tag}: the restored tree differs "
+                                         f"from the saved one: {bad[:6]}")
+                if mesh == (2, 2):
+                    if r["final"] != saved[r["rank"]]["final"]:
+                        raise AssertionError(f"{tag}: the next step differs "
+                                             "from the uninterrupted run's")
+                else:
+                    np.testing.assert_allclose(
+                        r["metrics"][0]["loss"], one["metrics"][0]["loss"],
+                        rtol=MESH_TRAIN_LOSS_RTOL, err_msg=tag)
+                    rel = max(e[2] for e in r["param_errors"].values())
+                    worst = max(worst, rel)
+                    if not rel <= MESH_TRAIN_PARAM_TOL:
+                        raise AssertionError(f"{tag}: params {rel} past "
+                                             f"{MESH_TRAIN_PARAM_TOL}")
+                if mesh is not None and not r["probs_bitwise"]:
+                    raise AssertionError(f"{tag}: probabilities differ from "
+                                         "one process's update")
+                if r["ecl_launches"] != [per_step]:
+                    raise AssertionError(f"{tag}: ecl_quant "
+                                         f"{r['ecl_launches']}, want "
+                                         f"{per_step}")
+                launches += sum(r["ecl_launches"])
+            targets[key] = {
+                "restored_bitwise": True,
+                "next_step_bitwise": mesh == (2, 2),
+                "loss": res[0]["metrics"][0]["loss"],
+                "param_max_rel_err": worst,
+                "restore_ms": [r["restore_ms"] for r in res],
+                "wall_s": wall}
+        for r in saved:
+            launches += sum(r["ecl_launches"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"save_mesh": [2, 2], "zero1": True, "batch": run["batch"],
+           "seq": run["seq"], "ckpt_bytes": s0["ckpt_bytes"],
+           "save_ms": [r["save_ms"] for r in saved],
+           "one_process_loss": one["metrics"][0]["loss"],
+           "uninterrupted_loss": s0["metrics"][0]["loss"],
+           "targets": targets, "ecl_quant_launches": launches,
+           "single_s": single_s}
+    print(f"phase 21: (c) whisper-base's state (ZeRO-1, {run['batch']} x "
+          f"({cfg.enc_len} + {run['seq']})) saved on (2, 2) after one step: "
+          f"{s0['ckpt_bytes']:,} B, save {s0['save_ms']:.1f} ms (rank 0); "
+          + "; ".join(f"{k}: restored bitwise in "
+                      f"{v['restore_ms'][0]:.1f} ms, "
+                      + ("next step bitwise the uninterrupted run's"
+                         if v["next_step_bitwise"] else
+                         f"loss {v['loss']:.6f} (one process "
+                         f"{out['one_process_loss']:.6f}), params "
+                         f"{v['param_max_rel_err']:.2e}")
+                      for k, v in targets.items())
+          + f" ({AUDIO_TP_LABEL}; {gpu})")
+    return out
+
+
+def _audio_tp_dryrun(gpu):
+    """(d): whisper-base's train_4k on pod16x16, on meta tensors: tensor
+    parallel with all-reduces over 'model', attention whole (8 heads do not
+    divide 16) and fc1, fc2 and the vocabulary cut."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.runtime.sharding import model_tp
+    c = AUDIO_TP_DRYRUN
+    cfg = get_config(c["arch"])
+    tp = model_tp(cfg, make_production_mesh())
+    with tempfile.TemporaryDirectory() as d:
+        rec = dryrun.run_cell(c["arch"], c["shape"], False, out_dir=d)
+    rec.pop("ops", None)
+    if rec["status"] != "OK":
+        raise AssertionError(f"phase 21: run_cell {c}: {rec}")
+    over = rec["model_axis_collectives"]
+    if (rec["layout"] != "tensor parallel" or tp.heads or tp.o_rows
+            or not (tp.mlp and tp.vocab) or not over.get("all-reduce")):
+        raise AssertionError(f"phase 21: {c['arch']} {c['shape']} took "
+                             f"{rec['layout']}, {tp}, over 'model' {over}")
+    rec.update(attention="whole", mlp_cut=True, vocab_cut=True)
+    print(f"phase 21: (d) dry run {rec['cell']}: {rec['layout']}, attention "
+          f"whole (8 heads over 16), fc1 / fc2 / vocabulary cut: "
+          f"{rec['flops_per_device']:.6g} FLOPs, {rec['bytes_per_device']:.6g}"
+          f" B a device, over 'model' {over}, traced in {rec['trace_s']} s "
+          f"(meta tensors; {gpu})")
+    return rec
+
+
+def audio_tensor_parallel_path(dev, gpu):
+    """Phase 21: whisper-base over 'model' and the elastic restore of a
+    mesh's train state, 4 gloo ranks sharing the card (staged through host
+    buffers)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    _empty_card(dev, "phase 21")
+    run = AUDIO_TP
+    cfg = get_config(run["arch"])
+    out = {"label": AUDIO_TP_LABEL, "gpu": gpu, "s": {}}
+    t0 = time.perf_counter()
+    with _rank_pool(run["world"], run["timeout"]) as pool:
+        pool.run(M.describe_world)
+        out["spawn_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        out["serve"] = _audio_tp_serve(dev, pool, cfg, gpu)
+        out["s"]["a"] = time.perf_counter() - t1
+        _empty_card(dev, "phase 21 (b)")
+        t1 = time.perf_counter()
+        train, n = _tp_train(dev, pool, gpu, cfg, run, "21",
+                             lambda mesh: AUDIO_TP_SEGMENTS)
+        train["reduced"] = {"depth": "none"}
+        out["train"] = train
+        out["s"]["b"] = time.perf_counter() - t1
+        _empty_card(dev, "phase 21 (c)")
+        t1 = time.perf_counter()
+        out["restore"] = _audio_tp_restore(dev, pool, cfg, gpu)
+        out["s"]["c"] = time.perf_counter() - t1
+    _empty_card(dev, "phase 21 (d)")
+    t1 = time.perf_counter()
+    out["dryrun"] = _audio_tp_dryrun(gpu)
+    out["s"]["d"] = time.perf_counter() - t1
+    out["ecl_quant_launches"] = (out["serve"]["ecl_quant_launches"] + n
+                                 + out["restore"]["ecl_quant_launches"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 21: spawn {out['spawn_s']:.1f} s, "
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in out["s"].items())
+          + f"; done in {out['wall_s']:.1f} s ({gpu})")
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_report(r):
     """The ``kernels`` line: every kernel's launches by path, error, times
     and bound, from the results ``r`` of a run of every phase."""
@@ -8492,6 +8853,8 @@ def kernels_report(r):
                                  "ecl_quant_launches"],
                              "ssm_tensor_parallel": r["ssm_tp"][
                                  "ecl_quant_launches"],
+                             "audio_tensor_parallel": r["audio_tp"][
+                                 "ecl_quant_launches"],
                              "dryrun_step": r["autotune"]["dryrun"]["step"][
                                  "ecl_quant_launches"]},
         "max_abs_err": r["ecl_err"],
@@ -8528,7 +8891,7 @@ def kernels_report(r):
 
 
 PHASES = ("2", "3", "3b", "4", "3c", "5", "6", "7", "8", "9", "10", "11",
-          "12", "13", "14", "15", "16", "17", "18", "19", "20")
+          "12", "13", "14", "15", "16", "17", "18", "19", "20", "21")
 
 
 def parse_phases(argv):
@@ -8618,7 +8981,9 @@ def main(argv=None) -> int:
              ("17", "autotune", lambda: autotune_path(dev, gpu)),
              ("18", "tensor_parallel", lambda: tensor_parallel_path(dev, gpu)),
              ("19", "moe_tp", lambda: moe_tensor_parallel_path(dev, gpu)),
-             ("20", "ssm_tp", lambda: ssm_tensor_parallel_path(dev, gpu)))
+             ("20", "ssm_tp", lambda: ssm_tensor_parallel_path(dev, gpu)),
+             ("21", "audio_tp",
+              lambda: audio_tensor_parallel_path(dev, gpu)))
     try:
         for phase, key, run in steps:
             if phase in phases:
@@ -8632,7 +8997,8 @@ def main(argv=None) -> int:
     for key in ("path", "train", "frontend", "lm", "lm_train", "moe",
                 "moe_train", "mla", "mla_train", "ssm", "ssm_train",
                 "vlm_audio", "vlm_audio_train", "scale_out", "mesh_train",
-                "autotune", "tensor_parallel", "moe_tp", "ssm_tp"):
+                "autotune", "tensor_parallel", "moe_tp", "ssm_tp",
+                "audio_tp"):
         if key in r:
             print(json.dumps({key: r[key]}))
     print(f"profiler traces: {TRACES['taken']} taken, {TRACES['retried']} "

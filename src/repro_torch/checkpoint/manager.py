@@ -8,7 +8,14 @@ The port of the JAX package's ``checkpoint/manager.py``, in its formats:
   tree path joined with ``//``.  Written to a temp dir and ``os.replace``d
   into place, so a preemption mid-write never corrupts the latest
   checkpoint; ``keep`` old steps are garbage-collected.  Restore places
-  each array on its template leaf's device (or one named device).
+  each array on its template leaf's device (or one named device).  Over a
+  mesh the save gathers each leaf whole from the ranks' blocks and rank 0
+  writes the same npz of whole arrays; the restore is elastic, as the
+  reference's ``restore(sharding_fn=)``: each rank cuts its block of each
+  array under the current mesh's layout, so a checkpoint saved on one
+  mesh restores onto another, or into one process, and the reverse.  The
+  int8 error feedback is each rank's own: it is saved per rank beside
+  the npz and restored only onto the mesh that saved it.
 * **serving exports** (:func:`export_quantized` / :func:`load_quantized`)
   — per quantized tensor the ECL codes in their cheapest lossless format
   (CSR / bitmask / dense4, or Huffman) + the fp32 centroids; every
@@ -35,10 +42,14 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..core import bitplanes, ecl, formats, qat
 from ..runtime.integrity import IntegrityError
+from ..runtime.sharding import (gather_tree, named_specs, shard_slice,
+                                spec_axes)
+from ..tree import map_
 
 SEP = "//"
 
@@ -66,15 +77,20 @@ def _flatten(tree: Any) -> dict:
     return {name: _host(leaf) for name, leaf in _paths(tree)}
 
 
-def _tree_like(template: Any, flat: dict, device=None, prefix=()) -> Any:
-    """``template``'s structure with the arrays of ``flat``: a tensor leaf
-    becomes a tensor of its dtype on ``device`` (default: its own device),
-    any other leaf a numpy array of its dtype."""
+def _tree_like(template: Any, flat, device=None, prefix=(),
+               sharding_fn=None) -> Any:
+    """``template``'s structure with the arrays of ``flat`` (a mapping of
+    names to arrays, read one at a time): a tensor leaf becomes a tensor of
+    its dtype on ``device`` (default: its own device), any other leaf a
+    numpy array of its dtype.  With ``sharding_fn`` each array is this
+    rank's block of it (:meth:`CheckpointManager.restore`)."""
     if isinstance(template, dict):
-        return {k: _tree_like(v, flat, device, prefix + (str(k),))
+        return {k: _tree_like(v, flat, device, prefix + (str(k),),
+                              sharding_fn)
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        return type(template)(_tree_like(v, flat, device, prefix + (str(i),))
+        return type(template)(_tree_like(v, flat, device, prefix + (str(i),),
+                                         sharding_fn)
                               for i, v in enumerate(template))
     name = SEP.join(prefix)
     if name not in flat:
@@ -82,6 +98,17 @@ def _tree_like(template: Any, flat: dict, device=None, prefix=()) -> Any:
     arr = flat[name]
     shape = tuple(template.shape) if isinstance(template, torch.Tensor) \
         else np.shape(template)
+    if sharding_fn is not None and isinstance(template, torch.Tensor):
+        placed = sharding_fn(name, template)
+        whole = torch.from_numpy(np.asarray(arr, order="C"))
+        block = shard_slice(whole, placed.spec, placed.mesh)
+        if tuple(block.shape) != shape:
+            raise ValueError(f"{name}: checkpoint shape {arr.shape} cut by "
+                             f"{placed.spec} is {tuple(block.shape)}, model "
+                             f"{shape}")
+        dev = template.device if device is None else torch.device(device)
+        # a copy: no view keeps the whole array alive past its cut
+        return block.to(device=dev, dtype=template.dtype, copy=True)
     if tuple(arr.shape) != shape:
         raise ValueError(f"{name}: checkpoint shape {arr.shape} != model "
                          f"{shape}")
@@ -90,6 +117,23 @@ def _tree_like(template: Any, flat: dict, device=None, prefix=()) -> Any:
         return torch.from_numpy(np.asarray(arr, order="C")).to(
             device=dev, dtype=template.dtype)
     return arr.astype(np.asarray(template).dtype)
+
+
+def _mesh_meta(mesh) -> dict:
+    return {"axes": list(mesh.axis_names),
+            "shape": [mesh.shape[a] for a in mesh.axis_names]}
+
+
+def _barrier(mesh) -> None:
+    if mesh.size > 1 and dist.is_initialized():
+        dist.barrier()
+
+
+def _zeros_like(template: Any, device=None) -> Any:
+    return map_(lambda t: torch.zeros(
+        t.shape, dtype=t.dtype,
+        device=t.device if device is None else torch.device(device)),
+        template)
 
 
 class CheckpointManager:
@@ -102,25 +146,80 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
 
-    def save(self, step: int, state: Any, extra: Optional[dict] = None
-             ) -> str:
+    def save(self, step: int, state: Any, extra: Optional[dict] = None, *,
+             specs: Any = None, mesh=None) -> str:
         """Atomic: write to a temp dir, then rename.  Returns the final
-        path."""
-        flat = _flatten(state)
+        path.
+
+        With ``mesh`` (collective: every rank of the mesh calls it)
+        ``state`` is this rank's, each leaf its block under ``specs`` (a
+        tree like ``state`` of spec tuples over the whole tree: the
+        params' layout, ZeRO-1's cut of m and v over the data axes on top
+        of it; None: every leaf whole): each leaf is gathered whole
+        (``runtime.sharding.gather_tree``), one at a time, and rank 0
+        writes the npz of whole arrays that one process writes, under the
+        same names.  A dict state's ``err`` (the int8 error feedback) is
+        each rank's own: every rank writes its ``err/rank<r>.npz`` into
+        the temp dir, and ``meta.json`` names the mesh.  The ranks meet at
+        barriers, so that the rename comes after every file and every rank
+        returns after it."""
+        if mesh is None:
+            return self._write(step, _flatten(state), extra, None)
+        err = state.get("err") if isinstance(state, dict) else None
+        body = {k: v for k, v in state.items() if k != "err"} \
+            if err is not None else state
+        body_specs = specs if err is None or specs is None else {
+            k: specs[k] for k in body}
+        flat = {}
+        for name, leaf, spec in named_specs(body, body_specs):
+            if isinstance(leaf, torch.Tensor) and spec and spec_axes(spec):
+                leaf = gather_tree(leaf, spec, mesh)
+            if mesh.rank == 0:
+                flat[name] = _host(leaf)
+            del leaf
+        meta = {"mesh": _mesh_meta(mesh), **(extra or {})}
+        if err is not None:
+            meta["err"] = "per rank"
+        return self._write(step, flat, meta, mesh, err)
+
+    def _write(self, step: int, flat: dict, extra: Optional[dict], mesh,
+               err: Any = None) -> str:
         final = os.path.join(self.dir, f"step_{step:08d}")
-        tmp = tempfile.mkdtemp(dir=self.dir, prefix=".tmp_")
+        lead = mesh is None or mesh.rank == 0
+        # one temp dir for every rank: rank 0 makes it, the others write
+        # their error feedback into it before rank 0 renames it
+        tmp = os.path.join(self.dir, f".tmp_step_{step:08d}") \
+            if mesh is not None else None
+        if lead:
+            if tmp is None:
+                tmp = tempfile.mkdtemp(dir=self.dir, prefix=".tmp_")
+            else:
+                shutil.rmtree(tmp, ignore_errors=True)
+                os.makedirs(tmp)
         try:
-            np.savez(os.path.join(tmp, "state.npz"), **flat)
-            meta = {"step": int(step), **(extra or {})}
-            with open(os.path.join(tmp, "meta.json"), "w") as f:
-                json.dump(meta, f)
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.replace(tmp, final)
+            if mesh is not None:
+                _barrier(mesh)
+                if err is not None:
+                    os.makedirs(os.path.join(tmp, "err"), exist_ok=True)
+                    np.savez(os.path.join(tmp, "err", f"rank{mesh.rank}.npz"),
+                             **_flatten(err))
+                _barrier(mesh)
+            if lead:
+                np.savez(os.path.join(tmp, "state.npz"), **flat)
+                meta = {"step": int(step), **(extra or {})}
+                with open(os.path.join(tmp, "meta.json"), "w") as f:
+                    json.dump(meta, f)
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.replace(tmp, final)
         except BaseException:
-            shutil.rmtree(tmp, ignore_errors=True)
+            if lead:
+                shutil.rmtree(tmp, ignore_errors=True)
             raise
-        self._gc()
+        if lead:
+            self._gc()
+        if mesh is not None:
+            _barrier(mesh)
         return final
 
     def _gc(self) -> None:
@@ -140,20 +239,54 @@ class CheckpointManager:
     # ---------------------------------------------------------- restore
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> tuple:
+                device=None, *, sharding_fn=None) -> tuple:
         """Load into the structure of ``template``; each array lands on
         its template leaf's device, or on ``device`` when one is named.
-        Returns (state, meta)."""
+        Returns (state, meta).
+
+        ``sharding_fn(path, leaf)`` (the reference's elastic restore)
+        gives the ``runtime.sharding.NamedSpec`` of each leaf on the
+        current mesh (``path`` its ``//`` name, ``leaf`` this rank's
+        template leaf, its block): each array is read whole, this rank's
+        block cut (``shard_slice``) and copied, and the whole one dropped
+        before the next is read.  A dict template's ``err`` (the int8
+        error feedback, each rank's own) is restored from the rank's file
+        only onto the mesh that saved it; on another mesh, in one process
+        after a mesh's save, or on a mesh after one process's save, it is
+        reset to zeros (the residuals belong to the saving ranks' rows and
+        blocks)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:08d}")
-        with np.load(os.path.join(path, "state.npz")) as z:
-            flat = {k: z[k] for k in z.files}
-        state = _tree_like(template, flat, device)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
+        err_t = template.get("err") if isinstance(template, dict) else None
+        own = err_t is not None and (meta.get("err") == "per rank"
+                                     or sharding_fn is not None)
+        body = {k: v for k, v in template.items() if k != "err"} if own \
+            else template
+        with np.load(os.path.join(path, "state.npz")) as z:
+            state = _tree_like(body, z, device, sharding_fn=sharding_fn)
+        if own:
+            state["err"] = self._restore_err(path, meta, err_t, body, device,
+                                             sharding_fn)
         return state, meta
+
+    @staticmethod
+    def _restore_err(path: str, meta: dict, template: Any, body: Any,
+                     device, sharding_fn) -> Any:
+        """The rank's saved error feedback where the current mesh (read
+        off ``sharding_fn`` of the first leaf of ``body``) is the saving
+        one, else zeros like ``template``."""
+        if sharding_fn is None or meta.get("err") != "per rank":
+            return _zeros_like(template, device)
+        name, leaf, _ = next(named_specs(body, None))
+        mesh = sharding_fn(name, leaf).mesh
+        if _mesh_meta(mesh) != meta.get("mesh"):
+            return _zeros_like(template, device)
+        with np.load(os.path.join(path, "err", f"rank{mesh.rank}.npz")) as z:
+            return _tree_like(template, z, device)
 
 
 # ------------------------------------------------------------- exports

@@ -366,21 +366,32 @@ def named_leaves(tree_, prefix: str = "") -> list:
     return [(prefix, tree_)]
 
 
+def model_init(cfg):
+    """``cfg``'s init: whisper's for the audio family, else ``lm_init``
+    (both take ``mesh=``)."""
+    if cfg.family == "audio":
+        from ..models.whisper import whisper_init
+        return whisper_init
+    return T.lm_init
+
+
 def _train_state0(cfg, dev, params, qstate, seed, mesh=None):
     """(params, qstate, layout): this rank's initial state from ``params``
-    / ``qstate`` (numpy, whole) or ``lm_init(cfg, seed)``, cut to its
+    / ``qstate`` (numpy, whole) or ``cfg``'s init with ``seed``, cut to its
     blocks under the tensor-parallel layout (``layout`` then
     ``T.tp_specs``, else None)."""
     from ..core import qat as Q
-    from ..runtime.sharding import shard_tree
+    from ..runtime.sharding import qstate_layout, shard_tree
     specs = T.tp_specs(cfg, mesh)
     if params is None:
-        p = T.lm_init(cfg, seed=seed, device=dev, mesh=mesh)
+        p = model_init(cfg)(cfg, seed=seed, device=dev, mesh=mesh)
         return p, Q.build_qstate(p), specs
     p = lm_tree_from_numpy(params, device=dev)
+    q = lm_tree_from_numpy(qstate, device=dev)
     if specs is not None:
         p = shard_tree(p, specs, mesh)
-    return p, lm_tree_from_numpy(qstate, device=dev), specs
+        q = shard_tree(q, qstate_layout(q, specs), mesh)
+    return p, q, specs
 
 
 def reduced_bytes(params, mesh, compress=None, specs=None) -> int:
@@ -569,8 +580,9 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
              compress_check=None, out_dir: Optional[str] = None,
              ref: Optional[str] = None) -> dict:
     """One rank of EC4T training over the mesh: the state from ``params``
-    / ``qstate`` (numpy) or ``lm_init(cfg, seed)`` on this rank's device
-    (its blocks under the tensor-parallel layout), this
+    / ``qstate`` (numpy) or ``cfg``'s init with ``seed`` on this rank's
+    device (:func:`model_init`; its blocks under the tensor-parallel
+    layout), this
     rank's rows of each global batch of ``batches`` through
     ``ShardedFeed(mesh=)``.
 
@@ -605,7 +617,8 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
     from ..optim.grad_compress import (compress_grads, cut_axes,
                                        init_error_state, mesh_data_axes,
                                        split_axes)
-    from ..runtime.sharding import replica_axes, shard_slice, zero1_specs
+    from ..runtime.sharding import (qstate_layout, replica_axes, shard_slice,
+                                    zero1_specs)
     from . import steps as S
     dev = default_device()
     mesh = make_mesh(mesh_shape, device=dev)
@@ -718,7 +731,7 @@ def dp_train(cfg, mesh_shape: tuple, batches: Sequence[dict], *,
         if not zero1:
             final["opt"] = {k: state["opt"][k] for k in ("m", "v")}
         fspecs = None if lay is None else {   # the probabilities whole
-            k: tree.map_(lambda t: (None,) * t.ndim, v) if k == "qstate"
+            k: qstate_layout(v, lay) if k == "qstate"
             else {"m": lay, "v": lay} if k == "opt"
             else tree.map_(lambda t, sp: sp if t.ndim else (), v, lay)
             for k, v in final.items()}
@@ -972,6 +985,14 @@ def _tp_mesh(cfg, mesh_shape: tuple):
     return mesh
 
 
+def _gather_vocab(logits: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """``logits`` whole over the vocabulary: a rank's block gathered over
+    'model'."""
+    if logits.shape[-1] == cfg.padded_vocab:
+        return logits
+    return mesh.all_gather(logits, "model", dim=-1)
+
+
 def tp_forward(cfg, params, tokens: np.ndarray, mesh_shape: tuple, *,
                embeds: Optional[np.ndarray] = None) -> dict:
     """``lm_apply`` in fp32 of this rank's part of ``params`` (a whole
@@ -991,8 +1012,7 @@ def tp_forward(cfg, params, tokens: np.ndarray, mesh_shape: tuple, *,
     with torch.no_grad():
         logits, _, _ = T.lm_apply(p, 0, on(tokens), FP32_CTX, cfg,
                                   embeds=on(embeds), mesh=mesh)
-        whole = logits if logits.shape[-1] == cfg.padded_vocab else \
-            mesh.all_gather(logits, "model", dim=-1)
+        whole = _gather_vocab(logits, cfg, mesh)
     tp = model_tp(cfg, mesh)
     return {"logits": whole.cpu().numpy(),
             "local_vocab": int(logits.shape[-1]),
@@ -1036,12 +1056,13 @@ def tp_serve(cfg, frozen, prompt: np.ndarray, max_new: int,
 
 
 def tp_blocks(cfg, seed: int, mesh_shape: tuple) -> dict:
-    """What this rank holds of ``lm_init(cfg, seed, mesh=)`` and of its
-    ZeRO-1 train state: each leaf's name, shape and values (numpy), its
-    Adam moments' shapes, and its blocks frozen (numpy)."""
+    """What this rank holds of ``cfg``'s init with ``seed`` and ``mesh=``
+    (``lm_init``, or ``whisper_init`` for audio) and of its ZeRO-1 train
+    state: each leaf's name, shape and values (numpy), its Adam moments'
+    shapes, and its blocks frozen (numpy)."""
     from . import steps as S
     mesh = _tp_mesh(cfg, mesh_shape)
-    p = T.lm_init(cfg, seed=seed, device=mesh.device, mesh=mesh)
+    p = model_init(cfg)(cfg, seed=seed, device=mesh.device, mesh=mesh)
     state = S.build_train_step(cfg, mesh, remat="none").init_state(p)
     frozen = qat.freeze_tree(p, state["qstate"], cfg.lam,
                              shards=qat.Shards(mesh, T.tp_specs(cfg, mesh)))
@@ -1101,9 +1122,7 @@ def serve_timed(params, prompt: Optional[torch.Tensor], cfg, ctx,
         nxt = LM.next_token(logits, cfg, mesh)
         _sync(dev)
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        last = logits[:, -tail:]
-        if last.shape[-1] != cfg.padded_vocab:
-            last = mesh.all_gather(last, "model", dim=-1)
+        last = _gather_vocab(logits[:, -tail:], cfg, mesh)
         out, steps = [nxt], []
         for t in range(max_new - 1):
             p_t = torch.full((b, 1), s + t, dtype=torch.int32, device=dev)
@@ -1124,9 +1143,8 @@ def serve_timed(params, prompt: Optional[torch.Tensor], cfg, ctx,
 def tp_serve_card(cfg, mesh_shape: tuple, seed: int,
                   prompt: Optional[np.ndarray], max_new: int, tail: int,
                   embeds: Optional[np.ndarray] = None) -> dict:
-    """One tensor-parallel rank's serving path: ``lm_init(cfg, seed,
-    mesh=)`` (its blocks, the whole tree never held), its blocks frozen
-    (the probabilities' and mean(w²)'s sums over 'model'), then
+    """One tensor-parallel rank's serving path: its frozen blocks of
+    ``lm_init(cfg, seed, mesh=)`` (:func:`_tp_frozen`), then
     :func:`serve_timed` in fp32 on every prompt row (or every row of the
     stubbed frontend's ``embeds``, whole on each rank).  Returns the frozen
     blocks' digests by leaf name, the freeze's ms and ecl_quant launches
@@ -1135,11 +1153,33 @@ def tp_serve_card(cfg, mesh_shape: tuple, seed: int,
     (:func:`mla_forms`), and the rank's peak memory."""
     dev = default_device()
     mesh = _tp_mesh(cfg, mesh_shape)
+    frozen, out = _tp_frozen(cfg, mesh, seed)
+    on = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    served, cache = serve_timed(frozen, on(prompt), cfg, FP32_CTX, max_new,
+                                tail, mesh, embeds=on(embeds))
+    out.update(served)
+    if cfg.mla is not None:
+        out["mla_forms_rel"] = mla_forms(cfg, frozen, cache, mesh, seed)
+    del cache
+    _tp_record(out, frozen, mesh)
+    del frozen
+    _release(dev)
+    return out
+
+
+def _tp_frozen(cfg, mesh, seed: int) -> tuple:
+    """A tensor-parallel rank's frozen blocks: ``cfg``'s init with
+    ``seed`` and ``mesh=`` (its blocks, the whole tree never held), frozen
+    (the probabilities' and mean(w²)'s sums over 'model'), the peak
+    memory counted from before the init.  Returns (frozen, a record of
+    the init's seconds, the freeze's ms and its ecl_quant launches, zeroed
+    just before it and read just after)."""
+    dev = mesh.device
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    p = T.lm_init(cfg, seed=seed, device=dev, mesh=mesh)
+    p = model_init(cfg)(cfg, seed=seed, device=dev, mesh=mesh)
     qs = qat.build_qstate(p)
     _sync(dev)
     init_s = time.perf_counter() - t0
@@ -1151,21 +1191,25 @@ def tp_serve_card(cfg, mesh_shape: tuple, seed: int,
     freeze_ms = (time.perf_counter() - t0) * 1e3
     launches = eq.LAUNCHES
     del p, qs
-    on = lambda a: None if a is None else torch.from_numpy(a).to(dev)
-    out, cache = serve_timed(frozen, on(prompt), cfg, FP32_CTX, max_new,
-                             tail, mesh, embeds=on(embeds))
-    if cfg.mla is not None:
-        out["mla_forms_rel"] = mla_forms(cfg, frozen, cache, mesh, seed)
-    del cache
+    return frozen, {"init_s": init_s, "freeze_ms": freeze_ms,
+                    "freeze_launches": launches}
+
+
+def _tp_record(out: dict, frozen, mesh) -> None:
+    """Add the frozen blocks' digests by leaf name, the rank's coordinates
+    and its peak memory to ``out``."""
+    dev = mesh.device
     out.update(digests={n: digest(t) for n, t in named_leaves(frozen)},
-               freeze_ms=freeze_ms, freeze_launches=launches,
-               init_s=init_s, coords=dict(mesh.coords),
+               coords=dict(mesh.coords),
                peak_bytes=(torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None))
-    del frozen
+
+
+def _release(dev: torch.device) -> None:
+    """Give the card's cached blocks back (the next task's ranks share
+    it)."""
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return out
 
 
 @torch.no_grad()
@@ -1196,3 +1240,278 @@ def mla_forms(cfg, params, cache, mesh=None, seed: int = 0) -> float:
           for form in (True, False)]
     return float(torch.max(torch.abs(ys[0] - ys[1]))
                  / torch.max(torch.abs(ys[1])))
+
+
+# ------------------------------------------------ whisper over 'model'
+
+def whisper_serve_timed(params, frames: torch.Tensor, prompt: torch.Tensor,
+                        cfg, ctx, new: int, mesh=None) -> tuple:
+    """The reference's whisper serving bodies on a frozen tree (this
+    rank's blocks and rows over a tensor-parallel mesh): the prefill
+    (``whisper_encode``, ``precompute_cross``, ``init_dec_cache`` of
+    ``MAX_TGT`` slots in fp32, ``whisper_decode`` of the ``prompt`` ids),
+    then ``new - 1`` cached greedy decode steps; each stage timed on the
+    host clock (synchronised).  Returns ({tokens (B, new), each step's
+    last logits (B, new, vocab) gathered over 'model' (numpy), encode,
+    cross, prompt ms, each decode step's ms, KV-cache and cross K/V
+    bytes}, the final cache, the cross K/V)."""
+    from ..models import whisper as W
+    dev = frames.device
+    b, s = prompt.shape
+    ms = {}
+
+    def timed(key, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        ms.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+    with torch.no_grad():
+        enc = timed("encode", lambda: W.whisper_encode(
+            params, 0, frames, ctx, cfg, mesh=mesh))
+        cross = timed("cross", lambda: W.precompute_cross(
+            params, 0, enc, ctx, cfg, mesh=mesh))
+        del enc
+        cache = W.init_dec_cache(cfg, b, W.MAX_TGT, dtype=torch.float32,
+                                 device=dev, mesh=mesh)
+        logits, cache = timed("prompt", lambda: W.whisper_decode(
+            params, 0, prompt, cross, ctx, cfg, cache=cache, mesh=mesh))
+        last = [_gather_vocab(logits[:, -1:], cfg, mesh)]
+        toks = [LM.next_token(last[-1], cfg)]
+        for t in range(new - 1):
+            p_t = torch.full((b, 1), s + t, dtype=torch.int32, device=dev)
+            logits, cache = timed("decode", lambda: W.whisper_decode(
+                params, 0, toks[-1], cross, ctx, cfg, positions=p_t,
+                cache=cache, mesh=mesh))
+            last.append(_gather_vocab(logits[:, -1:], cfg, mesh))
+            toks.append(LM.next_token(last[-1], cfg))
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    out = {"tokens": torch.cat(toks, dim=1).cpu().numpy(),
+           "logits": torch.cat(last, dim=1)[..., :cfg.vocab].cpu().numpy(),
+           "encode_ms": ms["encode"][0], "cross_ms": ms["cross"][0],
+           "prompt_ms": ms["prompt"][0], "decode_ms": ms.get("decode", []),
+           "kv_cache_bytes": nbytes(t for n, t in named_leaves(cache)
+                                    if n.endswith(("/k", "/v"))),
+           "cross_bytes": nbytes(cross)}
+    return out, cache, cross
+
+
+def whisper_tp_forward(cfg, params, frames: np.ndarray, tokens: np.ndarray,
+                       mesh_shape: tuple) -> dict:
+    """whisper in fp32 from this rank's part of ``params`` (a whole numpy
+    tree, cut by ``convert.shard_from_numpy`` under the port's layout) on
+    every row: the encoder states, the cross K and V gathered over the
+    heads and the decoder's logits gathered over the vocabulary (numpy),
+    the rank's share of the vocabulary and of the KV heads."""
+    from ..convert import shard_from_numpy
+    from ..models import whisper as W
+    from ..runtime.sharding import layout_specs
+    mesh = _tp_mesh(cfg, mesh_shape)
+    p = shard_from_numpy(params, layout_specs(params, cfg, mesh), mesh,
+                         device=mesh.device)
+    on = lambda a: torch.from_numpy(a).to(mesh.device)
+    with torch.no_grad():
+        enc = W.whisper_encode(p, 0, on(frames), FP32_CTX, cfg, mesh=mesh)
+        ck, cv = W.precompute_cross(p, 0, enc, FP32_CTX, cfg, mesh=mesh)
+        logits, _ = W.whisper_decode(p, 0, on(tokens), (ck, cv), FP32_CTX,
+                                     cfg, mesh=mesh)
+        whole = [mesh.all_gather(t, "model", dim=3)
+                 if t.shape[3] != cfg.n_kv else t for t in (ck, cv)]
+    return {"enc": enc.cpu().numpy(),
+            "cross": [t.cpu().numpy() for t in whole],
+            "logits": _gather_vocab(logits, cfg, mesh).cpu().numpy(),
+            "local_vocab": int(logits.shape[-1]),
+            "local_kv": int(ck.shape[3])}
+
+
+def whisper_tp_serve(cfg, frozen, frames: np.ndarray, prompt: np.ndarray,
+                     new: int, mesh_shape: tuple) -> dict:
+    """Greedy whisper serving (:func:`whisper_serve_timed`, fp32) from this
+    rank's blocks of the frozen tree ``frozen`` (whole, numpy) on its rows
+    of ``frames`` and ``prompt``: every row's tokens (gathered over the
+    data axes), each step's gathered logits of its rows, and its final
+    cache and cross K/V (numpy)."""
+    from ..convert import shard_from_numpy
+    from ..runtime.sharding import layout_specs
+    mesh = _tp_mesh(cfg, mesh_shape)
+    p = shard_from_numpy(frozen, layout_specs(frozen, cfg, mesh), mesh,
+                         device=mesh.device)
+    rows = LM.batch_rows(mesh, prompt.shape[0]) or slice(None)
+    on = lambda a: torch.from_numpy(a[rows]).to(mesh.device)
+    out, cache, cross = whisper_serve_timed(p, on(frames), on(prompt), cfg,
+                                            FP32_CTX, new, mesh)
+    toks = torch.from_numpy(out["tokens"]).to(mesh.device)
+    if LM.batch_rows(mesh, prompt.shape[0]) is not None:
+        toks = mesh.all_gather(toks, mesh.data_axes, dim=0)
+    return {"tokens": toks.cpu().numpy(), "logits": out["logits"],
+            "cache": tree_to_numpy(cache),
+            "cross": [t.cpu().numpy() for t in cross],
+            "coords": dict(mesh.coords)}
+
+
+def whisper_serve_card(cfg, mesh_shape: tuple, seed: int,
+                       frames: np.ndarray, prompt: np.ndarray,
+                       new: int) -> dict:
+    """One tensor-parallel rank's whisper serving path:
+    ``whisper_init(cfg, seed, mesh=)`` (its blocks), its blocks frozen
+    (:func:`_tp_frozen`), then :func:`whisper_serve_timed` in fp32 on
+    every utterance of ``frames`` with the ``prompt`` ids.  Returns the
+    frozen blocks' digests, the freeze's ms and ecl_quant launches, the
+    serve's results and the rank's peak memory."""
+    dev = default_device()
+    mesh = _tp_mesh(cfg, mesh_shape)
+    frozen, out = _tp_frozen(cfg, mesh, seed)
+    on = lambda a: torch.from_numpy(a).to(dev)
+    served, cache, cross = whisper_serve_timed(
+        frozen, on(frames), on(prompt), cfg, FP32_CTX, new, mesh)
+    out.update(served)
+    del cache, cross
+    _tp_record(out, frozen, mesh)
+    del frozen
+    _release(dev)
+    return out
+
+
+# ------------------------------------- a mesh checkpoint, elastic restore
+
+def elastic_train(cfg, mesh_shape: Optional[tuple], batches: Sequence[dict],
+                  ckpt_dir: str, *, save: bool = False, params=None,
+                  qstate=None, seed: int = 0, lr: float = 1e-3,
+                  zero1: bool = True, compress=None,
+                  ref: Optional[str] = None, out_dir: Optional[str] = None,
+                  device=None) -> dict:
+    """One rank's part of a train state's checkpoint and its elastic
+    restore over the mesh ``mesh_shape`` (None: one process on ``device``;
+    ZeRO-1 ``zero1`` over a mesh, the int8 ``compress`` round trip); fp32
+    steps (``launch.steps.build_train_step``).
+
+    With ``save``: the state from ``params`` / ``qstate`` (numpy, whole)
+    or ``cfg``'s init with ``seed`` (this rank's blocks), one step on
+    ``batches[0]``, the state saved to ``ckpt_dir`` as step 1
+    (``CheckpointManager.save(specs=, mesh=)``), then the rest of
+    ``batches`` (the uninterrupted run).  Without: the latest checkpoint
+    restored into this mesh's state (``steps.state_sharding``; one
+    process: its whole state; ``FaultTolerantLoop.resume_or(sharding_fn=)``),
+    then the rest of ``batches``.  Returns the
+    whole digests of the state saved or restored (``saved`` / ``restored``,
+    the error feedback apart) and after the last step (``final``), each
+    step's metrics and ecl_quant launches, whether the last step's
+    probabilities are bitwise one process's update of its params
+    (``probs_bitwise``), this rank's own error feedback's digests and
+    whether it is zero, save or restore ms, the checkpoint's bytes and,
+    with ``ref``, this rank's params against ``ref/params``
+    (:func:`block_errors`); with ``out_dir`` the final params are dumped
+    to ``out_dir/params`` (:func:`dump_blocks`)."""
+    from .. import tree
+    from ..checkpoint.manager import CheckpointManager
+    from ..data.pipeline import ShardedFeed
+    from ..optim.adam import AdamConfig
+    from ..runtime.fault import FaultTolerantLoop
+    from . import steps as S
+    from .specs import abstract_params
+    dev = default_device() if device is None else torch.device(device)
+    mesh = None if mesh_shape is None else make_mesh(mesh_shape, device=dev)
+    bundle = S.build_train_step(
+        cfg, mesh, remat="none", dtype=torch.float32,
+        zero1=zero1 and mesh is not None, compress=compress,
+        adam_cfg=AdamConfig(lr=lr))
+    specs = bundle.in_specs[0] if mesh is not None else None
+    body_specs = None if specs is None else {
+        k: v for k, v in specs.items() if k != "err"}
+    lay = T.tp_specs(cfg, mesh)
+    mgr = CheckpointManager(ckpt_dir, keep=2)
+    out = {"rank": 0 if mesh is None else mesh.rank,
+           "layout": S.layout_name(cfg, mesh) if mesh is not None
+           else "one process", "metrics": [], "ecl_launches": []}
+
+    def digests(state):
+        body = {k: v for k, v in state.items() if k != "err"}
+        return whole_digests(body, body_specs, mesh)
+
+    def barrier():        # the ranks start a timed save or restore alike
+        if mesh is not None and dist.is_initialized():
+            dist.barrier()
+    if save:
+        p0, q0, _ = _train_state0(cfg, dev, params, qstate, seed, mesh)
+        state = bundle.init_state(p0)
+        state["qstate"] = q0
+        del p0, q0
+        first, rest = 1, batches[1:]
+        feed = ShardedFeed(lambda s: batches[s], mesh=mesh, device=dev)
+        state, _ = bundle.fn(state, next(feed))
+        feed.close()
+        _sync(dev)
+        barrier()
+        t0 = time.perf_counter()
+        path = mgr.save(first, state, specs=specs, mesh=mesh)
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+        out["saved"] = digests(state)
+    else:
+        template = bundle.args[0] if mesh is not None else \
+            bundle.init_state(abstract_params(cfg))
+        template = tree.map_(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device=dev), template)
+        barrier()
+        t0 = time.perf_counter()
+        state, first = FaultTolerantLoop(bundle.fn, mgr).resume_or(
+            template, sharding_fn=None if mesh is None
+            else S.state_sharding(bundle, mesh))
+        _sync(dev)
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        rest = batches[first:]
+        path = os.path.join(ckpt_dir, f"step_{first:08d}")
+        out["restored"] = digests(state)
+    out["ckpt_bytes"] = os.path.getsize(os.path.join(path, "state.npz"))
+    if "err" in state:
+        out["err_digests"] = {n: digest(t)
+                              for n, t in named_leaves(state["err"])}
+        out["err_zero"] = all(not bool(t.any())
+                              for t in tree.leaves(state["err"]))
+    feed = ShardedFeed(lambda s: batches[s], mesh=mesh, start_step=first,
+                       device=dev)
+    for _ in rest:
+        qs_before = state["qstate"]
+        eq.LAUNCHES = 0
+        state, metrics = bundle.fn(state, next(feed))
+        out["ecl_launches"].append(eq.LAUNCHES)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+    feed.close()
+    if rest and mesh is not None:
+        out["probs_bitwise"] = probs_bitwise(
+            state["params"], qs_before, state["qstate"], lay, mesh, cfg.lam)
+    out["final"] = digests(state)
+    if ref is not None:
+        out["param_errors"] = block_errors(state["params"], lay, mesh,
+                                           os.path.join(ref, "params"))
+    if out_dir is not None:
+        path = os.path.join(out_dir, "params")
+        if mesh is None:
+            dump(state["params"], path)
+        else:
+            dump_blocks(state["params"], lay, mesh, path)
+    del state
+    _release(dev)
+    return out
+
+
+def checkpoint_leaf(w: np.ndarray, spec: tuple, mesh_shape: tuple,
+                    ckpt_dir: str, step: Optional[int] = None) -> dict:
+    """The reference's elastic case on this rank: with ``step``, this
+    rank's block of ``w`` under ``spec`` saved over the mesh as ``{"w":
+    block}`` at ``step``; without, the latest checkpoint restored onto the
+    mesh under ``spec`` (``sharding_fn``).  Returns this rank's block
+    (numpy) and its coordinates."""
+    from ..checkpoint.manager import CheckpointManager
+    from ..runtime.sharding import NamedSpec, shard_slice
+    mesh = make_mesh(mesh_shape, device=default_device())
+    mgr = CheckpointManager(ckpt_dir)
+    block = shard_slice(torch.from_numpy(w), spec, mesh).to(mesh.device)
+    if step is not None:
+        mgr.save(step, {"w": block}, specs={"w": spec}, mesh=mesh)
+    else:
+        state, _ = mgr.restore({"w": torch.empty_like(block)},
+                               sharding_fn=lambda path, leaf: NamedSpec(
+                                   mesh, spec))
+        block = state["w"]
+    return {"w": block.cpu().numpy(), "coords": dict(mesh.coords)}

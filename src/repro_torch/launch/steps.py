@@ -10,16 +10,17 @@ built on first read) and the arguments it consumes (``donate``).  The reference 
 ``launch/op_analysis.py`` (the dry run, ``launch/dryrun.py``) or on real
 tensors of the same shapes (the card, the tests).
 
-The port's layout (``runtime/sharding.py``): an arch of any family but
-audio over a 'model' axis of more than one rank takes the reference's
-(``Rules.param_specs``: QKV, MLA's down-projections, gate / up and the
-shared expert's column-sharded, MLA's up-projections by heads, O, down
-and the SSM's out_proj row-sharded, its in_proj on the contracted rows,
-the expert banks on their experts or each expert's FFN width, the
-embedding and the head over the vocabulary, the KV cache and the SSM
-state over heads where they divide), and the bundle's specs and arguments are
-a rank's blocks (``describe()`` names how the banks are cut); every
-other arch keeps each weight whole on each rank, and a config that names
+The port's layout (``runtime/sharding.py``): an arch of any family over
+a 'model' axis of more than one rank takes the reference's
+(``Rules.param_specs``: QKV (self and cross), MLA's down-projections,
+gate / up / fc1 and the shared expert's column-sharded, MLA's
+up-projections by heads, O, down / fc2 and the SSM's out_proj
+row-sharded, its in_proj on the contracted rows, the expert banks on
+their experts or each expert's FFN width, the embedding and the head
+over the vocabulary, the KV cache, whisper's cross K/V and the SSM state
+over heads where they divide), and the bundle's specs and arguments are
+a rank's blocks (``describe()`` names how the banks are cut); over
+model = 1 each weight stays whole on each rank, and a config that names
 its share of the experts (``experts_held``) holds those banks.  The
 batch is split over the data axes (every row on each rank when it does
 not divide, the reference's rule).  :func:`layout_name` names the layout a bundle took.
@@ -226,7 +227,7 @@ def build_train_step(cfg: ArchConfig, mesh, *,
         state_specs = {
             "params": p_specs,
             "opt": {"m": m_specs, "v": m_specs, "step": ()},
-            "qstate": rules.qstate_specs(a_state["qstate"]),
+            "qstate": sharding.qstate_layout(a_state["qstate"], p_specs),
         }
         if "err" in a_state:
             state_specs["err"] = p_specs
@@ -235,6 +236,24 @@ def build_train_step(cfg: ArchConfig, mesh, *,
     return StepBundle("train", step, layout, donate=(0,),
                       init_state=init_state, kind=kind,
                       experts=_bank_cut(cfg, mesh))
+
+
+def state_sharding(bundle: StepBundle, mesh) -> Callable:
+    """``sharding_fn`` for ``CheckpointManager.restore`` of a train state
+    onto ``mesh`` from a train bundle built for it: ``fn(path, leaf) ->
+    runtime.sharding.NamedSpec`` of the leaf named ``path`` under the
+    bundle's layout of its state over the whole tree (``in_specs[0]``,
+    what ``CheckpointManager.save(specs=)`` gathers by): the params'
+    layout (``runtime.sharding.layout_specs``), ZeRO-1's cut of m and v
+    over the data axes on top of it (``opt_specs``), opt's step and the
+    probabilities replicated, the ECL state's placeholders cut as their
+    params' leading dims (``runtime.sharding.qstate_layout``)."""
+    by_name = {name: spec for name, _, spec in sharding.named_specs(
+        bundle.args[0], bundle.in_specs[0])}
+
+    def sharding_fn(path: str, leaf) -> sharding.NamedSpec:
+        return sharding.NamedSpec(mesh, by_name[path])
+    return sharding_fn
 
 
 # -------------------------------------------------------------- serving
@@ -262,8 +281,15 @@ def _cache_specs(rules: Rules, cache: Any, cfg: ArchConfig = None,
     """A cache's layout: its batch dim (1) over the data axes; under the
     tensor-parallel layout the reference's ``Rules.cache_specs`` (the KV
     heads and the SSM state's heads over 'model' where they divide), else
-    every other dim whole."""
+    every other dim whole.  whisper's cross K/V (a tuple of two (L, B, T,
+    n_kv, D) tensors) is cut on its heads as the layout cuts cross k and
+    v, where the reference's ``cache_specs`` names no cut for it (its
+    leaves are ``0`` and ``1``, not ``//k`` or ``//v``)."""
     if sharding.tensor_parallel(cfg, mesh):
+        if isinstance(cache, tuple):
+            heads = sharding.model_tp(cfg, mesh).heads
+            return tuple((None, rules.batch_spec(1, t.shape[1])[0], None,
+                          "model" if heads else None, None) for t in cache)
         return rules.cache_specs(cache)
 
     def spec(t):
@@ -284,7 +310,7 @@ def _rank_cache(cache: Any, cfg: ArchConfig, mesh, rules: Rules) -> Any:
     if not sharding.tensor_parallel(cfg, mesh):
         return cache
     heads = map_(lambda _, s: tuple(a if a == "model" else None for a in s),
-                 cache, rules.cache_specs(cache))
+                 cache, _cache_specs(rules, cache, cfg, mesh))
     return _blocks(cache, heads, cfg, mesh)
 
 
@@ -302,13 +328,16 @@ def build_prefill_step(cfg: ArchConfig, mesh, *,
     if cfg.family == "audio":
         @torch.no_grad()
         def fn(params, batch):
-            enc = W.whisper_encode(params, 0, batch["embeds"], ctx, cfg)
-            cross = W.precompute_cross(params, 0, enc, ctx, cfg)
+            enc = W.whisper_encode(params, 0, batch["embeds"], ctx, cfg,
+                                   mesh=mesh)
+            cross = W.precompute_cross(params, 0, enc, ctx, cfg, mesh=mesh)
             cache = W.init_dec_cache(cfg, batch["tokens"].shape[0],
-                                     W.MAX_TGT, device=enc.device)
+                                     W.MAX_TGT, device=enc.device,
+                                     mesh=mesh)
             logits, cache = W.whisper_decode(params, 0, batch["tokens"],
-                                             cross, ctx, cfg, cache=cache)
-            return _next_token(logits, cfg), cache, cross
+                                             cross, ctx, cfg, cache=cache,
+                                             mesh=mesh)
+            return _next_token(logits, cfg, mesh), cache, cross
 
         def out_specs(rules):
             g_cache = W.init_dec_cache(cfg, b, W.MAX_TGT,
@@ -317,8 +346,9 @@ def build_prefill_step(cfg: ArchConfig, mesh, *,
             g_cross = (torch.empty(
                 (cfg.n_layers, b, cfg.enc_len, cfg.n_kv, hd),
                 dtype=torch.bfloat16, device=specs_mod.META),) * 2
-            return (rules.batch_spec(2, b), _cache_specs(rules, g_cache),
-                    _cache_specs(rules, g_cross))
+            return (rules.batch_spec(2, b),
+                    _cache_specs(rules, g_cache, cfg, mesh),
+                    _cache_specs(rules, g_cross, cfg, mesh))
     else:
         @torch.no_grad()
         def fn(params, batch):
@@ -362,8 +392,9 @@ def build_decode_step(cfg: ArchConfig, mesh, *,
         def fn(params, batch):
             logits, cache = W.whisper_decode(
                 params, 0, batch["tokens"], batch["cross_kv"], ctx, cfg,
-                positions=batch["positions"], cache=batch["cache"])
-            return _next_token(logits, cfg), cache
+                positions=batch["positions"], cache=batch["cache"],
+                mesh=mesh)
+            return _next_token(logits, cfg, mesh), cache
     else:
         @torch.no_grad()
         def fn(params, batch):

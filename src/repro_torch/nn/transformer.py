@@ -264,6 +264,7 @@ def lm_init(cfg: ArchConfig, *, seed: int = 0,
     drawn whole (ω from the whole weights), cut, and the whole one freed
     before the next draw; the banks are drawn as the rank's blocks
     (:func:`_expert_banks`, collective over 'model')."""
+    _decoder_only_layout(cfg, mesh)
     if generator is None:
         generator = make_generator(resolve_device(device), seed)
     specs = tp_specs(cfg, mesh)
@@ -305,8 +306,22 @@ def lm_init(cfg: ArchConfig, *, seed: int = 0,
     return p
 
 
+def _decoder_only_layout(cfg: ArchConfig, mesh) -> None:
+    """Raise for the audio family over a tensor-parallel mesh: its layout
+    is whisper's tree's (``models/whisper.py``), not this stack's."""
+    if cfg.family == "audio" and sharding.tensor_parallel(cfg, mesh):
+        raise ValueError(f"{cfg.name} over {dict(mesh.shape)}: whisper's "
+                         "tensor-parallel layout is its encoder-decoder's "
+                         "(models/whisper.py), not a decoder-only stack's")
+
+
 @functools.lru_cache(maxsize=None)
 def _abstract(cfg: ArchConfig) -> dict:
+    """``cfg``'s whole parameter tree on meta: whisper's encoder-decoder
+    for the audio family, else :func:`lm_init`'s."""
+    if cfg.family == "audio":
+        from ..models.whisper import whisper_init
+        return whisper_init(cfg, device="meta")
     return lm_init(cfg, device="meta")
 
 
@@ -319,7 +334,8 @@ def _tp_specs(cfg: ArchConfig, axes: tuple, sizes: tuple) -> dict:
 def tp_specs(cfg: ArchConfig, mesh) -> Optional[dict]:
     """The tensor-parallel layout of ``cfg``'s training tree over ``mesh``
     (``runtime.sharding.layout_specs`` of its whole abstract tree, built
-    once), or None where the layout keeps weights whole."""
+    once: whisper's for the audio family), or None where the layout keeps
+    weights whole."""
     if not sharding.tensor_parallel(cfg, mesh):
         return None
     return _tp_specs(cfg, tuple(mesh.axis_names),
@@ -609,15 +625,17 @@ def lm_apply(params: dict, qstate: Any, tokens: Optional[torch.Tensor],
     before the loop either way, so it adds no ECL pass).  Over a ``mesh``
     (``launch.mesh``) each rank runs its own rows with its own cache, and
     the MoE layers exchange tokens (``nn.moe.moe_ffn``, ``use_ep`` as the
-    reference takes it).  An arch of any family but audio over a 'model'
+    reference takes it).  An arch of a decoder-only family over a 'model'
     axis of more than one rank holds its blocks of the weights
     (``runtime.sharding.model_tp``): the lookup, each block's heads, FFN
     and shared-expert columns, expert banks, SSD projections (and heads)
     and the head are split over 'model', and the logits are this rank's
     block of the vocabulary; ``embeds`` then come whole to every rank.
     ``attn_reshard`` (default: no cache and :func:`_attn_batch_reshard`)
-    runs attention sequence-parallel.
+    runs attention sequence-parallel.  whisper's encoder-decoder over
+    such a mesh runs through ``models/whisper.py``.
     """
+    _decoder_only_layout(cfg, mesh)
     tp = sharding.model_tp(cfg, mesh)
     if embeds is None:
         if tp is not None and tp.vocab:

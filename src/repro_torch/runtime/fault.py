@@ -359,14 +359,17 @@ class FaultTolerantLoop:
         self.on_metrics = on_metrics or (lambda step, m: None)
         self.saves: list = []
 
-    def resume_or(self, init_state: Any) -> tuple:
+    def resume_or(self, init_state: Any, sharding_fn=None) -> tuple:
         """(state, start_step): the latest checkpoint restored into
         ``init_state``'s structure and devices if one exists, else
-        ``init_state`` and 0."""
+        ``init_state`` and 0.  ``sharding_fn`` goes to
+        ``CheckpointManager.restore``: over a mesh, each rank's blocks of
+        a checkpoint saved on any mesh or in one process."""
         step = self.manager.latest_step()
         if step is None:
             return init_state, 0
-        state, meta = self.manager.restore(init_state, step)
+        state, meta = self.manager.restore(init_state, step,
+                                           sharding_fn=sharding_fn)
         log.info("resumed from step %d", meta["step"])
         return state, meta["step"]
 

@@ -26,7 +26,7 @@ import dataclasses
 import functools
 import math
 import re
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -73,6 +73,22 @@ def tree_paths(tree: Any, path: tuple = ()):
             yield from tree_paths(v, path + (i,))
     else:
         yield path, tree
+
+
+def named_specs(tree: Any, specs: Any, path: tuple = ()):
+    """(``a//b`` name, leaf, spec) of ``tree`` in :func:`tree_paths`'
+    order, ``specs`` a tree like it whose leaves are spec tuples (None:
+    every spec None)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_specs(tree[k], None if specs is None
+                                   else specs[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_specs(v, None if specs is None else specs[i],
+                                   path + (i,))
+    else:
+        yield path_name(path), tree, specs
 
 
 def _map_with_path(fn, tree: Any, path: tuple = ()) -> Any:
@@ -263,28 +279,31 @@ def serving_pack_specs(layers, rules: Rules) -> list:
 
 # ------------------------------------------------- the port's own layout
 #
-# The dense, moe, ssm, hybrid and vlm families over a mesh whose 'model'
-# axis holds more than one rank take the reference's layout: each leaf as
-# ``Rules.param_specs`` gives it (QKV, MLA's down-projections, gate / up
-# and the shared expert's column-sharded, MLA's up-projections by heads, O,
-# down and the SSM's out_proj row-sharded, the SSM's in_proj on its
-# contracted d_model rows, the expert banks on their expert dim or each
-# expert's FFN width, the embedding and the head over the vocabulary,
-# every other leaf replicated, the SSM dynamics among them), each rank
-# holding its block of a sharded leaf and no whole copy.  The audio
-# family, and any family over model = 1, keeps each non-expert weight
-# whole on each rank: a leaf is replicated over the whole mesh, except an
-# expert-parallel share's banks (``experts_held``: fewer experts than its
-# router scores), which the ranks of one 'model' index hold alike,
-# replicated over the data axes.
+# Every family over a mesh whose 'model' axis holds more than one rank
+# takes the reference's layout: each leaf as ``Rules.param_specs`` gives
+# it (QKV and their biases, self and cross, MLA's down-projections, gate /
+# up / fc1 and fc1's bias and the shared expert's column-sharded, MLA's
+# up-projections by heads, O, down / fc2 and the SSM's out_proj
+# row-sharded, the SSM's in_proj on its contracted d_model rows, the
+# expert banks on their expert dim or each expert's FFN width, the
+# embedding and the head over the vocabulary, every other leaf
+# replicated: norms, fc2's bias, whisper's learned decoder positions, the
+# SSM dynamics), each rank holding its block of a sharded leaf and no
+# whole copy.  Where a family's heads do not divide the axis (whisper's 8
+# at 16) its attention stays whole on each rank and the FFN and the
+# vocabulary are still cut.  Any family over model = 1 keeps each
+# non-expert weight whole on each rank: a leaf is replicated over the
+# whole mesh, except an expert-parallel share's banks (``experts_held``:
+# fewer experts than its router scores), which the ranks of one 'model'
+# index hold alike, replicated over the data axes.
 
-TP_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+TP_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def tensor_parallel(cfg, mesh) -> bool:
     """True when ``cfg`` takes the reference's tensor-parallel layout over
-    ``mesh``: an arch of a family in :data:`TP_FAMILIES` (every family but
-    audio) and a 'model' axis of more than one rank.  A config that names
+    ``mesh``: an arch of a family in :data:`TP_FAMILIES` (every family)
+    and a 'model' axis of more than one rank.  A config that names
     its own expert share (``experts_held``) raises there: the layout
     decides which experts a rank holds."""
     on = (cfg is not None and mesh is not None
@@ -443,6 +462,25 @@ def _whole(params: Any) -> Any:
     return _map_with_path(lambda _, t: _rep(len(_shape(t))), params)
 
 
+def qstate_layout(qstate: Any, specs: Any) -> Any:
+    """The layout of a rank's ECL state (``core.qat.build_qstate`` of its
+    params) over the whole tree, from its params' ``specs``: a quantized
+    leaf's probabilities replicated (the reference's
+    ``Rules.qstate_specs``), and every other leaf's placeholder, which
+    shares its param's leading dim, cut as that dim is (a rank's
+    placeholder of its vocabulary block of the embedding is that block's
+    length)."""
+    if isinstance(qstate, dict):
+        if set(qstate) == {"probs"} and isinstance(specs, dict) \
+                and "w" in specs:
+            return {"probs": _rep(qstate["probs"].ndim)}
+        return {k: qstate_layout(v, specs[k]) for k, v in qstate.items()}
+    if isinstance(qstate, (list, tuple)):
+        return type(qstate)(qstate_layout(v, sp)
+                            for v, sp in zip(qstate, specs))
+    return tuple(specs[:1]) if _shape(qstate) else ()
+
+
 def spec_axes(spec: tuple) -> frozenset:
     """The mesh axes a spec cuts over."""
     out = set()
@@ -502,6 +540,14 @@ def zero1_specs(params: Any, mesh, specs: Any = None) -> Any:
     return map_(lambda _, spec, z: tuple(a if s is None else None
                                          for s, a in zip(spec, z)),
                 params, specs, opt_specs(params, mesh, specs))
+
+
+class NamedSpec(NamedTuple):
+    """A spec on a mesh, the reference's ``NamedSharding``: what a
+    checkpoint restore's ``sharding_fn`` gives for a leaf, whose block
+    :func:`shard_slice` cuts."""
+    mesh: Any
+    spec: tuple
 
 
 def shard_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:

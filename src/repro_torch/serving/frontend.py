@@ -764,11 +764,22 @@ class ServingFrontend:
         if policy.fallback:
             bucket = batcher.last_failed_bucket
             plan = batcher.plan
-            bp = getattr(plan, "buckets", {}).get(bucket)
-            if bp is not None and bp.path.startswith("fused") and \
-                    hasattr(plan, "demote_bucket"):
-                plan.demote_bucket(bucket, reason=f"{type(exc).__name__} "
-                                   f"x{streak}")
+            try:
+                bp = getattr(plan, "buckets", {}).get(bucket)
+                demote = bp is not None and bp.path.startswith("fused") \
+                    and hasattr(plan, "demote_bucket")
+                if demote:
+                    plan.demote_bucket(bucket, reason=f"{type(exc).__name__}"
+                                       f" x{streak}")
+            except KeyError:
+                # a cache-managed model that another stream quarantined
+                # (unregistered) while this launch ran: the quarantine
+                # has failed its requests already
+                with self._cond:
+                    if model_id not in self._quarantined:
+                        raise
+                return
+            if demote:
                 with self._cond:
                     self.stats["fallbacks"] += 1
                     ms["fallbacks"] += 1
